@@ -1,0 +1,142 @@
+"""Kernel functions as parameter dicts plus pure apply functions (port of
+``online_gp_tpu/kernels/base.py``, RBF only in this slice).
+
+- Parameters are plain dicts of raw tensors; positivity comes from a
+  reparametrization, ``exp`` by default or a sigmoid interval
+  (``IntervalTransform``).
+- Every kernel is a product across input dimensions times an output
+  scale, the family whose grid Gram matrix is a Kronecker product.
+- Batched hyperparameters (one set per output) are leading dims on the
+  param tensors; every apply function broadcasts over them.
+
+Parameters:
+  ``raw_lengthscale``: (..., D) raw lengthscales (ARD).
+  ``raw_outputscale``: (...,) raw output scale.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+class ExpTransform(NamedTuple):
+    """Unbounded positivity reparam: constrained = exp(raw) (the default)."""
+
+    def forward(self, raw: torch.Tensor) -> torch.Tensor:
+        return torch.exp(raw)
+
+    def inverse(self, value: float) -> float:
+        return math.log(value)
+
+
+class IntervalTransform(NamedTuple):
+    """Bounded reparam: constrained = lower + (upper-lower)*sigmoid(raw)."""
+
+    lower: float
+    upper: float
+
+    def forward(self, raw: torch.Tensor) -> torch.Tensor:
+        return self.lower + (self.upper - self.lower) * torch.sigmoid(raw)
+
+    def inverse(self, value: float) -> float:
+        u = (value - self.lower) / (self.upper - self.lower)
+        if not 0.0 < u < 1.0:
+            raise ValueError(
+                f"init value {value} outside interval ({self.lower}, {self.upper})"
+            )
+        return math.log(u) - math.log1p(-u)
+
+
+class Kernel:
+    """Stationary product kernel: k(x, z) = s^2 * prod_d k_d(|x_d - z_d| / l_d)."""
+
+    name = "base"
+
+    def __init__(self):
+        self.transforms = {
+            "raw_lengthscale": ExpTransform(),
+            "raw_outputscale": ExpTransform(),
+        }
+
+    def constrain(
+        self,
+        lengthscale_bounds: Optional[Tuple[float, float]] = None,
+        outputscale_bounds: Optional[Tuple[float, float]] = None,
+    ) -> "Kernel":
+        """Bound hyperparameters to an interval (returns self for chaining)."""
+        if lengthscale_bounds is not None:
+            self.transforms["raw_lengthscale"] = IntervalTransform(*lengthscale_bounds)
+        if outputscale_bounds is not None:
+            self.transforms["raw_outputscale"] = IntervalTransform(*outputscale_bounds)
+        return self
+
+    def lengthscale(self, params: Params) -> torch.Tensor:
+        """Constrained lengthscales (..., D)."""
+        return self.transforms["raw_lengthscale"].forward(params["raw_lengthscale"])
+
+    def outputscale(self, params: Params) -> torch.Tensor:
+        """Constrained output scale (...,)."""
+        return self.transforms["raw_outputscale"].forward(params["raw_outputscale"])
+
+    def init_params(
+        self,
+        num_dims: int,
+        batch_shape=(),
+        lengthscale: float = 0.693,
+        outputscale: float = 1.0,
+        dtype=torch.float32,
+        device="cuda",
+    ) -> Params:
+        raw_ls = self.transforms["raw_lengthscale"].inverse(lengthscale)
+        raw_os = self.transforms["raw_outputscale"].inverse(outputscale)
+        return {
+            "raw_lengthscale": torch.full(
+                tuple(batch_shape) + (num_dims,), raw_ls, dtype=dtype, device=device
+            ),
+            "raw_outputscale": torch.full(tuple(batch_shape), raw_os, dtype=dtype, device=device),
+        }
+
+    def profile(self, r: torch.Tensor) -> torch.Tensor:
+        """k_d(r) for nonnegative scaled distance r (unit lengthscale)."""
+        raise NotImplementedError
+
+    def matrix(self, params: Params, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        """Dense kernel matrix (..., n1, n2) for x1 (n1, D), x2 (n2, D)."""
+        ls = self.lengthscale(params)
+        scale = self.outputscale(params)
+        diff = x1[:, None, :] - x2[None, :, :]
+        r = torch.abs(diff) / ls[..., None, None, :]
+        k = torch.prod(self.profile(r), dim=-1)
+        return scale[..., None, None] * k
+
+    def factor_1d(self, params: Params, d: int, g: torch.Tensor, include_scale: bool) -> torch.Tensor:
+        """Per-dimension grid factor T_d = k_d(g, g): (..., m_d, m_d)."""
+        ls = self.lengthscale(params)[..., d]
+        r = torch.abs(g[:, None] - g[None, :]) / ls[..., None, None]
+        t = self.profile(r)
+        if include_scale:
+            t = self.outputscale(params)[..., None, None] * t
+        return t
+
+    def factor_col(self, params: Params, d: int, g: torch.Tensor, include_scale: bool) -> torch.Tensor:
+        """First column of the (Toeplitz) grid factor: (..., m_d)."""
+        ls = self.lengthscale(params)[..., d]
+        r = torch.abs(g - g[0]) / ls[..., None]
+        c = self.profile(r)
+        if include_scale:
+            c = self.outputscale(params)[..., None] * c
+        return c
+
+
+class RBFKernel(Kernel):
+    """Squared-exponential; the ARD product form is exact."""
+
+    name = "rbf"
+
+    def profile(self, r: torch.Tensor) -> torch.Tensor:
+        return torch.exp(-0.5 * r * r)

@@ -1,0 +1,557 @@
+"""WISKI, the constant-time online SKI GP, as a functional PyTorch core
+(port of ``online_gp_tpu/models/wiski.py``, the serving side).
+
+  state ("kernel cache"):
+    wty      = W D^{-1} y          (B, m, 1)
+    ydy      = y^T D^{-1} y        (B,)
+    roots    = RootCache over A = W D^{-1} W^T (B, m, m)
+    d_logdet = log|D|              (B,)
+    num_data = n                   (python int)
+
+  transforms:
+    wiski_init, wiski_condition, wiski_stream    build and absorb
+    wiski_mll                                    Woodbury MLL (forward value)
+    wiski_prediction_caches, wiski_predict       serve predictions
+    wiski_pred_cache_condition,
+    wiski_prequential_stream                     evaluate-then-condition
+
+B is the output batch. The learnable second noise s2 divides K_uu inside
+all cache algebra and rescales the predictive covariance at the end.
+
+Eager PyTorch in place of jitted JAX: the functions take and return
+NamedTuple states like the JAX package, but the hot loops update tensors
+in place where a CUDA kernel does the work (the roots in
+``wiski_condition`` and ``wiski_stream``, the caches in
+``wiski_prequential_stream``). Treat a state or caches passed in as
+consumed. On the CPU the plain versions run and nothing is overwritten.
+
+Not in this slice (each raises ``NotImplementedError``): the iterative
+CG/SLQ MLL above ``max_cholesky_size``, priors in the MLL,
+``fast_pred_var`` below full rank and ``fast_pred_samples``. The MLL's
+closed-form backward comes with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
+from online_gp_torch.kernels.base import Kernel
+from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
+from online_gp_torch.ops.chol import cho_solve, chol_logdet, cholesky, psd_safe_cholesky, tri_solve
+from online_gp_torch.ops.cuda_root_update import rank1_apply
+from online_gp_torch.ops.grid import Grid
+from online_gp_torch.ops.interp import dense_w, gather_predict, interp_coeffs, wt_matvec
+from online_gp_torch.ops.precision import f32_matmul_precision
+from online_gp_torch.ops.pred_stream import pred_stream_blocked_batched
+from online_gp_torch.ops.root_update import (
+    RootCache,
+    root_cache_init,
+    root_cache_rebuild_mat,
+    root_cache_slim,
+    root_cache_update,
+    roots_stream_blocked_batched,
+)
+
+LOG_2PI = 1.8378770664093453
+
+
+class WiskiModel(NamedTuple):
+    """Static model spec."""
+
+    kernel: Kernel
+    grid: Grid
+    num_outputs: int
+    learn_additional_noise: bool = False
+    priors: Optional[tuple] = None
+
+    def init_params(self, num_dims: int, dtype=torch.float32, device=None, **kw) -> Dict:
+        """Default params, on the grid's device unless ``device`` is given."""
+        device = self.grid.device if device is None else device
+        batch = (self.num_outputs,)
+        params = {
+            "kernel": self.kernel.init_params(num_dims, batch, dtype=dtype, device=device, **kw)
+        }
+        if self.learn_additional_noise:
+            params["raw_second_noise"] = torch.zeros(batch, dtype=dtype, device=device)
+        return params
+
+
+class WiskiState(NamedTuple):
+    wty: torch.Tensor  # (B, m, 1)
+    ydy: torch.Tensor  # (B,)
+    roots: RootCache  # tensors (B, m, m)
+    d_logdet: torch.Tensor  # (B,)
+    num_data: int
+
+
+def _second_noise(model: WiskiModel, params: Dict) -> Optional[torch.Tensor]:
+    if model.learn_additional_noise:
+        return torch.exp(params["raw_second_noise"])  # (B,)
+    return None
+
+
+def _reshape_obs(y: torch.Tensor, noise: torch.Tensor, num_outputs: int):
+    """Normalize targets/noise to (n, B)."""
+    return y.reshape(-1, num_outputs), noise.reshape(-1, num_outputs)
+
+
+# ---------------------------------------------------------------------------
+# init and conditioning
+# ---------------------------------------------------------------------------
+
+
+def wiski_init(
+    model: WiskiModel,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise: torch.Tensor,
+    root_jitter: float = 1e-4,
+    chunk: int = 4096,
+    detach_interp: bool = False,
+) -> WiskiState:
+    """Build the O(m^2) caches from initial data.
+
+    Args:
+      x: (n, D) inputs; y, noise: (n, B) targets and fixed noise diagonal.
+    """
+    B = model.num_outputs
+    m = model.grid.num_points
+    y, noise = _reshape_obs(y, noise, B)
+    n = x.shape[0]
+    f = dict(dtype=x.dtype, device=x.device)
+    wty = torch.zeros((B, m, 1), **f)
+    ydy = torch.zeros((B,), **f)
+    A = torch.zeros((B, m, m), **f)
+    with f32_matmul_precision():
+        for start in range(0, n, chunk):
+            xs = x[start : start + chunk]
+            ys = y[start : start + chunk]
+            ns = noise[start : start + chunk]
+            idx, w = interp_coeffs(model.grid, xs, detach=detach_interp)
+            wt = dense_w(idx, w, m)  # (m, c)
+            dinv_y = ys / ns  # (c, B)
+            wty = wty + torch.einsum("mc,cb->bm", wt, dinv_y)[..., None]
+            ydy = ydy + torch.sum(ys * dinv_y, dim=0)
+            A = A + torch.einsum("bmc,kc->bmk", wt[None] / ns.T[:, None, :], wt)
+    d_logdet = torch.sum(torch.log(noise), dim=0)
+    roots = root_cache_init(A, jitter=root_jitter)
+    return WiskiState(wty=wty, ydy=ydy, roots=roots, d_logdet=d_logdet, num_data=n)
+
+
+def wiski_condition(
+    model: WiskiModel,
+    state: WiskiState,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise: torch.Tensor,
+    detach_interp: bool = True,
+) -> WiskiState:
+    """Absorb q new observations in O(m^2 q), with the noise clamped at
+    1e-7 before the root update. At q = 1 on CUDA the roots are updated
+    in place by kernel K2."""
+    idx, w = interp_coeffs(model.grid, x, detach=detach_interp)
+    return wiski_condition_coeffs(model, state, idx, w, y, noise)
+
+
+def wiski_condition_coeffs(
+    model: WiskiModel,
+    state: WiskiState,
+    idx: torch.Tensor,
+    w: torch.Tensor,
+    y: torch.Tensor,
+    noise: torch.Tensor,
+) -> WiskiState:
+    """:func:`wiski_condition` given interpolation coefficients
+    (``idx``/``w``: (q, P) from :func:`interp_coeffs`)."""
+    B = model.num_outputs
+    m = model.grid.num_points
+    y, noise = _reshape_obs(y, noise, B)
+    q = idx.shape[0]
+    root_noise = torch.sqrt(torch.clamp(noise, min=1e-7))  # (q, B)
+    dinv_y = y / noise  # (q, B)
+
+    if q == 1:
+        # the update vector v = W_x / sqrt(D) has P = 4^D nonzeros: p = B^T v
+        # is a P-row gather of the inverse root, and the Gram and wty updates
+        # are P-sized scatters; the O(m^2) work is K2's two outer products
+        idx0, w0 = idx[0], w[0]
+        P = idx0.shape[0]
+        with f32_matmul_precision():
+            p = torch.einsum("p,bpm->bm", w0, state.roots.inv_root[:, idx0, :]) / root_noise[0][:, None]
+        new_root, new_inv = rank1_apply(
+            state.roots.root.contiguous(), state.roots.inv_root.contiguous(), p.contiguous()
+        )
+        if state.roots.mat is None:
+            new_mat = None
+        else:
+            outer = (w0[:, None] * w0[None, :])[None] / torch.clamp(noise[0], min=1e-7)[:, None, None]
+            bidx = torch.arange(B, device=idx0.device)
+            new_mat = state.roots.mat.index_put(
+                (
+                    bidx[:, None, None].expand(B, P, P),
+                    idx0[None, :, None].expand(B, P, P),
+                    idx0[None, None, :].expand(B, P, P),
+                ),
+                outer,
+                accumulate=True,
+            )
+        roots = RootCache(mat=new_mat, root=new_root, inv_root=new_inv)
+        # one scatter-add kernel (duplicates summed); index_put with
+        # accumulate=True sorts its indices first, in several launches
+        wty = state.wty[..., 0].index_add(1, idx0, w0[None, :] * dinv_y[0][:, None])[..., None]
+    else:
+        w_cols = dense_w(idx, w, m)  # (m, q)
+        v = w_cols[None, :, :] / root_noise.T[:, None, :]  # (B, m, q)
+        roots = root_cache_update(state.roots, v)
+        with f32_matmul_precision():
+            wty = state.wty + torch.einsum("mq,qb->bm", w_cols, dinv_y)[..., None]
+
+    return WiskiState(
+        wty=wty,
+        ydy=state.ydy + torch.sum(y * dinv_y, dim=0),
+        roots=roots,
+        d_logdet=state.d_logdet + torch.sum(torch.log(noise), dim=0),
+        num_data=state.num_data + q,
+    )
+
+
+def wiski_stream(
+    model: WiskiModel,
+    state: WiskiState,
+    xs: torch.Tensor,
+    ys: torch.Tensor,
+    noises: torch.Tensor,
+    detach_interp: bool = True,
+    block_size: int = 128,
+) -> WiskiState:
+    """Absorb a stream of n single points: one exact rank-1 root update per
+    point, the same math and order as a loop of ``wiski_condition``, with
+    every order-independent piece (stencils, wty, ydy, d_logdet, the Gram
+    accumulator) done in bulk and the roots recursion blocked into
+    rank-``block_size`` chunks (kernel K1 on CUDA, updating the roots in
+    place). ``block_size <= 1`` runs the per-point loop over K2.
+
+    Args:
+      xs: (n, D); ys, noises: (n, B) (reshaped, not broadcast).
+    """
+    B = model.num_outputs
+    m = model.grid.num_points
+    n = xs.shape[0]
+    y = ys.reshape(n, B)
+    noise = noises.reshape(n, B)
+    idx, w = interp_coeffs(model.grid, xs, detach=detach_interp)
+
+    with f32_matmul_precision():
+        dinv_y = y / noise
+        wty = state.wty + wt_matvec(idx, w, dinv_y, m).T[..., None]
+        ydy = state.ydy + torch.sum(y * dinv_y, dim=0)
+        d_logdet = state.d_logdet + torch.sum(torch.log(noise), dim=0)
+        if state.roots.mat is None:
+            new_mat = None
+        else:
+            # Gram accumulator A += W D^{-1} W^T in bounded 2048-point segments
+            ninv = 1.0 / torch.clamp(noise, min=1e-7)
+            new_mat = state.roots.mat
+            for s in range(0, n, 2048):
+                wt_s = dense_w(idx[s : s + 2048], w[s : s + 2048], m)  # (m, seg)
+                new_mat = new_mat + torch.einsum(
+                    "bmc,kc->bmk", wt_s[None] * ninv[s : s + 2048].T[:, None, :], wt_s
+                )
+
+    rn = torch.sqrt(torch.clamp(noise, min=1e-7))  # (n, B)
+    if block_size > 1:
+        wv = w[None, :, :] / rn.T[:, :, None]  # (B, n, P)
+        root, inv_root = roots_stream_blocked_batched(
+            state.roots.root, state.roots.inv_root, idx, wv, block=block_size
+        )
+    else:
+        root, inv_root = state.roots.root, state.roots.inv_root
+        for i in range(n):
+            with f32_matmul_precision():
+                p = torch.einsum("p,bpm->bm", w[i], inv_root[:, idx[i], :]) / rn[i][:, None]
+            root, inv_root = rank1_apply(root.contiguous(), inv_root.contiguous(), p.contiguous())
+
+    return WiskiState(
+        wty=wty,
+        ydy=ydy,
+        roots=RootCache(mat=new_mat, root=root, inv_root=inv_root),
+        d_logdet=d_logdet,
+        num_data=state.num_data + n,
+    )
+
+
+def wiski_slim(state: WiskiState) -> WiskiState:
+    """Drop the exact Gram accumulator: the rank-1 updates then touch only
+    the two maintained roots."""
+    return state._replace(roots=root_cache_slim(state.roots))
+
+
+def wiski_unslim(state: WiskiState) -> WiskiState:
+    """Rebuild the Gram accumulator (A = L L^T) for a slim state."""
+    return state._replace(roots=root_cache_rebuild_mat(state.roots))
+
+
+def wiski_refresh_roots(state: WiskiState, jitter: float = 1e-4) -> WiskiState:
+    """Recompute the roots from the Gram accumulator (from L L^T on a slim
+    state, which stays slim); bounds f32 root drift over long streams."""
+    slim = state.roots.mat is None
+    roots = root_cache_init(root_cache_rebuild_mat(state.roots).mat, jitter=jitter)
+    if slim:
+        roots = root_cache_slim(roots)
+    return state._replace(roots=roots)
+
+
+def wiski_check_decomposition(state: WiskiState) -> Dict[str, torch.Tensor]:
+    """Decomposition health per output: ||L L^T - A||_max / ||A||_max and
+    ||L B^T - I||_max. On slim states the first has no anchor and is NaN."""
+    L, B, A = state.roots.root, state.roots.inv_root, state.roots.mat
+    with f32_matmul_precision():
+        ident = L @ B.mT
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    inv_err = torch.amax(torch.abs(ident - eye), dim=(-2, -1))
+    if A is None:
+        return {
+            "root_recon_rel_err": torch.full_like(inv_err, float("nan")),
+            "inverse_root_err": inv_err,
+        }
+    with f32_matmul_precision():
+        recon = L @ L.mT
+    recon_err = torch.amax(torch.abs(recon - A), dim=(-2, -1)) / torch.clamp(
+        torch.amax(torch.abs(A), dim=(-2, -1)), min=1e-12
+    )
+    return {"root_recon_rel_err": recon_err, "inverse_root_err": inv_err}
+
+
+# ---------------------------------------------------------------------------
+# Woodbury MLL (forward value)
+# ---------------------------------------------------------------------------
+
+
+def _kuu_eff(model: WiskiModel, params: Dict) -> torch.Tensor:
+    """K_uu, divided by the learnable second noise when present."""
+    Kuu = grid_kuu_dense(model.kernel, params["kernel"], model.grid)  # (B, m, m)
+    s2 = _second_noise(model, params)
+    if s2 is not None:
+        Kuu = Kuu / s2[..., None, None]
+    return Kuu
+
+
+def _dense_inner_pieces(E, L, wty):
+    """Dense Woodbury inner core, batched over outputs:
+
+      Q = I + L^T E L,  proj = L^T E wty,  sol = Q^{-1} proj
+      inner_qform = proj^T sol, inner_logdet = log|Q|, Kuu_wty = E wty
+    """
+    with f32_matmul_precision():
+        EL = E @ L
+        eye = torch.eye(EL.shape[-1], dtype=EL.dtype, device=EL.device)
+        Lq = cholesky(eye + L.mT @ EL)  # Q = I + PSD: well conditioned
+        Kw = E @ wty
+        proj = L.mT @ Kw
+        sol = cho_solve(Lq, proj)
+        qf = torch.sum(proj * sol, dim=(-2, -1))
+        ld = chol_logdet(Lq)
+    return qf, ld, Kw, Lq, sol
+
+
+def wiski_mll(
+    model: WiskiModel,
+    params: Dict,
+    state: WiskiState,
+    cfg: SolverConfig = DEFAULT_CONFIG,
+) -> torch.Tensor:
+    """Exact GP marginal log-likelihood from the caches alone, per output
+    (dense path, m <= cfg.max_cholesky_size):
+
+      quad   = [y'D^{-1}y - (WD^{-1}y)' K (WD^{-1}y) + proj' Q^{-1} proj] / s2
+      logdet = log|Q| + log|D| (+ n log s2)
+      mll    = -(quad + logdet + n log 2pi)/2;   returned / n
+
+    Returns (B,).
+    """
+    m = state.roots.root.shape[-1]
+    if m > cfg.max_cholesky_size:
+        raise NotImplementedError(
+            "the iterative CG/SLQ MLL (m > max_cholesky_size) is not ported yet"
+        )
+    if model.priors:
+        raise NotImplementedError("hyperparameter priors are not ported yet")
+    inner_qform, inner_logdet, Kuu_wty, _, _ = _dense_inner_pieces(
+        _kuu_eff(model, params), state.roots.root, state.wty
+    )
+    if cfg.skip_logdet_forward:
+        # zero in the forward value, gradient intact
+        inner_logdet = inner_logdet - inner_logdet.detach()
+
+    inducing_qform = torch.sum(state.wty * Kuu_wty, dim=(-2, -1))
+    quad = state.ydy - inducing_qform + inner_qform
+    logdet = inner_logdet + state.d_logdet
+    n = float(state.num_data)
+    final = torch.full_like(quad, n * LOG_2PI)
+    s2 = _second_noise(model, params)
+    if s2 is not None:
+        quad = quad / s2
+        final = final + n * torch.log(s2)
+    return -0.5 * (quad + logdet + final) / n
+
+
+# ---------------------------------------------------------------------------
+# prediction
+# ---------------------------------------------------------------------------
+
+
+def _q_factor(model: WiskiModel, params: Dict, state: WiskiState):
+    """Kuu_eff, Kuu L, chol(Q), Kuu W D^{-1} y and proj = L^T Kuu W D^{-1} y,
+    with TF32 off (Q's conditioning scales with num_data)."""
+    with f32_matmul_precision():
+        Kuu = _kuu_eff(model, params)
+        L = state.roots.root
+        KuuL = Kuu @ L
+        eye = torch.eye(KuuL.shape[-1], dtype=KuuL.dtype, device=KuuL.device)
+        Lq = cholesky(eye + L.mT @ KuuL)
+        Kuu_wty = Kuu @ state.wty
+        proj = L.mT @ Kuu_wty
+    return Kuu, KuuL, Lq, Kuu_wty, proj
+
+
+def wiski_prediction_caches(
+    model: WiskiModel,
+    params: Dict,
+    state: WiskiState,
+    cfg: SolverConfig = DEFAULT_CONFIG,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Grid-space predictive caches, exact path:
+
+      mean_cache = K W D^{-1} y - (K L) Q^{-1} (L' K W D^{-1} y)   (B, m, 1)
+      cov_cache  = K - (K L) Q^{-1} (K L)'                         (B, m, m)
+
+    with K = Kuu / s2.
+    """
+    Kuu, KuuL, Lq, Kuu_wty, proj = _q_factor(model, params, state)
+    m = KuuL.shape[-1]
+    with f32_matmul_precision():
+        mean_cache = Kuu_wty - KuuL @ cho_solve(Lq, proj)
+        if cfg.skip_posterior_variances:
+            return mean_cache, None
+        if cfg.fast_pred_var and min(m, cfg.max_root_decomposition_size) < m:
+            raise NotImplementedError("fast_pred_var below full rank is not ported yet")
+        R = tri_solve(Lq, KuuL.mT)  # (B, m, m)
+        cov_cache = Kuu - R.mT @ R
+    return mean_cache, cov_cache
+
+
+def wiski_predict(
+    model: WiskiModel,
+    params: Dict,
+    state: WiskiState,
+    x: torch.Tensor,
+    cfg: SolverConfig = DEFAULT_CONFIG,
+    caches: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Posterior f-moments at test points: mean (B, n), var (B, n) or None.
+    The second noise rescales the variance; observation noise is not
+    added."""
+    if caches is None:
+        caches = wiski_prediction_caches(model, params, state, cfg)
+    mean_cache, cov_cache = caches
+    if cfg.fast_pred_samples and cov_cache is not None:
+        raise NotImplementedError("fast_pred_samples is not ported yet")
+    idx, w = interp_coeffs(model.grid, x, detach=cfg.detach_interp_coeff)
+    mean, var = gather_predict(idx, w, mean_cache, cov_cache)
+    if var is not None:
+        s2 = _second_noise(model, params)
+        if s2 is not None:
+            var = var * s2[..., None]
+        var = torch.clamp(var, min=1e-12)
+    return mean, var
+
+
+def wiski_pred_cache_condition(
+    model: WiskiModel,
+    caches: Tuple[torch.Tensor, torch.Tensor],
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise: torch.Tensor,
+    detach_interp: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact O(m^2 q) conditioning of the grid-space predictive caches on q
+    new observations (the second noise cancels):
+
+        beta = diag(noise) + W^T C W            (q, q)
+        mu'  = mu + C W beta^{-1} (y - W^T mu)
+        C'   = C  - C W beta^{-1} (C W)^T
+
+    Args:
+      caches: (mean_cache (B, m, 1), cov_cache (B, m, m)).
+      x: (q, D); y, noise: (q, B).
+    """
+    mean_cache, cov_cache = caches
+    if cov_cache is None:
+        raise ValueError(
+            "pred-cache conditioning needs cov_cache (built without skip_posterior_variances)"
+        )
+    B = model.num_outputs
+    m = model.grid.num_points
+    y, noise = _reshape_obs(y, noise, B)
+    noise = torch.clamp(noise, min=1e-7)
+    idx, w = interp_coeffs(model.grid, x, detach=detach_interp)
+    w_cols = dense_w(idx, w, m)  # (m, q)
+    with f32_matmul_precision():
+        cw = cov_cache @ w_cols  # (B, m, q)
+        beta = w_cols.mT @ cw + torch.diag_embed(noise.T)  # (B, q, q)
+        Lb = psd_safe_cholesky(beta, jitter=1e-8)
+        resid = y.T[:, :, None] - w_cols.mT @ mean_cache  # (B, q, 1)
+        new_mean = mean_cache + cw @ cho_solve(Lb, resid)
+        new_cov = cov_cache - cw @ cho_solve(Lb, cw.mT)
+        new_cov = 0.5 * (new_cov + new_cov.mT)
+    return new_mean, new_cov
+
+
+def wiski_prequential_stream(
+    model: WiskiModel,
+    params: Dict,
+    state: WiskiState,
+    caches: Tuple[torch.Tensor, torch.Tensor],
+    xs: torch.Tensor,
+    ys: torch.Tensor,
+    noises: torch.Tensor,
+    detach_interp: bool = True,
+    block_size: int = 128,
+):
+    """Interleaved evaluate-then-condition over a stream of n single points:
+    each point is predicted from the posterior on all previous points, then
+    absorbed; blocked into rank-``block_size`` chunks (kernel K3 for the
+    caches, kernel K1 for the state, both in place on CUDA). Valid while
+    the hyperparameters are fixed.
+
+    Args:
+      caches: (mean_cache (B, m, 1), cov_cache (B, m, m)) from
+        :func:`wiski_prediction_caches`.
+      xs: (n, D); ys, noises: (n, B).
+
+    Returns (new_state, new_caches, pred_mean (B, n), pred_var (B, n));
+    the moments match :func:`wiski_predict` at the same prefix.
+    """
+    mean_cache, cov_cache = caches
+    if cov_cache is None:
+        raise ValueError(
+            "prequential streaming needs cov_cache (built without skip_posterior_variances)"
+        )
+    B = model.num_outputs
+    y, noise = _reshape_obs(ys, noises, B)
+    nz = torch.clamp(noise, min=1e-7)
+    idx, w = interp_coeffs(model.grid, xs, detach=detach_interp)
+    new_C, new_mu, pm, pv = pred_stream_blocked_batched(
+        cov_cache, mean_cache[..., 0], idx, w, y.T, nz.T, block=block_size
+    )
+    s2 = _second_noise(model, params)
+    if s2 is not None:
+        pv = pv * s2[:, None]
+    pv = torch.clamp(pv, min=1e-12)
+    new_state = wiski_stream(
+        model, state, xs, ys, noises, detach_interp=detach_interp, block_size=block_size
+    )
+    return new_state, (new_mu[..., None], new_C), pm, pv

@@ -1,0 +1,154 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each ``online_gp_torch/csrc/*.cu`` compiles, at first use, into its own
+shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/online_gp_torch/<name>-<hash>.so <name>.cu
+
+under ``build/`` at the repository root (git-ignored). The file name
+carries a hash of the source, the shared headers and the flags, so a
+changed source is rebuilt and a stale library is never loaded. Sources
+that need building are compiled in parallel, one ``nvcc`` each. A failed
+build raises with the compiler's output.
+
+The wrappers call each C entry with ``ctypes``: pointers and the stream
+(``torch.cuda.current_stream().cuda_stream``) as ``c_void_p``, sizes as
+``c_int``. Every entry returns ``cudaGetLastError()`` after its launches
+and :func:`launch_check` raises if that is not 0.
+
+This module also holds the argument checks the kernel wrappers share.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "online_gp_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and at /usr/local/cuda/bin/nvcc); "
+            "the CUDA kernels of online_gp_torch cannot be built"
+        )
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def sources() -> list:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> Dict[str, str]:
+    """Compile the named sources (all by default) whose library is missing,
+    in parallel. ``verbose`` adds ``-Xptxas -v`` (registers, shared memory
+    and spills per kernel). Returns the compiler output by source name."""
+    names = sources() if names is None else list(names)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    logs, failed = {}, []
+    for name, out, tmp, proc in jobs:
+        text, _ = proc.communicate()
+        logs[name] = text
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{text}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def build_all(verbose: bool = False):
+    """Build every source; returns (seconds, compiler output by source)."""
+    t0 = time.perf_counter()
+    logs = build(verbose=verbose)
+    return time.perf_counter() - t0, logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib
+
+
+def launch_check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU: the plain version runs."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def check_cuda_args(plain: str, *, ints=(), **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    that needs no grad, float32 (int32 for the names in ``ints``). The
+    kernels take nothing else; ``plain`` names the plain version to call
+    instead."""
+    device = None
+    for name, t in tensors.items():
+        want = torch.int32 if name in ints else torch.float32
+        problem = None
+        if t.device.type != "cuda":
+            problem = f"is on {t.device}, not on a CUDA device"
+        elif device is not None and t.device != device:
+            problem = f"is on {t.device}, the other arguments on {device}"
+        elif t.dtype != want:
+            problem = f"has dtype {t.dtype}, the kernel takes {want}"
+        elif t.requires_grad:
+            problem = "requires grad, and the kernel has no autograd rule"
+        elif not t.is_contiguous():
+            problem = "is not contiguous"
+        if problem:
+            raise TypeError(f"CUDA kernel argument {name!r} {problem}; use {plain} instead")
+        device = t.device

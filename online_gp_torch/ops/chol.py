@@ -1,0 +1,91 @@
+"""PSD-safe Cholesky with jitter escalation (port of
+``online_gp_tpu/ops/chol.py``).
+
+gpytorch's ``psd_safe_cholesky`` semantics: try a Cholesky and, where it
+fails, retry with a 10x larger diagonal jitter, a fixed number of times.
+As in the JAX package, gradient-free probes pick the first jitter level
+that factors for each batch entry, then one differentiable factorization
+runs at that level, so no gradient flows through a failed attempt. The
+probes use ``torch.linalg.cholesky_ex`` and its ``info``: the plain
+``cholesky`` raises where JAX returns NaN.
+
+Every factorization and solve runs with TF32 off
+(:mod:`online_gp_torch.ops.precision`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from online_gp_torch.ops.precision import f32_matmul_precision
+
+
+def _factor_ok(mat: torch.Tensor) -> torch.Tensor:
+    """(...,) bool: the Cholesky of ``mat`` exists and is finite."""
+    chol, info = torch.linalg.cholesky_ex(mat)
+    return (info == 0) & torch.isfinite(chol).all(dim=-1).all(dim=-1)
+
+
+def psd_safe_cholesky(mat: torch.Tensor, jitter: float = 1e-6, tries: int = 3) -> torch.Tensor:
+    """Lower Cholesky of a PSD matrix with escalating diagonal jitter.
+
+    Args:
+      mat: (..., n, n) symmetric PSD.
+      jitter: initial jitter scale (times max(mean |diag|, 1)).
+      tries: number of 10x escalations.
+
+    Returns the (..., n, n) lower factor at the first jitter level that
+    factors; where none does, the last level is used and the result is
+    NaN, as in the JAX package.
+    """
+    n = mat.shape[-1]
+    eye = torch.eye(n, dtype=mat.dtype, device=mat.device)
+    diag = torch.diagonal(mat, dim1=-2, dim2=-1)
+    diag_scale = torch.clamp(torch.mean(torch.abs(diag), dim=-1), min=1.0)
+    with f32_matmul_precision():
+        probe_mat = mat.detach()
+        chosen = torch.full(diag_scale.shape, float(tries - 1), dtype=mat.dtype, device=mat.device)
+        done = torch.zeros(diag_scale.shape, dtype=torch.bool, device=mat.device)
+        for level in range(tries):
+            shift = (jitter * (10.0 ** level) * diag_scale.detach())[..., None, None] * eye
+            ok = _factor_ok(probe_mat + shift)
+            chosen = torch.where(ok & ~done, torch.full_like(chosen, float(level)), chosen)
+            done = done | ok
+            if bool(done.all()):
+                break
+        eps = jitter * (10.0 ** chosen) * diag_scale
+        return cholesky(mat + eps[..., None, None] * eye)
+
+
+def cholesky(mat: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky with no jitter; where it fails, NaN in the lower
+    triangle, as ``jnp.linalg.cholesky`` returns."""
+    with f32_matmul_precision():
+        chol, info = torch.linalg.cholesky_ex(mat)
+    failed = torch.full_like(chol, float("nan")).tril()
+    return torch.where((info != 0)[..., None, None], failed, chol)
+
+
+def tri_solve(chol: torch.Tensor, rhs: torch.Tensor, trans: bool = False) -> torch.Tensor:
+    """Triangular solve L x = rhs (or L^T x = rhs when trans)."""
+    with f32_matmul_precision():
+        if trans:
+            return torch.linalg.solve_triangular(chol.mT, rhs, upper=True)
+        return torch.linalg.solve_triangular(chol, rhs, upper=False)
+
+
+def cho_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve (L L^T) x = rhs given the lower factor."""
+    return tri_solve(chol, tri_solve(chol, rhs), trans=True)
+
+
+def chol_logdet(chol: torch.Tensor) -> torch.Tensor:
+    """log|A| from its lower Cholesky factor: 2 * sum(log diag L)."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+
+
+def inv_lower_transpose(chol: torch.Tensor) -> torch.Tensor:
+    """L^{-T}: the inverse root B with (L L^T)^{-1} = B B^T."""
+    n = chol.shape[-1]
+    eye = torch.eye(n, dtype=chol.dtype, device=chol.device).expand(chol.shape)
+    return tri_solve(chol, eye, trans=True)
