@@ -26,6 +26,24 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    roots match the plain root update over a 256-point prefix to within
    1e-3 * scale (bench.py's gate), the predictions are finite, and the
    decomposition check's inverse_root_err is finite.
+4. The remaining kernels' entry points at m=900, fed from WISKI states of
+   phase 3's model. The launch counters are zeroed just before and read
+   just after this path:
+   - K4 (fused_root_cache_update): 256 single-point dense-v updates
+     v = W_x/sqrt(noise) on full wiski_init states at Bd=1 and Bd=2 and on
+     the slim Bd=1 state, against the plain root_cache_update: roots within
+     1e-3 * scale, A to 1e-5, wiski_check_decomposition's errors finite.
+   - K5 (blocked_chunk with sub=32 and with mode="coord"): a 4-chunk stream
+     of k=128 on phase 3's final roots, against blocked_chunk_plain with
+     the same options, to 2e-4.
+   - K6 (blocked_cholesky): Q = I + L^T Kuu_hat L of phase 3's final state,
+     against its plain version and torch.linalg.cholesky: relative max
+     error <= 5e-4, strict upper triangle exactly 0.
+   Then each kernel against its plain version on synthetic inputs, with
+   times as in phase 2: K4 one update to 1e-5 (Bd=1, Bd=2 with p=0 an exact
+   no-op, slim Bd=1); K5 one chunk to 1e-5 and a 4-chunk stream to 2e-4 at
+   Bd=1 and 2, with each variant's distance to flat K1; K6 on an SPD batch
+   (Bd=2) to atol 2e-5, rtol 1e-4.
 
 It prints the kernels as one JSON line, then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs a CUDA device
@@ -44,6 +62,7 @@ import numpy as np
 import torch
 
 from online_gp_torch.kernels.base import RBFKernel
+from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
 from online_gp_torch.models.wiski import (
     WiskiModel,
     wiski_check_decomposition,
@@ -56,12 +75,16 @@ from online_gp_torch.models.wiski import (
     wiski_stream,
 )
 from online_gp_torch.ops import _build
+from online_gp_torch.ops.cuda_chol import blocked_cholesky, blocked_cholesky_plain
 from online_gp_torch.ops.cuda_pred_stream import pred_chunk, pred_chunk_stencil_plain
 from online_gp_torch.ops.cuda_root_update import (
     blocked_chunk,
     blocked_chunk_plain,
+    fused_root_cache_update,
     rank1_apply,
     rank1_apply_plain,
+    rank1_update,
+    rank1_update_plain,
 )
 from online_gp_torch.ops.grid import Grid
 from online_gp_torch.ops.interp import dense_w, interp_coeffs
@@ -70,6 +93,8 @@ from online_gp_torch.ops.pred_stream import pred_chunk_factors
 from online_gp_torch.ops.root_update import (
     RootCache,
     blocked_factors,
+    blocked_factors_coord,
+    blocked_factors_sub,
     root_cache_update,
     stencil_rows,
 )
@@ -79,6 +104,15 @@ M_SIDE = 30  # bench.py: 30x30 grid, m = 900
 K = 128  # chunk rank of wiski_stream and the prequential stream
 N_SEED, N_STREAM, N_COND, N_TEST, N_PREQ = 256, 16384, 256, 1024, 4096
 TIMING_REPS = 20
+# a profile window opens this long before its first launch: without it,
+# torch.profiler on an H100 lost the records of a window's first launches
+# in up to 2% of windows (profiler_records.py)
+PROFILE_PAD_S = 0.05
+PROFILE_ATTEMPTS = 3
+N_K4 = 256  # phase 4: dense-v updates per K4 state
+SUB = 32  # phase 4: K5's sub-block size
+VARIANTS = {"blocked_chunk_sub": dict(sub=SUB), "blocked_chunk_coord": dict(mode="coord")}
+CHOL_BLOCK = 128
 
 # (device memory bytes/s, f32 flop/s outside the tensor cores), NVIDIA data
 # sheets, dense, at the full power limit
@@ -121,31 +155,44 @@ def time_ms(fn, make_args, reps=TIMING_REPS):
     return sum(s.elapsed_time(e) for s, e in spans) / reps
 
 
+def profile_window(fn, make_args, kernels, reps, pad_s=PROFILE_PAD_S):
+    """One torch.profiler window over reps calls of fn(*make_args()),
+    opened pad_s seconds before the first launch. Returns the profiler and
+    {kernel: (records, device us)} for the named kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        for _ in range(reps):
+            fn(*make_args())
+        torch.cuda.synchronize()
+    records = dict.fromkeys(kernels, (0, 0.0))
+    for ev in prof.key_averages():
+        for kname in kernels:
+            if f"::{kname}(" in ev.key:
+                records[kname] = (ev.count, ev.self_device_time_total)
+    return prof, records
+
+
 def device_ms(fn, make_args, kernels, reps=TIMING_REPS):
     """Mean device time per call of fn(*make_args()), summed over the named
     CUDA kernels from torch.profiler, and each kernel's share. The inputs
     are made fresh before each call, as in time_ms; the copies that makes
-    are other kernels and are not counted. Raises unless every named
-    kernel ran once a call."""
-    from torch.profiler import ProfilerActivity, profile
-
+    are other kernels and are not counted. ``kernels`` maps each CUDA
+    kernel's name to its launches per call. The time comes from a window
+    that recorded every launch: one that missed a record is printed and
+    profiled again, up to PROFILE_ATTEMPTS windows, and then this raises."""
     fn(*make_args())
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*make_args())
-        torch.cuda.synchronize()
-    per_kernel = {}
-    for ev in prof.key_averages():
-        for kname in kernels:
-            if f"::{kname}(" in ev.key:
-                if ev.count != reps:
-                    raise AssertionError(f"{kname}: {ev.count} launches in {reps} calls")
-                per_kernel[kname] = ev.self_device_time_total / reps / 1e3
-    missing = set(kernels) - set(per_kernel)
-    if missing:
-        raise AssertionError(f"the profiler saw no device time for {sorted(missing)}")
-    return sum(per_kernel.values()), per_kernel
+    for _ in range(PROFILE_ATTEMPTS):
+        _, records = profile_window(fn, make_args, kernels, reps)
+        short = {k: n for k, (n, _) in records.items() if n != reps * kernels[k]}
+        if not short:
+            per_kernel = {k: us / reps / 1e3 for k, (_, us) in records.items()}
+            return sum(per_kernel.values()), per_kernel
+        want = {k: reps * kernels[k] for k in short}
+        print(f"  torch.profiler recorded {short} launches of {want}; profiling again")
+    raise AssertionError(f"no profile of {PROFILE_ATTEMPTS} recorded every launch of {sorted(kernels)}")
 
 
 def max_err(got, want, tol, what):
@@ -226,7 +273,7 @@ def check_rank1(rng, grid, peaks, dev):
         nbytes = 4 * (4 * Bd * m * m + Bd * m)
         flops = Bd * (8 * m * m + 4 * m)
         bms, by = bound_ms(nbytes, flops, peaks)
-        ms, stages = device_ms(rank1_apply, make, ("rank1_prepass_kernel", "rank1_rows_kernel"))
+        ms, stages = device_ms(rank1_apply, make, {"rank1_prepass_kernel": 1, "rank1_rows_kernel": 1})
         out[Bd] = dict(
             max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(rank1_apply, make),
             plain_ms=time_ms(rank1_apply_plain, make), library_ms=time_ms(library, make),
@@ -235,9 +282,9 @@ def check_rank1(rng, grid, peaks, dev):
     return out
 
 
-def plain_stream(L, B, idx, wv, k):
+def plain_stream(L, B, idx, wv, k, **kw):
     for c in range(idx.shape[0] // k):
-        L, B = blocked_chunk_plain(L, B, idx[c * k : (c + 1) * k], wv[:, c * k : (c + 1) * k])
+        L, B = blocked_chunk_plain(L, B, idx[c * k : (c + 1) * k], wv[:, c * k : (c + 1) * k], **kw)
     return L, B
 
 
@@ -272,8 +319,8 @@ def check_blocked_chunk(rng, grid, peaks, dev):
         nbytes = 4 * (4 * Bd * m * m + Bd * K * P + K * P)
         flops = Bd * (2 * K * P * m + 5 * K * (K - 1) * m + 8 * m * m * K)
         bms, by = bound_ms(nbytes, flops, peaks)
-        ms, stages = device_ms(blocked_chunk, make, (
-            "chunk_gather_kernel", "chunk_recursion_kernel", "chunk_apply_t_kernel", "chunk_apply_x_kernel"))
+        ms, stages = device_ms(blocked_chunk, make, {
+            "chunk_gather_kernel": 1, "chunk_recursion_kernel": 1, "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1})
         out[Bd] = dict(
             max_abs_err=err, stream_max_abs_err=err_stream, ms=ms, stages_ms=stages,
             wrapper_ms=time_ms(blocked_chunk, make), plain_ms=time_ms(blocked_chunk_plain, make),
@@ -315,7 +362,7 @@ def check_pred_chunk(rng, grid, model, params, peaks, dev):
         nbytes = 4 * (Bd * m * (m + 1) + 2 * Bd * m + 4 * Bd * K) + 8 * K * P
         flops = Bd * (2 * K * P * m + K * (K - 1) * m + m * (m + 1) * K + 2 * m * K)
         bms, by = bound_ms(nbytes, flops, peaks)
-        ms, stages = device_ms(pred_chunk, make, ("pred_gather_kernel", "pred_recursion_kernel", "pred_apply_kernel"))
+        ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, "pred_recursion_kernel": 1, "pred_apply_kernel": 1})
         out[Bd] = dict(
             max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(pred_chunk, make),
             plain_ms=time_ms(pred_chunk_stencil_plain, make),
@@ -415,7 +462,7 @@ def main_path(rng, model, params, card, dev):
     print(f"  wiski_check_decomposition inverse_root_err: {inv_root_err:.6e}")
     if not math.isfinite(inv_root_err):
         raise AssertionError("inverse_root_err is not finite")
-    return launches
+    return launches, state
 
 
 def profile_condition(rng, model, dev):
@@ -438,6 +485,292 @@ def profile_condition(rng, model, dev):
         torch.cuda.synchronize()
     print(f"wiski_condition x{n}, host ops by self CPU time:")
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
+
+
+# --------------------------------------------------------------------------
+# phase 4: the remaining kernels' entry points at m = 900
+# --------------------------------------------------------------------------
+
+
+def dense_updates(grid, x, noise):
+    """(n, Bd, m, 1) dense update vectors v = W_x/sqrt(noise), one per point,
+    as plain_prefix_roots builds them; noise is (n, Bd)."""
+    idx, w = interp_coeffs(grid, x, detach=True)
+    W = dense_w(idx, w, grid.num_points)  # (m, n)
+    v = W.T[:, None, :] / torch.sqrt(torch.clamp(noise, min=1e-7))[:, :, None]
+    return v[..., None].contiguous()
+
+
+def rel_max_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def q_matrix(model, params, state):
+    """Q = I + L^T Kuu_hat L of a WISKI state, Kuu_hat = K_uu / s2 (the
+    learned second noise), as the MLL and the prediction caches form it."""
+    Kuu = grid_kuu_dense(model.kernel, params["kernel"], model.grid)
+    Kuu = Kuu / torch.exp(params["raw_second_noise"])[:, None, None]
+    L = state.roots.root
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return (eye + L.mT @ (Kuu @ L)).contiguous()
+
+
+def remaining_path(rng, model, params, final_state, card, dev):
+    """Phase 4's path: K4, K5 and K6 through their entry points on WISKI
+    states at the bench width. Returns the launch counts of this path."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    grid = model.grid
+    m = grid.num_points
+    x0 = torch.tensor(rng.uniform(-1, 1, (N_SEED, 2)), **f32)
+    y0 = torch.sin(3 * x0[:, :1])
+    model2 = WiskiModel(RBFKernel(), grid, num_outputs=2, learn_additional_noise=True)
+    noise2 = torch.tensor([1.0, 0.5], **f32).expand(N_SEED, 2).contiguous()
+    full1 = wiski_init(model, x0, y0, torch.ones_like(y0))
+    full2 = wiski_init(model2, x0, y0 * torch.tensor([1.0, 0.5], **f32), noise2)
+    xk = torch.tensor(rng.uniform(-1, 1, (N_K4, 2)), **f32)
+    v1 = dense_updates(grid, xk, torch.ones((N_K4, 1), **f32))
+    k4_cases = {
+        "full Bd=1": (full1, v1),
+        "full Bd=2": (full2, dense_updates(grid, xk, noise2[:1].expand(N_K4, 2))),
+        "slim Bd=1": (wiski_slim(full1), v1),
+    }
+    x5 = torch.tensor(rng.uniform(-1, 1, (4 * K, 2)), **f32)
+    idx5, w5 = interp_coeffs(grid, x5, detach=True)
+    idx5 = idx5.to(torch.int32).contiguous()
+    wv5 = w5[None].contiguous()  # noise 1
+    Q = q_matrix(model, params, final_state)
+    starts = {name: RootCache(*(None if t is None else t.clone() for t in st.roots)) for name, (st, _) in k4_cases.items()}
+    k5_start = (final_state.roots.root.clone(), final_state.roots.inv_root.clone())
+    torch.cuda.synchronize()
+
+    counters = [(rank1_update, "launches"), (blocked_chunk, "sub_launches"),
+                (blocked_chunk, "coord_launches"), (blocked_cholesky, "launches")]
+    for wrapper, attr in counters:
+        setattr(wrapper, attr, 0)
+    t0 = time.perf_counter()
+    k4_out = {}
+    for name, (_, vs) in k4_cases.items():
+        roots = RootCache(*(None if t is None else t.clone() for t in starts[name]))
+        for i in range(N_K4):
+            roots = fused_root_cache_update(roots, vs[i])
+        k4_out[name] = roots
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    k5_out = {}
+    for kname, kw in VARIANTS.items():
+        Lk, Bk = (t.clone() for t in k5_start)
+        for c in range(4):
+            rows = slice(c * K, (c + 1) * K)
+            Lk, Bk = blocked_chunk(Lk, Bk, idx5[rows].contiguous(), wv5[:, rows].contiguous(), **kw)
+        k5_out[kname] = (Lk, Bk)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    Lq = blocked_cholesky(Q, CHOL_BLOCK)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {
+        "rank1_update": rank1_update.launches,
+        "blocked_chunk_sub": blocked_chunk.sub_launches,
+        "blocked_chunk_coord": blocked_chunk.coord_launches,
+        "blocked_cholesky": blocked_cholesky.launches,
+    }
+
+    print(f"remaining kernels' entry points on {card}:")
+    print(f"  fused_root_cache_update: 3 x {N_K4} dense-v updates in {t1 - t0:.4f} s")
+    print(f"  blocked_chunk sub={SUB} and coord: 2 x 4 chunks of {K} in {t2 - t1:.4f} s")
+    print(f"  blocked_cholesky of Q (m={m}, block {CHOL_BLOCK}): {t3 - t2:.4f} s")
+    print(f"  kernel launches: {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"phase 4 never launched {name}")
+
+    for name, (st, vs) in k4_cases.items():
+        oracle = starts[name]
+        for i in range(N_K4):
+            oracle = root_cache_update(oracle, vs[i])
+        got = k4_out[name]
+        scale = float(oracle.root.abs().max())
+        err = float((got.root - oracle.root).abs().max())
+        inv_err = float((got.inv_root - oracle.inv_root).abs().max())
+        inv_scale = float(oracle.inv_root.abs().max())
+        print(f"  K4 {name}: root err {err:.3e} (scale {scale:.3e}), inverse root err {inv_err:.3e} (scale {inv_scale:.3e})")
+        if not (err <= 1e-3 * max(scale, 1.0) and inv_err <= 1e-3 * max(inv_scale, 1.0)):
+            raise AssertionError(f"K4 {name}: roots drift from the plain update over {N_K4} updates")
+        if oracle.mat is None:
+            if got.mat is not None:
+                raise AssertionError(f"K4 {name}: a slim cache came back with a Gram accumulator")
+        else:
+            print(f"  K4 {name}: A max abs err {max_err((got.mat,), (oracle.mat,), 1e-5, f'K4 {name} A'):.3e}")
+        check = wiski_check_decomposition(st._replace(roots=got))
+        errs = {key: float(val.max()) for key, val in check.items()}
+        print(f"  K4 {name}: wiski_check_decomposition {json.dumps(errs)}")
+        finite = [v for key, v in errs.items() if oracle.mat is not None or key == "inverse_root_err"]
+        if not all(math.isfinite(v) for v in finite):
+            raise AssertionError(f"K4 {name}: non-finite decomposition error")
+
+    flat = plain_stream(*k5_start, idx5, wv5, K)
+    for kname, kw in VARIANTS.items():
+        want = plain_stream(*k5_start, idx5, wv5, K, **kw)
+        err = max_err(k5_out[kname], want, 2e-4, f"{kname} 4-chunk stream on the final state")
+        dist = max(float((a - b).abs().max()) for a, b in zip(k5_out[kname], flat))
+        print(f"  {kname}: 4-chunk stream max abs err {err:.3e} vs plain, {dist:.3e} from the flat plain stream")
+
+    want = blocked_cholesky_plain(Q, CHOL_BLOCK)
+    lib = torch.linalg.cholesky(Q)
+    e_plain, e_lib = rel_max_err(Lq, want), rel_max_err(Lq, lib)
+    print(f"  K6 on Q: relative max err {e_plain:.3e} vs plain, {e_lib:.3e} vs torch.linalg.cholesky")
+    if not (e_plain <= 5e-4 and e_lib <= 5e-4):
+        raise AssertionError("K6 on Q exceeds the 5e-4 relative bound")
+    if not bool((torch.triu(Lq, 1) == 0).all()):
+        raise AssertionError("K6: the strict upper triangle is not exactly 0")
+    return launches, Q
+
+
+def check_rank1_update(rng, grid, peaks, dev):
+    m = grid.num_points
+    out = {}
+    for label, Bd, slim in ((1, 1, False), (2, 2, False), ("slim Bd=1", 1, True)):
+        L, B = synthetic_roots(rng, Bd, m, dev)
+        A = None if slim else (L @ L.mT).contiguous()
+        x = torch.tensor(rng.uniform(-1, 1, (1, 2)), dtype=torch.float32, device=dev)
+        v = dense_updates(grid, x, torch.ones((1, Bd), device=dev))[0]
+        if Bd == 2:
+            v[1] = 0.0  # p = 0 is an exact no-op
+        clone = lambda: (L.clone(), B.clone(), None if A is None else A.clone(), v)
+        want = rank1_update_plain(L, B, A, v)
+        got = rank1_update(*clone())
+        torch.cuda.synchronize()
+        pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+        err = max_err([g for g, _ in pairs], [w for _, w in pairs], 1e-5, f"rank1_update {label}")
+        if Bd == 2 and not (torch.equal(got[0][1], L[1]) and torch.equal(got[1][1], B[1]) and torch.equal(got[2][1], A[1])):
+            raise AssertionError("rank1_update: v = 0 changed the state")
+
+        def library(L, B, A, v):
+            for b in range(L.shape[0]):
+                vb = v[b, :, 0]
+                p = torch.mv(B[b].T, vb)
+                s2 = torch.dot(p, p)
+                u = p / torch.clamp(torch.sqrt(s2), min=1e-20)
+                L[b].addr_(torch.mv(L[b], u) * (torch.sqrt(s2 + 1) - 1), u)
+                B[b].addr_(torch.mv(B[b], u) * (1 / torch.sqrt(s2 + 1) - 1), u)
+                if A is not None:
+                    A[b].addr_(vb, vb)
+
+        nbytes = 4 * ((4 if slim else 6) * Bd * m * m + Bd * m)
+        flops = Bd * ((10 if slim else 12) * m * m + 6 * m)
+        bms, by = bound_ms(nbytes, flops, peaks)
+        ms, stages = device_ms(rank1_update, clone, {
+            "rank1_colsum_kernel": 1, "rank1_update_prepass_kernel": 1, "rank1_rows_kernel": 1})
+        out[label] = dict(
+            max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(rank1_update, clone),
+            plain_ms=time_ms(rank1_update_plain, clone), library_ms=time_ms(library, clone),
+            bound_ms=bms, bound_by=by,
+        )
+    return out
+
+
+def check_chunk_variants(rng, grid, peaks, dev):
+    m = grid.num_points
+    nb = K // SUB
+    profile_kernels = {
+        "blocked_chunk_sub": {"chunk_gather_kernel": nb, "batched_gemm_kernel": nb * (nb - 1),
+                              "chunk_recursion_kernel": nb, "chunk_apply_t_kernel": nb, "chunk_apply_x_kernel": nb},
+        "blocked_chunk_coord": {"chunk_gather_kernel": 1, "batched_gemm_kernel": 3, "coord_recursion_kernel": 1,
+                                "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1},
+    }
+    out = {kname: {} for kname in VARIANTS}
+    for Bd in (1, 2):
+        L, B = synthetic_roots(rng, Bd, m, dev)
+        _, idx, w = stencil(rng, grid, 4 * K, dev)
+        wv = (w[None] * torch.tensor([1.0, 1.3][:Bd], device=dev)[:, None, None]).contiguous()
+        i1, wv1 = idx[:K].contiguous(), wv[:, :K].contiguous()
+        flat1 = blocked_chunk(*clone_all(L, B), i1, wv1)
+        flat_s = clone_all(L, B)
+        for c in range(4):
+            flat_s = blocked_chunk(*flat_s, idx[c * K : (c + 1) * K].contiguous(), wv[:, c * K : (c + 1) * K].contiguous())
+        p0 = torch.einsum("bkp,bkpm->bkm", wv1, B[:, i1.long()])
+        for kname, kw in VARIANTS.items():
+            want = blocked_chunk_plain(L, B, i1, wv1, **kw)
+            got = blocked_chunk(*clone_all(L, B), i1, wv1, **kw)
+            torch.cuda.synchronize()
+            err = max_err(got, want, 1e-5, f"{kname} Bd={Bd}")
+            want_s = plain_stream(L, B, idx, wv, K, **kw)
+            got_s = clone_all(L, B)
+            for c in range(4):
+                got_s = blocked_chunk(*got_s, idx[c * K : (c + 1) * K].contiguous(), wv[:, c * K : (c + 1) * K].contiguous(), **kw)
+            torch.cuda.synchronize()
+            err_stream = max_err(got_s, want_s, 2e-4, f"{kname} 4-chunk stream Bd={Bd}")
+            dist = max(float((a - b).abs().max()) for a, b in zip(got, flat1))
+            dist_s = max(float((a - b).abs().max()) for a, b in zip(got_s, flat_s))
+
+            # the yardstick applies this chunk's factors from the plain recursion
+            if kname == "blocked_chunk_sub":
+                U, Pm, R = blocked_factors_sub(p0, SUB)
+
+                def library(L, B):
+                    for lo in range(0, K, SUB):
+                        rows = slice(lo, lo + SUB)
+                        L.baddbmm_(torch.bmm(L, R[:, rows].mT), U[:, rows])
+                        B.baddbmm_(torch.bmm(B, Pm[:, rows].mT), U[:, rows])
+
+                flops = Bd * (2 * K * idx.shape[1] * m + nb * 5 * SUB * (SUB - 1) * m
+                              + nb * (nb - 1) // 2 * 4 * SUB * SUB * m + 8 * m * m * K)
+            else:
+                Ut, Pt, Rt = blocked_factors_coord(p0)
+                TL, TB = Rt.mT @ Ut, Pt.mT @ Ut
+
+                def library(L, B):
+                    L.baddbmm_(torch.bmm(torch.bmm(L, p0.mT), TL), p0)
+                    B.baddbmm_(torch.bmm(torch.bmm(B, p0.mT), TB), p0)
+
+                # M = P0 P0^T (symmetric), the recursion, Rt^T Ut and Pt^T Ut,
+                # then X P0^T, times T, times P0 for X = L, B
+                flops = Bd * (2 * K * idx.shape[1] * m + K * (K + 1) * m + 5 * K * K * (K - 1) + 2 * K**3
+                              + 4 * K**3 + 8 * m * m * K + 4 * m * K * K)
+            make = lambda: (*clone_all(L, B), i1, wv1)
+            call = lambda L, B, i, w, kw=kw: blocked_chunk(L, B, i, w, **kw)
+            plain = lambda L, B, i, w, kw=kw: blocked_chunk_plain(L, B, i, w, **kw)
+            P = idx.shape[1]
+            nbytes = 4 * (4 * Bd * m * m + Bd * K * P + K * P)
+            bms, by = bound_ms(nbytes, flops, peaks)
+            ms, stages = device_ms(call, make, profile_kernels[kname])
+            out[kname][Bd] = dict(
+                max_abs_err=err, stream_max_abs_err=err_stream, flat_max_abs_dist=dist,
+                stream_flat_max_abs_dist=dist_s, ms=ms, stages_ms=stages, wrapper_ms=time_ms(call, make),
+                plain_ms=time_ms(plain, make) if Bd == 1 else None,
+                library_ms=time_ms(library, lambda: clone_all(L, B)), bound_ms=bms, bound_by=by,
+            )
+    return out
+
+
+def check_cholesky(rng, Q, peaks, dev):
+    m = Q.shape[-1]
+    a = torch.tensor(rng.standard_normal((2, m, m)), dtype=torch.float32, device=dev)
+    spd = (a @ a.mT / m + torch.eye(m, device=dev)).contiguous()
+    got = blocked_cholesky(spd, CHOL_BLOCK)
+    torch.cuda.synchronize()
+    for what, want in (("plain", blocked_cholesky_plain(spd, CHOL_BLOCK)), ("torch.linalg.cholesky", torch.linalg.cholesky(spd))):
+        if not torch.allclose(got, want, atol=2e-5, rtol=1e-4):
+            raise AssertionError(f"blocked_cholesky on an SPD batch: max abs err {float((got - want).abs().max()):.3e} against {what}")
+    if not bool((torch.triu(got, 1) == 0).all()):
+        raise AssertionError("blocked_cholesky: the strict upper triangle is not exactly 0")
+    spd_err = float((got - torch.linalg.cholesky(spd)).abs().max())
+
+    Lq = blocked_cholesky(Q, CHOL_BLOCK)
+    want = blocked_cholesky_plain(Q, CHOL_BLOCK)
+    torch.cuda.synchronize()
+    nb = -(-m // CHOL_BLOCK)
+    make = lambda: (Q, CHOL_BLOCK)
+    Bd = Q.shape[0]
+    bms, by = bound_ms(4 * 2 * Bd * m * m, Bd * m**3 / 3, peaks)
+    ms, stages = device_ms(blocked_cholesky, make, {"chol_init_kernel": 1, "chol_panel_kernel": nb,
+                                                   "chol_panel_solve_kernel": nb - 1, "chol_syrk_kernel": nb - 1})
+    return dict(
+        max_abs_err=float((Lq - want).abs().max()), rel_max_err=rel_max_err(Lq, want),
+        spd_batch_max_abs_err_vs_library=spd_err, ms=ms, stages_ms=stages,
+        wrapper_ms=time_ms(blocked_cholesky, make), plain_ms=time_ms(blocked_cholesky_plain, make),
+        library_ms=time_ms(lambda Q, b: torch.linalg.cholesky(Q), make), bound_ms=bms, bound_by=by,
+    )
 
 
 def nvidia_smi_line() -> str:
@@ -485,12 +818,28 @@ def main() -> int:
                 print(f"{kname} Bd={Bd} m={grid.num_points} k={K} on {card}: " + json.dumps(r))
         profile_condition(rng, model, dev)
 
-        launches = main_path(rng, model, params, card, dev)
+        launches, final_state = main_path(rng, model, params, card, dev)
+
+        launches4, Q = remaining_path(rng, model, params, final_state, card, dev)
+        launches.update(launches4)
+        results4 = {
+            "rank1_update": check_rank1_update(rng, grid, peaks, dev),
+            **check_chunk_variants(rng, grid, peaks, dev),
+            "blocked_cholesky": {1: check_cholesky(rng, Q, peaks, dev)},
+        }
+        for kname, by_case in results4.items():
+            for case, r in by_case.items():
+                print(f"{kname} {case if isinstance(case, str) else f'Bd={case}'} m={grid.num_points} on {card}: " + json.dumps(r))
+        results.update(results4)
 
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
         "pred_chunk": ("online_gp_torch/csrc/pred_stream.cu", "online_gp_tpu/ops/pallas_pred_stream.py:95"),
+        "rank1_update": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:298"),
+        "blocked_chunk_sub": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:415"),
+        "blocked_chunk_coord": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:516"),
+        "blocked_cholesky": ("online_gp_torch/csrc/chol.cu", "online_gp_tpu/ops/pallas_chol.py:106"),
     }
     kernels = []
     for kname, (source, replaces) in meta.items():

@@ -38,6 +38,40 @@
 // order, so its first row tile computes the recursion that later tiles
 // read; CUDA blocks run in any order, hence the three launches above. No
 // padding to 128-lane tiles: every kernel masks its own ragged edge.
+//
+// K4 replaces pallas_rank1_update(_slim)(_batched) (bodies _p_kernel,
+// _update_kernel, _update_kernel_slim and their _batched forms), reached
+// through pallas_root_cache_update: the dense-v rank-1 update, p = B^T v
+// first, then K2's update, plus A += v v^T in the full variant.
+// Bound: bytes, (6 m^2 + m) floats per output in and out (4 m^2 + m slim).
+// The kernels move 7 m^2 (5 m^2): B is read twice, once for p and once to
+// update it. Design: the Pallas grid carries p across its sequential row
+// tiles; CUDA blocks cannot, so pass 1 writes one partial sum per (row slab,
+// column) with threads over columns (coalesced) and a loop over the slab's
+// rows, and the pre-pass adds the slabs in a fixed order: no atomics, the
+// same sums on every run. Pass 1 also does A += v v^T on the tile it reads.
+// Pass 2 is K2's row kernel.
+//
+// K5 replaces the two options of pallas_blocked_chunk_batched that K1 does
+// not cover, the same k exact sequential rank-1 updates:
+//   sub (sub < k; body _fused_chunk_kernel_batched): the flat recursion runs
+//       inside sub-blocks of `sub` rows, so a step reads at most `sub` rows
+//       of U, P, R instead of t. Sub-block j's raw rows are gathered, then
+//       corrected by the earlier sub-blocks (q += (q P_i^T) U_i, two small
+//       GEMMs per pair), then factored by K1's recursion kernel at k = sub.
+//       The factors are kept in (nb, Bd, sub, m) layout so K1's gather,
+//       recursion and apply kernels run unchanged on each sub-block; the
+//       applies run in stream order, one per sub-block.
+//   coord (body _fused_chunk_kernel_coord): the recursion runs on k-dim
+//       coordinates with inner products through M = P0 P0^T, k x k rows
+//       instead of k x m. M, Ut and Pt (64 KB each at k = 128) live in
+//       shared memory; Rt, read once a step against twice for Ut and Pt,
+//       stays in device memory (L2), each column touched by one thread
+//       only. The apply is X += ((X P0^T) T) P0 with T = Rt^T Ut (L) or
+//       Pt^T Ut (B): K1's two apply kernels around one more tiled GEMM.
+// Bound: operations, as K1: the applies' 8 m^2 k flops per output dominate
+// (0.83 GFLOP at m = 900, k = 128). Both recursions stay one block per
+// output, the part this card runs far above the bound.
 #include "common.cuh"
 
 using ogp::block_sum;
@@ -210,6 +244,197 @@ chunk_apply_x_kernel(float* L, float* B, const float* T, const float* U, int k, 
             blockIdx.x * kTileN);
 }
 
+// ---- K4 ----
+
+constexpr int kColTile = 32;   // pass 1: columns per block, one per lane
+constexpr int kSlabRows = 64;  // pass 1: rows per block
+constexpr int kSlabWarps = 8;
+
+// (K4 pass 1) partial[b, s, j] = sum over rows i of slab s of B[b, i, j] v[b, i];
+// with A (full variant) also A[b, i, j] += v[b, i] v[b, j] on the same tile.
+// grid (column tiles, slabs, Bd), block (kColTile, kSlabWarps)
+__global__ void __launch_bounds__(kColTile * kSlabWarps)
+rank1_colsum_kernel(const float* __restrict__ B, float* A, const float* __restrict__ v,
+                    float* __restrict__ partial, int m) {
+  __shared__ float red[kSlabWarps][kColTile];
+  const long long b = blockIdx.z, mm = m;
+  const int j = blockIdx.x * kColTile + threadIdx.x;
+  const int i1 = min((int)(blockIdx.y + 1) * kSlabRows, m);
+  const float* Bb = B + b * mm * mm;
+  const float* vb = v + b * mm;
+  float acc = 0.f;
+  if (j < m) {
+    float* Ab = A ? A + b * mm * mm : nullptr;
+    const float vj = vb[j];
+    for (int i = blockIdx.y * kSlabRows + threadIdx.y; i < i1; i += kSlabWarps) {
+      const float vi = vb[i];
+      acc = fmaf(Bb[i * mm + j], vi, acc);
+      // rounded as the plain version's A + v v^T: product, then sum
+      if (Ab) Ab[i * mm + j] = __fadd_rn(Ab[i * mm + j], __fmul_rn(vi, vj));
+    }
+  }
+  red[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < m) {
+    float s = 0.f;
+    for (int y = 0; y < kSlabWarps; ++y) s += red[y][threadIdx.x];
+    partial[(b * gridDim.y + blockIdx.y) * mm + j] = s;
+  }
+}
+
+// (K4 pre-pass) p = the slabs' partial sums added in order, then u, c and d
+// as K2's pre-pass computes them. One block per output.
+__global__ void rank1_update_prepass_kernel(const float* __restrict__ partial, int nslab,
+                                            float* __restrict__ u, float* __restrict__ cd,
+                                            int m) {
+  __shared__ float red[32];
+  const long long b = blockIdx.x, mm = m;
+  const float* pb = partial + b * nslab * mm;
+  float* ub = u + b * mm;
+  float s2 = 0.f;
+  for (int l = threadIdx.x; l < m; l += blockDim.x) {
+    float p = 0.f;
+    for (int slab = 0; slab < nslab; ++slab) p += pb[slab * mm + l];
+    ub[l] = p;
+    s2 = fmaf(p, p, s2);
+  }
+  s2 = block_sum(s2, red);
+  const float s = sqrtf(s2);
+  const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
+  for (int l = threadIdx.x; l < m; l += blockDim.x) ub[l] *= inv_s;  // this thread's own p
+  if (threadIdx.x == 0) {
+    const float r = sqrtf(s2 + 1.f);
+    cd[2 * b] = r - 1.f;
+    cd[2 * b + 1] = 1.f / r - 1.f;
+  }
+}
+
+// ---- K5 ----
+
+// A matrix operand of batched_gemm_kernel: element (r, c) of batch z is
+// p[(z >> shift) * bs + r * rs + c * cs] (shift 1: one matrix per pair of
+// batches, e.g. per output where the batch runs over (output, L or B)).
+struct MatArg {
+  const float* p;
+  long long rs, cs, bs;
+  int shift;
+};
+
+// C[z] = [C[z] +] alpha A[z] B[z] for z = blockIdx.z, C[z] at C + z * c_bs
+// with row stride c_rs. grid (N tiles, M tiles, batches)
+__global__ void __launch_bounds__(kGemmThreads)
+batched_gemm_kernel(int M, int N, int K, MatArg a, MatArg b, float* C, long long c_rs,
+                    long long c_bs, float alpha, bool accumulate) {
+  const int z = blockIdx.z;
+  gemm_tile(M, N, K, a.p + (z >> a.shift) * a.bs, a.rs, a.cs, b.p + (z >> b.shift) * b.bs,
+            b.rs, b.cs, C + z * c_bs, c_rs, alpha, accumulate, blockIdx.y * kTileM,
+            blockIdx.x * kTileN);
+}
+
+cudaError_t gemm(int M, int N, int K, MatArg a, MatArg b, float* C, long long c_rs,
+                 long long c_bs, int batches, float alpha, bool accumulate, cudaStream_t s) {
+  dim3 grid(cdiv(N, kTileN), cdiv(M, kTileM), batches);
+  batched_gemm_kernel<<<grid, kGemmThreads, 0, s>>>(M, N, K, a, b, C, c_rs, c_bs, alpha,
+                                                     accumulate);
+  return cudaGetLastError();
+}
+
+constexpr int kCoordThreads = 1024;
+
+// (K5 coord) the k-step recursion on coordinates, one block per output.
+// M: (Bd, k, k) = P0 P0^T; writes Ut (Bd, k, k) and Z (Bd, 2, k, k) with
+// Z[b, 0] = Rt, Z[b, 1] = Pt. Rows < t are read at step t and row t is
+// written, so nothing needs zeroing: the columns > t of row t come out 0.
+__global__ void __launch_bounds__(kCoordThreads)
+coord_recursion_kernel(const float* __restrict__ Mg, float* __restrict__ Ug,
+                       float* __restrict__ Z, int k) {
+  extern __shared__ float sh[];
+  const long long kk = (long long)k * k;
+  float* M = sh;              // k x k
+  float* Ut = M + kk;         // k x k
+  float* Pt = Ut + kk;        // k x k
+  float* a = Pt + kk;         // k
+  float* g = a + k;           // k
+  float* pi = g + k;          // k
+  float* mpi = pi + k;        // k
+  float* alpha = mpi + k;     // k
+  float* malpha = alpha + k;  // k
+  float* red = malpha + k;    // 32
+  const long long b = blockIdx.x;
+  float* Rt = Z + b * 2 * kk;  // in device memory: column l only by thread l
+  float* Pg = Rt + kk;
+  float* Ub = Ug + b * kk;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (long long e = threadIdx.x; e < kk; e += blockDim.x) M[e] = Mg[b * kk + e];
+  __syncthreads();
+
+  for (int t = 0; t < k; ++t) {
+    // a_j = Pt_j . M_t for j < t, one warp per row
+    const float* mt = M + t * k;
+    for (int j = warp; j < t; j += nwarps) {
+      float s = 0.f;
+      for (int l = lane; l < k; l += 32) s = fmaf(Pt[j * k + l], mt[l], s);
+      s = warp_sum(s);
+      if (lane == 0) a[j] = s;
+    }
+    __syncthreads();
+    // pi = e_t + Ut^T a
+    if (threadIdx.x < k) {
+      const int l = threadIdx.x;
+      float v = l == t ? 1.f : 0.f;
+      for (int j = 0; j < t; ++j) v = fmaf(Ut[j * k + l], a[j], v);
+      pi[l] = v;
+    }
+    __syncthreads();
+    // mpi = M pi, one warp per row
+    for (int j = warp; j < k; j += nwarps) {
+      float s = 0.f;
+      for (int l = lane; l < k; l += 32) s = fmaf(M[j * k + l], pi[l], s);
+      s = warp_sum(s);
+      if (lane == 0) mpi[j] = s;
+    }
+    __syncthreads();
+    float s2 = threadIdx.x < k ? pi[threadIdx.x] * mpi[threadIdx.x] : 0.f;
+    s2 = fmaxf(block_sum(s2, red), 0.f);
+    const float s = sqrtf(s2);
+    const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
+    const float r1 = sqrtf(s2 + 1.f);
+    const float c = r1 - 1.f;
+    const float d = 1.f / r1 - 1.f;
+    if (threadIdx.x < k) {
+      alpha[threadIdx.x] = pi[threadIdx.x] * inv_s;
+      malpha[threadIdx.x] = mpi[threadIdx.x] * inv_s;
+    }
+    __syncthreads();
+    // g_j = Ut_j . (M alpha) for j < t
+    for (int j = warp; j < t; j += nwarps) {
+      float sg = 0.f;
+      for (int l = lane; l < k; l += 32) sg = fmaf(Ut[j * k + l], malpha[l], sg);
+      sg = warp_sum(sg);
+      if (lane == 0) g[j] = sg;
+    }
+    __syncthreads();
+    // row t: alpha, d (alpha + Pt^T g), c (alpha + Rt^T g)
+    if (threadIdx.x < k) {
+      const int l = threadIdx.x;
+      const float al = alpha[l];
+      float pc = al, rc = al;
+      for (int j = 0; j < t; ++j) {
+        pc = fmaf(Pt[j * k + l], g[j], pc);
+        rc = fmaf(Rt[j * k + l], g[j], rc);
+      }
+      Ut[t * k + l] = al;
+      Pt[t * k + l] = d * pc;
+      Rt[t * k + l] = c * rc;
+      Ub[t * k + l] = al;
+      Pg[t * k + l] = d * pc;
+    }
+    __syncthreads();  // row t is read by every warp at step t + 1
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -260,6 +485,129 @@ int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float
   if (e != cudaSuccess) return static_cast<int>(e);
   chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
       L, B, T, U, k, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row slabs of K4's pass 1: the partial-sum scratch is (Bd, slabs, m).
+int ogp_rank1_update_slabs(int m) { return cdiv(m, kSlabRows); }
+
+// K4. L, B: (Bd, m, m), updated in place; A: (Bd, m, m), updated in place,
+// or null (slim); v: (Bd, m); partial: (Bd, slabs, m), u: (Bd, m) and
+// cd: (Bd, 2) scratch. Returns cudaGetLastError() after the launches.
+int ogp_rank1_update(float* L, float* B, float* A, const float* v, float* partial, float* u,
+                     float* cd, int Bd, int m, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nslab = ogp_rank1_update_slabs(m);
+  rank1_colsum_kernel<<<dim3(cdiv(m, kColTile), nslab, Bd), dim3(kColTile, kSlabWarps), 0, s>>>(
+      B, A, v, partial, m);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rank1_update_prepass_kernel<<<Bd, 256, 0, s>>>(partial, nslab, u, cd, m);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rank1_rows_kernel<<<dim3(cdiv(m, kRowsPerBlock), Bd, 2), kRowsPerBlock * 32, 0, s>>>(L, B, u,
+                                                                                        cd, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5 sub. L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
+// (nb, Bd, sub, P) with nb = k / sub; q, U, Pm, R: (nb, Bd, sub, m) scratch;
+// a2: (Bd, sub, sub) and T: (Bd, 2, m, sub) scratch.
+int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, float* q,
+                          float* U, float* Pm, float* R, float* a2, float* T, int Bd, int k,
+                          int sub, int P, int m, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nb = k / sub;
+  const long long mm = m, rows = (long long)sub * m, blk = Bd * rows;
+  cudaError_t e;
+  // every sub-block's raw rows come from B before the chunk changes it
+  for (int j = 0; j < nb; ++j) {
+    chunk_gather_kernel<<<dim3(sub, Bd), 256, 0, s>>>(B, idx + (long long)j * sub * P,
+                                                      wv + (long long)j * Bd * sub * P,
+                                                      q + j * blk, sub, P, m);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long smem = ogp_blocked_chunk_smem(sub, m);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(chunk_recursion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  for (int j = 0; j < nb; ++j) {
+    float* qj = q + j * blk;
+    for (int i = 0; i < j; ++i) {
+      // a2 = q_j P_i^T, then q_j += a2 U_i
+      e = gemm(sub, sub, m, MatArg{qj, mm, 1, rows, 0}, MatArg{Pm + i * blk, 1, mm, rows, 0}, a2,
+               sub, (long long)sub * sub, Bd, 1.f, false, s);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      e = gemm(sub, m, sub, MatArg{a2, sub, 1, (long long)sub * sub, 0},
+               MatArg{U + i * blk, mm, 1, rows, 0}, qj, mm, rows, Bd, 1.f, true, s);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    chunk_recursion_kernel<<<Bd, kRecursionThreads, smem, s>>>(qj, U + j * blk, Pm + j * blk,
+                                                               R + j * blk, sub, m);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  for (int j = 0; j < nb; ++j) {
+    chunk_apply_t_kernel<<<dim3(cdiv(sub, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0,
+                           s>>>(L, B, R + j * blk, Pm + j * blk, T, sub, m);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0,
+                           s>>>(L, B, T, U + j * blk, sub, m);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+// Dynamic shared memory of the K5 coord recursion kernel, in bytes.
+long long ogp_blocked_chunk_coord_smem(int k) {
+  return (3LL * k * k + 6LL * k + 32) * static_cast<long long>(sizeof(float));
+}
+
+// K5 coord. L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
+// (Bd, k, P); p0: (Bd, k, m), Mg, Ut: (Bd, k, k), Z, Tc: (Bd, 2, k, k),
+// X1, X2: (Bd, 2, m, k) scratch.
+int ogp_blocked_chunk_coord(float* L, float* B, const int* idx, const float* wv, float* p0,
+                            float* Mg, float* Ut, float* Z, float* Tc, float* X1, float* X2,
+                            int Bd, int k, int P, int m, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long mm = m, km = (long long)k * m, kk = (long long)k * k;
+  chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // M = P0 P0^T
+  e = gemm(k, k, m, MatArg{p0, mm, 1, km, 0}, MatArg{p0, 1, mm, km, 0}, Mg, k, kk, Bd, 1.f,
+           false, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long smem = ogp_blocked_chunk_coord_smem(k);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(coord_recursion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  coord_recursion_kernel<<<Bd, kCoordThreads, smem, s>>>(Mg, Ut, Z, k);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // Tc[b, w] = Z[b, w]^T Ut[b]: Rt^T Ut for L, Pt^T Ut for B
+  e = gemm(k, k, k, MatArg{Z, 1, k, kk, 0}, MatArg{Ut, k, 1, kk, 1}, Tc, k, kk, 2 * Bd, 1.f,
+           false, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // X1[b, w] = X_w P0^T (K1's apply with R = P = P0)
+  chunk_apply_t_kernel<<<dim3(cdiv(k, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
+      L, B, p0, p0, X1, k, m);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // X2[b, w] = X1[b, w] Tc[b, w]
+  e = gemm(m, k, k, MatArg{X1, k, 1, km, 0}, MatArg{Tc, k, 1, kk, 0}, X2, k, km, 2 * Bd, 1.f,
+           false, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // X_w += X2[b, w] P0 (K1's apply with U = P0)
+  chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
+      L, B, X2, p0, k, m);
   return static_cast<int>(cudaGetLastError());
 }
 

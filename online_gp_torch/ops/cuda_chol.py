@@ -1,0 +1,109 @@
+"""Kernel K6 (``blocked_cholesky``): a blocked Cholesky on the card,
+beside its plain PyTorch version.
+
+K6 replaces ``blocked_cholesky`` (``online_gp_tpu/ops/pallas_chol.py``):
+the lower Cholesky factor of an SPD matrix by a right-looking blocked
+algorithm whose panels fuse the elimination with the forward substitution
+for the panel inverse. As in the JAX package it is not wired into
+``wiski_mll``; the MLL and the prediction caches factor Q with
+:func:`online_gp_torch.ops.chol.cholesky`. The CUDA source, with the design
+notes, is ``online_gp_torch/csrc/chol.cu``.
+
+Dispatch, by the tensor given: on the CPU the plain version runs; on CUDA
+with float32 the kernel launches; anything else (float64 on CUDA, a tensor
+that requires grad, a non-contiguous tensor) raises and names the plain
+version. There is no fallback. The wrapper counts its calls that launched
+the kernel in ``blocked_cholesky.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from online_gp_torch.ops import _build
+from online_gp_torch.ops.precision import f32_matmul_precision
+
+# The panel width the kernel takes (the one chip_smoke.py checks on the card):
+# a panel tile and its inverse sit in shared memory, and the trailing GEMM's
+# 64-wide tiles must not straddle panels.
+KERNEL_BLOCK = 128
+
+_lib = None
+
+
+def _chol_lib():
+    global _lib
+    if _lib is None:
+        lib = _build.load("chol")
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ogp_blocked_cholesky.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+        lib.ogp_blocked_cholesky.restype = i32
+        _lib = lib
+    return _lib
+
+
+def blocked_cholesky_plain(q: torch.Tensor, block: int = 128) -> torch.Tensor:
+    """Plain version of K6, the same blocked algorithm as PyTorch ops: per
+    panel, ``block`` elimination steps with the pivot guard
+    rsqrt(max(a_jj, 1e-30)) and the rows of V = L_kk^{-1} by forward
+    substitution, then P = A_below V^T and A_trail -= P P^T. The last
+    panel is narrower where m is not a multiple of ``block``. Returns the
+    lower factor with its strict upper triangle exactly 0."""
+    m = q.shape[-1]
+    out = q.clone()
+    eye = torch.eye(block, dtype=q.dtype, device=q.device)
+    with f32_matmul_precision():
+        for lo in range(0, m, block):
+            hi = min(lo + block, m)
+            bs = hi - lo
+            A = out[..., lo:hi, lo:hi].clone()
+            L = torch.zeros_like(A)
+            V = torch.zeros_like(A)
+            for j in range(bs):
+                inv = torch.rsqrt(torch.clamp(A[..., j, j], min=1e-30))[..., None]
+                col = A[..., j:, j] * inv
+                L[..., j:, j] = col
+                A[..., j + 1 :, j + 1 :] -= col[..., 1:, None] * col[..., None, 1:]
+                below = (L[..., j, None, :j] @ V[..., :j, :])[..., 0, :]
+                V[..., j, :] = (eye[j, :bs] - below) * inv
+            out[..., lo:hi, lo:hi] = L
+            if hi < m:
+                P = out[..., hi:, lo:hi] @ V.mT
+                out[..., hi:, lo:hi] = P
+                out[..., hi:, hi:] -= P @ P.mT
+    return torch.tril(out)
+
+
+def blocked_cholesky(q: torch.Tensor, block: int = 128) -> torch.Tensor:
+    """K6: the lower Cholesky factor of SPD ``q``.
+
+    Args:
+      q: (m, m) or (Bd, m, m).
+      block: panel width; on CUDA 128.
+
+    Returns a new tensor of q's shape, its strict upper triangle exactly 0.
+    """
+    if _build.on_cpu(q):
+        return blocked_cholesky_plain(q, block)
+    _build.check_cuda_args("blocked_cholesky_plain", q=q)
+    if q.dim() not in (2, 3) or q.shape[-1] != q.shape[-2]:
+        raise ValueError(f"q must be (m, m) or (Bd, m, m); got {tuple(q.shape)}")
+    if block != KERNEL_BLOCK:
+        raise ValueError(f"the K6 kernel takes block {KERNEL_BLOCK}; got {block} "
+                         "(blocked_cholesky_plain takes any)")
+    q3 = q if q.dim() == 3 else q[None]
+    Bd, m = q3.shape[0], q3.shape[-1]
+    if Bd * m * m >= 2**31 or Bd > 65535:
+        raise ValueError(f"(Bd, m) = ({Bd}, {m}) exceeds the kernel's int32 sizes and grid")
+    out = torch.empty_like(q3)
+    V = torch.empty((Bd, block, block), dtype=torch.float32, device=q.device)
+    p_ = _build.ptr
+    rc = _chol_lib().ogp_blocked_cholesky(p_(q3), p_(out), p_(V), Bd, m, block, _build.stream_of(q))
+    _build.launch_check(rc, "blocked_cholesky")
+    blocked_cholesky.launches += 1
+    return out.view(q.shape)
+
+
+blocked_cholesky.launches = 0

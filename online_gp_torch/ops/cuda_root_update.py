@@ -1,13 +1,18 @@
-"""Kernels K2 (``rank1_apply``) and K1 (``blocked_chunk``): the maintained-
-root updates on the card, each beside its plain PyTorch version.
+"""Kernels K2 (``rank1_apply``), K1 and K5 (``blocked_chunk``) and K4
+(``rank1_update``, ``fused_root_cache_update``): the maintained-root
+updates on the card, each beside its plain PyTorch version.
 
 K2 replaces ``pallas_rank1_apply_batched``
 (``online_gp_tpu/ops/pallas_root_update.py``): the per-point rank-1
 update of ``wiski_condition`` at q = 1. K1 replaces
 ``pallas_blocked_chunk_batched`` with ``mode="flat"`` and ``sub=k``: one
-rank-k chunk of ``wiski_stream``. The CUDA sources, with the design
-notes (what bounds each kernel and what the Pallas design could not carry
-over), are ``online_gp_torch/csrc/root_update.cu``.
+rank-k chunk of ``wiski_stream``. K5 is the same function's two other
+recursions, ``sub < k`` and ``mode="coord"``, as options of
+``blocked_chunk``. K4 replaces ``pallas_rank1_update(_slim)(_batched)``
+and their dispatcher ``pallas_root_cache_update``: the dense-v rank-1
+update with p = B^T v computed on the card. The CUDA sources, with the
+design notes (what bounds each kernel and what the Pallas design could
+not carry over), are ``online_gp_torch/csrc/root_update.cu``.
 
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
@@ -17,7 +22,8 @@ raises and names the plain version. There is no fallback.
 On CUDA each wrapper updates its state tensors in place and returns them;
 the plain versions return new tensors. Each wrapper counts its calls that
 launched the kernel in its ``launches`` attribute (one per call; a call
-is several CUDA launches, listed in the source).
+is several CUDA launches, listed in the source); ``blocked_chunk`` counts
+K1 there and K5 in ``sub_launches`` and ``coord_launches``.
 """
 
 from __future__ import annotations
@@ -28,10 +34,19 @@ import torch
 
 from online_gp_torch.ops import _build
 from online_gp_torch.ops.precision import f32_matmul_precision
-from online_gp_torch.ops.root_update import blocked_factors, roots_apply_rank1_p
+from online_gp_torch.ops.root_update import (
+    RootCache,
+    blocked_factors,
+    blocked_factors_coord,
+    blocked_factors_sub,
+    chunk_sub,
+    root_cache_update,
+    roots_apply_rank1_p,
+)
 
 # What the kernels take: the recursion keeps a[k] and g[k] in shared
-# memory beside two m-vectors, one block per output.
+# memory beside two m-vectors, one block per output; the coordinate
+# recursion keeps three k x k matrices there.
 MAX_CHUNK = 1024
 MAX_SHARED_BYTES = 232448
 MAX_GRID_YZ = 65535
@@ -50,6 +65,16 @@ def _root_update_lib():
         lib.ogp_blocked_chunk.restype = i32
         lib.ogp_blocked_chunk_smem.argtypes = [i32, i32]
         lib.ogp_blocked_chunk_smem.restype = ctypes.c_longlong
+        lib.ogp_rank1_update_slabs.argtypes = [i32]
+        lib.ogp_rank1_update_slabs.restype = i32
+        lib.ogp_rank1_update.argtypes = [vp] * 7 + [i32, i32, vp]
+        lib.ogp_rank1_update.restype = i32
+        lib.ogp_blocked_chunk_sub.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+        lib.ogp_blocked_chunk_sub.restype = i32
+        lib.ogp_blocked_chunk_coord_smem.argtypes = [i32]
+        lib.ogp_blocked_chunk_coord_smem.restype = ctypes.c_longlong
+        lib.ogp_blocked_chunk_coord.argtypes = [vp] * 11 + [i32] * 4 + [vp]
+        lib.ogp_blocked_chunk_coord.restype = i32
         _lib = lib
     return _lib
 
@@ -104,36 +129,133 @@ rank1_apply.launches = 0
 
 
 # --------------------------------------------------------------------------
-# K1: one blocked chunk of the root stream
+# K4: the dense-v rank-1 update
 # --------------------------------------------------------------------------
 
 
-def blocked_chunk_plain(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor):
-    """Plain version of K1 (the JAX package's XLA ``chunk_step``):
-    p0 = the stencil gather of B, then :func:`blocked_factors`, then
-    L + (L R^T) U and B + (B P^T) U. Returns new (L', B')."""
+def rank1_update_plain(L: torch.Tensor, B: torch.Tensor, A, v: torch.Tensor):
+    """Plain version of K4: :func:`root_cache_update` at q = 1. Returns
+    new (L', B', A'), with A' None when A is None."""
+    new = root_cache_update(RootCache(mat=A, root=L, inv_root=B), v)
+    return new.root, new.inv_root, new.mat
+
+
+def rank1_update(L: torch.Tensor, B: torch.Tensor, A, v: torch.Tensor):
+    """K4: A <- A + v v^T with the roots kept exact: p = B^T v, then
+    L += c (L u) u^T and B += d (B u) u^T with u = p/|p|.
+
+    Args:
+      L, B: (Bd, m, m) root / inverse root.
+      A: (Bd, m, m) Gram accumulator, or None (slim: the roots only).
+      v: (Bd, m, 1) update vectors.
+
+    Returns (L', B', A'). On CUDA, L, B and A are updated in place.
+    """
+    gram = {} if A is None else {"A": A}
+    if _build.on_cpu(L, B, v, *gram.values()):
+        return rank1_update_plain(L, B, A, v)
+    _build.check_cuda_args("rank1_update_plain", L=L, B=B, v=v, **gram)
+    if L.dim() != 3 or L.shape[1] != L.shape[2] or B.shape != L.shape or (A is not None and A.shape != L.shape):
+        raise ValueError(f"L, B (and A) must be (Bd, m, m) of one shape; got {tuple(L.shape)}, {tuple(B.shape)}")
+    Bd, m = L.shape[0], L.shape[-1]
+    if tuple(v.shape) != (Bd, m, 1):
+        raise ValueError(f"v must be ({Bd}, {m}, 1); got {tuple(v.shape)}")
+    _check_sizes(Bd, m)
+    lib = _root_update_lib()
+    f32 = dict(dtype=torch.float32, device=L.device)
+    partial = torch.empty((Bd, lib.ogp_rank1_update_slabs(m), m), **f32)
+    u = torch.empty((Bd, m), **f32)
+    cd = torch.empty((Bd, 2), **f32)
+    p_ = _build.ptr
+    rc = lib.ogp_rank1_update(
+        p_(L), p_(B), None if A is None else p_(A), p_(v), p_(partial), p_(u), p_(cd), Bd, m,
+        _build.stream_of(L),
+    )
+    _build.launch_check(rc, "rank1_update")
+    rank1_update.launches += 1
+    return L, B, A
+
+
+rank1_update.launches = 0
+
+
+def fused_root_cache_update(cache: RootCache, v: torch.Tensor) -> RootCache:
+    """Port of ``pallas_root_cache_update``: :func:`root_cache_update`
+    (A <- A + v v^T) with the q = 1 case on kernel K4.
+
+    Routes by shape as the JAX dispatcher does: v of shape (..., m, q)
+    with q != 1 goes to :func:`root_cache_update`; q = 1 goes to
+    :func:`rank1_update` (K4 on CUDA, its plain version on the CPU). The
+    kernel takes v of shape (Bd, m, 1) with a (Bd, m, m) cache, or (m, 1)
+    with an (m, m) cache as a batch of one; where the JAX dispatcher sends
+    the unbatched case to XLA, here it rides K4 too, and any other q = 1
+    shape on CUDA raises. Slim caches (``mat is None``) take the
+    roots-only variant. Where the JAX dispatcher sends float64 to XLA, a
+    CUDA tensor that is not float32 (or requires grad, or is not
+    contiguous) raises here and names ``rank1_update_plain``. On CUDA the
+    cache's tensors are updated in place.
+    """
+    if v.shape[-1] != 1:
+        return root_cache_update(cache, v)
+    if v.dim() == 2:
+        one = fused_root_cache_update(RootCache(*(None if t is None else t[None] for t in cache)), v[None])
+        return RootCache(*(None if t is None else t[0] for t in one))
+    root, inv_root, mat = rank1_update(cache.root, cache.inv_root, cache.mat, v)
+    return RootCache(mat=mat, root=root, inv_root=inv_root)
+
+
+# --------------------------------------------------------------------------
+# K1 and K5: one blocked chunk of the root stream
+# --------------------------------------------------------------------------
+
+
+def blocked_chunk_plain(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor,
+                        sub=None, mode: str = "flat"):
+    """Plain version of K1 (the JAX package's XLA ``chunk_step``) and K5:
+    p0 = the stencil gather of B, then the factor recursion, then the
+    applies. Flat (the default): :func:`blocked_factors`, L + (L R^T) U
+    and B + (B P^T) U. ``sub < k``: :func:`blocked_factors_sub` and one
+    such apply per sub-block, in stream order. ``mode="coord"``:
+    :func:`blocked_factors_coord`, L + ((L P0^T)(Rt^T Ut)) P0 and the same
+    for B with Pt. Returns new (L', B')."""
+    k = idx.shape[0]
+    sub = chunk_sub(k, sub, mode)
     with f32_matmul_precision():
         p0 = torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()])
-        U, Pm, R = blocked_factors(p0)
-        new_L = L + (L @ R.mT) @ U
-        new_B = B + (B @ Pm.mT) @ U
-    return new_L, new_B
+        if mode == "coord":
+            Ut, Pt, Rt = blocked_factors_coord(p0)
+            new_L = L + ((L @ p0.mT) @ (Rt.mT @ Ut)) @ p0
+            new_B = B + ((B @ p0.mT) @ (Pt.mT @ Ut)) @ p0
+            return new_L, new_B
+        U, Pm, R = blocked_factors(p0) if sub == k else blocked_factors_sub(p0, sub)
+        for lo in range(0, k, sub):
+            rows = slice(lo, lo + sub)
+            L = L + (L @ R[:, rows].mT) @ U[:, rows]
+            B = B + (B @ Pm[:, rows].mT) @ U[:, rows]
+    return L, B
 
 
-def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor):
-    """K1: k exact sequential rank-1 root updates with
-    v_t = sum_p wv[b, t, p] e_{idx[t, p]}.
+def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor,
+                  sub=None, mode: str = "flat"):
+    """K1 (and K5 for ``sub < k`` or ``mode="coord"``): k exact sequential
+    rank-1 root updates with v_t = sum_p wv[b, t, p] e_{idx[t, p]}.
 
     Args:
       L, B: (Bd, m, m) root / inverse root.
       idx: (k, P) stencil indices in [0, m), shared by the outputs
         (int32 on CUDA).
       wv: (Bd, k, P) stencil weights already divided by sqrt(noise).
+      sub: sub-block size of the two-level recursion; must divide k.
+        None (or k) is the flat recursion.
+      mode: "flat", or "coord" for the recursion on k-dim coordinates
+        (``sub`` is then only checked).
 
     Returns (L', B'). On CUDA, L and B are updated in place.
     """
+    k = idx.shape[0]
+    sub = chunk_sub(k, sub, mode)
     if _build.on_cpu(L, B, idx, wv):
-        return blocked_chunk_plain(L, B, idx, wv)
+        return blocked_chunk_plain(L, B, idx, wv, sub=sub, mode=mode)
     _build.check_cuda_args("blocked_chunk_plain", ints=("idx",), L=L, B=B, idx=idx, wv=wv)
     if L.dim() != 3 or L.shape[1] != L.shape[2] or B.shape != L.shape:
         raise ValueError(f"L, B must be (Bd, m, m) of one shape; got {tuple(L.shape)}, {tuple(B.shape)}")
@@ -143,6 +265,10 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
     k, P = idx.shape
     _check_sizes(Bd, m)
     lib = _root_update_lib()
+    if mode == "coord":
+        return _chunk_coord(lib, L, B, idx, wv)
+    if sub < k:
+        return _chunk_sub(lib, L, B, idx, wv, sub)
     if k > MAX_CHUNK or lib.ogp_blocked_chunk_smem(k, m) > MAX_SHARED_BYTES:
         raise ValueError(f"chunk (k={k}, m={m}) exceeds what the K1 kernel takes (k <= {MAX_CHUNK}, "
                          f"(2m + 2k + 32) floats of shared memory <= {MAX_SHARED_BYTES} bytes)")
@@ -160,3 +286,51 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
 
 
 blocked_chunk.launches = 0
+blocked_chunk.sub_launches = 0
+blocked_chunk.coord_launches = 0
+
+
+def _chunk_sub(lib, L, B, idx, wv, sub):
+    """K5 with ``sub < k``; arguments checked by :func:`blocked_chunk`."""
+    Bd, m = L.shape[0], L.shape[-1]
+    k, P = idx.shape
+    nb = k // sub
+    if sub > MAX_CHUNK or lib.ogp_blocked_chunk_smem(sub, m) > MAX_SHARED_BYTES:
+        raise ValueError(f"sub-block (sub={sub}, m={m}) exceeds what the K1 recursion kernel takes")
+    f32 = dict(dtype=torch.float32, device=L.device)
+    # sub-block j's weights contiguous, as its gather reads them
+    wv_sub = wv.reshape(Bd, nb, sub, P).transpose(0, 1).contiguous()
+    factors = torch.empty((4, nb, Bd, sub, m), **f32)  # corrected rows q, U, P, R
+    a2 = torch.empty((Bd, sub, sub), **f32)
+    T = torch.empty((Bd, 2, m, sub), **f32)
+    p_ = _build.ptr
+    rc = lib.ogp_blocked_chunk_sub(
+        p_(L), p_(B), p_(idx), p_(wv_sub), p_(factors[0]), p_(factors[1]), p_(factors[2]),
+        p_(factors[3]), p_(a2), p_(T), Bd, k, sub, P, m, _build.stream_of(L),
+    )
+    _build.launch_check(rc, "blocked_chunk (sub)")
+    blocked_chunk.sub_launches += 1
+    return L, B
+
+
+def _chunk_coord(lib, L, B, idx, wv):
+    """K5 with ``mode="coord"``; arguments checked by :func:`blocked_chunk`."""
+    Bd, m = L.shape[0], L.shape[-1]
+    k, P = idx.shape
+    if lib.ogp_blocked_chunk_coord_smem(k) > MAX_SHARED_BYTES:
+        raise ValueError(f"chunk (k={k}) exceeds what the coord kernel takes "
+                         f"((3k^2 + 6k + 32) floats of shared memory <= {MAX_SHARED_BYTES} bytes)")
+    f32 = dict(dtype=torch.float32, device=L.device)
+    p0 = torch.empty((Bd, k, m), **f32)
+    M, Ut = torch.empty((2, Bd, k, k), **f32)
+    Z = torch.empty((Bd, 2, k, k), **f32)  # (Rt, Pt) per output
+    Tc = torch.empty((Bd, 2, k, k), **f32)  # (Rt^T Ut, Pt^T Ut) per output
+    X = torch.empty((2, Bd, 2, m, k), **f32)  # X P0^T, then times Tc
+    p_ = _build.ptr
+    rc = lib.ogp_blocked_chunk_coord(
+        p_(L), p_(B), p_(idx), p_(wv), p_(p0), p_(M), p_(Ut), p_(Z), p_(Tc), p_(X[0]), p_(X[1]),
+        Bd, k, P, m, _build.stream_of(L),
+    )
+    _build.launch_check(rc, "blocked_chunk (coord)")
+    blocked_chunk.coord_launches += 1
+    return L, B

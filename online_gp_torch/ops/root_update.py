@@ -154,6 +154,73 @@ def blocked_factors(p0: torch.Tensor):
     return U, Pm, R
 
 
+CHUNK_MODES = ("flat", "coord")
+
+
+def chunk_sub(k: int, sub: Optional[int], mode: str) -> int:
+    """The sub-block size of a rank-k chunk (``sub=None`` is k, the flat
+    recursion); raises ValueError unless ``sub`` divides k and ``mode`` is
+    one of :data:`CHUNK_MODES`, as ``pallas_blocked_chunk_batched`` does."""
+    sub = k if sub is None else int(sub)
+    if sub < 1 or k % sub:
+        raise ValueError(f"sub={sub} must divide the chunk rank k={k}")
+    if mode not in CHUNK_MODES:
+        raise ValueError(f"unknown chunk-kernel mode {mode!r} (flat/coord)")
+    return sub
+
+
+def blocked_factors_sub(p0: torch.Tensor, sub: int):
+    """Two-level form of :func:`blocked_factors`: the flat recursion runs
+    inside sub-blocks of ``sub`` rows (``sub`` divides k). Sub-block j's raw
+    rows are first corrected by the earlier sub-blocks' operators in stream
+    order (q <- q + (q P_i^T) U_i), then factored locally. The chunk is
+    L (I + R_0^T U_0) ... (I + R_{nb-1}^T U_{nb-1}), and the same for B with
+    P: apply the returned rows one sub-block at a time, in order. Returns
+    (U, P, R), each (..., k, m)."""
+    k = p0.shape[-2]
+    parts = []
+    with f32_matmul_precision():
+        for lo in range(0, k, sub):
+            rows = p0[..., lo : lo + sub, :]
+            for U_i, P_i, _ in parts:
+                rows = rows + (rows @ P_i.mT) @ U_i
+            parts.append(blocked_factors(rows))
+    return tuple(torch.cat(f, dim=-2) for f in zip(*parts))
+
+
+def blocked_factors_coord(p0: torch.Tensor):
+    """Coordinate form of :func:`blocked_factors`: every factor row lies in
+    the span of the rows of p0, so the recursion runs on k-dim coordinates
+    (u_t = Ut[t] p0, p_t = Pt[t] p0, r_t = Rt[t] p0) with inner products
+    taken through M = p0 p0^T. The chunk is L (I + p0^T (Rt^T Ut) p0),
+    B (I + p0^T (Pt^T Ut) p0). Returns (Ut, Pt, Rt), each (..., k, k).
+    The guards are the Pallas kernel's: s^2 = max(pi^T M pi, 0), and
+    u = 0 when s <= 1e-20."""
+    k = p0.shape[-2]
+    shape = (*p0.shape[:-2], k, k)
+    Ut, Pt, Rt = (torch.zeros(shape, dtype=p0.dtype, device=p0.device) for _ in range(3))
+    eye = torch.eye(k, dtype=p0.dtype, device=p0.device)
+    with f32_matmul_precision():
+        M = p0 @ p0.mT
+        for t in range(k):
+            a = (Pt @ M[..., t, :, None])[..., 0]  # rows >= t are zero
+            pi = eye[t] + (Ut.mT @ a[..., None])[..., 0]
+            mpi = (M @ pi[..., None])[..., 0]
+            s2 = torch.clamp(torch.sum(pi * mpi, dim=-1, keepdim=True), min=0.0)
+            s = torch.sqrt(s2)
+            inv_s = torch.where(s > 1e-20, 1.0 / torch.clamp(s, min=1e-20), torch.zeros_like(s))
+            alpha = pi * inv_s
+            c = torch.sqrt(s2 + 1.0) - 1.0
+            d = 1.0 / torch.sqrt(s2 + 1.0) - 1.0
+            g = (Ut @ (mpi * inv_s)[..., None])[..., 0]
+            p_col = d * (alpha + (Pt.mT @ g[..., None])[..., 0])
+            r_col = c * (alpha + (Rt.mT @ g[..., None])[..., 0])
+            Ut[..., t, :] = alpha
+            Pt[..., t, :] = p_col
+            Rt[..., t, :] = r_col
+    return Ut, Pt, Rt
+
+
 def pad_and_chunk_stream(idx: torch.Tensor, wv: torch.Tensor, block: int):
     """Zero-pad a stencil stream to a multiple of the chunk rank and
     reshape to (nc, k, P). Zero-weight padding points are exact no-ops in

@@ -29,7 +29,8 @@ from online_gp_torch import convert
 from online_gp_torch.config import SolverConfig
 from online_gp_torch.kernels.base import RBFKernel
 from online_gp_torch.models import wiski as tw
-from online_gp_torch.ops import cuda_pred_stream, cuda_root_update, precision
+from online_gp_torch.ops import cuda_chol, cuda_pred_stream, cuda_root_update, precision
+from online_gp_torch.ops.root_update import RootCache
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = 1e-9
@@ -223,9 +224,15 @@ def test_port_never_imports_jax_or_the_jax_package():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
+def _launch_counts():
+    ru = cuda_root_update
+    return (ru.rank1_apply.launches, ru.blocked_chunk.launches, ru.blocked_chunk.sub_launches,
+            ru.blocked_chunk.coord_launches, ru.rank1_update.launches, cuda_pred_stream.pred_chunk.launches,
+            cuda_chol.blocked_cholesky.launches)
+
+
 def test_cpu_tensors_never_touch_launch_counters():
-    wrappers = (cuda_root_update.rank1_apply, cuda_root_update.blocked_chunk, cuda_pred_stream.pred_chunk)
-    before = [w.launches for w in wrappers]
+    before = _launch_counts()
     rng = np.random.default_rng(9)
     _, tm, _, tp = _models(1)
     x0, y0, n0 = _data(rng, 20, 1)
@@ -236,7 +243,16 @@ def test_cpu_tensors_never_touch_launch_counters():
     state = tw.wiski_condition(tm, state, T(xs[:1]), T(ys[:1]), T(ns[:1]))
     state = tw.wiski_stream(tm, state, T(xs), T(ys), T(ns), block_size=4)
     tw.wiski_prequential_stream(tm, tp, state, caches, T(xs), T(ys), T(ns), block_size=4)
-    assert [w.launches for w in wrappers] == before
+    full = tw.wiski_init(tm, T(x0), T(y0), T(n0)).roots
+    v = torch.tensor(rng.normal(size=(1, full.root.shape[-1], 1)))
+    cuda_root_update.fused_root_cache_update(full, v)
+    cuda_root_update.fused_root_cache_update(RootCache(None, full.root, full.inv_root), v)
+    L, B = state.roots.root, state.roots.inv_root
+    idx, wv = torch.tensor(rng.integers(0, L.shape[-1], (8, 4))), torch.tensor(rng.uniform(size=(1, 8, 4)))
+    cuda_root_update.blocked_chunk(L, B, idx, wv, sub=4)
+    cuda_root_update.blocked_chunk(L, B, idx, wv, mode="coord")
+    cuda_chol.blocked_cholesky(full.mat + torch.eye(full.mat.shape[-1], dtype=full.mat.dtype), block=16)
+    assert _launch_counts() == before
 
 
 def test_kernels_raise_on_devices_they_do_not_take():
@@ -255,6 +271,20 @@ def test_kernels_raise_on_devices_they_do_not_take():
             L, torch.empty((1, m), **meta), idx, torch.empty((k, P), **meta),
             torch.empty((1, k), **meta), torch.empty((1, k), **meta),
         )
+    v = torch.empty((1, m, 1), **meta)
+    for A in (L, None):
+        with pytest.raises(TypeError, match="rank1_update_plain"):
+            cuda_root_update.rank1_update(L, L, A, v)
+        with pytest.raises(TypeError, match="rank1_update_plain"):
+            cuda_root_update.fused_root_cache_update(RootCache(A, L, L), v)
+        # unbatched q = 1 is K4's too, never the plain root_cache_update
+        with pytest.raises(TypeError, match="rank1_update_plain"):
+            cuda_root_update.fused_root_cache_update(RootCache(None if A is None else A[0], L[0], L[0]), v[0])
+    for options in (dict(sub=1), dict(mode="coord")):
+        with pytest.raises(TypeError, match="blocked_chunk_plain"):
+            cuda_root_update.blocked_chunk(L, L, idx, torch.empty((1, k, P), **meta), **options)
+    with pytest.raises(TypeError, match="blocked_cholesky_plain"):
+        cuda_chol.blocked_cholesky(L)
 
 
 class _FakeCudaTensor:
