@@ -9,20 +9,29 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
 2. Each kernel (K2 rank1_apply, K1 blocked_chunk, K3 pred_chunk) against
    its plain PyTorch version on the card, on the same inputs, at m=900
    and k=128, for Bd=1 and Bd=2: K2 and one K1 chunk to 1e-5, a 4-chunk
-   K1 stream to 2e-4, K3 to 2e-4 (allclose: |a-b| <= tol + tol*|b|).
-   Each kernel's device time (torch.profiler, summed over its CUDA
+   K1 stream to 2e-4, K3 to 2e-4 (allclose: |a-b| <= tol + tol*|b|); K1
+   and K3 bitwise the same on a second call. Outside the cluster
+   envelope, on the single-block recursion kernels: one K1 chunk at
+   m=2,500 (a 50x50 grid) to 1e-5 and one K3 chunk of k=512 at m=900 to
+   2e-4. Each kernel's device time (torch.profiler, summed over its CUDA
    kernels, with each one's share), its wrapper's time between CUDA
    events (host issue included), its plain version's time, one PyTorch
    library call's (a yardstick the port never calls) and the least time
-   the card could take for the same work. Then the host ops of 16
-   single-point wiski_condition calls (where each one's time goes).
+   the card could take for the same work. The K1 and K3 cluster
+   recursions are rows of their own: their device time within the chunk,
+   the plain recursion's time, their bound, and the chunk's error (the
+   wrappers return no factors). Then the host ops of 16 single-point
+   wiski_condition calls.
 3. The WISKI serving path at the width of bench.py's configuration: 2-D
    inputs, a 30x30 grid (m=900), RBF, one output, learned second noise,
    256 seed points, slim state. wiski_stream of 16,384 points (K1), 256
    single-point wiski_condition calls (K2), prediction caches and
    predict on 1,024 held-out points, wiski_prequential_stream of 4,096
    points (K3 and K1). The launch counters are zeroed just before and
-   read just after; each kernel must have launched. Gates: the stream's
+   read just after; each kernel must have launched, every K1 and K3 chunk
+   with its recursion on a cluster. Then a short profiled pass of both
+   streams: torch.profiler must record the cluster recursion kernels and
+   no single-block recursion. Gates: the stream's
    roots match the plain root update over a 256-point prefix to within
    1e-3 * scale (bench.py's gate), the predictions are finite, and the
    decomposition check's inverse_root_err is finite.
@@ -76,10 +85,15 @@ from online_gp_torch.models.wiski import (
 )
 from online_gp_torch.ops import _build
 from online_gp_torch.ops.cuda_chol import blocked_cholesky, blocked_cholesky_plain
-from online_gp_torch.ops.cuda_pred_stream import pred_chunk, pred_chunk_stencil_plain
+from online_gp_torch.ops.cuda_pred_stream import (
+    pred_chunk,
+    pred_chunk_stencil_plain,
+    pred_cluster_plan,
+)
 from online_gp_torch.ops.cuda_root_update import (
     blocked_chunk,
     blocked_chunk_plain,
+    chunk_cluster_plan,
     fused_root_cache_update,
     rank1_apply,
     rank1_apply_plain,
@@ -113,6 +127,8 @@ N_K4 = 256  # phase 4: dense-v updates per K4 state
 SUB = 32  # phase 4: K5's sub-block size
 VARIANTS = {"blocked_chunk_sub": dict(sub=SUB), "blocked_chunk_coord": dict(mode="coord")}
 CHOL_BLOCK = 128
+OUTSIDE_SIDE = 50  # phase 2: a K1 chunk at m = 2,500, outside the cluster envelope
+OUTSIDE_K3 = 512  # phase 2: a K3 chunk of k = 512 at m = 900, outside it
 
 # (device memory bytes/s, f32 flop/s outside the tensor cores), NVIDIA data
 # sheets, dense, at the full power limit
@@ -289,8 +305,11 @@ def plain_stream(L, B, idx, wv, k, **kw):
 
 
 def check_blocked_chunk(rng, grid, peaks, dev):
+    """K1 against its plain version; returns the chunk's results and its
+    cluster recursion's (chunk_recursion_cluster_kernel within the chunk)."""
     m = grid.num_points
-    out = {}
+    plan = chunk_cluster_plan(K, m)
+    out, rec = {}, {}
     for Bd in (1, 2):
         L, B = synthetic_roots(rng, Bd, m, dev)
         _, idx, w = stencil(rng, grid, 4 * K, dev)
@@ -298,8 +317,10 @@ def check_blocked_chunk(rng, grid, peaks, dev):
         i1, wv1 = idx[:K].contiguous(), wv[:, :K].contiguous()
         want = blocked_chunk_plain(L, B, i1, wv1)
         got = blocked_chunk(*clone_all(L, B), i1, wv1)
+        again = blocked_chunk(*clone_all(L, B), i1, wv1)
         torch.cuda.synchronize()
         err = max_err(got, want, 1e-5, f"blocked_chunk Bd={Bd}")
+        bitwise(got, again, f"blocked_chunk Bd={Bd}")
         want_s = plain_stream(L, B, idx, wv, K)
         Lk, Bk = clone_all(L, B)
         for c in range(4):
@@ -308,7 +329,8 @@ def check_blocked_chunk(rng, grid, peaks, dev):
         err_stream = max_err((Lk, Bk), want_s, 2e-4, f"blocked_chunk 4-chunk stream Bd={Bd}")
 
         # the yardstick applies this chunk's U, P, R from the plain recursion
-        U, Pm, R = blocked_factors(torch.einsum("bkp,bkpm->bkm", wv1, B[:, i1.long()]))
+        p0 = torch.einsum("bkp,bkpm->bkm", wv1, B[:, i1.long()])
+        U, Pm, R = blocked_factors(p0)
 
         def library(L, B):
             L.baddbmm_(torch.bmm(L, R.mT), U)
@@ -320,22 +342,61 @@ def check_blocked_chunk(rng, grid, peaks, dev):
         flops = Bd * (2 * K * P * m + 5 * K * (K - 1) * m + 8 * m * m * K)
         bms, by = bound_ms(nbytes, flops, peaks)
         ms, stages = device_ms(blocked_chunk, make, {
-            "chunk_gather_kernel": 1, "chunk_recursion_kernel": 1, "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1})
+            "chunk_gather_kernel": 1, "chunk_recursion_cluster_kernel": 1, "chunk_apply_t_kernel": 1,
+            "chunk_apply_x_kernel": 1})
         out[Bd] = dict(
             max_abs_err=err, stream_max_abs_err=err_stream, ms=ms, stages_ms=stages,
             wrapper_ms=time_ms(blocked_chunk, make), plain_ms=time_ms(blocked_chunk_plain, make),
             library_ms=time_ms(library, lambda: clone_all(L, B)), bound_ms=bms, bound_by=by,
         )
-    return out
+        # a, p, U p, P^T g, R^T g: 10 t m flops at step t; p0 in, U, P, R out
+        bms, by = bound_ms(4 * 4 * Bd * K * m, Bd * 5 * K * (K - 1) * m, peaks)
+        rec[Bd] = dict(
+            max_abs_err=err, ms=stages["chunk_recursion_cluster_kernel"], cluster=plan.cluster,
+            shared_bytes=plan.shared_bytes, plain_ms=time_ms(blocked_factors, lambda: (p0,)),
+            library_ms=None, bound_ms=bms, bound_by=by,
+        )
+    out["outside"] = check_chunk_outside_envelope(rng, dev)
+    return out, rec
+
+
+def check_chunk_outside_envelope(rng, dev):
+    """One K1 chunk at a shape no cluster holds (OUTSIDE_SIDE^2 grid, k = K):
+    it runs the single-block recursion kernel, against the plain version."""
+    grid = Grid.create([(-1.1, 1.1)] * 2, OUTSIDE_SIDE, device=dev)
+    m = grid.num_points
+    if chunk_cluster_plan(K, m) is not None:
+        raise AssertionError(f"(k={K}, m={m}) was meant to lie outside the cluster envelope")
+    L, B = synthetic_roots(rng, 1, m, dev)
+    _, idx, w = stencil(rng, grid, K, dev)
+    wv = w[None].contiguous()
+    before = (blocked_chunk.launches, blocked_chunk.cluster_launches)
+    got = blocked_chunk(*clone_all(L, B), idx, wv)
+    torch.cuda.synchronize()
+    if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1]) != (1, 0):
+        raise AssertionError(f"blocked_chunk at m={m} did not take the single-block recursion")
+    err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk m={m}")
+    make = lambda: (*clone_all(L, B), idx, wv)
+    ms, stages = device_ms(blocked_chunk, make, {
+        "chunk_gather_kernel": 1, "chunk_recursion_kernel": 1, "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1})
+    return dict(m=m, k=K, max_abs_err=err, ms=ms, stages_ms=stages)
+
+
+def bitwise(got, again, what):
+    """Raise unless two calls on the same inputs gave identical outputs."""
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
 
 
 def check_pred_chunk(rng, grid, model, params, peaks, dev):
+    """K3 against its plain version; returns the chunk's results and its
+    cluster recursion's (pred_recursion_cluster_kernel within the chunk)."""
     m = grid.num_points
     x0 = torch.tensor(rng.uniform(-1, 1, (N_SEED, 2)), dtype=torch.float32, device=dev)
     y0 = torch.sin(3 * x0[:, :1])
     state = wiski_init(model, x0, y0, torch.ones_like(y0))
     mean_cache, cov_cache = wiski_prediction_caches(model, params, state)
-    out = {}
+    out, rec = {}, {}
     for Bd in (1, 2):
         C = torch.cat([cov_cache, 0.9 * cov_cache])[:Bd].contiguous()
         mu = torch.cat([mean_cache[..., 0], -mean_cache[..., 0]])[:Bd].contiguous()
@@ -344,12 +405,15 @@ def check_pred_chunk(rng, grid, model, params, peaks, dev):
         nz = torch.ones((Bd, K), device=dev)
         want = pred_chunk_stencil_plain(C, mu, idx, w, y, nz)
         got = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
+        again = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
         torch.cuda.synchronize()
         err = max_err(got, want, 2e-4, f"pred_chunk Bd={Bd}")
+        bitwise(got, again, f"pred_chunk Bd={Bd}")
 
         # the yardstick applies this chunk's Z and r from the plain recursion
         S = stencil_rows(idx, w, m)
-        Zf, rf, _, _ = pred_chunk_factors(S, S @ C, mu @ S.mT, y, nz)
+        plain_args = (S, S @ C, mu @ S.mT, y, nz)
+        Zf, rf, _, _ = pred_chunk_factors(*plain_args)
 
         def library(C, mu):
             C.baddbmm_(Zf.mT, Zf, alpha=-1.0)
@@ -362,13 +426,46 @@ def check_pred_chunk(rng, grid, model, params, peaks, dev):
         nbytes = 4 * (Bd * m * (m + 1) + 2 * Bd * m + 4 * Bd * K) + 8 * K * P
         flops = Bd * (2 * K * P * m + K * (K - 1) * m + m * (m + 1) * K + 2 * m * K)
         bms, by = bound_ms(nbytes, flops, peaks)
-        ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, "pred_recursion_kernel": 1, "pred_apply_kernel": 1})
+        ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, "pred_recursion_cluster_kernel": 1,
+                                                          "pred_apply_kernel": 1})
         out[Bd] = dict(
             max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(pred_chunk, make),
             plain_ms=time_ms(pred_chunk_stencil_plain, make),
             library_ms=time_ms(library, lambda: clone_all(C, mu)), bound_ms=bms, bound_by=by,
         )
-    return out
+        # a: 2 t P, ct: 2 t m flops at step t; c0w in, Z out
+        bms, by = bound_ms(4 * (2 * Bd * K * m + 5 * Bd * K) + 8 * K * P, Bd * K * (K - 1) * (m + P), peaks)
+        plan = pred_cluster_plan(K, m, P)
+        rec[Bd] = dict(
+            max_abs_err=err, ms=stages["pred_recursion_cluster_kernel"], cluster=plan.cluster,
+            shared_bytes=plan.shared_bytes, plain_ms=time_ms(pred_chunk_factors, lambda: plain_args),
+            library_ms=None, bound_ms=bms, bound_by=by,
+        )
+    out["outside"] = check_pred_chunk_outside_envelope(rng, grid, cov_cache, mean_cache[..., 0], dev)
+    return out, rec
+
+
+def check_pred_chunk_outside_envelope(rng, grid, C, mu, dev):
+    """One K3 chunk at a shape no cluster holds (k = OUTSIDE_K3 at the main
+    path's m): it runs the single-block recursion kernel, against the plain
+    version."""
+    m = grid.num_points
+    x, idx, w = stencil(rng, grid, OUTSIDE_K3, dev)
+    if pred_cluster_plan(OUTSIDE_K3, m, idx.shape[1]) is not None:
+        raise AssertionError(f"(k={OUTSIDE_K3}, m={m}) was meant to lie outside the cluster envelope")
+    C, mu = C.contiguous(), mu.contiguous()
+    y = torch.sin(3 * x[:, 0])[None].contiguous()
+    nz = torch.ones((1, OUTSIDE_K3), device=dev)
+    before = (pred_chunk.launches, pred_chunk.cluster_launches)
+    got = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
+    torch.cuda.synchronize()
+    if (pred_chunk.launches - before[0], pred_chunk.cluster_launches - before[1]) != (1, 0):
+        raise AssertionError(f"pred_chunk at k={OUTSIDE_K3} did not take the single-block recursion")
+    err = max_err(got, pred_chunk_stencil_plain(C, mu, idx, w, y, nz), 2e-4, f"pred_chunk k={OUTSIDE_K3}")
+    make = lambda: (*clone_all(C, mu), idx, w, y, nz)
+    ms, stages = device_ms(pred_chunk, make, {
+        "pred_gather_kernel": 1, "pred_recursion_kernel": 1, "pred_apply_kernel": 1})
+    return dict(m=m, k=OUTSIDE_K3, max_abs_err=err, ms=ms, stages_ms=stages)
 
 
 # --------------------------------------------------------------------------
@@ -407,6 +504,7 @@ def main_path(rng, model, params, card, dev):
     wrappers = (rank1_apply, blocked_chunk, pred_chunk)
     for wrapper in wrappers:
         wrapper.launches = 0
+    blocked_chunk.cluster_launches = pred_chunk.cluster_launches = 0
     t0 = time.perf_counter()
     state = wiski_stream(model, state, xs, ys, ns, block_size=K)
     torch.cuda.synchronize()
@@ -423,6 +521,8 @@ def main_path(rng, model, params, card, dev):
     torch.cuda.synchronize()
     t4 = time.perf_counter()
     launches = {w.__name__: w.launches for w in wrappers}
+    launches["chunk_recursion_cluster"] = blocked_chunk.cluster_launches
+    launches["pred_recursion_cluster"] = pred_chunk.cluster_launches
 
     print(f"main path on {card}:")
     print(f"  wiski_stream {N_STREAM} points, block {K}: {N_STREAM / (t1 - t0):.1f} updates/s ({t1 - t0:.4f} s)")
@@ -433,6 +533,9 @@ def main_path(rng, model, params, card, dev):
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"the main path never launched {name}")
+    if (launches["chunk_recursion_cluster"], launches["pred_recursion_cluster"]) != (
+            launches["blocked_chunk"], launches["pred_chunk"]):
+        raise AssertionError("a chunk of the main path at m = 900 did not run its recursion on a cluster")
 
     if tuple(mean.shape) != (1, N_TEST) or tuple(var.shape) != (1, N_TEST):
         raise AssertionError(f"predict shapes {tuple(mean.shape)}, {tuple(var.shape)}")
@@ -462,7 +565,35 @@ def main_path(rng, model, params, card, dev):
     print(f"  wiski_check_decomposition inverse_root_err: {inv_root_err:.6e}")
     if not math.isfinite(inv_root_err):
         raise AssertionError("inverse_root_err is not finite")
+    profile_main_path(model, params, state, caches, (xs, ys, ns), (xp, yp, npr))
     return launches, state
+
+
+def profile_main_path(model, params, state, caches, stream, preq, n=2 * K):
+    """The CUDA kernels torch.profiler records over a short pass of the
+    main path's streams (n points of each) on copies of its final state:
+    the cluster recursions run, and the single-block ones do not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    copy = lambda st: st._replace(roots=RootCache(None, st.roots.root.clone(), st.roots.inv_root.clone()))
+    caches = tuple(c.clone() for c in caches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        wiski_stream(model, copy(state), *(a[:n] for a in stream), block_size=K)
+        wiski_prequential_stream(model, params, copy(state), caches, *(a[:n] for a in preq), block_size=K)
+        torch.cuda.synchronize()
+    counts = {}
+    for ev in prof.key_averages():
+        for name in ("chunk_recursion_cluster_kernel", "pred_recursion_cluster_kernel",
+                     "chunk_recursion_kernel", "pred_recursion_kernel"):
+            if f"::{name}(" in ev.key:
+                counts[name] = counts.get(name, 0) + ev.count
+    print(f"  recursion kernels recorded over {n} + {n} main-path points: {json.dumps(counts)}")
+    if not (counts.get("chunk_recursion_cluster_kernel") and counts.get("pred_recursion_cluster_kernel")):
+        raise AssertionError("torch.profiler recorded no cluster recursion on the main path")
+    if counts.get("chunk_recursion_kernel") or counts.get("pred_recursion_kernel"):
+        raise AssertionError("the main path at m = 900 launched a single-block recursion kernel")
 
 
 def profile_condition(rng, model, dev):
@@ -674,7 +805,8 @@ def check_chunk_variants(rng, grid, peaks, dev):
     nb = K // SUB
     profile_kernels = {
         "blocked_chunk_sub": {"chunk_gather_kernel": nb, "batched_gemm_kernel": nb * (nb - 1),
-                              "chunk_recursion_kernel": nb, "chunk_apply_t_kernel": nb, "chunk_apply_x_kernel": nb},
+                              "chunk_recursion_cluster_kernel": nb, "chunk_apply_t_kernel": nb,
+                              "chunk_apply_x_kernel": nb},
         "blocked_chunk_coord": {"chunk_gather_kernel": 1, "batched_gemm_kernel": 3, "coord_recursion_kernel": 1,
                                 "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1},
     }
@@ -808,14 +940,14 @@ def main() -> int:
         model, params = bench_model(dev)
         grid = model.grid
         card = f"{name} ({smi})"
-        results = {
-            "rank1_apply": check_rank1(rng, grid, peaks, dev),
-            "blocked_chunk": check_blocked_chunk(rng, grid, peaks, dev),
-            "pred_chunk": check_pred_chunk(rng, grid, model, params, peaks, dev),
-        }
+        results = {"rank1_apply": check_rank1(rng, grid, peaks, dev)}
+        results["blocked_chunk"], results["chunk_recursion_cluster"] = check_blocked_chunk(rng, grid, peaks, dev)
+        results["pred_chunk"], results["pred_recursion_cluster"] = check_pred_chunk(
+            rng, grid, model, params, peaks, dev)
         for kname, by_bd in results.items():
             for Bd, r in by_bd.items():
-                print(f"{kname} Bd={Bd} m={grid.num_points} k={K} on {card}: " + json.dumps(r))
+                case = f"Bd={Bd} m={grid.num_points} k={K}" if isinstance(Bd, int) else f"{Bd} the cluster envelope"
+                print(f"{kname} {case} on {card}: " + json.dumps(r))
         profile_condition(rng, model, dev)
 
         launches, final_state = main_path(rng, model, params, card, dev)
@@ -836,6 +968,8 @@ def main() -> int:
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
         "pred_chunk": ("online_gp_torch/csrc/pred_stream.cu", "online_gp_tpu/ops/pallas_pred_stream.py:95"),
+        "chunk_recursion_cluster": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
+        "pred_recursion_cluster": ("online_gp_torch/csrc/pred_stream.cu", "online_gp_tpu/ops/pallas_pred_stream.py:95"),
         "rank1_update": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:298"),
         "blocked_chunk_sub": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:415"),
         "blocked_chunk_coord": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:516"),

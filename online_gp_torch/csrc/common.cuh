@@ -1,11 +1,12 @@
-// Helpers shared by the port's CUDA kernels: warp and block sums, and one
-// shared-memory-tiled f32 GEMM tile routine.
+// Helpers shared by the port's CUDA kernels: warp and block sums, one
+// shared-memory-tiled f32 GEMM tile routine, and what the recursion kernels
+// that run on a thread-block cluster share (launch, exchange, column sums).
 //
 // All math is f32 with FMA; nothing here uses tensor cores (TF32 is off by
-// the port's precision policy) and nothing uses wgmma or TMA yet: these are
-// the first, simple versions of the kernels.
+// the port's precision policy) and nothing uses wgmma or TMA yet.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace ogp {
@@ -120,6 +121,245 @@ __device__ __forceinline__ void gemm_tile(
   }
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ---- recursions on a thread-block cluster (K1, K3) ----
+//
+// One output's m columns are split over the C blocks of a cluster: block r
+// owns columns [r W, r W + w), W = cdiv(m, C), and keeps them of the
+// recursion's factor rows in its own shared memory. Cross-block sums go
+// through distributed shared memory (DSMEM): see Exchange.
+
+namespace cg = cooperative_groups;
+
+constexpr int kClusterThreads = 512;
+constexpr int kClusterWarps = kClusterThreads / 32;
+// columns of the next step's input row a thread holds in registers: a block
+// owns at most kClusterRegs * kClusterThreads columns
+constexpr int kClusterRegs = 4;
+// returned by launch_cluster when no cluster of the shape fits on the card
+constexpr int kNoCluster = -1;
+
+// Stage stamps of the recursion kernels, for cluster_probe.py only: a
+// source built with OGP_STAMPS defined has thread 0 of each block write
+// clock64() at each stage boundary of step t into
+//     stamps[((blockIdx.y gridDim.x + blockIdx.x) k + t) kStampSlots + slot]
+// when stamps is not null. In the libraries the wrappers load OGP_STAMPS is
+// not defined and OGP_STAMP expands to nothing.
+#ifdef OGP_STAMPS
+constexpr int kStampSlots = 12;
+__device__ long long* stamps;
+#define OGP_STAMP(k, t, slot)                                                               \
+  do {                                                                                      \
+    if (threadIdx.x == 0 && ogp::stamps != nullptr)                                         \
+      ogp::stamps[((static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * (k) + (t)) * \
+                      ogp::kStampSlots +                                                    \
+                  (slot)] = clock64();                                                      \
+  } while (0)
+#else
+#define OGP_STAMP(k, t, slot) \
+  do {                        \
+  } while (0)
+#endif
+
+// A column pass over w <= 32 CT columns uses S row groups of CT warps each.
+struct ColSplit {
+  int CT, S;
+};
+
+__host__ __device__ inline ColSplit col_split(int W) {
+  const int CT = cdiv(W, 32);
+  const int S = kClusterWarps / CT;
+  return ColSplit{CT, S < 1 ? 1 : S};
+}
+
+// The column tile and row group of this thread's warp in col_partials: a
+// warp takes one tile of 32 columns and one row group, or, with more tiles
+// than warps, tiles warp, warp + kClusterWarps, ... of the only group.
+// Fixed for a kernel's life, so computed once.
+struct ColTask {
+  int s, ct0;
+};
+
+__device__ __forceinline__ ColTask col_task(ColSplit cs) {
+  const int warp = threadIdx.x >> 5;
+  if (cs.CT > kClusterWarps) return ColTask{0, warp};
+  return ColTask{warp / cs.CT, warp % cs.CT};
+}
+
+// Column sums of the first t rows of X0 (and X1 when NX = 2), row stride ld,
+// weighted by v[j] * scale, over the w columns of this block. Row j goes to
+// row group j % S, and within a group to one of four accumulators in turn,
+// added as (0 + 1) + (2 + 3); red[(x S + s) 32 CT + l] gets group s's sum
+// for column l, and col_sum adds the groups in order: the same sums on
+// every run. Called by every thread of the block; ends with __syncthreads().
+template <int NX>
+__device__ __forceinline__ void col_partials(const float* X0, const float* X1, int ld,
+                                             const float* v, float scale, int t, int w,
+                                             ColSplit cs, ColTask task, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int wc = cs.CT * 32;
+  const int s = task.s;
+  for (int ct = task.ct0; s < cs.S && ct < cs.CT; ct += kClusterWarps) {
+    const int l = ct * 32 + lane;
+    if (l >= w) continue;
+    float acc[NX][4];
+#pragma unroll
+    for (int x = 0; x < NX; ++x)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[x][c] = 0.f;
+    const int step = 4 * cs.S;
+    int j = s;
+    for (; j + 3 * cs.S < t; j += step) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int jj = j + c * cs.S;
+        const float vj = v[jj] * scale;
+        acc[0][c] = fmaf(X0[jj * ld + l], vj, acc[0][c]);
+        if (NX == 2) acc[NX - 1][c] = fmaf(X1[jj * ld + l], vj, acc[NX - 1][c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int jj = j + c * cs.S;
+      if (jj < t) {
+        const float vj = v[jj] * scale;
+        acc[0][c] = fmaf(X0[jj * ld + l], vj, acc[0][c]);
+        if (NX == 2) acc[NX - 1][c] = fmaf(X1[jj * ld + l], vj, acc[NX - 1][c]);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < NX; ++x)
+      red[(x * cs.S + s) * wc + l] = (acc[x][0] + acc[x][1]) + (acc[x][2] + acc[x][3]);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float col_sum(const float* red, int x, int l, ColSplit cs) {
+  const int wc = cs.CT * 32;
+  const float* r = red + x * cs.S * wc + l;
+  float s = r[0];
+  for (int g = 1; g < cs.S; ++g) s += r[g * wc];
+  return s;
+}
+
+// Cross-block sums without cluster barriers. Each block pushes its partial
+// values into a receive buffer in every block of the cluster with st.async,
+// whose bytes complete a transaction on the receiver's mbarrier; a block
+// waits on its own mbarrier and adds what it received in rank order, so
+// every block gets the same sums. (A cluster barrier compiles to a fence at
+// GPU scope, MEMBAR.ALL.GPU: one use here is about a third of a barrier
+// and its DSMEM reads on an H100, cluster_probe.py.) Uses alternate
+// between two buffers and two mbarriers; use n of a channel is the n-th
+// exchange, the same in every block. A block reads its buffer of use n
+// before it pushes use n + 1, with a __syncthreads() between, so no block
+// can push use n + 2 into that buffer before it has been read.
+struct Exchange {
+  unsigned long long* bars;  // 2 mbarriers
+  float* recv;               // 2 x C x stride: [use & 1][source rank][slot]
+  int C, stride, rank;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Every thread of every block calls it once, before the first use.
+__device__ __forceinline__ void exchange_init(const Exchange& x) {
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(x.bars + b)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cg::this_cluster().sync();  // no block pushes before every block's mbarriers exist
+}
+
+// Use n receives len floats from each block: thread 0 arms the mbarrier.
+__device__ __forceinline__ void exchange_expect(const Exchange& x, int n, int len) {
+  if (threadIdx.x == 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(x.bars + (n & 1))),
+                 "r"(x.C * len * 4)
+                 : "memory");
+}
+
+// v into slot i of this block's row of use n, in blocks r0, r0 + dr, ...
+// of the cluster (every block when r0 = 0, dr = 1).
+__device__ __forceinline__ void exchange_push(const Exchange& x, int n, int i, float v, int r0 = 0,
+                                              int dr = 1) {
+  const unsigned slot = smem_u32(x.recv + ((n & 1) * x.C + x.rank) * x.stride + i);
+  const unsigned bar = smem_u32(x.bars + (n & 1));
+  for (int r = r0; r < x.C; r += dr) {
+    unsigned rslot, rbar;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rslot) : "r"(slot), "r"(r));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(rbar) : "r"(bar), "r"(r));
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(rslot),
+                 "r"(__float_as_uint(v)), "r"(rbar)
+                 : "memory");
+  }
+}
+
+// Every thread waits until use n has arrived from every block. A wait that
+// outlasts ~10 s of clock traps, so a fault cannot hang the card.
+__device__ __forceinline__ void exchange_wait(const Exchange& x, int n) {
+  const unsigned bar = smem_u32(x.bars + (n & 1));
+  const unsigned parity = (n >> 1) & 1;
+  const long long start = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 34)) __trap();
+  }
+}
+
+// Slot i of use n summed over the source blocks in rank order.
+__device__ __forceinline__ float exchange_sum(const Exchange& x, int n, int i) {
+  const float* r = x.recv + (n & 1) * x.C * x.stride + i;
+  float s = r[0];
+  for (int q = 1; q < x.C; ++q) s += r[q * x.stride];
+  return s;
+}
+
+// Launches kernel(args...) on a (C, Bd) grid of kClusterThreads-thread
+// blocks in clusters of C along x, with smem bytes of dynamic shared memory.
+// Returns kNoCluster when the card cannot hold one such cluster, else the
+// launch's cudaError_t. Nothing is retried or rerouted here. C above 8, the
+// portable limit, also needs cudaFuncAttributeNonPortableClusterSizeAllowed
+// set on the kernel first (the port's kernels use C = 8).
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, int C, int Bd, long long smem, cudaStream_t s, Args... args) {
+  // a refused attribute is returned here and cleared, so that the next
+  // launch's cudaGetLastError() does not report it again
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, Bd, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (clusters < 1) return kNoCluster;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace ogp

@@ -17,29 +17,62 @@
 //   (a) gather: c0w[t] = sum_p wv[t, p] C[idx[t, p], :] (C is symmetric, so
 //       this is row t of S C_0) and mu0w[t] = sum_p wv[t, p] mu[idx[t, p]];
 //       the Pallas kernel multiplies a dense stencil S by the VMEM-resident C.
-//   (b) recursion: one block per output. a and s_t . ct are P-sparse (P =
-//       4^D), so each step has one O(t m) pass, ct = c0w[t] - Z^T a.
+//   (b) recursion, on a thread-block cluster: C = 8 blocks per output (the
+//       portable cluster size), block r owning columns [r W, r W + W), W =
+//       cdiv(m, C), with its columns of Z (k rows) in its own shared
+//       memory. a and s_t . ct are P-sparse (P = 4^D), so a step has one
+//       O(t m) pass, local to each block, and one exchange. Step t:
+//         1. ct = c0w[t] - Z^T a on the slice (a of step t, the same in
+//            every block).
+//         2. The block's partials over the stencil entries in its own
+//            columns, pushed to every block (ogp::Exchange, st.async):
+//            pv_t = s_t . ct, and a of step t + 1 (s_{t+1} . Z_j for
+//            j < t, s_{t+1} . ct for row t, unscaled).
+//         3. Every block adds the C partials in rank order: a of step
+//            t + 1 and pv_t; then pm_t = mu0w[t] + r . a (r . a formed
+//            before the wait), inv = rsqrt(max(pv_t + nz_t, 1e-20)), r_t.
+//         4. Z[t] = ct inv on the slice; row t of the next a times inv.
+//       Each block reads only its own shared memory: a step's 16 stencil
+//       entries lie in one or two blocks' columns, so reading them from
+//       their owners over DSMEM would queue the whole cluster's reads on
+//       those one or two SMs. Z goes to the scratch of the apply after the
+//       last step. Shapes whose slice, stencil and vectors do not fit a
+//       block (m > 3,136 at k = 128, P = 16) run the single-block kernel
+//       instead (one block per output, Z in L2): pred_cluster_plan in
+//       online_gp_torch/ops/cuda_pred_stream.py, by shape only, mirroring
+//       pred_cluster_layout below (the wrapper checks the two agree).
 //   (c) apply: C -= Z^T Z as a shared-memory-tiled f32 GEMM in place, with
 //       mu += Z^T r fused into the blocks of the first tile row.
 // Bound: operations. C is symmetric, so C -= Z^T Z needs m (m + 1) k flops
 // (a SYRK) and m (m + 1) / 2 floats of C read and written; with the recursion's
 // k^2 m that is 0.12 GFLOP per output at m = 900, k = 128. The apply below
 // updates all m^2 entries (the gather reads rows of C as columns, so both
-// halves are kept). The single-block recursion is far above that bound and is
-// the first target for speed.
+// halves are kept). The recursion is bound by latency: a step is one
+// exchange and four block barriers around short shared-memory passes
+// (~2.1 us at t = 64 on an H100; cluster_probe.py measures each stage,
+// building this file with OGP_STAMPS, common.cuh).
 //
-// Not carried over from the Pallas design: the VMEM-resident C and the (k, m)
-// scratch factors (Z lives in device memory here, scratch from the wrapper);
-// the in-order grid whose first tile ran the recursion (three launches here);
-// the padding of m to a 128-lane multiple (the kernels mask their own edge).
+// Not carried over from the Pallas design: the VMEM-resident C (it stays in
+// device memory) and the (k, m) scratch factors (split over the cluster's
+// shared memory); the in-order grid whose first tile ran the recursion
+// (three launches here); the padding of m to a 128-lane multiple (the
+// kernels mask their own edge).
 #include "common.cuh"
 
 using ogp::cdiv;
+using ogp::ColSplit;
+using ogp::ColTask;
+using ogp::col_partials;
+using ogp::col_sum;
 using ogp::gemm_tile;
+using ogp::kClusterRegs;
+using ogp::kClusterThreads;
+using ogp::kClusterWarps;
 using ogp::kGemmThreads;
 using ogp::kTileM;
 using ogp::kTileN;
 using ogp::warp_sum;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -137,6 +170,181 @@ pred_recursion_kernel(const int* __restrict__ idx, const float* __restrict__ wv,
   }
 }
 
+// Shared-memory layout of one block of the cluster recursion;
+// pred_cluster_plan (online_gp_torch/ops/cuda_pred_stream.py) mirrors it.
+struct PredClusterLayout {
+  int C, W;
+  ColSplit cs;
+  long long floats;
+};
+
+__host__ __device__ inline PredClusterLayout pred_cluster_layout(int k, int m, int P, int C) {
+  PredClusterLayout lay;
+  lay.C = C;
+  lay.W = cdiv(m, C);
+  lay.cs = ogp::col_split(lay.W);
+  // two mbarriers; Z slice; ct; a (two steps); the receive buffers (two
+  // uses of C rows of k + 1); r, mu0w, y, nz; column partials; the chunk's
+  // stencil entries in this block (local columns, weights, counts); inv,
+  // r . a
+  lay.floats = 4 + static_cast<long long>(k) * lay.W + lay.W + 2LL * k + 2LL * C * (k + 1) +
+               4LL * k + static_cast<long long>(lay.cs.S) * lay.cs.CT * 32 + 2LL * k * P + k + 2;
+  return lay;
+}
+
+// (b) on a cluster of lay.C blocks per output, grid (C, Bd).
+__global__ void __launch_bounds__(kClusterThreads)
+pred_recursion_cluster_kernel(const int* __restrict__ idx, const float* __restrict__ wv,
+                              const float* __restrict__ c0w, const float* __restrict__ mu0w,
+                              const float* __restrict__ y, const float* __restrict__ nz,
+                              float* __restrict__ Z, float* __restrict__ r, float* __restrict__ pm,
+                              float* __restrict__ pv, int k, int P, int m, PredClusterLayout lay) {
+  extern __shared__ float sh[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = lay.C, W = lay.W;
+  const ColSplit cs = lay.cs;
+  const int rank = static_cast<int>(cluster.block_rank());
+  float* Zs = sh + 4;               // k x W: this block's columns of Z (after two mbarriers)
+  float* ct = Zs + k * W;           // W
+  float* a = ct + W;                // 2 x k: a of step t at (t & 1)
+  const ogp::Exchange x{reinterpret_cast<unsigned long long*>(sh), a + 2 * k, C, k + 1, rank};
+  float* rs = x.recv + 2 * C * (k + 1);  // k: r so far
+  float* vec = rs + k;              // 3 k: mu0w, y, nz of this output
+  float* red = vec + 3 * k;         // S CT 32: column partials
+  int* sloc = reinterpret_cast<int*>(red + cs.S * cs.CT * 32);  // k x P
+  float* swv = reinterpret_cast<float*>(sloc + k * P);            // k x P
+  int* scnt = reinterpret_cast<int*>(swv + k * P);                // k
+  float* sc = reinterpret_cast<float*>(scnt + k);                 // inv, r . a of step t
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const ColTask task = ogp::col_task(cs);
+  const int c0 = rank * W;
+  const int w = max(0, min(W, m - c0));
+  const long long b = blockIdx.y, mm = m;
+  const float* c0b = c0w + b * k * mm + c0;
+  float* Zb = Z + b * k * mm + c0;
+  // step t's stencil entries in this block's columns, in stencil order:
+  // local column and weight, scnt[t] of them
+  for (int t = tid; t < k; t += kClusterThreads) {
+    int n = 0;
+    for (int q = 0; q < P; ++q) {
+      const int col = idx[t * P + q];
+      const int l = col - c0;
+      if ((unsigned)col < (unsigned)m && l >= 0 && l < w) {
+        sloc[t * P + n] = l;
+        swv[t * P + n] = wv[t * P + q];
+        ++n;
+      }
+    }
+    scnt[t] = n;
+    vec[t] = mu0w[b * k + t];
+    vec[k + t] = y[b * k + t];
+    vec[2 * k + t] = nz[b * k + t];
+  }
+  float next[kClusterRegs];  // c0w[t + 1] for this thread's columns
+#pragma unroll
+  for (int i = 0; i < kClusterRegs; ++i) {
+    const int l = tid + i * kClusterThreads;
+    next[i] = l < w ? c0b[l] : 0.f;
+  }
+  ogp::exchange_init(x);  // also orders the prologue's shared-memory writes
+
+  for (int t = 0; t < k; ++t) {
+    OGP_STAMP(k, t, 0);
+    const float* at = a + (t & 1) * k;
+    float* an = a + ((t + 1) & 1) * k;
+    // 1. ct = c0w[t] - Z^T a on the slice
+    col_partials<1>(Zs, nullptr, W, at, 1.f, t, w, cs, task, red);
+#pragma unroll
+    for (int i = 0; i < kClusterRegs; ++i) {
+      const int l = tid + i * kClusterThreads;
+      if (l < w) ct[l] = next[i] - col_sum(red, 0, l, cs);
+      if (l < w && t + 1 < k) next[i] = c0b[(t + 1) * mm + l];
+    }
+    __syncthreads();
+    OGP_STAMP(k, t, 1);
+    // 2. this block's partials over its stencil entries, pushed as exchange
+    // use t: a_j of step t + 1 for j <= t (row t as ct, unscaled) in slot j,
+    // and pv_t = s_t . ct in slot nrows; the last warp forms r . a of step t
+    const int nrows = t + 1 < k ? t + 1 : 0;
+    ogp::exchange_expect(x, t, nrows + 1);
+    for (int j = tid; j <= nrows; j += kClusterThreads) {
+      const int tq = j == nrows ? t : t + 1;
+      const int* lq = sloc + tq * P;
+      const float* wq = swv + tq * P;
+      const float* row = j < t && j != nrows ? Zs + j * W : ct;
+      float s = 0.f;
+      for (int q = 0; q < scnt[tq]; ++q) s = fmaf(wq[q], row[lq[q]], s);
+      ogp::exchange_push(x, t, j, s);
+    }
+    if ((tid >> 5) == kClusterWarps - 1) {
+      float ra = 0.f;
+      for (int j = lane; j < t; j += 32) ra = fmaf(rs[j], at[j], ra);
+      ra = warp_sum(ra);
+      if (lane == 0) sc[1] = ra;
+    }
+    __syncthreads();  // r . a is read below
+    OGP_STAMP(k, t, 2);
+    ogp::exchange_wait(x, t);
+    OGP_STAMP(k, t, 3);
+    // 3. the partials of all blocks, added in rank order; with pv_t:
+    // pm_t = mu0w[t] + r . a, inv = rsqrt(max(pv_t + nz_t, 1e-20)), r_t
+    for (int j = tid; j <= nrows; j += kClusterThreads) {
+      const float v = ogp::exchange_sum(x, t, j);
+      if (j < nrows) {
+        an[j] = v;
+        continue;
+      }
+      const float pmv = vec[t] + sc[1];
+      const float inv = rsqrtf(fmaxf(v + vec[2 * k + t], 1e-20f));
+      const float rt = (vec[k + t] - pmv) * inv;
+      rs[t] = rt;
+      sc[0] = inv;
+      if (rank == 0) {
+        r[b * k + t] = rt;
+        pm[b * k + t] = pmv;
+        pv[b * k + t] = v;
+      }
+    }
+    __syncthreads();
+    OGP_STAMP(k, t, 4);
+    // 4. Z[t] = ct inv on the slice; a_t of step t + 1 gets its inv
+    const float inv = sc[0];
+    for (int l = tid; l < w; l += kClusterThreads) Zs[t * W + l] = ct[l] * inv;
+    if (tid == 0 && t + 1 < k) an[t] *= inv;
+    __syncthreads();
+    OGP_STAMP(k, t, 5);
+  }
+  // the slice goes to the scratch of the apply once, after the last step
+  for (int e = tid; e < k * w; e += kClusterThreads) {
+    const int j = e / w, l = e - j * w;
+    Zb[j * mm + l] = Zs[j * W + l];
+  }
+  cluster.sync();  // no block leaves while a push to another may be in flight
+}
+
+// (b) for Bd outputs: on clusters of C blocks, or one block per output
+// when C is 0. Returns a cudaError_t, or ogp::kNoCluster.
+int pred_recursion(const int* idx, const float* wv, const float* c0w, const float* mu0w,
+                   const float* y, const float* nz, float* Z, float* r, float* pm, float* pv,
+                   int Bd, int k, int P, int m, int C, cudaStream_t s) {
+  if (C > 0) {
+    const PredClusterLayout lay = pred_cluster_layout(k, m, P, C);
+    return ogp::launch_cluster(pred_recursion_cluster_kernel, C, Bd,
+                               lay.floats * static_cast<long long>(sizeof(float)), s, idx, wv,
+                               c0w, mu0w, y, nz, Z, r, pm, pv, k, P, m, lay);
+  }
+  const long long smem = (static_cast<long long>(m) + 2LL * k + 1) * static_cast<long long>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pred_recursion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  pred_recursion_kernel<<<Bd, kRecursionThreads, smem, s>>>(idx, wv, c0w, mu0w, y, nz, Z, r, pm,
+                                                             pv, k, P, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // (c) C[b] -= Z[b]^T Z[b] in place; the first tile row also does
 // mu[b] += Z[b]^T r[b] for its columns. grid (m tiles, m tiles, Bd)
 __global__ void __launch_bounds__(kGemmThreads)
@@ -161,34 +369,31 @@ pred_apply_kernel(float* C, float* mu, const float* Z, const float* r, int k, in
 
 extern "C" {
 
-// Dynamic shared memory of the K3 recursion kernel, in bytes.
+// Dynamic shared memory of the single-block K3 recursion kernel, in bytes.
 long long ogp_pred_chunk_smem(int k, int m) {
   return (static_cast<long long>(m) + 2LL * k + 1) * static_cast<long long>(sizeof(float));
 }
 
+// Dynamic shared memory of one block of the cluster recursion, in bytes.
+long long ogp_pred_cluster_smem(int k, int m, int P, int C) {
+  return pred_cluster_layout(k, m, P, C).floats * static_cast<long long>(sizeof(float));
+}
+
 // K3. C: (Bd, m, m) and mu: (Bd, m), updated in place; idx: (k, P) int32 and
 // wv: (k, P), shared by the outputs; y, nz: (Bd, k); c0w, Z: (Bd, k, m)
-// scratch; mu0w, r: (Bd, k) scratch; pm, pv: (Bd, k) outputs.
-// Returns cudaGetLastError() after the launches.
+// scratch; mu0w, r: (Bd, k) scratch; pm, pv: (Bd, k) outputs. The recursion
+// runs on clusters of Cl blocks, or one block per output when Cl is 0.
+// Returns cudaGetLastError() after the launches, or -1 when no cluster of
+// Cl blocks fits on the card.
 int ogp_pred_chunk(float* C, float* mu, const int* idx, const float* wv, const float* y,
                    const float* nz, float* c0w, float* mu0w, float* Z, float* r, float* pm,
-                   float* pv, int Bd, int k, int P, int m, void* stream) {
+                   float* pv, int Bd, int k, int P, int m, int Cl, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   pred_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(C, mu, idx, wv, c0w, mu0w, k, P, m);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-
-  const long long smem = ogp_pred_chunk_smem(k, m);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(pred_recursion_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  pred_recursion_kernel<<<Bd, kRecursionThreads, smem, s>>>(idx, wv, c0w, mu0w, y, nz, Z, r,
-                                                             pm, pv, k, P, m);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rc = pred_recursion(idx, wv, c0w, mu0w, y, nz, Z, r, pm, pv, Bd, k, P, m, Cl, s);
+  if (rc != 0) return rc;
 
   pred_apply_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), Bd), kGemmThreads, 0, s>>>(
       C, mu, Z, r, k, m);

@@ -21,23 +21,51 @@
 //   (a) gather: p0[t] = sum_p wv[t, p] B[idx[t, p], :]. The Pallas kernel
 //       multiplies a dense stencil S by the VMEM-resident B; here the sparse
 //       stencil (P = 4^D entries a row) gathers P rows of B instead.
-//   (b) recursion: one block per output runs the k dependent steps, five
-//       O(t m) passes each over U, P, R with block-wide reductions.
+//   (b) recursion, on a thread-block cluster: C = 8 blocks per output (the
+//       portable cluster size), block r owning columns [r W, r W + W), W =
+//       cdiv(m, C). Each block keeps its columns of U, P and R (k rows) in
+//       its own shared memory, so every O(t m) pass of a step reads shared
+//       memory, on C SMs at once. Step t:
+//         1. partial a_j = P_j . p0_t over the block's columns, j < t,
+//            pushed to every block (ogp::Exchange: st.async into each
+//            block's receive buffer, completing on its mbarrier); each
+//            block adds the C partials in rank order, so all hold the
+//            same a.
+//         2. p = p0_t + U^T a on the slice; partials of (U p)_j and |p|^2,
+//            exchanged the same way; s = |p|, g = (U p) / s (one reduction
+//            where the plain recursion has two: g = U u).
+//         3. u = p / s (u = 0 when s <= 1e-20, the Pallas guard); row t:
+//            u, P_t = d (u + P^T g), R_t = c (u + R^T g) on the slice.
+//       The slices go to the (Bd, k, m) scratch of the applies after the
+//       last step. No cluster barrier inside the loop: on this card one
+//       compiles to a GPU-scope fence (MEMBAR.ALL.GPU) and cost 0.65-0.74
+//       us; an exchange's wait is 0.04-0.2 us. Shapes whose slice does not
+//       fit a block (3 k ld floats, the receive buffers and the vectors
+//       over 227 KB at C = 8: m > 1,120 at k = 128) run the single-block
+//       kernel instead, one block per output with the rows of U, P, R in
+//       L2. The rule is by shape only, chunk_cluster_plan in
+//       online_gp_torch/ops/cuda_root_update.py, mirroring
+//       chunk_cluster_layout below (the wrapper checks the two agree).
 //   (c) apply: T = X A^T into scratch, then X += T U, for (X, A) = (L, R)
 //       and (B, P): shared-memory-tiled f32 GEMMs, 4 m^2 k multiply-adds in
 //       all. X is updated in place: the second GEMM reads only T and U.
 // Bound: operations, 8 m^2 k + 5 k^2 m flops per output (0.9 GFLOP at
 // m = 900, k = 128) against 4 m^2 floats of L and B traffic. The recursion
-// runs on one SM per output and is far above that bound; it is left simple
-// here and is the first target for speed.
+// is bound by latency on this card: at t = 64 a step is ~4.4 us of short
+// stages (row and column passes over ~36 K floats of shared memory per
+// block, two exchanges, six block barriers), each a chain of dependent
+// shared-memory loads and shuffles. The single-block kernel reads U, P, R
+// from L2 at one SM's rate (~75 GB/s on an H100, 16.5 us a step at
+// t = 64). cluster_probe.py measures both splits, building this file with
+// OGP_STAMPS (common.cuh) so that the kernels stamp their stages.
 //
 // What does not carry over from the Pallas design: the TPU keeps B and four
 // (k, m) factors in VMEM (5 MB at m = 900, k = 128); a Hopper block has at
-// most 227 KB of shared memory, so the factors live in device memory
-// (scratch from the wrapper, L2-resident at 1.8 MB). The Pallas grid runs in
-// order, so its first row tile computes the recursion that later tiles
-// read; CUDA blocks run in any order, hence the three launches above. No
-// padding to 128-lane tiles: every kernel masks its own ragged edge.
+// most 227 KB of shared memory, so the factors are split over the blocks of
+// a cluster (and B stays in device memory). The Pallas grid runs in order,
+// so its first row tile computes the recursion that later tiles read; CUDA
+// blocks run in any order, hence the three launches above. No padding to
+// 128-lane tiles: every kernel masks its own ragged edge.
 //
 // K4 replaces pallas_rank1_update(_slim)(_batched) (bodies _p_kernel,
 // _update_kernel, _update_kernel_slim and their _batched forms), reached
@@ -70,17 +98,25 @@
 //       only. The apply is X += ((X P0^T) T) P0 with T = Rt^T Ut (L) or
 //       Pt^T Ut (B): K1's two apply kernels around one more tiled GEMM.
 // Bound: operations, as K1: the applies' 8 m^2 k flops per output dominate
-// (0.83 GFLOP at m = 900, k = 128). Both recursions stay one block per
-// output, the part this card runs far above the bound.
+// (0.83 GFLOP at m = 900, k = 128). The sub recursions run on K1's kernels
+// (cluster or single block, by the same shape rule at k = sub); the coord
+// recursion stays one block per output.
 #include "common.cuh"
 
 using ogp::block_sum;
 using ogp::cdiv;
+using ogp::ColSplit;
+using ogp::ColTask;
+using ogp::col_partials;
+using ogp::col_sum;
 using ogp::gemm_tile;
+using ogp::kClusterRegs;
+using ogp::kClusterThreads;
 using ogp::kGemmThreads;
 using ogp::kTileM;
 using ogp::kTileN;
 using ogp::warp_sum;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -165,8 +201,10 @@ chunk_recursion_kernel(const float* __restrict__ p0, float* U, float* Pm, float*
   const int nwarps = blockDim.x >> 5;
 
   for (int t = 0; t < k; ++t) {
+    OGP_STAMP(k, t, 0);
     for (int l = threadIdx.x; l < m; l += blockDim.x) q[l] = p0b[t * mm + l];
     __syncthreads();
+    OGP_STAMP(k, t, 1);
     // a_j = P_j . p0_t for j < t, one warp per row
     for (int j = warp; j < t; j += nwarps) {
       const float* row = Pb + j * mm;
@@ -176,6 +214,7 @@ chunk_recursion_kernel(const float* __restrict__ p0, float* U, float* Pm, float*
       if (lane == 0) a[j] = s;
     }
     __syncthreads();
+    OGP_STAMP(k, t, 2);
     // p = p0_t + U^T a, and |p|^2
     float s2 = 0.f;
     for (int l = threadIdx.x; l < m; l += blockDim.x) {
@@ -185,6 +224,7 @@ chunk_recursion_kernel(const float* __restrict__ p0, float* U, float* Pm, float*
       s2 = fmaf(v, v, s2);
     }
     s2 = block_sum(s2, red);
+    OGP_STAMP(k, t, 3);
     const float s = sqrtf(s2);
     const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
     const float r1 = sqrtf(s2 + 1.f);
@@ -192,6 +232,7 @@ chunk_recursion_kernel(const float* __restrict__ p0, float* U, float* Pm, float*
     const float d = 1.f / r1 - 1.f;
     for (int l = threadIdx.x; l < m; l += blockDim.x) u[l] = q[l] * inv_s;
     __syncthreads();
+    OGP_STAMP(k, t, 4);
     // g_j = U_j . u for j < t
     for (int j = warp; j < t; j += nwarps) {
       const float* row = Ub + j * mm;
@@ -201,6 +242,7 @@ chunk_recursion_kernel(const float* __restrict__ p0, float* U, float* Pm, float*
       if (lane == 0) g[j] = sg;
     }
     __syncthreads();
+    OGP_STAMP(k, t, 5);
     // row t: u, p_col = d (u + P^T g), r_col = c (u + R^T g)
     for (int l = threadIdx.x; l < m; l += blockDim.x) {
       const float ul = u[l];
@@ -214,7 +256,200 @@ chunk_recursion_kernel(const float* __restrict__ p0, float* U, float* Pm, float*
       Rb[t * mm + l] = c * rc;
     }
     __syncthreads();  // row t is read by every thread at step t + 1
+    OGP_STAMP(k, t, 6);
   }
+}
+
+// Shared-memory layout of one block of the cluster recursion;
+// chunk_cluster_plan (online_gp_torch/ops/cuda_root_update.py) mirrors it.
+// A row pass gives Sr lanes to each row (columns s, s + Sr, ...); the row
+// stride ld = Sr (mod 2 Sr) puts the 32 / Sr rows of a warp on distinct
+// banks.
+struct ChunkClusterLayout {
+  int C, W, ld, Sr;
+  ColSplit cs;
+  long long floats;
+};
+
+__host__ __device__ inline ChunkClusterLayout chunk_cluster_layout(int k, int m, int C) {
+  ChunkClusterLayout lay;
+  lay.C = C;
+  lay.W = cdiv(m, C);
+  lay.Sr = 1;
+  while (lay.Sr < 32 && 2 * lay.Sr * k <= kClusterThreads) lay.Sr *= 2;
+  lay.ld = lay.W;
+  if (lay.Sr < 32)
+    while (lay.ld % (2 * lay.Sr) != lay.Sr) ++lay.ld;
+  lay.cs = ogp::col_split(lay.W);
+  // two mbarriers; U, P, R slices; p; a, g; the receive buffers (two uses
+  // of C rows of k + 1); column partials; s^2
+  lay.floats = 4 + 3LL * k * lay.ld + lay.ld + 2LL * k + 2LL * C * (k + 1) +
+               2LL * lay.cs.S * lay.cs.CT * 32 + 1;
+  return lay;
+}
+
+// Pushes, for j < nrows, sum over the block's w columns of X_j . y into slot
+// j of exchange use n, where X_j is row j of X (stride ld) for j < self and
+// y itself for j == self. Sr lanes share a row (columns s, s + Sr, ..., in
+// four accumulators added as (0 + 1) + (2 + 3)), Sr the largest power of
+// two up to 32 that keeps nrows rows within the block, at least minSr; the
+// lanes are added by shuffles in a fixed order and share the pushes.
+__device__ __forceinline__ void row_partials(const float* X, int ld, const float* y, int nrows,
+                                             int self, int w, int minSr, const ogp::Exchange& x,
+                                             int n) {
+  int Sr = minSr;
+  while (Sr < 32 && 2 * Sr * nrows <= kClusterThreads) Sr *= 2;
+  const int lg = __ffs(Sr) - 1;  // Sr is a power of two: shifts, no divisions
+  const int s = threadIdx.x & (Sr - 1);
+  const int rows = kClusterThreads >> lg;
+  for (int j0 = 0; j0 < nrows; j0 += rows) {
+    const int j = j0 + (threadIdx.x >> lg);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (j < nrows) {
+      const float* row = j < self ? X + j * ld : y;
+      int l = s;
+      for (; l + 3 * Sr < w; l += 4 * Sr) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[c] = fmaf(row[l + c * Sr], y[l + c * Sr], acc[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        if (l + c * Sr < w) acc[c] = fmaf(row[l + c * Sr], y[l + c * Sr], acc[c]);
+    }
+    float v = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    // a butterfly: every lane of the row ends with the same sum, and lane s
+    // pushes it to blocks s, s + Sr, ...
+    for (int o = Sr >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (j < nrows) ogp::exchange_push(x, n, j, v, s, Sr);
+  }
+}
+
+// (b) the k-step factor recursion on a cluster of lay.C blocks per output,
+// grid (C, Bd). Writes rows 0..k-1 of U, P, R for the block's columns.
+__global__ void __launch_bounds__(kClusterThreads)
+chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__ U,
+                               float* __restrict__ Pm, float* __restrict__ R, int k, int m,
+                               ChunkClusterLayout lay) {
+  extern __shared__ float sh[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = lay.C, ld = lay.ld;
+  const ColSplit cs = lay.cs;
+  const int rank = static_cast<int>(cluster.block_rank());
+  // two mbarriers, then k x ld slices of this block's columns of U, P, R
+  const ogp::Exchange x{reinterpret_cast<unsigned long long*>(sh), sh + 4 + 3 * k * ld + ld + 2 * k,
+                        C, k + 1, rank};
+  float* Us = sh + 4;
+  float* Ps = Us + k * ld;
+  float* Rs = Ps + k * ld;
+  float* q = Rs + k * ld;                        // ld: the raw row p0[t], then p
+  float* a = q + ld;                             // k
+  float* g = a + k;                              // k: U p, unscaled
+  float* red = x.recv + 2 * C * (k + 1);         // 2 S CT 32: column partials
+  float* s2_sh = red + 2 * cs.S * cs.CT * 32;
+  const int tid = threadIdx.x;
+  const ColTask task = ogp::col_task(cs);
+  const int c0 = rank * lay.W;
+  const int w = max(0, min(lay.W, m - c0));
+  const long long mm = m;
+  const long long off = blockIdx.y * k * mm + c0;
+  const float* p0b = p0 + off;
+  float* Ub = U + off;
+  float* Pb = Pm + off;
+  float* Rb = R + off;
+  ogp::exchange_init(x);
+
+  float next[kClusterRegs];  // p0[t + 1] for this thread's columns
+#pragma unroll
+  for (int i = 0; i < kClusterRegs; ++i) {
+    const int l = tid + i * kClusterThreads;
+    next[i] = l < w ? p0b[l] : 0.f;
+  }
+  for (int t = 0; t < k; ++t) {
+    OGP_STAMP(k, t, 0);
+#pragma unroll
+    for (int i = 0; i < kClusterRegs; ++i) {
+      const int l = tid + i * kClusterThreads;
+      if (l < w) q[l] = next[i];
+      if (l < w && t + 1 < k) next[i] = p0b[(t + 1) * mm + l];
+    }
+    __syncthreads();
+    OGP_STAMP(k, t, 1);
+    // 1. a_j = P_j . p0_t for j < t: exchange use 2 t
+    ogp::exchange_expect(x, 2 * t, t);
+    row_partials(Ps, ld, q, t, t, w, lay.Sr, x, 2 * t);
+    OGP_STAMP(k, t, 2);
+    ogp::exchange_wait(x, 2 * t);
+    OGP_STAMP(k, t, 3);
+    for (int j = tid; j < t; j += kClusterThreads) a[j] = ogp::exchange_sum(x, 2 * t, j);
+    __syncthreads();
+    OGP_STAMP(k, t, 4);
+    // 2. p = p0_t + U^T a; U p and |p|^2: exchange use 2 t + 1
+    col_partials<1>(Us, nullptr, ld, a, 1.f, t, w, cs, task, red);
+    for (int l = tid; l < w; l += kClusterThreads) q[l] += col_sum(red, 0, l, cs);
+    __syncthreads();
+    OGP_STAMP(k, t, 5);
+    ogp::exchange_expect(x, 2 * t + 1, t + 1);
+    row_partials(Us, ld, q, t + 1, t, w, lay.Sr, x, 2 * t + 1);
+    OGP_STAMP(k, t, 6);
+    ogp::exchange_wait(x, 2 * t + 1);
+    OGP_STAMP(k, t, 7);
+    for (int j = tid; j <= t; j += kClusterThreads) {
+      const float v = ogp::exchange_sum(x, 2 * t + 1, j);
+      if (j < t) {
+        g[j] = v;
+      } else {
+        *s2_sh = v;
+      }
+    }
+    __syncthreads();
+    OGP_STAMP(k, t, 8);
+    const float s2 = *s2_sh;
+    const float s = sqrtf(s2);
+    const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
+    const float r1 = sqrtf(s2 + 1.f);
+    const float c = r1 - 1.f;
+    const float d = 1.f / r1 - 1.f;
+    // 3. row t: u, d (u + P^T g), c (u + R^T g) with g = (U p) inv_s
+    col_partials<2>(Ps, Rs, ld, g, inv_s, t, w, cs, task, red);
+    for (int l = tid; l < w; l += kClusterThreads) {
+      const float ul = q[l] * inv_s;
+      const float pc = d * (ul + col_sum(red, 0, l, cs));
+      const float rc = c * (ul + col_sum(red, 1, l, cs));
+      Us[t * ld + l] = ul;
+      Ps[t * ld + l] = pc;
+      Rs[t * ld + l] = rc;
+    }
+    __syncthreads();  // row t is read at step t + 1, and q is rewritten
+    OGP_STAMP(k, t, 9);
+  }
+  // the slices go to the scratch of the applies once, after the last step
+  for (int e = tid; e < k * w; e += kClusterThreads) {
+    const int j = e / w, l = e - j * w;
+    Ub[j * mm + l] = Us[j * ld + l];
+    Pb[j * mm + l] = Ps[j * ld + l];
+    Rb[j * mm + l] = Rs[j * ld + l];
+  }
+  cluster.sync();  // no block leaves while a push to another may be in flight
+}
+
+// (b) for Bd outputs: on clusters of C blocks, or one block per output
+// when C is 0. Returns a cudaError_t, or ogp::kNoCluster.
+int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int k, int m, int C,
+                    cudaStream_t s) {
+  if (C > 0) {
+    const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C);
+    return ogp::launch_cluster(chunk_recursion_cluster_kernel, C, Bd,
+                               lay.floats * static_cast<long long>(sizeof(float)), s, p0, U, Pm,
+                               R, k, m, lay);
+  }
+  const long long smem = (2LL * m + 2LL * k + 32) * static_cast<long long>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chunk_recursion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  chunk_recursion_kernel<<<Bd, kRecursionThreads, smem, s>>>(p0, U, Pm, R, k, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // (c1) T[b, w] = X_w[b] A_w[b]^T, (X_0, A_0) = (L, R), (X_1, A_1) = (B, P);
@@ -452,32 +687,30 @@ int ogp_rank1_apply(float* L, float* B, const float* p, float* u, float* cd, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory of the K1 recursion kernel, in bytes.
+// Dynamic shared memory of the single-block K1 recursion kernel, in bytes.
 long long ogp_blocked_chunk_smem(int k, int m) {
   return (2LL * m + 2LL * k + 32) * static_cast<long long>(sizeof(float));
 }
 
+// Dynamic shared memory of one block of the cluster recursion, in bytes.
+long long ogp_chunk_cluster_smem(int k, int m, int C) {
+  return chunk_cluster_layout(k, m, C).floats * static_cast<long long>(sizeof(float));
+}
+
 // K1. L, B: (Bd, m, m), updated in place; idx: (k, P) int32, shared by the
 // outputs; wv: (Bd, k, P); p0, U, Pm, R: (Bd, k, m) scratch; T: (Bd, 2, m, k)
-// scratch. Returns cudaGetLastError() after the launches.
+// scratch. The recursion runs on clusters of C blocks, or one block per
+// output when C is 0. Returns cudaGetLastError() after the launches, or -1
+// when no cluster of C blocks fits on the card.
 int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float* p0,
                       float* U, float* Pm, float* R, float* T, int Bd, int k, int P, int m,
-                      void* stream) {
+                      int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-
-  const long long smem = ogp_blocked_chunk_smem(k, m);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(chunk_recursion_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  chunk_recursion_kernel<<<Bd, kRecursionThreads, smem, s>>>(p0, U, Pm, R, k, m);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, s);
+  if (rc != 0) return rc;
 
   chunk_apply_t_kernel<<<dim3(cdiv(k, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
       L, B, R, Pm, T, k, m);
@@ -512,10 +745,11 @@ int ogp_rank1_update(float* L, float* B, float* A, const float* v, float* partia
 
 // K5 sub. L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
 // (nb, Bd, sub, P) with nb = k / sub; q, U, Pm, R: (nb, Bd, sub, m) scratch;
-// a2: (Bd, sub, sub) and T: (Bd, 2, m, sub) scratch.
+// a2: (Bd, sub, sub) and T: (Bd, 2, m, sub) scratch. Each sub-block's
+// recursion runs on clusters of C blocks (C = 0: one block per output).
 int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, float* q,
                           float* U, float* Pm, float* R, float* a2, float* T, int Bd, int k,
-                          int sub, int P, int m, void* stream) {
+                          int sub, int P, int m, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = k / sub;
   const long long mm = m, rows = (long long)sub * m, blk = Bd * rows;
@@ -526,12 +760,6 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
                                                       wv + (long long)j * Bd * sub * P,
                                                       q + j * blk, sub, P, m);
     e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const long long smem = ogp_blocked_chunk_smem(sub, m);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(chunk_recursion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   for (int j = 0; j < nb; ++j) {
@@ -545,10 +773,8 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
                MatArg{U + i * blk, mm, 1, rows, 0}, qj, mm, rows, Bd, 1.f, true, s);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    chunk_recursion_kernel<<<Bd, kRecursionThreads, smem, s>>>(qj, U + j * blk, Pm + j * blk,
-                                                               R + j * blk, sub, m);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
+    const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, s);
+    if (rc != 0) return rc;
   }
   for (int j = 0; j < nb; ++j) {
     chunk_apply_t_kernel<<<dim3(cdiv(sub, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0,

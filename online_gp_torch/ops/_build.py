@@ -15,9 +15,12 @@ build raises with the compiler's output.
 The wrappers call each C entry with ``ctypes``: pointers and the stream
 (``torch.cuda.current_stream().cuda_stream``) as ``c_void_p``, sizes as
 ``c_int``. Every entry returns ``cudaGetLastError()`` after its launches
-and :func:`launch_check` raises if that is not 0.
+(or -1 when a cluster launch finds that the card cannot hold one cluster
+of the asked shape) and :func:`launch_check` raises if that is not 0.
 
-This module also holds the argument checks the kernel wrappers share.
+This module also holds the argument checks the kernel wrappers share, and
+the shape rule of the kernels that run on thread-block clusters
+(:func:`cluster_plan`).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import torch
 
@@ -112,7 +115,56 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch_check(rc: int, what: str) -> None:
+# The recursion kernels that run on a thread-block cluster (K1, K3) split an
+# output's m columns over the cluster's blocks; these mirror the constants
+# of csrc/common.cuh that their shared-memory layouts depend on.
+CLUSTER_THREADS = 512  # kClusterThreads
+CLUSTER_COLS = 4 * CLUSTER_THREADS  # kClusterRegs * kClusterThreads: columns a block may own
+CLUSTER_SIZE = 8  # blocks per output: the portable cluster size
+MAX_SHARED_BYTES = 232448  # dynamic shared memory one block may use
+NO_CLUSTER = -1  # kNoCluster: the card cannot hold one cluster of the shape
+
+
+class ClusterPlan(NamedTuple):
+    """A recursion on clusters: ``cluster`` blocks per output, each owning
+    ``cols`` columns and using ``shared_bytes`` of shared memory."""
+
+    cluster: int
+    cols: int
+    shared_bytes: int
+
+
+def col_split(cols: int):
+    """(column tiles, row groups) of a column pass over ``cols`` columns
+    (``ogp::col_split``)."""
+    tiles = -(-cols // 32)
+    return tiles, max(1, (CLUSTER_THREADS // 32) // tiles)
+
+
+def cluster_plan(floats_of) -> Optional[ClusterPlan]:
+    """The plan on clusters of :data:`CLUSTER_SIZE` blocks, given
+    ``floats_of(C) -> (cols, floats per block)``; None if one block cannot
+    hold its part."""
+    cols, floats = floats_of(CLUSTER_SIZE)
+    if cols <= CLUSTER_COLS and 4 * floats <= MAX_SHARED_BYTES:
+        return ClusterPlan(CLUSTER_SIZE, cols, 4 * floats)
+    return None
+
+
+def check_layout(plan: ClusterPlan, cuda_bytes: int, what: str) -> None:
+    """Raise unless the CUDA layout of one block (``cuda_bytes``, from the
+    built library) is the plan's: the Python shape rule mirrors it."""
+    if cuda_bytes != plan.shared_bytes:
+        raise RuntimeError(f"{what}: the shape rule plans {plan.shared_bytes} bytes of shared memory a "
+                           f"block, the kernel's layout takes {cuda_bytes}; they must be changed together")
+
+
+def launch_check(rc: int, what: str, plan: Optional[ClusterPlan] = None) -> None:
+    if rc == NO_CLUSTER and plan is not None:
+        raise RuntimeError(
+            f"{what}: the card cannot hold one cluster of {plan.cluster} blocks with "
+            f"{plan.shared_bytes} bytes of shared memory each"
+        )
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 

@@ -8,10 +8,23 @@ dim (Bd = 1 for a single output). The CUDA source, with the design notes,
 is ``online_gp_torch/csrc/pred_stream.cu``. The caches are not padded to
 a lane-tile multiple: the kernel masks its own ragged edge.
 
+The recursion runs on a thread-block cluster: :func:`pred_cluster_plan`
+splits each output's m columns over 8 blocks that keep their columns of
+Z in shared memory. A chunk whose slices do not fit a block (m > 3,136
+at k = 128 with a 2-D cubic stencil, P = 16, or k > 342 at m = 900)
+runs the single-block recursion kernel instead; that rule is by
+shape alone, nothing is tried and caught, and every shape the kernel
+took before still runs. Before each cluster launch the wrapper checks
+that the plan's shared memory is the kernel's layout
+(``ogp_pred_cluster_smem``) and raises RuntimeError if not.
+
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
-raises and names the plain version. On CUDA the caches are updated in
-place. ``pred_chunk.launches`` counts the calls that launched the kernel.
+raises TypeError and names the plain version. A shape no kernel takes
+raises ValueError; a failed launch, or a cluster the card cannot
+schedule, raises RuntimeError. On CUDA the caches are updated in place.
+``pred_chunk.launches`` counts the calls that launched the kernel, and
+``pred_chunk.cluster_launches`` those whose recursion ran on a cluster.
 """
 
 from __future__ import annotations
@@ -24,8 +37,10 @@ from online_gp_torch.ops import _build
 from online_gp_torch.ops.pred_stream import pred_chunk_plain
 from online_gp_torch.ops.root_update import stencil_rows
 
+# What the single-block recursion takes, for the chunks outside
+# pred_cluster_plan: k <= MAX_CHUNK, (m + 2k + 1) floats of shared memory.
 MAX_CHUNK = 1024
-MAX_SHARED_BYTES = 232448
+MAX_SHARED_BYTES = _build.MAX_SHARED_BYTES
 MAX_GRID_YZ = 65535
 
 _lib = None
@@ -36,10 +51,12 @@ def _pred_stream_lib():
     if _lib is None:
         lib = _build.load("pred_stream")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ogp_pred_chunk.argtypes = [vp] * 12 + [i32] * 4 + [vp]
+        lib.ogp_pred_chunk.argtypes = [vp] * 12 + [i32] * 5 + [vp]
         lib.ogp_pred_chunk.restype = i32
         lib.ogp_pred_chunk_smem.argtypes = [i32, i32]
         lib.ogp_pred_chunk_smem.restype = ctypes.c_longlong
+        lib.ogp_pred_cluster_smem.argtypes = [i32] * 4
+        lib.ogp_pred_cluster_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -50,6 +67,55 @@ def pred_chunk_stencil_plain(C, mu, idx, wv, y, nz):
     return pred_chunk_plain(C, mu, stencil_rows(idx, wv, C.shape[-1]), y, nz)
 
 
+def _pred_cluster_floats(k: int, m: int, P: int, C: int):
+    """(columns per block, floats per block) of the cluster recursion:
+    ``pred_cluster_layout`` in ``csrc/pred_stream.cu``."""
+    W = -(-m // C)
+    tiles, groups = _build.col_split(W)
+    # two mbarriers; Z slice; ct; a (two steps); the receive buffers (two
+    # uses of C rows of k + 1); r, mu0w, y, nz; column partials; the chunk's
+    # stencil entries in this block (local columns, weights, counts); inv, r . a
+    return W, 4 + k * W + W + 2 * k + 2 * C * (k + 1) + 4 * k + groups * tiles * 32 + 2 * k * P + k + 2
+
+
+def pred_cluster_plan(k: int, m: int, P: int):
+    """The shape rule of K3's recursion: the :class:`~online_gp_torch.ops._build.ClusterPlan`
+    on clusters of 8 blocks, when each block holds its slice of Z
+    (k ceil(m / 8) floats), the chunk's stencil and the step's vectors in
+    at most 232,448 bytes of shared memory; None where it does not, and the
+    chunk then runs the single-block recursion kernel."""
+    return _build.cluster_plan(lambda C: _pred_cluster_floats(k, m, P, C))
+
+
+def _pred_plan(lib, k: int, m: int, P: int):
+    """(plan, blocks per output) of a K3 recursion: the cluster plan, or
+    (None, 0) for the single-block kernel where that takes the shape;
+    raises ValueError where neither does, RuntimeError where the plan is
+    not the kernel's layout."""
+    plan = pred_cluster_plan(k, m, P)
+    if plan is not None:
+        _build.check_layout(plan, lib.ogp_pred_cluster_smem(k, m, P, plan.cluster), f"chunk (k={k}, m={m}, P={P})")
+        return plan, plan.cluster
+    if k > MAX_CHUNK or lib.ogp_pred_chunk_smem(k, m) > MAX_SHARED_BYTES:
+        raise ValueError(f"chunk (k={k}, m={m}, P={P}) exceeds what the K3 recursion kernels take: no "
+                         f"cluster holds it, and the single-block kernel takes k <= {MAX_CHUNK} with "
+                         f"(m + 2k + 1) floats of shared memory <= {MAX_SHARED_BYTES} bytes")
+    return None, 0
+
+
+def _check_stencil_args(idx, wv, Bd, size, k_vectors):
+    """Raise ValueError unless idx, wv are (k, P), each of ``k_vectors``
+    (Bd, k), and the largest array (``size`` elements) fits int32 sizes."""
+    if idx.dim() != 2 or wv.shape != idx.shape:
+        raise ValueError(f"idx and wv must be (k, P); got {tuple(idx.shape)}, {tuple(wv.shape)}")
+    k = idx.shape[0]
+    for name, t in k_vectors.items():
+        if tuple(t.shape) != (Bd, k):
+            raise ValueError(f"{name} must be ({Bd}, {k}); got {tuple(t.shape)}")
+    if size >= 2**31 or Bd > MAX_GRID_YZ:
+        raise ValueError(f"Bd={Bd} and {size} elements exceed what the K3 kernels take")
+
+
 def pred_chunk(C, mu, idx, wv, y, nz):
     """K3: one rank-k predict-then-condition chunk, batched over outputs.
 
@@ -58,6 +124,12 @@ def pred_chunk(C, mu, idx, wv, y, nz):
       idx: (k, P) stencil indices in [0, m) (int32 on CUDA); wv: (k, P)
         stencil weights (not noise-scaled); both shared by the outputs.
       y, nz: (Bd, k) targets and clamped noise.
+
+    On CUDA the recursion runs on clusters of :func:`pred_cluster_plan`,
+    or on the single-block kernel where that returns None. Raises
+    ValueError for a shape neither takes, RuntimeError when a launch fails,
+    the card cannot hold the planned cluster, or the plan is not the
+    kernel's layout.
 
     Returns (C', mu', pred_mean (Bd, k), pred_var (Bd, k)). On CUDA, C and
     mu are updated in place.
@@ -70,20 +142,12 @@ def pred_chunk(C, mu, idx, wv, y, nz):
     if C.dim() != 3 or C.shape[1] != C.shape[2]:
         raise ValueError(f"C must be (Bd, m, m); got {tuple(C.shape)}")
     Bd, m = C.shape[0], C.shape[-1]
-    if idx.dim() != 2 or wv.shape != idx.shape:
-        raise ValueError(f"idx and wv must be (k, P); got {tuple(idx.shape)}, {tuple(wv.shape)}")
+    if tuple(mu.shape) != (Bd, m):
+        raise ValueError(f"mu must be ({Bd}, {m}); got {tuple(mu.shape)}")
+    _check_stencil_args(idx, wv, Bd, Bd * m * m, dict(y=y, nz=nz))
     k, P = idx.shape
-    if tuple(mu.shape) != (Bd, m) or tuple(y.shape) != (Bd, k) or tuple(nz.shape) != (Bd, k):
-        raise ValueError(
-            f"mu must be ({Bd}, {m}) and y, nz ({Bd}, {k}); got "
-            f"{tuple(mu.shape)}, {tuple(y.shape)}, {tuple(nz.shape)}"
-        )
-    if Bd * m * m >= 2**31 or Bd > MAX_GRID_YZ:
-        raise ValueError(f"(Bd={Bd}, m={m}) exceeds what the K3 kernel takes")
     lib = _pred_stream_lib()
-    if k > MAX_CHUNK or lib.ogp_pred_chunk_smem(k, m) > MAX_SHARED_BYTES:
-        raise ValueError(f"chunk (k={k}, m={m}) exceeds what the K3 kernel takes (k <= {MAX_CHUNK}, "
-                         f"(m + 2k + 1) floats of shared memory <= {MAX_SHARED_BYTES} bytes)")
+    plan, Cl = _pred_plan(lib, k, m, P)
     dev = C.device
     f32 = dict(dtype=torch.float32, device=dev)
     c0w = torch.empty((Bd, k, m), **f32)
@@ -92,11 +156,13 @@ def pred_chunk(C, mu, idx, wv, y, nz):
     p_ = _build.ptr
     rc = lib.ogp_pred_chunk(
         p_(C), p_(mu), p_(idx), p_(wv), p_(y), p_(nz), p_(c0w), p_(vecs[0]), p_(Z),
-        p_(vecs[1]), p_(vecs[2]), p_(vecs[3]), Bd, k, P, m, _build.stream_of(C),
+        p_(vecs[1]), p_(vecs[2]), p_(vecs[3]), Bd, k, P, m, Cl, _build.stream_of(C),
     )
-    _build.launch_check(rc, "pred_chunk")
+    _build.launch_check(rc, "pred_chunk", plan)
     pred_chunk.launches += 1
+    pred_chunk.cluster_launches += plan is not None
     return C, mu, vecs[2], vecs[3]
 
 
 pred_chunk.launches = 0
+pred_chunk.cluster_launches = 0

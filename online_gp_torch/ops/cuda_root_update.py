@@ -14,16 +14,29 @@ update with p = B^T v computed on the card. The CUDA sources, with the
 design notes (what bounds each kernel and what the Pallas design could
 not carry over), are ``online_gp_torch/csrc/root_update.cu``.
 
+K1's recursion (and K5-sub's, at k = sub) runs on a thread-block cluster:
+:func:`chunk_cluster_plan` splits each output's m columns over 8 blocks
+that keep their columns of the factor rows U, P, R in shared memory. A
+chunk whose slices do not fit a block (m > 1,120 at k = 128) runs the
+single-block recursion kernel instead. That rule is by shape alone:
+nothing is tried and caught, and every (k, m) the kernels took before
+still runs. Before each cluster launch the wrapper checks that the
+plan's shared memory is the kernel's layout (``ogp_chunk_cluster_smem``)
+and raises RuntimeError if not.
+
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
 (float64 on CUDA, a tensor that requires grad, a non-contiguous tensor)
-raises and names the plain version. There is no fallback.
+raises TypeError and names the plain version. A shape no kernel takes
+raises ValueError; a failed launch, or a cluster the card cannot
+schedule, raises RuntimeError. There is no fallback.
 
 On CUDA each wrapper updates its state tensors in place and returns them;
 the plain versions return new tensors. Each wrapper counts its calls that
 launched the kernel in its ``launches`` attribute (one per call; a call
 is several CUDA launches, listed in the source); ``blocked_chunk`` counts
-K1 there and K5 in ``sub_launches`` and ``coord_launches``.
+K1 there (and the K1 calls whose recursion ran on a cluster in
+``cluster_launches``) and K5 in ``sub_launches`` and ``coord_launches``.
 """
 
 from __future__ import annotations
@@ -44,11 +57,13 @@ from online_gp_torch.ops.root_update import (
     roots_apply_rank1_p,
 )
 
-# What the kernels take: the recursion keeps a[k] and g[k] in shared
-# memory beside two m-vectors, one block per output; the coordinate
-# recursion keeps three k x k matrices there.
+# What the kernels take. The cluster recursion's shape rule is
+# chunk_cluster_plan. The single-block recursion, for the chunks outside
+# it, keeps a[k] and g[k] in shared memory beside two m-vectors (k <=
+# MAX_CHUNK); the coordinate recursion keeps three k x k matrices there.
+# Both within MAX_SHARED_BYTES of dynamic shared memory per block.
 MAX_CHUNK = 1024
-MAX_SHARED_BYTES = 232448
+MAX_SHARED_BYTES = _build.MAX_SHARED_BYTES
 MAX_GRID_YZ = 65535
 
 _lib = None
@@ -61,15 +76,17 @@ def _root_update_lib():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ogp_rank1_apply.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]
         lib.ogp_rank1_apply.restype = i32
-        lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 4 + [vp]
+        lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         lib.ogp_blocked_chunk.restype = i32
         lib.ogp_blocked_chunk_smem.argtypes = [i32, i32]
         lib.ogp_blocked_chunk_smem.restype = ctypes.c_longlong
+        lib.ogp_chunk_cluster_smem.argtypes = [i32, i32, i32]
+        lib.ogp_chunk_cluster_smem.restype = ctypes.c_longlong
         lib.ogp_rank1_update_slabs.argtypes = [i32]
         lib.ogp_rank1_update_slabs.restype = i32
         lib.ogp_rank1_update.argtypes = [vp] * 7 + [i32, i32, vp]
         lib.ogp_rank1_update.restype = i32
-        lib.ogp_blocked_chunk_sub.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+        lib.ogp_blocked_chunk_sub.argtypes = [vp] * 10 + [i32] * 6 + [vp]
         lib.ogp_blocked_chunk_sub.restype = i32
         lib.ogp_blocked_chunk_coord_smem.argtypes = [i32]
         lib.ogp_blocked_chunk_coord_smem.restype = ctypes.c_longlong
@@ -235,6 +252,51 @@ def blocked_chunk_plain(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv:
     return L, B
 
 
+def _chunk_cluster_floats(k: int, m: int, C: int):
+    """(columns per block, floats per block) of the cluster recursion at
+    (k, m) on clusters of C blocks: ``chunk_cluster_layout`` in
+    ``csrc/root_update.cu``. A row pass gives Sr lanes to a row; the row
+    stride ld = Sr (mod 2 Sr) keeps a warp's rows on distinct banks."""
+    W = -(-m // C)
+    Sr = 1
+    while Sr < 32 and 2 * Sr * k <= _build.CLUSTER_THREADS:
+        Sr *= 2
+    ld = W
+    if Sr < 32:
+        while ld % (2 * Sr) != Sr:
+            ld += 1
+    tiles, groups = _build.col_split(W)
+    # two mbarriers; U, P, R slices; p; a, g; the receive buffers (two uses
+    # of C rows of k + 1); column partials; s^2
+    return W, 4 + 3 * k * ld + ld + 2 * k + 2 * C * (k + 1) + 2 * groups * tiles * 32 + 1
+
+
+def chunk_cluster_plan(k: int, m: int):
+    """The shape rule of K1's recursion: the :class:`~online_gp_torch.ops._build.ClusterPlan`
+    (blocks per output, columns per block, shared bytes per block) on
+    clusters of 8 blocks, when each block holds its slices of U, P and R
+    (3 k ceil(m / 8) floats, padded) and the step's vectors in at most
+    232,448 bytes of shared memory; None where it does not, and the chunk
+    then runs the single-block recursion kernel."""
+    return _build.cluster_plan(lambda C: _chunk_cluster_floats(k, m, C))
+
+
+def _recursion_plan(lib, k: int, m: int, what: str):
+    """(plan, blocks per output) of a K1 recursion at (k, m): the cluster
+    plan, or (None, 0) for the single-block kernel where that takes the
+    shape; raises ValueError where neither does, RuntimeError where the
+    plan is not the kernel's layout."""
+    plan = chunk_cluster_plan(k, m)
+    if plan is not None:
+        _build.check_layout(plan, lib.ogp_chunk_cluster_smem(k, m, plan.cluster), f"{what} (k={k}, m={m})")
+        return plan, plan.cluster
+    if k > MAX_CHUNK or lib.ogp_blocked_chunk_smem(k, m) > MAX_SHARED_BYTES:
+        raise ValueError(f"{what} (k={k}, m={m}) exceeds what the K1 recursion kernels take: no cluster "
+                         f"holds it, and the single-block kernel takes k <= {MAX_CHUNK} with (2m + 2k + 32) "
+                         f"floats of shared memory <= {MAX_SHARED_BYTES} bytes")
+    return None, 0
+
+
 def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor,
                   sub=None, mode: str = "flat"):
     """K1 (and K5 for ``sub < k`` or ``mode="coord"``): k exact sequential
@@ -249,6 +311,12 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
         None (or k) is the flat recursion.
       mode: "flat", or "coord" for the recursion on k-dim coordinates
         (``sub`` is then only checked).
+
+    On CUDA the flat and sub recursions run on clusters of
+    :func:`chunk_cluster_plan` (at k = sub for sub), or on the single-block
+    kernel where that returns None. Raises ValueError for a shape neither
+    takes, RuntimeError when a launch fails, the card cannot hold the
+    planned cluster, or the plan is not the kernel's layout.
 
     Returns (L', B'). On CUDA, L and B are updated in place.
     """
@@ -269,23 +337,23 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
         return _chunk_coord(lib, L, B, idx, wv)
     if sub < k:
         return _chunk_sub(lib, L, B, idx, wv, sub)
-    if k > MAX_CHUNK or lib.ogp_blocked_chunk_smem(k, m) > MAX_SHARED_BYTES:
-        raise ValueError(f"chunk (k={k}, m={m}) exceeds what the K1 kernel takes (k <= {MAX_CHUNK}, "
-                         f"(2m + 2k + 32) floats of shared memory <= {MAX_SHARED_BYTES} bytes)")
+    plan, C = _recursion_plan(lib, k, m, "chunk")
     dev = L.device
     factors = torch.empty((4, Bd, k, m), dtype=torch.float32, device=dev)  # p0, U, P, R
     T = torch.empty((Bd, 2, m, k), dtype=torch.float32, device=dev)
     p_ = _build.ptr
     rc = lib.ogp_blocked_chunk(
         p_(L), p_(B), p_(idx), p_(wv), p_(factors[0]), p_(factors[1]), p_(factors[2]),
-        p_(factors[3]), p_(T), Bd, k, P, m, _build.stream_of(L),
+        p_(factors[3]), p_(T), Bd, k, P, m, C, _build.stream_of(L),
     )
-    _build.launch_check(rc, "blocked_chunk")
+    _build.launch_check(rc, "blocked_chunk", plan)
     blocked_chunk.launches += 1
+    blocked_chunk.cluster_launches += plan is not None
     return L, B
 
 
 blocked_chunk.launches = 0
+blocked_chunk.cluster_launches = 0
 blocked_chunk.sub_launches = 0
 blocked_chunk.coord_launches = 0
 
@@ -295,8 +363,7 @@ def _chunk_sub(lib, L, B, idx, wv, sub):
     Bd, m = L.shape[0], L.shape[-1]
     k, P = idx.shape
     nb = k // sub
-    if sub > MAX_CHUNK or lib.ogp_blocked_chunk_smem(sub, m) > MAX_SHARED_BYTES:
-        raise ValueError(f"sub-block (sub={sub}, m={m}) exceeds what the K1 recursion kernel takes")
+    plan, C = _recursion_plan(lib, sub, m, "sub-block")
     f32 = dict(dtype=torch.float32, device=L.device)
     # sub-block j's weights contiguous, as its gather reads them
     wv_sub = wv.reshape(Bd, nb, sub, P).transpose(0, 1).contiguous()
@@ -306,9 +373,9 @@ def _chunk_sub(lib, L, B, idx, wv, sub):
     p_ = _build.ptr
     rc = lib.ogp_blocked_chunk_sub(
         p_(L), p_(B), p_(idx), p_(wv_sub), p_(factors[0]), p_(factors[1]), p_(factors[2]),
-        p_(factors[3]), p_(a2), p_(T), Bd, k, sub, P, m, _build.stream_of(L),
+        p_(factors[3]), p_(a2), p_(T), Bd, k, sub, P, m, C, _build.stream_of(L),
     )
-    _build.launch_check(rc, "blocked_chunk (sub)")
+    _build.launch_check(rc, "blocked_chunk (sub)", plan)
     blocked_chunk.sub_launches += 1
     return L, B
 
