@@ -49,10 +49,19 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
      against its plain version and torch.linalg.cholesky: relative max
      error <= 5e-4, strict upper triangle exactly 0.
    Then each kernel against its plain version on synthetic inputs, with
-   times as in phase 2: K4 one update to 1e-5 (Bd=1, Bd=2 with p=0 an exact
-   no-op, slim Bd=1); K5 one chunk to 1e-5 and a 4-chunk stream to 2e-4 at
-   Bd=1 and 2, with each variant's distance to flat K1; K6 on an SPD batch
-   (Bd=2) to atol 2e-5, rtol 1e-4.
+   times as in phase 2: K4 one update to 1e-5 and bitwise the same on a
+   second call (Bd=1, Bd=2 with p=0 an exact no-op, slim Bd=1; and one at
+   m=1,100, where the row kernel loops over a row); K5 one
+   chunk to 1e-5 and a 4-chunk stream to 2e-4 at Bd=1 and 2, with each
+   variant's distance to flat K1; K6 on SPD batches at m = 900, 1,000 and
+   130 for Bd = 1 and 4 and on a (2, 2, 900, 900) batch, against its plain
+   version and torch.linalg.cholesky to atol 2e-5, rtol 1e-4, bitwise the
+   same on a second call, strict upper triangle exactly 0.
+   K4 and K6 report their device span per call as `ms` (device_span_ms:
+   first CUDA activity to last, with the call queued behind a spin kernel),
+   the time of a call whose kernels overlap by programmatic dependent
+   launch. K6 is timed with that launch off too, beside the spans of
+   torch.linalg.cholesky and torch.linalg.cholesky_ex.
 
 It prints the kernels as one JSON line, then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs a CUDA device
@@ -83,7 +92,7 @@ from online_gp_torch.models.wiski import (
     wiski_slim,
     wiski_stream,
 )
-from online_gp_torch.ops import _build
+from online_gp_torch.ops import _build, cuda_chol
 from online_gp_torch.ops.cuda_chol import blocked_cholesky, blocked_cholesky_plain
 from online_gp_torch.ops.cuda_pred_stream import (
     pred_chunk,
@@ -123,12 +132,19 @@ TIMING_REPS = 20
 # in up to 2% of windows (profiler_records.py)
 PROFILE_PAD_S = 0.05
 PROFILE_ATTEMPTS = 3
+# device_span_ms: the spin queued before each call it times (~1 ms on an
+# H100), and the idle gap that splits one call from the next
+SPIN_CYCLES = 2_000_000
+SPAN_SPLIT_US = 250.0
 N_K4 = 256  # phase 4: dense-v updates per K4 state
 SUB = 32  # phase 4: K5's sub-block size
 VARIANTS = {"blocked_chunk_sub": dict(sub=SUB), "blocked_chunk_coord": dict(mode="coord")}
 CHOL_BLOCK = 128
+CHOL_SIZES = (900, 1000, 130)  # phase 4: K6 at m = 900 (4-column last panel), 1,000, 130
+CHOL_BATCHES = (1, 4)
 OUTSIDE_SIDE = 50  # phase 2: a K1 chunk at m = 2,500, outside the cluster envelope
 OUTSIDE_K3 = 512  # phase 2: a K3 chunk of k = 512 at m = 900, outside it
+ROWS_OUTSIDE_REGS_M = 1100  # phase 4: K4 where its row kernel cannot hold a row in registers
 
 # (device memory bytes/s, f32 flop/s outside the tensor cores), NVIDIA data
 # sheets, dense, at the full power limit
@@ -209,6 +225,56 @@ def device_ms(fn, make_args, kernels, reps=TIMING_REPS):
         want = {k: reps * kernels[k] for k in short}
         print(f"  torch.profiler recorded {short} launches of {want}; profiling again")
     raise AssertionError(f"no profile of {PROFILE_ATTEMPTS} recorded every launch of {sorted(kernels)}")
+
+
+def device_span_ms(fn, make_args, kernels=None, reps=TIMING_REPS):
+    """(mean device span, {kernel: mean summed duration}) per call of
+    fn(*make_args()). The span runs from the start of the call's first
+    CUDA activity to the end of its last (torch.profiler). A spin kernel
+    (torch.cuda._sleep, SPIN_CYCLES) runs on the stream just before each
+    call, so every launch of the call is queued before the device reaches
+    it: the span is the device's time for the call, not the host's time to
+    issue it. For kernels launched with programmatic dependent launch this
+    is the call's device time; their summed durations also count the time
+    a kernel sat scheduled, waiting on the one before. ``kernels`` maps the CUDA kernels to count
+    to their launches per call (the copies make_args makes are other
+    kernels); None counts every CUDA activity of the window but the spin,
+    and then make_args must launch nothing. A window that did not record
+    every call is printed and profiled again, up to PROFILE_ATTEMPTS
+    windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*make_args())
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                args = make_args()
+                torch.cuda.synchronize()
+                torch.cuda._sleep(SPIN_CYCLES)
+                fn(*args)
+                torch.cuda.synchronize()
+        events = sorted(
+            (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name
+            and (kernels is None or any(f"::{k}(" in e.name for k in kernels)))
+        calls = []  # [start, end, activities] per call, split where a spin stood between
+        for start, end, _ in events:
+            if calls and start - calls[-1][1] < SPAN_SPLIT_US:
+                calls[-1][1] = max(calls[-1][1], end)
+                calls[-1][2] += 1
+            else:
+                calls.append([start, end, 1])
+        per_call = None if kernels is None else sum(kernels.values())
+        if len(calls) == reps and all(per_call is None or n == per_call for _, _, n in calls):
+            stages = {k: sum(end - start for start, end, name in events if f"::{k}(" in name) / reps / 1e3
+                      for k in kernels or {}}
+            return sum(end - start for start, end, _ in calls) / reps / 1e3, stages
+        print(f"  torch.profiler recorded {len(calls)} calls of {reps} "
+              f"(activities per call {[n for _, _, n in calls]}); profiling again")
+    raise AssertionError(f"no profile of {PROFILE_ATTEMPTS} recorded every call of {fn}")
 
 
 def max_err(got, want, tol, what):
@@ -770,9 +836,11 @@ def check_rank1_update(rng, grid, peaks, dev):
         clone = lambda: (L.clone(), B.clone(), None if A is None else A.clone(), v)
         want = rank1_update_plain(L, B, A, v)
         got = rank1_update(*clone())
+        again = rank1_update(*clone())
         torch.cuda.synchronize()
         pairs = [(g, w) for g, w in zip(got, want) if w is not None]
         err = max_err([g for g, _ in pairs], [w for _, w in pairs], 1e-5, f"rank1_update {label}")
+        bitwise([g for g in got if g is not None], [a for a in again if a is not None], f"rank1_update {label}")
         if Bd == 2 and not (torch.equal(got[0][1], L[1]) and torch.equal(got[1][1], B[1]) and torch.equal(got[2][1], A[1])):
             raise AssertionError("rank1_update: v = 0 changed the state")
 
@@ -790,13 +858,23 @@ def check_rank1_update(rng, grid, peaks, dev):
         nbytes = 4 * ((4 if slim else 6) * Bd * m * m + Bd * m)
         flops = Bd * ((10 if slim else 12) * m * m + 6 * m)
         bms, by = bound_ms(nbytes, flops, peaks)
-        ms, stages = device_ms(rank1_update, clone, {
-            "rank1_colsum_kernel": 1, "rank1_update_prepass_kernel": 1, "rank1_rows_kernel": 1})
+        ms, stages = device_span_ms(rank1_update, clone, {"rank1_p_kernel": 1, "rank1_rows_kernel": 1})
         out[label] = dict(
-            max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(rank1_update, clone),
+            max_abs_err=err, ms=ms, kernel_sum_ms=sum(stages.values()), stages_ms=stages,
+            wrapper_ms=time_ms(rank1_update, clone),
             plain_ms=time_ms(rank1_update_plain, clone), library_ms=time_ms(library, clone),
             bound_ms=bms, bound_by=by,
         )
+    # above m = 1,024 the row kernel (K4's and K2's) loops over a row
+    # instead of holding it in registers
+    m2 = ROWS_OUTSIDE_REGS_M
+    L, B = synthetic_roots(rng, 1, m2, dev)
+    A = (L @ L.mT).contiguous()
+    v = torch.tensor(rng.normal(size=(1, m2, 1)), dtype=torch.float32, device=dev)
+    got = rank1_update(L.clone(), B.clone(), A.clone(), v)
+    torch.cuda.synchronize()
+    err = max_err(got, rank1_update_plain(L, B, A, v), 1e-5, f"rank1_update m={m2}")
+    out[f"rows outside registers (m={m2})"] = dict(max_abs_err=err)
     return out
 
 
@@ -875,34 +953,78 @@ def check_chunk_variants(rng, grid, peaks, dev):
     return out
 
 
-def check_cholesky(rng, Q, peaks, dev):
-    m = Q.shape[-1]
-    a = torch.tensor(rng.standard_normal((2, m, m)), dtype=torch.float32, device=dev)
-    spd = (a @ a.mT / m + torch.eye(m, device=dev)).contiguous()
-    got = blocked_cholesky(spd, CHOL_BLOCK)
-    torch.cuda.synchronize()
-    for what, want in (("plain", blocked_cholesky_plain(spd, CHOL_BLOCK)), ("torch.linalg.cholesky", torch.linalg.cholesky(spd))):
-        if not torch.allclose(got, want, atol=2e-5, rtol=1e-4):
-            raise AssertionError(f"blocked_cholesky on an SPD batch: max abs err {float((got - want).abs().max()):.3e} against {what}")
-    if not bool((torch.triu(got, 1) == 0).all()):
-        raise AssertionError("blocked_cholesky: the strict upper triangle is not exactly 0")
-    spd_err = float((got - torch.linalg.cholesky(spd)).abs().max())
+def spd_batch(rng, shape, dev):
+    """SPD matrices a a^T / m + I of the given shape (..., m, m)."""
+    a = torch.tensor(rng.standard_normal(shape), dtype=torch.float32, device=dev)
+    return (a @ a.mT / shape[-1] + torch.eye(shape[-1], device=dev)).contiguous()
 
-    Lq = blocked_cholesky(Q, CHOL_BLOCK)
-    want = blocked_cholesky_plain(Q, CHOL_BLOCK)
+
+def check_cholesky_case(q, what):
+    """K6 on q against its plain version and torch.linalg.cholesky (atol
+    2e-5, rtol 1e-4), bitwise the same on a second call, strict upper
+    triangle exactly 0. Returns the factor and the max abs errors."""
+    got = blocked_cholesky(q, CHOL_BLOCK)
+    again = blocked_cholesky(q, CHOL_BLOCK)
     torch.cuda.synchronize()
+    bitwise((got,), (again,), f"blocked_cholesky {what}")
+    errs = {}
+    for name, want in (("plain", blocked_cholesky_plain(q, CHOL_BLOCK)), ("torch.linalg.cholesky", torch.linalg.cholesky(q))):
+        errs[name] = float((got - want).abs().max())
+        if not torch.allclose(got, want, atol=2e-5, rtol=1e-4):
+            raise AssertionError(f"blocked_cholesky {what}: max abs err {errs[name]:.3e} against {name}")
+    if not bool((torch.triu(got, 1) == 0).all()):
+        raise AssertionError(f"blocked_cholesky {what}: the strict upper triangle is not exactly 0")
+    return got, errs
+
+
+def check_cholesky(rng, Q, peaks, dev):
+    """K6 on SPD batches at CHOL_SIZES x CHOL_BATCHES and on a (2, 2, m, m)
+    batch, then times at m = 900 for Bd = 1 (phase 4's Q) and Bd = 4: the
+    device span with programmatic dependent launch (ms) and without
+    (plain_launch_ms), each kernel's summed durations, and the device spans
+    of torch.linalg.cholesky (library_ms) and torch.linalg.cholesky_ex."""
+    m = Q.shape[-1]
+    for mc in CHOL_SIZES:
+        for Bd in CHOL_BATCHES:
+            _, errs = check_cholesky_case(spd_batch(rng, (Bd, mc, mc), dev), f"Bd={Bd} m={mc}")
+            print(f"  K6 Bd={Bd} m={mc}: max abs err {json.dumps(errs)}")
+    q4d = spd_batch(rng, (2, 2, m, m), dev)
+    got4d, errs = check_cholesky_case(q4d, f"(2, 2, {m}, {m})")
+    if got4d.shape != q4d.shape:
+        raise AssertionError(f"blocked_cholesky returned {tuple(got4d.shape)} for {tuple(q4d.shape)}")
+    print(f"  K6 (2, 2, {m}, {m}): max abs err {json.dumps(errs)}")
+
+    # Q's entries grow with the data: phase 4 holds its factor to a relative
+    # bound; here it must come back the same from a second call
+    Lq, again = blocked_cholesky(Q, CHOL_BLOCK), blocked_cholesky(Q, CHOL_BLOCK)
+    torch.cuda.synchronize()
+    bitwise((Lq,), (again,), f"blocked_cholesky on Q (m={m})")
+    want = blocked_cholesky_plain(Q, CHOL_BLOCK)
     nb = -(-m // CHOL_BLOCK)
-    make = lambda: (Q, CHOL_BLOCK)
-    Bd = Q.shape[0]
-    bms, by = bound_ms(4 * 2 * Bd * m * m, Bd * m**3 / 3, peaks)
-    ms, stages = device_ms(blocked_cholesky, make, {"chol_init_kernel": 1, "chol_panel_kernel": nb,
-                                                   "chol_panel_solve_kernel": nb - 1, "chol_syrk_kernel": nb - 1})
-    return dict(
-        max_abs_err=float((Lq - want).abs().max()), rel_max_err=rel_max_err(Lq, want),
-        spd_batch_max_abs_err_vs_library=spd_err, ms=ms, stages_ms=stages,
-        wrapper_ms=time_ms(blocked_cholesky, make), plain_ms=time_ms(blocked_cholesky_plain, make),
-        library_ms=time_ms(lambda Q, b: torch.linalg.cholesky(Q), make), bound_ms=bms, bound_by=by,
-    )
+    stage_kernels = {"chol_init_kernel": 1, "chol_factor_kernel": nb, "chol_solve_kernel": nb - 1,
+                     "chol_syrk_kernel": nb - 1}
+    out = {}
+    for Bd, q in ((1, Q), (4, spd_batch(rng, (4, m, m), dev))):
+        make = lambda q=q: (q, CHOL_BLOCK)
+        bms, by = bound_ms(4 * 2 * Bd * m * m, Bd * m**3 / 3, peaks)
+        r = dict(bound_ms=bms, bound_by=by)
+        for key, pdl in (("", True), ("plain_launch_", False)):
+            cuda_chol.PROGRAMMATIC_LAUNCH = pdl
+            try:
+                r[f"{key}ms"], r[f"{key}stages_ms"] = device_span_ms(blocked_cholesky, make, stage_kernels)
+                r[f"{key}kernel_sum_ms"] = sum(r[f"{key}stages_ms"].values())
+            finally:
+                cuda_chol.PROGRAMMATIC_LAUNCH = True
+        r["library_ms"] = device_span_ms(lambda q, b: torch.linalg.cholesky(q), make)[0]
+        r["library_ex_ms"] = device_span_ms(lambda q, b: torch.linalg.cholesky_ex(q), make)[0]
+        r["library_wall_ms"] = time_ms(lambda q, b: torch.linalg.cholesky(q), make)
+        r["wrapper_ms"] = time_ms(blocked_cholesky, make)
+        if Bd == 1:
+            r.update(max_abs_err=float((Lq - want).abs().max()), rel_max_err=rel_max_err(Lq, want),
+                     max_abs_err_vs_library=float((Lq - torch.linalg.cholesky(Q)).abs().max()),
+                     plain_ms=time_ms(blocked_cholesky_plain, make))
+        out[Bd] = r
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -957,7 +1079,7 @@ def main() -> int:
         results4 = {
             "rank1_update": check_rank1_update(rng, grid, peaks, dev),
             **check_chunk_variants(rng, grid, peaks, dev),
-            "blocked_cholesky": {1: check_cholesky(rng, Q, peaks, dev)},
+            "blocked_cholesky": check_cholesky(rng, Q, peaks, dev),
         }
         for kname, by_case in results4.items():
             for case, r in by_case.items():

@@ -123,6 +123,37 @@ __device__ __forceinline__ void gemm_tile(
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// ---- programmatic dependent launch (PDL) ----
+//
+// A kernel launched by launch(..., pdl = true) may be scheduled while the
+// kernel before it on the stream still runs, once every block of that one
+// has called pdl_trigger() (or exited). pdl_wait() returns when the kernel
+// before has completed and its writes are visible, so a kernel calls it
+// before it reads what the one before wrote, or writes what that one reads.
+// Both are no-ops in a kernel launched without the attribute. The
+// dependency is transitive: a kernel cannot complete before its own wait.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void pdl_trigger() { asm volatile("griddepcontrol.launch_dependents;" ::: "memory"); }
+
+// kernel<<<grid, block, smem, s>>>(args...), with programmatic stream
+// serialization when pdl is true. Returns the launch's cudaError_t.
+template <typename... KArgs, typename... Args>
+cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem, cudaStream_t s,
+                   bool pdl, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 // ---- recursions on a thread-block cluster (K1, K3) ----
 //
 // One output's m columns are split over the C blocks of a cluster: block r

@@ -10,8 +10,10 @@
 //     L += c (L u) u^T,   B += d (B u) u^T.
 // Bound: bytes. L and B are read and written once, 4 m^2 floats per output
 // (13 MB at m = 900), against 8 m^2 flops. Design: a pre-pass block per
-// output computes u, c and d once; then one warp per row does the row's dot
-// with u and its axpy, in place (a row's update reads only that row and u).
+// output computes |p|^2 once; then one warp per row forms c, d and 1/|p|
+// from it, does the row's dot with u = p/|p| and its axpy, in place (a
+// row's update reads only that row and p), with the row in registers up
+// to m = 1,024 so that it is read once and all its loads are in flight.
 //
 // K1 replaces pallas_blocked_chunk_batched with mode="flat", sub=k (body
 // _fused_chunk_kernel_batched): one chunk of k exact sequential rank-1 root
@@ -74,11 +76,17 @@
 // Bound: bytes, (6 m^2 + m) floats per output in and out (4 m^2 + m slim).
 // The kernels move 7 m^2 (5 m^2): B is read twice, once for p and once to
 // update it. Design: the Pallas grid carries p across its sequential row
-// tiles; CUDA blocks cannot, so pass 1 writes one partial sum per (row slab,
-// column) with threads over columns (coalesced) and a loop over the slab's
-// rows, and the pre-pass adds the slabs in a fixed order: no atomics, the
-// same sums on every run. Pass 1 also does A += v v^T on the tile it reads.
-// Pass 2 is K2's row kernel.
+// tiles; CUDA blocks cannot, so pass 1 gives each block a tile of
+// kPCols columns across all m rows (113 blocks at m = 900): lanes over
+// columns and rows, warps over rows, the row slots added in a fixed order.
+// It writes whole entries of p and one partial |p|^2 per block. Pass 2 is
+// K2's row kernel: each warp adds the blocks' partials in the same fixed
+// order, so no pass stands between the two and every run gives the same
+// sums (no atomics, no counter). Pass 2 also does A += v v^T, by whole
+// rows (pass 1 reads B by 32-byte column strips, which made A's
+// read-modify-write there cost more than B's read). Pass 2 is launched
+// with programmatic dependent launch: its launch overlaps pass 1, and its
+// A rows, which need nothing from pass 1, run alongside it.
 //
 // K5 replaces the two options of pallas_blocked_chunk_batched that K1 does
 // not cover, the same k exact sequential rank-1 updates:
@@ -121,43 +129,89 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kRowsPerBlock = 8;  // K2: one warp per row
+constexpr int kRowRegs = 32;      // K2: a row's entries per lane held in registers
 constexpr int kRecursionThreads = 1024;
 
-__global__ void rank1_prepass_kernel(const float* __restrict__ p, float* __restrict__ u,
-                                     float* __restrict__ cd, int m) {
+// K2's pre-pass: s2[b] = |p_b|^2, the single partial of the row kernel.
+__global__ void rank1_prepass_kernel(const float* __restrict__ p, float* __restrict__ s2, int m) {
   __shared__ float red[32];
   const long long b = blockIdx.x;
   const float* pb = p + b * m;
-  float s2 = 0.f;
-  for (int l = threadIdx.x; l < m; l += blockDim.x) s2 = fmaf(pb[l], pb[l], s2);
-  s2 = block_sum(s2, red);
-  const float s = sqrtf(s2);
-  const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
-  for (int l = threadIdx.x; l < m; l += blockDim.x) u[b * m + l] = pb[l] * inv_s;
-  if (threadIdx.x == 0) {
-    const float r = sqrtf(s2 + 1.f);
-    cd[2 * b] = r - 1.f;
-    cd[2 * b + 1] = 1.f / r - 1.f;
-  }
+  float acc = 0.f;
+  for (int l = threadIdx.x; l < m; l += blockDim.x) acc = fmaf(pb[l], pb[l], acc);
+  acc = block_sum(acc, red);
+  if (threadIdx.x == 0) s2[b] = acc;
 }
 
-// grid (row blocks, Bd, 2): z = 0 updates L with c, z = 1 updates B with d
+// grid (row blocks, Bd, 2 or 3): z = 0 updates L with c, z = 1 updates B
+// with d, z = 2 (K4's full variant) does A += v v^T, rounded as the plain
+// version's A + v v^T (product, then sum). |p|^2 is the sum of the nparts
+// partials s2[b, :] (lane l adds l, l + 32, ... in turn, then a fixed
+// butterfly: every warp gets the same value); then s = |p|, u = p/s (u = 0
+// when s <= 1e-20, the Pallas guard), c = sqrt(s^2 + 1) - 1,
+// d = 1/sqrt(s^2 + 1) - 1. The A rows read nothing the kernel before
+// wrote, so they run before its pdl_wait().
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
-rank1_rows_kernel(float* L, float* B, const float* __restrict__ u, const float* __restrict__ cd,
-                  int m) {
-  const long long b = blockIdx.y;
+rank1_rows_kernel(float* L, float* B, float* A, const float* __restrict__ v,
+                  const float* __restrict__ p, const float* __restrict__ s2, int nparts, int m) {
+  const long long b = blockIdx.y, mm = m;
   const int which = blockIdx.z;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (i >= m) return;  // whole warps leave; no block-wide sync below
-  const long long mm = m;
+  if (which == 2) {
+    float* row = A + b * mm * mm + i * mm;
+    const float* vb = v + b * mm;
+    const float vi = vb[i];
+    for (int l = lane; l < m; l += 32) row[l] = __fadd_rn(row[l], __fmul_rn(vi, vb[l]));
+    return;
+  }
+  ogp::pdl_wait();
+  // the row's dot with p first: its loads do not wait on the scalars. Up to
+  // m = 32 kRowRegs the warp keeps its row and p in registers, every load
+  // in flight at once, and reads the row once.
   float* row = (which == 0 ? L : B) + b * mm * mm + i * mm;
-  const float* ub = u + b * mm;
-  const float coef = cd[2 * b + which];
+  const float* pb = p + b * mm;
+  float x[kRowRegs], pv[kRowRegs];
+  const bool in_regs = m <= 32 * kRowRegs;
   float dot = 0.f;
-  for (int l = lane; l < m; l += 32) dot = fmaf(row[l], ub[l], dot);
-  dot = warp_sum(dot) * coef;
-  for (int l = lane; l < m; l += 32) row[l] = fmaf(dot, ub[l], row[l]);
+  if (in_regs) {
+#pragma unroll
+    for (int t = 0; t < kRowRegs; ++t) {
+      const int l = lane + 32 * t;
+      x[t] = l < m ? row[l] : 0.f;
+      pv[t] = l < m ? pb[l] : 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < kRowRegs; ++t) dot = fmaf(x[t], pv[t], dot);
+  } else {
+    for (int l = lane; l < m; l += 32) dot = fmaf(row[l], pb[l], dot);
+  }
+  float ss = 0.f;
+  for (int q = lane; q < nparts; q += 32) ss += s2[b * nparts + q];
+  ss = warp_sum(ss);
+  const float s = sqrtf(ss);
+  const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
+  const float r = sqrtf(ss + 1.f);
+  const float coef = which == 0 ? r - 1.f : 1.f / r - 1.f;
+  // (row . u) coef with u = p inv_s
+  dot = warp_sum(dot) * inv_s * coef;
+  if (in_regs) {
+#pragma unroll
+    for (int t = 0; t < kRowRegs; ++t) {
+      const int l = lane + 32 * t;
+      if (l < m) row[l] = fmaf(dot, pv[t] * inv_s, x[t]);
+    }
+  } else {
+    for (int l = lane; l < m; l += 32) row[l] = fmaf(dot, pb[l] * inv_s, row[l]);
+  }
+}
+
+// The row pass of K2 and K4; A and v only for K4's full variant (else null).
+cudaError_t rank1_rows(float* L, float* B, float* A, const float* v, const float* p,
+                       const float* s2, int nparts, int Bd, int m, bool pdl, cudaStream_t s) {
+  return ogp::launch(rank1_rows_kernel, dim3(cdiv(m, kRowsPerBlock), Bd, A ? 3 : 2),
+                     dim3(kRowsPerBlock * 32), 0, s, pdl, L, B, A, v, p, s2, nparts, m);
 }
 
 // (a) p0[b, t, :] = sum_p wv[b, t, p] * B[b, idx[t, p], :]; grid (k, Bd)
@@ -481,66 +535,50 @@ chunk_apply_x_kernel(float* L, float* B, const float* T, const float* U, int k, 
 
 // ---- K4 ----
 
-constexpr int kColTile = 32;   // pass 1: columns per block, one per lane
-constexpr int kSlabRows = 64;  // pass 1: rows per block
-constexpr int kSlabWarps = 8;
+constexpr int kPCols = 8;                       // pass 1: columns per block
+constexpr int kPThreads = 512;
+constexpr int kPSlots = kPThreads / kPCols;     // row slots: rows i = slot (mod kPSlots)
+constexpr int kPWarps = kPThreads / 32;
+static_assert(kPCols == 8 && kPWarps % 4 == 0, "rank1_p_kernel's sums assume 4 rows a warp");
 
-// (K4 pass 1) partial[b, s, j] = sum over rows i of slab s of B[b, i, j] v[b, i];
-// with A (full variant) also A[b, i, j] += v[b, i] v[b, j] on the same tile.
-// grid (column tiles, slabs, Bd), block (kColTile, kSlabWarps)
-__global__ void __launch_bounds__(kColTile * kSlabWarps)
-rank1_colsum_kernel(const float* __restrict__ B, float* A, const float* __restrict__ v,
-                    float* __restrict__ partial, int m) {
-  __shared__ float red[kSlabWarps][kColTile];
-  const long long b = blockIdx.z, mm = m;
-  const int j = blockIdx.x * kColTile + threadIdx.x;
-  const int i1 = min((int)(blockIdx.y + 1) * kSlabRows, m);
+// (K4 pass 1) p[b, j] = sum_i B[b, i, j] v[b, i] for the block's kPCols
+// columns, over all m rows, and s2[b, x] = the block's sum of p[b, j]^2.
+// Lane l takes column l % kPCols; a warp covers 32 / kPCols rows at a time,
+// eight rows a thread in flight. grid (column tiles, Bd)
+__global__ void __launch_bounds__(kPThreads)
+rank1_p_kernel(const float* __restrict__ B, const float* __restrict__ v, float* __restrict__ p,
+               float* __restrict__ s2, int m) {
+  __shared__ float red[kPWarps][kPCols];
+  ogp::pdl_trigger();
+  const long long b = blockIdx.y, mm = m;
+  const int col = threadIdx.x % kPCols, slot = threadIdx.x / kPCols;
+  const int j = blockIdx.x * kPCols + col;
   const float* Bb = B + b * mm * mm;
   const float* vb = v + b * mm;
   float acc = 0.f;
   if (j < m) {
-    float* Ab = A ? A + b * mm * mm : nullptr;
-    const float vj = vb[j];
-    for (int i = blockIdx.y * kSlabRows + threadIdx.y; i < i1; i += kSlabWarps) {
-      const float vi = vb[i];
-      acc = fmaf(Bb[i * mm + j], vi, acc);
-      // rounded as the plain version's A + v v^T: product, then sum
-      if (Ab) Ab[i * mm + j] = __fadd_rn(Ab[i * mm + j], __fmul_rn(vi, vj));
-    }
+#pragma unroll 8
+    for (int i = slot; i < m; i += kPSlots) acc = fmaf(Bb[i * mm + j], vb[i], acc);
   }
-  red[threadIdx.y][threadIdx.x] = acc;
+  // the row slots of column col, in a fixed order: the warp's four (xor 8,
+  // then 16), then the warps' sums in warp order
+  acc += __shfl_xor_sync(0xffffffffu, acc, 8);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 16);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane < kPCols) red[warp][lane] = acc;
   __syncthreads();
-  if (threadIdx.y == 0 && j < m) {
-    float s = 0.f;
-    for (int y = 0; y < kSlabWarps; ++y) s += red[y][threadIdx.x];
-    partial[(b * gridDim.y + blockIdx.y) * mm + j] = s;
-  }
-}
-
-// (K4 pre-pass) p = the slabs' partial sums added in order, then u, c and d
-// as K2's pre-pass computes them. One block per output.
-__global__ void rank1_update_prepass_kernel(const float* __restrict__ partial, int nslab,
-                                            float* __restrict__ u, float* __restrict__ cd,
-                                            int m) {
-  __shared__ float red[32];
-  const long long b = blockIdx.x, mm = m;
-  const float* pb = partial + b * nslab * mm;
-  float* ub = u + b * mm;
-  float s2 = 0.f;
-  for (int l = threadIdx.x; l < m; l += blockDim.x) {
-    float p = 0.f;
-    for (int slab = 0; slab < nslab; ++slab) p += pb[slab * mm + l];
-    ub[l] = p;
-    s2 = fmaf(p, p, s2);
-  }
-  s2 = block_sum(s2, red);
-  const float s = sqrtf(s2);
-  const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
-  for (int l = threadIdx.x; l < m; l += blockDim.x) ub[l] *= inv_s;  // this thread's own p
-  if (threadIdx.x == 0) {
-    const float r = sqrtf(s2 + 1.f);
-    cd[2 * b] = r - 1.f;
-    cd[2 * b + 1] = 1.f / r - 1.f;
+  if (warp == 0) {
+    // lane l adds warps 4 (l / 8) .. 4 (l / 8) + 3 of column l % 8
+    float pj = 0.f;
+#pragma unroll
+    for (int w = 0; w < kPWarps / 4; ++w) pj += red[(lane / kPCols) * (kPWarps / 4) + w][col];
+    pj += __shfl_xor_sync(0xffffffffu, pj, 8);
+    pj += __shfl_xor_sync(0xffffffffu, pj, 16);
+    if (lane < kPCols && j < m) p[b * mm + j] = pj;
+    const float sq = lane < kPCols && j < m ? pj * pj : 0.f;
+    float part = 0.f;
+    for (int c = 0; c < kPCols; ++c) part += __shfl_sync(0xffffffffu, sq, c);
+    if (lane == 0) s2[b * gridDim.x + blockIdx.x] = part;
   }
 }
 
@@ -674,17 +712,14 @@ coord_recursion_kernel(const float* __restrict__ Mg, float* __restrict__ Ug,
 
 extern "C" {
 
-// K2. L, B: (Bd, m, m), updated in place; p: (Bd, m); u: (Bd, m) and
-// cd: (Bd, 2) scratch. Returns cudaGetLastError() after the launches.
-int ogp_rank1_apply(float* L, float* B, const float* p, float* u, float* cd, int Bd, int m,
-                    void* stream) {
+// K2. L, B: (Bd, m, m), updated in place; p: (Bd, m); s2: (Bd,) scratch.
+// Returns cudaGetLastError() after the launches.
+int ogp_rank1_apply(float* L, float* B, const float* p, float* s2, int Bd, int m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rank1_prepass_kernel<<<Bd, 256, 0, s>>>(p, u, cd, m);
-  cudaError_t e = cudaGetLastError();
+  rank1_prepass_kernel<<<Bd, 256, 0, s>>>(p, s2, m);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(cdiv(m, kRowsPerBlock), Bd, 2);
-  rank1_rows_kernel<<<grid, kRowsPerBlock * 32, 0, s>>>(L, B, u, cd, m);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rank1_rows(L, B, nullptr, nullptr, p, s2, 1, Bd, m, false, s));
 }
 
 // Dynamic shared memory of the single-block K1 recursion kernel, in bytes.
@@ -721,26 +756,20 @@ int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float
   return static_cast<int>(cudaGetLastError());
 }
 
-// Row slabs of K4's pass 1: the partial-sum scratch is (Bd, slabs, m).
-int ogp_rank1_update_slabs(int m) { return cdiv(m, kSlabRows); }
+// Column tiles of K4's pass 1: the |p|^2 partials are (Bd, tiles).
+int ogp_rank1_update_tiles(int m) { return cdiv(m, kPCols); }
 
 // K4. L, B: (Bd, m, m), updated in place; A: (Bd, m, m), updated in place,
-// or null (slim); v: (Bd, m); partial: (Bd, slabs, m), u: (Bd, m) and
-// cd: (Bd, 2) scratch. Returns cudaGetLastError() after the launches.
-int ogp_rank1_update(float* L, float* B, float* A, const float* v, float* partial, float* u,
-                     float* cd, int Bd, int m, void* stream) {
+// or null (slim); v: (Bd, m); p: (Bd, m) and s2: (Bd, tiles) scratch.
+// Returns cudaGetLastError() after the launches.
+int ogp_rank1_update(float* L, float* B, float* A, const float* v, float* p, float* s2, int Bd,
+                     int m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nslab = ogp_rank1_update_slabs(m);
-  rank1_colsum_kernel<<<dim3(cdiv(m, kColTile), nslab, Bd), dim3(kColTile, kSlabWarps), 0, s>>>(
-      B, A, v, partial, m);
-  cudaError_t e = cudaGetLastError();
+  const int tiles = ogp_rank1_update_tiles(m);
+  rank1_p_kernel<<<dim3(tiles, Bd), kPThreads, 0, s>>>(B, v, p, s2, m);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  rank1_update_prepass_kernel<<<Bd, 256, 0, s>>>(partial, nslab, u, cd, m);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rank1_rows_kernel<<<dim3(cdiv(m, kRowsPerBlock), Bd, 2), kRowsPerBlock * 32, 0, s>>>(L, B, u,
-                                                                                        cd, m);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(rank1_rows(L, B, A, v, p, s2, tiles, Bd, m, true, s));
 }
 
 // K5 sub. L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:

@@ -3,11 +3,13 @@ beside its plain PyTorch version.
 
 K6 replaces ``blocked_cholesky`` (``online_gp_tpu/ops/pallas_chol.py``):
 the lower Cholesky factor of an SPD matrix by a right-looking blocked
-algorithm whose panels fuse the elimination with the forward substitution
-for the panel inverse. As in the JAX package it is not wired into
-``wiski_mll``; the MLL and the prediction caches factor Q with
-:func:`online_gp_torch.ops.chol.cholesky`. The CUDA source, with the design
-notes, is ``online_gp_torch/csrc/chol.cu``.
+algorithm with panels of 128 columns. On the card each panel is three
+kernels: the diagonal tile factored by one block in inner panels of 32
+columns (one warp each, which also inverts its 32 x 32 block), the solve
+of the rows below, and the trailing update over the lower tiles only. As in the JAX
+package it is not wired into ``wiski_mll``; the MLL and the prediction
+caches factor Q with :func:`online_gp_torch.ops.chol.cholesky`. The CUDA
+source, with the design notes, is ``online_gp_torch/csrc/chol.cu``.
 
 Dispatch, by the tensor given: on the CPU the plain version runs; on CUDA
 with float32 the kernel launches; anything else (float64 on CUDA, a tensor
@@ -26,9 +28,12 @@ from online_gp_torch.ops import _build
 from online_gp_torch.ops.precision import f32_matmul_precision
 
 # The panel width the kernel takes (the one chip_smoke.py checks on the card):
-# a panel tile and its inverse sit in shared memory, and the trailing GEMM's
-# 64-wide tiles must not straddle panels.
+# a panel tile sits in shared memory (kB in csrc/chol.cu).
 KERNEL_BLOCK = 128
+# The kernels after the first of a call use programmatic dependent launch,
+# so each is scheduled while the one before it runs. chip_smoke.py times
+# K6 with this off too: the measurement that chose it.
+PROGRAMMATIC_LAUNCH = True
 
 _lib = None
 
@@ -80,7 +85,9 @@ def blocked_cholesky(q: torch.Tensor, block: int = 128) -> torch.Tensor:
     """K6: the lower Cholesky factor of SPD ``q``.
 
     Args:
-      q: (m, m) or (Bd, m, m).
+      q: (..., m, m); any leading dims are a batch, as the JAX function
+        vmaps them (on CUDA they are flattened into one batch dim of the
+        kernel and restored).
       block: panel width; on CUDA 128.
 
     Returns a new tensor of q's shape, its strict upper triangle exactly 0.
@@ -88,19 +95,23 @@ def blocked_cholesky(q: torch.Tensor, block: int = 128) -> torch.Tensor:
     if _build.on_cpu(q):
         return blocked_cholesky_plain(q, block)
     _build.check_cuda_args("blocked_cholesky_plain", q=q)
-    if q.dim() not in (2, 3) or q.shape[-1] != q.shape[-2]:
-        raise ValueError(f"q must be (m, m) or (Bd, m, m); got {tuple(q.shape)}")
+    if q.dim() < 2 or q.shape[-1] != q.shape[-2]:
+        raise ValueError(f"q must be (..., m, m); got {tuple(q.shape)}")
     if block != KERNEL_BLOCK:
         raise ValueError(f"the K6 kernel takes block {KERNEL_BLOCK}; got {block} "
                          "(blocked_cholesky_plain takes any)")
-    q3 = q if q.dim() == 3 else q[None]
-    Bd, m = q3.shape[0], q3.shape[-1]
+    m = q.shape[-1]
+    q3 = q.reshape(-1, m, m)
+    Bd = q3.shape[0]
     if Bd * m * m >= 2**31 or Bd > 65535:
         raise ValueError(f"(Bd, m) = ({Bd}, {m}) exceeds the kernel's int32 sizes and grid")
     out = torch.empty_like(q3)
-    V = torch.empty((Bd, block, block), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out.view(q.shape)
+    W = torch.empty((Bd, block // 32, 32, 32), dtype=torch.float32, device=q.device)
     p_ = _build.ptr
-    rc = _chol_lib().ogp_blocked_cholesky(p_(q3), p_(out), p_(V), Bd, m, block, _build.stream_of(q))
+    rc = _chol_lib().ogp_blocked_cholesky(p_(q3), p_(out), p_(W), Bd, m, int(PROGRAMMATIC_LAUNCH),
+                                          _build.stream_of(q))
     _build.launch_check(rc, "blocked_cholesky")
     blocked_cholesky.launches += 1
     return out.view(q.shape)

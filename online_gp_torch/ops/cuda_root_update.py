@@ -74,7 +74,7 @@ def _root_update_lib():
     if _lib is None:
         lib = _build.load("root_update")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ogp_rank1_apply.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp]
+        lib.ogp_rank1_apply.argtypes = [vp, vp, vp, vp, i32, i32, vp]
         lib.ogp_rank1_apply.restype = i32
         lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         lib.ogp_blocked_chunk.restype = i32
@@ -82,9 +82,9 @@ def _root_update_lib():
         lib.ogp_blocked_chunk_smem.restype = ctypes.c_longlong
         lib.ogp_chunk_cluster_smem.argtypes = [i32, i32, i32]
         lib.ogp_chunk_cluster_smem.restype = ctypes.c_longlong
-        lib.ogp_rank1_update_slabs.argtypes = [i32]
-        lib.ogp_rank1_update_slabs.restype = i32
-        lib.ogp_rank1_update.argtypes = [vp] * 7 + [i32, i32, vp]
+        lib.ogp_rank1_update_tiles.argtypes = [i32]
+        lib.ogp_rank1_update_tiles.restype = i32
+        lib.ogp_rank1_update.argtypes = [vp] * 6 + [i32, i32, vp]
         lib.ogp_rank1_update.restype = i32
         lib.ogp_blocked_chunk_sub.argtypes = [vp] * 10 + [i32] * 6 + [vp]
         lib.ogp_blocked_chunk_sub.restype = i32
@@ -132,11 +132,10 @@ def rank1_apply(L: torch.Tensor, B: torch.Tensor, p: torch.Tensor):
     if tuple(p.shape) != (Bd, m):
         raise ValueError(f"p must be ({Bd}, {m}); got {tuple(p.shape)}")
     _check_sizes(Bd, m)
-    u = torch.empty((Bd, m), dtype=torch.float32, device=L.device)
-    cd = torch.empty((Bd, 2), dtype=torch.float32, device=L.device)
+    s2 = torch.empty((Bd,), dtype=torch.float32, device=L.device)
     lib = _root_update_lib()
     p_ = _build.ptr
-    rc = lib.ogp_rank1_apply(p_(L), p_(B), p_(p), p_(u), p_(cd), Bd, m, _build.stream_of(L))
+    rc = lib.ogp_rank1_apply(p_(L), p_(B), p_(p), p_(s2), Bd, m, _build.stream_of(L))
     _build.launch_check(rc, "rank1_apply")
     rank1_apply.launches += 1
     return L, B
@@ -180,13 +179,11 @@ def rank1_update(L: torch.Tensor, B: torch.Tensor, A, v: torch.Tensor):
     _check_sizes(Bd, m)
     lib = _root_update_lib()
     f32 = dict(dtype=torch.float32, device=L.device)
-    partial = torch.empty((Bd, lib.ogp_rank1_update_slabs(m), m), **f32)
-    u = torch.empty((Bd, m), **f32)
-    cd = torch.empty((Bd, 2), **f32)
+    p = torch.empty((Bd, m), **f32)
+    s2 = torch.empty((Bd, lib.ogp_rank1_update_tiles(m)), **f32)
     p_ = _build.ptr
     rc = lib.ogp_rank1_update(
-        p_(L), p_(B), None if A is None else p_(A), p_(v), p_(partial), p_(u), p_(cd), Bd, m,
-        _build.stream_of(L),
+        p_(L), p_(B), None if A is None else p_(A), p_(v), p_(p), p_(s2), Bd, m, _build.stream_of(L),
     )
     _build.launch_check(rc, "rank1_update")
     rank1_update.launches += 1

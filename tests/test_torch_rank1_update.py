@@ -100,6 +100,32 @@ def test_rank1_update_zero_vector_is_exact_noop():
         np.testing.assert_allclose(np.asarray(j), x[0], atol=1e-7)
 
 
+@pytest.mark.parametrize("slim", [False, True])
+def test_rank1_update_zero_vector_in_a_batch_is_exact_noop(slim):
+    """v = 0 (so p = 0) on one output of a batch: that output comes back
+    bit for bit while the others match the batched Pallas kernel."""
+    rng = np.random.default_rng(55 + slim)
+    Bd, m = 3, 100
+    A, L, B = _cache(rng, Bd, m)
+    v = rng.normal(size=(Bd, m, 1)).astype(np.float32)
+    v[1] = 0.0
+    J = jnp.asarray
+    if slim:
+        jL, jB = pallas_rank1_update_slim_batched(J(L), J(B), J(v), interpret=True)
+    else:
+        jL, jB, jA = pallas_rank1_update_batched(J(L), J(B), J(A), J(v), interpret=True)
+    tL, tB, tA = _torch_update(A, L, B, v, slim)
+    np.testing.assert_array_equal(tL[1], L[1])
+    np.testing.assert_array_equal(tB[1], B[1])
+    _close(jL, tL, 1e-5)
+    _close(jB, tB, 1e-5)
+    if slim:
+        assert tA is None
+    else:
+        np.testing.assert_array_equal(tA[1], A[1])
+        _close(jA, tA, 1e-5)
+
+
 def test_rank1_update_sequential_tracks_pallas_and_keeps_invariants():
     """Eight sequential updates: the port and the Pallas kernel stay within
     2e-4, and L L^T = A, B^T L = I hold as in the JAX test."""
