@@ -44,7 +44,7 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
      1e-3 * scale, A to 1e-5, wiski_check_decomposition's errors finite.
    - K5 (blocked_chunk with sub=32 and with mode="coord"): a 4-chunk stream
      of k=128 on phase 3's final roots, against blocked_chunk_plain with
-     the same options, to 2e-4.
+     the same options, to 2e-4; every sub chunk on the fused cluster kernel.
    - K6 (blocked_cholesky): Q = I + L^T Kuu_hat L of phase 3's final state,
      against its plain version and torch.linalg.cholesky: relative max
      error <= 5e-4, strict upper triangle exactly 0.
@@ -52,8 +52,12 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    times as in phase 2: K4 one update to 1e-5 and bitwise the same on a
    second call (Bd=1, Bd=2 with p=0 an exact no-op, slim Bd=1; and one at
    m=1,100, where the row kernel loops over a row); K5 one
-   chunk to 1e-5 and a 4-chunk stream to 2e-4 at Bd=1 and 2, with each
-   variant's distance to flat K1; K6 on SPD batches at m = 900, 1,000 and
+   chunk to 1e-5, bitwise the same on a second call, and a 4-chunk stream
+   to 2e-4 at Bd=1 and 2, with each variant's distance to flat K1 and K1
+   flat's device time on the same inputs, one sub chunk at m=1,089 (fused,
+   near the envelope's edge; also bitwise) and one at m=2,500 (outside it,
+   one sub-block at a time) to 1e-5;
+   K6 on SPD batches at m = 900, 1,000 and
    130 for Bd = 1 and 4 and on a (2, 2, 900, 900) batch, against its plain
    version and torch.linalg.cholesky to atol 2e-5, rtol 1e-4, bitwise the
    same on a second call, strict upper triangle exactly 0.
@@ -92,7 +96,7 @@ from online_gp_torch.models.wiski import (
     wiski_slim,
     wiski_stream,
 )
-from online_gp_torch.ops import _build, cuda_chol
+from online_gp_torch.ops import _build, cuda_chol, cuda_root_update
 from online_gp_torch.ops.cuda_chol import blocked_cholesky, blocked_cholesky_plain
 from online_gp_torch.ops.cuda_pred_stream import (
     pred_chunk,
@@ -143,6 +147,7 @@ CHOL_BLOCK = 128
 CHOL_SIZES = (900, 1000, 130)  # phase 4: K6 at m = 900 (4-column last panel), 1,000, 130
 CHOL_BATCHES = (1, 4)
 OUTSIDE_SIDE = 50  # phase 2: a K1 chunk at m = 2,500, outside the cluster envelope
+SUB_EDGE_SIDE = 33  # phase 4: a K5-sub chunk at m = 1,089, near the envelope's edge
 OUTSIDE_K3 = 512  # phase 2: a K3 chunk of k = 512 at m = 900, outside it
 ROWS_OUTSIDE_REGS_M = 1100  # phase 4: K4 where its row kernel cannot hold a row in registers
 
@@ -740,7 +745,7 @@ def remaining_path(rng, model, params, final_state, card, dev):
     k5_start = (final_state.roots.root.clone(), final_state.roots.inv_root.clone())
     torch.cuda.synchronize()
 
-    counters = [(rank1_update, "launches"), (blocked_chunk, "sub_launches"),
+    counters = [(rank1_update, "launches"), (blocked_chunk, "sub_launches"), (blocked_chunk, "sub_cluster_launches"),
                 (blocked_chunk, "coord_launches"), (blocked_cholesky, "launches")]
     for wrapper, attr in counters:
         setattr(wrapper, attr, 0)
@@ -768,6 +773,7 @@ def remaining_path(rng, model, params, final_state, card, dev):
     launches = {
         "rank1_update": rank1_update.launches,
         "blocked_chunk_sub": blocked_chunk.sub_launches,
+        "chunk_sub_cluster": blocked_chunk.sub_cluster_launches,
         "blocked_chunk_coord": blocked_chunk.coord_launches,
         "blocked_cholesky": blocked_cholesky.launches,
     }
@@ -780,6 +786,8 @@ def remaining_path(rng, model, params, final_state, card, dev):
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"phase 4 never launched {name}")
+    if launches["chunk_sub_cluster"] != launches["blocked_chunk_sub"]:
+        raise AssertionError(f"a K5-sub chunk at m = {m} did not run on the fused cluster kernel")
 
     for name, (st, vs) in k4_cases.items():
         oracle = starts[name]
@@ -879,15 +887,25 @@ def check_rank1_update(rng, grid, peaks, dev):
 
 
 def check_chunk_variants(rng, grid, peaks, dev):
+    """K5 (sub=SUB and coord) against its plain version at m = 900, Bd = 1
+    and 2: one chunk to 1e-5, bitwise the same on a second call, a 4-chunk
+    stream to 2e-4, the distance to flat K1, and device times with K1
+    flat's beside them on the same inputs (flat_ms). The profiled kernel
+    counts hold the design: sub is one gather, the fused cluster kernel and
+    one apply, with no correction GEMM and no per-sub-block recursion; coord
+    is the gather, M, its recursion, one rebuild GEMM and one apply. Then a
+    K5-sub chunk on each side of the fused kernel's envelope edge."""
     m = grid.num_points
-    nb = K // SUB
     profile_kernels = {
-        "blocked_chunk_sub": {"chunk_gather_kernel": nb, "batched_gemm_kernel": nb * (nb - 1),
-                              "chunk_recursion_cluster_kernel": nb, "chunk_apply_t_kernel": nb,
-                              "chunk_apply_x_kernel": nb},
-        "blocked_chunk_coord": {"chunk_gather_kernel": 1, "batched_gemm_kernel": 3, "coord_recursion_kernel": 1,
-                                "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1},
+        "blocked_chunk_sub": {"chunk_gather_kernel": 1, "chunk_sub_cluster_kernel": 1, "chunk_apply_t_kernel": 1,
+                              "chunk_apply_x_kernel": 1, "batched_gemm_kernel": 0,
+                              "chunk_recursion_cluster_kernel": 0, "chunk_recursion_kernel": 0},
+        "blocked_chunk_coord": {"chunk_gather_kernel": 1, "coord_gram_kernel": 1, "coord_recursion_kernel": 1,
+                                "batched_gemm_kernel": 1, "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1},
     }
+    flat_kernels = {"chunk_gather_kernel": 1, "chunk_recursion_cluster_kernel": 1, "chunk_apply_t_kernel": 1,
+                    "chunk_apply_x_kernel": 1}
+    nb = K // SUB
     out = {kname: {} for kname in VARIANTS}
     for Bd in (1, 2):
         L, B = synthetic_roots(rng, Bd, m, dev)
@@ -898,12 +916,20 @@ def check_chunk_variants(rng, grid, peaks, dev):
         flat_s = clone_all(L, B)
         for c in range(4):
             flat_s = blocked_chunk(*flat_s, idx[c * K : (c + 1) * K].contiguous(), wv[:, c * K : (c + 1) * K].contiguous())
+        make = lambda: (*clone_all(L, B), i1, wv1)
+        flat_ms, _ = device_ms(blocked_chunk, make, flat_kernels)
+        check_sub_kernel_is_k1_at_sub_k(L, B, i1, wv1, flat1)
         p0 = torch.einsum("bkp,bkpm->bkm", wv1, B[:, i1.long()])
         for kname, kw in VARIANTS.items():
             want = blocked_chunk_plain(L, B, i1, wv1, **kw)
+            before = blocked_chunk.sub_cluster_launches
             got = blocked_chunk(*clone_all(L, B), i1, wv1, **kw)
+            again = blocked_chunk(*clone_all(L, B), i1, wv1, **kw)
             torch.cuda.synchronize()
+            if kname == "blocked_chunk_sub" and blocked_chunk.sub_cluster_launches - before != 2:
+                raise AssertionError(f"{kname} at m={m} did not take the fused cluster kernel")
             err = max_err(got, want, 1e-5, f"{kname} Bd={Bd}")
+            bitwise(got, again, f"{kname} Bd={Bd}")
             want_s = plain_stream(L, B, idx, wv, K, **kw)
             got_s = clone_all(L, B)
             for c in range(4):
@@ -923,6 +949,9 @@ def check_chunk_variants(rng, grid, peaks, dev):
                         L.baddbmm_(torch.bmm(L, R[:, rows].mT), U[:, rows])
                         B.baddbmm_(torch.bmm(B, Pm[:, rows].mT), U[:, rows])
 
+                # the local recursions, the Pallas association's two
+                # correction GEMMs per pair of sub-blocks (4 sub^2 m flops),
+                # the rank-K apply
                 flops = Bd * (2 * K * idx.shape[1] * m + nb * 5 * SUB * (SUB - 1) * m
                               + nb * (nb - 1) // 2 * 4 * SUB * SUB * m + 8 * m * m * K)
             else:
@@ -933,11 +962,11 @@ def check_chunk_variants(rng, grid, peaks, dev):
                     L.baddbmm_(torch.bmm(torch.bmm(L, p0.mT), TL), p0)
                     B.baddbmm_(torch.bmm(torch.bmm(B, p0.mT), TB), p0)
 
-                # M = P0 P0^T (symmetric), the recursion, Rt^T Ut and Pt^T Ut,
-                # then X P0^T, times T, times P0 for X = L, B
-                flops = Bd * (2 * K * idx.shape[1] * m + K * (K + 1) * m + 5 * K * K * (K - 1) + 2 * K**3
-                              + 4 * K**3 + 8 * m * m * K + 4 * m * K * K)
-            make = lambda: (*clone_all(L, B), i1, wv1)
+                # M = P0 P0^T (symmetric), the recursion (~7 K^3 / 3), the
+                # flat factors from the lower-triangular Ut, Rt, Pt, one
+                # rank-K apply
+                flops = Bd * (2 * K * idx.shape[1] * m + K * (K + 1) * m + 7 * K**3 // 3
+                              + 3 * K * (K + 1) * m + 8 * m * m * K)
             call = lambda L, B, i, w, kw=kw: blocked_chunk(L, B, i, w, **kw)
             plain = lambda L, B, i, w, kw=kw: blocked_chunk_plain(L, B, i, w, **kw)
             P = idx.shape[1]
@@ -946,10 +975,63 @@ def check_chunk_variants(rng, grid, peaks, dev):
             ms, stages = device_ms(call, make, profile_kernels[kname])
             out[kname][Bd] = dict(
                 max_abs_err=err, stream_max_abs_err=err_stream, flat_max_abs_dist=dist,
-                stream_flat_max_abs_dist=dist_s, ms=ms, stages_ms=stages, wrapper_ms=time_ms(call, make),
-                plain_ms=time_ms(plain, make) if Bd == 1 else None,
+                stream_flat_max_abs_dist=dist_s, ms=ms, flat_ms=flat_ms, stages_ms=stages,
+                wrapper_ms=time_ms(call, make), plain_ms=time_ms(plain, make) if Bd == 1 else None,
                 library_ms=time_ms(library, lambda: clone_all(L, B)), bound_ms=bms, bound_by=by,
             )
+    out["blocked_chunk_sub"].update(check_sub_sizes(rng, dev))
+    return out
+
+
+def check_sub_kernel_is_k1_at_sub_k(L, B, idx, wv, flat):
+    """K5 sub's fused kernel at sub = k has no boundary, so it is K1's step,
+    of which K1's kernel keeps its own copy on the same layout
+    (cluster_step and chunk_recursion_cluster_kernel in csrc/root_update.cu).
+    Through the C entry (the wrapper takes sub < k only), its chunk must be
+    bitwise the flat chunk."""
+    lib = cuda_root_update._root_update_lib()
+    Bd, m = L.shape[0], L.shape[-1]
+    k, P = idx.shape
+    plan = chunk_cluster_plan(k, m)
+    Lc, Bc = clone_all(L, B)
+    f32 = dict(dtype=torch.float32, device=L.device)
+    factors = torch.empty((4, Bd, k, m), **f32)
+    T = torch.empty((Bd, 2, m, k), **f32)
+    p_ = _build.ptr
+    rc = lib.ogp_blocked_chunk_sub_cluster(p_(Lc), p_(Bc), p_(idx), p_(wv), *(p_(x) for x in factors), p_(T),
+                                           Bd, k, k, P, m, plan.cluster, _build.stream_of(Lc))
+    _build.launch_check(rc, "chunk_sub_cluster_kernel at sub = k", plan)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((Lc, Bc), flat)):
+        raise AssertionError(f"K5 sub's kernel at sub = k (Bd={Bd}) is not bitwise K1's")
+
+
+def check_sub_sizes(rng, dev):
+    """One K5-sub chunk on each side of the fused kernel's envelope edge
+    (K1's: chunk_cluster_plan), against the plain version to 1e-5:
+    SUB_EDGE_SIDE^2 near the edge, fused, its boundaries in the most rounds
+    of rows (and bitwise the same on a second call); OUTSIDE_SIDE^2 beyond
+    it, one sub-block at a time."""
+    out = {}
+    for side, fused in ((SUB_EDGE_SIDE, True), (OUTSIDE_SIDE, False)):
+        grid = Grid.create([(-1.1, 1.1)] * 2, side, device=dev)
+        m = grid.num_points
+        if (chunk_cluster_plan(K, m) is not None) != fused:
+            raise AssertionError(f"(k={K}, sub={SUB}, m={m}) was meant to lie {'in' if fused else 'out'}side "
+                                 "the fused kernel's envelope")
+        L, B = synthetic_roots(rng, 1, m, dev)
+        _, idx, w = stencil(rng, grid, K, dev)
+        wv = w[None].contiguous()
+        before = (blocked_chunk.sub_launches, blocked_chunk.sub_cluster_launches)
+        got = blocked_chunk(*clone_all(L, B), idx, wv, sub=SUB)
+        if fused:
+            bitwise(got, blocked_chunk(*clone_all(L, B), idx, wv, sub=SUB), f"blocked_chunk(sub={SUB}) m={m}")
+        torch.cuda.synchronize()
+        calls = 1 + fused
+        if (blocked_chunk.sub_launches - before[0], blocked_chunk.sub_cluster_launches - before[1]) != (calls, calls * fused):
+            raise AssertionError(f"blocked_chunk(sub={SUB}) at m={m} did not take the {'fused' if fused else 'per sub-block'} path")
+        err = max_err(got, blocked_chunk_plain(L, B, idx, wv, sub=SUB), 1e-5, f"blocked_chunk(sub={SUB}) m={m}")
+        out["fused near the edge" if fused else "outside"] = dict(m=m, k=K, sub=SUB, max_abs_err=err)
     return out
 
 

@@ -11,10 +11,14 @@ NVIDIA GPU of compute capability 9.0:
     DSMEM (another block's shared memory in the cluster), and L2.
 (b) The stage split of the recursion kernels of online_gp_torch/csrc at
     m = 900, k = 128, Bd = 1, a 2-D cubic stencil (P = 16) on a 30 x 30
-    grid: the single-block K1 kernel (`chunk_recursion_kernel`) and the
-    cluster kernels of K1 and K3 (`chunk_recursion_cluster_kernel`,
-    `pred_recursion_cluster_kernel`; block 0 of the cluster), launched
-    through their C entries (`ogp_blocked_chunk`, `ogp_pred_chunk`). Each
+    grid: the single-block K1 kernel (`chunk_recursion_kernel`), the
+    cluster kernels of K1, K5 sub (sub = 32) and K3
+    (`chunk_recursion_cluster_kernel`, `chunk_sub_cluster_kernel`, with its
+    sub-block boundaries' corrections and collapses,
+    `pred_recursion_cluster_kernel`; block 0 of the cluster) and K5 coord's
+    one-block recursion (`coord_recursion_kernel`), launched through their
+    C entries (`ogp_blocked_chunk`, `ogp_blocked_chunk_sub_cluster`,
+    `ogp_blocked_chunk_coord`, `ogp_pred_chunk`). Each
     source is built as it stands with OGP_STAMPS defined (see
     csrc/common.cuh), so that the kernels write clock64() at their stage
     boundaries: each stage's time at steps t = 32, 64 and 127, and summed
@@ -257,6 +261,8 @@ SINGLE_BLOCK_K1 = ("q load", "a-dots (P rows . q)", "p = q + U^T a, |p|^2", "u",
 CLUSTER_K1 = ("p0 row in", "partial a pushed", "a received", "a summed", "p", "partial Up, |p|^2 pushed",
               "Up received", "sums", "row t")
 CLUSTER_K3 = ("ct", "partials pushed", "received", "sums, pm, inv, r", "Z row t")
+COORD_K5 = ("h, pi, s^2 partials", "barrier 1", "s^2, row t", "barrier 2")
+SUB = 32  # K5 sub's sub-block size, as chip_smoke.py runs it
 
 
 def build(name: str, source: str) -> ctypes.CDLL:
@@ -294,8 +300,19 @@ def stage_split(stamps, names, per_ns, k):
     return out
 
 
+def boundary_split(stamps, per_ns, k, sub):
+    """K5 sub's sub-block boundaries from block 0's stamps: the boundary
+    after the sub-block at rows [J, J + sub) (its collapse and the next
+    one's correction) runs from slot 10 to 11 at step J + sub - 1, ns."""
+    st = stamps[: k * STAMP_SLOTS].reshape(k, STAMP_SLOTS).double().cpu()
+    out = {f"J={J}": float(st[J + sub - 1, 11] - st[J + sub - 1, 10]) / per_ns for J in range(0, k, sub)}
+    out["recursion ns"] = float(st[k - 1, 11] - st[0, 0]) / per_ns
+    return out
+
+
 def stamped_splits(dev, per_ns, k=128, side=30):
-    """(b): the stage splits of the single-block and cluster recursions."""
+    """(b): the stage splits of the single-block and cluster recursions,
+    K5 sub's fused cluster kernel and K5 coord's recursion."""
     m, P, Bd = side * side, 16, 1
     g = torch.Generator(device="cpu").manual_seed(0)
     W = torch.randn((m, m), generator=g, dtype=torch.float64)
@@ -310,12 +327,15 @@ def stamped_splits(dev, per_ns, k=128, side=30):
     f32 = dict(dtype=torch.float32, device=dev)
     vp, i32, P_ = ctypes.c_void_p, ctypes.c_int, lambda t: ctypes.c_void_p(t.data_ptr())
     out = {}
-    for src, runs in (("root_update", ((0, SINGLE_BLOCK_K1, "K1 single block"), (8, CLUSTER_K1, "K1 cluster"))),
-                      ("pred_stream", ((8, CLUSTER_K3, "K3 cluster"),))):
+    runs_root = ((0, SINGLE_BLOCK_K1, "K1 single block"), (8, CLUSTER_K1, "K1 cluster"),
+                 (8, CLUSTER_K1, "K5 sub cluster"), (1, COORD_K5, "K5 coord"))
+    for src, runs in (("root_update", runs_root), ("pred_stream", ((8, CLUSTER_K3, "K3 cluster"),))):
         lib = build(f"cluster_probe_{src}", STAMPED.format(name=src))
         lib.probe_set_stamps.argtypes = [vp]
         if src == "root_update":
             lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 5 + [vp]
+            lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+            lib.ogp_blocked_chunk_coord.argtypes = [vp] * 9 + [i32] * 4 + [vp]
         else:
             lib.ogp_pred_chunk.argtypes = [vp] * 12 + [i32] * 5 + [vp]
         for clusters, names, what in runs:
@@ -326,9 +346,21 @@ def stamped_splits(dev, per_ns, k=128, side=30):
                     Lc, Bc, wv = L[None].clone(), B[None].clone(), w[None].contiguous()
                     scratch = torch.empty((4, Bd, k, m), **f32)
                     T = torch.empty((Bd, 2, m, k), **f32)
-                    rc = rc or lib.ogp_blocked_chunk(
-                        P_(Lc), P_(Bc), P_(idx), P_(wv), *(P_(s) for s in scratch), P_(T), Bd, k, P, m,
-                        clusters, None)
+                    if what == "K5 sub cluster":
+                        rc = rc or lib.ogp_blocked_chunk_sub_cluster(
+                            P_(Lc), P_(Bc), P_(idx), P_(wv), *(P_(s) for s in scratch), P_(T), Bd, k, SUB, P,
+                            m, clusters, None)
+                    elif what == "K5 coord":
+                        lib.ogp_blocked_chunk_coord_splits.restype = i32
+                        Mg, F, X = (torch.empty(shape, **f32) for shape in (
+                            (Bd, lib.ogp_blocked_chunk_coord_splits(), k, k), (3, Bd, k, k), (3, Bd, k, m)))
+                        rc = rc or lib.ogp_blocked_chunk_coord(
+                            P_(Lc), P_(Bc), P_(idx), P_(wv), P_(scratch[0]), P_(Mg), P_(F), P_(X), P_(T), Bd, k,
+                            P, m, None)
+                    else:
+                        rc = rc or lib.ogp_blocked_chunk(
+                            P_(Lc), P_(Bc), P_(idx), P_(wv), *(P_(s) for s in scratch), P_(T), Bd, k, P, m,
+                            clusters, None)
                 else:
                     Cc, muc = C[None].clone(), mu[None].clone()
                     bufs = torch.empty((2, Bd, k, m), **f32)
@@ -340,6 +372,8 @@ def stamped_splits(dev, per_ns, k=128, side=30):
             if rc:
                 raise RuntimeError(f"stamped {what}: {rc}")
             out[what] = stage_split(stamps, names, per_ns, k)
+            if what == "K5 sub cluster":
+                out[what]["boundaries"] = boundary_split(stamps, per_ns, k, SUB)
     return out
 
 

@@ -89,26 +89,50 @@
 // A rows, which need nothing from pass 1, run alongside it.
 //
 // K5 replaces the two options of pallas_blocked_chunk_batched that K1 does
-// not cover, the same k exact sequential rank-1 updates:
+// not cover, the same k exact sequential rank-1 updates, each differing from
+// the Pallas kernel only by fp reassociation.
+// Bound: operations, as K1: the apply's 8 m^2 k flops per output dominate
+// (0.83 GFLOP at m = 900, k = 128); both recursions are bound by latency.
 //   sub (sub < k; body _fused_chunk_kernel_batched): the flat recursion runs
 //       inside sub-blocks of `sub` rows, so a step reads at most `sub` rows
-//       of U, P, R instead of t. Sub-block j's raw rows are gathered, then
-//       corrected by the earlier sub-blocks (q += (q P_i^T) U_i, two small
-//       GEMMs per pair), then factored by K1's recursion kernel at k = sub.
-//       The factors are kept in (nb, Bd, sub, m) layout so K1's gather,
-//       recursion and apply kernels run unchanged on each sub-block; the
-//       applies run in stream order, one per sub-block.
-//   coord (body _fused_chunk_kernel_coord): the recursion runs on k-dim
-//       coordinates with inner products through M = P0 P0^T, k x k rows
-//       instead of k x m. M, Ut and Pt (64 KB each at k = 128) live in
-//       shared memory; Rt, read once a step against twice for Ut and Pt,
-//       stays in device memory (L2), each column touched by one thread
-//       only. The apply is X += ((X P0^T) T) P0 with T = Rt^T Ut (L) or
-//       Pt^T Ut (B): K1's two apply kernels around one more tiled GEMM.
-// Bound: operations, as K1: the applies' 8 m^2 k flops per output dominate
-// (0.83 GFLOP at m = 900, k = 128). The sub recursions run on K1's kernels
-// (cluster or single block, by the same shape rule at k = sub); the coord
-// recursion stays one block per output.
+//       of U, P, R instead of t. The Pallas kernel corrects each sub-block's
+//       rows by the earlier ones with two small GEMMs per pair and applies
+//       the sub-blocks one at a time; as its own launches that was 12 GEMMs
+//       of one 64 x 64 tile each walking all m columns, and four applies
+//       each reading and writing all of L and B. Here the product of the
+//       sub-block operators is collapsed into one rank-k operator,
+//       G_0 ... G_{nb-1} = I + Rc^T U with Rc_j = R_j + (R_j U_{<j}^T) Rc_{<j}
+//       (and Pc with P), so one cluster kernel (chunk_sub_cluster_kernel)
+//       runs the whole two-level recursion on K1's layout, and so on every
+//       shape K1's cluster kernel takes: each sub-block's local steps are
+//       K1's cluster step on its own rows; at a boundary the collapse of
+//       its rows, then the next sub-block's one-step correction
+//       q += (q Pc_{<j+1}^T) U_{<j+1}, each a block of dots summed across
+//       the cluster (register-tiled over the block's columns, cluster_reduce
+//       through the step's buffers, which a boundary does not use, in rounds
+//       of rows as they fit) and a row update. Then K1's gather once and
+//       K1's apply once, at rank k. The boundaries' dots and updates are
+//       small GEMMs bound by shared-memory loads and latency; they take what
+//       the shorter local steps save, so sub costs about what flat K1 does.
+//       Shapes K1's cluster kernel does not take (m > 1,120 at k = 128) run
+//       one sub-block at a time (ogp_blocked_chunk_sub, each recursion on
+//       K1's kernels at k = sub).
+//   coord (body _fused_chunk_kernel_coord): every factor row lies in the span
+//       of the chunk's raw rows p0, so the recursion runs on k-dim
+//       coordinates (u_t = Ut_t P0, p_t = Pt_t P0, r_t = Rt_t P0). Ut, Pt and
+//       Rt are lower triangular; the Pallas kernel takes the step's inner
+//       products through M = P0 P0^T, five dependent passes a step. Here
+//       the kernel carries them instead, W = (u_i . u_j), Y = (u_j . p0_l)
+//       and Q = (p_j . p0_l), each new row a by-product of the step, so a
+//       step is two passes between two block barriers; all six triangles
+//       (3 k^2 + 3 k + 32 floats with the vectors: every k up to 138 fits,
+//       as it did when the kernel kept M, Ut and Pt whole) sit in shared
+//       memory, and M's column for
+//       the next step is loaded during the step. M itself comes from a
+//       split-K Gram kernel over the lower triangle. The apply rebuilds the
+//       flat factors, (U, R, P) = (Ut, Rt, Pt) P0 in one batched GEMM, and
+//       runs K1's two apply kernels once: the same flops as the Pallas
+//       association X += ((X P0^T)(Rt^T Ut)) P0, one launch fewer.
 #include "common.cuh"
 
 using ogp::block_sum;
@@ -120,6 +144,7 @@ using ogp::col_sum;
 using ogp::gemm_tile;
 using ogp::kClusterRegs;
 using ogp::kClusterThreads;
+using ogp::kClusterWarps;
 using ogp::kGemmThreads;
 using ogp::kTileM;
 using ogp::kTileN;
@@ -314,8 +339,9 @@ chunk_recursion_kernel(const float* __restrict__ p0, float* U, float* Pm, float*
   }
 }
 
-// Shared-memory layout of one block of the cluster recursion;
-// chunk_cluster_plan (online_gp_torch/ops/cuda_root_update.py) mirrors it.
+// Shared-memory layout of one block of the cluster recursions, K1's and
+// K5 sub's; chunk_cluster_plan (online_gp_torch/ops/cuda_root_update.py)
+// mirrors it.
 // A row pass gives Sr lanes to each row (columns s, s + Sr, ...); the row
 // stride ld = Sr (mod 2 Sr) puts the 32 / Sr rows of a warp on distinct
 // banks.
@@ -378,8 +404,128 @@ __device__ __forceinline__ void row_partials(const float* X, int ld, const float
   }
 }
 
+// What one block of K5 sub's cluster kernel works on: its slices and
+// buffers (chunk_cluster_layout, whose offsets K1's kernel spells out
+// itself) and its columns [c0, c0 + w) of the output. The
+// buffers from q to the end of the layout (q, a, g, the receive buffers,
+// the column partials, s^2) serve only a step, so K5 sub's sub-block
+// boundaries sum their coefficients there (bnd, nbnd floats).
+struct ClusterBlock {
+  ogp::Exchange x;
+  float *Us, *Ps, *Rs, *q, *a, *g, *red, *s2, *bnd;
+  int ld, w, Sr, nbnd;
+  ColSplit cs;
+  ColTask task;
+  long long off;  // of the block's first column in a (Bd, k, m) array
+};
+
+__device__ __forceinline__ ClusterBlock cluster_block(float* sh, int k, int m, int rank,
+                                                      const ChunkClusterLayout& lay) {
+  ClusterBlock cb;
+  const int C = lay.C, ld = lay.ld;
+  // two mbarriers, then k x ld slices of this block's columns of U, P, R
+  cb.Us = sh + 4;
+  cb.Ps = cb.Us + k * ld;
+  cb.Rs = cb.Ps + k * ld;
+  cb.q = cb.Rs + k * ld;  // ld: the step's input row, then p
+  cb.a = cb.q + ld;       // k
+  cb.g = cb.a + k;        // k: U p, unscaled
+  cb.x = ogp::Exchange{reinterpret_cast<unsigned long long*>(sh), cb.g + k, C, k + 1, rank};
+  cb.red = cb.x.recv + 2 * C * (k + 1);  // 2 S CT 32: column partials
+  cb.s2 = cb.red + 2 * lay.cs.S * lay.cs.CT * 32;
+  cb.bnd = cb.q;
+  cb.nbnd = static_cast<int>(lay.floats - (cb.q - sh));
+  cb.ld = ld;
+  cb.Sr = lay.Sr;
+  cb.cs = lay.cs;
+  cb.task = ogp::col_task(lay.cs);
+  const int c0 = rank * lay.W;
+  cb.w = max(0, min(lay.W, m - c0));
+  cb.off = blockIdx.y * static_cast<long long>(k) * m + c0;
+  return cb;
+}
+
+// One step of K1's cluster recursion, as K5 sub runs it on the t rows of
+// its sub-block's slices at U0, P0, R0 (rows of stride cb.ld), the step's
+// input row already in cb.q (and visible to the block): writes row t of
+// each. Exchange uses 2 n and 2 n + 1; stamps as step ts of k. K1's kernel,
+// chunk_recursion_cluster_kernel, keeps a copy of this body: a change to
+// one is a change to both.
+__device__ __forceinline__ void cluster_step(const ClusterBlock& cb, float* U0, float* P0, float* R0,
+                                             int t, int n, int k, int ts) {
+  const int tid = threadIdx.x, ld = cb.ld, w = cb.w;
+  float* q = cb.q;
+  (void)k;
+  (void)ts;
+  // 1. a_j = P_j . p0_t for j < t: exchange use 2 n
+  ogp::exchange_expect(cb.x, 2 * n, t);
+  row_partials(P0, ld, q, t, t, w, cb.Sr, cb.x, 2 * n);
+  OGP_STAMP(k, ts, 2);
+  ogp::exchange_wait(cb.x, 2 * n);
+  OGP_STAMP(k, ts, 3);
+  for (int j = tid; j < t; j += kClusterThreads) cb.a[j] = ogp::exchange_sum(cb.x, 2 * n, j);
+  __syncthreads();
+  OGP_STAMP(k, ts, 4);
+  // 2. p = p0_t + U^T a; U p and |p|^2: exchange use 2 n + 1
+  col_partials<1>(U0, nullptr, ld, cb.a, 1.f, t, w, cb.cs, cb.task, cb.red);
+  for (int l = tid; l < w; l += kClusterThreads) q[l] += col_sum(cb.red, 0, l, cb.cs);
+  __syncthreads();
+  OGP_STAMP(k, ts, 5);
+  ogp::exchange_expect(cb.x, 2 * n + 1, t + 1);
+  row_partials(U0, ld, q, t + 1, t, w, cb.Sr, cb.x, 2 * n + 1);
+  OGP_STAMP(k, ts, 6);
+  ogp::exchange_wait(cb.x, 2 * n + 1);
+  OGP_STAMP(k, ts, 7);
+  for (int j = tid; j <= t; j += kClusterThreads) {
+    const float v = ogp::exchange_sum(cb.x, 2 * n + 1, j);
+    if (j < t) {
+      cb.g[j] = v;
+    } else {
+      *cb.s2 = v;
+    }
+  }
+  __syncthreads();
+  OGP_STAMP(k, ts, 8);
+  const float s2 = *cb.s2;
+  const float s = sqrtf(s2);
+  const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
+  const float r1 = sqrtf(s2 + 1.f);
+  const float c = r1 - 1.f;
+  const float d = 1.f / r1 - 1.f;
+  // 3. row t: u, d (u + P^T g), c (u + R^T g) with g = (U p) inv_s
+  col_partials<2>(P0, R0, ld, cb.g, inv_s, t, w, cb.cs, cb.task, cb.red);
+  for (int l = tid; l < w; l += kClusterThreads) {
+    const float ul = q[l] * inv_s;
+    const float pc = d * (ul + col_sum(cb.red, 0, l, cb.cs));
+    const float rc = c * (ul + col_sum(cb.red, 1, l, cb.cs));
+    U0[t * ld + l] = ul;
+    P0[t * ld + l] = pc;
+    R0[t * ld + l] = rc;
+  }
+  __syncthreads();  // row t is read at step t + 1, and q is rewritten
+  OGP_STAMP(k, ts, 9);
+}
+
+// The slices go to the scratch of the applies once, after the last step.
+__device__ __forceinline__ void cluster_store(const ClusterBlock& cb, float* U, float* Pm, float* R,
+                                              int k, int m) {
+  const long long mm = m;
+  for (int e = threadIdx.x; e < k * cb.w; e += kClusterThreads) {
+    const int j = e / cb.w, l = e - j * cb.w;
+    U[cb.off + j * mm + l] = cb.Us[j * cb.ld + l];
+    Pm[cb.off + j * mm + l] = cb.Ps[j * cb.ld + l];
+    R[cb.off + j * mm + l] = cb.Rs[j * cb.ld + l];
+  }
+}
+
 // (b) the k-step factor recursion on a cluster of lay.C blocks per output,
 // grid (C, Bd). Writes rows 0..k-1 of U, P, R for the block's columns.
+// Its step is a copy of cluster_step's body (K5 sub's), and its pointers
+// spell out chunk_cluster_layout as cluster_block does, each kept in step
+// with the other: through the shared step the compiler spilled this
+// kernel's registers and its recursion took 9% longer on an H100, and
+// through cluster_block 1.5% longer. chip_smoke.py holds K5 sub's kernel
+// at sub = k bitwise to this one.
 __global__ void __launch_bounds__(kClusterThreads)
 chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__ U,
                                float* __restrict__ Pm, float* __restrict__ R, int k, int m,
@@ -486,6 +632,291 @@ chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__
   cluster.sync();  // no block leaves while a push to another may be in flight
 }
 
+// ---- K5 sub on a cluster ----
+
+// out[r ni + i] = sum over the block's w columns of X_r . Y_i (row stride
+// ld), r < nr, i < ni.
+struct Dots {
+  const float* X;
+  const float* Y;
+  int nr, ni;
+  float* out;
+};
+
+// Up to two Dots in one pass over the block's warps. A warp takes 8 rows
+// of X by 32 of Y: lane (tile, slice) holds a 4 x 8 tile of sums, rows
+// r0 + 2 c (c < 4) and i0 + 4 c (c < 8), over the columns l = slice (mod 4);
+// the four slices are then added by a fixed butterfly. Twelve loads feed 32
+// FMAs. Ends with __syncthreads().
+__device__ __forceinline__ void cross_dots(const Dots* ds, int n, int ld, int w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sl = lane & 3, tt = lane >> 2;  // column slice; tile of the warp's 2 x 4
+  int first[3];  // the warp tiles of ds[0..n) are [first[x], first[x + 1])
+  first[0] = 0;
+  for (int x = 0; x < n; ++x) first[x + 1] = first[x] + cdiv(ds[x].nr, 8) * cdiv(ds[x].ni, 32);
+  for (int wt = warp; wt < first[n]; wt += kClusterWarps) {
+    int x = 0;
+    while (wt >= first[x + 1]) ++x;
+    const Dots d = ds[x];
+    const int WI = cdiv(d.ni, 32), v = wt - first[x];
+    const int r0 = (v / WI) * 8 + (tt >> 2), i0 = (v % WI) * 32 + (tt & 3);
+    const float* xr[4];
+    const float* yi[8];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) xr[c] = d.X + min(r0 + 2 * c, d.nr - 1) * ld;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) yi[c] = d.Y + min(i0 + 4 * c, d.ni - 1) * ld;
+    float acc[4][8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+#pragma unroll 2
+    for (int l = sl; l < w; l += 4) {
+      float xv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) xv[a] = xr[a][l];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float y = yi[c][l];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(xv[a], y, acc[a][c]);
+      }
+    }
+    // slices (0 + 1) + (2 + 3); slice sl stores columns c = 2 sl, 2 sl + 1
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        float t = acc[a][c] + __shfl_xor_sync(0xffffffffu, acc[a][c], 1);
+        acc[a][c] = t + __shfl_xor_sync(0xffffffffu, t, 2);
+      }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int r = r0 + 2 * a, i = i0 + 4 * c;
+        if (c >> 1 == sl && r < d.nr && i < d.ni) d.out[r * d.ni + i] = acc[a][c];
+      }
+  }
+  __syncthreads();
+}
+
+// X_r += sum_{i < n} A[r n + i] Y_i on the block's columns, r < nr (X's
+// rows must not be among the Y's).
+struct Combine {
+  float* X;
+  const float* A;
+  const float* Y;
+  int n;
+};
+
+constexpr int kCombineRows = 4;
+constexpr int kCombineCols = 4;  // a lane's columns, 32 apart
+
+// acc[r][c] += sum_{i < ni} A[(r0 + r) ni + i] Y_i[l + 32 c] for a lane's
+// kCombineRows rows and kCombineCols columns: A's entries read four at a
+// time (float4, when ni is a multiple of 4 and A 16-byte aligned), the
+// same for every lane of the warp.
+__device__ __forceinline__ void combine_segment(float (*acc)[kCombineCols], const float* A, const float* Y,
+                                                int ni, int r0, int nr, int l, int w, int ld) {
+  const float* ar[kCombineRows];
+#pragma unroll
+  for (int r = 0; r < kCombineRows; ++r) ar[r] = A + min(r0 + r, nr - 1) * ni;
+  int col[kCombineCols];
+#pragma unroll
+  for (int c = 0; c < kCombineCols; ++c) col[c] = min(l + 32 * c, w - 1);
+  const bool vec = (ni & 3) == 0 && (reinterpret_cast<unsigned long long>(A) & 15) == 0;
+  int i = 0;
+  if (vec) {
+    for (; i < ni; i += 4) {
+      float y[4][kCombineCols];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int c = 0; c < kCombineCols; ++c) y[e][c] = Y[(i + e) * ld + col[c]];
+#pragma unroll
+      for (int r = 0; r < kCombineRows; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(ar[r] + i);
+#pragma unroll
+        for (int c = 0; c < kCombineCols; ++c) {
+          acc[r][c] = fmaf(a.x, y[0][c], acc[r][c]);
+          acc[r][c] = fmaf(a.y, y[1][c], acc[r][c]);
+          acc[r][c] = fmaf(a.z, y[2][c], acc[r][c]);
+          acc[r][c] = fmaf(a.w, y[3][c], acc[r][c]);
+        }
+      }
+    }
+  }
+  for (; i < ni; ++i) {
+    float y[kCombineCols];
+#pragma unroll
+    for (int c = 0; c < kCombineCols; ++c) y[c] = Y[i * ld + col[c]];
+#pragma unroll
+    for (int r = 0; r < kCombineRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kCombineCols; ++c) acc[r][c] = fmaf(ar[r][i], y[c], acc[r][c]);
+  }
+}
+
+// Up to two Combines in one pass: a warp takes kCombineRows rows and
+// 32 kCombineCols columns, lanes over columns. Ends with __syncthreads().
+__device__ __forceinline__ void row_combine(const Combine* cms, int n, int ld, int nr, int w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int RB = cdiv(nr, kCombineRows), CB = cdiv(w, 32 * kCombineCols);
+  for (int wt = warp; wt < n * RB * CB; wt += kClusterWarps) {
+    const int which = wt / (RB * CB), rest = wt - which * RB * CB;
+    const int rb = rest / CB, l = (rest - rb * CB) * 32 * kCombineCols + lane, r0 = rb * kCombineRows;
+    const Combine cm = cms[which];
+    float acc[kCombineRows][kCombineCols];
+#pragma unroll
+    for (int r = 0; r < kCombineRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kCombineCols; ++c) acc[r][c] = 0.f;
+    combine_segment(acc, cm.A, cm.Y, cm.n, r0, nr, l, w, ld);
+#pragma unroll
+    for (int r = 0; r < kCombineRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kCombineCols; ++c)
+        if (r0 + r < nr && l + 32 * c < w) cm.X[(r0 + r) * ld + l + 32 * c] += acc[r][c];
+  }
+  __syncthreads();
+}
+
+constexpr int kMaxCluster = 8;
+
+// coef[0, n) of every block of the cluster summed in rank order; every block
+// ends with the sums in its coef. Block r sums entries [r S, r S + S),
+// S = cdiv(n, C), over DSMEM into its csum, and every block then gathers
+// the C csums. Between the two cluster barriers the blocks read only each
+// other's coef, after them only each other's csum, so one buffer of each
+// serves every call: a block's coef is read by others only before the
+// call's second barrier, and its csum is rewritten only after the next
+// call's first barrier, which no block passes before all have gathered.
+__device__ __forceinline__ void cluster_reduce(cg::cluster_group& cluster, float* coef, float* csum,
+                                               int n, int C, int rank) {
+  cluster.sync();  // every block's partials are written
+  const int S = cdiv(n, C);
+  for (int i = threadIdx.x; i < S && rank * S + i < n; i += kClusterThreads) {
+    float v[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < C) v[r] = *cluster.map_shared_rank(coef + rank * S + i, r);
+    float s = v[0];
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < C) s += v[r];
+    csum[i] = s;
+  }
+  cluster.sync();  // every block's sums are written
+  // four loads in flight a thread before its stores
+  constexpr int kBatch = 4;
+  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * kClusterThreads) {
+    float v[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e = e0 + b * kClusterThreads, r = e / S;
+      v[b] = e < n ? *cluster.map_shared_rank(csum + (e - r * S), r) : 0.f;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (e0 + b * kClusterThreads < n) coef[e0 + b * kClusterThreads] = v[b];
+  }
+  __syncthreads();
+}
+
+// X_r += sum_{i < n} (X_r . Y_i) Z_i for the rows r < sub of the nc
+// (X, Y, Z) of one sub-block boundary, the dots summed across the cluster.
+// The boundary's coefficients go through the block's step buffers (cb.bnd:
+// cap coefficients, then a block's share of their sums), in as few rounds
+// of rows as fit, the rows spread evenly over the rounds. One row always
+// fits: n nc <= 2 (k - sub), and the receive buffers alone are 2 C (k + 1)
+// floats. Each round: register-tiled dots over the block's columns,
+// cluster_reduce, and the update of its rows.
+struct Collapse {
+  float* X;
+  const float* Y;
+  const float* Z;
+};
+
+__device__ __forceinline__ void boundary_update(cg::cluster_group& cluster, const ClusterBlock& cb,
+                                                const Collapse* cl, int nc, int n, int sub, int C,
+                                                int rank) {
+  const int cap = static_cast<int>((cb.nbnd - 1LL) * C / (C + 1));
+  const int rounds = cdiv(sub, min(sub, cap / (nc * n)));
+  const int R = cdiv(sub, rounds);
+  float* coef = cb.bnd;
+  for (int r0 = 0; r0 < sub; r0 += R) {
+    const int nr = min(R, sub - r0);
+    Dots ds[2];
+    Combine cms[2];
+    for (int x = 0; x < nc; ++x) {
+      float* X = cl[x].X + r0 * cb.ld;
+      ds[x] = Dots{X, cl[x].Y, nr, n, coef + x * nr * n};
+      cms[x] = Combine{X, coef + x * nr * n, cl[x].Z, n};
+    }
+    cross_dots(ds, nc, cb.ld, cb.w);
+    cluster_reduce(cluster, coef, coef + cap, nc * nr * n, C, rank);
+    row_combine(cms, nc, cb.ld, nr, cb.w);
+  }
+}
+
+// (b) K5 sub: the two-level recursion on a cluster of lay.C blocks per
+// output, grid (C, Bd), on K1's layout, with the sub-blocks' products
+// collapsed into one rank-k operator (collapse_sub_factors in
+// ops/root_update.py): writes rows 0..k-1 of U, Pc, Rc, so that the chunk
+// is L (I + Rc^T U), B (I + Pc^T U). Sub-block j (rows [J, J + sub)) runs
+// K1's cluster step on its own rows, its raw rows (p0, held in the rows of
+// U not yet written) having been corrected in one step at the boundary
+// before it. The boundary after it first collapses its rows,
+//     Rc_j = R_j + (R_j U_{<J}^T) Rc_{<J},  Pc_j = P_j + (P_j U_{<J}^T) Pc_{<J},
+// then corrects the next sub-block's raw rows q, q += (q Pc_{<J+sub}^T) U_{<J+sub}.
+// Stamps 10 and 11 of step J + sub - 1 bracket a boundary.
+__global__ void __launch_bounds__(kClusterThreads)
+chunk_sub_cluster_kernel(const float* __restrict__ p0, float* __restrict__ U, float* __restrict__ Pm,
+                         float* __restrict__ R, int k, int sub, int m, ChunkClusterLayout lay) {
+  extern __shared__ float sh[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const ClusterBlock cb = cluster_block(sh, k, m, rank, lay);
+  const int tid = threadIdx.x, ld = cb.ld, w = cb.w;
+  const long long mm = m;
+  const float* p0b = p0 + cb.off;
+  // every raw row into its row of U: rows >= t are read only as input rows
+  for (int e = tid; e < k * w; e += kClusterThreads) {
+    const int j = e / w, l = e - j * w;
+    cb.Us[j * ld + l] = p0b[j * mm + l];
+  }
+  ogp::exchange_init(cb.x);  // synchronises the cluster, so the block too
+
+  for (int J = 0; J < k; J += sub) {
+    for (int t = 0; t < sub; ++t) {
+      const int tg = J + t;
+      OGP_STAMP(k, tg, 0);
+      for (int l = tid; l < w; l += kClusterThreads) cb.q[l] = cb.Us[tg * ld + l];
+      __syncthreads();
+      OGP_STAMP(k, tg, 1);
+      cluster_step(cb, cb.Us + J * ld, cb.Ps + J * ld, cb.Rs + J * ld, t, tg, k, tg);
+    }
+    const int nx = J + sub;  // the next sub-block's first row
+    OGP_STAMP(k, nx - 1, 10);
+    if (J > 0) {
+      const Collapse cl[2] = {{cb.Rs + J * ld, cb.Us, cb.Rs}, {cb.Ps + J * ld, cb.Us, cb.Ps}};
+      boundary_update(cluster, cb, cl, 2, J, sub, lay.C, rank);
+    }
+    if (nx < k) {
+      const Collapse cl[1] = {{cb.Us + nx * ld, cb.Ps, cb.Us}};
+      boundary_update(cluster, cb, cl, 1, nx, sub, lay.C, rank);
+      // the sums sat in the receive buffers: no block pushes the next step
+      // into them before every block has gathered them
+      cluster.sync();
+    }
+    OGP_STAMP(k, nx - 1, 11);
+  }
+  cluster_store(cb, U, Pm, R, k, m);
+  cluster.sync();  // no block leaves while a push to another may be in flight
+}
+
 // (b) for Bd outputs: on clusters of C blocks, or one block per output
 // when C is 0. Returns a cudaError_t, or ogp::kNoCluster.
 int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int k, int m, int C,
@@ -585,13 +1016,14 @@ rank1_p_kernel(const float* __restrict__ B, const float* __restrict__ v, float* 
 // ---- K5 ----
 
 // A matrix operand of batched_gemm_kernel: element (r, c) of batch z is
-// p[(z >> shift) * bs + r * rs + c * cs] (shift 1: one matrix per pair of
-// batches, e.g. per output where the batch runs over (output, L or B)).
+// p[((z / div) % mod) * bs + r * rs + c * cs] (e.g. div 2: one matrix per
+// pair of batches; mod Bd: batch z = w Bd + b takes output b's matrix).
 struct MatArg {
   const float* p;
   long long rs, cs, bs;
-  int shift;
+  int div, mod;
 };
+constexpr int kEveryBatch = 1 << 30;  // a MatArg mod that changes nothing
 
 // C[z] = [C[z] +] alpha A[z] B[z] for z = blockIdx.z, C[z] at C + z * c_bs
 // with row stride c_rs. grid (N tiles, M tiles, batches)
@@ -599,9 +1031,9 @@ __global__ void __launch_bounds__(kGemmThreads)
 batched_gemm_kernel(int M, int N, int K, MatArg a, MatArg b, float* C, long long c_rs,
                     long long c_bs, float alpha, bool accumulate) {
   const int z = blockIdx.z;
-  gemm_tile(M, N, K, a.p + (z >> a.shift) * a.bs, a.rs, a.cs, b.p + (z >> b.shift) * b.bs,
-            b.rs, b.cs, C + z * c_bs, c_rs, alpha, accumulate, blockIdx.y * kTileM,
-            blockIdx.x * kTileN);
+  gemm_tile(M, N, K, a.p + ((z / a.div) % a.mod) * a.bs, a.rs, a.cs,
+            b.p + ((z / b.div) % b.mod) * b.bs, b.rs, b.cs, C + z * c_bs, c_rs, alpha, accumulate,
+            blockIdx.y * kTileM, blockIdx.x * kTileN);
 }
 
 cudaError_t gemm(int M, int N, int K, MatArg a, MatArg b, float* C, long long c_rs,
@@ -612,100 +1044,232 @@ cudaError_t gemm(int M, int N, int K, MatArg a, MatArg b, float* C, long long c_
   return cudaGetLastError();
 }
 
+constexpr int kGramTile = 16;
+constexpr int kGramSplit = 4;  // column ranges of M's partials
+
+// (K5 coord) partials of M = P0 P0^T, the lower triangle only (the
+// recursion reads nothing above the diagonal): block (tile, x, b) forms
+// one kGramTile^2 tile of it over column range x of kGramSplit, one entry
+// a thread, 32-column slabs through shared memory with the next slab's
+// loads in flight, even and odd columns in two accumulators.
+// Mp: (Bd, kGramSplit, k, k); the recursion adds the partials in order.
+// grid (lower tiles, kGramSplit, Bd)
+__global__ void __launch_bounds__(kGramTile * kGramTile)
+coord_gram_kernel(const float* __restrict__ p0, float* __restrict__ Mp, int k, int m) {
+  __shared__ float As[kGramTile][33], Bs[kGramTile][33];
+  int ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= static_cast<int>(blockIdx.x)) ++ti;
+  const int tj = blockIdx.x - ti * (ti + 1) / 2;
+  const long long mm = m;
+  const float* P = p0 + blockIdx.z * static_cast<long long>(k) * mm;
+  const int span = cdiv(cdiv(m, kGramSplit), 32) * 32;
+  const int lbeg = blockIdx.y * span, lend = min(m, lbeg + span);
+  const int tx = threadIdx.x % kGramTile, ty = threadIdx.x / kGramTile;
+  // this thread's two slab entries of each operand: rows r, columns c
+  const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
+  const int gi = ti * kGramTile + r, gj = tj * kGramTile + r;
+  auto load = [&](int l0, float* va, float* vb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gl = l0 + c + 16 * h;
+      va[h] = gi < k && gl < lend ? P[gi * mm + gl] : 0.f;
+      vb[h] = gj < k && gl < lend ? P[gj * mm + gl] : 0.f;
+    }
+  };
+  float va[2], vb[2];
+  load(lbeg, va, vb);
+  float acc0 = 0.f, acc1 = 0.f;
+  for (int l0 = lbeg; l0 < lend; l0 += 32) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      As[r][c + 16 * h] = va[h];
+      Bs[r][c + 16 * h] = vb[h];
+    }
+    __syncthreads();
+    if (l0 + 32 < lend) load(l0 + 32, va, vb);
+#pragma unroll
+    for (int x = 0; x < 32; x += 2) {
+      acc0 = fmaf(As[ty][x], Bs[tx][x], acc0);
+      acc1 = fmaf(As[ty][x + 1], Bs[tx][x + 1], acc1);
+    }
+    __syncthreads();
+  }
+  const int i = ti * kGramTile + ty, j = tj * kGramTile + tx;
+  if (i < k && j <= i)
+    Mp[(blockIdx.z * static_cast<long long>(kGramSplit) + blockIdx.y) * k * k + i * k + j] = acc0 + acc1;
+}
+
 constexpr int kCoordThreads = 1024;
 
-// (K5 coord) the k-step recursion on coordinates, one block per output.
-// M: (Bd, k, k) = P0 P0^T; writes Ut (Bd, k, k) and Z (Bd, 2, k, k) with
-// Z[b, 0] = Rt, Z[b, 1] = Pt. Rows < t are read at step t and row t is
-// written, so nothing needs zeroing: the columns > t of row t come out 0.
-__global__ void __launch_bounds__(kCoordThreads)
-coord_recursion_kernel(const float* __restrict__ Mg, float* __restrict__ Ug,
-                       float* __restrict__ Z, int k) {
-  extern __shared__ float sh[];
-  const long long kk = (long long)k * k;
-  float* M = sh;              // k x k
-  float* Ut = M + kk;         // k x k
-  float* Pt = Ut + kk;        // k x k
-  float* a = Pt + kk;         // k
-  float* g = a + k;           // k
-  float* pi = g + k;          // k
-  float* mpi = pi + k;        // k
-  float* alpha = mpi + k;     // k
-  float* malpha = alpha + k;  // k
-  float* red = malpha + k;    // 32
-  const long long b = blockIdx.x;
-  float* Rt = Z + b * 2 * kk;  // in device memory: column l only by thread l
-  float* Pg = Rt + kk;
-  float* Ub = Ug + b * kk;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (long long e = threadIdx.x; e < kk; e += blockDim.x) M[e] = Mg[b * kk + e];
-  __syncthreads();
+// K5 coord's shared memory: the lower triangles (diagonal included) of Ut,
+// Pt, Rt and W, packed by columns (column l holds rows l..k-1 from
+// lower_col(k, l)); the strict upper triangles of Y and Q, packed by
+// columns (column l holds rows 0..l-1 from upper_col(l)); pi and h; 32
+// warp partials. 3 k^2 + 3 k + 32 floats.
+__host__ __device__ inline int lower_col(int k, int l) { return l * k - l * (l - 1) / 2; }
+__host__ __device__ inline int upper_col(int l) { return l * (l - 1) / 2; }
+__host__ __device__ inline long long coord_floats(int k) { return 3LL * k * k + 3LL * k + 32; }
 
+// Threads that share a row or a column in a step's passes: a power of two
+// up to 32 (lanes of one warp) that gives every one of the k its group.
+__device__ __forceinline__ int coord_group(int k) {
+  int G = 1;
+  while (G < 32 && 2 * G * k <= kCoordThreads) G *= 2;
+  return G;
+}
+
+// The sum over the G lanes of a group (a fixed butterfly: every lane of
+// the group gets the same value). Called by every lane of the warp.
+__device__ __forceinline__ float group_sum(float v, int G) {
+  for (int o = G >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// (K5 coord) the k-step recursion on coordinates, one block per output.
+// u_t = Ut_t P0, p_t = Pt_t P0, r_t = Rt_t P0 as in blocked_factors_coord
+// (ops/root_update.py), but the inner products it takes through M there
+// are carried instead, each new one a step's by-product:
+//     W_ij = u_i . u_j,  Y_jl = u_j . p0_l (l > j),  Q_jl = p_j . p0_l (l > j).
+// Step t with a = Q[:, t] (a_j = p_j . p0_t) and y = Y[:, t]:
+//   1. h = y + W a (h_j = u_j . p for p = p0_t + sum_j a_j u_j), one
+//      group of lanes a row; pi = e_t + Ut^T a, a group a column; the
+//      warps' partials of s^2 = |p|^2 = M_tt + sum_j a_j (y_j + h_j);
+//   2. with g = h inv_s: row t of Ut (alpha = pi inv_s), Pt, Rt and W
+//      (g, and W_tt = s^2 inv_s^2), and for l > t, Y_tl =
+//      (M_tl + sum_j a_j Y_jl) inv_s and Q_tl = d (Y_tl + sum_j g_j Q_jl).
+// Every triangle is in shared memory and M's column t + 1 is loaded into
+// registers during step t: no step waits on device memory. Two block
+// barriers a step. Mg: (Bd, kGramSplit, k, k), the lower triangles of M's
+// partials; writes F (3, Bd, k, k): Ut, Rt, Pt with zeros above the
+// diagonal.
+__global__ void __launch_bounds__(kCoordThreads)
+coord_recursion_kernel(const float* __restrict__ Mg, float* __restrict__ F, int k) {
+  extern __shared__ float sh[];
+  const int tri = k * (k + 1) / 2, utri = k * (k - 1) / 2;
+  float* Ut = sh;
+  float* Pt = Ut + tri;
+  float* Rt = Pt + tri;
+  float* W = Rt + tri;
+  float* Y = W + tri;
+  float* Q = Y + utri;
+  float* pi = Q + utri;  // k
+  float* h = pi + k;     // k: u_j . p, unscaled
+  float* red = h + k;    // 32
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = coord_group(k);
+  const int grp = tid / G, s = tid & (G - 1);  // this thread's row or column, lane in it
+  const long long kk = static_cast<long long>(k) * k;
+  const float* M = Mg + blockIdx.x * kGramSplit * kk;
+  const int lc = grp < k ? lower_col(k, grp) : 0;
+  const int uc = grp < k ? upper_col(grp) : 0;
+  // M's partials added in order: M_tt and M_l t (l = grp > t) of the
+  // coming step, loaded a step ahead
+  auto m_entry = [&](int i, int j) {
+    float v = M[i * k + j];
+#pragma unroll
+    for (int x = 1; x < kGramSplit; ++x) v += M[x * kk + i * k + j];
+    return v;
+  };
+  float mdiag = m_entry(0, 0);
+  float mcol = grp > 0 && grp < k ? m_entry(grp, 0) : 0.f;
   for (int t = 0; t < k; ++t) {
-    // a_j = Pt_j . M_t for j < t, one warp per row
-    const float* mt = M + t * k;
-    for (int j = warp; j < t; j += nwarps) {
-      float s = 0.f;
-      for (int l = lane; l < k; l += 32) s = fmaf(Pt[j * k + l], mt[l], s);
-      s = warp_sum(s);
-      if (lane == 0) a[j] = s;
+    OGP_STAMP(k, t, 0);
+    const float* a = Q + upper_col(t);
+    const float* y = Y + upper_col(t);
+    const float mtt = mdiag, mlt = mcol;
+    if (t + 1 < k) {
+      mdiag = m_entry(t + 1, t + 1);
+      mcol = grp > t + 1 && grp < k ? m_entry(grp, t + 1) : 0.f;
     }
-    __syncthreads();
-    // pi = e_t + Ut^T a
-    if (threadIdx.x < k) {
-      const int l = threadIdx.x;
-      float v = l == t ? 1.f : 0.f;
-      for (int j = 0; j < t; ++j) v = fmaf(Ut[j * k + l], a[j], v);
-      pi[l] = v;
+    // 1a. h_j for row j = grp < t: W_ji from column i for i <= j, from
+    // column j for i > j
+    float acc = 0.f;
+    if (grp < t) {
+      int i = s;
+#pragma unroll 4
+      for (; i <= grp; i += G) acc = fmaf(W[lower_col(k, i) + grp - i], a[i], acc);
+#pragma unroll 4
+      for (; i < t; i += G) acc = fmaf(W[lc + i - grp], a[i], acc);
     }
-    __syncthreads();
-    // mpi = M pi, one warp per row
-    for (int j = warp; j < k; j += nwarps) {
-      float s = 0.f;
-      for (int l = lane; l < k; l += 32) s = fmaf(M[j * k + l], pi[l], s);
-      s = warp_sum(s);
-      if (lane == 0) mpi[j] = s;
+    acc = group_sum(acc, G);
+    float part = 0.f;
+    if (grp < t && s == 0) {
+      const float hj = y[grp] + acc;
+      h[grp] = hj;
+      part = a[grp] * (y[grp] + hj);
     }
+    // 1b. pi_l for column l = grp <= t: [l = t] + sum_{j in [l, t)} Ut_jl a_j
+    acc = 0.f;
+    if (grp < t) {
+      for (int j = grp + s; j < t; j += G) acc = fmaf(Ut[lc + j - grp], a[j], acc);
+    }
+    acc = group_sum(acc, G);
+    if (grp <= t && s == 0) pi[grp] = (grp == t ? 1.f : 0.f) + acc;
+    part = warp_sum(part);
+    if (lane == 0) red[warp] = part;
+    OGP_STAMP(k, t, 1);
     __syncthreads();
-    float s2 = threadIdx.x < k ? pi[threadIdx.x] * mpi[threadIdx.x] : 0.f;
-    s2 = fmaxf(block_sum(s2, red), 0.f);
-    const float s = sqrtf(s2);
-    const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
+    OGP_STAMP(k, t, 2);
+    // 2. every warp adds the 32 partials in the same fixed order
+    const float s2 = fmaxf(mtt + warp_sum(lane < kCoordThreads / 32 ? red[lane] : 0.f), 0.f);
+    const float sn = sqrtf(s2);
+    const float inv_s = sn > 1e-20f ? 1.f / sn : 0.f;
     const float r1 = sqrtf(s2 + 1.f);
     const float c = r1 - 1.f;
     const float d = 1.f / r1 - 1.f;
-    if (threadIdx.x < k) {
-      alpha[threadIdx.x] = pi[threadIdx.x] * inv_s;
-      malpha[threadIdx.x] = mpi[threadIdx.x] * inv_s;
-    }
-    __syncthreads();
-    // g_j = Ut_j . (M alpha) for j < t
-    for (int j = warp; j < t; j += nwarps) {
-      float sg = 0.f;
-      for (int l = lane; l < k; l += 32) sg = fmaf(Ut[j * k + l], malpha[l], sg);
-      sg = warp_sum(sg);
-      if (lane == 0) g[j] = sg;
-    }
-    __syncthreads();
-    // row t: alpha, d (alpha + Pt^T g), c (alpha + Rt^T g)
-    if (threadIdx.x < k) {
-      const int l = threadIdx.x;
-      const float al = alpha[l];
-      float pc = al, rc = al;
-      for (int j = 0; j < t; ++j) {
-        pc = fmaf(Pt[j * k + l], g[j], pc);
-        rc = fmaf(Rt[j * k + l], g[j], rc);
+    float acc0 = 0.f, acc1 = 0.f;
+    if (grp <= t) {
+      for (int j = grp + s; j < t; j += G) {
+        acc0 = fmaf(Pt[lc + j - grp], h[j], acc0);
+        acc1 = fmaf(Rt[lc + j - grp], h[j], acc1);
       }
-      Ut[t * k + l] = al;
-      Pt[t * k + l] = d * pc;
-      Rt[t * k + l] = c * rc;
-      Ub[t * k + l] = al;
-      Pg[t * k + l] = d * pc;
+    } else if (grp < k) {
+      for (int j = s; j < t; j += G) {
+        acc0 = fmaf(Y[uc + j], a[j], acc0);
+        acc1 = fmaf(Q[uc + j], h[j], acc1);
+      }
     }
-    __syncthreads();  // row t is read by every warp at step t + 1
+    acc0 = group_sum(acc0, G);
+    acc1 = group_sum(acc1, G);
+    if (s == 0 && grp <= t) {
+      const int e = lc + t - grp;  // row t of column grp
+      const float al = pi[grp] * inv_s;
+      Ut[e] = al;
+      Pt[e] = d * (al + acc0 * inv_s);
+      Rt[e] = c * (al + acc1 * inv_s);
+      W[e] = grp < t ? h[grp] * inv_s : s2 * inv_s * inv_s;
+    } else if (s == 0 && grp < k) {
+      const float yt = (mlt + acc0) * inv_s;
+      Y[uc + t] = yt;
+      Q[uc + t] = d * (yt + acc1 * inv_s);
+    }
+    OGP_STAMP(k, t, 3);
+    __syncthreads();  // row t is read at step t + 1
+    OGP_STAMP(k, t, 4);
   }
+  // Ut, Rt, Pt whole, for the rebuild of the flat factors
+  float* Fb = F + blockIdx.x * kk;
+  const long long stride = gridDim.x * kk;
+  for (int e = tid; e < kk; e += kCoordThreads) {
+    const int i = e / k, l = e - i * k;
+    const int at = lower_col(k, l) + i - l;
+    const bool in = l <= i;
+    Fb[e] = in ? Ut[at] : 0.f;
+    Fb[stride + e] = in ? Rt[at] : 0.f;
+    Fb[2 * stride + e] = in ? Pt[at] : 0.f;
+  }
+}
+
+// (c) K1's apply, at rank k: X += (X A^T) U for (X, A) = (L, R), (B, P).
+cudaError_t chunk_apply(float* L, float* B, const float* R, const float* Pm, const float* U,
+                        float* T, int Bd, int k, int m, cudaStream_t s) {
+  chunk_apply_t_kernel<<<dim3(cdiv(k, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
+      L, B, R, Pm, T, k, m);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
+      L, B, T, U, k, m);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -727,7 +1291,8 @@ long long ogp_blocked_chunk_smem(int k, int m) {
   return (2LL * m + 2LL * k + 32) * static_cast<long long>(sizeof(float));
 }
 
-// Dynamic shared memory of one block of the cluster recursion, in bytes.
+// Dynamic shared memory of one block of the cluster recursions (K1's, and
+// K5 sub's), in bytes.
 long long ogp_chunk_cluster_smem(int k, int m, int C) {
   return chunk_cluster_layout(k, m, C).floats * static_cast<long long>(sizeof(float));
 }
@@ -746,14 +1311,7 @@ int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, s);
   if (rc != 0) return rc;
-
-  chunk_apply_t_kernel<<<dim3(cdiv(k, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
-      L, B, R, Pm, T, k, m);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
-      L, B, T, U, k, m);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(chunk_apply(L, B, R, Pm, U, T, Bd, k, m, s));
 }
 
 // Column tiles of K4's pass 1: the |p|^2 partials are (Bd, tiles).
@@ -772,7 +1330,29 @@ int ogp_rank1_update(float* L, float* B, float* A, const float* v, float* p, flo
   return static_cast<int>(rank1_rows(L, B, A, v, p, s2, tiles, Bd, m, true, s));
 }
 
-// K5 sub. L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
+// K5 sub on a cluster of C blocks per output (C <= 8), the chunk's
+// arguments as K1's (p0, U, Pm, R: (Bd, k, m); T: (Bd, 2, m, k)): one
+// gather, chunk_sub_cluster_kernel, one apply at rank k. Returns
+// cudaGetLastError() after the launches, or -1 when no cluster of C blocks
+// fits on the card.
+int ogp_blocked_chunk_sub_cluster(float* L, float* B, const int* idx, const float* wv, float* p0,
+                                  float* U, float* Pm, float* R, float* T, int Bd, int k, int sub,
+                                  int P, int m, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C < 1 || C > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C);
+  const int rc = ogp::launch_cluster(chunk_sub_cluster_kernel, C, Bd,
+                                     lay.floats * static_cast<long long>(sizeof(float)), s, p0, U,
+                                     Pm, R, k, sub, m, lay);
+  if (rc != 0) return rc;
+  return static_cast<int>(chunk_apply(L, B, R, Pm, U, T, Bd, k, m, s));
+}
+
+// K5 sub outside the cluster kernel's shapes, one sub-block at a time.
+// L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
 // (nb, Bd, sub, P) with nb = k / sub; q, U, Pm, R: (nb, Bd, sub, m) scratch;
 // a2: (Bd, sub, sub) and T: (Bd, 2, m, sub) scratch. Each sub-block's
 // recursion runs on clusters of C blocks (C = 0: one block per output).
@@ -795,24 +1375,19 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
     float* qj = q + j * blk;
     for (int i = 0; i < j; ++i) {
       // a2 = q_j P_i^T, then q_j += a2 U_i
-      e = gemm(sub, sub, m, MatArg{qj, mm, 1, rows, 0}, MatArg{Pm + i * blk, 1, mm, rows, 0}, a2,
-               sub, (long long)sub * sub, Bd, 1.f, false, s);
+      e = gemm(sub, sub, m, MatArg{qj, mm, 1, rows, 1, kEveryBatch},
+               MatArg{Pm + i * blk, 1, mm, rows, 1, kEveryBatch}, a2, sub, (long long)sub * sub, Bd,
+               1.f, false, s);
       if (e != cudaSuccess) return static_cast<int>(e);
-      e = gemm(sub, m, sub, MatArg{a2, sub, 1, (long long)sub * sub, 0},
-               MatArg{U + i * blk, mm, 1, rows, 0}, qj, mm, rows, Bd, 1.f, true, s);
+      e = gemm(sub, m, sub, MatArg{a2, sub, 1, (long long)sub * sub, 1, kEveryBatch},
+               MatArg{U + i * blk, mm, 1, rows, 1, kEveryBatch}, qj, mm, rows, Bd, 1.f, true, s);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, s);
     if (rc != 0) return rc;
   }
   for (int j = 0; j < nb; ++j) {
-    chunk_apply_t_kernel<<<dim3(cdiv(sub, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0,
-                           s>>>(L, B, R + j * blk, Pm + j * blk, T, sub, m);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0,
-                           s>>>(L, B, T, U + j * blk, sub, m);
-    e = cudaGetLastError();
+    e = chunk_apply(L, B, R + j * blk, Pm + j * blk, U + j * blk, T, Bd, sub, m, s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
@@ -820,23 +1395,27 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
 
 // Dynamic shared memory of the K5 coord recursion kernel, in bytes.
 long long ogp_blocked_chunk_coord_smem(int k) {
-  return (3LL * k * k + 6LL * k + 32) * static_cast<long long>(sizeof(float));
+  return coord_floats(k) * static_cast<long long>(sizeof(float));
 }
 
+// Partials of M a K5 coord chunk's scratch Mg holds: (Bd, splits, k, k).
+int ogp_blocked_chunk_coord_splits() { return kGramSplit; }
+
 // K5 coord. L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
-// (Bd, k, P); p0: (Bd, k, m), Mg, Ut: (Bd, k, k), Z, Tc: (Bd, 2, k, k),
-// X1, X2: (Bd, 2, m, k) scratch.
+// (Bd, k, P); p0: (Bd, k, m), Mg: (Bd, splits, k, k), F: (3, Bd, k, k),
+// X: (3, Bd, k, m), T: (Bd, 2, m, k) scratch.
 int ogp_blocked_chunk_coord(float* L, float* B, const int* idx, const float* wv, float* p0,
-                            float* Mg, float* Ut, float* Z, float* Tc, float* X1, float* X2,
-                            int Bd, int k, int P, int m, void* stream) {
+                            float* Mg, float* F, float* X, float* T, int Bd, int k, int P, int m,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long mm = m, km = (long long)k * m, kk = (long long)k * k;
   chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  // M = P0 P0^T
-  e = gemm(k, k, m, MatArg{p0, mm, 1, km, 0}, MatArg{p0, 1, mm, km, 0}, Mg, k, kk, Bd, 1.f,
-           false, s);
+  const int nt = cdiv(k, kGramTile);
+  coord_gram_kernel<<<dim3(nt * (nt + 1) / 2, kGramSplit, Bd), kGramTile * kGramTile, 0, s>>>(p0, Mg, k,
+                                                                                              m);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long smem = ogp_blocked_chunk_coord_smem(k);
   if (smem > 48 * 1024) {
@@ -844,26 +1423,15 @@ int ogp_blocked_chunk_coord(float* L, float* B, const int* idx, const float* wv,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  coord_recursion_kernel<<<Bd, kCoordThreads, smem, s>>>(Mg, Ut, Z, k);
+  coord_recursion_kernel<<<Bd, kCoordThreads, smem, s>>>(Mg, F, k);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  // Tc[b, w] = Z[b, w]^T Ut[b]: Rt^T Ut for L, Pt^T Ut for B
-  e = gemm(k, k, k, MatArg{Z, 1, k, kk, 0}, MatArg{Ut, k, 1, kk, 1}, Tc, k, kk, 2 * Bd, 1.f,
-           false, s);
+  // the flat factors X[w, b] = F[w, b] P0[b]: U = Ut P0, R = Rt P0, P = Pt P0
+  e = gemm(k, m, k, MatArg{F, k, 1, kk, 1, kEveryBatch}, MatArg{p0, mm, 1, km, 1, Bd}, X, mm, km,
+           3 * Bd, 1.f, false, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // X1[b, w] = X_w P0^T (K1's apply with R = P = P0)
-  chunk_apply_t_kernel<<<dim3(cdiv(k, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
-      L, B, p0, p0, X1, k, m);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // X2[b, w] = X1[b, w] Tc[b, w]
-  e = gemm(m, k, k, MatArg{X1, k, 1, km, 0}, MatArg{Tc, k, 1, kk, 0}, X2, k, km, 2 * Bd, 1.f,
-           false, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // X_w += X2[b, w] P0 (K1's apply with U = P0)
-  chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
-      L, B, X2, p0, k, m);
-  return static_cast<int>(cudaGetLastError());
+  const long long bkm = Bd * km;
+  return static_cast<int>(chunk_apply(L, B, X + bkm, X + 2 * bkm, X, T, Bd, k, m, s));
 }
 
 }  // extern "C"

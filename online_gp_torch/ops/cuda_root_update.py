@@ -14,15 +14,18 @@ update with p = B^T v computed on the card. The CUDA sources, with the
 design notes (what bounds each kernel and what the Pallas design could
 not carry over), are ``online_gp_torch/csrc/root_update.cu``.
 
-K1's recursion (and K5-sub's, at k = sub) runs on a thread-block cluster:
-:func:`chunk_cluster_plan` splits each output's m columns over 8 blocks
-that keep their columns of the factor rows U, P, R in shared memory. A
-chunk whose slices do not fit a block (m > 1,120 at k = 128) runs the
-single-block recursion kernel instead. That rule is by shape alone:
-nothing is tried and caught, and every (k, m) the kernels took before
-still runs. Before each cluster launch the wrapper checks that the
-plan's shared memory is the kernel's layout (``ogp_chunk_cluster_smem``)
-and raises RuntimeError if not.
+K1's recursion runs on a thread-block cluster: :func:`chunk_cluster_plan`
+splits each output's m columns over 8 blocks that keep their columns of
+the factor rows U, P, R in shared memory. A chunk whose slices do not fit
+a block (m > 1,120 at k = 128) runs the single-block recursion kernel
+instead. K5 sub runs its whole two-level recursion, corrections and
+collapse to one rank-k operator included, in one cluster kernel on K1's
+layout, so wherever :func:`chunk_cluster_plan` holds the chunk, and one
+sub-block at a time elsewhere. Those rules are by shape alone: nothing is
+tried and caught, and every shape the kernels took before still runs.
+Before each cluster launch the wrapper checks that the plan's shared
+memory is the kernel's layout (``ogp_chunk_cluster_smem``) and raises
+RuntimeError if not.
 
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
@@ -36,7 +39,8 @@ the plain versions return new tensors. Each wrapper counts its calls that
 launched the kernel in its ``launches`` attribute (one per call; a call
 is several CUDA launches, listed in the source); ``blocked_chunk`` counts
 K1 there (and the K1 calls whose recursion ran on a cluster in
-``cluster_launches``) and K5 in ``sub_launches`` and ``coord_launches``.
+``cluster_launches``) and K5 in ``sub_launches`` (of them, those on the
+fused cluster kernel in ``sub_cluster_launches``) and ``coord_launches``.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ from online_gp_torch.ops.root_update import (
 # What the kernels take. The cluster recursion's shape rule is
 # chunk_cluster_plan. The single-block recursion, for the chunks outside
 # it, keeps a[k] and g[k] in shared memory beside two m-vectors (k <=
-# MAX_CHUNK); the coordinate recursion keeps three k x k matrices there.
+# MAX_CHUNK); the coordinate recursion keeps six k x k triangles there.
 # Both within MAX_SHARED_BYTES of dynamic shared memory per block.
 MAX_CHUNK = 1024
 MAX_SHARED_BYTES = _build.MAX_SHARED_BYTES
@@ -88,9 +92,13 @@ def _root_update_lib():
         lib.ogp_rank1_update.restype = i32
         lib.ogp_blocked_chunk_sub.argtypes = [vp] * 10 + [i32] * 6 + [vp]
         lib.ogp_blocked_chunk_sub.restype = i32
+        lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+        lib.ogp_blocked_chunk_sub_cluster.restype = i32
         lib.ogp_blocked_chunk_coord_smem.argtypes = [i32]
         lib.ogp_blocked_chunk_coord_smem.restype = ctypes.c_longlong
-        lib.ogp_blocked_chunk_coord.argtypes = [vp] * 11 + [i32] * 4 + [vp]
+        lib.ogp_blocked_chunk_coord.argtypes = [vp] * 9 + [i32] * 4 + [vp]
+        lib.ogp_blocked_chunk_coord_splits.argtypes = []
+        lib.ogp_blocked_chunk_coord_splits.restype = i32
         lib.ogp_blocked_chunk_coord.restype = i32
         _lib = lib
     return _lib
@@ -250,9 +258,9 @@ def blocked_chunk_plain(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv:
 
 
 def _chunk_cluster_floats(k: int, m: int, C: int):
-    """(columns per block, floats per block) of the cluster recursion at
-    (k, m) on clusters of C blocks: ``chunk_cluster_layout`` in
-    ``csrc/root_update.cu``. A row pass gives Sr lanes to a row; the row
+    """(columns per block, floats per block) of the cluster recursions (K1's
+    and K5 sub's) at (k, m) on clusters of C blocks: ``chunk_cluster_layout``
+    in ``csrc/root_update.cu``. A row pass gives Sr lanes to a row; the row
     stride ld = Sr (mod 2 Sr) keeps a warp's rows on distinct banks."""
     W = -(-m // C)
     Sr = 1
@@ -269,12 +277,14 @@ def _chunk_cluster_floats(k: int, m: int, C: int):
 
 
 def chunk_cluster_plan(k: int, m: int):
-    """The shape rule of K1's recursion: the :class:`~online_gp_torch.ops._build.ClusterPlan`
-    (blocks per output, columns per block, shared bytes per block) on
-    clusters of 8 blocks, when each block holds its slices of U, P and R
-    (3 k ceil(m / 8) floats, padded) and the step's vectors in at most
-    232,448 bytes of shared memory; None where it does not, and the chunk
-    then runs the single-block recursion kernel."""
+    """The shape rule of the K1 and K5-sub recursions: the
+    :class:`~online_gp_torch.ops._build.ClusterPlan` (blocks per output,
+    columns per block, shared bytes per block) on clusters of 8 blocks,
+    when each block holds its slices of U, P and R (3 k ceil(m / 8) floats,
+    padded) and the step's vectors in at most 232,448 bytes of shared
+    memory; None where it does not, and the chunk then runs the
+    single-block recursion kernel (K1) or one sub-block at a time (K5 sub,
+    each sub-block's recursion by this rule at k = sub)."""
     return _build.cluster_plan(lambda C: _chunk_cluster_floats(k, m, C))
 
 
@@ -309,11 +319,13 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
       mode: "flat", or "coord" for the recursion on k-dim coordinates
         (``sub`` is then only checked).
 
-    On CUDA the flat and sub recursions run on clusters of
-    :func:`chunk_cluster_plan` (at k = sub for sub), or on the single-block
-    kernel where that returns None. Raises ValueError for a shape neither
-    takes, RuntimeError when a launch fails, the card cannot hold the
-    planned cluster, or the plan is not the kernel's layout.
+    On CUDA the flat recursion runs on clusters of :func:`chunk_cluster_plan`,
+    or on the single-block kernel where that returns None; the sub recursion
+    on the fused cluster kernel where that rule holds the chunk at k, else
+    one sub-block at a time (each by the flat rule at k = sub). Raises
+    ValueError for a shape neither takes, RuntimeError when a launch fails,
+    the card cannot hold the planned cluster, or the plan is not the
+    kernel's layout.
 
     Returns (L', B'). On CUDA, L and B are updated in place.
     """
@@ -352,22 +364,40 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
 blocked_chunk.launches = 0
 blocked_chunk.cluster_launches = 0
 blocked_chunk.sub_launches = 0
+blocked_chunk.sub_cluster_launches = 0
 blocked_chunk.coord_launches = 0
 
 
 def _chunk_sub(lib, L, B, idx, wv, sub):
-    """K5 with ``sub < k``; arguments checked by :func:`blocked_chunk`."""
+    """K5 with ``sub < k``; arguments checked by :func:`blocked_chunk`. On
+    the fused cluster kernel where :func:`chunk_cluster_plan` holds the
+    chunk (counted in ``blocked_chunk.sub_cluster_launches``), else one
+    sub-block at a time."""
     Bd, m = L.shape[0], L.shape[-1]
     k, P = idx.shape
+    f32 = dict(dtype=torch.float32, device=L.device)
+    p_ = _build.ptr
+    plan = chunk_cluster_plan(k, m)
+    if plan is not None:
+        what = f"blocked_chunk (sub={sub}, k={k}, m={m})"
+        _build.check_layout(plan, lib.ogp_chunk_cluster_smem(k, m, plan.cluster), what)
+        factors = torch.empty((4, Bd, k, m), **f32)  # p0, U, Pc, Rc
+        T = torch.empty((Bd, 2, m, k), **f32)
+        rc = lib.ogp_blocked_chunk_sub_cluster(
+            p_(L), p_(B), p_(idx), p_(wv), *(p_(f) for f in factors), p_(T), Bd, k, sub, P, m,
+            plan.cluster, _build.stream_of(L),
+        )
+        _build.launch_check(rc, what, plan)
+        blocked_chunk.sub_launches += 1
+        blocked_chunk.sub_cluster_launches += 1
+        return L, B
     nb = k // sub
     plan, C = _recursion_plan(lib, sub, m, "sub-block")
-    f32 = dict(dtype=torch.float32, device=L.device)
     # sub-block j's weights contiguous, as its gather reads them
     wv_sub = wv.reshape(Bd, nb, sub, P).transpose(0, 1).contiguous()
     factors = torch.empty((4, nb, Bd, sub, m), **f32)  # corrected rows q, U, P, R
     a2 = torch.empty((Bd, sub, sub), **f32)
     T = torch.empty((Bd, 2, m, sub), **f32)
-    p_ = _build.ptr
     rc = lib.ogp_blocked_chunk_sub(
         p_(L), p_(B), p_(idx), p_(wv_sub), p_(factors[0]), p_(factors[1]), p_(factors[2]),
         p_(factors[3]), p_(a2), p_(T), Bd, k, sub, P, m, C, _build.stream_of(L),
@@ -383,17 +413,17 @@ def _chunk_coord(lib, L, B, idx, wv):
     k, P = idx.shape
     if lib.ogp_blocked_chunk_coord_smem(k) > MAX_SHARED_BYTES:
         raise ValueError(f"chunk (k={k}) exceeds what the coord kernel takes "
-                         f"((3k^2 + 6k + 32) floats of shared memory <= {MAX_SHARED_BYTES} bytes)")
+                         f"((3k^2 + 3k + 32) floats of shared memory <= {MAX_SHARED_BYTES} bytes)")
     f32 = dict(dtype=torch.float32, device=L.device)
     p0 = torch.empty((Bd, k, m), **f32)
-    M, Ut = torch.empty((2, Bd, k, k), **f32)
-    Z = torch.empty((Bd, 2, k, k), **f32)  # (Rt, Pt) per output
-    Tc = torch.empty((Bd, 2, k, k), **f32)  # (Rt^T Ut, Pt^T Ut) per output
-    X = torch.empty((2, Bd, 2, m, k), **f32)  # X P0^T, then times Tc
+    M = torch.empty((Bd, lib.ogp_blocked_chunk_coord_splits(), k, k), **f32)  # partials of P0 P0^T
+    F = torch.empty((3, Bd, k, k), **f32)  # Ut, Rt, Pt
+    X = torch.empty((3, Bd, k, m), **f32)  # U, R, P = F P0
+    T = torch.empty((Bd, 2, m, k), **f32)
     p_ = _build.ptr
     rc = lib.ogp_blocked_chunk_coord(
-        p_(L), p_(B), p_(idx), p_(wv), p_(p0), p_(M), p_(Ut), p_(Z), p_(Tc), p_(X[0]), p_(X[1]),
-        Bd, k, P, m, _build.stream_of(L),
+        p_(L), p_(B), p_(idx), p_(wv), p_(p0), p_(M), p_(F), p_(X), p_(T), Bd, k, P, m,
+        _build.stream_of(L),
     )
     _build.launch_check(rc, "blocked_chunk (coord)")
     blocked_chunk.coord_launches += 1

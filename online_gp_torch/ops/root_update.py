@@ -188,6 +188,25 @@ def blocked_factors_sub(p0: torch.Tensor, sub: int):
     return tuple(torch.cat(f, dim=-2) for f in zip(*parts))
 
 
+def collapse_sub_factors(U: torch.Tensor, Pm: torch.Tensor, R: torch.Tensor, sub: int):
+    """The rows of :func:`blocked_factors_sub` as one rank-k operator: with
+    G_j = I + R_j^T U_j for sub-block j (rows [j sub, j sub + sub)), the
+    product G_0 G_1 ... G_{nb-1} is I + Rc^T U, where
+
+        Rc_j = R_j + sum_{i<j} (R_j U_i^T) Rc_i,
+
+    and the same for P. So the chunk is L (I + Rc^T U), B (I + Pc^T U): one
+    apply, as for the flat recursion. Returns (Rc, Pc), each (..., k, m)."""
+    k = U.shape[-2]
+    Rc, Pc = R.clone(), Pm.clone()
+    with f32_matmul_precision():
+        for lo in range(sub, k, sub):
+            rows, done = slice(lo, lo + sub), slice(0, lo)
+            Rc[..., rows, :] = R[..., rows, :] + (R[..., rows, :] @ U[..., done, :].mT) @ Rc[..., done, :]
+            Pc[..., rows, :] = Pm[..., rows, :] + (Pm[..., rows, :] @ U[..., done, :].mT) @ Pc[..., done, :]
+    return Rc, Pc
+
+
 def blocked_factors_coord(p0: torch.Tensor):
     """Coordinate form of :func:`blocked_factors`: every factor row lies in
     the span of the rows of p0, so the recursion runs on k-dim coordinates

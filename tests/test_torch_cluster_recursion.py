@@ -1,6 +1,7 @@
 """The K1 and K3 recursions on thread-block clusters, held on the CPU.
 
-- The shape rules ``chunk_cluster_plan`` and ``pred_cluster_plan``: which
+- The shape rules ``chunk_cluster_plan`` (K1's recursion, and K5 sub's
+  fused one on the same layout) and ``pred_cluster_plan``: which
   chunks run on a cluster, within the shared memory of one block, that
   every chunk the single-block kernels took still has a kernel, and that
   the wrappers refuse a plan that is not the kernel's layout.
@@ -258,6 +259,97 @@ def test_no_cluster_raises_naming_the_cluster():
     with pytest.raises(RuntimeError, match="cudaError 1"):
         _build.launch_check(1, "blocked_chunk", plan)
     _build.launch_check(0, "blocked_chunk", plan)
+
+
+def _layout(k, m, C):
+    """chunk_cluster_layout of csrc/root_update.cu, written out: (ld, floats)."""
+    W = -(-m // C)
+    Sr = max(s for s in (1, 2, 4, 8, 16, 32) if s == 1 or s * k <= 512)
+    ld = W if Sr == 32 else next(x for x in range(W, W + 2 * Sr) if x % (2 * Sr) == Sr)
+    CT = -(-W // 32)
+    S = max(1, 16 // CT)
+    return ld, 4 + 3 * k * ld + ld + 2 * k + 2 * C * (k + 1) + 2 * S * CT * 32 + 1
+
+
+@pytest.mark.parametrize("k,sub,m", [(128, 32, 900), (128, 16, 900), (128, 64, 900), (64, 8, 400), (128, 32, 1120),
+                                     (32, 16, 100), (256, 32, 300)])
+def test_sub_cluster_floats_are_the_layout_formula(k, sub, m):
+    """K5 sub's fused kernel runs on K1's layout. A sub-block boundary sums
+    its coefficients in the step's buffers (from p to the end of the
+    layout: cap coefficients and a block's share of their sums, as
+    boundary_update takes them), in rounds of rows; one row of its widest
+    round, the collapse's 2 J coefficients for J = k - sub, always fits."""
+    W, floats = tcru._chunk_cluster_floats(k, m, 8)
+    ld, want = _layout(k, m, 8)
+    assert W == -(-m // 8) and floats == want
+    nbnd = floats - (4 + 3 * k * ld)
+    cap = (nbnd - 1) * 8 // 9
+    assert cap + -(-cap // 8) <= nbnd and cap >= 2 * (k - sub)
+
+
+@pytest.mark.parametrize("k,sub,m,nbytes", [
+    (128, 32, 900, 192036),  # chip_smoke's K5-sub chunk: the fused cluster kernel
+    (128, 32, 1024, 216676),  # chip_smoke's K5-sub chunk inside the envelope's upper part
+    (128, 32, 1120, 228740),  # the envelope's edge, K1's
+    (128, 32, 2500, None),  # chip_smoke's K5-sub chunk outside the envelope
+])
+def test_chunk_sub_cluster_plan_at_the_smoke_shapes(k, sub, m, nbytes):
+    plan = tcru.chunk_cluster_plan(k, m)
+    if nbytes is None:
+        assert plan is None
+    else:
+        assert plan == _build.ClusterPlan(8, -(-m // 8), nbytes) and 4 * _layout(k, m, 8)[1] == nbytes
+
+
+class _SubLib(_SizeQueries):
+    """Records which K5-sub entry a call of _chunk_sub reaches."""
+
+    def __init__(self, skew=0):
+        super().__init__(skew)
+        self.calls = []
+
+    def ogp_blocked_chunk_sub_cluster(self, *args):
+        self.calls.append(("fused", args[-2]))
+        return 0
+
+    def ogp_blocked_chunk_sub(self, *args):
+        self.calls.append(("per sub-block", args[-2]))
+        return 0
+
+
+@pytest.mark.parametrize("m,route,cluster", [(900, "fused", 8), (1120, "fused", 8), (2500, "per sub-block", 8),
+                                             (20000, "per sub-block", 0)])
+def test_k5_sub_takes_the_fused_kernel_inside_its_envelope(monkeypatch, m, route, cluster):
+    """(128, 32, 900) and (128, 32, 1120), K1's edge, run the fused cluster
+    kernel; (128, 32, 2500) one sub-block at a time, each on K1's cluster
+    kernel at k = 32, and m = 20,000 on its single-block kernel: every shape
+    taken before still runs."""
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    k, sub, P = 128, 32, 16
+    meta = dict(device="meta", dtype=torch.float32)
+    L = torch.empty((1, m, m), **meta)
+    idx, wv = torch.empty((k, P), device="meta", dtype=torch.int32), torch.empty((1, k, P), **meta)
+    lib = _SubLib()
+    before = (tcru.blocked_chunk.sub_launches, tcru.blocked_chunk.sub_cluster_launches)
+    try:
+        tcru._chunk_sub(lib, L, L, idx, wv, sub)
+        assert lib.calls == [(route, cluster)]
+        fused = route == "fused"
+        assert (tcru.blocked_chunk.sub_launches - before[0], tcru.blocked_chunk.sub_cluster_launches - before[1]) == (1, fused)
+    finally:
+        tcru.blocked_chunk.sub_launches, tcru.blocked_chunk.sub_cluster_launches = before
+
+
+def test_k5_sub_refuses_a_plan_that_is_not_the_kernel_layout(monkeypatch):
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    meta = dict(device="meta", dtype=torch.float32)
+    L = torch.empty((1, 900, 900), **meta)
+    idx, wv = torch.empty((128, 16), device="meta", dtype=torch.int32), torch.empty((1, 128, 16), **meta)
+    for skew in (4, -4):
+        lib = _SubLib(skew)
+        with pytest.raises(RuntimeError, match="they must be changed together"):
+            tcru._chunk_sub(lib, L, L, idx, wv, 32)
+        assert lib.calls == []
 
 
 # --------------------------------------------------------------------------

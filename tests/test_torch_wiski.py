@@ -227,7 +227,8 @@ def test_port_never_imports_jax_or_the_jax_package():
 def _launch_counts():
     ru = cuda_root_update
     return (ru.rank1_apply.launches, ru.blocked_chunk.launches, ru.blocked_chunk.cluster_launches,
-            ru.blocked_chunk.sub_launches, ru.blocked_chunk.coord_launches, ru.rank1_update.launches,
+            ru.blocked_chunk.sub_launches, ru.blocked_chunk.sub_cluster_launches, ru.blocked_chunk.coord_launches,
+            ru.rank1_update.launches,
             cuda_pred_stream.pred_chunk.launches, cuda_pred_stream.pred_chunk.cluster_launches,
             cuda_chol.blocked_cholesky.launches)
 
