@@ -25,11 +25,12 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
 3. The WISKI serving path at the width of bench.py's configuration: 2-D
    inputs, a 30x30 grid (m=900), RBF, one output, learned second noise,
    256 seed points, slim state. wiski_stream of 16,384 points (K1), 256
-   single-point wiski_condition calls (K2), prediction caches and
-   predict on 1,024 held-out points, wiski_prequential_stream of 4,096
-   points (K3 and K1). The launch counters are zeroed just before and
-   read just after; each kernel must have launched, every K1 and K3 chunk
-   with its recursion on a cluster. Then a short profiled pass of both
+   single-point wiski_condition calls (K2) and prediction caches (Q on K6)
+   plus predict on 1,024 held-out points, each of these two host-bound
+   metrics 7 times after a warm-up (median and min-max spread),
+   wiski_prequential_stream of 4,096 points (K3 and K1). The launch
+   counters are zeroed just before and read just after; each kernel must
+   have launched, every K1 and K3 chunk with its recursion on a cluster. Then a short profiled pass of both
    streams: torch.profiler must record the cluster recursion kernels and
    no single-block recursion. Gates: the stream's
    roots match the plain root update over a 256-point prefix to within
@@ -60,14 +61,37 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    K6 on SPD batches at m = 900, 1,000 and
    130 for Bd = 1 and 4 and on a (2, 2, 900, 900) batch, against its plain
    version and torch.linalg.cholesky to atol 2e-5, rtol 1e-4, bitwise the
-   same on a second call, strict upper triangle exactly 0.
+   same on a second call, strict upper triangle exactly 0, its failure flag
+   clear.
    K4 and K6 report their device span per call as `ms` (device_span_ms:
    first CUDA activity to last, with the call queued behind a spin kernel),
    the time of a call whose kernels overlap by programmatic dependent
    launch. K6 is timed with that launch off too, beside the spans of
-   torch.linalg.cholesky and torch.linalg.cholesky_ex.
+   torch.linalg.cholesky and torch.linalg.cholesky_ex. K6's times are of
+   blocked_cholesky_ex, the entry with the failure flag.
+5. The training path through the port's OnlineSKIRegression at bench.py's
+   full-update configuration (bench.py:255-300): LinearStem(2, 2), 30x30
+   grid, RBF, one output, learned second noise, slim state, lr 1e-2, 256
+   seed points; depth cut to a 5-epoch fit, 64 update() calls at q = 1
+   and 8 at q = 32, then one hyper_step, predict and prequential of 1,024
+   points and absorb of 4,096. The launch counters are zeroed just before
+   and read just after: K6 must factor Q on every update() and the
+   hyper_step, K2 launch once per q = 1 update, K1 and K3 launch (on
+   clusters). A CPU twin (convert) runs the first 8 updates from the same
+   params and state: params within 1e-3, roots within 1e-3 * scale. Every
+   loss, mll_value() and the predictions finite. Then K6's flag on the
+   card (Q with one eigenvalue set to -1: NaN from spd_cholesky where
+   cholesky_ex fails, the SPD Q beside it as alone to 1e-6), the hyper
+   step's gradient at float32 (the closed form against autograd through
+   torch.linalg.cholesky to 1e-2 of each leaf's largest entry, both beside
+   a float64 reference) with the device time of its forward and of each
+   backward, fit(num_epochs=1) timed 7 times after a warm-up, and a
+   torch.profiler breakdown of 4 update() calls (device idle share, kernels
+   by device time, host ops by self CPU time). update() rates are medians
+   and spreads over the calls after the first.
 
-It prints the kernels as one JSON line, then the card's name and power
+It prints the kernels as one JSON line (``launches``: the sum over the
+path windows of phases 3, 4 and 5), then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs a CUDA device
 and exits non-zero without one.
 """
@@ -83,6 +107,8 @@ import time
 import numpy as np
 import torch
 
+from online_gp_torch import DEFAULT_CONFIG, convert
+from online_gp_torch.api import LinearStem, OnlineSKIRegression
 from online_gp_torch.kernels.base import RBFKernel
 from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
 from online_gp_torch.models.wiski import (
@@ -90,6 +116,7 @@ from online_gp_torch.models.wiski import (
     wiski_check_decomposition,
     wiski_condition,
     wiski_init,
+    wiski_mll,
     wiski_predict,
     wiski_prediction_caches,
     wiski_prequential_stream,
@@ -97,7 +124,7 @@ from online_gp_torch.models.wiski import (
     wiski_stream,
 )
 from online_gp_torch.ops import _build, cuda_chol, cuda_root_update
-from online_gp_torch.ops.cuda_chol import blocked_cholesky, blocked_cholesky_plain
+from online_gp_torch.ops.cuda_chol import blocked_cholesky, blocked_cholesky_ex, blocked_cholesky_plain
 from online_gp_torch.ops.cuda_pred_stream import (
     pred_chunk,
     pred_chunk_stencil_plain,
@@ -113,6 +140,7 @@ from online_gp_torch.ops.cuda_root_update import (
     rank1_update,
     rank1_update_plain,
 )
+from online_gp_torch.ops.chol import spd_cholesky
 from online_gp_torch.ops.grid import Grid
 from online_gp_torch.ops.interp import dense_w, interp_coeffs
 from online_gp_torch.ops.precision import assert_true_f32, f32_matmul_precision
@@ -131,6 +159,11 @@ M_SIDE = 30  # bench.py: 30x30 grid, m = 900
 K = 128  # chunk rank of wiski_stream and the prequential stream
 N_SEED, N_STREAM, N_COND, N_TEST, N_PREQ = 256, 16384, 256, 1024, 4096
 TIMING_REPS = 20
+# a host-bound metric (a loop of small launches, a host clock around
+# synchronised work) is taken HOST_REPEATS times after one warm-up, and its
+# median and min-max spread are printed: one run of it spread wider than
+# any gap between two versions
+HOST_REPEATS = 7
 # a profile window opens this long before its first launch: without it,
 # torch.profiler on an H100 lost the records of a window's first launches
 # in up to 2% of windows (profiler_records.py)
@@ -150,6 +183,14 @@ OUTSIDE_SIDE = 50  # phase 2: a K1 chunk at m = 2,500, outside the cluster envel
 SUB_EDGE_SIDE = 33  # phase 4: a K5-sub chunk at m = 1,089, near the envelope's edge
 OUTSIDE_K3 = 512  # phase 2: a K3 chunk of k = 512 at m = 900, outside it
 ROWS_OUTSIDE_REGS_M = 1100  # phase 4: K4 where its row kernel cannot hold a row in registers
+# phase 5: bench.py's full-update arms (bench.py:255-300) through the wrapper,
+# depth cut to 5 fit epochs and 64 + 8 updates
+TRAIN_LR = 1e-2
+FIT_EPOCHS = 5
+N_UPD1, N_UPD32, N_TWIN, N_ABSORB = 64, 8, 8, 4096
+TWIN_PARAM_TOL = 1e-3  # a tenth of one Adam step at TRAIN_LR
+HYPER_GRAD_RTOL = 1e-2  # float32 gradients of an O(n) objective, against the leaf's largest entry
+LOG_2PI = 1.8378770664093453
 
 # (device memory bytes/s, f32 flop/s outside the tensor cores), NVIDIA data
 # sheets, dense, at the full power limit
@@ -566,13 +607,13 @@ def main_path(rng, model, params, card, dev):
         return x, y, torch.ones_like(y)
 
     xs, ys, ns = points(N_STREAM)
-    xc, yc, nc = points(N_COND)
+    xc, yc, nc = points(N_COND * (1 + HOST_REPEATS))
     xt, _, _ = points(N_TEST)
     xp, yp, npr = points(N_PREQ)
     gate_roots = RootCache(None, state.roots.root.clone(), state.roots.inv_root.clone())
     torch.cuda.synchronize()
 
-    wrappers = (rank1_apply, blocked_chunk, pred_chunk)
+    wrappers = (rank1_apply, blocked_chunk, pred_chunk, blocked_cholesky)  # K6: Q of the prediction caches
     for wrapper in wrappers:
         wrapper.launches = 0
     blocked_chunk.cluster_launches = pred_chunk.cluster_launches = 0
@@ -580,13 +621,20 @@ def main_path(rng, model, params, card, dev):
     state = wiski_stream(model, state, xs, ys, ns, block_size=K)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for i in range(N_COND):
-        state = wiski_condition(model, state, xc[i : i + 1], yc[i : i + 1], nc[i : i + 1])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    caches = wiski_prediction_caches(model, params, state)
-    mean, var = wiski_predict(model, params, state, xt, caches=caches)
-    torch.cuda.synchronize()
+    cond_s = []  # the 256-call loop, one warm-up and HOST_REPEATS timed
+    for rep in range(1 + HOST_REPEATS):
+        r0 = time.perf_counter()
+        for i in range(rep * N_COND, (rep + 1) * N_COND):
+            state = wiski_condition(model, state, xc[i : i + 1], yc[i : i + 1], nc[i : i + 1])
+        torch.cuda.synchronize()
+        cond_s.append(time.perf_counter() - r0)
+    pred_s = []  # caches + predict, the same
+    for _ in range(1 + HOST_REPEATS):
+        r0 = time.perf_counter()
+        caches = wiski_prediction_caches(model, params, state)
+        mean, var = wiski_predict(model, params, state, xt, caches=caches)
+        torch.cuda.synchronize()
+        pred_s.append(time.perf_counter() - r0)
     t3 = time.perf_counter()
     state, caches, pm, pv = wiski_prequential_stream(model, params, state, caches, xp, yp, npr, block_size=K)
     torch.cuda.synchronize()
@@ -597,8 +645,11 @@ def main_path(rng, model, params, card, dev):
 
     print(f"main path on {card}:")
     print(f"  wiski_stream {N_STREAM} points, block {K}: {N_STREAM / (t1 - t0):.1f} updates/s ({t1 - t0:.4f} s)")
-    print(f"  wiski_condition x{N_COND}: {N_COND / (t2 - t1):.1f} updates/s ({t2 - t1:.4f} s)")
-    print(f"  prediction caches + predict {N_TEST} points: {t3 - t2:.4f} s")
+    rates = [N_COND / t for t in cond_s[1:]]
+    print(f"  wiski_condition x{N_COND}, {HOST_REPEATS} repeats after a warm-up: median "
+          f"{np.median(rates):.1f} updates/s, spread {min(rates):.1f}-{max(rates):.1f}")
+    print(f"  prediction caches + predict {N_TEST} points, {HOST_REPEATS} repeats after a warm-up: median "
+          f"{np.median(pred_s[1:]):.5f} s, spread {min(pred_s[1:]):.5f}-{max(pred_s[1:]):.5f}")
     print(f"  wiski_prequential_stream {N_PREQ} points: {N_PREQ / (t4 - t3):.1f} points/s ({t4 - t3:.4f} s)")
     print(f"  kernel launches: {json.dumps(launches)}")
     for name, count in launches.items():
@@ -1044,11 +1095,14 @@ def spd_batch(rng, shape, dev):
 def check_cholesky_case(q, what):
     """K6 on q against its plain version and torch.linalg.cholesky (atol
     2e-5, rtol 1e-4), bitwise the same on a second call, strict upper
-    triangle exactly 0. Returns the factor and the max abs errors."""
+    triangle exactly 0, and blocked_cholesky_ex bitwise the same with its
+    failure flag clear. Returns the factor and the max abs errors."""
     got = blocked_cholesky(q, CHOL_BLOCK)
-    again = blocked_cholesky(q, CHOL_BLOCK)
+    again, info = blocked_cholesky_ex(q, CHOL_BLOCK)
     torch.cuda.synchronize()
     bitwise((got,), (again,), f"blocked_cholesky {what}")
+    if bool((info != 0).any()):
+        raise AssertionError(f"blocked_cholesky_ex {what}: the failure flag is set on an SPD batch")
     errs = {}
     for name, want in (("plain", blocked_cholesky_plain(q, CHOL_BLOCK)), ("torch.linalg.cholesky", torch.linalg.cholesky(q))):
         errs[name] = float((got - want).abs().max())
@@ -1061,9 +1115,10 @@ def check_cholesky_case(q, what):
 
 def check_cholesky(rng, Q, peaks, dev):
     """K6 on SPD batches at CHOL_SIZES x CHOL_BATCHES and on a (2, 2, m, m)
-    batch, then times at m = 900 for Bd = 1 (phase 4's Q) and Bd = 4: the
-    device span with programmatic dependent launch (ms) and without
-    (plain_launch_ms), each kernel's summed durations, and the device spans
+    batch, then times at m = 900 for Bd = 1 (phase 4's Q) and Bd = 4 of
+    blocked_cholesky_ex, the entry with the failure flag that spd_cholesky
+    calls: the device span with programmatic dependent launch (ms) and
+    without (plain_launch_ms), each kernel's summed durations, and the device spans
     of torch.linalg.cholesky (library_ms) and torch.linalg.cholesky_ex."""
     m = Q.shape[-1]
     for mc in CHOL_SIZES:
@@ -1093,20 +1148,323 @@ def check_cholesky(rng, Q, peaks, dev):
         for key, pdl in (("", True), ("plain_launch_", False)):
             cuda_chol.PROGRAMMATIC_LAUNCH = pdl
             try:
-                r[f"{key}ms"], r[f"{key}stages_ms"] = device_span_ms(blocked_cholesky, make, stage_kernels)
+                r[f"{key}ms"], r[f"{key}stages_ms"] = device_span_ms(blocked_cholesky_ex, make, stage_kernels)
                 r[f"{key}kernel_sum_ms"] = sum(r[f"{key}stages_ms"].values())
             finally:
                 cuda_chol.PROGRAMMATIC_LAUNCH = True
         r["library_ms"] = device_span_ms(lambda q, b: torch.linalg.cholesky(q), make)[0]
         r["library_ex_ms"] = device_span_ms(lambda q, b: torch.linalg.cholesky_ex(q), make)[0]
         r["library_wall_ms"] = time_ms(lambda q, b: torch.linalg.cholesky(q), make)
-        r["wrapper_ms"] = time_ms(blocked_cholesky, make)
+        r["wrapper_ms"] = time_ms(blocked_cholesky_ex, make)
         if Bd == 1:
             r.update(max_abs_err=float((Lq - want).abs().max()), rel_max_err=rel_max_err(Lq, want),
                      max_abs_err_vs_library=float((Lq - torch.linalg.cholesky(Q)).abs().max()),
                      plain_ms=time_ms(blocked_cholesky_plain, make))
         out[Bd] = r
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 5: the training path through OnlineSKIRegression
+# --------------------------------------------------------------------------
+
+
+def _gp_leaves(params):
+    return [params["kernel"]["raw_lengthscale"], params["kernel"]["raw_outputscale"], params["raw_second_noise"]]
+
+
+def load_twin(reg, x0, y0):
+    """A wrapper on the CPU with reg's configuration, started from reg's
+    params, stem and state as they stand (carried across by convert)."""
+    twin = OnlineSKIRegression(LinearStem(2, 2), x0, y0, lr=TRAIN_LR, grid_size=M_SIDE, slim_state=True,
+                               device="cpu")
+    host = lambda t: None if t is None else t.detach().cpu().numpy()
+    stem_params = {"lin": {"w": host(reg.stem.lin.weight).T, "b": host(reg.stem.lin.bias)}}
+    bn = {"bn": {"mean": host(reg.stem.bn.running_mean), "var": host(reg.stem.bn.running_var),
+                 "momentum": host(reg.stem.bn.momentum)}}
+    convert.stem_from_numpy(twin.stem, stem_params, bn, device="cpu")
+    with torch.no_grad():
+        for a, b in zip(_gp_leaves(twin.params), _gp_leaves(reg.params)):
+            a.copy_(b.detach().cpu())
+    s = reg.state
+    twin.state = convert.state_from_numpy(host(s.wty), host(s.ydy), host(s.roots.mat), host(s.roots.root),
+                                          host(s.roots.inv_root), host(s.d_logdet), s.num_data, device="cpu")
+    return twin
+
+
+def training_path(rng, card, dev):
+    """Phase 5's path: OnlineSKIRegression at bench.py's full-update
+    configuration on the card: fit, 64 update()s at q = 1, 8 at q = 32, one
+    hyper_step, predict, prequential and absorb, with the launch counters
+    zeroed just before and read just after. The first 8 q = 1 updates run
+    on a CPU twin too (convert). Returns (reg, launches, seed data)."""
+    f32 = np.float32
+    x0 = rng.uniform(-1, 1, (N_SEED, 2)).astype(f32)
+    y0 = np.sin(3 * x0[:, :1])
+
+    def points(n):
+        x = rng.uniform(-1, 1, (n, 2)).astype(f32)
+        return x, np.sin(3 * x[:, :1])
+
+    x1, y1 = points(N_UPD1)
+    x32, y32 = points(N_UPD32 * 32)
+    xh, yh = points(32)
+    xt, yt = points(N_TEST)
+    xp, yp = points(N_TEST)
+    xa, ya = points(N_ABSORB)
+    reg = OnlineSKIRegression(LinearStem(2, 2), x0, y0, lr=TRAIN_LR, grid_size=M_SIDE, slim_state=True, device=dev)
+    torch.cuda.synchronize()
+
+    counters = [(rank1_apply, "launches"), (blocked_chunk, "launches"), (blocked_chunk, "cluster_launches"),
+                (pred_chunk, "launches"), (pred_chunk, "cluster_launches"), (blocked_cholesky, "launches")]
+    for wrapper, attr in counters:
+        setattr(wrapper, attr, 0)
+    t0 = time.perf_counter()
+    records = reg.fit(x0, y0, FIT_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    twin = load_twin(reg, x0, y0)
+    per_update = []  # (K6, K2) launches of each update
+    losses, upd1_s, upd32_s = [], [], []
+    for i in range(N_UPD1 + N_UPD32):
+        x, y = (x1[i : i + 1], y1[i : i + 1]) if i < N_UPD1 else (
+            x32[(i - N_UPD1) * 32 : (i - N_UPD1 + 1) * 32], y32[(i - N_UPD1) * 32 : (i - N_UPD1 + 1) * 32])
+        before = (blocked_cholesky.launches, rank1_apply.launches)
+        r0 = time.perf_counter()
+        losses.append(reg.update(x, y))  # returns floats: the host waits for the card
+        (upd1_s if i < N_UPD1 else upd32_s).append(time.perf_counter() - r0)
+        per_update.append((blocked_cholesky.launches - before[0], rank1_apply.launches - before[1]))
+        if i < N_TWIN:
+            losses[-1] += twin.update(x, y)
+        if i == N_TWIN - 1:
+            twin_errs = compare_twin(reg, twin)
+    # what the hyper step starts from, for check_hyper_gradient after the path
+    # (prequential and absorb update the state's roots in place on the card)
+    snapshot = ({k: (v.detach().clone() if torch.is_tensor(v) else {a: b.detach().clone() for a, b in v.items()})
+                 for k, v in reg.params.items()},
+                reg.state._replace(wty=reg.state.wty.clone(), roots=RootCache(
+                    None, reg.state.roots.root.clone(), reg.state.roots.inv_root.clone())))
+    k6_before = blocked_cholesky.launches
+    losses.append(reg.hyper_step(xh, yh))
+    k6_hyper = blocked_cholesky.launches - k6_before
+    mean, var = reg.predict(xt)
+    pm, pv = reg.prequential(xp, yp)
+    reg.absorb(xa, ya)
+    torch.cuda.synchronize()
+    launches = {"rank1_apply": rank1_apply.launches, "blocked_chunk": blocked_chunk.launches,
+                "chunk_recursion_cluster": blocked_chunk.cluster_launches, "pred_chunk": pred_chunk.launches,
+                "pred_recursion_cluster": pred_chunk.cluster_launches, "blocked_cholesky": blocked_cholesky.launches}
+
+    print(f"training path (OnlineSKIRegression, LinearStem(2, 2), m={M_SIDE**2}, slim state, lr {TRAIN_LR}) on {card}:")
+    print(f"  fit {FIT_EPOCHS} epochs on {N_SEED} points: {fit_s:.4f} s; train losses "
+          f"{json.dumps([r['train_loss'] for r in records])}")
+    for label, q, times in (("q = 1", 1, upd1_s), ("q = 32", 32, upd32_s)):
+        rates = [q / t for t in times[1:]]
+        print(f"  update() {label}, {len(rates)} calls after a warm-up: median {np.median(rates):.1f} points/s "
+              f"({1e3 * np.median(times[1:]):.3f} ms a call), spread {min(rates):.1f}-{max(rates):.1f}")
+    k6_per = [k for k, _ in per_update]
+    print(f"  K6 launches per update(): {sorted(set(k6_per))} (mean {np.mean(k6_per):.3f}); per hyper_step: {k6_hyper}")
+    print(f"  CPU twin after {N_TWIN} q = 1 updates: {json.dumps(twin_errs)}")
+    print(f"  kernel launches: {json.dumps(launches)}")
+
+    if any(k < 1 for k in k6_per) or k6_hyper < 1:
+        raise AssertionError("an update() or the hyper_step did not factor Q with K6")
+    if any(k2 != 1 for _, k2 in per_update[:N_UPD1]):
+        raise AssertionError(f"K2 did not launch once per q = 1 update: {[k2 for _, k2 in per_update[:N_UPD1]]}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the training path never launched {name}")
+    if (launches["chunk_recursion_cluster"], launches["pred_recursion_cluster"]) != (
+            launches["blocked_chunk"], launches["pred_chunk"]):
+        raise AssertionError("a chunk of the training path did not run its recursion on a cluster")
+    values = [v for pair in losses for v in pair] + [r["train_loss"] for r in records] + [reg.mll_value()]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"a non-finite loss or MLL on the training path: {values}")
+    for name, t in (("mean", mean), ("var", var), ("prequential mean", pm), ("prequential var", pv)):
+        if tuple(t.shape) != (N_TEST, 1) or not torch.isfinite(t).all():
+            raise AssertionError(f"training path: {name} is not finite of shape ({N_TEST}, 1)")
+    rmse = float(torch.sqrt(torch.mean((mean[:, 0].cpu() - torch.tensor(yt[:, 0])) ** 2)))
+    print(f"  held-out RMSE vs sin(3 x0): {rmse:.6f}; mll_value {reg.mll_value():.6f}")
+    return reg, launches, (x0, y0), snapshot
+
+
+def compare_twin(reg, twin):
+    """reg (the card) against its CPU twin: params within TWIN_PARAM_TOL
+    (a tenth of one Adam step), roots within 1e-3 * scale (bench.py's
+    gate)."""
+    errs = {}
+    pairs = list(zip(["raw_lengthscale", "raw_outputscale", "raw_second_noise"],
+                     _gp_leaves(reg.params), _gp_leaves(twin.params)))
+    pairs += [(f"stem {n}", p, q) for (n, p), q in zip(reg.stem.named_parameters(), twin.stem.parameters())]
+    for name, a, b in pairs:
+        errs[name] = float((a.detach().cpu() - b.detach()).abs().max())
+        if not errs[name] <= TWIN_PARAM_TOL:
+            raise AssertionError(f"CPU twin: {name} differs by {errs[name]:.3e} (tol {TWIN_PARAM_TOL})")
+    for name in ("root", "inv_root"):
+        a, b = getattr(reg.state.roots, name).cpu(), getattr(twin.state.roots, name)
+        errs[name] = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not errs[name] <= 1e-3 * max(scale, 1.0):
+            raise AssertionError(f"CPU twin: {name} differs by {errs[name]:.3e} (scale {scale:.3e})")
+    return errs
+
+
+def autograd_mll(model, params, state):
+    """-sum(wiski_mll) with skip_logdet_forward, written out with
+    torch.linalg.cholesky and left to autograd (no closed form): the
+    yardstick of the check of _DenseInnerCore's backward."""
+    s2 = torch.exp(params["raw_second_noise"])
+    E = grid_kuu_dense(model.kernel, params["kernel"], model.grid) / s2[:, None, None]
+    L, wty = state.roots.root, state.wty
+    with f32_matmul_precision():
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+        Lq = torch.linalg.cholesky(eye + L.mT @ (E @ L))
+        Kw = E @ wty
+        proj = L.mT @ Kw
+        qf = torch.sum(proj * torch.cholesky_solve(proj, Lq), dim=(-2, -1))
+        ld = 2.0 * torch.sum(torch.log(torch.diagonal(Lq, dim1=-2, dim2=-1)), dim=-1)
+    ld = ld - ld.detach()
+    n = float(state.num_data)
+    quad = (state.ydy - torch.sum(wty * Kw, dim=(-2, -1)) + qf) / s2
+    return torch.sum(0.5 * (quad + ld + state.d_logdet + n * LOG_2PI + n * torch.log(s2)) / n)
+
+
+def split_ms(loss_fn, leaves, reps=TIMING_REPS):
+    """Median device ms of the forward (loss_fn()) and of the backward
+    (torch.autograd.grad), between CUDA events recorded behind a long spin
+    kernel, so that the host has queued both before the card reaches them."""
+    fwd, bwd = [], []
+    for r in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5 * SPIN_CYCLES)
+        ev[0].record()
+        loss = loss_fn()
+        ev[1].record()
+        torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if r:
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            bwd.append(ev[1].elapsed_time(ev[2]))
+    return float(np.median(fwd)), float(np.median(bwd))
+
+
+def check_hyper_gradient(model, params, state, card):
+    """The gradient of one hyper step (the training path's, from its params
+    and state) at float32 on the card: _DenseInnerCore's closed form against
+    autograd through torch.linalg.cholesky (the value too), each leaf to
+    HYPER_GRAD_RTOL of its largest entry; both beside a float64 reference on
+    the card. Then the device time of the forward and of each backward."""
+    for leaf in _gp_leaves(params):
+        leaf.requires_grad_(True)
+    cfg_skip = DEFAULT_CONFIG.replace(skip_logdet_forward=True)
+    leaves = _gp_leaves(params)
+    closed = lambda: -torch.sum(wiski_mll(model, params, state, cfg_skip))
+    plain = lambda: autograd_mll(model, params, state)
+    v_cf, v_ad = closed(), plain()
+    g_cf = torch.autograd.grad(v_cf, leaves)
+    g_ad = torch.autograd.grad(v_ad, leaves)
+    p64 = {"kernel": {k: v.detach().double().requires_grad_(True) for k, v in params["kernel"].items()},
+           "raw_second_noise": params["raw_second_noise"].detach().double().requires_grad_(True)}
+    s64 = state._replace(wty=state.wty.double(), ydy=state.ydy.double(), d_logdet=state.d_logdet.double(),
+                         roots=RootCache(None, state.roots.root.double(), state.roots.inv_root.double()))
+    g_64 = torch.autograd.grad(-torch.sum(wiski_mll(model, p64, s64, cfg_skip)), _gp_leaves(p64))
+    out = {"value": float(v_cf.detach()), "value_autograd": float(v_ad.detach())}
+    for name, a, b, c in zip(("raw_lengthscale", "raw_outputscale", "raw_second_noise"), g_cf, g_ad, g_64):
+        scale = float(b.abs().max())
+        out[name] = dict(closed_vs_autograd=float((a - b).abs().max()) / scale,
+                         closed_vs_f64=float((a.double() - c).abs().max()) / scale,
+                         autograd_vs_f64=float((b.double() - c).abs().max()) / scale)
+        if not out[name]["closed_vs_autograd"] <= HYPER_GRAD_RTOL:
+            raise AssertionError(f"hyper gradient {name}: closed form and autograd differ: {out[name]}")
+    if not abs(out["value"] - out["value_autograd"]) <= HYPER_GRAD_RTOL * abs(out["value_autograd"]):
+        raise AssertionError(f"hyper step value: closed form {out['value']} vs autograd {out['value_autograd']}")
+    fwd, bwd = split_ms(closed, leaves)
+    fwd_ad, bwd_ad = split_ms(plain, leaves)
+    out.update(forward_ms=fwd, closed_backward_ms=bwd, autograd_forward_ms=fwd_ad, autograd_backward_ms=bwd_ad)
+    print(f"hyper step at n={state.num_data} on {card}: " + json.dumps(out))
+    return out
+
+
+def check_k6_flag(model, params, state, card):
+    """K6's flag on the card: on the Q of (params, state) with one eigenvalue
+    set to -1, spd_cholesky gives NaN in the lower triangle where cholesky_ex
+    reports failure; the SPD Q beside it in the batch is factored bitwise as
+    alone."""
+    with torch.no_grad():
+        Q = q_matrix(model, params, state)[0]
+    lam, V = torch.linalg.eigh(Q.double())
+    lam[0] = -1.0
+    bad = ((V * lam) @ V.mT).float()
+    batch = torch.stack([bad, Q]).contiguous()
+    got = spd_cholesky(batch)
+    _, info = blocked_cholesky_ex(batch)
+    _, info_lib = torch.linalg.cholesky_ex(batch)
+    alone = blocked_cholesky(Q.contiguous())
+    torch.cuda.synchronize()
+    rows, cols = torch.tril_indices(Q.shape[-1], Q.shape[-1], device=Q.device)
+    nan_lower = bool(torch.isnan(got[0][rows, cols]).all())
+    print(f"K6 flag on {card}: info {info.tolist()} (cholesky_ex {info_lib.tolist()}), "
+          f"NaN lower triangle on the indefinite Q: {nan_lower}")
+    if not (info[0] != 0 and info_lib[0] != 0 and nan_lower):
+        raise AssertionError("spd_cholesky did not give NaN on an indefinite Q")
+    err = rel_max_err(got[1], alone)
+    print(f"  the SPD Q beside it: relative max err {err:.3e} against K6 on it alone")
+    if not (info[1] == 0 and info_lib[1] == 0 and torch.isfinite(got[1]).all() and err <= 1e-6):
+        raise AssertionError("spd_cholesky changed the factor of an SPD Q")
+
+
+def time_fit_epochs(reg, x0, y0, card):
+    """fit(num_epochs=1), HOST_REPEATS calls after a warm-up: one epoch and
+    the final refresh of the state, each call synchronised."""
+    times = []
+    for _ in range(1 + HOST_REPEATS):
+        r0 = time.perf_counter()
+        reg.fit(x0, y0, 1)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - r0))
+    print(f"  fit(num_epochs=1) on {N_SEED} points, {HOST_REPEATS} calls after a warm-up on {card}: median "
+          f"{np.median(times[1:]):.3f} ms, spread {min(times[1:]):.3f}-{max(times[1:]):.3f}")
+    return times[1:]
+
+
+def profile_update(reg, rng, card, n=4):
+    """Where an update() at q = 1 spends its time: n calls under
+    torch.profiler (CPU and CUDA), after a warm-up. Prints the wall time a
+    call, the CUDA kernels' summed time and launches a call, the device's
+    idle share (1 - kernel time / wall time, the profiler on), the kernels
+    by device time and the host ops by self CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = rng.uniform(-1, 1, (n + 1, 2)).astype(np.float32)
+    y = np.sin(3 * x[:, :1])
+    reg.update(x[n:], y[n:])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        for i in range(n):
+            reg.update(x[i : i + 1], y[i : i + 1])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        # device activity; the spans of record_function ranges (such as
+        # Optimizer.step) are annotations over it, not activity of their own
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            count, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (count + 1, us + e.time_range.end - e.time_range.start)
+    busy_us = sum(us for _, us in by_name.values())
+    launches = sum(c for c, _ in by_name.values())
+    print(f"update() q = 1 under torch.profiler on {card}: {wall_us / n / 1e3:.3f} ms a call, CUDA kernels "
+          f"{busy_us / n / 1e3:.3f} ms and {launches / n:.1f} launches a call, device idle share "
+          f"{1 - busy_us / wall_us:.3f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    for name, (count, us) in top:
+        print(f"  {us / n / 1e3:8.4f} ms  {count / n:5.1f} x  {name[:110]}")
+    print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
 
 
 def nvidia_smi_line() -> str:
@@ -1157,7 +1515,8 @@ def main() -> int:
         launches, final_state = main_path(rng, model, params, card, dev)
 
         launches4, Q = remaining_path(rng, model, params, final_state, card, dev)
-        launches.update(launches4)
+        for kname, count in launches4.items():
+            launches[kname] = launches.get(kname, 0) + count
         results4 = {
             "rank1_update": check_rank1_update(rng, grid, peaks, dev),
             **check_chunk_variants(rng, grid, peaks, dev),
@@ -1167,6 +1526,14 @@ def main() -> int:
             for case, r in by_case.items():
                 print(f"{kname} {case if isinstance(case, str) else f'Bd={case}'} m={grid.num_points} on {card}: " + json.dumps(r))
         results.update(results4)
+
+        reg, launches5, (x0, y0), (params5, state5) = training_path(rng, card, dev)
+        check_k6_flag(reg.model, params5, state5, card)
+        results["hyper_step"] = check_hyper_gradient(reg.model, params5, state5, card)
+        time_fit_epochs(reg, x0, y0, card)
+        profile_update(reg, rng, card)
+        for kname, count in launches5.items():
+            launches[kname] += count
 
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),

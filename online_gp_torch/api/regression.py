@@ -1,0 +1,367 @@
+"""Online SKI (WISKI) streaming regression wrapper (port of the dense path
+of ``online_gp_tpu/api/regression.py``).
+
+A stateful shell over the functional WISKI core:
+
+- ``fit``: full-cache refit epochs. Each epoch rebuilds the caches from the
+  stem's features (gradients reach the stem through the interpolation
+  weights and ``wiski_init``) under a cosine learning rate annealed to
+  1e-4, then a final cache freeze from detached features.
+- ``update`` (the streaming hot path): a stem step on the Sherman-Morrison
+  partial MLL with the stem in eval mode, a GP step on the Woodbury MLL
+  with ``skip_logdet_forward``, conditioning on the new points (kernel K2
+  at q = 1), then a BatchNorm refresh on the new and 1,024 replayed inputs.
+- ``predict`` adds the learnable second noise to the variance;
+  ``prequential`` (kernels K3 and K1) and ``absorb`` (K1) condition without
+  hyper steps.
+
+The grid-space predictive caches are built at the first predict and kept:
+conditioned in O(m^2) after a conditioning-only update, dropped whenever
+the hypers or the stem move. Q is factored by kernel K6 on the card
+wherever it needs no grad: in the hyper step's forward, in the stem
+objective's caches and in the predictive caches.
+
+PyTorch runs eagerly, so the JAX package's jitted update is a sequence of
+calls here; the optimizers are ``torch.optim.Adam`` (optax's update
+formula). Parameters are float32, as in the JAX package; the state follows
+the inputs' dtype. The entry points run on ``device`` ("cuda" unless the
+caller asks for the CPU).
+
+Not ported yet: the rank-capped core (``low_rank=``, or grids above
+``DENSE_GRID_LIMIT``; ROADMAP Queue 1 item 6), which raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from online_gp_torch.api.stems import Stem
+from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
+from online_gp_torch.kernels.base import Kernel, make_kernel
+from online_gp_torch.models.partial_mll import sm_partial_mll
+from online_gp_torch.models.wiski import (
+    WiskiModel,
+    wiski_condition,
+    wiski_init,
+    wiski_mll,
+    wiski_pred_cache_condition,
+    wiski_predict,
+    wiski_prediction_caches,
+    wiski_prequential_stream,
+    wiski_refresh_roots,
+    wiski_slim,
+    wiski_stream,
+)
+from online_gp_torch.ops.grid import Grid
+from online_gp_torch.utils.buffers import ReplayBuffer
+from online_gp_torch.utils.metrics import batched_rmse_nll
+
+# Above this many inducing points the JAX package routes to its rank-capped
+# core, which the port does not have yet.
+DENSE_GRID_LIMIT = 4096
+
+
+def cosine_lr(lr: float, num_steps: int, step: int) -> float:
+    """``optax.cosine_decay_schedule(lr, num_steps, alpha=1e-4 / lr)`` at
+    ``step`` (the count before the step's increment)."""
+    alpha = 1e-4 / lr
+    t = min(step, num_steps)
+    return lr * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * t / num_steps)) + alpha)
+
+
+def _leaves(params):
+    return [t for v in params.values() for t in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _step(opt: torch.optim.Optimizer, leaves, loss: torch.Tensor) -> None:
+    for p, g in zip(leaves, torch.autograd.grad(loss, leaves)):
+        p.grad = g
+    opt.step()
+
+
+class OnlineSKIRegression:
+    """Streaming-regression wrapper on the dense O(m^2) WISKI core, for grids
+    up to ``DENSE_GRID_LIMIT`` inducing points."""
+
+    def __init__(
+        self,
+        stem: Stem,
+        init_x,
+        init_y,
+        lr: float = 0.01,
+        grid_size: int = 30,
+        grid_bound: float = 1.0,
+        kernel: str | Kernel = "rbf",
+        cfg: SolverConfig = DEFAULT_CONFIG,
+        seed: int = 0,
+        refresh_roots_every: int = 0,
+        low_rank: Optional[int] = None,
+        slim_state: bool = False,
+        device="cuda",
+        **unused,
+    ):
+        m = grid_size**stem.output_dim
+        if low_rank is not None or m > DENSE_GRID_LIMIT:
+            raise NotImplementedError(
+                f"the rank-capped core (low_rank={low_rank}, m={m}, dense limit "
+                f"{DENSE_GRID_LIMIT}) is not ported yet (ROADMAP Queue 1 item 6)"
+            )
+        self.device = torch.device(device)
+        self.stem = stem.to(self.device)
+        self.cfg = cfg
+        self.lr = lr
+        init_x = self._inputs(init_x)
+        init_y = torch.as_tensor(init_y, device=self.device)
+        if init_y.ndim != 2:
+            raise ValueError("targets must have an explicit output dimension")
+        self.target_dim = init_y.shape[-1]
+
+        # the JAX stems' init(key): fresh weights, then BatchNorm statistics
+        # from the init data
+        self.stem.reset_parameters(torch.Generator().manual_seed(seed))
+        self.stem.train()
+        with torch.no_grad():
+            feats = self.stem(init_x)
+        self.stem.eval()
+
+        grid_bound = grid_bound + 1e-1
+        grid = Grid.create([(-grid_bound, grid_bound)] * stem.output_dim, grid_size, device=self.device)
+        if isinstance(kernel, str):
+            kernel = make_kernel(kernel)
+        self.model = WiskiModel(kernel, grid, num_outputs=self.target_dim, learn_additional_noise=True)
+        self.params = self.model.init_params(stem.output_dim)
+        for t in _leaves(self.params):
+            t.requires_grad_(True)
+        self.slim_state = slim_state
+        self.state = self._init_state(feats, init_y)
+
+        self.set_lr(lr)
+        self.buffer = ReplayBuffer(self._host(init_x))
+        self.refresh_roots_every = refresh_roots_every
+        self._updates_since_refresh = 0
+        # grid-space predictive caches (mean, cov): built lazily, reused
+        # across predicts, conditioned on hyper-free updates, dropped when
+        # the params, the stem or the state move under them
+        self._pred_caches = None
+
+    # -- helpers -----------------------------------------------------------
+
+    def _inputs(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device).reshape(-1, self.stem.input_dim)
+
+    def _targets(self, y) -> torch.Tensor:
+        return torch.as_tensor(y, device=self.device).reshape(-1, self.target_dim)
+
+    @staticmethod
+    def _host(x: torch.Tensor) -> np.ndarray:
+        return x.detach().cpu().numpy()
+
+    def _stem_leaves(self):
+        return list(self.stem.parameters()) if self.stem.has_params else []
+
+    def _init_state(self, feats, targets):
+        with torch.no_grad():
+            state = wiski_init(self.model, feats, targets, torch.ones_like(targets))
+        return wiski_slim(state) if self.slim_state else state
+
+    def _features(self, x) -> torch.Tensor:
+        with torch.no_grad():
+            return self.stem(x)
+
+    def _hyper(self, x, y, update_stem: bool, update_gp: bool):
+        """The stem step, then the GP step, on the current state."""
+        s_loss = g_loss = torch.zeros(())
+        if self.stem.has_params and update_stem:
+            loss = -torch.sum(sm_partial_mll(self.model, self.params, self.state, self.stem(x), y, self.cfg))
+            _step(self.stem_opt, self._stem_leaves(), loss)
+            s_loss = loss.detach()
+        if update_gp:
+            cfg_skip = self.cfg.replace(skip_logdet_forward=True)
+            loss = -torch.sum(wiski_mll(self.model, self.params, self.state, cfg_skip))
+            _step(self.gp_opt, _leaves(self.params), loss)
+            g_loss = loss.detach()
+        return s_loss, g_loss
+
+    def _bn_refresh(self, x) -> None:
+        """Refresh the BatchNorm running statistics on x and 1,024 replayed
+        inputs."""
+        replay = torch.as_tensor(self.buffer.sample(1024), device=self.device)
+        self.stem.train()
+        with torch.no_grad():
+            self.stem(torch.cat([x, replay]))
+        self.stem.eval()
+
+    def _count_and_refresh(self, n: int) -> None:
+        self._updates_since_refresh += n
+        if self.refresh_roots_every and self._updates_since_refresh >= self.refresh_roots_every:
+            with torch.no_grad():
+                self.state = wiski_refresh_roots(self.state)
+            self._updates_since_refresh = 0
+
+    def _ensure_pred_caches(self):
+        if self._pred_caches is None:
+            with torch.no_grad():
+                self._pred_caches = wiski_prediction_caches(
+                    self.model, self.params, self.state, self.cfg.replace(detach_interp_coeff=True)
+                )
+        return self._pred_caches
+
+    # -- public API --------------------------------------------------------
+
+    def predict(self, inputs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Predictive y-moments (mean, var), each (n, T)."""
+        x = self._inputs(inputs)
+        caches = self._ensure_pred_caches()
+        with torch.no_grad():
+            cfg_eval = self.cfg.replace(detach_interp_coeff=True)
+            mean, var = wiski_predict(self.model, self.params, self.state, self.stem(x), cfg_eval, caches=caches)
+            if var is None:
+                # skip_posterior_variances: the latent covariance is zero,
+                # the observation noise remains
+                var = torch.zeros_like(mean)
+            var = var + self.noise[:, None]
+        return mean.T, var.T
+
+    def evaluate(self, inputs, targets) -> Tuple[float, float]:
+        return batched_rmse_nll(self.predict, self._inputs(inputs), self._targets(targets))
+
+    def update(self, inputs, targets, update_stem: bool = True, update_gp: bool = True):
+        """One streaming step on q new points; returns (stem_loss, gp_loss)."""
+        x, y = self._inputs(inputs), self._targets(targets)
+        if x.shape[0] == 0:
+            raise ValueError("update() called with an empty batch")
+        s_loss, g_loss = self._hyper(x, y, update_stem, update_gp)
+        feats = self._features(x)
+        with torch.no_grad():
+            self.state = wiski_condition(self.model, self.state, feats, y, torch.ones_like(y))
+        hyper_moved = update_gp or (update_stem and self.stem.has_params)
+        if hyper_moved or (self._pred_caches is not None and self._pred_caches[1] is None):
+            # hyper movement invalidates; mean-only caches cannot be conditioned
+            self._pred_caches = None
+        elif self._pred_caches is not None:
+            # conditioning-only update: O(m^2) exact rank-q conditioning of
+            # the predictive caches instead of an O(m^3) rebuild
+            with torch.no_grad():
+                self._pred_caches = wiski_pred_cache_condition(
+                    self.model, self._pred_caches, feats, y, torch.ones_like(y)
+                )
+        self.buffer.append(self._host(x))
+        self._count_and_refresh(1)
+        if update_stem and self.stem.has_params:
+            self._bn_refresh(x)
+        return float(s_loss), float(g_loss)
+
+    def hyper_step(self, inputs, targets, update_stem: bool = True, update_gp: bool = True):
+        """One stem + GP hyperparameter step without conditioning (the
+        segment-boundary step of a fused stream that absorbs through
+        :meth:`prequential`); ``inputs``/``targets`` feed only the stem
+        objective. Returns (stem_loss, gp_loss) like :meth:`update`."""
+        x, y = self._inputs(inputs), self._targets(targets)
+        s_loss, g_loss = self._hyper(x, y, update_stem, update_gp)
+        if update_gp or (update_stem and self.stem.has_params):
+            self._pred_caches = None  # hypers moved under the caches
+        if update_stem and self.stem.has_params:
+            self._bn_refresh(x)
+        return float(s_loss), float(g_loss)
+
+    def prequential(self, inputs, targets):
+        """Interleaved evaluate-then-condition over a stream, conditioning only:
+        each point is predicted from the posterior on all earlier points, then
+        absorbed. Returns (mean, var) of shape (n, T), as :meth:`predict`."""
+        x, y = self._inputs(inputs), self._targets(targets)
+        caches = self._ensure_pred_caches()
+        if caches[1] is None:
+            raise ValueError(
+                "prequential streaming needs posterior variances; unset cfg.skip_posterior_variances"
+            )
+        feats = self._features(x)
+        with torch.no_grad():
+            self.state, self._pred_caches, pm, pv = wiski_prequential_stream(
+                self.model, self.params, self.state, caches, feats, y, torch.ones_like(y)
+            )
+            var = pv + self.noise[:, None]
+        self.buffer.append(self._host(x))
+        self._count_and_refresh(x.shape[0])
+        return pm.T, var.T
+
+    def absorb(self, inputs, targets):
+        """Bulk-absorb observations, conditioning only: one exact rank-1 update
+        per point through :func:`wiski_stream`'s blocked recursion."""
+        x, y = self._inputs(inputs), self._targets(targets)
+        feats = self._features(x)
+        with torch.no_grad():
+            self.state = wiski_stream(self.model, self.state, feats, y, torch.ones_like(y))
+        self._pred_caches = None
+        self.buffer.append(self._host(x))
+        self._count_and_refresh(x.shape[0])
+        return self.state
+
+    def fit(self, inputs, targets, num_epochs: int, test_dataset=None):
+        """Refit epochs on (inputs, targets); returns one record per epoch."""
+        x, y = self._inputs(inputs), self._targets(targets)
+        noise = torch.ones_like(y)
+        gp_leaves, stem_leaves = _leaves(self.params), self._stem_leaves()
+        gp_opt = torch.optim.Adam(gp_leaves, lr=self.lr)
+        stem_opt = torch.optim.Adam(stem_leaves, lr=self.lr) if stem_leaves else None
+        steps = max(num_epochs, 1)
+        records = []
+        for epoch in range(num_epochs):
+            for opt in (gp_opt, stem_opt):
+                if opt is not None:
+                    for group in opt.param_groups:
+                        group["lr"] = cosine_lr(self.lr, steps, epoch)
+            self.stem.train()  # batch statistics; the running ones update
+            feats = self.stem(x)
+            self.stem.eval()
+            state = wiski_init(self.model, feats, y, noise)
+            loss = -torch.sum(wiski_mll(self.model, self.params, state, self.cfg))
+            grads = torch.autograd.grad(loss, gp_leaves + stem_leaves)
+            for p, g in zip(gp_leaves + stem_leaves, grads):
+                p.grad = g
+            gp_opt.step()
+            if stem_opt is not None:
+                stem_opt.step()
+            rmse = nll = float("nan")
+            if test_dataset is not None:
+                # refresh the caches at the current hypers before evaluating
+                self._refresh_state(x, y)
+                rmse, nll = self.evaluate(*test_dataset)
+            records.append({
+                "epoch": epoch + 1,
+                "train_loss": float(loss.detach()),
+                "test_rmse": rmse,
+                "test_nll": nll,
+                "noise": float(self.noise.mean()),
+            })
+        # final cache freeze with detached interpolation coefficients
+        self._refresh_state(x, y)
+        return records
+
+    def _refresh_state(self, x, y) -> None:
+        self.state = self._init_state(self._features(x), y)
+        self._pred_caches = None
+
+    def set_train_data(self, inputs, targets) -> None:
+        self._refresh_state(self._inputs(inputs), self._targets(targets))
+
+    def set_lr(self, gp_lr: float, stem_lr: Optional[float] = None, bn_mom: Optional[float] = None) -> None:
+        """Fresh Adam optimizers at these rates (and a BatchNorm momentum)."""
+        stem_lr = gp_lr if stem_lr is None else stem_lr
+        self.gp_opt = torch.optim.Adam(_leaves(self.params), lr=gp_lr)
+        stem_leaves = self._stem_leaves()
+        self.stem_opt = torch.optim.Adam(stem_leaves, lr=stem_lr) if stem_leaves else None
+        if bn_mom is not None and hasattr(self.stem, "bn"):
+            mom = self.stem.bn.momentum
+            self.stem.bn.momentum = torch.tensor(bn_mom, dtype=mom.dtype, device=mom.device)
+
+    @property
+    def noise(self) -> torch.Tensor:
+        return torch.exp(self.params["raw_second_noise"].detach())
+
+    def mll_value(self) -> float:
+        with torch.no_grad():
+            return float(torch.sum(wiski_mll(self.model, self.params, self.state, self.cfg)))

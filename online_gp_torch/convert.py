@@ -1,4 +1,4 @@
-"""Carry grids, params and states across from numpy.
+"""Carry grids, params, states and stems across from numpy.
 
 The port reads nothing of the JAX package; a caller who has JAX arrays
 maps them through ``np.asarray`` and hands the numpy arrays here. Dtypes
@@ -12,6 +12,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from online_gp_torch.api.stems import Stem
 from online_gp_torch.models.wiski import WiskiState
 from online_gp_torch.ops.grid import Grid
 from online_gp_torch.ops.root_update import RootCache
@@ -59,3 +60,26 @@ def state_from_numpy(
         d_logdet=_tensor(d_logdet, device),
         num_data=int(num_data),
     )
+
+
+def stem_from_numpy(stem: Stem, params: Dict, bn_state: Dict, device="cuda") -> Stem:
+    """Load a stem's weights and BatchNorm statistics, in the JAX stems'
+    layout, into ``stem`` (in place; it is returned, on ``device``).
+
+    ``params`` maps each layer's name (``lin``, or ``lin0``, ``lin1``, ...)
+    to ``{"w": (d_in, d_out), "b": (d_out,)}``: ``w`` is the transpose of
+    ``nn.Linear.weight``. ``bn_state`` is ``{"bn": {"mean", "var",
+    "momentum"}}`` (``{}`` for a stem without one). The parameter objects
+    stay the same, so optimizers built on them keep working.
+    """
+    stem.to(device)
+    for name, layer in params.items():
+        lin = getattr(stem, name)
+        lin.weight.data = _tensor(np.asarray(layer["w"]).T, device)
+        lin.bias.data = _tensor(layer["b"], device)
+    if bn_state:
+        bn = bn_state["bn"]
+        stem.bn.running_mean = _tensor(bn["mean"], device)
+        stem.bn.running_var = _tensor(bn["var"], device)
+        stem.bn.momentum = _tensor(bn["momentum"], device)
+    return stem

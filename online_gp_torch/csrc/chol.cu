@@ -12,6 +12,10 @@
 //     2. panel solve: P = A_below L_kk^{-T};
 //     3. trailing syrk: A_trail -= P P^T (lower tiles only).
 //   The strict upper triangle of the result is exactly 0.
+// info[b] is nonzero where some pivot a_jj of matrix b was <= 0 or not
+// finite before the guard: then the matrix is not numerically SPD and the
+// factor is meaningless (the Pallas kernel has no such signal; the caller
+// puts NaN there, as torch.linalg.cholesky_ex's info lets it).
 // Bound: operations, m^3/3 flops per matrix (0.243 GFLOP at m = 900, 3.6 us
 // at 67 TFLOP/s f32) against 2 m^2 floats of traffic. What bounds it on
 // this card is the dependent chain: m pivots, each needing the one before.
@@ -31,7 +35,10 @@
 //      with every shape fixed at compile time. 14 block barriers a panel,
 //      where eliminating one column at a time takes 256. The tile is
 //      loaded and stored by whole rows, every load in flight at once. It
-//      writes L_kk and the four W_i; no full inverse is formed.
+//      writes L_kk and the four W_i; no full inverse is formed. Then warp 0
+//      votes on L_kk's diagonal, and its lane 0 writes the panel's failure
+//      flag, only if a pivot failed (no atomics: one block a matrix, the
+//      panels in stream order).
 //   2. chol_solve_kernel, 16 whole rows per block (49 blocks on the first
 //      panel at m = 900), in place: blocked forward substitution over the
 //      four column blocks, P_i = (A_i - sum_{k<i} P_k L_ik^T) W_i^T, with
@@ -46,8 +53,10 @@
 // only.
 //
 // The upper triangle: chol_init copies the lower triangle of q and zeros the
-// rest; the factor writes each L_kk with zeros above its diagonal; the syrk
+// rest (and zeros info); the factor writes each L_kk with zeros above its diagonal; the syrk
 // writes only on or below the diagonal.
+#include <cfloat>
+
 #include "common.cuh"
 
 using ogp::cdiv;
@@ -231,11 +240,12 @@ __device__ __forceinline__ void inner_update(float* A, const float* Ws, int c0) 
   __syncthreads();
 }
 
-// out = tril(q); grid (row chunks, Bd)
+// out = tril(q), info = 0; grid (row chunks, Bd)
 __global__ void __launch_bounds__(kInitThreads)
-chol_init_kernel(const float* __restrict__ q, float* __restrict__ out, int m) {
+chol_init_kernel(const float* __restrict__ q, float* __restrict__ out, int* __restrict__ info, int m) {
   pdl_trigger();
   const long long mm = m, off = blockIdx.y * mm * mm;
+  if (blockIdx.x == 0 && threadIdx.x == 0) info[blockIdx.y] = 0;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < mm * mm;
        e += (long long)gridDim.x * blockDim.x) {
     out[off + e] = e % mm <= e / mm ? q[off + e] : 0.f;
@@ -246,9 +256,10 @@ chol_init_kernel(const float* __restrict__ q, float* __restrict__ out, int m) {
 // matrix. Writes L_kk into out (zeros above its diagonal) and, when rows
 // lie below the panel, the inverses W_i of its four diagonal 32 x 32
 // blocks into Wg (Bd, 4, 32, 32). A narrower last panel is padded with the
-// identity to whole inner panels.
+// identity to whole inner panels (pivots 1). Where a pivot failed, thread 0
+// sets info[matrix] to 1.
 __global__ void __launch_bounds__(kThreads)
-chol_factor_kernel(float* out, float* __restrict__ Wg, int m, int lo) {
+chol_factor_kernel(float* out, float* __restrict__ Wg, int* __restrict__ info, int m, int lo) {
   extern __shared__ __align__(16) float sh[];
   float* A = sh;
   float* W = A + kB * kLd;
@@ -284,6 +295,17 @@ chol_factor_kernel(float* out, float* __restrict__ Wg, int m, int lo) {
   }
 
   store_rows<kB>(Ob, mm, A, bs, bs);  // A's strict upper triangle is 0
+  if (threadIdx.x < 32) {
+    // the failure flag, off the pivot chain: L(j, j) = p rsqrt(max(p, 1e-30))
+    // is positive and finite exactly when the pivot p was (p <= 0 gives
+    // L(j, j) <= 0; NaN and +inf give NaN, fmaxf passing NaN's other operand)
+    bool failed = false;
+    for (int j = threadIdx.x; j < bs; j += 32) {
+      const float d = A[j * kLd + j];
+      failed |= !(d > 0.f && d <= FLT_MAX);
+    }
+    if (__any_sync(kFull, failed) && threadIdx.x == 0) info[blockIdx.x] = 1;
+  }
   if (lo + kB < m) {
     float* Wb = Wg + blockIdx.x * (long long)kNIn * kIn * kIn;
 #pragma unroll
@@ -376,16 +398,17 @@ chol_syrk_kernel(float* out, int m, int lo) {
 extern "C" {
 
 // K6. q: (Bd, m, m); out: (Bd, m, m), the lower factor; W: (Bd, 4, 32, 32)
-// scratch. pdl = 0 launches every kernel in plain stream order (the
-// measurement that chose programmatic dependent launch compares the two).
+// scratch; info: (Bd,), nonzero where a pivot failed. pdl = 0 launches every
+// kernel in plain stream order (the measurement that chose programmatic
+// dependent launch compares the two).
 // Returns cudaGetLastError() after the launches.
-int ogp_blocked_cholesky(const float* q, float* out, float* W, int Bd, int m, int pdl,
+int ogp_blocked_cholesky(const float* q, float* out, float* W, int* info, int Bd, int m, int pdl,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long mm = m;
   const long long blocks = (mm * mm + kInitThreads - 1) / kInitThreads;
   chol_init_kernel<<<dim3(blocks < 1024 ? static_cast<int>(blocks) : 1024, Bd), kInitThreads, 0, s>>>(
-      q, out, m);
+      q, out, info, m);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const size_t factor_smem = kFactorFloats * sizeof(float), solve_smem = kSolveFloats * sizeof(float);
@@ -396,7 +419,8 @@ int ogp_blocked_cholesky(const float* q, float* out, float* W, int Bd, int m, in
                            static_cast<int>(solve_smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   for (int lo = 0; lo < m; lo += kB) {
-    e = launch(chol_factor_kernel, dim3(Bd), dim3(kThreads), factor_smem, s, pdl != 0, out, W, m, lo);
+    e = launch(chol_factor_kernel, dim3(Bd), dim3(kThreads), factor_smem, s, pdl != 0, out, W, info, m,
+               lo);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int n = m - lo - kB;
     if (n <= 0) break;

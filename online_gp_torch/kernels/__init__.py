@@ -1,5 +1,25 @@
-"""Kernel functions and inducing-grid K_uu assembly."""
+"""Kernel functions, priors and inducing-grid K_uu assembly."""
 
-from online_gp_torch.kernels.base import ExpTransform, IntervalTransform, Kernel, RBFKernel
+from online_gp_torch.kernels.base import (
+    ExpTransform,
+    IntervalTransform,
+    Kernel,
+    MaternKernel,
+    RadialMaternKernel,
+    RBFKernel,
+    make_kernel,
+)
+from online_gp_torch.kernels.priors import GammaPrior, NormalPrior, log_prior_sum
 
-__all__ = ["ExpTransform", "IntervalTransform", "Kernel", "RBFKernel"]
+__all__ = [
+    "ExpTransform",
+    "GammaPrior",
+    "IntervalTransform",
+    "Kernel",
+    "MaternKernel",
+    "NormalPrior",
+    "RadialMaternKernel",
+    "RBFKernel",
+    "log_prior_sum",
+    "make_kernel",
+]

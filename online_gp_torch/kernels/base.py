@@ -1,5 +1,6 @@
 """Kernel functions as parameter dicts plus pure apply functions (port of
-``online_gp_tpu/kernels/base.py``, RBF only in this slice).
+``online_gp_tpu/kernels/base.py``: RBF, the product Matern and the radial
+Matern; :func:`make_kernel` builds one by name).
 
 - Parameters are plain dicts of raw tensors; positivity comes from a
   reparametrization, ``exp`` by default or a sigmoid interval
@@ -22,6 +23,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 Params = Dict[str, torch.Tensor]
+
+_SQRT3 = math.sqrt(3.0)
+_SQRT5 = math.sqrt(5.0)
 
 
 class ExpTransform(NamedTuple):
@@ -140,3 +144,85 @@ class RBFKernel(Kernel):
 
     def profile(self, r: torch.Tensor) -> torch.Tensor:
         return torch.exp(-0.5 * r * r)
+
+
+def _matern_profile(nu: float, r: torch.Tensor) -> torch.Tensor:
+    if nu == 0.5:
+        return torch.exp(-r)
+    if nu == 1.5:
+        s = _SQRT3 * r
+        return (1.0 + s) * torch.exp(-s)
+    s = _SQRT5 * r
+    return (1.0 + s + s * s / 3.0) * torch.exp(-s)
+
+
+class MaternKernel(Kernel):
+    """Per-dimension product Matern (nu in {0.5, 1.5, 2.5}): the grid-structured
+    family the SKI path runs; the radial one is :class:`RadialMaternKernel`."""
+
+    name = "matern"
+
+    def __init__(self, nu: float = 2.5):
+        super().__init__()
+        if nu not in (0.5, 1.5, 2.5):
+            raise ValueError(f"unsupported nu={nu}")
+        self.nu = nu
+
+    def profile(self, r: torch.Tensor) -> torch.Tensor:
+        return _matern_profile(self.nu, r)
+
+
+class RadialMaternKernel(Kernel):
+    """ARD Matern on the Euclidean radius (non-separable), for exact-GP
+    baselines: it has no Kronecker grid structure, so it is not valid inside
+    the SKI/grid path."""
+
+    name = "radial_matern"
+
+    def __init__(self, nu: float = 2.5):
+        super().__init__()
+        if nu not in (0.5, 1.5, 2.5):
+            raise ValueError(f"unsupported nu={nu}")
+        self.nu = nu
+
+    def profile(self, r: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError("radial kernel has no per-dim profile")
+
+    def matrix(self, params: Params, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        ls = self.lengthscale(params)
+        scale = self.outputscale(params)
+        diff = (x1[:, None, :] - x2[None, :, :]) / ls[..., None, None, :]
+        r = torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=-1), min=1e-30))
+        return scale[..., None, None] * _matern_profile(self.nu, r)
+
+
+def _spectral_mixture():
+    raise NotImplementedError(
+        "the spectral-mixture kernel is not ported yet (ROADMAP Queue 1 item 4)"
+    )
+
+
+_REGISTRY = {
+    "rbf": RBFKernel,
+    "matern12": lambda: MaternKernel(0.5),
+    "matern32": lambda: MaternKernel(1.5),
+    "matern52": lambda: MaternKernel(2.5),
+    "radial_matern12": lambda: RadialMaternKernel(0.5),
+    "radial_matern32": lambda: RadialMaternKernel(1.5),
+    "radial_matern52": lambda: RadialMaternKernel(2.5),
+    "sm2": _spectral_mixture,
+    "sm3": _spectral_mixture,
+    "sm4": _spectral_mixture,
+    "spectral_mixture": _spectral_mixture,
+}
+
+
+def make_kernel(name: str) -> Kernel:
+    """A fresh kernel by the JAX package's names (``rbf``, ``matern12/32/52``,
+    ``radial_matern12/32/52``); the spectral-mixture names raise
+    ``NotImplementedError``."""
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown kernel {name!r}; known: {sorted(_REGISTRY)}") from None
+    return factory()

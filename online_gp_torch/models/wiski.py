@@ -10,13 +10,17 @@
 
   transforms:
     wiski_init, wiski_condition, wiski_stream    build and absorb
-    wiski_mll                                    Woodbury MLL (forward value)
+    wiski_mll                                    Woodbury MLL, closed-form backward
     wiski_prediction_caches, wiski_predict       serve predictions
     wiski_pred_cache_condition,
     wiski_prequential_stream                     evaluate-then-condition
 
 B is the output batch. The learnable second noise s2 divides K_uu inside
 all cache algebra and rescales the predictive covariance at the end.
+
+Dtypes follow the JAX package's promotion: the params may be float32
+while the state follows the data's dtype (float64 in the parity tests);
+K_uu is promoted to the state's dtype where the two meet in a product.
 
 Eager PyTorch in place of jitted JAX: the functions take and return
 NamedTuple states like the JAX package, but the hot loops update tensors
@@ -25,10 +29,14 @@ in place where a CUDA kernel does the work (the roots in
 ``wiski_prequential_stream``). Treat a state or caches passed in as
 consumed. On the CPU the plain versions run and nothing is overwritten.
 
-Not in this slice (each raises ``NotImplementedError``): the iterative
-CG/SLQ MLL above ``max_cholesky_size``, priors in the MLL,
-``fast_pred_var`` below full rank and ``fast_pred_samples``. The MLL's
-closed-form backward comes with the training slice.
+Q = I + L^T K L, the matrix of the MLL and the prediction caches, is
+factored by :func:`online_gp_torch.ops.chol.spd_cholesky`: kernel K6 on
+the card wherever Q needs no grad (the MLL's forward inside
+:class:`_DenseInnerCore`, caches built under ``torch.no_grad()``).
+
+Not ported yet (each raises ``NotImplementedError``): the iterative
+CG/SLQ MLL above ``max_cholesky_size``, ``fast_pred_var`` below full rank
+and ``fast_pred_samples``.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ import torch
 from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
 from online_gp_torch.kernels.base import Kernel
 from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
-from online_gp_torch.ops.chol import cho_solve, chol_logdet, cholesky, psd_safe_cholesky, tri_solve
+from online_gp_torch.kernels.priors import log_prior_sum
+from online_gp_torch.ops.chol import cho_solve, chol_logdet, psd_safe_cholesky, spd_cholesky, tri_solve
 from online_gp_torch.ops.cuda_root_update import rank1_apply
 from online_gp_torch.ops.grid import Grid
 from online_gp_torch.ops.interp import dense_w, gather_predict, interp_coeffs, wt_matvec
@@ -326,17 +335,19 @@ def wiski_check_decomposition(state: WiskiState) -> Dict[str, torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
-# Woodbury MLL (forward value)
+# Woodbury MLL
 # ---------------------------------------------------------------------------
 
 
-def _kuu_eff(model: WiskiModel, params: Dict) -> torch.Tensor:
-    """K_uu, divided by the learnable second noise when present."""
+def _kuu_eff(model: WiskiModel, params: Dict, like: torch.Tensor) -> torch.Tensor:
+    """K_uu, divided by the learnable second noise when present, promoted to
+    the dtype of the state tensor ``like`` (the JAX package's matmul
+    promotion: float32 params against float64 caches compute in float64)."""
     Kuu = grid_kuu_dense(model.kernel, params["kernel"], model.grid)  # (B, m, m)
     s2 = _second_noise(model, params)
     if s2 is not None:
         Kuu = Kuu / s2[..., None, None]
-    return Kuu
+    return Kuu.to(torch.promote_types(Kuu.dtype, like.dtype))
 
 
 def _dense_inner_pieces(E, L, wty):
@@ -348,13 +359,67 @@ def _dense_inner_pieces(E, L, wty):
     with f32_matmul_precision():
         EL = E @ L
         eye = torch.eye(EL.shape[-1], dtype=EL.dtype, device=EL.device)
-        Lq = cholesky(eye + L.mT @ EL)  # Q = I + PSD: well conditioned
+        Lq = spd_cholesky(eye + L.mT @ EL)  # Q = I + PSD: well conditioned, no jitter
         Kw = E @ wty
         proj = L.mT @ Kw
         sol = cho_solve(Lq, proj)
         qf = torch.sum(proj * sol, dim=(-2, -1))
         ld = chol_logdet(Lq)
     return qf, ld, Kw, Lq, sol
+
+
+class _DenseInnerCore(torch.autograd.Function):
+    """(inner_qform, inner_logdet, Kuu_wty) of :func:`_dense_inner_pieces`
+    with a CLOSED-FORM backward (``_dense_inner_core`` of the JAX package).
+
+    Autodiff through the Cholesky of Q costs several times the forward (on
+    an H100 at m = 900, 5.5x this backward: PERF.md). The matrix-calculus
+    gradients need only what the forward has, with u = L sol and w = wty:
+
+      d inner_qform = tr(dE (w u^T + u w^T - u u^T))
+      d log|Q|      = tr(dE (L Q^{-1} L^T)),  L Q^{-1} L^T = W^T W,
+                      W = Lq^{-1} L^T (one m-RHS triangular solve, a syrk)
+
+    The state's cotangents (L_bar, w_bar; L_bar with a second solve
+    S = Lq^{-T} W) are formed only where ``ctx.needs_input_grad`` asks for
+    them: the hyper step holds the state constant, ``fit`` differentiates
+    through ``wiski_init``. Inside ``forward`` grad mode is off, so Q needs
+    no grad and kernel K6 factors it on the card. The backward runs at true
+    float32 (TF32 off) or float64.
+    """
+
+    @staticmethod
+    def forward(ctx, E, L, wty):
+        qf, ld, Kw, Lq, sol = _dense_inner_pieces(E, L, wty)
+        ctx.save_for_backward(E, L, wty, Kw, Lq, sol)
+        return qf, ld, Kw
+
+    @staticmethod
+    def backward(ctx, cq, cl, cKw):
+        E, L, wty, Kw, Lq, sol = ctx.saved_tensors
+        need_E, need_L, need_w = ctx.needs_input_grad
+        cq_, cl_ = cq[:, None, None], cl[:, None, None]
+        E_bar = L_bar = w_bar = None
+        with f32_matmul_precision():
+            u = L @ sol  # (B, m, 1)
+            if need_E or need_L:
+                W = tri_solve(Lq, L.mT)  # (B, m, m)
+            if need_E:
+                G = W.mT @ W  # L Q^{-1} L^T
+                wuT = wty @ u.mT
+                E_bar = (
+                    cq_ * (wuT + wuT.mT - u @ u.mT)
+                    + cl_ * G
+                    + 0.5 * (cKw @ wty.mT + wty @ cKw.mT)
+                )
+            if need_L or need_w:
+                Eu = E @ u
+            if need_L:
+                S = tri_solve(Lq, W, trans=True)  # Q^{-1} L^T
+                L_bar = cq_ * 2.0 * ((Kw - Eu) @ sol.mT) + cl_ * 2.0 * (E @ S.mT)
+            if need_w:
+                w_bar = cq_ * 2.0 * Eu + E @ cKw
+        return E_bar, L_bar, w_bar
 
 
 def wiski_mll(
@@ -368,19 +433,19 @@ def wiski_mll(
 
       quad   = [y'D^{-1}y - (WD^{-1}y)' K (WD^{-1}y) + proj' Q^{-1} proj] / s2
       logdet = log|Q| + log|D| (+ n log s2)
-      mll    = -(quad + logdet + n log 2pi)/2;   returned / n
+      mll    = -(quad + logdet + n log 2pi)/2 + log p(theta);   returned / n
 
-    Returns (B,).
+    The inner terms go through :class:`_DenseInnerCore` (closed-form
+    backward). Returns (B,).
     """
     m = state.roots.root.shape[-1]
     if m > cfg.max_cholesky_size:
         raise NotImplementedError(
-            "the iterative CG/SLQ MLL (m > max_cholesky_size) is not ported yet"
+            "the iterative CG/SLQ MLL (m > max_cholesky_size) is not ported yet "
+            "(ROADMAP Queue 1 item 4)"
         )
-    if model.priors:
-        raise NotImplementedError("hyperparameter priors are not ported yet")
-    inner_qform, inner_logdet, Kuu_wty, _, _ = _dense_inner_pieces(
-        _kuu_eff(model, params), state.roots.root, state.wty
+    inner_qform, inner_logdet, Kuu_wty = _DenseInnerCore.apply(
+        _kuu_eff(model, params, state.wty), state.roots.root, state.wty
     )
     if cfg.skip_logdet_forward:
         # zero in the forward value, gradient intact
@@ -395,7 +460,10 @@ def wiski_mll(
     if s2 is not None:
         quad = quad / s2
         final = final + n * torch.log(s2)
-    return -0.5 * (quad + logdet + final) / n
+    res = -0.5 * (quad + logdet + final)
+    if model.priors:
+        res = res + log_prior_sum(dict(model.priors), params["kernel"], model.kernel.transforms)
+    return res / n
 
 
 # ---------------------------------------------------------------------------
@@ -405,13 +473,14 @@ def wiski_mll(
 
 def _q_factor(model: WiskiModel, params: Dict, state: WiskiState):
     """Kuu_eff, Kuu L, chol(Q), Kuu W D^{-1} y and proj = L^T Kuu W D^{-1} y,
-    with TF32 off (Q's conditioning scales with num_data)."""
+    with TF32 off (Q's conditioning scales with num_data). Q is factored by
+    :func:`spd_cholesky`: kernel K6 on the card when built without grad."""
     with f32_matmul_precision():
-        Kuu = _kuu_eff(model, params)
+        Kuu = _kuu_eff(model, params, state.wty)
         L = state.roots.root
         KuuL = Kuu @ L
         eye = torch.eye(KuuL.shape[-1], dtype=KuuL.dtype, device=KuuL.device)
-        Lq = cholesky(eye + L.mT @ KuuL)
+        Lq = spd_cholesky(eye + L.mT @ KuuL)
         Kuu_wty = Kuu @ state.wty
         proj = L.mT @ Kuu_wty
     return Kuu, KuuL, Lq, Kuu_wty, proj

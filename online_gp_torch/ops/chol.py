@@ -9,7 +9,8 @@ runs at that level, so no gradient flows through a failed attempt. The
 probes use ``torch.linalg.cholesky_ex`` and its ``info``: the plain
 ``cholesky`` raises where JAX returns NaN.
 
-Every factorization and solve runs with TF32 off
+:func:`spd_cholesky` factors the matrices the math makes SPD with kernel
+K6 on the card. Every factorization and solve runs with TF32 off
 (:mod:`online_gp_torch.ops.precision`).
 """
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from online_gp_torch.ops.cuda_chol import blocked_cholesky_ex
 from online_gp_torch.ops.precision import f32_matmul_precision
 
 
@@ -57,13 +59,35 @@ def psd_safe_cholesky(mat: torch.Tensor, jitter: float = 1e-6, tries: int = 3) -
         return cholesky(mat + eps[..., None, None] * eye)
 
 
+def _nan_where_failed(chol: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
+    failed = torch.full_like(chol, float("nan")).tril()
+    return torch.where((info != 0)[..., None, None], failed, chol)
+
+
 def cholesky(mat: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky with no jitter; where it fails, NaN in the lower
     triangle, as ``jnp.linalg.cholesky`` returns."""
     with f32_matmul_precision():
         chol, info = torch.linalg.cholesky_ex(mat)
-    failed = torch.full_like(chol, float("nan")).tril()
-    return torch.where((info != 0)[..., None, None], failed, chol)
+    return _nan_where_failed(chol, info)
+
+
+def spd_cholesky(mat: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of a matrix the math makes SPD (Q = I + L^T K L of the
+    Woodbury MLL and the prediction caches), with no jitter; NaN in the
+    lower triangle where it fails, as :func:`cholesky`.
+
+    Routed by the tensor, as the JAX package routes its kernels by
+    ``detach_interp``: a CUDA float32 tensor that does not require grad
+    (K6 has no autograd rule) goes to kernel K6 (``blocked_cholesky_ex``),
+    whose pivot flag says where it failed; any other tensor (the CPU,
+    float64, one that requires grad) goes to :func:`cholesky`. Nothing is
+    tried and caught.
+    """
+    if mat.device.type == "cuda" and mat.dtype == torch.float32 and not mat.requires_grad:
+        chol, info = blocked_cholesky_ex(mat)
+        return _nan_where_failed(chol, info)
+    return cholesky(mat)
 
 
 def tri_solve(chol: torch.Tensor, rhs: torch.Tensor, trans: bool = False) -> torch.Tensor:
