@@ -90,8 +90,39 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    by device time, host ops by self CPU time). update() rates are medians
    and spreads over the calls after the first.
 
+6. The large-grid regime at m = 4,096 (a 64x64 grid, bench.py:474-640):
+   - K1 (one chunk of k = 128), K2 (16 calls), K3 (one chunk) and K6 (Q of
+     a state of the model) against their plain versions on the card, K1 and
+     K3 on their single-block recursion kernels (checked by their
+     counters), at phase 2's tolerances (K1 and K2 1e-5, K3 2e-4; K6 5e-4
+     relative, as phase 4's Q), with device times, bounds and library
+     yardsticks as in phases 2 and 4.
+   - The iterative hyper step at bench_iterative_hyper_step's
+     configuration: RBF, learned second noise, 1,024 seed points,
+     max_cholesky_size 2,048, use_toeplitz. Gate first: the CG/SLQ MLL
+     against the dense one (max_cholesky_size 2m, Q on K6) to rel 5e-2, the
+     loss finite. Then 10 Adam steps, repeated: hyper steps/s (median and
+     spread), the peak device memory, and one step under torch.profiler
+     (launches, device idle share).
+   - The rank-capped stream at bench_lowrank_stream's configuration (rank
+     512, 256 seed points, 64 chunks of 256 with compressions firing).
+     Gate first: in the exact regime the posterior mean matches a dense SKI
+     oracle (float64) to 3e-3 * max(scale, 1). Then points/s (median and
+     spread).
+   - The wrappers through their entry points, with the launch counters
+     zeroed just before and read just after: OnlineSKIRegression
+     (LinearStem(2, 2), grid_size=64: dense, iterative GP step by default):
+     16 update()s at q = 1, predict of 1,024, prequential of 512, absorb of
+     1,024 (K2, K6, K3 and K1, the latter two on single blocks); the same
+     with low_rank=512, and grid_size=128 (m = 16,384, routed to the
+     rank-capped core): 16 updates and a predict each. Each has a CPU twin
+     (the dense one runs the first update, the others the first 2): params
+     within 1e-3, predictions within 1e-3 * scale. ms a call and kernel
+     launches a call.
+
 It prints the kernels as one JSON line (``launches``: the sum over the
-path windows of phases 3, 4 and 5), then the card's name and power
+path windows of phases 3, 4, 5 and 6; rows ``...@m4096``: phase 6's
+kernel checks, with phase 6's launches), then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs a CUDA device
 and exits non-zero without one.
 """
@@ -103,12 +134,13 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from online_gp_torch import DEFAULT_CONFIG, convert
-from online_gp_torch.api import LinearStem, OnlineSKIRegression
+from online_gp_torch.api import LinearStem, OnlineSKILowRankRegression, OnlineSKIRegression
 from online_gp_torch.kernels.base import RBFKernel
 from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
 from online_gp_torch.models.wiski import (
@@ -122,6 +154,12 @@ from online_gp_torch.models.wiski import (
     wiski_prequential_stream,
     wiski_slim,
     wiski_stream,
+)
+from online_gp_torch.models.wiski_lowrank import (
+    WiskiLowRankModel,
+    wiski_lowrank_condition,
+    wiski_lowrank_init,
+    wiski_lowrank_predict,
 )
 from online_gp_torch.ops import _build, cuda_chol, cuda_root_update
 from online_gp_torch.ops.cuda_chol import blocked_cholesky, blocked_cholesky_ex, blocked_cholesky_plain
@@ -191,6 +229,18 @@ N_UPD1, N_UPD32, N_TWIN, N_ABSORB = 64, 8, 8, 4096
 TWIN_PARAM_TOL = 1e-3  # a tenth of one Adam step at TRAIN_LR
 HYPER_GRAD_RTOL = 1e-2  # float32 gradients of an O(n) objective, against the leaf's largest entry
 LOG_2PI = 1.8378770664093453
+# phase 6: bench.py's m = 4,096 arms (bench.py:474-640) and the wrappers at
+# that width
+M6_SIDE = 64  # a 64x64 grid, m = 4,096
+N_SEED6 = 1024  # bench_iterative_hyper_step's seed points
+N_K2_6 = 16  # K2 calls checked at m = 4,096
+PLAIN_REPS6 = 3  # timing repeats of the plain versions at m = 4,096
+HYPER_LR, HYPER_STEPS, HYPER_REPEATS = 1e-2, 10, 3
+ITER_GATE_REL = 5e-2  # bench.py:611
+LR_RANK, LR_SEED, LR_CHUNK, LR_CHUNKS, LR_REPEATS = 512, 256, 256, 64, 3
+LR_GATE = 3e-3  # bench.py:536, times max(scale, 1)
+N_WRAP_SEED, N_WRAP_UPD, N_PREQ6, N_ABSORB6 = 256, 16, 512, 1024
+BIG_SIDE = 128  # m = 16,384: above DENSE_GRID_LIMIT, routed to the rank-capped core
 
 # (device memory bytes/s, f32 flop/s outside the tensor cores), NVIDIA data
 # sheets, dense, at the full power limit
@@ -212,6 +262,60 @@ def card_peaks(name: str):
 def bound_ms(nbytes: float, flops: float, peaks):
     t_bytes, t_ops = nbytes / peaks[0], flops / peaks[1]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rank1_bound(Bd, m, peaks):
+    """K2: L and B read and written, p read; two matvecs and two outer products."""
+    return bound_ms(4 * (4 * Bd * m * m + Bd * m), Bd * (8 * m * m + 4 * m), peaks)
+
+
+def chunk_bound(Bd, m, k, P, peaks):
+    """K1: L and B read and written, the stencil read; the gather, the
+    recursion (10 t m flops at step t) and the two rank-k applies."""
+    return bound_ms(4 * (4 * Bd * m * m + Bd * k * P + k * P),
+                    Bd * (2 * k * P * m + 5 * k * (k - 1) * m + 8 * m * m * k), peaks)
+
+
+def pred_bound(Bd, m, k, P, peaks):
+    """K3: C is symmetric, so C -= Z^T Z needs only its m (m + 1) / 2
+    distinct entries read and written, at 2 k flops each (a SYRK)."""
+    nbytes = 4 * (Bd * m * (m + 1) + 2 * Bd * m + 4 * Bd * k) + 8 * k * P
+    return bound_ms(nbytes, Bd * (2 * k * P * m + k * (k - 1) * m + m * (m + 1) * k + 2 * m * k), peaks)
+
+
+def chol_bound(Bd, m, peaks):
+    """K6: Q read, L written; m^3 / 3 flops a matrix."""
+    return bound_ms(4 * 2 * Bd * m * m, Bd * m**3 / 3, peaks)
+
+
+def rank1_library(L, B, p):
+    """K2's yardstick: torch.mv and Tensor.addr_ per output."""
+    s2 = torch.sum(p * p, dim=-1)
+    s = torch.sqrt(s2)
+    u = p / torch.clamp(s, min=1e-20)[:, None]
+    c, d = torch.sqrt(s2 + 1) - 1, 1 / torch.sqrt(s2 + 1) - 1
+    for b in range(L.shape[0]):
+        L[b].addr_(torch.mv(L[b], u[b]) * c[b], u[b])
+        B[b].addr_(torch.mv(B[b], u[b]) * d[b], u[b])
+
+
+def chunk_library(U, Pm, R):
+    """K1's yardstick: a chunk's applies, from the plain recursion's U, P, R,
+    as baddbmm."""
+    def library(L, B):
+        L.baddbmm_(torch.bmm(L, R.mT), U)
+        B.baddbmm_(torch.bmm(B, Pm.mT), U)
+
+    return library
+
+
+def pred_library(Zf, rf):
+    """K3's yardstick: a chunk's applies, from the plain recursion's Z and r."""
+    def library(C, mu):
+        C.baddbmm_(Zf.mT, Zf, alpha=-1.0)
+        mu.add_(torch.bmm(Zf.mT, rf[..., None])[..., 0])
+
+    return library
 
 
 def time_ms(fn, make_args, reps=TIMING_REPS):
@@ -285,8 +389,11 @@ def device_span_ms(fn, make_args, kernels=None, reps=TIMING_REPS):
     a kernel sat scheduled, waiting on the one before. ``kernels`` maps the CUDA kernels to count
     to their launches per call (the copies make_args makes are other
     kernels); None counts every CUDA activity of the window but the spin,
-    and then make_args must launch nothing. A window that did not record
-    every call is printed and profiled again, up to PROFILE_ATTEMPTS
+    and then make_args must launch nothing. Each window runs one call more
+    than it counts and drops the first: torch.profiler may lose records
+    of a window's first launches even after the pad (three windows in a
+    row lost one of K6's 23, PR 7). A window that did not record every
+    counted call is printed and profiled again, up to PROFILE_ATTEMPTS
     windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -296,7 +403,7 @@ def device_span_ms(fn, make_args, kernels=None, reps=TIMING_REPS):
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
-            for _ in range(reps):
+            for _ in range(reps + 1):
                 args = make_args()
                 torch.cuda.synchronize()
                 torch.cuda._sleep(SPIN_CYCLES)
@@ -314,11 +421,13 @@ def device_span_ms(fn, make_args, kernels=None, reps=TIMING_REPS):
             else:
                 calls.append([start, end, 1])
         per_call = None if kernels is None else sum(kernels.values())
-        if len(calls) == reps and all(per_call is None or n == per_call for _, _, n in calls):
-            stages = {k: sum(end - start for start, end, name in events if f"::{k}(" in name) / reps / 1e3
+        kept = calls[-reps:]  # the first call of the window is dropped (or lost whole)
+        if len(calls) in (reps, reps + 1) and all(per_call is None or n == per_call for _, _, n in kept):
+            stages = {k: sum(end - start for start, end, name in events
+                             if start >= kept[0][0] and f"::{k}(" in name) / reps / 1e3
                       for k in kernels or {}}
-            return sum(end - start for start, end, _ in calls) / reps / 1e3, stages
-        print(f"  torch.profiler recorded {len(calls)} calls of {reps} "
+            return sum(end - start for start, end, _ in kept) / reps / 1e3, stages
+        print(f"  torch.profiler recorded {len(calls)} calls of {reps} + 1 "
               f"(activities per call {[n for _, _, n in calls]}); profiling again")
     raise AssertionError(f"no profile of {PROFILE_ATTEMPTS} recorded every call of {fn}")
 
@@ -388,23 +497,12 @@ def check_rank1(rng, grid, peaks, dev):
         if Bd == 2 and not (torch.equal(got[0][1], L[1]) and torch.equal(got[1][1], B[1])):
             raise AssertionError("rank1_apply: p = 0 changed the roots")
 
-        def library(L, B, p):
-            s2 = torch.sum(p * p, dim=-1)
-            s = torch.sqrt(s2)
-            u = p / torch.clamp(s, min=1e-20)[:, None]
-            c, d = torch.sqrt(s2 + 1) - 1, 1 / torch.sqrt(s2 + 1) - 1
-            for b in range(L.shape[0]):
-                L[b].addr_(torch.mv(L[b], u[b]) * c[b], u[b])
-                B[b].addr_(torch.mv(B[b], u[b]) * d[b], u[b])
-
         make = lambda: (*clone_all(L, B), p)
-        nbytes = 4 * (4 * Bd * m * m + Bd * m)
-        flops = Bd * (8 * m * m + 4 * m)
-        bms, by = bound_ms(nbytes, flops, peaks)
+        bms, by = rank1_bound(Bd, m, peaks)
         ms, stages = device_ms(rank1_apply, make, {"rank1_prepass_kernel": 1, "rank1_rows_kernel": 1})
         out[Bd] = dict(
             max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(rank1_apply, make),
-            plain_ms=time_ms(rank1_apply_plain, make), library_ms=time_ms(library, make),
+            plain_ms=time_ms(rank1_apply_plain, make), library_ms=time_ms(rank1_library, make),
             bound_ms=bms, bound_by=by,
         )
     return out
@@ -442,17 +540,9 @@ def check_blocked_chunk(rng, grid, peaks, dev):
 
         # the yardstick applies this chunk's U, P, R from the plain recursion
         p0 = torch.einsum("bkp,bkpm->bkm", wv1, B[:, i1.long()])
-        U, Pm, R = blocked_factors(p0)
-
-        def library(L, B):
-            L.baddbmm_(torch.bmm(L, R.mT), U)
-            B.baddbmm_(torch.bmm(B, Pm.mT), U)
-
+        library = chunk_library(*blocked_factors(p0))
         make = lambda: (*clone_all(L, B), i1, wv1)
-        P = idx.shape[1]
-        nbytes = 4 * (4 * Bd * m * m + Bd * K * P + K * P)
-        flops = Bd * (2 * K * P * m + 5 * K * (K - 1) * m + 8 * m * m * K)
-        bms, by = bound_ms(nbytes, flops, peaks)
+        bms, by = chunk_bound(Bd, m, K, idx.shape[1], peaks)
         ms, stages = device_ms(blocked_chunk, make, {
             "chunk_gather_kernel": 1, "chunk_recursion_cluster_kernel": 1, "chunk_apply_t_kernel": 1,
             "chunk_apply_x_kernel": 1})
@@ -525,19 +615,10 @@ def check_pred_chunk(rng, grid, model, params, peaks, dev):
         # the yardstick applies this chunk's Z and r from the plain recursion
         S = stencil_rows(idx, w, m)
         plain_args = (S, S @ C, mu @ S.mT, y, nz)
-        Zf, rf, _, _ = pred_chunk_factors(*plain_args)
-
-        def library(C, mu):
-            C.baddbmm_(Zf.mT, Zf, alpha=-1.0)
-            mu.add_(torch.bmm(Zf.mT, rf[..., None])[..., 0])
-
+        library = pred_library(*pred_chunk_factors(*plain_args)[:2])
         make = lambda: (*clone_all(C, mu), idx, w, y, nz)
         P = idx.shape[1]
-        # C is symmetric, so C -= Z^T Z needs only its m (m + 1) / 2 distinct
-        # entries read and written, at 2 k flops each (a SYRK)
-        nbytes = 4 * (Bd * m * (m + 1) + 2 * Bd * m + 4 * Bd * K) + 8 * K * P
-        flops = Bd * (2 * K * P * m + K * (K - 1) * m + m * (m + 1) * K + 2 * m * K)
-        bms, by = bound_ms(nbytes, flops, peaks)
+        bms, by = pred_bound(Bd, m, K, P, peaks)
         ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, "pred_recursion_cluster_kernel": 1,
                                                           "pred_apply_kernel": 1})
         out[Bd] = dict(
@@ -1143,7 +1224,7 @@ def check_cholesky(rng, Q, peaks, dev):
     out = {}
     for Bd, q in ((1, Q), (4, spd_batch(rng, (4, m, m), dev))):
         make = lambda q=q: (q, CHOL_BLOCK)
-        bms, by = bound_ms(4 * 2 * Bd * m * m, Bd * m**3 / 3, peaks)
+        bms, by = chol_bound(Bd, m, peaks)
         r = dict(bound_ms=bms, bound_by=by)
         for key, pdl in (("", True), ("plain_launch_", False)):
             cuda_chol.PROGRAMMATIC_LAUNCH = pdl
@@ -1173,11 +1254,13 @@ def _gp_leaves(params):
     return [params["kernel"]["raw_lengthscale"], params["kernel"]["raw_outputscale"], params["raw_second_noise"]]
 
 
-def load_twin(reg, x0, y0):
-    """A wrapper on the CPU with reg's configuration, started from reg's
-    params, stem and state as they stand (carried across by convert)."""
-    twin = OnlineSKIRegression(LinearStem(2, 2), x0, y0, lr=TRAIN_LR, grid_size=M_SIDE, slim_state=True,
-                               device="cpu")
+def load_twin(reg, x0, y0, **kw):
+    """A wrapper on the CPU built with reg's configuration ``kw``, started
+    from reg's params, stem and state as they stand (carried across by
+    convert); the dense or the rank-capped state, as reg has."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a routed configuration may warn
+        twin = OnlineSKIRegression(LinearStem(2, 2), x0, y0, device="cpu", **kw)
     host = lambda t: None if t is None else t.detach().cpu().numpy()
     stem_params = {"lin": {"w": host(reg.stem.lin.weight).T, "b": host(reg.stem.lin.bias)}}
     bn = {"bn": {"mean": host(reg.stem.bn.running_mean), "var": host(reg.stem.bn.running_var),
@@ -1187,8 +1270,12 @@ def load_twin(reg, x0, y0):
         for a, b in zip(_gp_leaves(twin.params), _gp_leaves(reg.params)):
             a.copy_(b.detach().cpu())
     s = reg.state
-    twin.state = convert.state_from_numpy(host(s.wty), host(s.ydy), host(s.roots.mat), host(s.roots.root),
-                                          host(s.roots.inv_root), host(s.d_logdet), s.num_data, device="cpu")
+    if isinstance(reg, OnlineSKILowRankRegression):
+        twin.state = convert.lowrank_state_from_numpy(host(s.wty), host(s.ydy), host(s.root), s.used,
+                                                      host(s.d_logdet), s.num_data, device="cpu")
+    else:
+        twin.state = convert.state_from_numpy(host(s.wty), host(s.ydy), host(s.roots.mat), host(s.roots.root),
+                                              host(s.roots.inv_root), host(s.d_logdet), s.num_data, device="cpu")
     return twin
 
 
@@ -1223,7 +1310,7 @@ def training_path(rng, card, dev):
     records = reg.fit(x0, y0, FIT_EPOCHS)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    twin = load_twin(reg, x0, y0)
+    twin = load_twin(reg, x0, y0, lr=TRAIN_LR, grid_size=M_SIDE, slim_state=True)
     per_update = []  # (K6, K2) launches of each update
     losses, upd1_s, upd32_s = [], [], []
     for i in range(N_UPD1 + N_UPD32):
@@ -1467,6 +1554,390 @@ def profile_update(reg, rng, card, n=4):
     print(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15))
 
 
+# --------------------------------------------------------------------------
+# phase 6: the large-grid regime at m = 4,096
+# --------------------------------------------------------------------------
+
+
+def large_model(dev, seed_rng):
+    """bench_iterative_hyper_step's model and state: a 64x64 grid, RBF,
+    learned second noise, N_SEED6 points of sin(3 x0)."""
+    grid = Grid.create([(-1.1, 1.1)] * 2, M6_SIDE, device=dev)
+    model = WiskiModel(RBFKernel(), grid, num_outputs=1, learn_additional_noise=True)
+    params = model.init_params(2)
+    x0 = torch.tensor(seed_rng.uniform(-1, 1, (N_SEED6, 2)), dtype=torch.float32, device=dev)
+    y0 = torch.sin(3 * x0[:, :1])
+    return model, params, wiski_init(model, x0, y0, torch.ones_like(y0))
+
+
+def check_kernels_large(rng, model, params, state, peaks, dev):
+    """K2 (16 calls), K1 and K3 (one chunk each, on their single-block
+    recursion kernels) and K6 (Q of the state) at m = 4,096 against their
+    plain versions on the card, with device times, bounds and yardsticks."""
+    grid = model.grid
+    m = grid.num_points
+    out = {}
+    L, B = synthetic_roots(rng, 1, m, dev)
+
+    # K2: each call against the plain version on the same input
+    _, idx2, w2 = stencil(rng, grid, N_K2_6, dev)
+    Lk, Bk = clone_all(L, B)
+    err = 0.0
+    for i in range(N_K2_6):
+        p = torch.einsum("p,bpm->bm", w2[i], Bk[:, idx2[i].long()]).contiguous()
+        want = rank1_apply_plain(Lk, Bk, p)
+        got = rank1_apply(Lk, Bk, p)
+        torch.cuda.synchronize()
+        err = max(err, max_err(got, want, 1e-5, f"rank1_apply m={m} call {i}"))
+    p = torch.einsum("p,bpm->bm", w2[0], B[:, idx2[0].long()]).contiguous()
+    make = lambda: (*clone_all(L, B), p)
+    bms, by = rank1_bound(1, m, peaks)
+    ms, stages = device_ms(rank1_apply, make, {"rank1_prepass_kernel": 1, "rank1_rows_kernel": 1})
+    out["rank1_apply"] = dict(
+        calls=N_K2_6, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(rank1_apply, make),
+        plain_ms=time_ms(rank1_apply_plain, make, PLAIN_REPS6), library_ms=time_ms(rank1_library, make),
+        bound_ms=bms, bound_by=by, route="row kernel looping over each row (m > 32 kRowRegs)")
+
+    # K1: one chunk of k = K
+    _, idx, w = stencil(rng, grid, K, dev)
+    wv = w[None].contiguous()
+    if chunk_cluster_plan(K, m) is not None:
+        raise AssertionError(f"(k={K}, m={m}) was expected outside K1's cluster envelope")
+    before = (blocked_chunk.launches, blocked_chunk.cluster_launches)
+    got = blocked_chunk(*clone_all(L, B), idx, wv)
+    again = blocked_chunk(*clone_all(L, B), idx, wv)
+    torch.cuda.synchronize()
+    if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1]) != (2, 0):
+        raise AssertionError(f"blocked_chunk at m={m} did not take the single-block recursion")
+    err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk m={m}")
+    bitwise(got, again, f"blocked_chunk m={m}")
+    library = chunk_library(*blocked_factors(torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()])))
+    make = lambda: (*clone_all(L, B), idx, wv)
+    bms, by = chunk_bound(1, m, K, idx.shape[1], peaks)
+    ms, stages = device_ms(blocked_chunk, make, {"chunk_gather_kernel": 1, "chunk_recursion_kernel": 1,
+                                                 "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1})
+    out["blocked_chunk"] = dict(
+        k=K, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_chunk, make),
+        plain_ms=time_ms(blocked_chunk_plain, make, PLAIN_REPS6),
+        library_ms=time_ms(library, lambda: clone_all(L, B)), bound_ms=bms, bound_by=by,
+        route="single-block recursion (chunk_recursion_kernel)")
+
+    # K3: one chunk on the model's caches
+    with torch.no_grad():
+        mean_cache, cov_cache = wiski_prediction_caches(model, params, state)
+    C, mu = cov_cache.contiguous(), mean_cache[..., 0].contiguous()
+    x, idx, w = stencil(rng, grid, K, dev)
+    if pred_cluster_plan(K, m, idx.shape[1]) is not None:
+        raise AssertionError(f"(k={K}, m={m}) was expected outside K3's cluster envelope")
+    y = torch.sin(3 * x[:, 0])[None].contiguous()
+    nz = torch.ones((1, K), device=dev)
+    before = (pred_chunk.launches, pred_chunk.cluster_launches)
+    got = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
+    again = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
+    torch.cuda.synchronize()
+    if (pred_chunk.launches - before[0], pred_chunk.cluster_launches - before[1]) != (2, 0):
+        raise AssertionError(f"pred_chunk at m={m} did not take the single-block recursion")
+    err = max_err(got, pred_chunk_stencil_plain(C, mu, idx, w, y, nz), 2e-4, f"pred_chunk m={m}")
+    bitwise(got, again, f"pred_chunk m={m}")
+    S = stencil_rows(idx, w, m)
+    library = pred_library(*pred_chunk_factors(S, S @ C, mu @ S.mT, y, nz)[:2])
+    make = lambda: (*clone_all(C, mu), idx, w, y, nz)
+    bms, by = pred_bound(1, m, K, idx.shape[1], peaks)
+    ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, "pred_recursion_kernel": 1,
+                                              "pred_apply_kernel": 1})
+    out["pred_chunk"] = dict(
+        k=K, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(pred_chunk, make),
+        plain_ms=time_ms(pred_chunk_stencil_plain, make, PLAIN_REPS6),
+        library_ms=time_ms(library, lambda: clone_all(C, mu)), bound_ms=bms, bound_by=by,
+        route="single-block recursion (pred_recursion_kernel)")
+
+    # K6: Q of the state
+    Q = q_matrix(model, params, state)
+    Lq, again = blocked_cholesky(Q, CHOL_BLOCK), blocked_cholesky(Q, CHOL_BLOCK)
+    torch.cuda.synchronize()
+    bitwise((Lq,), (again,), f"blocked_cholesky on Q (m={m})")
+    want = blocked_cholesky_plain(Q, CHOL_BLOCK)
+    e_plain, e_lib = rel_max_err(Lq, want), rel_max_err(Lq, torch.linalg.cholesky(Q))
+    if not (e_plain <= 5e-4 and e_lib <= 5e-4):
+        raise AssertionError(f"K6 on Q at m={m}: relative max err {e_plain:.3e} vs plain, {e_lib:.3e} vs library")
+    if not bool((torch.triu(Lq, 1) == 0).all()):
+        raise AssertionError(f"K6 at m={m}: the strict upper triangle is not exactly 0")
+    nb = -(-m // CHOL_BLOCK)
+    make = lambda: (Q, CHOL_BLOCK)
+    bms, by = chol_bound(1, m, peaks)
+    ms, stages = device_span_ms(blocked_cholesky_ex, make, {"chol_init_kernel": 1, "chol_factor_kernel": nb,
+                                                            "chol_solve_kernel": nb - 1, "chol_syrk_kernel": nb - 1})
+    out["blocked_cholesky"] = dict(
+        panels=nb, max_abs_err=float((Lq - want).abs().max()), rel_max_err=e_plain, rel_max_err_vs_library=e_lib,
+        ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_cholesky_ex, make),
+        plain_ms=time_ms(blocked_cholesky_plain, make, PLAIN_REPS6),
+        library_ms=device_span_ms(lambda q, b: torch.linalg.cholesky(q), make)[0], bound_ms=bms, bound_by=by,
+        route=f"{nb} panels of {CHOL_BLOCK}")
+    return out
+
+
+def iterative_hyper_step(model, params, state, card):
+    """bench_iterative_hyper_step: the gate (CG/SLQ MLL against the dense
+    one, Q on K6), then HYPER_STEPS Adam steps, 1 + HYPER_REPEATS times,
+    each with new probes; hyper steps/s and the peak device memory."""
+    m = model.grid.num_points
+    cfg_iter = DEFAULT_CONFIG.replace(max_cholesky_size=2048, use_toeplitz=True)
+    cfg_dense = DEFAULT_CONFIG.replace(max_cholesky_size=2 * m)
+    with torch.no_grad():
+        v_iter = float(torch.sum(wiski_mll(model, params, state, cfg_iter, generator=torch.Generator().manual_seed(0))))
+        k6 = blocked_cholesky.launches
+        v_dense = float(torch.sum(wiski_mll(model, params, state, cfg_dense)))
+        if blocked_cholesky.launches - k6 != 1:
+            raise AssertionError("the dense MLL at m = 4,096 did not factor Q with K6")
+    rel = abs(v_iter - v_dense) / max(abs(v_dense), 1.0)
+    print(f"iterative MLL at m={m} on {card}: {v_iter:.6f} against the dense {v_dense:.6f}, rel {rel:.3e}")
+    if not rel <= ITER_GATE_REL:
+        raise AssertionError(f"iterative/dense MLL mismatch {rel:.3e} at m={m}")
+
+    base = {"kernel": {k: v.detach().clone() for k, v in params["kernel"].items()},
+            "raw_second_noise": params["raw_second_noise"].detach().clone()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    rates, losses = [], []
+    for rep in range(1 + HYPER_REPEATS):
+        p = {"kernel": {k: v.clone().requires_grad_(True) for k, v in base["kernel"].items()},
+             "raw_second_noise": base["raw_second_noise"].clone().requires_grad_(True)}
+        leaves = _gp_leaves(p)
+        opt = torch.optim.Adam(leaves, lr=HYPER_LR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(HYPER_STEPS):
+            loss = -torch.sum(wiski_mll(model, p, state, cfg_iter,
+                                        generator=torch.Generator().manual_seed((1 << 32) + i)))
+            for leaf, g in zip(leaves, torch.autograd.grad(loss, leaves)):
+                leaf.grad = g
+            opt.step()
+            if rep == 0 and i == 0:
+                losses.append(float(loss.detach()))
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        if rep:
+            rates.append(HYPER_STEPS / (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite iterative-MLL loss: {losses}")
+    profile_hyper_step(lambda: -torch.sum(wiski_mll(model, p, state, cfg_iter, generator=torch.Generator().manual_seed(1))),
+                       leaves, card)
+    out = dict(gate_rel=rel, value_iterative=v_iter, value_dense=v_dense, first_loss=losses[0],
+               last_losses=losses[1:], steps_per_s_median=float(np.median(rates)), steps_per_s=rates,
+               peak_bytes=peak, held_bytes_before=held)
+    print(f"  {HYPER_STEPS} hyper steps, {HYPER_REPEATS} repeats after a warm-up: median "
+          f"{out['steps_per_s_median']:.3f} steps/s, spread {min(rates):.3f}-{max(rates):.3f}; peak device "
+          f"memory {peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before); losses {json.dumps(losses)}")
+    return out
+
+
+def profile_hyper_step(loss_fn, leaves, card):
+    """One hyper step's value and gradient under torch.profiler (CPU and
+    CUDA): wall time, the CUDA kernels' summed time and launches, and the
+    device's idle share (the profiler on)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.autograd.grad(loss_fn(), leaves)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        torch.autograd.grad(loss_fn(), leaves)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    print(f"  one hyper step under torch.profiler on {card}: {wall_us / 1e3:.3f} ms, CUDA kernels "
+          f"{sum(busy) / 1e3:.3f} ms in {len(busy)} launches, device idle share {1 - sum(busy) / wall_us:.3f}")
+
+
+def lowrank_stream(rng, card, dev):
+    """bench_lowrank_stream: the exact-regime gate against a dense SKI oracle
+    (float64), then LR_CHUNKS chunks of LR_CHUNK points with compressions
+    firing, 1 + LR_REPEATS times from the same state; points/s."""
+    grid = Grid.create([(-1.1, 1.1)] * 2, M6_SIDE, device=dev)
+    m = grid.num_points
+    model = WiskiLowRankModel(RBFKernel(), grid, rank=LR_RANK)
+    params = model.init_params(2)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x0 = torch.tensor(rng.uniform(-1, 1, (LR_SEED, 2)), **f32)
+    y0 = torch.sin(3 * x0[:, :1])
+    state = wiski_lowrank_init(model, x0, y0, torch.ones_like(y0), params=params)
+    if state.used != LR_SEED:
+        raise AssertionError(f"the seed absorb compressed (used {state.used}); the gate needs the exact regime")
+    xt = torch.tensor(rng.uniform(-1, 1, (64, 2)), **f32)
+    mean, _ = wiski_lowrank_predict(model, params, state, xt)
+    p64 = {"kernel": {k: v.double() for k, v in params["kernel"].items()}}
+    kuu = grid_kuu_dense(model.kernel, p64["kernel"], grid).double()
+    W = dense_w(*interp_coeffs(grid, x0, detach=True), m).T.double()
+    Wt = dense_w(*interp_coeffs(grid, xt, detach=True), m).T.double()
+    Kn = W @ kuu @ W.T + torch.eye(LR_SEED, dtype=torch.float64, device=dev)
+    want = (Wt @ kuu @ W.T @ torch.linalg.solve(Kn, y0.double()))[:, 0]
+    err = float((mean.double() - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"rank-capped stream (m={m}, rank {LR_RANK}) on {card}: exact-regime mean err {err:.3e} "
+          f"(scale {scale:.3e}) against the dense SKI oracle")
+    if not err <= LR_GATE * max(scale, 1.0):
+        raise AssertionError(f"lowrank/dense posterior-mean drift {err:.3e} at m={m}")
+
+    xs = torch.tensor(rng.uniform(-1, 1, (LR_CHUNKS, LR_CHUNK, 2)), **f32)
+    ys = torch.sin(3 * xs[..., :1])
+    ns = torch.ones_like(ys)
+    rates = []
+    for rep in range(1 + LR_REPEATS):
+        st, compressions = state, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(LR_CHUNKS):
+            used = st.used
+            st = wiski_lowrank_condition(model, st, xs[c], ys[c], ns[c], params)
+            compressions += st.used < used
+        torch.cuda.synchronize()
+        if rep:
+            rates.append(LR_CHUNKS * LR_CHUNK / (time.perf_counter() - t0))
+    if st.num_data != LR_SEED + LR_CHUNKS * LR_CHUNK or not compressions:
+        raise AssertionError(f"the stream absorbed {st.num_data} points with {compressions} compressions")
+    if not torch.isfinite(st.root).all():
+        raise AssertionError("non-finite rank-capped root after the stream")
+    out = dict(gate_err=err, gate_scale=scale, points=LR_CHUNKS * LR_CHUNK, compressions=compressions,
+               points_per_s_median=float(np.median(rates)), points_per_s=rates)
+    print(f"  {LR_CHUNKS} chunks of {LR_CHUNK}, {compressions} compressions, {LR_REPEATS} repeats after a "
+          f"warm-up: median {out['points_per_s_median']:.1f} points/s, spread {min(rates):.1f}-{max(rates):.1f}")
+    return out
+
+
+def _compare_twin_predictions(reg, twin, xt, what):
+    errs = {}
+    for name, a, b in zip(("mean", "var"), reg.predict(xt), twin.predict(xt)):
+        a, b = a.cpu(), b
+        errs[name] = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not (torch.isfinite(a).all() and errs[name] <= 1e-3 * max(scale, 1e-30)):
+            raise AssertionError(f"{what} CPU twin: predicted {name} differs by {errs[name]:.3e} (scale {scale:.3e})")
+    for name, a, b in zip(("raw_lengthscale", "raw_outputscale", "raw_second_noise"),
+                          _gp_leaves(reg.params), _gp_leaves(twin.params)):
+        errs[name] = float((a.detach().cpu() - b.detach()).abs().max())
+        if not errs[name] <= TWIN_PARAM_TOL:
+            raise AssertionError(f"{what} CPU twin: {name} differs by {errs[name]:.3e} (tol {TWIN_PARAM_TOL})")
+    return errs
+
+
+def large_grid_wrappers(rng, card, dev):
+    """The wrappers at m = 4,096 and 16,384 through their entry points, with
+    the launch counters zeroed just before and read just after. Returns the
+    launches of this path and per-wrapper results."""
+    f32 = np.float32
+
+    def points(n):
+        x = rng.uniform(-1, 1, (n, 2)).astype(f32)
+        return x, np.sin(3 * x[:, :1])
+
+    x0, y0 = points(N_WRAP_SEED)
+    xu, yu = points(N_WRAP_UPD)
+    xt, _ = points(N_TEST)
+    xp, yp = points(N_PREQ6)
+    xa, ya = points(N_ABSORB6)
+    x_twin = xt[:64]
+    configs = (("dense m=4096", dict(grid_size=M6_SIDE), 1),
+               ("low_rank=512 m=4096", dict(grid_size=M6_SIDE, low_rank=LR_RANK), 2),
+               (f"routed m={BIG_SIDE**2}", dict(grid_size=BIG_SIDE), 2))
+    regs = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the rank-capped core ignores update_stem, with a warning
+        for name, kw, _ in configs:
+            regs[name] = OnlineSKIRegression(LinearStem(2, 2), x0, y0, lr=TRAIN_LR, device=dev, **kw)
+    if type(regs["dense m=4096"]) is not OnlineSKIRegression or not all(
+            isinstance(regs[n], OnlineSKILowRankRegression) for n, _, _ in configs[1:]):
+        raise AssertionError("OnlineSKIRegression did not route the large grids as expected")
+    torch.cuda.synchronize()
+
+    counters = [(rank1_apply, "launches"), (blocked_chunk, "launches"), (blocked_chunk, "cluster_launches"),
+                (pred_chunk, "launches"), (pred_chunk, "cluster_launches"), (blocked_cholesky, "launches")]
+    for wrapper, attr in counters:
+        setattr(wrapper, attr, 0)
+    results = {}
+    for name, kw, n_twin in configs:
+        reg = regs[name]
+        twin = load_twin(reg, x0, y0, lr=TRAIN_LR, **kw)
+        upd_ms, per_update, losses = [], [], []
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for i in range(N_WRAP_UPD):
+                before = (rank1_apply.launches, blocked_cholesky.launches)
+                r0 = time.perf_counter()
+                losses.append(reg.update(xu[i : i + 1], yu[i : i + 1]))  # floats: the host waits
+                upd_ms.append(1e3 * (time.perf_counter() - r0))
+                per_update.append((rank1_apply.launches - before[0], blocked_cholesky.launches - before[1]))
+                if i < n_twin:
+                    losses.append(twin.update(xu[i : i + 1], yu[i : i + 1]))
+                if i == n_twin - 1:
+                    twin_errs = _compare_twin_predictions(reg, twin, x_twin, name)
+        r0 = time.perf_counter()
+        mean, var = reg.predict(xt)
+        torch.cuda.synchronize()
+        pred_ms = 1e3 * (time.perf_counter() - r0)
+        r = dict(m=reg.model.grid.num_points, update_ms_median=float(np.median(upd_ms[1:])),
+                 update_ms=upd_ms, predict_ms=pred_ms, K2_K6_per_update=sorted(set(per_update)),
+                 twin_updates=n_twin, twin=twin_errs)
+        if name == "dense m=4096":
+            r0 = time.perf_counter()
+            pm, pv = reg.prequential(xp, yp)
+            torch.cuda.synchronize()
+            r1 = time.perf_counter()
+            reg.absorb(xa, ya)
+            torch.cuda.synchronize()
+            r.update(prequential_ms=1e3 * (r1 - r0), absorb_ms=1e3 * (time.perf_counter() - r1))
+            if any(k2 != 1 for k2, _ in per_update):
+                raise AssertionError(f"K2 did not launch once per q = 1 update at m = 4,096: {per_update}")
+            if any(k6 < 1 for _, k6 in per_update):
+                raise AssertionError(f"an update() at m = 4,096 did not factor Q with K6: {per_update}")
+            for what, t in (("prequential mean", pm), ("prequential var", pv)):
+                if tuple(t.shape) != (N_PREQ6, 1) or not torch.isfinite(t).all():
+                    raise AssertionError(f"{name}: {what} is not finite of shape ({N_PREQ6}, 1)")
+        values = [v for pair in losses for v in pair]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{name}: a non-finite loss: {values}")
+        for what, t in (("mean", mean), ("var", var)):
+            if tuple(t.shape) != (N_TEST, 1) or not torch.isfinite(t).all():
+                raise AssertionError(f"{name}: predicted {what} is not finite of shape ({N_TEST}, 1)")
+        r["rmse"] = float(torch.sqrt(torch.mean((mean[:, 0].cpu() - torch.sin(3 * torch.tensor(xt[:, 0]))) ** 2)))
+        results[name] = r
+        print(f"wrapper {name} on {card}: " + json.dumps(r))
+    launches = {"rank1_apply": rank1_apply.launches, "blocked_chunk": blocked_chunk.launches,
+                "chunk_recursion_cluster": blocked_chunk.cluster_launches, "pred_chunk": pred_chunk.launches,
+                "pred_recursion_cluster": pred_chunk.cluster_launches, "blocked_cholesky": blocked_cholesky.launches}
+    print(f"  phase 6 wrapper path kernel launches: {json.dumps(launches)}")
+    for kname in ("rank1_apply", "blocked_chunk", "pred_chunk", "blocked_cholesky"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"the phase 6 wrapper path never launched {kname}")
+    if launches["chunk_recursion_cluster"] or launches["pred_recursion_cluster"]:
+        raise AssertionError("a chunk at m = 4,096 ran its recursion on a cluster")
+    return launches, results
+
+
+def large_grid(rng, peaks, card, dev):
+    """Phase 6; returns (kernel rows at m = 4,096, launches of its wrapper
+    path, results)."""
+    t0 = time.perf_counter()
+    model, params, state = large_model(dev, rng)
+    kernels6 = check_kernels_large(rng, model, params, state, peaks, dev)
+    for kname, r in kernels6.items():
+        print(f"{kname} m={model.grid.num_points} on {card}: " + json.dumps(r))
+    t1 = time.perf_counter()
+    results = {"hyper": iterative_hyper_step(model, params, state, card)}
+    t2 = time.perf_counter()
+    results["stream"] = lowrank_stream(rng, card, dev)
+    t3 = time.perf_counter()
+    launches6, results["wrappers"] = large_grid_wrappers(rng, card, dev)
+    t4 = time.perf_counter()
+    print(f"phase 6 command time: {t4 - t0:.1f} s (kernel checks {t1 - t0:.1f}, hyper step {t2 - t1:.1f}, "
+          f"rank-capped stream {t3 - t2:.1f}, wrappers {t4 - t3:.1f})")
+    return kernels6, launches6, results
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1535,6 +2006,10 @@ def main() -> int:
         for kname, count in launches5.items():
             launches[kname] += count
 
+        kernels6, launches6, _ = large_grid(rng, peaks, card, dev)
+        for kname, count in launches6.items():
+            launches[kname] += count
+
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
@@ -1552,6 +2027,14 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    for kname, r in kernels6.items():
+        source, replaces = meta[kname]
+        kernels.append({
+            "name": f"{kname}@m4096", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches6[kname], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })

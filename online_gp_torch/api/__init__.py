@@ -1,9 +1,18 @@
 """Task-level API wrappers (the L5 surface): ``fit(x, y, num_epochs,
 test_dataset)``, ``update(x, y, ...)``, ``predict(x)``, ``evaluate(x, y)``,
-``set_lr(...)``, ``.noise``, as in ``online_gp_tpu.api``. This slice ports
-the stems and the dense ``OnlineSKIRegression``."""
+``set_lr(...)``, ``.noise``, as in ``online_gp_tpu.api``: the stems,
+``OnlineSKIRegression`` (the dense core, or the rank-capped one it routes
+to) and ``OnlineSKILowRankRegression``."""
 
+from online_gp_torch.api.lowrank_regression import OnlineSKILowRankRegression
 from online_gp_torch.api.regression import OnlineSKIRegression
 from online_gp_torch.api.stems import IdentityStem, LinearStem, MLPStem, make_stem
 
-__all__ = ["IdentityStem", "LinearStem", "MLPStem", "make_stem", "OnlineSKIRegression"]
+__all__ = [
+    "IdentityStem",
+    "LinearStem",
+    "MLPStem",
+    "make_stem",
+    "OnlineSKILowRankRegression",
+    "OnlineSKIRegression",
+]

@@ -27,13 +27,19 @@ formula). Parameters are float32, as in the JAX package; the state follows
 the inputs' dtype. The entry points run on ``device`` ("cuda" unless the
 caller asks for the CPU).
 
-Not ported yet: the rank-capped core (``low_rank=``, or grids above
-``DENSE_GRID_LIMIT``; ROADMAP Queue 1 item 6), which raises.
+Above ``cfg.max_cholesky_size`` inducing points (2,048 by default: every
+2-D grid from 46 x 46 up) the GP step runs the iterative CG/SLQ MLL, with
+new Rademacher probes on each step from :func:`hyper_probes`, keyed on
+the stream position as the JAX package's ``fold_in(PRNGKey(7), num_data)``.
+Constructing ``OnlineSKIRegression`` with ``low_rank=`` or a grid above
+``DENSE_GRID_LIMIT`` returns the rank-capped
+:class:`~online_gp_torch.api.lowrank_regression.OnlineSKILowRankRegression`.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -44,7 +50,9 @@ from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
 from online_gp_torch.kernels.base import Kernel, make_kernel
 from online_gp_torch.models.partial_mll import sm_partial_mll
 from online_gp_torch.models.wiski import (
+    MllProbes,
     WiskiModel,
+    mll_probes,
     wiski_condition,
     wiski_init,
     wiski_mll,
@@ -60,9 +68,17 @@ from online_gp_torch.ops.grid import Grid
 from online_gp_torch.utils.buffers import ReplayBuffer
 from online_gp_torch.utils.metrics import batched_rmse_nll
 
-# Above this many inducing points the JAX package routes to its rank-capped
-# core, which the port does not have yet.
+# Above this many inducing points the dense core's m x m caches stop being
+# the right regime, and the wrapper routes to the rank-capped core.
 DENSE_GRID_LIMIT = 4096
+
+
+def hyper_probes(num_data: int, num_outputs: int, m: int, dtype, device) -> MllProbes:
+    """The iterative MLL's probes for a GP step at stream position
+    ``num_data``: drawn from a CPU generator seeded from (7, num_data), then
+    moved to ``device``, so that they do not depend on the device."""
+    gen = torch.Generator().manual_seed((7 << 32) + int(num_data))
+    return mll_probes(num_outputs, m, gen, dtype, device)
 
 
 def cosine_lr(lr: float, num_steps: int, step: int) -> float:
@@ -85,7 +101,43 @@ def _step(opt: torch.optim.Optimizer, leaves, loss: torch.Tensor) -> None:
 
 class OnlineSKIRegression:
     """Streaming-regression wrapper on the dense O(m^2) WISKI core, for grids
-    up to ``DENSE_GRID_LIMIT`` inducing points."""
+    up to ``DENSE_GRID_LIMIT`` inducing points. Constructed with ``low_rank=``
+    or a larger grid, it returns an ``OnlineSKILowRankRegression`` instead
+    (rank ``low_rank`` or 512)."""
+
+    def __new__(
+        cls,
+        stem: Stem = None,
+        init_x=None,
+        init_y=None,
+        lr: float = 0.01,
+        grid_size: int = 30,
+        grid_bound: float = 1.0,
+        kernel: str | Kernel = "rbf",
+        cfg: SolverConfig = DEFAULT_CONFIG,
+        seed: int = 0,
+        refresh_roots_every: int = 0,
+        low_rank: Optional[int] = None,
+        slim_state: bool = False,
+        device="cuda",
+        **unused,
+    ):
+        if cls is OnlineSKIRegression and stem is not None:
+            if low_rank is not None or grid_size**stem.output_dim > DENSE_GRID_LIMIT:
+                if slim_state or refresh_roots_every:
+                    warnings.warn(
+                        "slim_state/refresh_roots_every are dense-core options; the low-rank "
+                        "core (low_rank= / large grids) manages its m x k roots with amortized "
+                        "compression instead; ignoring them",
+                        stacklevel=2,
+                    )
+                from online_gp_torch.api.lowrank_regression import OnlineSKILowRankRegression
+
+                return OnlineSKILowRankRegression(
+                    stem, init_x, init_y, lr=lr, grid_size=grid_size, grid_bound=grid_bound,
+                    rank=low_rank or 512, kernel=kernel, cfg=cfg, seed=seed, device=device, **unused,
+                )
+        return super().__new__(cls)
 
     def __init__(
         self,
@@ -105,10 +157,13 @@ class OnlineSKIRegression:
         **unused,
     ):
         m = grid_size**stem.output_dim
-        if low_rank is not None or m > DENSE_GRID_LIMIT:
-            raise NotImplementedError(
-                f"the rank-capped core (low_rank={low_rank}, m={m}, dense limit "
-                f"{DENSE_GRID_LIMIT}) is not ported yet (ROADMAP Queue 1 item 6)"
+        if m > DENSE_GRID_LIMIT:
+            # unreachable through the constructor, which routes big grids to
+            # the low-rank core; guards direct subclass construction
+            raise ValueError(
+                f"SKI grid {grid_size}^{stem.output_dim} = {m} inducing points exceeds the "
+                f"dense-core limit {DENSE_GRID_LIMIT}; pass low_rank= (or construct "
+                "OnlineSKIRegression, which routes it)"
             )
         self.device = torch.device(device)
         self.stem = stem.to(self.device)
@@ -134,6 +189,12 @@ class OnlineSKIRegression:
             kernel = make_kernel(kernel)
         self.model = WiskiModel(kernel, grid, num_outputs=self.target_dim, learn_additional_noise=True)
         self.params = self.model.init_params(stem.output_dim)
+        if hasattr(kernel, "data_init_params"):
+            # init-sensitive kernels (the spectral mixture) start from the
+            # init data, as gpytorch's initialize_from_data
+            self.params["kernel"] = kernel.data_init_params(
+                feats, init_y, (self.target_dim,), dtype=torch.float32, device=self.device
+            )
         for t in _leaves(self.params):
             t.requires_grad_(True)
         self.slim_state = slim_state
@@ -181,7 +242,13 @@ class OnlineSKIRegression:
             s_loss = loss.detach()
         if update_gp:
             cfg_skip = self.cfg.replace(skip_logdet_forward=True)
-            loss = -torch.sum(wiski_mll(self.model, self.params, self.state, cfg_skip))
+            m = self.model.grid.num_points
+            probes = None
+            if m > self.cfg.max_cholesky_size:
+                # new probes each step, so that the log-det gradient averages
+                # over probe draws instead of chasing one
+                probes = hyper_probes(self.state.num_data, self.target_dim, m, self.state.wty.dtype, self.device)
+            loss = -torch.sum(wiski_mll(self.model, self.params, self.state, cfg_skip, probes=probes))
             _step(self.gp_opt, _leaves(self.params), loss)
             g_loss = loss.detach()
         return s_loss, g_loss

@@ -5,12 +5,12 @@ the same defaults, so a config built for one package reads the same in
 the other. PyTorch runs eagerly, so these are plain run-time switches
 rather than compile-time branches.
 
-Of the switches, this slice of the port implements the dense-Cholesky
-paths only (``max_cholesky_size`` at or above m, ``fast_pred_var`` and
-``fast_pred_samples`` off); the functions that read the others raise
-``NotImplementedError`` rather than silently taking another path.
-``grid_shard_axis`` names a mesh axis in the JAX package; the port has
-no sharded path, so only ``None`` is accepted.
+Every switch is live: above ``max_cholesky_size`` the MLL runs CG/SLQ
+(``cg_tolerance``, ``max_cg_iterations``, ``use_toeplitz``), and
+``fast_pred_var`` / ``fast_pred_samples`` below full rank run Lanczos at
+``max_root_decomposition_size``. ``grid_shard_axis`` names a mesh axis in
+the JAX package; the port has no sharded path, so only ``None`` is
+accepted.
 """
 
 from __future__ import annotations

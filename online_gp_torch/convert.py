@@ -14,6 +14,7 @@ import torch
 
 from online_gp_torch.api.stems import Stem
 from online_gp_torch.models.wiski import WiskiState
+from online_gp_torch.models.wiski_lowrank import WiskiLowRankState
 from online_gp_torch.ops.grid import Grid
 from online_gp_torch.ops.root_update import RootCache
 
@@ -28,9 +29,10 @@ def grid_from_numpy(sizes, mins, spacings, device="cuda") -> Grid:
 
 
 def params_from_numpy(params: Dict, device="cuda") -> Dict:
-    """The nested dict of numpy arrays (``kernel/raw_lengthscale``,
-    ``kernel/raw_outputscale``, ``raw_second_noise``) as torch tensors
-    under the same keys."""
+    """The nested dict of numpy arrays (``kernel/raw_lengthscale`` and
+    ``kernel/raw_outputscale``, or a spectral mixture's
+    ``kernel/raw_sm_weights``, ``raw_sm_means`` and ``raw_sm_scales``;
+    ``raw_second_noise``) as torch tensors under the same keys."""
     return {
         key: params_from_numpy(val, device) if isinstance(val, dict) else _tensor(val, device)
         for key, val in params.items()
@@ -59,6 +61,23 @@ def state_from_numpy(
         ),
         d_logdet=_tensor(d_logdet, device),
         num_data=int(num_data),
+    )
+
+
+def lowrank_state_from_numpy(wty, ydy, root, used, d_logdet, num_data, device="cuda") -> WiskiLowRankState:
+    """A :class:`WiskiLowRankState` from its fields (with or without a
+    leading output dim); ``used`` and ``num_data`` become Python ints (one
+    value: every output absorbs the same inputs)."""
+    used, num_data = np.unique(np.asarray(used)), np.unique(np.asarray(num_data))
+    if used.size != 1 or num_data.size != 1:
+        raise ValueError(f"outputs disagree on used={used} or num_data={num_data}")
+    return WiskiLowRankState(
+        wty=_tensor(wty, device),
+        ydy=_tensor(ydy, device),
+        root=_tensor(root, device),
+        used=int(used[0]),
+        d_logdet=_tensor(d_logdet, device),
+        num_data=int(num_data[0]),
     )
 
 

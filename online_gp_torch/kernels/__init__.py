@@ -10,6 +10,7 @@ from online_gp_torch.kernels.base import (
     make_kernel,
 )
 from online_gp_torch.kernels.priors import GammaPrior, NormalPrior, log_prior_sum
+from online_gp_torch.kernels.spectral_mixture import SpectralMixtureKernel, sm_init_from_data
 
 __all__ = [
     "ExpTransform",
@@ -20,6 +21,8 @@ __all__ = [
     "NormalPrior",
     "RadialMaternKernel",
     "RBFKernel",
+    "SpectralMixtureKernel",
     "log_prior_sum",
     "make_kernel",
+    "sm_init_from_data",
 ]

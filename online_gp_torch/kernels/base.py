@@ -1,6 +1,7 @@
 """Kernel functions as parameter dicts plus pure apply functions (port of
 ``online_gp_tpu/kernels/base.py``: RBF, the product Matern and the radial
-Matern; :func:`make_kernel` builds one by name).
+Matern; :func:`make_kernel` builds one by name, the spectral mixture of
+:mod:`online_gp_torch.kernels.spectral_mixture` included).
 
 - Parameters are plain dicts of raw tensors; positivity comes from a
   reparametrization, ``exp`` by default or a sigmoid interval
@@ -196,10 +197,10 @@ class RadialMaternKernel(Kernel):
         return scale[..., None, None] * _matern_profile(self.nu, r)
 
 
-def _spectral_mixture():
-    raise NotImplementedError(
-        "the spectral-mixture kernel is not ported yet (ROADMAP Queue 1 item 4)"
-    )
+def _make_sm(num_mixtures: int):
+    from online_gp_torch.kernels.spectral_mixture import SpectralMixtureKernel
+
+    return SpectralMixtureKernel(num_mixtures)
 
 
 _REGISTRY = {
@@ -210,17 +211,17 @@ _REGISTRY = {
     "radial_matern12": lambda: RadialMaternKernel(0.5),
     "radial_matern32": lambda: RadialMaternKernel(1.5),
     "radial_matern52": lambda: RadialMaternKernel(2.5),
-    "sm2": _spectral_mixture,
-    "sm3": _spectral_mixture,
-    "sm4": _spectral_mixture,
-    "spectral_mixture": _spectral_mixture,
+    "sm2": lambda: _make_sm(2),
+    "sm3": lambda: _make_sm(3),
+    "sm4": lambda: _make_sm(4),
+    "spectral_mixture": lambda: _make_sm(3),
 }
 
 
 def make_kernel(name: str) -> Kernel:
-    """A fresh kernel by the JAX package's names (``rbf``, ``matern12/32/52``,
-    ``radial_matern12/32/52``); the spectral-mixture names raise
-    ``NotImplementedError``."""
+    """A fresh kernel by the JAX package's names: ``rbf``,
+    ``matern12/32/52``, ``radial_matern12/32/52``, and the spectral mixtures
+    ``sm2``, ``sm3``, ``sm4`` and ``spectral_mixture`` (3 components)."""
     try:
         factory = _REGISTRY[name]
     except KeyError:

@@ -34,25 +34,31 @@ factored by :func:`online_gp_torch.ops.chol.spd_cholesky`: kernel K6 on
 the card wherever Q needs no grad (the MLL's forward inside
 :class:`_DenseInnerCore`, caches built under ``torch.no_grad()``).
 
-Not ported yet (each raises ``NotImplementedError``): the iterative
-CG/SLQ MLL above ``max_cholesky_size``, ``fast_pred_var`` below full rank
-and ``fast_pred_samples``.
+Above ``cfg.max_cholesky_size`` the MLL runs iteratively
+(:func:`_mll_inner_iterative`): batched CG for the quadratic form, SLQ
+for log|Q| with a Hutchinson surrogate for its gradient, and K_uu
+products that are dense or Toeplitz-FFT by ``cfg.use_toeplitz``. Its
+Rademacher probes are an explicit argument (:func:`mll_probes`), where
+the JAX package takes a PRNG key. ``fast_pred_var`` below full rank
+builds a LOVE (Lanczos) covariance root, and ``fast_pred_samples``
+predicts through :func:`wiski_predict_root`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
 from online_gp_torch.kernels.base import Kernel
-from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
+from online_gp_torch.kernels.grid_kernel import grid_kuu_dense, grid_kuu_operator
 from online_gp_torch.kernels.priors import log_prior_sum
+from online_gp_torch.ops.cg import batched_cg, lanczos, lanczos_root, rademacher, slq_logdet
 from online_gp_torch.ops.chol import cho_solve, chol_logdet, psd_safe_cholesky, spd_cholesky, tri_solve
 from online_gp_torch.ops.cuda_root_update import rank1_apply
 from online_gp_torch.ops.grid import Grid
-from online_gp_torch.ops.interp import dense_w, gather_predict, interp_coeffs, wt_matvec
+from online_gp_torch.ops.interp import dense_w, gather_predict, interp_coeffs, interp_matvec, wt_matvec
 from online_gp_torch.ops.precision import f32_matmul_precision
 from online_gp_torch.ops.pred_stream import pred_stream_blocked_batched
 from online_gp_torch.ops.root_update import (
@@ -422,31 +428,120 @@ class _DenseInnerCore(torch.autograd.Function):
         return E_bar, L_bar, w_bar
 
 
+NUM_PROBES = 32  # SLQ and Hutchinson probes per output (the JAX package's)
+
+
+class MllProbes(NamedTuple):
+    """Rademacher probes of the iterative MLL, per output: ``slq`` (B, P, m)
+    start vectors of the SLQ Lanczos runs, ``hutch`` (B, m, P) the
+    Hutchinson trace probes of the log|Q| gradient."""
+
+    slq: torch.Tensor
+    hutch: torch.Tensor
+
+
+def mll_probes(
+    num_outputs: int,
+    m: int,
+    generator: torch.Generator,
+    dtype=torch.float32,
+    device=None,
+    num_probes: int = NUM_PROBES,
+) -> MllProbes:
+    """Draw :class:`MllProbes` from ``generator`` (on its own device), then
+    move them to ``device``. A CPU generator gives the same probes to a run
+    on the card and to its CPU twin."""
+    slq = rademacher((num_outputs, num_probes, m), generator, dtype)
+    hutch = rademacher((num_outputs, m, num_probes), generator, dtype)
+    return MllProbes(slq.to(device), hutch.to(device))
+
+
+def _kuu_mvm_fn(model: WiskiModel, params: Dict, use_toeplitz: bool, like: torch.Tensor) -> Callable:
+    """x (B, m, k) -> K_uu x / s2 in x's dtype: Toeplitz-FFT products, or a
+    dense K_uu (promoted to the dtype of ``like``) under a matmul."""
+    s2 = _second_noise(model, params)
+    if use_toeplitz:
+        kuu = grid_kuu_operator(model.kernel, params["kernel"], model.grid, use_toeplitz=True)
+        return kuu if s2 is None else (lambda x: kuu(x) / s2[:, None, None])
+    Kuu = _kuu_eff(model, params, like)
+    return lambda x: Kuu @ x
+
+
+def _mll_inner_iterative(
+    model: WiskiModel,
+    params: Dict,
+    state: WiskiState,
+    cfg: SolverConfig,
+    probes: MllProbes,
+):
+    """CG/SLQ inner MLL terms for m > max_cholesky_size (the JAX package's
+    ``_mll_inner_iterative``), batched over the outputs:
+
+      inner_qform  = proj^T Q^{-1} proj     batched CG, differentiated
+                                            through its iterations
+      inner_logdet = log|Q|                 SLQ value; its gradient from the
+                     Hutchinson surrogate sg(Q^{-1} z)^T Q z / P, exact in
+                     expectation: d log|Q| = tr(Q^{-1} dQ)
+      Kuu_wty      = K_uu (W D^{-1} y) / s2 via the structured MVM
+
+    The SLQ run and the Hutchinson solve need no gradient and run under
+    ``torch.no_grad()``.
+    """
+    m = state.roots.root.shape[-1]
+    cg_iters = min(cfg.max_cg_iterations, m)
+    slq_iters = min(cfg.max_root_decomposition_size, m, 64)
+    L, wty = state.roots.root, state.wty
+    kuu_mvm = _kuu_mvm_fn(model, params, cfg.use_toeplitz, wty)
+
+    def q_mvm(v):
+        return v + L.mT @ kuu_mvm(L @ v)
+
+    num_probes = probes.hutch.shape[-1]
+    with f32_matmul_precision():
+        kuu_wty = kuu_mvm(wty)  # (B, m, 1)
+        proj = L.mT @ kuu_wty
+        sol = batched_cg(q_mvm, proj, max_iters=cg_iters, tol=cfg.cg_tolerance)
+        qform = torch.sum(proj * sol, dim=(-2, -1))
+        with torch.no_grad():
+            slq_val = slq_logdet(lambda v: q_mvm(v.mT).mT, probes.slq.to(L.dtype), num_iters=slq_iters)
+            z = probes.hutch.to(L.dtype)
+            qinv_z = batched_cg(q_mvm, z, max_iters=cg_iters, tol=cfg.cg_tolerance)
+        surrogate = torch.sum(qinv_z * q_mvm(z), dim=(-2, -1)) / num_probes
+        logdet = (slq_val - surrogate).detach() + surrogate
+    return qform, logdet, kuu_wty
+
+
 def wiski_mll(
     model: WiskiModel,
     params: Dict,
     state: WiskiState,
     cfg: SolverConfig = DEFAULT_CONFIG,
+    *,
+    probes: Optional[MllProbes] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Exact GP marginal log-likelihood from the caches alone, per output
-    (dense path, m <= cfg.max_cholesky_size):
+    """Exact GP marginal log-likelihood from the caches alone, per output:
 
       quad   = [y'D^{-1}y - (WD^{-1}y)' K (WD^{-1}y) + proj' Q^{-1} proj] / s2
       logdet = log|Q| + log|D| (+ n log s2)
       mll    = -(quad + logdet + n log 2pi)/2 + log p(theta);   returned / n
 
-    The inner terms go through :class:`_DenseInnerCore` (closed-form
-    backward). Returns (B,).
+    At m <= cfg.max_cholesky_size the inner terms go through
+    :class:`_DenseInnerCore` (closed-form backward); above it through
+    :func:`_mll_inner_iterative`, whose probes are ``probes``, or are drawn
+    from ``generator``, or else from a CPU generator seeded 0 (the JAX
+    package's ``slq_key=None`` is its PRNGKey(0)). Returns (B,).
     """
     m = state.roots.root.shape[-1]
     if m > cfg.max_cholesky_size:
-        raise NotImplementedError(
-            "the iterative CG/SLQ MLL (m > max_cholesky_size) is not ported yet "
-            "(ROADMAP Queue 1 item 4)"
+        if probes is None:
+            gen = torch.Generator().manual_seed(0) if generator is None else generator
+            probes = mll_probes(model.num_outputs, m, gen, state.wty.dtype, state.wty.device)
+        inner_qform, inner_logdet, Kuu_wty = _mll_inner_iterative(model, params, state, cfg, probes)
+    else:
+        inner_qform, inner_logdet, Kuu_wty = _DenseInnerCore.apply(
+            _kuu_eff(model, params, state.wty), state.roots.root, state.wty
         )
-    inner_qform, inner_logdet, Kuu_wty = _DenseInnerCore.apply(
-        _kuu_eff(model, params, state.wty), state.roots.root, state.wty
-    )
     if cfg.skip_logdet_forward:
         # zero in the forward value, gradient intact
         inner_logdet = inner_logdet - inner_logdet.detach()
@@ -501,12 +596,25 @@ def wiski_prediction_caches(
     """
     Kuu, KuuL, Lq, Kuu_wty, proj = _q_factor(model, params, state)
     m = KuuL.shape[-1]
+    k = min(m, cfg.max_root_decomposition_size)
     with f32_matmul_precision():
         mean_cache = Kuu_wty - KuuL @ cho_solve(Lq, proj)
         if cfg.skip_posterior_variances:
             return mean_cache, None
-        if cfg.fast_pred_var and min(m, cfg.max_root_decomposition_size) < m:
-            raise NotImplementedError("fast_pred_var below full rank is not ported yet")
+        if cfg.fast_pred_var and k < m:
+            # LOVE: a rank-k Lanczos inverse root Rq of Q (Q^{-1} ~= Rq Rq^T),
+            # started from proj, so cov ~= Kuu - (KuuL Rq)(KuuL Rq)^T
+            L = state.roots.root
+            kuu_mvm = _kuu_mvm_fn(model, params, cfg.use_toeplitz, state.wty)
+            Qlan, alphas, betas = lanczos(
+                lambda v: v + (L.mT @ kuu_mvm(L @ v[..., None]))[..., 0], proj[..., 0], k
+            )
+            T = torch.diag_embed(alphas) + torch.diag_embed(betas, offset=1) + torch.diag_embed(betas, offset=-1)
+            evals, evecs = torch.linalg.eigh(T)
+            evals = torch.clamp(evals, min=1e-10)
+            R = KuuL @ (Qlan.mT @ (evecs / torch.sqrt(evals)[..., None, :]))  # (B, m, k)
+            return mean_cache, Kuu - R @ R.mT
+        # the exact path: R = Lq^{-1} (KuuL)^T is the same root at full rank
         R = tri_solve(Lq, KuuL.mT)  # (B, m, m)
         cov_cache = Kuu - R.mT @ R
     return mean_cache, cov_cache
@@ -527,7 +635,10 @@ def wiski_predict(
         caches = wiski_prediction_caches(model, params, state, cfg)
     mean_cache, cov_cache = caches
     if cfg.fast_pred_samples and cov_cache is not None:
-        raise NotImplementedError("fast_pred_samples is not ported yet")
+        # the variance is the row norm of the interpolated covariance root
+        # that joint sampling uses (rank-capped by max_root_decomposition_size)
+        mean, root = wiski_predict_root(model, params, state, x, cfg, caches=caches)
+        return mean, torch.clamp(torch.sum(root * root, dim=-1), min=1e-12)
     idx, w = interp_coeffs(model.grid, x, detach=cfg.detach_interp_coeff)
     mean, var = gather_predict(idx, w, mean_cache, cov_cache)
     if var is not None:
@@ -536,6 +647,59 @@ def wiski_predict(
             var = var * s2[..., None]
         var = torch.clamp(var, min=1e-12)
     return mean, var
+
+
+def root_start_vector(m: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The Lanczos start vector of :func:`wiski_predict_root` below full
+    rank: m standard normals from a CPU generator seeded 0, so that a run
+    on the card and its CPU twin start from the same vector (the JAX
+    package draws its own from PRNGKey(0))."""
+    return torch.randn(m, generator=torch.Generator().manual_seed(0), dtype=torch.float64).to(dtype=dtype, device=device)
+
+
+def wiski_predict_root(
+    model: WiskiModel,
+    params: Dict,
+    state: WiskiState,
+    x: torch.Tensor,
+    cfg: SolverConfig = DEFAULT_CONFIG,
+    caches: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``fast_pred_samples`` path: the mean and a low-rank root
+    W_x @ root(cov_cache) of the joint posterior covariance, for sampling.
+
+    The grid-space root is a jittered Cholesky factor at m <=
+    cfg.max_root_decomposition_size and a rank-capped Lanczos root above it,
+    started from :func:`root_start_vector`.
+
+    Returns mean (B, n) and root (B, n, k) with cov ~= root @ root^T,
+    k = min(m, cfg.max_root_decomposition_size).
+    """
+    if caches is None:
+        caches = wiski_prediction_caches(model, params, state, cfg)
+    mean_cache, cov_cache = caches
+    if cov_cache is None:
+        raise ValueError(
+            "wiski_predict_root needs the covariance cache: unset skip_posterior_variances "
+            "(mean-only configs have no root)"
+        )
+    idx, w = interp_coeffs(model.grid, x, detach=cfg.detach_interp_coeff)
+    mean = interp_matvec(idx, w, mean_cache)[..., 0]
+    m = cov_cache.shape[-1]
+    k = min(m, cfg.max_root_decomposition_size)
+    if k < m:
+        v0 = root_start_vector(m, cov_cache.dtype, cov_cache.device)
+        with f32_matmul_precision():
+            cov_root = lanczos_root(
+                lambda v: (cov_cache @ v[..., None])[..., 0], v0.expand(cov_cache.shape[:-1]), k
+            )  # (B, m, k)
+    else:
+        cov_root = psd_safe_cholesky(cov_cache, jitter=cfg.cholesky_jitter, tries=cfg.max_cholesky_jitter_tries)
+    root = interp_matvec(idx, w, cov_root)  # (B, n, k)
+    s2 = _second_noise(model, params)
+    if s2 is not None:
+        root = root * torch.sqrt(s2)[..., None, None]
+    return mean, root
 
 
 def wiski_pred_cache_condition(

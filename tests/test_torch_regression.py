@@ -225,16 +225,25 @@ def test_conditioning_only_update_keeps_the_predictive_caches(data):
 
 
 def test_options_the_port_does_not_have_raise(data):
+    """What the port has no counterpart for raises: an unknown kernel, a
+    sharded grid. Since the large-grid slice, low_rank=, grids above
+    DENSE_GRID_LIMIT and the spectral-mixture names no longer raise: they
+    route to the rank-capped wrapper and build the kernel."""
+    from online_gp_torch.api import OnlineSKILowRankRegression
+    from online_gp_torch.config import SolverConfig
+    from online_gp_torch.kernels.spectral_mixture import SpectralMixtureKernel
+
     tx, ty, *_ = data
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        OnlineSKIRegression(LinearStem(2, 2), tx[:20], ty[:20], low_rank=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        OnlineSKIRegression(make_stem("identity", 2), tx[:20], ty[:20], grid_size=65, device="cpu")
-    for name in ("sm3", "spectral_mixture"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            make_kernel(name)
     with pytest.raises(ValueError, match="unknown kernel"):
         make_kernel("periodic")
+    with pytest.raises(ValueError, match="grid_shard_axis"):
+        SolverConfig(grid_shard_axis="tp")
+    r = OnlineSKIRegression(LinearStem(2, 2), tx[:20], ty[:20], low_rank=64, device="cpu")
+    assert isinstance(r, OnlineSKILowRankRegression) and r.model.rank == 64
+    r = OnlineSKIRegression(make_stem("identity", 2), tx[:20], ty[:20], grid_size=65, device="cpu")
+    assert isinstance(r, OnlineSKILowRankRegression) and r.model.grid.num_points == 65**2
+    for name in ("sm3", "spectral_mixture"):
+        assert isinstance(make_kernel(name), SpectralMixtureKernel)
 
 
 def test_set_lr_and_cosine_schedule(data):
