@@ -120,9 +120,36 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
      within 1e-3, predictions within 1e-3 * scale. ms a call and kernel
      launches a call.
 
+7. Dirichlet classification through the port's OnlineSKIClassifier:
+   (a) the experiment layer's wiski_gpd model (IdentityStem(2), grid 16,
+   m = 256, 2 classes, alpha_eps 0.01, lr 0.05) on banana_dataset(n=1200,
+   seed=0): a 30-epoch fit on 100 points, set_lr(0.01), 400 streamed
+   predict-then-update() calls at q = 1 (gates, the reference's: cumulative
+   accuracy >= 0.70, test accuracy >= 0.75), then an absorb of the rest of
+   the training split; (b) LinearStem(2, 2), grid 30 (m = 900), 2 classes,
+   256 seed points: 64 update()s at q = 1, 8 at q = 32, a predict of
+   1,024 and an absorb of 4,096, with a CPU twin over the first 8 updates
+   (params within 1e-3, roots within 1e-3 * scale). In both the counters
+   are zeroed just before and read just after: K2 once per q = 1 update,
+   K6 on every update, K1 in absorb on its cluster recursion at Bd = 2.
+   (c) the rank-capped classifier at grid 72 (m = 5,184, routed) with
+   low_rank=256: a 30-epoch fit on 200 points, 30 updates at q = 4, test
+   accuracy >= 0.8. (d) wiski_fantasize (F = 3, q = 2) and the
+   differentiable route (detach_interp=False: condition at q = 1 and 2,
+   stream and prequential of 16) with gradients with respect to x on (b)'s
+   CUDA state, against CPU twins (values within 1e-3 * scale, gradients
+   within 1e-2 of their largest entry); K1, K2 and K3 must not launch and
+   the base state must come back bitwise. (e) K2, K1 and K6 at Bd = 2 on
+   the states of (a) and (b) (m = 256 and 900) against their plain
+   versions at phase 2's and phase 4's tolerances, with device times,
+   bounds and yardsticks. update() ms, predict ms and absorb points/s are
+   printed (medians and spreads).
+
 It prints the kernels as one JSON line (``launches``: the sum over the
-path windows of phases 3, 4, 5 and 6; rows ``...@m4096``: phase 6's
-kernel checks, with phase 6's launches), then the card's name and power
+path windows of phases 3, 4, 5, 6 and 7; rows ``...@m4096``: phase 6's
+kernel checks, with phase 6's launches; rows ``...@cls-m256-bd2`` and
+``...@cls-m900-bd2``: phase 7's kernel checks, with the launches of the
+windows of (a) and (b)), then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs a CUDA device
 and exits non-zero without one.
 """
@@ -140,13 +167,22 @@ import numpy as np
 import torch
 
 from online_gp_torch import DEFAULT_CONFIG, convert
-from online_gp_torch.api import LinearStem, OnlineSKILowRankRegression, OnlineSKIRegression
+from online_gp_torch.api import (
+    IdentityStem,
+    LinearStem,
+    OnlineSKIClassifier,
+    OnlineSKILowRankClassifier,
+    OnlineSKILowRankRegression,
+    OnlineSKIRegression,
+)
+from online_gp_torch.data import banana_dataset
 from online_gp_torch.kernels.base import RBFKernel
 from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
 from online_gp_torch.models.wiski import (
     WiskiModel,
     wiski_check_decomposition,
     wiski_condition,
+    wiski_fantasize,
     wiski_init,
     wiski_mll,
     wiski_predict,
@@ -207,6 +243,7 @@ HOST_REPEATS = 7
 # in up to 2% of windows (profiler_records.py)
 PROFILE_PAD_S = 0.05
 PROFILE_ATTEMPTS = 3
+PROFILE_EXTRA_CALLS = 5  # device_ms, device_span_ms: calls a window runs before those it counts
 # device_span_ms: the spin queued before each call it times (~1 ms on an
 # H100), and the idle gap that splits one call from the next
 SPIN_CYCLES = 2_000_000
@@ -241,6 +278,17 @@ LR_RANK, LR_SEED, LR_CHUNK, LR_CHUNKS, LR_REPEATS = 512, 256, 256, 64, 3
 LR_GATE = 3e-3  # bench.py:536, times max(scale, 1)
 N_WRAP_SEED, N_WRAP_UPD, N_PREQ6, N_ABSORB6 = 256, 16, 512, 1024
 BIG_SIDE = 128  # m = 16,384: above DENSE_GRID_LIMIT, routed to the rank-capped core
+# phase 7: Dirichlet classification through OnlineSKIClassifier
+CLS_ALPHA_EPS = 0.01
+# (a) the experiment layer's wiski_gpd model (online_gp_tpu/experiments/config.py:45-46), as
+# tests/classification/test_ski_classifier.py::test_online_eye_stem runs it, with its gates (:94-95)
+GPD_N, GPD_SIDE, GPD_LR, GPD_INIT, GPD_EPOCHS, GPD_STREAM_LR, GPD_STREAM = 1200, 16, 0.05, 100, 30, 0.01, 400
+GPD_CUM_GATE, GPD_TEST_GATE = 0.70, 0.75
+# (b) the dense classifier's default width (grid 30, m = 900): banana points, depth cut
+CLS_N, CLS_SEED_PTS, CLS_UPD1, CLS_UPD32, CLS_TWIN, CLS_PRED, CLS_ABSORB = 8000, 256, 64, 8, 8, 1024, 4096
+# (c) tests/classification/test_lowrank_classifier.py:22-35, with its gate
+LRC_SIDE, LRC_RANK, LRC_INIT, LRC_EPOCHS, LRC_UPDATES, LRC_GATE = 72, 256, 200, 30, 30, 0.8
+N_FANT, Q_FANT = 3, 2  # (d) fantasies and points per fantasy
 
 # (device memory bytes/s, f32 flop/s outside the tensor cores), NVIDIA data
 # sheets, dense, at the full power limit
@@ -361,19 +409,33 @@ def device_ms(fn, make_args, kernels, reps=TIMING_REPS):
     CUDA kernels from torch.profiler, and each kernel's share. The inputs
     are made fresh before each call, as in time_ms; the copies that makes
     are other kernels and are not counted. ``kernels`` maps each CUDA
-    kernel's name to its launches per call. The time comes from a window
-    that recorded every launch: one that missed a record is printed and
-    profiled again, up to PROFILE_ATTEMPTS windows, and then this raises."""
+    kernel's name to its launches per call. Each window runs
+    PROFILE_EXTRA_CALLS calls more than it counts, first, and the time is
+    the mean over each kernel's last reps x launches records: torch.profiler
+    may lose the records of a window's first launches even after the pad
+    (on an H100, three windows in a row lost the first 3 of K2's 20 at
+    m = 256).
+    A window that kept fewer is printed and profiled again, up to
+    PROFILE_ATTEMPTS windows, and then this raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     fn(*make_args())
     torch.cuda.synchronize()
     for _ in range(PROFILE_ATTEMPTS):
-        _, records = profile_window(fn, make_args, kernels, reps)
-        short = {k: n for k, (n, _) in records.items() if n != reps * kernels[k]}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps + PROFILE_EXTRA_CALLS):
+                fn(*make_args())
+            torch.cuda.synchronize()
+        records = {k: sorted((e.time_range.start, e.time_range.end - e.time_range.start) for e in prof.events()
+                             if e.device_type == DeviceType.CUDA and f"::{k}(" in e.name) for k in kernels}
+        short = {k: len(v) for k, v in records.items() if len(v) < reps * kernels[k]}
         if not short:
-            per_kernel = {k: us / reps / 1e3 for k, (_, us) in records.items()}
+            per_kernel = {k: sum(d for _, d in v[-reps * kernels[k]:]) / reps / 1e3 for k, v in records.items()}
             return sum(per_kernel.values()), per_kernel
         want = {k: reps * kernels[k] for k in short}
-        print(f"  torch.profiler recorded {short} launches of {want}; profiling again")
+        print(f"  torch.profiler recorded {short} launches of at least {want}; profiling again")
     raise AssertionError(f"no profile of {PROFILE_ATTEMPTS} recorded every launch of {sorted(kernels)}")
 
 
@@ -389,12 +451,14 @@ def device_span_ms(fn, make_args, kernels=None, reps=TIMING_REPS):
     a kernel sat scheduled, waiting on the one before. ``kernels`` maps the CUDA kernels to count
     to their launches per call (the copies make_args makes are other
     kernels); None counts every CUDA activity of the window but the spin,
-    and then make_args must launch nothing. Each window runs one call more
-    than it counts and drops the first: torch.profiler may lose records
-    of a window's first launches even after the pad (three windows in a
-    row lost one of K6's 23, PR 7). A window that did not record every
-    counted call is printed and profiled again, up to PROFILE_ATTEMPTS
-    windows."""
+    and then make_args must launch nothing. Each window runs
+    PROFILE_EXTRA_CALLS calls more than it counts, first, and keeps the
+    last reps: torch.profiler may lose the records of a window's first
+    launches even after the pad (on an H100, three windows in a row lost
+    one of K6's 23 records at m = 900; others lost two whole calls of K6
+    at m = 256). A window
+    whose kept calls were not each recorded whole is printed and profiled
+    again, up to PROFILE_ATTEMPTS windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -403,7 +467,7 @@ def device_span_ms(fn, make_args, kernels=None, reps=TIMING_REPS):
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
-            for _ in range(reps + 1):
+            for _ in range(reps + PROFILE_EXTRA_CALLS):
                 args = make_args()
                 torch.cuda.synchronize()
                 torch.cuda._sleep(SPIN_CYCLES)
@@ -420,14 +484,17 @@ def device_span_ms(fn, make_args, kernels=None, reps=TIMING_REPS):
                 calls[-1][2] += 1
             else:
                 calls.append([start, end, 1])
-        per_call = None if kernels is None else sum(kernels.values())
-        kept = calls[-reps:]  # the first call of the window is dropped (or lost whole)
-        if len(calls) in (reps, reps + 1) and all(per_call is None or n == per_call for _, _, n in kept):
+        kept = calls[-reps:]  # the window's first calls are dropped (or lost in part)
+        if kernels is None:  # no count per call to check: no call may have split
+            whole = len(calls) <= reps + PROFILE_EXTRA_CALLS
+        else:
+            whole = all(n == sum(kernels.values()) for _, _, n in kept)
+        if len(calls) >= reps and whole:
             stages = {k: sum(end - start for start, end, name in events
                              if start >= kept[0][0] and f"::{k}(" in name) / reps / 1e3
                       for k in kernels or {}}
             return sum(end - start for start, end, _ in kept) / reps / 1e3, stages
-        print(f"  torch.profiler recorded {len(calls)} calls of {reps} + 1 "
+        print(f"  torch.profiler recorded {len(calls)} calls of {reps} + {PROFILE_EXTRA_CALLS} "
               f"(activities per call {[n for _, _, n in calls]}); profiling again")
     raise AssertionError(f"no profile of {PROFILE_ATTEMPTS} recorded every call of {fn}")
 
@@ -447,6 +514,23 @@ def max_err(got, want, tol, what):
 
 def clone_all(*ts):
     return tuple(t.clone() for t in ts)
+
+
+# the launch counters of the main-path kernels (K2, K1, K3, K6), zeroed just
+# before a path window and read just after
+COUNTED = [(rank1_apply, "launches"), (blocked_chunk, "launches"), (blocked_chunk, "cluster_launches"),
+           (pred_chunk, "launches"), (pred_chunk, "cluster_launches"), (blocked_cholesky, "launches")]
+
+
+def zero_counters():
+    for wrapper, attr in COUNTED:
+        setattr(wrapper, attr, 0)
+
+
+def read_counters():
+    return {"rank1_apply": rank1_apply.launches, "blocked_chunk": blocked_chunk.launches,
+            "chunk_recursion_cluster": blocked_chunk.cluster_launches, "pred_chunk": pred_chunk.launches,
+            "pred_recursion_cluster": pred_chunk.cluster_launches, "blocked_cholesky": blocked_cholesky.launches}
 
 
 # --------------------------------------------------------------------------
@@ -841,9 +925,11 @@ def rel_max_err(got, want):
 
 def q_matrix(model, params, state):
     """Q = I + L^T Kuu_hat L of a WISKI state, Kuu_hat = K_uu / s2 (the
-    learned second noise), as the MLL and the prediction caches form it."""
-    Kuu = grid_kuu_dense(model.kernel, params["kernel"], model.grid)
-    Kuu = Kuu / torch.exp(params["raw_second_noise"])[:, None, None]
+    learned second noise, where the model has one), as the MLL and the
+    prediction caches form it."""
+    Kuu = grid_kuu_dense(model.kernel, params["kernel"], model.grid).detach()
+    if model.learn_additional_noise:
+        Kuu = Kuu / torch.exp(params["raw_second_noise"].detach())[:, None, None]
     L = state.roots.root
     eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
     return (eye + L.mT @ (Kuu @ L)).contiguous()
@@ -1254,28 +1340,35 @@ def _gp_leaves(params):
     return [params["kernel"]["raw_lengthscale"], params["kernel"]["raw_outputscale"], params["raw_second_noise"]]
 
 
-def load_twin(reg, x0, y0, **kw):
-    """A wrapper on the CPU built with reg's configuration ``kw``, started
-    from reg's params, stem and state as they stand (carried across by
-    convert); the dense or the rank-capped state, as reg has."""
+def _named_leaves(params, prefix=""):
+    """[(name, tensor)] of a nested params dict, in its order."""
+    out = []
+    for key, val in params.items():
+        out += _named_leaves(val, f"{prefix}{key}/") if isinstance(val, dict) else [(prefix + key, val)]
+    return out
+
+
+def load_twin(reg, x0, y0, cls=OnlineSKIRegression, **kw):
+    """A wrapper of class ``cls`` on the CPU built with reg's configuration
+    ``kw``, started from reg's params, stem and state as they stand
+    (convert.load_wrapper); the dense or the rank-capped state, as reg has."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # a routed configuration may warn
-        twin = OnlineSKIRegression(LinearStem(2, 2), x0, y0, device="cpu", **kw)
+        twin = cls(LinearStem(2, 2), x0, y0, device="cpu", **kw)
     host = lambda t: None if t is None else t.detach().cpu().numpy()
     stem_params = {"lin": {"w": host(reg.stem.lin.weight).T, "b": host(reg.stem.lin.bias)}}
     bn = {"bn": {"mean": host(reg.stem.bn.running_mean), "var": host(reg.stem.bn.running_var),
                  "momentum": host(reg.stem.bn.momentum)}}
-    convert.stem_from_numpy(twin.stem, stem_params, bn, device="cpu")
-    with torch.no_grad():
-        for a, b in zip(_gp_leaves(twin.params), _gp_leaves(reg.params)):
-            a.copy_(b.detach().cpu())
+    params = {key: {k: host(v) for k, v in val.items()} if isinstance(val, dict) else host(val)
+              for key, val in reg.params.items()}
     s = reg.state
-    if isinstance(reg, OnlineSKILowRankRegression):
-        twin.state = convert.lowrank_state_from_numpy(host(s.wty), host(s.ydy), host(s.root), s.used,
-                                                      host(s.d_logdet), s.num_data, device="cpu")
+    if hasattr(s, "used"):
+        state = dict(wty=host(s.wty), ydy=host(s.ydy), root=host(s.root), used=s.used, d_logdet=host(s.d_logdet),
+                     num_data=s.num_data)
     else:
-        twin.state = convert.state_from_numpy(host(s.wty), host(s.ydy), host(s.roots.mat), host(s.roots.root),
-                                              host(s.roots.inv_root), host(s.d_logdet), s.num_data, device="cpu")
+        state = dict(wty=host(s.wty), ydy=host(s.ydy), mat=host(s.roots.mat), root=host(s.roots.root),
+                     inv_root=host(s.roots.inv_root), d_logdet=host(s.d_logdet), num_data=s.num_data)
+    convert.load_wrapper(twin, params, stem_params, bn, state, device="cpu")
     return twin
 
 
@@ -1302,10 +1395,7 @@ def training_path(rng, card, dev):
     reg = OnlineSKIRegression(LinearStem(2, 2), x0, y0, lr=TRAIN_LR, grid_size=M_SIDE, slim_state=True, device=dev)
     torch.cuda.synchronize()
 
-    counters = [(rank1_apply, "launches"), (blocked_chunk, "launches"), (blocked_chunk, "cluster_launches"),
-                (pred_chunk, "launches"), (pred_chunk, "cluster_launches"), (blocked_cholesky, "launches")]
-    for wrapper, attr in counters:
-        setattr(wrapper, attr, 0)
+    zero_counters()
     t0 = time.perf_counter()
     records = reg.fit(x0, y0, FIT_EPOCHS)
     torch.cuda.synchronize()
@@ -1338,9 +1428,7 @@ def training_path(rng, card, dev):
     pm, pv = reg.prequential(xp, yp)
     reg.absorb(xa, ya)
     torch.cuda.synchronize()
-    launches = {"rank1_apply": rank1_apply.launches, "blocked_chunk": blocked_chunk.launches,
-                "chunk_recursion_cluster": blocked_chunk.cluster_launches, "pred_chunk": pred_chunk.launches,
-                "pred_recursion_cluster": pred_chunk.cluster_launches, "blocked_cholesky": blocked_cholesky.launches}
+    launches = read_counters()
 
     print(f"training path (OnlineSKIRegression, LinearStem(2, 2), m={M_SIDE**2}, slim state, lr {TRAIN_LR}) on {card}:")
     print(f"  fit {FIT_EPOCHS} epochs on {N_SEED} points: {fit_s:.4f} s; train losses "
@@ -1380,8 +1468,7 @@ def compare_twin(reg, twin):
     (a tenth of one Adam step), roots within 1e-3 * scale (bench.py's
     gate)."""
     errs = {}
-    pairs = list(zip(["raw_lengthscale", "raw_outputscale", "raw_second_noise"],
-                     _gp_leaves(reg.params), _gp_leaves(twin.params)))
+    pairs = [(n, p, q) for (n, p), (_, q) in zip(_named_leaves(reg.params), _named_leaves(twin.params))]
     pairs += [(f"stem {n}", p, q) for (n, p), q in zip(reg.stem.named_parameters(), twin.stem.parameters())]
     for name, a, b in pairs:
         errs[name] = float((a.detach().cpu() - b.detach()).abs().max())
@@ -1576,51 +1663,15 @@ def check_kernels_large(rng, model, params, state, peaks, dev):
     plain versions on the card, with device times, bounds and yardsticks."""
     grid = model.grid
     m = grid.num_points
-    out = {}
     L, B = synthetic_roots(rng, 1, m, dev)
-
-    # K2: each call against the plain version on the same input
+    out = {}
     _, idx2, w2 = stencil(rng, grid, N_K2_6, dev)
-    Lk, Bk = clone_all(L, B)
-    err = 0.0
-    for i in range(N_K2_6):
-        p = torch.einsum("p,bpm->bm", w2[i], Bk[:, idx2[i].long()]).contiguous()
-        want = rank1_apply_plain(Lk, Bk, p)
-        got = rank1_apply(Lk, Bk, p)
-        torch.cuda.synchronize()
-        err = max(err, max_err(got, want, 1e-5, f"rank1_apply m={m} call {i}"))
-    p = torch.einsum("p,bpm->bm", w2[0], B[:, idx2[0].long()]).contiguous()
-    make = lambda: (*clone_all(L, B), p)
-    bms, by = rank1_bound(1, m, peaks)
-    ms, stages = device_ms(rank1_apply, make, {"rank1_prepass_kernel": 1, "rank1_rows_kernel": 1})
-    out["rank1_apply"] = dict(
-        calls=N_K2_6, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(rank1_apply, make),
-        plain_ms=time_ms(rank1_apply_plain, make, PLAIN_REPS6), library_ms=time_ms(rank1_library, make),
-        bound_ms=bms, bound_by=by, route="row kernel looping over each row (m > 32 kRowRegs)")
-
-    # K1: one chunk of k = K
+    out["rank1_apply"] = check_k2(L, B, idx2, w2[None], peaks, f"m={m}", PLAIN_REPS6)
+    out["rank1_apply"]["route"] = "row kernel looping over each row (m > 32 kRowRegs)"
     _, idx, w = stencil(rng, grid, K, dev)
-    wv = w[None].contiguous()
     if chunk_cluster_plan(K, m) is not None:
         raise AssertionError(f"(k={K}, m={m}) was expected outside K1's cluster envelope")
-    before = (blocked_chunk.launches, blocked_chunk.cluster_launches)
-    got = blocked_chunk(*clone_all(L, B), idx, wv)
-    again = blocked_chunk(*clone_all(L, B), idx, wv)
-    torch.cuda.synchronize()
-    if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1]) != (2, 0):
-        raise AssertionError(f"blocked_chunk at m={m} did not take the single-block recursion")
-    err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk m={m}")
-    bitwise(got, again, f"blocked_chunk m={m}")
-    library = chunk_library(*blocked_factors(torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()])))
-    make = lambda: (*clone_all(L, B), idx, wv)
-    bms, by = chunk_bound(1, m, K, idx.shape[1], peaks)
-    ms, stages = device_ms(blocked_chunk, make, {"chunk_gather_kernel": 1, "chunk_recursion_kernel": 1,
-                                                 "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1})
-    out["blocked_chunk"] = dict(
-        k=K, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_chunk, make),
-        plain_ms=time_ms(blocked_chunk_plain, make, PLAIN_REPS6),
-        library_ms=time_ms(library, lambda: clone_all(L, B)), bound_ms=bms, bound_by=by,
-        route="single-block recursion (chunk_recursion_kernel)")
+    out["blocked_chunk"] = check_k1(L, B, idx, w[None].contiguous(), peaks, f"m={m}", False, PLAIN_REPS6)
 
     # K3: one chunk on the model's caches
     with torch.no_grad():
@@ -1650,30 +1701,87 @@ def check_kernels_large(rng, model, params, state, peaks, dev):
         plain_ms=time_ms(pred_chunk_stencil_plain, make, PLAIN_REPS6),
         library_ms=time_ms(library, lambda: clone_all(C, mu)), bound_ms=bms, bound_by=by,
         route="single-block recursion (pred_recursion_kernel)")
+    out["blocked_cholesky"] = check_k6(q_matrix(model, params, state), peaks, f"Q (m={m})", PLAIN_REPS6)
+    return out
 
-    # K6: Q of the state
-    Q = q_matrix(model, params, state)
+
+def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS):
+    """K2 against its plain version on each point of a stencil stream in
+    turn (idx (n, P); wv (Bd, n, P), the weights over sqrt(noise)), the
+    roots carried from call to call, to 1e-5; then device time, bound and
+    yardstick on the first point."""
+    Lk, Bk = clone_all(L, B)
+    err = 0.0
+    for i in range(idx.shape[0]):
+        p = torch.einsum("bp,bpm->bm", wv[:, i], Bk[:, idx[i].long()]).contiguous()
+        want = rank1_apply_plain(Lk, Bk, p)
+        got = rank1_apply(Lk, Bk, p)
+        torch.cuda.synchronize()
+        err = max(err, max_err(got, want, 1e-5, f"rank1_apply {what} call {i}"))
+    p = torch.einsum("bp,bpm->bm", wv[:, 0], B[:, idx[0].long()]).contiguous()
+    make = lambda: (*clone_all(L, B), p)
+    bms, by = rank1_bound(L.shape[0], L.shape[-1], peaks)
+    ms, stages = device_ms(rank1_apply, make, {"rank1_prepass_kernel": 1, "rank1_rows_kernel": 1})
+    return dict(
+        calls=idx.shape[0], max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(rank1_apply, make),
+        plain_ms=time_ms(rank1_apply_plain, make, plain_reps), library_ms=time_ms(rank1_library, make),
+        bound_ms=bms, bound_by=by)
+
+
+def check_k1(L, B, idx, wv, peaks, what, cluster, plain_reps=TIMING_REPS):
+    """One K1 chunk (idx (k, P), wv (Bd, k, P)) against its plain version to
+    1e-5 and bitwise the same on a second call, its recursion on a cluster
+    or on the single-block kernel as ``cluster`` says (by the counters);
+    then device time, bound and yardstick."""
+    before = (blocked_chunk.launches, blocked_chunk.cluster_launches)
+    got = blocked_chunk(*clone_all(L, B), idx, wv)
+    again = blocked_chunk(*clone_all(L, B), idx, wv)
+    torch.cuda.synchronize()
+    if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1]) != (2, 2 * cluster):
+        route = "cluster" if cluster else "single-block"
+        raise AssertionError(f"blocked_chunk {what} did not take the {route} recursion")
+    err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk {what}")
+    bitwise(got, again, f"blocked_chunk {what}")
+    library = chunk_library(*blocked_factors(torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()])))
+    make = lambda: (*clone_all(L, B), idx, wv)
+    k, P = idx.shape
+    bms, by = chunk_bound(L.shape[0], L.shape[-1], k, P, peaks)
+    recursion = "chunk_recursion_cluster_kernel" if cluster else "chunk_recursion_kernel"
+    ms, stages = device_ms(blocked_chunk, make, {"chunk_gather_kernel": 1, recursion: 1,
+                                                 "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1})
+    return dict(
+        k=k, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_chunk, make),
+        plain_ms=time_ms(blocked_chunk_plain, make, plain_reps),
+        library_ms=time_ms(library, lambda: clone_all(L, B)), bound_ms=bms, bound_by=by,
+        route=f"{'cluster' if cluster else 'single-block'} recursion ({recursion})")
+
+
+def check_k6(Q, peaks, what, plain_reps=TIMING_REPS):
+    """K6 on Q (..., m, m) against its plain version and
+    torch.linalg.cholesky (relative max error <= 5e-4), bitwise the same on
+    a second call, strict upper triangle exactly 0; then the device span of
+    blocked_cholesky_ex, bound and the library's span."""
+    m = Q.shape[-1]
     Lq, again = blocked_cholesky(Q, CHOL_BLOCK), blocked_cholesky(Q, CHOL_BLOCK)
     torch.cuda.synchronize()
-    bitwise((Lq,), (again,), f"blocked_cholesky on Q (m={m})")
+    bitwise((Lq,), (again,), f"blocked_cholesky on {what}")
     want = blocked_cholesky_plain(Q, CHOL_BLOCK)
     e_plain, e_lib = rel_max_err(Lq, want), rel_max_err(Lq, torch.linalg.cholesky(Q))
     if not (e_plain <= 5e-4 and e_lib <= 5e-4):
-        raise AssertionError(f"K6 on Q at m={m}: relative max err {e_plain:.3e} vs plain, {e_lib:.3e} vs library")
+        raise AssertionError(f"K6 on {what}: relative max err {e_plain:.3e} vs plain, {e_lib:.3e} vs library")
     if not bool((torch.triu(Lq, 1) == 0).all()):
-        raise AssertionError(f"K6 at m={m}: the strict upper triangle is not exactly 0")
+        raise AssertionError(f"K6 on {what}: the strict upper triangle is not exactly 0")
     nb = -(-m // CHOL_BLOCK)
     make = lambda: (Q, CHOL_BLOCK)
-    bms, by = chol_bound(1, m, peaks)
+    bms, by = chol_bound(Q[..., 0, 0].numel(), m, peaks)
     ms, stages = device_span_ms(blocked_cholesky_ex, make, {"chol_init_kernel": 1, "chol_factor_kernel": nb,
                                                             "chol_solve_kernel": nb - 1, "chol_syrk_kernel": nb - 1})
-    out["blocked_cholesky"] = dict(
+    return dict(
         panels=nb, max_abs_err=float((Lq - want).abs().max()), rel_max_err=e_plain, rel_max_err_vs_library=e_lib,
         ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_cholesky_ex, make),
-        plain_ms=time_ms(blocked_cholesky_plain, make, PLAIN_REPS6),
+        plain_ms=time_ms(blocked_cholesky_plain, make, plain_reps),
         library_ms=device_span_ms(lambda q, b: torch.linalg.cholesky(q), make)[0], bound_ms=bms, bound_by=by,
         route=f"{nb} panels of {CHOL_BLOCK}")
-    return out
 
 
 def iterative_hyper_step(model, params, state, card):
@@ -1854,10 +1962,7 @@ def large_grid_wrappers(rng, card, dev):
         raise AssertionError("OnlineSKIRegression did not route the large grids as expected")
     torch.cuda.synchronize()
 
-    counters = [(rank1_apply, "launches"), (blocked_chunk, "launches"), (blocked_chunk, "cluster_launches"),
-                (pred_chunk, "launches"), (pred_chunk, "cluster_launches"), (blocked_cholesky, "launches")]
-    for wrapper, attr in counters:
-        setattr(wrapper, attr, 0)
+    zero_counters()
     results = {}
     for name, kw, n_twin in configs:
         reg = regs[name]
@@ -1906,9 +2011,7 @@ def large_grid_wrappers(rng, card, dev):
         r["rmse"] = float(torch.sqrt(torch.mean((mean[:, 0].cpu() - torch.sin(3 * torch.tensor(xt[:, 0]))) ** 2)))
         results[name] = r
         print(f"wrapper {name} on {card}: " + json.dumps(r))
-    launches = {"rank1_apply": rank1_apply.launches, "blocked_chunk": blocked_chunk.launches,
-                "chunk_recursion_cluster": blocked_chunk.cluster_launches, "pred_chunk": pred_chunk.launches,
-                "pred_recursion_cluster": pred_chunk.cluster_launches, "blocked_cholesky": blocked_cholesky.launches}
+    launches = read_counters()
     print(f"  phase 6 wrapper path kernel launches: {json.dumps(launches)}")
     for kname in ("rank1_apply", "blocked_chunk", "pred_chunk", "blocked_cholesky"):
         if launches[kname] <= 0:
@@ -1936,6 +2039,297 @@ def large_grid(rng, peaks, card, dev):
     print(f"phase 6 command time: {t4 - t0:.1f} s (kernel checks {t1 - t0:.1f}, hyper step {t2 - t1:.1f}, "
           f"rank-capped stream {t3 - t2:.1f}, wrappers {t4 - t3:.1f})")
     return kernels6, launches6, results
+
+
+# --------------------------------------------------------------------------
+# phase 7: Dirichlet classification through OnlineSKIClassifier
+# --------------------------------------------------------------------------
+
+
+def spread(values):
+    return dict(median=float(np.median(values)), min=float(np.min(values)), max=float(np.max(values)))
+
+
+def per_update_launches(clf, x, y, q):
+    """clf.update on q-point batches of (x, y): the call times (s), losses and
+    (K2, K6) launches of each call."""
+    times, losses, launches = [], [], []
+    for i in range(0, len(x), q):
+        before = (rank1_apply.launches, blocked_cholesky.launches)
+        t0 = time.perf_counter()
+        losses.append(clf.update(x[i : i + q], y[i : i + q]))  # returns floats: the host waits for the card
+        times.append(time.perf_counter() - t0)
+        launches.append((rank1_apply.launches - before[0], blocked_cholesky.launches - before[1]))
+    return times, losses, launches
+
+
+def gpd_path(card, dev):
+    """Phase 7 (a): the experiment layer's wiski_gpd model (banana, 2
+    classes; online_gp_tpu/experiments/config.py:45-46) through the entry
+    point, as tests/classification/test_ski_classifier.py::test_online_eye_stem
+    runs it, then an absorb of the rest of the training split. The launch
+    counters are zeroed just before and read just after. Returns (the
+    classifier, launches, results)."""
+    tr_x, tr_y, te_x, te_y = banana_dataset(n=GPD_N, seed=0)
+    clf = OnlineSKIClassifier(IdentityStem(2), tr_x[:GPD_INIT], tr_y[:GPD_INIT], alpha_eps=CLS_ALPHA_EPS,
+                              lr=GPD_LR, grid_size=GPD_SIDE, grid_bound=1.0, device=dev)
+    torch.cuda.synchronize()
+    zero_counters()
+    t0 = time.perf_counter()
+    clf.fit(tr_x[:GPD_INIT], tr_y[:GPD_INIT], num_epochs=GPD_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    clf.set_lr(GPD_STREAM_LR)
+    correct, upd_s, pred_s, per_update = 0, [], [], []
+    for i in range(GPD_INIT, GPD_INIT + GPD_STREAM):
+        t0 = time.perf_counter()
+        pred = clf.predict(tr_x[i : i + 1])
+        correct += int(pred[0] == int(tr_y[i]))  # the host waits for the card
+        pred_s.append(time.perf_counter() - t0)
+        times, _, launches = per_update_launches(clf, tr_x[i : i + 1], tr_y[i : i + 1], 1)
+        upd_s += times
+        per_update += launches
+    cum_acc = correct / GPD_STREAM
+    test_acc = clf.evaluate(te_x, te_y)
+    rest = slice(GPD_INIT + GPD_STREAM, len(tr_x))
+    t0 = time.perf_counter()
+    clf.absorb(tr_x[rest], tr_y[rest])
+    torch.cuda.synchronize()
+    absorb_s = time.perf_counter() - t0
+    launches = read_counters()
+    r = dict(m=clf.model.grid.num_points, classes=clf.num_classes, fit_s=fit_s, cumulative_acc=cum_acc,
+             test_acc=test_acc, test_acc_after_absorb=clf.evaluate(te_x, te_y),
+             update_ms=spread([1e3 * t for t in upd_s[1:]]), predict_one_ms=spread([1e3 * t for t in pred_s[1:]]),
+             absorb_points=len(tr_x[rest]), absorb_points_per_s=len(tr_x[rest]) / absorb_s,
+             K2_K6_per_update=sorted(set(per_update)), launches=launches)
+    print(f"phase 7 (a) wiski_gpd (IdentityStem, m={GPD_SIDE**2}, C=2) on {card}: " + json.dumps(r))
+    if not (cum_acc >= GPD_CUM_GATE and test_acc >= GPD_TEST_GATE):
+        raise AssertionError(f"wiski_gpd: cumulative accuracy {cum_acc:.4f} (gate {GPD_CUM_GATE}), "
+                             f"test accuracy {test_acc:.4f} (gate {GPD_TEST_GATE})")
+    check_classifier_launches(launches, per_update, "wiski_gpd")
+    return clf, launches, r
+
+
+def check_classifier_launches(launches, per_update, what):
+    """K2 once per q = 1 update, K6 on every update, K1 in absorb with its
+    recursion on a cluster."""
+    if any(k2 != 1 for k2, _ in per_update):
+        raise AssertionError(f"{what}: K2 did not launch once per q = 1 update: {sorted(set(per_update))}")
+    if any(k6 < 1 for _, k6 in per_update):
+        raise AssertionError(f"{what}: an update() did not factor Q with K6: {sorted(set(per_update))}")
+    if launches["blocked_chunk"] < 1 or launches["chunk_recursion_cluster"] != launches["blocked_chunk"]:
+        raise AssertionError(f"{what}: absorb did not run K1 on its cluster recursion: {launches}")
+
+
+def classifier_path(card, dev):
+    """Phase 7 (b): OnlineSKIClassifier at the constructor's default width
+    (LinearStem(2, 2), grid 30, m = 900, C = 2) on banana points: 64
+    update()s at q = 1, 8 at q = 32, a predict of 1,024 and an absorb of
+    4,096, with the launch counters zeroed just before and read just after.
+    A CPU twin (convert) runs the first 8 updates: params within
+    TWIN_PARAM_TOL, roots within 1e-3 * scale. Returns (the classifier,
+    launches, results, the test split)."""
+    tr_x, tr_y, te_x, te_y = banana_dataset(n=CLS_N, seed=1)
+    n0, n8 = CLS_SEED_PTS, CLS_SEED_PTS + CLS_TWIN
+    n1, n32 = n0 + CLS_UPD1, n0 + CLS_UPD1 + 32 * CLS_UPD32
+    kw = dict(alpha_eps=CLS_ALPHA_EPS, lr=TRAIN_LR, grid_size=M_SIDE)
+    clf = OnlineSKIClassifier(LinearStem(2, 2), tr_x[:n0], tr_y[:n0], device=dev, **kw)
+    twin = load_twin(clf, tr_x[:n0], tr_y[:n0], cls=OnlineSKIClassifier, **kw)
+    torch.cuda.synchronize()
+    zero_counters()
+    t1, losses, per_update = per_update_launches(clf, tr_x[n0:n8], tr_y[n0:n8], 1)
+    for i in range(n0, n8):
+        losses.append(twin.update(tr_x[i : i + 1], tr_y[i : i + 1]))
+    twin_errs = compare_twin(clf, twin)
+    more = per_update_launches(clf, tr_x[n8:n1], tr_y[n8:n1], 1)
+    t1, losses, per_update = t1 + more[0], losses + more[1], per_update + more[2]
+    t32, losses32, per32 = per_update_launches(clf, tr_x[n1:n32], tr_y[n1:n32], 32)
+    xt = te_x[:CLS_PRED]
+    pred_ms = []
+    for _ in range(HOST_REPEATS + 1):
+        t0 = time.perf_counter()
+        pred = clf.predict(xt)
+        torch.cuda.synchronize()
+        pred_ms.append(1e3 * (time.perf_counter() - t0))
+    xa, ya = tr_x[n32 : n32 + CLS_ABSORB], tr_y[n32 : n32 + CLS_ABSORB]
+    t0 = time.perf_counter()
+    clf.absorb(xa, ya)
+    torch.cuda.synchronize()
+    absorb_s = time.perf_counter() - t0
+    launches = read_counters()
+    r = dict(m=clf.model.grid.num_points, classes=clf.num_classes,
+             update_q1_ms=spread([1e3 * t for t in t1[1:]]),
+             update_q32_points_per_s=spread([32 / t for t in t32[1:]]), predict_ms=spread(pred_ms[1:]),
+             predict_points=len(xt), absorb_points=len(xa), absorb_points_per_s=len(xa) / absorb_s,
+             test_acc=clf.evaluate(te_x, te_y), K2_K6_per_update=sorted(set(per_update)),
+             K6_per_q32_update=sorted({k6 for _, k6 in per32}), twin=twin_errs, launches=launches)
+    print(f"phase 7 (b) OnlineSKIClassifier (LinearStem(2, 2), m={M_SIDE**2}, C=2) on {card}: " + json.dumps(r))
+    values = [v for pair in losses + losses32 for v in pair]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"classifier path: a non-finite loss: {values}")
+    if tuple(pred.shape) != (CLS_PRED,) or not bool(((pred == 0) | (pred == 1)).all()):
+        raise AssertionError("classifier path: predict did not return one class label per point")
+    check_classifier_launches(launches, per_update, "classifier path")
+    if any(k6 < 1 for _, k6 in per32):
+        raise AssertionError("classifier path: a q = 32 update() did not factor Q with K6")
+    return clf, launches, r, (te_x, te_y)
+
+
+def lowrank_classifier_path(card, dev):
+    """Phase 7 (c): the rank-capped classifier at grid 72 (m = 5,184, routed)
+    with low_rank=256, as tests/classification/test_lowrank_classifier.py::
+    test_big_grid_auto_routes_and_learns_banana runs it."""
+    tr_x, tr_y, te_x, te_y = banana_dataset(seed=0)
+    w = OnlineSKIClassifier(IdentityStem(2), tr_x[:LRC_INIT], tr_y[:LRC_INIT], grid_size=LRC_SIDE, lr=GPD_LR,
+                            low_rank=LRC_RANK, device=dev)
+    if not isinstance(w, OnlineSKILowRankClassifier):
+        raise AssertionError("OnlineSKIClassifier did not route grid 72 to the rank-capped core")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w.fit(tr_x[:LRC_INIT], tr_y[:LRC_INIT], num_epochs=LRC_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    upd_ms = []
+    for i in range(LRC_INIT, LRC_INIT + 4 * LRC_UPDATES, 4):
+        t0 = time.perf_counter()
+        w.update(tr_x[i : i + 4], tr_y[i : i + 4], update_stem=False)
+        upd_ms.append(1e3 * (time.perf_counter() - t0))
+    acc = w.evaluate(te_x, te_y)
+    r = dict(m=w.model.grid.num_points, rank=w.model.rank, fit_s=fit_s, update_q4_ms=spread(upd_ms[1:]),
+             test_acc=acc)
+    print(f"phase 7 (c) OnlineSKILowRankClassifier on {card}: " + json.dumps(r))
+    if not (math.isfinite(acc) and acc >= LRC_GATE):
+        raise AssertionError(f"rank-capped classifier: banana accuracy {acc:.4f} (gate {LRC_GATE})")
+    return r
+
+
+def _state_fields(state):
+    return {"wty": state.wty, "ydy": state.ydy, "d_logdet": state.d_logdet, "mat": state.roots.mat,
+            "root": state.roots.root, "inv_root": state.roots.inv_root}
+
+
+def _state_to(state, device):
+    return state._replace(wty=state.wty.to(device), ydy=state.ydy.to(device), d_logdet=state.d_logdet.to(device),
+                          roots=RootCache(*(None if t is None else t.to(device) for t in state.roots)))
+
+
+def differentiable_route(clf, te_x, te_y, card):
+    """Phase 7 (d): wiski_fantasize (F = 3, q = 2) and the differentiable
+    route (detach_interp=False: condition at q = 1 and 2, a stream and a
+    prequential stream of 16 in chunks of 8), with gradients with respect
+    to x, on the classifier's CUDA state, each against a CPU twin of the
+    same call (values within 1e-3 * scale, gradients within HYPER_GRAD_RTOL
+    of their largest entry). K1, K2 and K3 must not launch, and the base
+    state must come back bitwise as it was."""
+    model, state = clf.model, clf.state
+    grid = model.grid
+    host_model = model._replace(grid=convert.grid_from_numpy(
+        grid.sizes, grid.mins.cpu().numpy(), grid.spacings.cpu().numpy(), device="cpu"))
+    host_state = _state_to(state, "cpu")
+    params = {"kernel": {k: v.detach() for k, v in clf.params["kernel"].items()}}
+    host_params = {"kernel": {k: v.cpu() for k, v in params["kernel"].items()}}
+    snapshot = {k: None if v is None else v.clone() for k, v in _state_fields(state).items()}
+    feats = clf._features(clf._inputs(te_x[:16]))
+    targets, sigma2 = clf._transform(te_y[:16])
+    with torch.no_grad():
+        caches = wiski_prediction_caches(model, params, state)
+    host_caches = tuple(c.cpu() for c in caches)
+    rng = np.random.default_rng(SEED + 7)
+    weights = {k: torch.tensor(rng.normal(size=tuple(v.shape)) / v.numel() ** 0.5, dtype=torch.float32)
+               for k, v in _state_fields(state).items() if k in ("wty", "mat", "root", "inv_root")}
+
+    def scalar(st):
+        fields = _state_fields(st)
+        return sum(torch.sum(fields[k] * w.to(fields[k].device)) for k, w in weights.items())
+
+    def cases(mdl, prm, st, c):
+        y, n = targets.to(st.wty.device), sigma2.to(st.wty.device)
+        return {
+            "condition q=1": lambda x: scalar(wiski_condition(mdl, st, x[:1], y[:1], n[:1], detach_interp=False)),
+            "condition q=2": lambda x: scalar(wiski_condition(mdl, st, x[:2], y[:2], n[:2], detach_interp=False)),
+            "stream 16": lambda x: scalar(wiski_stream(mdl, st, x, y, n, detach_interp=False, block_size=8)),
+            "prequential 16": lambda x: (lambda o: scalar(o[0]) + o[2].sum() + o[3].sum())(
+                wiski_prequential_stream(mdl, prm, st, c, x, y, n, detach_interp=False, block_size=8)),
+        }
+
+    before = (rank1_apply.launches, blocked_chunk.launches, pred_chunk.launches)
+    fx = feats[: N_FANT * Q_FANT].reshape(N_FANT, Q_FANT, 2)
+    fy = targets[: N_FANT * Q_FANT].reshape(N_FANT, Q_FANT, -1)
+    fn = sigma2[: N_FANT * Q_FANT].reshape(N_FANT, Q_FANT, -1)
+    fant = wiski_fantasize(model, state, fx, fy, fn)
+    host_fant = wiski_fantasize(host_model, host_state, fx.cpu(), fy.cpu(), fn.cpu())
+    out = {}
+    for name, got in _state_fields(fant).items():
+        want = _state_fields(host_fant)[name]
+        err, scale = float((got.cpu() - want).abs().max()), float(want.abs().max())
+        out[f"fantasize {name}"] = err
+        if got.shape != (N_FANT, *snapshot[name].shape) or not err <= 1e-3 * max(scale, 1.0):
+            raise AssertionError(f"wiski_fantasize {name}: {tuple(got.shape)}, differs from the CPU twin by {err:.3e}")
+    card_cases, host_cases = cases(model, params, state, caches), cases(host_model, host_params, host_state,
+                                                                        host_caches)
+    for name, fn_card in card_cases.items():
+        grads = []
+        for fn_, x in ((fn_card, feats), (host_cases[name], feats.cpu())):
+            x = x.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad(fn_(x), [x])
+            grads.append(g)
+        err, scale = float((grads[0].cpu() - grads[1]).abs().max()), float(grads[1].abs().max())
+        out[f"d/dx {name}"] = err / scale
+        if not (bool(torch.isfinite(grads[0]).all()) and err <= HYPER_GRAD_RTOL * scale):
+            raise AssertionError(f"d/dx of {name} (detach_interp=False) on the card: {err:.3e} from the CPU twin "
+                                 f"(largest entry {scale:.3e})")
+    torch.cuda.synchronize()
+    moved = (rank1_apply.launches - before[0], blocked_chunk.launches - before[1], pred_chunk.launches - before[2])
+    if moved != (0, 0, 0):
+        raise AssertionError(f"the differentiable route launched (K2, K1, K3) {moved} times")
+    for name, was in snapshot.items():
+        now = _state_fields(state)[name]
+        if (was is None) != (now is None) or (was is not None and not torch.equal(was, now)):
+            raise AssertionError(f"the differentiable route moved the base state's {name}")
+    print(f"phase 7 (d) fantasize and the differentiable route on {card}: " + json.dumps(out))
+    return out
+
+
+def check_kernels_cls(clfs, peaks, card):
+    """Phase 7 (e): K2 (16 calls), K1 (one chunk of k = 128, on its cluster
+    recursion) and K6 (Q) at Bd = C = 2 on the classifiers' states at m = 256
+    and m = 900, against their plain versions at phase 2's and phase 4's
+    tolerances, with device times, bounds and yardsticks. The update vectors
+    are banana points' stencils over sqrt(sigma2), each class its noise."""
+    out = {}
+    tr_x, tr_y, _, _ = banana_dataset(n=CLS_N, seed=2)
+    for tag, clf in clfs.items():
+        grid, state = clf.model.grid, clf.state
+        m = grid.num_points
+        L, B = state.roots.root.contiguous(), state.roots.inv_root.contiguous()
+        feats = clf._features(clf._inputs(tr_x[:K]))
+        _, sigma2 = clf._transform(tr_y[:K])
+        idx, w = interp_coeffs(grid, feats)
+        idx = idx.to(torch.int32).contiguous()
+        wv = (w[None] / torch.sqrt(sigma2.T)[:, :, None]).contiguous()  # (C, K, P)
+        rows = {"rank1_apply": check_k2(L, B, idx[:N_K2_6], wv[:, :N_K2_6], peaks, f"{tag} Bd=2")}
+        if chunk_cluster_plan(K, m) is None:
+            raise AssertionError(f"(k={K}, m={m}) was expected inside K1's cluster envelope")
+        rows["blocked_chunk"] = check_k1(L, B, idx, wv, peaks, f"{tag} Bd=2", True)
+        rows["blocked_cholesky"] = check_k6(q_matrix(clf.model, clf.params, state), peaks, f"Q ({tag}, Bd=2)")
+        for kname, r in rows.items():
+            out[f"{kname}@{tag}-bd2"] = r
+            print(f"{kname} {tag} Bd=2 on {card}: " + json.dumps(r))
+    return out
+
+
+def classification(peaks, card, dev):
+    """Phase 7; returns (kernel rows, {row: launches}, the launch counts of
+    the windows of (a) and (b))."""
+    t0 = time.perf_counter()
+    clf_a, launches_a, _ = gpd_path(card, dev)
+    clf_b, launches_b, _, (te_x, te_y) = classifier_path(card, dev)
+    lowrank_classifier_path(card, dev)
+    differentiable_route(clf_b, te_x, te_y, card)
+    rows = check_kernels_cls({"cls-m256": clf_a, "cls-m900": clf_b}, peaks, card)
+    launches = {row: (launches_a if "m256" in row else launches_b)[row.split("@")[0]] for row in rows}
+    print(f"phase 7 command time: {time.perf_counter() - t0:.1f} s")
+    return rows, launches, (launches_a, launches_b)
 
 
 def nvidia_smi_line() -> str:
@@ -2010,6 +2404,11 @@ def main() -> int:
         for kname, count in launches6.items():
             launches[kname] += count
 
+        kernels7, launches7, windows7 = classification(peaks, card, dev)
+        for window in windows7:
+            for kname, count in window.items():
+                launches[kname] += count
+
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
@@ -2030,11 +2429,13 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    for kname, r in kernels6.items():
-        source, replaces = meta[kname]
+    rows = [(f"{kname}@m4096", r, launches6[kname]) for kname, r in kernels6.items()]
+    rows += [(row, r, launches7[row]) for row, r in kernels7.items()]
+    for row, r, count in rows:
+        source, replaces = meta[row.split("@")[0]]
         kernels.append({
-            "name": f"{kname}@m4096", "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches6[kname], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "name": row, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": count, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })

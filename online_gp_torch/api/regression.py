@@ -99,6 +99,57 @@ def _step(opt: torch.optim.Optimizer, leaves, loss: torch.Tensor) -> None:
     opt.step()
 
 
+def _stem_leaves(stem: Stem):
+    return list(stem.parameters()) if stem.has_params else []
+
+
+def _adam(params, stem: Stem, gp_lr: float, stem_lr: float):
+    """Fresh Adam optimizers (optax's update formula) for the GP params and
+    the stem (None for a stem without parameters)."""
+    stem_leaves = _stem_leaves(stem)
+    return torch.optim.Adam(_leaves(params), lr=gp_lr), (
+        torch.optim.Adam(stem_leaves, lr=stem_lr) if stem_leaves else None)
+
+
+def _set_bn_momentum(stem: Stem, bn_mom: Optional[float]) -> None:
+    if bn_mom is not None and hasattr(stem, "bn"):
+        mom = stem.bn.momentum
+        stem.bn.momentum = torch.tensor(bn_mom, dtype=mom.dtype, device=mom.device)
+
+
+def _bn_refresh(stem: Stem, buffer: ReplayBuffer, x: torch.Tensor) -> None:
+    """Refresh the stem's BatchNorm running statistics on x and 1,024
+    replayed inputs."""
+    replay = torch.as_tensor(buffer.sample(1024), device=x.device)
+    stem.train()
+    with torch.no_grad():
+        stem(torch.cat([x, replay]))
+    stem.eval()
+
+
+def _fit_epoch(model: WiskiModel, params, stem: Stem, x, y, noise, cfg: SolverConfig, opts, lr: float):
+    """One refit epoch (the JAX wrappers' ``epoch_step``): rate ``lr`` on the
+    optimizers ``opts`` (GP, stem or None), the stem's features in training
+    mode (batch statistics; the running ones update), the caches rebuilt
+    from them with ``wiski_init``, and one step of each optimizer on
+    -sum(wiski_mll). Returns the loss."""
+    gp_opt, stem_opt = opts
+    for opt in (o for o in opts if o is not None):
+        for group in opt.param_groups:
+            group["lr"] = lr
+    stem.train()
+    feats = stem(x)
+    stem.eval()
+    loss = -torch.sum(wiski_mll(model, params, wiski_init(model, feats, y, noise), cfg))
+    leaves = _leaves(params) + _stem_leaves(stem)
+    for p, g in zip(leaves, torch.autograd.grad(loss, leaves)):
+        p.grad = g
+    gp_opt.step()
+    if stem_opt is not None:
+        stem_opt.step()
+    return loss.detach()
+
+
 class OnlineSKIRegression:
     """Streaming-regression wrapper on the dense O(m^2) WISKI core, for grids
     up to ``DENSE_GRID_LIMIT`` inducing points. Constructed with ``low_rank=``
@@ -221,9 +272,6 @@ class OnlineSKIRegression:
     def _host(x: torch.Tensor) -> np.ndarray:
         return x.detach().cpu().numpy()
 
-    def _stem_leaves(self):
-        return list(self.stem.parameters()) if self.stem.has_params else []
-
     def _init_state(self, feats, targets):
         with torch.no_grad():
             state = wiski_init(self.model, feats, targets, torch.ones_like(targets))
@@ -238,7 +286,7 @@ class OnlineSKIRegression:
         s_loss = g_loss = torch.zeros(())
         if self.stem.has_params and update_stem:
             loss = -torch.sum(sm_partial_mll(self.model, self.params, self.state, self.stem(x), y, self.cfg))
-            _step(self.stem_opt, self._stem_leaves(), loss)
+            _step(self.stem_opt, _stem_leaves(self.stem), loss)
             s_loss = loss.detach()
         if update_gp:
             cfg_skip = self.cfg.replace(skip_logdet_forward=True)
@@ -252,15 +300,6 @@ class OnlineSKIRegression:
             _step(self.gp_opt, _leaves(self.params), loss)
             g_loss = loss.detach()
         return s_loss, g_loss
-
-    def _bn_refresh(self, x) -> None:
-        """Refresh the BatchNorm running statistics on x and 1,024 replayed
-        inputs."""
-        replay = torch.as_tensor(self.buffer.sample(1024), device=self.device)
-        self.stem.train()
-        with torch.no_grad():
-            self.stem(torch.cat([x, replay]))
-        self.stem.eval()
 
     def _count_and_refresh(self, n: int) -> None:
         self._updates_since_refresh += n
@@ -319,7 +358,7 @@ class OnlineSKIRegression:
         self.buffer.append(self._host(x))
         self._count_and_refresh(1)
         if update_stem and self.stem.has_params:
-            self._bn_refresh(x)
+            _bn_refresh(self.stem, self.buffer, x)
         return float(s_loss), float(g_loss)
 
     def hyper_step(self, inputs, targets, update_stem: bool = True, update_gp: bool = True):
@@ -332,7 +371,7 @@ class OnlineSKIRegression:
         if update_gp or (update_stem and self.stem.has_params):
             self._pred_caches = None  # hypers moved under the caches
         if update_stem and self.stem.has_params:
-            self._bn_refresh(x)
+            _bn_refresh(self.stem, self.buffer, x)
         return float(s_loss), float(g_loss)
 
     def prequential(self, inputs, targets):
@@ -371,27 +410,11 @@ class OnlineSKIRegression:
         """Refit epochs on (inputs, targets); returns one record per epoch."""
         x, y = self._inputs(inputs), self._targets(targets)
         noise = torch.ones_like(y)
-        gp_leaves, stem_leaves = _leaves(self.params), self._stem_leaves()
-        gp_opt = torch.optim.Adam(gp_leaves, lr=self.lr)
-        stem_opt = torch.optim.Adam(stem_leaves, lr=self.lr) if stem_leaves else None
-        steps = max(num_epochs, 1)
+        opts = _adam(self.params, self.stem, self.lr, self.lr)
         records = []
         for epoch in range(num_epochs):
-            for opt in (gp_opt, stem_opt):
-                if opt is not None:
-                    for group in opt.param_groups:
-                        group["lr"] = cosine_lr(self.lr, steps, epoch)
-            self.stem.train()  # batch statistics; the running ones update
-            feats = self.stem(x)
-            self.stem.eval()
-            state = wiski_init(self.model, feats, y, noise)
-            loss = -torch.sum(wiski_mll(self.model, self.params, state, self.cfg))
-            grads = torch.autograd.grad(loss, gp_leaves + stem_leaves)
-            for p, g in zip(gp_leaves + stem_leaves, grads):
-                p.grad = g
-            gp_opt.step()
-            if stem_opt is not None:
-                stem_opt.step()
+            lr = cosine_lr(self.lr, max(num_epochs, 1), epoch)
+            loss = _fit_epoch(self.model, self.params, self.stem, x, y, noise, self.cfg, opts, lr)
             rmse = nll = float("nan")
             if test_dataset is not None:
                 # refresh the caches at the current hypers before evaluating
@@ -399,7 +422,7 @@ class OnlineSKIRegression:
                 rmse, nll = self.evaluate(*test_dataset)
             records.append({
                 "epoch": epoch + 1,
-                "train_loss": float(loss.detach()),
+                "train_loss": float(loss),
                 "test_rmse": rmse,
                 "test_nll": nll,
                 "noise": float(self.noise.mean()),
@@ -417,13 +440,8 @@ class OnlineSKIRegression:
 
     def set_lr(self, gp_lr: float, stem_lr: Optional[float] = None, bn_mom: Optional[float] = None) -> None:
         """Fresh Adam optimizers at these rates (and a BatchNorm momentum)."""
-        stem_lr = gp_lr if stem_lr is None else stem_lr
-        self.gp_opt = torch.optim.Adam(_leaves(self.params), lr=gp_lr)
-        stem_leaves = self._stem_leaves()
-        self.stem_opt = torch.optim.Adam(stem_leaves, lr=stem_lr) if stem_leaves else None
-        if bn_mom is not None and hasattr(self.stem, "bn"):
-            mom = self.stem.bn.momentum
-            self.stem.bn.momentum = torch.tensor(bn_mom, dtype=mom.dtype, device=mom.device)
+        self.gp_opt, self.stem_opt = _adam(self.params, self.stem, gp_lr, gp_lr if stem_lr is None else stem_lr)
+        _set_bn_momentum(self.stem, bn_mom)
 
     @property
     def noise(self) -> torch.Tensor:

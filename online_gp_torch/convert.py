@@ -12,6 +12,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from online_gp_torch.api.regression import _leaves
 from online_gp_torch.api.stems import Stem
 from online_gp_torch.models.wiski import WiskiState
 from online_gp_torch.models.wiski_lowrank import WiskiLowRankState
@@ -102,3 +103,28 @@ def stem_from_numpy(stem: Stem, params: Dict, bn_state: Dict, device="cuda") -> 
         stem.bn.running_var = _tensor(bn["var"], device)
         stem.bn.momentum = _tensor(bn["momentum"], device)
     return stem
+
+
+def load_wrapper(wrapper, params: Dict, stem_params: Dict, bn_state: Dict, state: Dict, device=None) -> None:
+    """Start an L5 wrapper (``OnlineSKIRegression``, ``OnlineSKIClassifier``
+    or a rank-capped one) from numpy arrays, in place, on ``device`` (the
+    wrapper's by default):
+
+    - ``params``: the GP params, as :func:`params_from_numpy` takes them;
+      they become the wrapper's leaves in the arrays' dtypes, and its
+      optimizers are made anew on them (``set_lr`` at the wrapper's rate);
+    - ``stem_params``, ``bn_state``: as :func:`stem_from_numpy` (ignored
+      for a stem without parameters);
+    - ``state``: the state's fields by name, those of
+      :func:`state_from_numpy` or, with ``used``, of
+      :func:`lowrank_state_from_numpy`.
+    """
+    device = wrapper.device if device is None else device
+    if wrapper.stem.has_params:
+        stem_from_numpy(wrapper.stem, stem_params, bn_state, device)
+    wrapper.params = params_from_numpy(params, device)
+    for leaf in _leaves(wrapper.params):
+        leaf.requires_grad_(True)
+    wrapper.set_lr(wrapper.lr)
+    make = lowrank_state_from_numpy if "used" in state else state_from_numpy
+    wrapper.state = make(**state, device=device)

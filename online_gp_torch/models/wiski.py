@@ -10,6 +10,7 @@
 
   transforms:
     wiski_init, wiski_condition, wiski_stream    build and absorb
+    wiski_expand, wiski_fantasize                F fantasy copies, conditioned
     wiski_mll                                    Woodbury MLL, closed-form backward
     wiski_prediction_caches, wiski_predict       serve predictions
     wiski_pred_cache_condition,
@@ -28,6 +29,14 @@ in place where a CUDA kernel does the work (the roots in
 ``wiski_condition`` and ``wiski_stream``, the caches in
 ``wiski_prequential_stream``). Treat a state or caches passed in as
 consumed. On the CPU the plain versions run and nothing is overwritten.
+
+``detach_interp`` routes the conditioning as it does in the JAX package.
+True (every entry point of the wrappers): kernels K2, K1 and K3 on CUDA
+float32 tensors, their plain versions on the CPU. False (the
+differentiable route of fantasies and acquisitions): the interpolation
+weights keep their gradient, and the same math runs in forms autograd
+takes, on any device, never a kernel and never in place. The route is
+the argument alone.
 
 Q = I + L^T K L, the matrix of the MLL and the prediction caches, is
 factored by :func:`online_gp_torch.ops.chol.spd_cholesky`: kernel K6 on
@@ -63,10 +72,12 @@ from online_gp_torch.ops.precision import f32_matmul_precision
 from online_gp_torch.ops.pred_stream import pred_stream_blocked_batched
 from online_gp_torch.ops.root_update import (
     RootCache,
+    root_cache_expand,
     root_cache_init,
     root_cache_rebuild_mat,
     root_cache_slim,
     root_cache_update,
+    roots_apply_rank1_p,
     roots_stream_blocked_batched,
 )
 
@@ -113,6 +124,15 @@ def _reshape_obs(y: torch.Tensor, noise: torch.Tensor, num_outputs: int):
     return y.reshape(-1, num_outputs), noise.reshape(-1, num_outputs)
 
 
+def _promoted(*ts: torch.Tensor):
+    """The tensors in their common dtype, as the JAX package's products
+    promote (float32 targets and noise beside float64 features)."""
+    dtype = ts[0].dtype
+    for t in ts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return tuple(t.to(dtype) for t in ts)
+
+
 # ---------------------------------------------------------------------------
 # init and conditioning
 # ---------------------------------------------------------------------------
@@ -148,9 +168,11 @@ def wiski_init(
             idx, w = interp_coeffs(model.grid, xs, detach=detach_interp)
             wt = dense_w(idx, w, m)  # (m, c)
             dinv_y = ys / ns  # (c, B)
-            wty = wty + torch.einsum("mc,cb->bm", wt, dinv_y)[..., None]
+            wty = wty + torch.einsum("mc,cb->bm", *_promoted(wt, dinv_y))[..., None]
             ydy = ydy + torch.sum(ys * dinv_y, dim=0)
-            A = A + torch.einsum("bmc,kc->bmk", wt[None] / ns.T[:, None, :], wt)
+            # 1 / noise in the noise's dtype, then the product, as the JAX
+            # package computes it (float32 noise beside float64 inputs)
+            A = A + torch.einsum("bmc,kc->bmk", *_promoted(wt[None] * (1.0 / ns).T[:, None, :], wt))
     d_logdet = torch.sum(torch.log(noise), dim=0)
     roots = root_cache_init(A, jitter=root_jitter)
     return WiskiState(wty=wty, ydy=ydy, roots=roots, d_logdet=d_logdet, num_data=n)
@@ -165,10 +187,11 @@ def wiski_condition(
     detach_interp: bool = True,
 ) -> WiskiState:
     """Absorb q new observations in O(m^2 q), with the noise clamped at
-    1e-7 before the root update. At q = 1 on CUDA the roots are updated
-    in place by kernel K2."""
+    1e-7 before the root update. At q = 1 with ``detach_interp`` the roots
+    go through K2 (on CUDA in place); without it, through the plain update,
+    which autograd takes."""
     idx, w = interp_coeffs(model.grid, x, detach=detach_interp)
-    return wiski_condition_coeffs(model, state, idx, w, y, noise)
+    return wiski_condition_coeffs(model, state, idx, w, y, noise, detach_interp)
 
 
 def wiski_condition_coeffs(
@@ -178,58 +201,77 @@ def wiski_condition_coeffs(
     w: torch.Tensor,
     y: torch.Tensor,
     noise: torch.Tensor,
+    detach_interp: bool = True,
 ) -> WiskiState:
     """:func:`wiski_condition` given interpolation coefficients
-    (``idx``/``w``: (q, P) from :func:`interp_coeffs`)."""
+    (``idx``/``w``: (q, P) from :func:`interp_coeffs`); ``detach_interp``
+    routes the q = 1 root update (K2, or the plain update autograd takes)."""
     B = model.num_outputs
     m = model.grid.num_points
     y, noise = _reshape_obs(y, noise, B)
     q = idx.shape[0]
-    root_noise = torch.sqrt(torch.clamp(noise, min=1e-7))  # (q, B)
-    dinv_y = y / noise  # (q, B)
+    if q > 1:
+        return _condition_dense(state, dense_w(idx, w, m), y, noise)
 
-    if q == 1:
-        # the update vector v = W_x / sqrt(D) has P = 4^D nonzeros: p = B^T v
-        # is a P-row gather of the inverse root, and the Gram and wty updates
-        # are P-sized scatters; the O(m^2) work is K2's two outer products
-        idx0, w0 = idx[0], w[0]
-        P = idx0.shape[0]
-        with f32_matmul_precision():
-            p = torch.einsum("p,bpm->bm", w0, state.roots.inv_root[:, idx0, :]) / root_noise[0][:, None]
+    # q = 1: the update vector v = W_x / sqrt(D) has P = 4^D nonzeros: p =
+    # B^T v is a P-row gather of the inverse root, and the Gram and wty
+    # updates are P-sized scatters; the O(m^2) work is K2's two outer products
+    root_noise = torch.sqrt(torch.clamp(noise, min=1e-7))  # (1, B)
+    dinv_y = y / noise  # (1, B)
+    idx0, w0 = idx[0], w[0]
+    P = idx0.shape[0]
+    with f32_matmul_precision():
+        p = torch.einsum("p,bpm->bm", w0, state.roots.inv_root[:, idx0, :]) / root_noise[0][:, None]
+    if detach_interp:
         new_root, new_inv = rank1_apply(
             state.roots.root.contiguous(), state.roots.inv_root.contiguous(), p.contiguous()
         )
-        if state.roots.mat is None:
-            new_mat = None
-        else:
-            outer = (w0[:, None] * w0[None, :])[None] / torch.clamp(noise[0], min=1e-7)[:, None, None]
-            bidx = torch.arange(B, device=idx0.device)
-            new_mat = state.roots.mat.index_put(
-                (
-                    bidx[:, None, None].expand(B, P, P),
-                    idx0[None, :, None].expand(B, P, P),
-                    idx0[None, None, :].expand(B, P, P),
-                ),
-                outer,
-                accumulate=True,
-            )
-        roots = RootCache(mat=new_mat, root=new_root, inv_root=new_inv)
-        # one scatter-add kernel (duplicates summed); index_put with
-        # accumulate=True sorts its indices first, in several launches
-        wty = state.wty[..., 0].index_add(1, idx0, w0[None, :] * dinv_y[0][:, None])[..., None]
     else:
-        w_cols = dense_w(idx, w, m)  # (m, q)
-        v = w_cols[None, :, :] / root_noise.T[:, None, :]  # (B, m, q)
-        roots = root_cache_update(state.roots, v)
-        with f32_matmul_precision():
-            wty = state.wty + torch.einsum("mq,qb->bm", w_cols, dinv_y)[..., None]
-
+        # K2 has no autograd rule (nor has the Pallas kernel in JAX)
+        new_root, new_inv = roots_apply_rank1_p(state.roots.root, state.roots.inv_root, p)
+    if state.roots.mat is None:
+        new_mat = None
+    else:
+        outer = (w0[:, None] * w0[None, :])[None] / torch.clamp(noise[0], min=1e-7)[:, None, None]
+        bidx = torch.arange(B, device=idx0.device)
+        new_mat = state.roots.mat.index_put(
+            (
+                bidx[:, None, None].expand(B, P, P),
+                idx0[None, :, None].expand(B, P, P),
+                idx0[None, None, :].expand(B, P, P),
+            ),
+            outer,
+            accumulate=True,
+        )
+    # one scatter-add kernel (duplicates summed); index_put with
+    # accumulate=True sorts its indices first, in several launches
+    wty = state.wty[..., 0].index_add(1, idx0, w0[None, :] * dinv_y[0][:, None])[..., None]
     return WiskiState(
         wty=wty,
         ydy=state.ydy + torch.sum(y * dinv_y, dim=0),
-        roots=roots,
+        roots=RootCache(mat=new_mat, root=new_root, inv_root=new_inv),
         d_logdet=state.d_logdet + torch.sum(torch.log(noise), dim=0),
-        num_data=state.num_data + q,
+        num_data=state.num_data + 1,
+    )
+
+
+def _condition_dense(state: WiskiState, w_cols: torch.Tensor, y: torch.Tensor, noise: torch.Tensor) -> WiskiState:
+    """Rank-q conditioning on dense interpolation columns w_cols (..., m, q)
+    with y, noise (..., q, B), for a state whose tensors carry the same
+    leading dims: :func:`root_cache_update` (plain, autograd takes it) on
+    v = W / sqrt(D), and the additive caches."""
+    root_noise = torch.sqrt(torch.clamp(noise, min=1e-7))  # (..., q, B)
+    dinv_y = y / noise
+    v = w_cols[..., None, :, :] / root_noise.mT[..., :, None, :]  # (..., B, m, q)
+    roots = root_cache_update(state.roots, v)
+    with f32_matmul_precision():
+        wty = state.wty + torch.einsum("...mq,...qb->...bm", *_promoted(w_cols, dinv_y))[..., None]
+    return WiskiState(
+        wty=wty,
+        ydy=state.ydy + torch.sum(y * dinv_y, dim=-2),
+        roots=roots,
+        d_logdet=state.d_logdet + torch.sum(torch.log(noise), dim=-2),
+        num_data=state.num_data + w_cols.shape[-1],
     )
 
 
@@ -247,7 +289,10 @@ def wiski_stream(
     every order-independent piece (stencils, wty, ydy, d_logdet, the Gram
     accumulator) done in bulk and the roots recursion blocked into
     rank-``block_size`` chunks (kernel K1 on CUDA, updating the roots in
-    place). ``block_size <= 1`` runs the per-point loop over K2.
+    place). ``block_size <= 1`` runs the per-point loop over K2. Without
+    ``detach_interp`` the same recursions run in forms autograd takes
+    (:func:`~online_gp_torch.ops.root_update.blocked_chunk_stacked`, the
+    plain rank-1 update), never a kernel.
 
     Args:
       xs: (n, D); ys, noises: (n, B) (reshaped, not broadcast).
@@ -280,14 +325,15 @@ def wiski_stream(
     if block_size > 1:
         wv = w[None, :, :] / rn.T[:, :, None]  # (B, n, P)
         root, inv_root = roots_stream_blocked_batched(
-            state.roots.root, state.roots.inv_root, idx, wv, block=block_size
+            state.roots.root, state.roots.inv_root, idx, wv, block=block_size, differentiable=not detach_interp
         )
     else:
+        apply = rank1_apply if detach_interp else roots_apply_rank1_p
         root, inv_root = state.roots.root, state.roots.inv_root
         for i in range(n):
             with f32_matmul_precision():
                 p = torch.einsum("p,bpm->bm", w[i], inv_root[:, idx[i], :]) / rn[i][:, None]
-            root, inv_root = rank1_apply(root.contiguous(), inv_root.contiguous(), p.contiguous())
+            root, inv_root = apply(root.contiguous(), inv_root.contiguous(), p.contiguous())
 
     return WiskiState(
         wty=wty,
@@ -757,8 +803,9 @@ def wiski_prequential_stream(
     """Interleaved evaluate-then-condition over a stream of n single points:
     each point is predicted from the posterior on all previous points, then
     absorbed; blocked into rank-``block_size`` chunks (kernel K3 for the
-    caches, kernel K1 for the state, both in place on CUDA). Valid while
-    the hyperparameters are fixed.
+    caches, kernel K1 for the state, both in place on CUDA; without
+    ``detach_interp``, their forms autograd takes). Valid while the
+    hyperparameters are fixed.
 
     Args:
       caches: (mean_cache (B, m, 1), cov_cache (B, m, m)) from
@@ -778,7 +825,7 @@ def wiski_prequential_stream(
     nz = torch.clamp(noise, min=1e-7)
     idx, w = interp_coeffs(model.grid, xs, detach=detach_interp)
     new_C, new_mu, pm, pv = pred_stream_blocked_batched(
-        cov_cache, mean_cache[..., 0], idx, w, y.T, nz.T, block=block_size
+        cov_cache, mean_cache[..., 0], idx, w, y.T, nz.T, block=block_size, differentiable=not detach_interp
     )
     s2 = _second_noise(model, params)
     if s2 is not None:
@@ -788,3 +835,48 @@ def wiski_prequential_stream(
         model, state, xs, ys, noises, detach_interp=detach_interp, block_size=block_size
     )
     return new_state, (new_mu[..., None], new_C), pm, pv
+
+
+# ---------------------------------------------------------------------------
+# fantasy batching (q-acquisition support)
+# ---------------------------------------------------------------------------
+
+
+def wiski_expand(state: WiskiState, num_fantasies: int) -> WiskiState:
+    """The state broadcast along a new leading fantasy dim F (views, no
+    copy: nothing here writes them in place). ``num_data`` stays one int,
+    shared by the fantasies, where the JAX package tiles it."""
+    tile = lambda a: a.expand(num_fantasies, *a.shape)
+    return WiskiState(
+        wty=tile(state.wty),
+        ydy=tile(state.ydy),
+        roots=root_cache_expand(state.roots, (num_fantasies,)),
+        d_logdet=tile(state.d_logdet),
+        num_data=state.num_data,
+    )
+
+
+def wiski_fantasize(
+    model: WiskiModel,
+    state: WiskiState,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise: torch.Tensor,
+) -> WiskiState:
+    """Condition F independent fantasy copies of the state.
+
+    Args:
+      x: (F, q, D) fantasy inputs; y, noise: (F, q, B).
+
+    Returns a state whose tensors carry a leading F dim; ``num_data`` bumps
+    by q. Fantasies feed differentiable acquisitions, so the interpolation
+    weights keep their gradient (the JAX package's ``detach_interp=False``)
+    and the conditioning is batched math over F on the plain rank-q update
+    (where JAX vmaps ``wiski_condition``): no kernel, nothing in place, so
+    ``state`` is left as it was.
+    """
+    F, q, D = x.shape
+    B, m = model.num_outputs, model.grid.num_points
+    idx, w = interp_coeffs(model.grid, x.reshape(F * q, D), detach=False)
+    w_cols = dense_w(idx, w, m).reshape(m, F, q).movedim(1, 0)  # (F, m, q)
+    return _condition_dense(wiski_expand(state, F), w_cols, y.reshape(F, q, B), noise.reshape(F, q, B))

@@ -108,6 +108,12 @@ def chol_logdet(chol: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
 
 
+def chol_inverse(chol: torch.Tensor) -> torch.Tensor:
+    """The dense inverse (L L^T)^{-1} from the lower factor."""
+    n = chol.shape[-1]
+    return cho_solve(chol, torch.eye(n, dtype=chol.dtype, device=chol.device).expand(chol.shape))
+
+
 def inv_lower_transpose(chol: torch.Tensor) -> torch.Tensor:
     """L^{-T}: the inverse root B with (L L^T)^{-1} = B B^T."""
     n = chol.shape[-1]

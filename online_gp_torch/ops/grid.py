@@ -68,6 +68,15 @@ class Grid:
             torch.tensor(spacings, dtype=dtype, device=device),
         )
 
+    @staticmethod
+    def from_data(x: torch.Tensor, grid_size, margin: float = 0.1, dtype=torch.float32, device=None) -> "Grid":
+        """A grid over the data's bounds widened by ``margin`` on each side,
+        on ``x``'s device unless ``device`` is given."""
+        lo = torch.amin(x, dim=0) - margin
+        hi = torch.amax(x, dim=0) + margin
+        bounds = [(float(a), float(b)) for a, b in zip(lo, hi)]
+        return Grid.create(bounds, grid_size, dtype=dtype, device=x.device if device is None else device)
+
     @property
     def ndim(self) -> int:
         return len(self.sizes)
@@ -94,6 +103,11 @@ class Grid:
         """(sizes[d],) grid points along dimension d."""
         ar = torch.arange(self.sizes[d], dtype=self.mins.dtype, device=self.mins.device)
         return self.mins[d] + self.spacings[d] * ar
+
+    def full_points(self) -> torch.Tensor:
+        """(num_points, D) all grid points, row-major order."""
+        mesh = torch.meshgrid(*(self.points_1d(d) for d in range(self.ndim)), indexing="ij")
+        return torch.stack([m.reshape(-1) for m in mesh], dim=-1)
 
     def __repr__(self):
         return f"Grid(sizes={self.sizes})"

@@ -94,9 +94,11 @@ def dense_w(idx: torch.Tensor, w: torch.Tensor, num_grid: int) -> torch.Tensor:
 
 
 def wt_matvec(idx: torch.Tensor, w: torch.Tensor, v: torch.Tensor, num_grid: int) -> torch.Tensor:
-    """W^T applied to point-space vectors: (n, k) -> (m, k)."""
+    """W^T applied to point-space vectors: (n, k) -> (m, k), in v's dtype
+    (the products are cast to it before the sum, as the JAX package's
+    scatter-add casts its updates)."""
     n, P = idx.shape
-    contrib = w[:, :, None] * v[:, None, :]  # (n, P, k)
+    contrib = (w[:, :, None] * v[:, None, :]).to(v.dtype)  # (n, P, k)
     out = torch.zeros((num_grid, v.shape[-1]), dtype=v.dtype, device=v.device)
     return out.index_add(0, idx.reshape(-1), contrib.reshape(n * P, v.shape[-1]))
 

@@ -24,7 +24,7 @@ from typing import Tuple
 import torch
 
 from online_gp_torch.ops.precision import f32_matmul_precision
-from online_gp_torch.ops.root_update import check_stencil, pad_and_chunk_stream
+from online_gp_torch.ops.root_update import check_stencil, pad_and_chunk_stream, stencil_rows
 
 
 def pred_chunk_plain(C, mu, S, y, nz):
@@ -39,13 +39,36 @@ def pred_chunk_plain(C, mu, S, y, nz):
 
     Returns new (C', mu', pred_mean (..., k), pred_var (..., k)).
     """
+    return _pred_chunk(C, mu, S, y, nz, pred_chunk_factors)
+
+
+def pred_chunk_stacked(C, mu, idx, wv, y, nz):
+    """One chunk of the stream in a form autograd takes (never a kernel):
+    :func:`pred_chunk_plain` on the stencil rows of ``idx``/``wv`` (k, P)
+    with :func:`pred_chunk_factors_stacked`. Returns new tensors."""
+    return _pred_chunk(C, mu, stencil_rows(idx, wv, C.shape[-1]), y, nz, pred_chunk_factors_stacked)
+
+
+def _pred_chunk(C, mu, S, y, nz, factors):
     with f32_matmul_precision():
         c0w = S @ C  # (..., k, m): row t = (C_0 w_t)^T, C symmetric
         mu0w = mu @ S.mT  # (..., k)
-        Z, r, pms, pvs = pred_chunk_factors(S, c0w, mu0w, y, nz)
+        Z, r, pms, pvs = factors(S, c0w, mu0w, y, nz)
         new_C = C - Z.mT @ Z
         new_mu = mu + (Z.mT @ r[..., None])[..., 0]
     return new_C, new_mu, pms, pvs
+
+
+def _pred_step(s_t, c0w_t, mu0w_t, y_t, nz_t, Z, r):
+    """One step of the chunk recursion against the rows of Z and entries of
+    r so far (any past them zero): returns the step's row of Z, its r, and
+    its predicted mean and variance."""
+    a = Z @ s_t  # (..., rows): a_j = z_j . w_t
+    ct = c0w_t - (Z.mT @ a[..., None])[..., 0]  # C_{t-1} w_t
+    wctw = ct @ s_t
+    pm = mu0w_t + torch.sum(r * a, dim=-1)
+    inv = torch.rsqrt(torch.clamp(wctw + nz_t, min=1e-20))
+    return ct * inv[..., None], (y_t - pm) * inv, pm, wctw
 
 
 def pred_chunk_factors(S, c0w, mu0w, y, nz):
@@ -54,7 +77,8 @@ def pred_chunk_factors(S, c0w, mu0w, y, nz):
     Given c0w = S C_0 (..., k, m) and mu0w = S mu_0 (..., k), returns
     (Z (..., k, m), r (..., k), pred_mean (..., k), pred_var (..., k));
     the boundary updates C' = C - Z^T Z, mu' = mu + Z^T r are the
-    caller's. Z's rows are filled in place, one per step.
+    caller's. Z's rows are filled in place, one per step
+    (:func:`pred_chunk_factors_stacked` is the form autograd takes).
     """
     k = S.shape[0]
     Z = torch.zeros_like(c0w)
@@ -62,16 +86,25 @@ def pred_chunk_factors(S, c0w, mu0w, y, nz):
     pms, pvs = [], []
     with f32_matmul_precision():
         for t in range(k):
-            s_t = S[t]
-            a = Z @ s_t  # (..., k): a_j = z_j . w_t, rows >= t are zero
-            ct = c0w[..., t, :] - (Z.mT @ a[..., None])[..., 0]  # C_{t-1} w_t
-            wctw = ct @ s_t
-            pm = mu0w[..., t] + torch.sum(r * a, dim=-1)
-            inv = torch.rsqrt(torch.clamp(wctw + nz[..., t], min=1e-20))
-            Z[..., t, :] = ct * inv[..., None]
-            r[..., t] = (y[..., t] - pm) * inv
+            step = (S[t], c0w[..., t, :], mu0w[..., t], y[..., t], nz[..., t])
+            Z[..., t, :], r[..., t], pm, pv = _pred_step(*step, Z, r)
             pms.append(pm)
-            pvs.append(wctw)
+            pvs.append(pv)
+    return Z, r, torch.stack(pms, dim=-1), torch.stack(pvs, dim=-1)
+
+
+def pred_chunk_factors_stacked(S, c0w, mu0w, y, nz):
+    """:func:`pred_chunk_factors` in a form autograd takes: each step
+    appends its row of Z and its r with ``torch.cat`` and writes nothing in
+    place (equal up to rounding)."""
+    Z, r = c0w[..., :0, :], mu0w[..., :0]
+    pms, pvs = [], []
+    with f32_matmul_precision():
+        for t in range(S.shape[0]):
+            z, rt, pm, pv = _pred_step(S[t], c0w[..., t, :], mu0w[..., t], y[..., t], nz[..., t], Z, r)
+            Z, r = torch.cat([Z, z[..., None, :]], dim=-2), torch.cat([r, rt[..., None]], dim=-1)
+            pms.append(pm)
+            pvs.append(pv)
     return Z, r, torch.stack(pms, dim=-1), torch.stack(pvs, dim=-1)
 
 
@@ -94,6 +127,7 @@ def pred_stream_blocked_batched(
     y: torch.Tensor,
     nz: torch.Tensor,
     block: int = 128,
+    differentiable: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Interleaved predict-then-condition over a whole stream, blocked,
     batched over outputs: per point, predict from the caches conditioned
@@ -105,7 +139,9 @@ def pred_stream_blocked_batched(
       block: chunk rank k.
 
     On CUDA the K3 kernel updates C and mu in place, chunk by chunk:
-    treat the inputs as consumed.
+    treat the inputs as consumed. With ``differentiable`` every chunk is
+    :func:`pred_chunk_stacked` instead, on any device: autograd runs
+    through it, K3 is never called and nothing is updated in place.
 
     Returns (C', mu', pred_mean (Bd, n), pred_var (Bd, n)).
     """
@@ -120,9 +156,10 @@ def pred_stream_blocked_batched(
     y_c = _pad_chunk_aux(y, k, 0.0).transpose(0, 1).contiguous()  # (nc, Bd, k)
     nz_c = _pad_chunk_aux(nz, k, 1.0).transpose(0, 1).contiguous()
     C, mu = C.contiguous(), mu.contiguous()
+    chunk = pred_chunk_stacked if differentiable else pred_chunk
     pms, pvs = [], []
     for c in range(idx_c.shape[0]):
-        C, mu, pm, pv = pred_chunk(C, mu, idx_c[c], wv_c[c], y_c[c], nz_c[c])
+        C, mu, pm, pv = chunk(C, mu, idx_c[c], wv_c[c], y_c[c], nz_c[c])
         pms.append(pm)
         pvs.append(pv)
     Bd = C.shape[0]

@@ -64,6 +64,12 @@ def root_cache_rebuild_mat(cache: RootCache) -> RootCache:
     return cache._replace(mat=mat)
 
 
+def root_cache_expand(cache: RootCache, batch_shape) -> RootCache:
+    """The cache broadcast along new leading batch dims ``batch_shape``
+    (views, no copy; a slim cache's ``mat`` stays None)."""
+    return RootCache(*(None if x is None else x.expand(*batch_shape, *x.shape) for x in cache))
+
+
 def root_cache_update(cache: RootCache, v: torch.Tensor) -> RootCache:
     """Rank-q update A <- A + v v^T with O(m^2 q) root maintenance.
 
@@ -124,34 +130,61 @@ def stencil_rows(idx: torch.Tensor, wv: torch.Tensor, m: int) -> torch.Tensor:
     return _densify_rows(idx.long(), wv, m)
 
 
+def _factor_step(p0_t: torch.Tensor, U: torch.Tensor, Pm: torch.Tensor, R: torch.Tensor):
+    """One step of the chunk recursion: given the raw row p0_t (..., m) and
+    the factor rows so far (any rows past them zero), returns the step's
+    rows (u, p_col, r_col), each (..., m)."""
+    a = (Pm @ p0_t[..., None])[..., 0]
+    p = p0_t + (U.mT @ a[..., None])[..., 0]
+    s2 = torch.sum(p * p, dim=-1, keepdim=True)
+    s = torch.sqrt(s2)
+    u = p / torch.clamp(s, min=1e-20)
+    valid = (s > 0).to(p.dtype)
+    c = (torch.sqrt(s2 + 1.0) - 1.0) * valid
+    d = (1.0 / torch.sqrt(s2 + 1.0) - 1.0) * valid
+    g = (U @ u[..., None])[..., 0]
+    return u, d * (u + (Pm.mT @ g[..., None])[..., 0]), c * (u + (R.mT @ g[..., None])[..., 0])
+
+
 def blocked_factors(p0: torch.Tensor):
     """Factor recursion of one rank-k blocked chunk: given p0 (..., k, m)
     with row t = B_start^T v_t, returns (U, P, R), each (..., k, m) in row
     layout, such that the chunk's k sequential rank-1 updates compose to
     L (I + R^T U), B (I + P^T U). The rows are filled in place, one per
-    step (no autograd through this loop)."""
+    step (no autograd through this loop: :func:`blocked_factors_stacked`
+    is the form autograd takes)."""
     k = p0.shape[-2]
     U = torch.zeros_like(p0)
     Pm = torch.zeros_like(p0)
     R = torch.zeros_like(p0)
     with f32_matmul_precision():
         for t in range(k):
-            p0_t = p0[..., t, :]
-            a = (Pm @ p0_t[..., None])[..., 0]  # (..., k); rows >= t are zero
-            p = p0_t + (U.mT @ a[..., None])[..., 0]
-            s2 = torch.sum(p * p, dim=-1, keepdim=True)
-            s = torch.sqrt(s2)
-            u = p / torch.clamp(s, min=1e-20)
-            valid = (s > 0).to(p.dtype)
-            c = (torch.sqrt(s2 + 1.0) - 1.0) * valid
-            d = (1.0 / torch.sqrt(s2 + 1.0) - 1.0) * valid
-            g = (U @ u[..., None])[..., 0]
-            p_col = d * (u + (Pm.mT @ g[..., None])[..., 0])
-            r_col = c * (u + (R.mT @ g[..., None])[..., 0])
-            U[..., t, :] = u
-            Pm[..., t, :] = p_col
-            R[..., t, :] = r_col
+            U[..., t, :], Pm[..., t, :], R[..., t, :] = _factor_step(p0[..., t, :], U, Pm, R)
     return U, Pm, R
+
+
+def blocked_factors_stacked(p0: torch.Tensor):
+    """:func:`blocked_factors` in a form autograd takes: each step appends
+    its rows with ``torch.cat`` and writes nothing in place, so a step
+    sums over the rows so far, not over k zero-padded rows (equal up to
+    rounding)."""
+    U = Pm = R = p0[..., :0, :]
+    with f32_matmul_precision():
+        for t in range(p0.shape[-2]):
+            rows = _factor_step(p0[..., t, :], U, Pm, R)
+            U, Pm, R = (torch.cat([X, row[..., None, :]], dim=-2) for X, row in zip((U, Pm, R), rows))
+    return U, Pm, R
+
+
+def blocked_chunk_stacked(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor):
+    """One rank-k chunk of the root stream in a form autograd takes: K1's
+    plain math (the stencil gather, :func:`blocked_factors_stacked`, the
+    two applies), never a kernel. L, B: (Bd, m, m); idx: (k, P); wv:
+    (Bd, k, P). Returns new (L', B')."""
+    with f32_matmul_precision():
+        p0 = torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()])
+        U, Pm, R = blocked_factors_stacked(p0)
+        return L + (L @ R.mT) @ U, B + (B @ Pm.mT) @ U
 
 
 CHUNK_MODES = ("flat", "coord")
@@ -266,6 +299,7 @@ def roots_stream_blocked_batched(
     idx: torch.Tensor,
     wv: torch.Tensor,
     block: int = 32,
+    differentiable: bool = False,
 ):
     """Sequential rank-1 root updates over a whole stream, in rank-``block``
     chunks, batched over outputs.
@@ -273,7 +307,10 @@ def roots_stream_blocked_batched(
     Computes exactly the n-step recursion of :func:`roots_apply_rank1_p`
     over v_t = sum_p wv[t, p] e_{idx[t, p]} (the SKI stencil), one chunk
     per call of kernel K1, which on CUDA updates ``L`` and ``B`` in place:
-    treat the inputs as consumed.
+    treat the inputs as consumed. With ``differentiable`` every chunk is
+    :func:`blocked_chunk_stacked` instead, on any device: autograd runs
+    through it, K1 is never called and nothing is updated in place (the
+    JAX package's ``use_pallas=False``).
 
     Args:
       L, B: (Bd, m, m) roots; idx: (n, P) stencil indices shared by the
@@ -294,8 +331,9 @@ def roots_stream_blocked_batched(
     idx_c = idx_c.to(torch.int32).contiguous()
     wv_c = wv.reshape(Bd, nc, k, P).transpose(0, 1).contiguous()  # (nc, Bd, k, P)
     L, B = L.contiguous(), B.contiguous()
+    chunk = blocked_chunk_stacked if differentiable else blocked_chunk
     for c in range(nc):
-        L, B = blocked_chunk(L, B, idx_c[c], wv_c[c])
+        L, B = chunk(L, B, idx_c[c], wv_c[c])
     return L, B
 
 

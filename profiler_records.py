@@ -5,7 +5,8 @@ time the profile window is open before its first launch.
 
 Needs a CUDA card. For K3 (pred_chunk) and K2 (rank1_apply) at m = 900,
 k = 128, Bd = 1, it profiles N windows of chip_smoke.TIMING_REPS calls
-each, as chip_smoke.device_ms does, with each pad in PADS_S between the
+each (chip_smoke.device_ms runs PROFILE_EXTRA_CALLS more first and counts
+the last TIMING_REPS), with each pad in PADS_S between the
 window's start and its first launch. For each kernel and pad it prints one
 JSON line: the windows that recorded fewer launches than were made, and
 for each such window the first call (0-based) and kernel whose record is
