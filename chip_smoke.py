@@ -145,8 +145,31 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    bounds and yardsticks. update() ms, predict ms and absorb points/s are
    printed (medians and spreads).
 
+8. The online baselines at the widths of the experiment presets
+   (online_gp_tpu/experiments/config.py:24-50), each with an IdentityStem
+   on CUDA tensors: exact_gp_regression, svgp_regression (256 inducing
+   points, closed_form, streaming, betas 1e-3), sgpr_regression (256
+   inducing points, jitter 1e-4), localgp_regression (64 experts x 256
+   points) on streaming_friedman(n=4000, num_dims=5); exact_gpd and
+   svgp_classification (256 inducing points) on banana_dataset(n=1200).
+   Each starts on the first 5% of its training stream, fits 20 epochs,
+   then runs 128 prequential steps at batch 1 (evaluate the point, then
+   update()) and the test set. Gates: every loss and prediction finite;
+   a CPU twin (convert) runs 8 stream steps from the state after the
+   first update: params within 1e-3 of max(scale, 1), predictions within
+   1e-3 of their scale (where one is missed, a float64 CPU twin runs the
+   same steps, and twice the CPU's own float32-to-float64 distance is
+   added to the bound), labels the same but near p = 0.5; and the JAX package's quality bars
+   (tests/regression/test_baseline_models.py:33-138) at their own
+   configurations. Printed: update() ms (median, spread over the calls
+   after the first), predict ms of the test set, fit ms, test RMSE and NLL
+   or accuracy, and one update() under torch.profiler (CUDA kernel ms and
+   launches, the device's idle share, scalar readbacks and device-to-host
+   copies). The baselines run no kernel of the port (the JAX ones reach
+   no pl.pallas_call): the launch counters must stay at 0.
+
 It prints the kernels as one JSON line (``launches``: the sum over the
-path windows of phases 3, 4, 5, 6 and 7; rows ``...@m4096``: phase 6's
+path windows of phases 3, 4, 5, 6 and 7, phase 8 launching none; rows ``...@m4096``: phase 6's
 kernel checks, with phase 6's launches; rows ``...@cls-m256-bd2`` and
 ``...@cls-m900-bd2``: phase 7's kernel checks, with the launches of the
 windows of (a) and (b)), then the card's name and power
@@ -156,6 +179,7 @@ and exits non-zero without one.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -170,12 +194,18 @@ from online_gp_torch import DEFAULT_CONFIG, convert
 from online_gp_torch.api import (
     IdentityStem,
     LinearStem,
+    OnlineExactClassifier,
+    OnlineExactRegression,
+    OnlineLocalGPRegression,
+    OnlineSGPRegression,
     OnlineSKIClassifier,
     OnlineSKILowRankClassifier,
     OnlineSKILowRankRegression,
     OnlineSKIRegression,
+    OnlineSVGPClassifier,
+    OnlineSVGPRegression,
 )
-from online_gp_torch.data import banana_dataset
+from online_gp_torch.data import banana_dataset, streaming_friedman
 from online_gp_torch.kernels.base import RBFKernel
 from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
 from online_gp_torch.models.wiski import (
@@ -289,6 +319,25 @@ CLS_N, CLS_SEED_PTS, CLS_UPD1, CLS_UPD32, CLS_TWIN, CLS_PRED, CLS_ABSORB = 8000,
 # (c) tests/classification/test_lowrank_classifier.py:22-35, with its gate
 LRC_SIDE, LRC_RANK, LRC_INIT, LRC_EPOCHS, LRC_UPDATES, LRC_GATE = 72, 256, 200, 30, 30, 0.8
 N_FANT, Q_FANT = 3, 2  # (d) fantasies and points per fantasy
+# phase 8: the online baselines at the experiment presets' widths
+# (online_gp_tpu/experiments/config.py:24-50; num_update_steps = batch size 1), IdentityStem
+BASE_N, BASE_DIMS, BASE_CLS_N = 4000, 5, 1200  # streaming_friedman (3,600 / 400), banana_dataset (960 / 240)
+# the stream cut from 256 to 128 steps to keep phase 8 near a minute (77 s at 256 on a slow host)
+BASE_INIT_RATIO, BASE_FIT_EPOCHS, BASE_STREAM, BASE_TWIN = 0.05, 20, 128, 8
+BASE_TWIN_RTOL = 1e-3  # params against max(scale, 1), predictions against their scale
+BASE_PRESETS = {
+    "exact_gp_regression": (OnlineExactRegression, "regression", dict(lr=1e-2)),
+    "svgp_regression": (OnlineSVGPRegression, "regression", dict(
+        num_inducing=256, lr=1e-2, streaming=True, prior_beta=1e-3, online_beta=1e-3, num_update_steps=1,
+        variational_mode="closed_form")),
+    "sgpr_regression": (OnlineSGPRegression, "regression", dict(
+        num_inducing=256, lr=1e-2, num_update_steps=1, jitter=1e-4)),
+    "localgp_regression": (OnlineLocalGPRegression, "regression", dict(
+        lr=1e-2, max_data_per_model=256, max_experts=64)),
+    "exact_gpd": (OnlineExactClassifier, "classification", dict(alpha_eps=0.01, lr=1e-2)),
+    "svgp_classification": (OnlineSVGPClassifier, "classification", dict(
+        num_inducing=256, lr=1e-2, prior_beta=1e-3, online_beta=1e-3, num_update_steps=1)),
+}
 
 # (device memory bytes/s, f32 flop/s outside the tensor cores), NVIDIA data
 # sheets, dense, at the full power limit
@@ -2332,6 +2381,329 @@ def classification(peaks, card, dev):
     return rows, launches, (launches_a, launches_b)
 
 
+# --------------------------------------------------------------------------
+# phase 8: the online baselines at the experiment presets' widths
+# --------------------------------------------------------------------------
+
+
+def _host_tree(tree):
+    """A nested dict (or NamedTuple fields) of tensors as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy() if torch.is_tensor(tree) else tree
+
+
+def _copy_optimizers(src, dst):
+    """The Adam moments and step counts of src's optimizers into dst's (the
+    loaders of convert start them fresh; the wrappers carry them across
+    fit and updates)."""
+    for name in ("opt", "stem_opt"):
+        a, b = getattr(src, name, None), getattr(dst, name, None)
+        if a is not None and a.opt is not None:
+            b.opt.load_state_dict(copy.deepcopy(a.opt.state_dict()))  # no state shared with src
+            b.count = a.count
+
+
+def _cast_tree(tree, dtype):
+    """Floating numpy arrays of a nested dict in ``dtype`` (None: as they are)."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if dtype is not None and isinstance(tree, np.ndarray) and tree.dtype.kind == "f":
+        return tree.astype(dtype)
+    return tree
+
+
+def baseline_twin(w, cls, x0, y0, kw, dtype=None):
+    """A CPU twin of the baseline wrapper w, built with its configuration kw
+    and started from w's state as it stands through convert's loaders,
+    optimizer moments copied; ``dtype`` casts its params and state (the
+    local GP's expert buffers stay float32, as the JAX package keeps them)."""
+    twin = cls(IdentityStem(x0.shape[1]), x0, y0, device="cpu", **kw)
+    host = lambda tree: _cast_tree(_host_tree(tree), dtype)
+    params = host(w.params)
+    if isinstance(w, (OnlineExactRegression, OnlineExactClassifier)):
+        convert.load_exact(twin, params, {}, {}, host(w.data._asdict()), host(w._raw), device="cpu")
+    elif isinstance(w, OnlineLocalGPRegression):
+        convert.load_localgp(twin, params, {}, {}, _host_tree(w.state._asdict()), device="cpu")
+    elif isinstance(w, OnlineSGPRegression):
+        convert.load_sgpr(twin, params, {}, {}, None if w.old is None else host(w.old._asdict()),
+                          None if w.moments is None else host(w.moments._asdict()), w._absorbs_since_rebase,
+                          device="cpu")
+    else:
+        convert.load_svgp(twin, params, {}, {}, None if w.old is None else host(w.old._asdict()), device="cpu")
+    _copy_optimizers(w, twin)
+    return twin
+
+
+def compare_baseline_twin(w, twin, make_ref, xt, what):
+    """w (the card, float32) against its CPU float32 twin: every param leaf
+    within 1e-3 of max(|.|, 1), the predictions on xt within 1e-3 of their
+    scale, predicted labels the same but where p(y = 1) lies within that
+    difference of 0.5 (at least 99% of them, where a classifier gives
+    labels alone). Where a bound is missed, ``make_ref()`` runs the
+    float64 twin, and twice the CPU's own float32 distance from float64 is
+    added to the bound: the card's and the CPU's float32 errors are two
+    independent errors of about that size (float32's resolution through an
+    ill-conditioned K_zz, and Adam's steps on gradient entries at rounding
+    level, which it normalizes to full size)."""
+    xt64 = xt.astype(np.float64)
+    leaves = lambda m: [(n, t.detach().cpu().double()) for n, t in _named_leaves(m.params)]
+
+    def outs(m, x):
+        out = m.predict(x)
+        return [o.cpu() for o in (out if isinstance(out, tuple) else (out,))]
+
+    # (name, card, CPU float32, scale, the float64 twin's value or None)
+    pairs = [(n, a, b, max(float(b.abs().max()), 1.0), i) for i, ((n, a), (_, b)) in
+             enumerate(zip(leaves(w), leaves(twin)))]
+    out_w, out_t = outs(w, xt), outs(twin, xt)
+    floats = [(f"predict {i}", a.double(), b.double(), max(float(b.abs().max()), 1e-30), i)
+              for i, (a, b) in enumerate(zip(out_w, out_t)) if a.is_floating_point()]
+    ref = None
+    errs = {}
+    for kind, rows in (("param", pairs), ("prediction", floats)):
+        for name, a, b, scale, i in rows:
+            err = float((a - b).abs().max())
+            errs[name] = [err]
+            if err <= BASE_TWIN_RTOL * scale:
+                continue
+            if ref is None:
+                ref = make_ref()
+                ref_leaves, ref_out = leaves(ref), outs(ref, xt64)
+            c = ref_leaves[i][1] if kind == "param" else ref_out[i].double()
+            ref_err = float((b - c).abs().max())
+            errs[name].append(ref_err)
+            if not (torch.isfinite(a).all() and err <= BASE_TWIN_RTOL * scale + 2.0 * ref_err):
+                raise AssertionError(f"{what} CPU twin: {kind} {name} differs by {err:.3e} (scale {scale:.3e}; "
+                                     f"float32 vs float64 on the CPU: {ref_err:.3e})")
+    if not out_w[0].is_floating_point():
+        differ = out_w[0] != out_t[0]
+        errs["label mismatch share"] = float(differ.double().mean())
+        if floats:
+            # a label may flip only where p(y = 1) is within the measured p
+            # difference of the 0.5 threshold
+            p_err, p_twin = errs[floats[-1][0]][0], floats[-1][2]
+            bad = differ & ((p_twin - 0.5).abs() > p_err)
+            if bool(bad.any()):
+                raise AssertionError(f"{what} CPU twin: {int(bad.sum())} labels differ away from p = 0.5")
+        elif not errs["label mismatch share"] <= 0.01:
+            raise AssertionError(f"{what} CPU twin: {errs['label mismatch share']:.3%} of the predicted labels differ")
+    return errs
+
+
+def profile_baseline_update(w, x, y, card, what):
+    """One update() under torch.profiler after a warm-up: wall ms, CUDA
+    kernel ms and launches, the device's idle share, and the host syncs
+    (readbacks of a device scalar, aten::_local_scalar_dense, and
+    device-to-host copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    w.update(x[:1], y[:1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        w.update(x[1:2], y[1:2])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    busy_us, launches, dtoh, scalars = 0.0, 0, 0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            if "Memcpy DtoH" in e.name:
+                dtoh += 1
+            else:
+                launches += 1
+                busy_us += e.time_range.end - e.time_range.start
+        elif e.name == "aten::_local_scalar_dense":
+            scalars += 1
+    r = dict(wall_ms=wall_us / 1e3, cuda_kernel_ms=busy_us / 1e3, launches=launches,
+             device_idle_share=1 - busy_us / wall_us, scalar_readbacks=scalars, dtoh_copies=dtoh)
+    print(f"  {what} update() under torch.profiler on {card}: " + json.dumps(r))
+    return r
+
+
+def baseline_stream(name, card, dev):
+    """One preset (online_gp_tpu/experiments/config.py:24-50) on the card
+    with an IdentityStem, as experiments/regression.py runs it: init on the
+    first 5% of the training stream, a fit of BASE_FIT_EPOCHS on it, then
+    BASE_STREAM prequential steps at batch 1 (evaluate the point, then
+    update), then the test set. CPU twins (convert) at float32 and at
+    float64 run BASE_TWIN steps from the state after the first update (see
+    compare_baseline_twin). Returns the results."""
+    cls, task, kw = BASE_PRESETS[name]
+    if task == "regression":
+        tr_x, tr_y, te_x, te_y = streaming_friedman(n=BASE_N, num_dims=BASE_DIMS, seed=0)
+    else:
+        tr_x, tr_y, te_x, te_y = banana_dataset(n=BASE_CLS_N, seed=0)
+    n0 = int(BASE_INIT_RATIO * len(tr_x))
+    x0, y0 = tr_x[:n0], tr_y[:n0]
+    w = cls(IdentityStem(tr_x.shape[1]), x0, y0, device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w.fit(x0, y0, BASE_FIT_EPOCHS)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    upd_ms, losses, online, twin_errs, twin_s = [], [], [], None, 0.0
+    t_stream = time.perf_counter()
+    for i in range(n0, n0 + BASE_STREAM):
+        x, y = tr_x[i : i + 1], tr_y[i : i + 1]
+        if i == n0 + 1:
+            # the twins start after the first update: the fit leaves the
+            # optimizers fresh, and a fresh Adam's first step is lr * sign(g),
+            # which turns a gradient entry at float32 rounding level (K_zz's
+            # condition reaches 4e10 at 256 inducing points in 2-D) into a
+            # full step of either sign
+            twin, ref = baseline_twin(w, cls, x0, y0, kw), baseline_twin(w, cls, x0, y0, kw, np.float64)
+            twin_steps = []
+        if task == "regression":
+            online.append(w.evaluate(x, y)[0])
+        else:
+            pred = w.predict(x)
+            pred = pred[0] if isinstance(pred, tuple) else pred
+            online.append(float(int(pred[0]) == int(y[0])))
+        t1 = time.perf_counter()
+        losses.append(w.update(x, y))  # returns floats: the host waits for the card
+        upd_ms.append(1e3 * (time.perf_counter() - t1))
+        if 1 <= i - n0 <= BASE_TWIN:
+            t1 = time.perf_counter()
+            losses.append(twin.update(x, y))
+            twin_steps.append((x.astype(np.float64), y.astype(np.float64) if task == "regression" else y))
+            if i - n0 == BASE_TWIN:
+
+                def make_ref():
+                    for step in twin_steps:
+                        ref.update(*step)
+                    return ref
+
+                twin_errs = compare_baseline_twin(w, twin, make_ref, te_x, name)
+            twin_s += time.perf_counter() - t1
+    pred_ms = []
+    for _ in range(HOST_REPEATS + 1):
+        t1 = time.perf_counter()
+        out = w.predict(te_x)
+        torch.cuda.synchronize()
+        pred_ms.append(1e3 * (time.perf_counter() - t1))
+    stream_s = time.perf_counter() - t_stream - twin_s
+    r = dict(preset=name, n_init=n0, fit_epochs=BASE_FIT_EPOCHS, fit_ms=fit_ms, stream=BASE_STREAM,
+             stream_s=stream_s, cpu_twins_s=twin_s,
+             update_ms=spread(upd_ms[1:]), predict_ms=spread(pred_ms[1:]), predict_points=len(te_x))
+    if task == "regression":
+        r["online_rmse"] = float(np.mean(online))
+        r["test_rmse"], r["test_nll"] = w.evaluate(te_x, te_y)
+        mean, var = out
+        values = [mean, var]
+    else:
+        r["online_acc"] = float(np.mean(online))
+        r["test_acc"] = w.evaluate(te_x, te_y)
+        values = [out[1]] if isinstance(out, tuple) else []
+    r["twin"] = twin_errs
+    flat = [v for pair in losses for v in pair if not (isinstance(w, OnlineSGPRegression) and math.isnan(v))]
+    if not all(math.isfinite(v) for v in flat):
+        raise AssertionError(f"{name}: a non-finite loss on the stream")
+    for t in values:
+        if t.shape[0] != len(te_x) or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: the test predictions are not finite of {len(te_x)} rows")
+    if task == "regression" and not all(math.isfinite(r[k]) for k in ("test_rmse", "test_nll")):
+        raise AssertionError(f"{name}: test RMSE or NLL not finite")
+    print(f"phase 8 {name} ({cls.__name__}, IdentityStem({tr_x.shape[1]})) on {card}: " + json.dumps(r))
+    r["profile"] = profile_baseline_update(w, tr_x[n0 + BASE_STREAM :], tr_y[n0 + BASE_STREAM :], card, name)
+    return r
+
+
+def baseline_bars(card, dev):
+    """The JAX package's own quality bars (tests/regression/test_baseline_models.py:33-138)
+    on the card, at their configurations: IdentityStem(2),
+    streaming_friedman(n=1200, num_dims=2) and banana_dataset(n=800)."""
+    t0 = time.perf_counter()
+    tx, ty, ex, ey = streaming_friedman(n=1200, num_dims=2, seed=0)
+    bx, by, bex, bey = banana_dataset(n=800, seed=0)
+    s2, res = IdentityStem, {}
+
+    m = OnlineExactRegression(s2(2), tx[:100], ty[:100], lr=0.05, device=dev)
+    m.fit(tx[:400], ty[:400], num_epochs=40)
+    fit_rmse, fit_nll = m.evaluate(ex, ey)
+    for i in range(400, 420):
+        m.update(tx[i : i + 1], ty[i : i + 1])
+    res["exact_regression"] = r = dict(rmse=fit_rmse, nll=fit_nll, rmse_after_stream=m.evaluate(ex, ey)[0])
+    ok = r["rmse"] <= 0.2 and r["nll"] <= 1.0 and r["rmse_after_stream"] <= 0.2
+
+    m = OnlineSVGPRegression(s2(2), tx[:100], ty[:100], num_inducing=32, lr=0.05, streaming=True, device=dev)
+    m.fit(tx[:800], ty[:800], num_epochs=150, batch_size=256)
+    rmse = m.evaluate(ex, ey)[0]
+    for i in range(800, 820):
+        m.update(tx[i : i + 1], ty[i : i + 1])
+    res["svgp_regression"] = r = dict(rmse=rmse, rmse_after_stream=m.evaluate(ex, ey)[0])
+    ok &= r["rmse"] <= 0.6 and math.isfinite(r["rmse_after_stream"])
+
+    arms = {}
+    for mode in ("closed_form", "grad"):
+        m = OnlineSVGPRegression(s2(2), tx[:100], ty[:100], num_inducing=32, lr=0.05, streaming=True,
+                                 variational_mode=mode, device=dev)
+        m.fit(tx[:100], ty[:100], num_epochs=60, batch_size=100)
+        for i in range(100, 500, 4):
+            m.update(tx[i : i + 4], ty[i : i + 4])
+        arms[mode] = m.evaluate(ex, ey)[0]
+    res["svgp_closed_form_streaming"] = arms
+    ok &= math.isfinite(arms["closed_form"]) and arms["closed_form"] <= arms["grad"] + 1e-6 and arms["closed_form"] <= 0.45
+
+    m = OnlineSGPRegression(s2(2), tx[:100], ty[:100], num_inducing=32, lr=0.05, num_update_steps=0, device=dev)
+    m.fit(tx[:800], ty[:800], num_epochs=60)
+    rmse = m.evaluate(ex, ey)[0]
+    for i in range(800, 900):
+        m.update(tx[i : i + 1], ty[i : i + 1])
+    res["sgpr_regression"] = r = dict(rmse=rmse, rmse_after_stream=m.evaluate(ex, ey)[0])
+    ok &= r["rmse"] <= 0.3 and r["rmse_after_stream"] <= r["rmse"] + 0.05
+
+    m = OnlineLocalGPRegression(s2(2), tx[:200], ty[:200], lr=0.05, max_data_per_model=128, max_experts=8, device=dev)
+    m.fit(tx[:200], ty[:200], num_epochs=40)
+    for i in range(200, 260):
+        m.update(tx[i : i + 1], ty[i : i + 1])
+    res["localgp_regression"] = r = dict(rmse=m.evaluate(ex, ey)[0], experts=m.num_experts)
+    ok &= r["rmse"] <= 0.35 and r["experts"] >= 2
+
+    c = OnlineExactClassifier(s2(2), bx[:100], by[:100], lr=0.05, device=dev)
+    c.fit(bx[:400], by[:400], num_epochs=40)
+    acc = c.evaluate(bex, bey)
+    correct = 0
+    for i in range(400, 500):
+        correct += int(int(c.predict(bx[i : i + 1])[0]) == by[i])
+        c.update(bx[i : i + 1], by[i : i + 1])
+    res["exact_classifier"] = r = dict(test_acc=acc, online_acc=correct / 100, test_acc_after_stream=c.evaluate(bex, bey))
+    ok &= r["test_acc"] >= 0.89 and r["online_acc"] >= 0.80 and r["test_acc_after_stream"] >= 0.89
+
+    v = OnlineSVGPClassifier(s2(2), bx[:100], by[:100], num_inducing=32, lr=0.1, device=dev)
+    v.fit(bx[:600], by[:600], num_epochs=150, batch_size=256)
+    acc = v.evaluate(bex, bey)
+    correct = 0
+    for i in range(600, 640):
+        correct += int(int(v.predict(bx[i : i + 1])[0][0]) == by[i])
+        v.update(bx[i : i + 1], by[i : i + 1])
+    res["svgp_classifier"] = r = dict(test_acc=acc, online_acc=correct / 40, test_acc_after_stream=v.evaluate(bex, bey))
+    ok &= r["test_acc"] >= 0.85 and r["online_acc"] >= 0.65 and r["test_acc_after_stream"] >= 0.75
+
+    res["seconds"] = time.perf_counter() - t0
+    print(f"phase 8 quality bars (tests/regression/test_baseline_models.py) on {card}: " + json.dumps(res))
+    if not ok:
+        raise AssertionError(f"phase 8: a baseline quality bar failed: {res}")
+    return res
+
+
+def baselines(card, dev):
+    """Phase 8: the six baseline wrappers; no kernel of the port runs here
+    (the JAX baselines reach no pl.pallas_call), so the launch counters
+    must not move."""
+    t0 = time.perf_counter()
+    zero_counters()
+    results = {name: baseline_stream(name, card, dev) for name in BASE_PRESETS}
+    results["bars"] = baseline_bars(card, dev)
+    launches = read_counters()
+    if any(launches.values()):
+        raise AssertionError(f"phase 8 launched a WISKI kernel: {launches}")
+    print(f"phase 8 command time: {time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2408,6 +2780,8 @@ def main() -> int:
         for window in windows7:
             for kname, count in window.items():
                 launches[kname] += count
+
+        baselines(card, dev)
 
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),

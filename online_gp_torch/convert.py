@@ -3,6 +3,14 @@
 The port reads nothing of the JAX package; a caller who has JAX arrays
 maps them through ``np.asarray`` and hands the numpy arrays here. Dtypes
 are kept; ``device`` says where the tensors go.
+
+The WISKI wrappers load through :func:`load_wrapper`; the baselines
+through one loader each (:func:`load_exact`, :func:`load_localgp`,
+:func:`load_sgpr`, :func:`load_svgp`), over the state records
+``exact_data_from_numpy``, ``localgp_state_from_numpy``,
+``sgpr_old_state_from_numpy``, ``sgpr_moments_from_numpy`` and
+``svgp_old_state_from_numpy``. Every loader gives the wrapper fresh
+optimizers at its rates (the optimizers' state is not carried).
 """
 
 from __future__ import annotations
@@ -14,6 +22,10 @@ import torch
 
 from online_gp_torch.api.regression import _leaves
 from online_gp_torch.api.stems import Stem
+from online_gp_torch.models.exact_online import ExactGPData
+from online_gp_torch.models.localgp import LocalGPState
+from online_gp_torch.models.sgpr import SGPRMoments, SGPROldState
+from online_gp_torch.models.svgp import SVGPOldState
 from online_gp_torch.models.wiski import WiskiState
 from online_gp_torch.models.wiski_lowrank import WiskiLowRankState
 from online_gp_torch.ops.grid import Grid
@@ -128,3 +140,80 @@ def load_wrapper(wrapper, params: Dict, stem_params: Dict, bn_state: Dict, state
     wrapper.set_lr(wrapper.lr)
     make = lowrank_state_from_numpy if "used" in state else state_from_numpy
     wrapper.state = make(**state, device=device)
+
+
+def exact_data_from_numpy(x, y, noise, mask, count, device="cuda") -> ExactGPData:
+    """An online exact GP's masked buffer from its fields."""
+    return ExactGPData(_tensor(x, device), _tensor(y, device), _tensor(noise, device), _tensor(mask, device),
+                       int(count))
+
+
+def localgp_state_from_numpy(x, y, mask, counts, active, centers, device="cuda") -> LocalGPState:
+    """A local-GP mixture's batched expert buffers from their fields."""
+    return LocalGPState(*(_tensor(a, device) for a in (x, y, mask, counts, active, centers)))
+
+
+def sgpr_old_state_from_numpy(z, var_mean, kernel_params, C, c, device="cuda") -> SGPROldState:
+    """An O-SGPR old state (``kernel_params`` a dict of arrays)."""
+    return SGPROldState(_tensor(z, device), _tensor(var_mean, device), params_from_numpy(kernel_params, device),
+                        _tensor(C, device), _tensor(c, device))
+
+
+def sgpr_moments_from_numpy(var_mean, var_chol, device="cuda") -> SGPRMoments:
+    return SGPRMoments(_tensor(var_mean, device), _tensor(var_chol, device))
+
+
+def svgp_old_state_from_numpy(z, var_mean, var_cov, prior_mean, prior_cov, device="cuda") -> SVGPOldState:
+    """An O-SVGP snapshot for the streaming correction."""
+    return SVGPOldState(*(_tensor(a, device) for a in (z, var_mean, var_cov, prior_mean, prior_cov)))
+
+
+def _load_params(wrapper, params: Dict, stem_params: Dict, bn_state: Dict, device) -> None:
+    """The stem (if it has parameters) and the GP params, in the arrays'
+    dtypes, as leaves that take gradients; then fresh optimizers."""
+    if wrapper.stem.has_params:
+        stem_from_numpy(wrapper.stem, stem_params, bn_state, device)
+    wrapper.params = params_from_numpy(params, device)
+    for leaf in _leaves(wrapper.params):
+        leaf.requires_grad_(True)
+    wrapper.set_lr(wrapper.lr)
+
+
+def load_exact(wrapper, params: Dict, stem_params: Dict, bn_state: Dict, data: Dict, raw_x, device=None) -> None:
+    """Start ``OnlineExactRegression`` or ``OnlineExactClassifier`` from
+    numpy arrays: its params, stem, buffer (the fields of
+    :func:`exact_data_from_numpy`) and the raw inputs the stem's features
+    are recomputed from."""
+    device = wrapper.device if device is None else device
+    _load_params(wrapper, params, stem_params, bn_state, device)
+    wrapper.data = exact_data_from_numpy(**data, device=device)
+    wrapper._raw = _tensor(raw_x, device)
+
+
+def load_localgp(wrapper, params: Dict, stem_params: Dict, bn_state: Dict, state: Dict, device=None) -> None:
+    """Start ``OnlineLocalGPRegression`` from numpy arrays: its params, stem
+    and experts (the fields of :func:`localgp_state_from_numpy`)."""
+    device = wrapper.device if device is None else device
+    _load_params(wrapper, params, stem_params, bn_state, device)
+    wrapper.state = localgp_state_from_numpy(**state, device=device)
+
+
+def load_sgpr(wrapper, params: Dict, stem_params: Dict, bn_state: Dict, old: Optional[Dict] = None,
+              moments: Optional[Dict] = None, absorbs_since_rebase: int = 0, device=None) -> None:
+    """Start ``OnlineSGPRegression`` from numpy arrays: its params, stem, old
+    state and moments (None before the first absorb) and its count of
+    absorbs since the last rebase."""
+    device = wrapper.device if device is None else device
+    _load_params(wrapper, params, stem_params, bn_state, device)
+    wrapper.old = None if old is None else sgpr_old_state_from_numpy(**old, device=device)
+    wrapper.moments = None if moments is None else sgpr_moments_from_numpy(**moments, device=device)
+    wrapper._absorbs_since_rebase = int(absorbs_since_rebase)
+
+
+def load_svgp(wrapper, params: Dict, stem_params: Dict, bn_state: Dict, old: Optional[Dict] = None,
+              device=None) -> None:
+    """Start ``OnlineSVGPRegression`` or ``OnlineSVGPClassifier`` from numpy
+    arrays: its params, stem and streaming snapshot (None before one)."""
+    device = wrapper.device if device is None else device
+    _load_params(wrapper, params, stem_params, bn_state, device)
+    wrapper.old = None if old is None else svgp_old_state_from_numpy(**old, device=device)

@@ -33,7 +33,8 @@ def psd_safe_cholesky(mat: torch.Tensor, jitter: float = 1e-6, tries: int = 3) -
 
     Args:
       mat: (..., n, n) symmetric PSD.
-      jitter: initial jitter scale (times max(mean |diag|, 1)).
+      jitter: initial jitter scale (times max(mean |diag|, 1); its gradient
+        at a tie split in two, as JAX's).
       tries: number of 10x escalations.
 
     Returns the (..., n, n) lower factor at the first jitter level that
@@ -43,7 +44,10 @@ def psd_safe_cholesky(mat: torch.Tensor, jitter: float = 1e-6, tries: int = 3) -
     n = mat.shape[-1]
     eye = torch.eye(n, dtype=mat.dtype, device=mat.device)
     diag = torch.diagonal(mat, dim1=-2, dim2=-1)
-    diag_scale = torch.clamp(torch.mean(torch.abs(diag), dim=-1), min=1.0)
+    # torch.maximum, not clamp: at a tie (mean |diag| = 1, every unit-outputscale
+    # Gram) it splits the gradient as jnp.maximum does; clamp passes it whole
+    mean_diag = torch.mean(torch.abs(diag), dim=-1)
+    diag_scale = torch.maximum(mean_diag, torch.ones_like(mean_diag))
     with f32_matmul_precision():
         probe_mat = mat.detach()
         chosen = torch.full(diag_scale.shape, float(tries - 1), dtype=mat.dtype, device=mat.device)
@@ -57,6 +61,18 @@ def psd_safe_cholesky(mat: torch.Tensor, jitter: float = 1e-6, tries: int = 3) -
                 break
         eps = jitter * (10.0 ** chosen) * diag_scale
         return cholesky(mat + eps[..., None, None] * eye)
+
+
+def sym_psd_safe_cholesky(mat: torch.Tensor, jitter: float = 1e-6, tries: int = 3) -> torch.Tensor:
+    """:func:`psd_safe_cholesky` of (mat + mat^T) / 2.
+
+    ``jnp.linalg.cholesky`` symmetrizes its input and ``cholesky_ex`` reads
+    the lower triangle; the two agree on a matrix that is symmetric bit for
+    bit. The baselines factor products (K_bb + C, S = K A^-1 K) that are
+    symmetric only up to rounding, so they factor the symmetrized matrix,
+    as JAX does (the WISKI path keeps :func:`psd_safe_cholesky`).
+    """
+    return psd_safe_cholesky(0.5 * (mat + mat.mT), jitter=jitter, tries=tries)
 
 
 def _nan_where_failed(chol: torch.Tensor, info: torch.Tensor) -> torch.Tensor:

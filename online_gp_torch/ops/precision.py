@@ -14,10 +14,11 @@ back on exit, as with the JAX context manager.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
-__all__ = ["assert_true_f32", "f32_matmul_precision"]
+__all__ = ["assert_true_f32", "f32_matmul_precision", "f32_matmuls"]
 
 
 def _settings():
@@ -57,3 +58,15 @@ def f32_matmul_precision():
         yield
     finally:
         _apply(saved)
+
+
+def f32_matmuls(fn):
+    """Decorator: run ``fn`` under :func:`f32_matmul_precision` (the JAX
+    package's ``@f32_matmuls``)."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with f32_matmul_precision():
+            return fn(*args, **kwargs)
+
+    return wrapped

@@ -203,7 +203,7 @@ def _port_files():
 
 
 def test_port_never_imports_jax_or_the_jax_package():
-    banned = ("jax", "jaxlib", "online_gp_tpu")
+    banned = ("jax", "jaxlib", "optax", "online_gp_tpu")
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -218,7 +218,7 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import sys, importlib, pkgutil, online_gp_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(online_gp_torch.__path__, 'online_gp_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'online_gp_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'online_gp_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
