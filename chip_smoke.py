@@ -168,11 +168,37 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    copies). The baselines run no kernel of the port (the JAX ones reach
    no pl.pallas_call): the launch counters must stay at 0.
 
+9. BayesOpt and active learning through the port's entry points at the
+   JAX package's default widths (depth cut to a few steps): (a)
+   ``run_bayesopt`` (Ackley, dim 3, grid 10: m = 1,000, the reference
+   surrogate: Matern-5/2 with Gamma priors, 10 initial points, 50 Adam
+   refit steps), UCB for 4 steps, then one step each of EI, NEI, KG, MVES
+   and UCB at batch_size=4, KG at q = 1, and UCB with
+   fit_method="lbfgs"; (b) ``run_active_learning`` on
+   malaria_dataset(n=2500) at the reference's 30x30 grid (m = 900), WISKI
+   and exact, 3 steps each; (c) ``run_mpv_osvgp`` at 64 inducing points,
+   3 steps. The counters are zeroed before each run and read after it: at
+   q = 1 K2 launches once per condition and K6 on every refit step (51 a
+   UCB step: 50 refit forwards and the acquisition's caches); at q = 4 K2
+   does not launch (the plain dense update, as in JAX); the exact arm and
+   MPV launch nothing. Gates: the best-so-far monotone with the last at
+   least the first; the active-learning variance contracts (MPV's does not
+   grow); finite RMSE and acquisition values; a CPU twin of one BO step
+   from the card's state (the refit's params within 1e-3 of max(scale, 1),
+   UCB and EI at 16 fixed points within 1e-3 of their largest value, the
+   roots after a condition within 1e-3 * scale); K2 (16 calls) and K6 (Q)
+   on the BO state at m = 1,000 against their plain versions at phase 2's
+   and phase 4's tolerances. Printed: fit, acquisition and condition times
+   per step (median and spread), one UCB step under torch.profiler
+   (launches, device idle share), the peak device memory of each q = 4 step
+   and of KG at q = 1.
+
 It prints the kernels as one JSON line (``launches``: the sum over the
-path windows of phases 3, 4, 5, 6 and 7, phase 8 launching none; rows ``...@m4096``: phase 6's
+path windows of phases 3, 4, 5, 6, 7 and 9, phase 8 launching none; rows ``...@m4096``: phase 6's
 kernel checks, with phase 6's launches; rows ``...@cls-m256-bd2`` and
 ``...@cls-m900-bd2``: phase 7's kernel checks, with the launches of the
-windows of (a) and (b)), then the card's name and power
+windows of (a) and (b); rows ``...@bo-m1000``: phase 9's kernel checks,
+with the launches of its windows), then the card's name and power
 limit, and last {"ok": true, "device": {...}}. It needs a CUDA device
 and exits non-zero without one.
 """
@@ -190,7 +216,7 @@ import warnings
 import numpy as np
 import torch
 
-from online_gp_torch import DEFAULT_CONFIG, convert
+from online_gp_torch import DEFAULT_CONFIG, SolverConfig, convert
 from online_gp_torch.api import (
     IdentityStem,
     LinearStem,
@@ -205,6 +231,11 @@ from online_gp_torch.api import (
     OnlineSVGPClassifier,
     OnlineSVGPRegression,
 )
+from online_gp_torch.bayesopt import acquisitions as bo_acq
+from online_gp_torch.bayesopt import loop as bo_loop
+from online_gp_torch.bayesopt.active_learning import run_active_learning
+from online_gp_torch.bayesopt.mpv_osvgp import run_mpv_osvgp
+from online_gp_torch.bayesopt.optimize import optimize_acqf, sobol_raw_init
 from online_gp_torch.data import banana_dataset, streaming_friedman
 from online_gp_torch.kernels.base import RBFKernel
 from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
@@ -257,6 +288,7 @@ from online_gp_torch.ops.root_update import (
     root_cache_update,
     stencil_rows,
 )
+from online_gp_torch.utils.optim import tree_leaves, tree_rebuild
 
 SEED = 0
 M_SIDE = 30  # bench.py: 30x30 grid, m = 900
@@ -338,6 +370,13 @@ BASE_PRESETS = {
     "svgp_classification": (OnlineSVGPClassifier, "classification", dict(
         num_inducing=256, lr=1e-2, prior_beta=1e-3, online_beta=1e-3, num_update_steps=1)),
 }
+# phase 9: BayesOpt and active learning at the JAX package's default widths
+# (online_gp_tpu/bayesopt/loop.py:133-150, active_learning.py:44-60,
+# mpv_osvgp.py:36-48); depth cut to a few steps each
+BO_UCB_STEPS, BO_Q, AL_STEPS, MPV_STEPS = 4, 4, 3, 3
+BO_TWIN_PTS = 16  # fixed points the acquisition is compared at
+BO_TWIN_RTOL = 1e-3  # params against max(scale, 1), acquisition values relative, roots against their scale
+BO_K2_CALLS = 16
 
 # (device memory bytes/s, f32 flop/s outside the tensor cores), NVIDIA data
 # sheets, dense, at the full power limit
@@ -548,16 +587,18 @@ def device_span_ms(fn, make_args, kernels=None, reps=TIMING_REPS):
     raise AssertionError(f"no profile of {PROFILE_ATTEMPTS} recorded every call of {fn}")
 
 
-def max_err(got, want, tol, what):
-    """max |got - want| over the pairs; raises unless allclose at tol."""
+def max_err(got, want, tol, what, atol=None):
+    """max |got - want| over the pairs; raises unless allclose at rtol tol
+    and atol ``atol`` (tol by default)."""
+    atol = tol if atol is None else atol
     worst = 0.0
     for g, w in zip(got, want):
         if not torch.isfinite(g).all():
             raise AssertionError(f"{what}: non-finite kernel output")
         diff = (g - w).abs()
         worst = max(worst, float(diff.max()))
-        if bool((diff > tol + tol * w.abs()).any()):
-            raise AssertionError(f"{what}: max abs err {float(diff.max()):.3e} exceeds tol {tol:g}")
+        if bool((diff > atol + tol * w.abs()).any()):
+            raise AssertionError(f"{what}: max abs err {float(diff.max()):.3e} exceeds tol {tol:g} (atol {atol:g})")
     return worst
 
 
@@ -1754,11 +1795,11 @@ def check_kernels_large(rng, model, params, state, peaks, dev):
     return out
 
 
-def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS):
+def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS, atol=1e-5):
     """K2 against its plain version on each point of a stencil stream in
     turn (idx (n, P); wv (Bd, n, P), the weights over sqrt(noise)), the
-    roots carried from call to call, to 1e-5; then device time, bound and
-    yardstick on the first point."""
+    roots carried from call to call, to 1e-5 (allclose, with ``atol``);
+    then device time, bound and yardstick on the first point."""
     Lk, Bk = clone_all(L, B)
     err = 0.0
     for i in range(idx.shape[0]):
@@ -1766,7 +1807,7 @@ def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS):
         want = rank1_apply_plain(Lk, Bk, p)
         got = rank1_apply(Lk, Bk, p)
         torch.cuda.synchronize()
-        err = max(err, max_err(got, want, 1e-5, f"rank1_apply {what} call {i}"))
+        err = max(err, max_err(got, want, 1e-5, f"rank1_apply {what} call {i}", atol))
     p = torch.einsum("bp,bpm->bm", wv[:, 0], B[:, idx[0].long()]).contiguous()
     make = lambda: (*clone_all(L, B), p)
     bms, by = rank1_bound(L.shape[0], L.shape[-1], peaks)
@@ -2704,6 +2745,257 @@ def baselines(card, dev):
     return results
 
 
+# --------------------------------------------------------------------------
+# phase 9: BayesOpt and active learning at the JAX package's default widths
+# --------------------------------------------------------------------------
+
+
+def bo_run(card, dev, what, **kw):
+    """run_bayesopt at the defaults (Ackley, dim 3, grid 10: m = 1,000, the
+    reference surrogate, 10 initial points, 50 Adam refit steps) with kw,
+    its launch counters zeroed just before and read just after. Gate: the
+    best-so-far is monotone and the last is at least the first."""
+    zero_counters()
+    t0 = time.perf_counter()
+    out = bo_loop.run_bayesopt(verbose=False, device=dev, **kw)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    bps = out["best_per_step"]
+    if not (all(b2 >= b1 for b1, b2 in zip(bps, bps[1:])) and bps[-1] >= bps[0]):
+        raise AssertionError(f"phase 9 {what}: best-so-far not monotone: {bps}")
+    recs = out["records"]
+    r = dict(steps=len(recs), best_per_step=bps, acq_values=[x["acq_value"] for x in recs],
+             fit_s=spread([x["fit_time"] for x in recs]), acq_s=spread([x["acq_time"] for x in recs]),
+             cond_ms=spread([1e3 * x["cond_time"] for x in recs]),
+             k2_launches=launches["rank1_apply"], k6_launches=launches["blocked_cholesky"],
+             seconds=time.perf_counter() - t0)
+    if not all(math.isfinite(v) for v in r["acq_values"]):
+        raise AssertionError(f"phase 9 {what}: a non-finite acquisition value {r['acq_values']}")
+    print(f"phase 9 (a) run_bayesopt {what} on {card}: " + json.dumps(r))
+    return out, launches, r
+
+
+def _params_cpu(params):
+    return tree_rebuild(params, [p.cpu() for p in tree_leaves(params)])
+
+
+def _clone_roots(state):
+    """The state with its roots copied: K2 conditions them in place."""
+    return state._replace(roots=RootCache(*(None if t is None else t.clone() for t in state.roots)))
+
+
+def bo_step(model, params, state, cfg, step_i, gen, train_u, best_f, noise_value):
+    """One BO step of run_bayesopt (UCB, q = 1) from its pieces: the refit,
+    the acquisition, its optimization and the condition (which takes the
+    state). Returns (params, candidate, new state)."""
+    init, fit = bo_loop.make_fit_fn(model, cfg, "adam", 50, 0.05)
+    params, _, _ = fit(params, state, init(params))
+    acq_fn = bo_loop.make_acquisition("ucb", model, params, state, cfg, 1, gen, step_i, best_f, train_u, 0.1)
+    raw = sobol_raw_init(1, 3, bo_loop.ACQ_RAW, step_i)
+    unit = torch.tensor([[0.0, 1.0]] * 3, device=state.wty.device)
+    cand, _ = optimize_acqf(acq_fn, unit, q=1, num_restarts=bo_loop.ACQ_RESTARTS, raw_samples=bo_loop.ACQ_RAW,
+                            maxiter=bo_loop.ACQ_MAXITER, raw_init=raw)
+    y = torch.full((1, 1), 0.5, device=state.wty.device)
+    state = wiski_condition(model, state, cand, y, noise_value * torch.ones_like(y))
+    return params, cand, state
+
+
+def bo_twin(out, card, dev):
+    """A CPU twin of one BO step from the card's final state: the refit's
+    params within BO_TWIN_RTOL of max(scale, 1); the UCB and EI acquisitions
+    of the card's params at BO_TWIN_PTS fixed points within BO_TWIN_RTOL of
+    their largest value; the roots after conditioning on one of the points
+    within BO_TWIN_RTOL * scale."""
+    cfg = SolverConfig(use_toeplitz=True)
+    model, noise_value = bo_loop._make_surrogate("reference", 3, 10, 0.1, device=dev)
+    cmodel, _ = bo_loop._make_surrogate("reference", 3, 10, 0.1, device="cpu")
+    params, state, train_u = out["params"], out["state"], out["train_u"]
+    best_f = torch.tensor(0.0)
+    cstate = _state_to(state, "cpu")
+    init, fit = bo_loop.make_fit_fn(model, cfg, "adam", 50, 0.05)
+    p_card, _, _ = fit(params, state, init(params))
+    cinit, cfit = bo_loop.make_fit_fn(cmodel, cfg, "adam", 50, 0.05)
+    cparams = _params_cpu(params)
+    p_cpu, _, _ = cfit(cparams, cstate, cinit(cparams))
+    worst = {}
+    for a, b in zip(tree_leaves(p_card), tree_leaves(p_cpu)):
+        err = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1.0)
+        worst["params"] = max(worst.get("params", 0.0), err)
+    pts = torch.rand((BO_TWIN_PTS, 1, 3), generator=torch.Generator().manual_seed(9))
+    for name in ("ucb", "ei"):
+        g1, g2 = torch.Generator().manual_seed(1), torch.Generator().manual_seed(1)
+        fa = bo_loop.make_acquisition(name, model, p_card, state, cfg, 1, g1, 3, best_f.to(dev), train_u, 0.1)
+        fb = bo_loop.make_acquisition(name, cmodel, _params_cpu(p_card), cstate, cfg, 1, g2, 3, best_f,
+                                      train_u.cpu(), 0.1)
+        with torch.no_grad():
+            va, vb = fa(pts.to(dev)).cpu(), fb(pts)
+        worst[f"acq_{name}"] = float((va - vb).abs().max() / vb.abs().max())
+    cand = pts[0].to(dev)
+    y = torch.full((1, 1), 0.25)
+    s_card = wiski_condition(model, _clone_roots(state), cand, y.to(dev), noise_value * torch.ones((1, 1), device=dev))
+    s_cpu = wiski_condition(cmodel, cstate, cand.cpu(), y, noise_value * torch.ones((1, 1)))
+    for f in ("root", "inv_root"):
+        a, b = getattr(s_card.roots, f).cpu(), getattr(s_cpu.roots, f)
+        worst[f] = float((a - b).abs().max() / b.abs().max())
+    print(f"phase 9 (a) CPU twin of one BO step on {card} (relative max errors): " + json.dumps(worst))
+    if any(v > BO_TWIN_RTOL for v in worst.values()):
+        raise AssertionError(f"phase 9: the CPU twin of a BO step parts from the card: {worst}")
+    return worst
+
+
+def profile_bo_step(out, card, dev):
+    """One BO step (UCB, q = 1) under torch.profiler from the card's final
+    state: wall ms, CUDA kernel ms and launches, the device's idle share,
+    K2 and K6 launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = SolverConfig(use_toeplitz=True)
+    model, noise_value = bo_loop._make_surrogate("reference", 3, 10, 0.1, device=dev)
+    params, train_u = out["params"], out["train_u"]
+    bo_step(model, params, _clone_roots(out["state"]), cfg, 1, torch.Generator().manual_seed(2), train_u,
+            torch.tensor(0.0, device=dev), noise_value)
+    torch.cuda.synchronize()
+    zero_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        bo_step(model, params, _clone_roots(out["state"]), cfg, 1, torch.Generator().manual_seed(2), train_u,
+                torch.tensor(0.0, device=dev), noise_value)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    launches = read_counters()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            count, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (count + 1, us + e.time_range.end - e.time_range.start)
+    busy_us = sum(us for _, us in by_name.values())
+    r = dict(wall_ms=wall_us / 1e3, cuda_kernel_ms=busy_us / 1e3, cuda_launches=sum(c for c, _ in by_name.values()),
+             device_idle_share=1 - busy_us / wall_us, k2_launches=launches["rank1_apply"],
+             k6_launches=launches["blocked_cholesky"])
+    print(f"phase 9 one BO step (UCB, q = 1, m = 1000) under torch.profiler on {card}: " + json.dumps(r))
+    for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"  {us / 1e3:9.3f} ms  {count:6d} x  {name[:110]}")
+    return r
+
+
+def check_kernels_bo(out, peaks, card, dev):
+    """K2 (BO_K2_CALLS calls: stencils of points in the unit cube over the
+    fixed noise's root) and K6 (Q) on the BO path's final state at
+    m = 1,000, against their plain versions at phase 2's and phase 4's
+    tolerances, with device times, bounds and yardsticks. Phase 2's 1e-5
+    is for roots of unit scale; the BO state's fixed noise of 0.01 scales
+    its roots and update vectors up, so K2's absolute part is 1e-5 of
+    max(scale, 1), the scale the largest entry of its inputs (the roots
+    and L's update, |L p|); the relative part stays 1e-5."""
+    model, noise_value = bo_loop._make_surrogate("reference", 3, 10, 0.1, device=dev)
+    state = out["state"]
+    L, B = state.roots.root.contiguous(), state.roots.inv_root.contiguous()
+    x = torch.rand((BO_K2_CALLS, 3), generator=torch.Generator().manual_seed(4)).to(dev)
+    idx, w = interp_coeffs(model.grid, x)
+    wv = (w[None] / math.sqrt(noise_value)).contiguous()
+    p = torch.einsum("bp,bpm->bm", wv[:, 0], B[:, idx[0]])
+    scale = max(float(L.abs().max()), float(B.abs().max()), float((L @ p[..., None]).abs().max()), 1.0)
+    print(f"  K2 on the BO state: scale {scale:.4g}, atol {1e-5 * scale:.3g}")
+    rows = {"rank1_apply": check_k2(L, B, idx.to(torch.int32).contiguous(), wv, peaks, "bo-m1000",
+                                    atol=1e-5 * scale),
+            "blocked_cholesky": check_k6(q_matrix(model, out["params"], state), peaks, "Q (bo-m1000)")}
+    for kname, r in rows.items():
+        print(f"{kname} bo-m1000 on {card}: " + json.dumps(r))
+    return {f"{kname}@bo-m1000": r for kname, r in rows.items()}
+
+
+def active_learning_runs(card, dev):
+    """(b) run_active_learning at the reference's 30x30 grid (m = 900) on
+    malaria_dataset(n=2500), WISKI and exact, AL_STEPS steps each; (c)
+    run_mpv_osvgp at 64 inducing points. Gates: finite RMSE, the WISKI
+    arm's mean variance contracts, MPV's does not grow (the JAX tests'
+    bars). K2 launches once per WISKI condition, K6 on every refit step;
+    the exact arm and MPV launch neither."""
+    res, windows = {}, {}
+    for arm in ("wiski", "exact"):
+        zero_counters()
+        t0 = time.perf_counter()
+        out = run_active_learning(model_type=arm, num_steps=AL_STEPS, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        recs = out["records"]
+        r = dict(test_rmse=[x["test_rmse"] for x in recs], avg_variance=[x["avg_variance"] for x in recs],
+                 fit_s=spread([x["fit_time"] for x in recs]), acq_s=spread([x["acq_time"] for x in recs]),
+                 cond_ms=spread([1e3 * x["cond_time"] for x in recs]), k2_launches=launches["rank1_apply"],
+                 k6_launches=launches["blocked_cholesky"], seconds=time.perf_counter() - t0)
+        print(f"phase 9 (b) run_active_learning {arm} on {card}: " + json.dumps(r))
+        if not all(math.isfinite(v) for v in r["test_rmse"]):
+            raise AssertionError(f"phase 9 (b) {arm}: non-finite test RMSE {r['test_rmse']}")
+        if arm == "wiski":
+            if not r["avg_variance"][-1] < r["avg_variance"][0]:
+                raise AssertionError(f"phase 9 (b): the posterior variance did not contract: {r['avg_variance']}")
+            if launches["rank1_apply"] != AL_STEPS or launches["blocked_cholesky"] < AL_STEPS * 100:
+                raise AssertionError(f"phase 9 (b): K2 must launch once per condition and K6 on every refit "
+                                     f"step: {launches}")
+            windows["al"] = launches
+        elif any(launches.values()):
+            raise AssertionError(f"phase 9 (b): the exact arm launched a WISKI kernel: {launches}")
+        res[arm] = r
+    zero_counters()
+    t0 = time.perf_counter()
+    out = run_mpv_osvgp(num_steps=MPV_STEPS, num_inducing=64, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    recs = out["records"]
+    r = dict(test_rmse=[x["test_rmse"] for x in recs], avg_variance=[x["avg_variance"] for x in recs],
+             acq_s=spread([x["acq_time"] for x in recs]), seconds=time.perf_counter() - t0)
+    print(f"phase 9 (c) run_mpv_osvgp (64 inducing points) on {card}: " + json.dumps(r))
+    if any(read_counters().values()):
+        raise AssertionError("phase 9 (c): MPV-OSVGP launched a WISKI kernel")
+    if not (all(math.isfinite(v) for v in r["test_rmse"]) and r["avg_variance"][-1] <= r["avg_variance"][0] + 1e-3):
+        raise AssertionError(f"phase 9 (c): a bar failed: {r}")
+    res["mpv"] = r
+    return res, windows
+
+
+def bayesopt_phase(peaks, card, dev):
+    """Phase 9; returns (kernel rows, {row: launches}, the launch counts of
+    its path windows)."""
+    t0 = time.perf_counter()
+    windows = {}
+    out, launches, r = bo_run(card, dev, f"UCB q=1 ({BO_UCB_STEPS} steps)", acqf="ucb", num_steps=BO_UCB_STEPS)
+    # q = 1: K2 absorbs each queried point; K6 factors Q in every refit
+    # forward (50 a step) and once for the step's acquisition caches
+    if launches["rank1_apply"] != BO_UCB_STEPS or launches["blocked_cholesky"] != BO_UCB_STEPS * 51:
+        raise AssertionError(f"phase 9 (a): K2 {launches['rank1_apply']} (want {BO_UCB_STEPS}), "
+                             f"K6 {launches['blocked_cholesky']} (want {BO_UCB_STEPS * 51})")
+    windows["ucb"] = launches
+    for acqf in ("ei", "nei", "kg", "mves", "ucb"):
+        torch.cuda.reset_peak_memory_stats()
+        _, launches_q, rq = bo_run(card, dev, f"{acqf.upper()} q={BO_Q} (1 step)", acqf=acqf, num_steps=1, batch_size=BO_Q)
+        rq["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  peak device memory of the {acqf.upper()} q={BO_Q} step: {rq['peak_gib']:.3f} GiB")
+        if launches_q["rank1_apply"] != 0 or launches_q["blocked_cholesky"] < 50:
+            raise AssertionError(f"phase 9 (a) {acqf} q={BO_Q}: K2 must not launch (a q > 1 condition is the "
+                                 f"plain dense update) and K6 must factor the refit's Q: {launches_q}")
+        windows[f"{acqf}-q{BO_Q}"] = launches_q
+    torch.cuda.reset_peak_memory_stats()
+    _, launches_k, rk = bo_run(card, dev, "KG q=1 (1 step)", acqf="kg", num_steps=1)
+    print(f"  peak device memory of the KG q=1 step: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    windows["kg"] = launches_k
+    _, launches_l, _ = bo_run(card, dev, "UCB q=1, fit_method=lbfgs (1 step)", acqf="ucb", num_steps=1,
+                              fit_method="lbfgs")
+    if launches_l["rank1_apply"] != 1 or launches_l["blocked_cholesky"] < 50:
+        raise AssertionError(f"phase 9 (a) lbfgs: {launches_l}")
+    windows["lbfgs"] = launches_l
+    bo_twin(out, card, dev)
+    profile_bo_step(out, card, dev)
+    al, al_windows = active_learning_runs(card, dev)
+    windows.update(al_windows)
+    rows = check_kernels_bo(out, peaks, card, dev)
+    total = {k: sum(w[k] for w in windows.values()) for k in ("rank1_apply", "blocked_cholesky")}
+    launches_rows = {row: total[row.split("@")[0]] for row in rows}
+    print(f"phase 9 path launches (K2, K6): {json.dumps(total)}")
+    print(f"phase 9 command time: {time.perf_counter() - t0:.1f} s")
+    return rows, launches_rows, windows
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2783,6 +3075,11 @@ def main() -> int:
 
         baselines(card, dev)
 
+        kernels9, launches9, windows9 = bayesopt_phase(peaks, card, dev)
+        for window in windows9.values():
+            for kname, count in window.items():
+                launches[kname] += count
+
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
@@ -2805,6 +3102,7 @@ def main() -> int:
         })
     rows = [(f"{kname}@m4096", r, launches6[kname]) for kname, r in kernels6.items()]
     rows += [(row, r, launches7[row]) for row, r in kernels7.items()]
+    rows += [(row, r, launches9[row]) for row, r in kernels9.items()]
     for row, r, count in rows:
         source, replaces = meta[row.split("@")[0]]
         kernels.append({

@@ -10,9 +10,11 @@
 
   transforms:
     wiski_init, wiski_condition, wiski_stream    build and absorb
-    wiski_expand, wiski_fantasize                F fantasy copies, conditioned
+    wiski_expand, wiski_fantasize,
+    wiski_condition_batched                      F fantasy copies, conditioned
     wiski_mll                                    Woodbury MLL, closed-form backward
     wiski_prediction_caches, wiski_predict       serve predictions
+    wiski_grid_root, wiski_predict_root          joint-covariance roots for sampling
     wiski_pred_cache_condition,
     wiski_prequential_stream                     evaluate-then-condition
 
@@ -703,6 +705,38 @@ def root_start_vector(m: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.randn(m, generator=torch.Generator().manual_seed(0), dtype=torch.float64).to(dtype=dtype, device=device)
 
 
+def wiski_grid_root(
+    model: WiskiModel,
+    params: Dict,
+    state: WiskiState,
+    cfg: SolverConfig = DEFAULT_CONFIG,
+    caches: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+) -> torch.Tensor:
+    """The grid-space root (B, m, k) of cov_cache that
+    :func:`wiski_predict_root` interpolates: a jittered Cholesky factor at
+    m <= cfg.max_root_decomposition_size, else a rank-capped Lanczos root
+    started from :func:`root_start_vector`. It does not depend on the query
+    points, so an acquisition optimization builds it once and hands it to
+    every call."""
+    if caches is None:
+        caches = wiski_prediction_caches(model, params, state, cfg)
+    cov_cache = caches[1]
+    if cov_cache is None:
+        raise ValueError(
+            "wiski_predict_root needs the covariance cache: unset skip_posterior_variances "
+            "(mean-only configs have no root)"
+        )
+    m = cov_cache.shape[-1]
+    k = min(m, cfg.max_root_decomposition_size)
+    if k < m:
+        v0 = root_start_vector(m, cov_cache.dtype, cov_cache.device)
+        with f32_matmul_precision():
+            return lanczos_root(
+                lambda v: (cov_cache @ v[..., None])[..., 0], v0.expand(cov_cache.shape[:-1]), k
+            )  # (B, m, k)
+    return psd_safe_cholesky(cov_cache, jitter=cfg.cholesky_jitter, tries=cfg.max_cholesky_jitter_tries)
+
+
 def wiski_predict_root(
     model: WiskiModel,
     params: Dict,
@@ -710,38 +744,24 @@ def wiski_predict_root(
     x: torch.Tensor,
     cfg: SolverConfig = DEFAULT_CONFIG,
     caches: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+    grid_root: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``fast_pred_samples`` path: the mean and a low-rank root
     W_x @ root(cov_cache) of the joint posterior covariance, for sampling.
 
-    The grid-space root is a jittered Cholesky factor at m <=
-    cfg.max_root_decomposition_size and a rank-capped Lanczos root above it,
-    started from :func:`root_start_vector`.
+    The grid-space root is ``grid_root`` when given, else
+    :func:`wiski_grid_root` of the caches.
 
     Returns mean (B, n) and root (B, n, k) with cov ~= root @ root^T,
     k = min(m, cfg.max_root_decomposition_size).
     """
     if caches is None:
         caches = wiski_prediction_caches(model, params, state, cfg)
-    mean_cache, cov_cache = caches
-    if cov_cache is None:
-        raise ValueError(
-            "wiski_predict_root needs the covariance cache: unset skip_posterior_variances "
-            "(mean-only configs have no root)"
-        )
+    if grid_root is None:
+        grid_root = wiski_grid_root(model, params, state, cfg, caches)
     idx, w = interp_coeffs(model.grid, x, detach=cfg.detach_interp_coeff)
-    mean = interp_matvec(idx, w, mean_cache)[..., 0]
-    m = cov_cache.shape[-1]
-    k = min(m, cfg.max_root_decomposition_size)
-    if k < m:
-        v0 = root_start_vector(m, cov_cache.dtype, cov_cache.device)
-        with f32_matmul_precision():
-            cov_root = lanczos_root(
-                lambda v: (cov_cache @ v[..., None])[..., 0], v0.expand(cov_cache.shape[:-1]), k
-            )  # (B, m, k)
-    else:
-        cov_root = psd_safe_cholesky(cov_cache, jitter=cfg.cholesky_jitter, tries=cfg.max_cholesky_jitter_tries)
-    root = interp_matvec(idx, w, cov_root)  # (B, n, k)
+    mean = interp_matvec(idx, w, caches[0])[..., 0]
+    root = interp_matvec(idx, w, grid_root)  # (B, n, k)
     s2 = _second_noise(model, params)
     if s2 is not None:
         root = root * torch.sqrt(s2)[..., None, None]
@@ -856,6 +876,29 @@ def wiski_expand(state: WiskiState, num_fantasies: int) -> WiskiState:
     )
 
 
+def wiski_condition_batched(
+    model: WiskiModel,
+    state: WiskiState,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    noise: torch.Tensor,
+) -> WiskiState:
+    """Condition a batch of F states (tensors with a leading F dim, e.g.
+    from :func:`wiski_expand`), each on its own q points, differentiably:
+    the interpolation weights keep their gradient (``detach_interp=False``)
+    and the plain rank-q update runs, batched over F (where JAX vmaps
+    ``wiski_condition``): no kernel, nothing in place.
+
+    Args:
+      x: (F, q, D); y, noise: (F, q, B).
+    """
+    F, q, D = x.shape
+    B, m = model.num_outputs, model.grid.num_points
+    idx, w = interp_coeffs(model.grid, x.reshape(F * q, D), detach=False)
+    w_cols = dense_w(idx, w, m).reshape(m, F, q).movedim(1, 0)  # (F, m, q)
+    return _condition_dense(state, w_cols, y.reshape(F, q, B), noise.reshape(F, q, B))
+
+
 def wiski_fantasize(
     model: WiskiModel,
     state: WiskiState,
@@ -871,12 +914,7 @@ def wiski_fantasize(
     Returns a state whose tensors carry a leading F dim; ``num_data`` bumps
     by q. Fantasies feed differentiable acquisitions, so the interpolation
     weights keep their gradient (the JAX package's ``detach_interp=False``)
-    and the conditioning is batched math over F on the plain rank-q update
-    (where JAX vmaps ``wiski_condition``): no kernel, nothing in place, so
-    ``state`` is left as it was.
+    and the conditioning is :func:`wiski_condition_batched` on the expanded
+    state: no kernel, nothing in place, so ``state`` is left as it was.
     """
-    F, q, D = x.shape
-    B, m = model.num_outputs, model.grid.num_points
-    idx, w = interp_coeffs(model.grid, x.reshape(F * q, D), detach=False)
-    w_cols = dense_w(idx, w, m).reshape(m, F, q).movedim(1, 0)  # (F, m, q)
-    return _condition_dense(wiski_expand(state, F), w_cols, y.reshape(F, q, B), noise.reshape(F, q, B))
+    return wiski_condition_batched(model, wiski_expand(state, x.shape[0]), x, y, noise)

@@ -14,11 +14,17 @@ front, learning-rate schedules).
   through, as ``optax.zero_nans``;
 - a leaf frozen by ``optax.set_to_zero`` is simply left out of every
   group, so it builds no Adam state.
+
+:func:`adam_init` / :func:`adam_update` are ``optax.adam`` as functions of
+explicit state, batched over rows that each keep their own count (the
+restarts of ``bayesopt.optimize.optimize_acqf``); :func:`adam_fit` runs
+them on a loss of a nested dict of params (the BayesOpt and
+active-learning refits).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -62,3 +68,92 @@ def adam_step(loss: torch.Tensor, *opts) -> None:
     for o in opts:
         o.apply(grads[start : start + len(o.leaves)])
         start += len(o.leaves)
+
+
+class AdamState(NamedTuple):
+    """Functional Adam state: the step count (``()`` or one per row of a
+    batch of independent problems) and the two moments, one per leaf."""
+
+    count: torch.Tensor
+    mu: Tuple[torch.Tensor, ...]
+    nu: Tuple[torch.Tensor, ...]
+
+
+def adam_init(leaves: Sequence[torch.Tensor], batch_shape=()) -> AdamState:
+    """Zero moments; ``batch_shape`` (leading dims of every leaf) gives each
+    row its own count, as ``jax.vmap`` over ``optax.adam`` does."""
+    dev = leaves[0].device
+    return AdamState(
+        count=torch.zeros(batch_shape, dtype=torch.int64, device=dev),
+        mu=tuple(torch.zeros_like(p) for p in leaves),
+        nu=tuple(torch.zeros_like(p) for p in leaves),
+    )
+
+
+def adam_update(grads: Sequence[torch.Tensor], state: AdamState, lr: float, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-8, active: Optional[torch.Tensor] = None):
+    """``optax.adam(lr).update`` with optax's order of operations: returns
+    (updates, new state), updates = -lr * mu_hat / (sqrt(nu_hat) + eps).
+
+    ``active`` (a bool tensor of the count's shape): rows where it is False
+    get a zero update and keep their moments and count, as the carry of a
+    vmapped ``lax.while_loop`` that has stopped.
+    """
+    count_inc = state.count + 1
+    updates, mus, nus = [], [], []
+    for g, mu, nu in zip(grads, state.mu, state.nu):
+        mu_new = (1 - b1) * g + b1 * mu
+        nu_new = (1 - b2) * g**2 + b2 * nu
+        bshape = count_inc.shape + (1,) * (g.dim() - count_inc.dim())
+        c = count_inc.to(torch.float64).reshape(bshape)
+        mu_hat = mu_new / (1 - b1**c).to(g.dtype)
+        nu_hat = nu_new / (1 - b2**c).to(g.dtype)
+        up = -lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
+        if active is not None:
+            keep = active.reshape(bshape)
+            up = torch.where(keep, up, torch.zeros_like(up))
+            mu_new, nu_new = torch.where(keep, mu_new, mu), torch.where(keep, nu_new, nu)
+        updates.append(up)
+        mus.append(mu_new)
+        nus.append(nu_new)
+    if active is not None:
+        count_inc = torch.where(active, count_inc, state.count)
+    return updates, AdamState(count_inc, tuple(mus), tuple(nus))
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict, keys sorted at each level (JAX's order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_rebuild(tree, leaves):
+    """``tree`` with its tensors replaced, in :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(tree)
+
+
+def adam_fit(loss_fn: Callable, params, iters: int, lr: float, opt_state: Optional[AdamState] = None):
+    """``iters`` steps of ``optax.adam(lr)`` on loss_fn(params), from
+    ``opt_state`` (fresh moments by default), as the JAX package's
+    ``lax.scan`` of them. Returns (params detached, the Adam state, the last
+    step's loss, taken before its update)."""
+    leaves = [p.detach() for p in tree_leaves(params)]
+    opt_state = adam_init(leaves) if opt_state is None else opt_state
+    last = None
+    for _ in range(iters):
+        with torch.enable_grad():
+            ls = [p.detach().requires_grad_(True) for p in leaves]
+            value = loss_fn(tree_rebuild(params, ls))
+            grads = torch.autograd.grad(value, ls)
+        ups, opt_state = adam_update(grads, opt_state, lr)
+        leaves = [p + u for p, u in zip(leaves, ups)]
+        last = value.detach()
+    return tree_rebuild(params, leaves), opt_state, last
