@@ -193,25 +193,56 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    (launches, device idle share), the peak device memory of each q = 4 step
    and of KG at q = 1.
 
+10. The experiment drivers through their entry points at the presets'
+   widths (online_gp_tpu/experiments/config.py), depth cut, each window
+   with the counters zeroed just before and read just after; the native
+   stream loader must have built (g++). (a) ``regression_trial`` at
+   model=wiski_gp_regression dataset=skillcraft (its flagged surrogate:
+   19 inputs) stem=linear (2 features, grid 16^2 = 256), batch_size 1,
+   20 batch epochs, 256 streamed steps: the online_metrics schema of the
+   JAX driver, every value finite, K2 and K6 launched; its final_state
+   loaded into a fresh wrapper on the card reproduces test RMSE and NLL
+   to 1e-6; a CPU twin of 32 stream steps from the card's models after
+   the fit (saved and loaded) agrees within 1e-3 of each column's largest
+   value (regret: of its terms'), step_time aside. (b) the same with
+   stream_mode=fused, two segments of 512: K3 launched, points/s printed,
+   the checkpoint resumes to 1e-6, and on the resumed wrapper's state and
+   caches K2, K1, K3 and K6 at the drivers' shapes (Bd = 1, m = 256)
+   against their plain versions (rows ``...@drv-m256``).
+   (c) ``classification_trial`` at model=wiski_gpd dataset=banana stem=eye,
+   30 epochs, 200 steps: test accuracy >= 0.7, K2 and K6 launched, the
+   checkpoint resumes to 1e-6. (d) ``fixed_noise_regression.run(arm=
+   "both")`` at its grid of 30 (m = 900) on the synthetic malaria field,
+   50 steps: each arm's median condition and MLL ms and cond_speedup,
+   finite RMSE, K2 and K6 launched. (e) ``run_sweep(2, "seq")`` on
+   friedman cut as (a). Printed: seconds per window, step ms (median and
+   spread over the logged steps), fused points/s, classifier step ms,
+   beside the card's name and power limit.
+
 It prints the kernels as one JSON line (``launches``: the sum over the
-path windows of phases 3, 4, 5, 6, 7 and 9, phase 8 launching none; rows ``...@m4096``: phase 6's
+path windows of phases 3, 4, 5, 6, 7, 9 and 10, phase 8 launching none; rows ``...@m4096``: phase 6's
 kernel checks, with phase 6's launches; rows ``...@cls-m256-bd2`` and
 ``...@cls-m900-bd2``: phase 7's kernel checks, with the launches of the
 windows of (a) and (b); rows ``...@bo-m1000``: phase 9's kernel checks,
-with the launches of its windows), then the card's name and power
-limit, and last {"ok": true, "device": {...}}. It needs a CUDA device
+with the launches of its windows; rows ``...@drv-m256``: phase 10's
+kernel checks, with the launches of its windows), then the card's name
+and power limit, and last {"ok": true, "device": {...}}. It needs a CUDA device
 and exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import csv
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -237,7 +268,14 @@ from online_gp_torch.bayesopt.active_learning import run_active_learning
 from online_gp_torch.bayesopt.mpv_osvgp import run_mpv_osvgp
 from online_gp_torch.bayesopt.optimize import optimize_acqf, sobol_raw_init
 from online_gp_torch.data import banana_dataset, streaming_friedman
+from online_gp_torch.experiments import config as exp_config
+from online_gp_torch.experiments import fixed_noise_regression
+from online_gp_torch.experiments.classification import classification_trial
+from online_gp_torch.experiments.common import build_model, load_dataset
+from online_gp_torch.experiments.regression import online_regression, prepare_trial, regression_trial
+from online_gp_torch.experiments.sweep import run_sweep
 from online_gp_torch.kernels.base import RBFKernel
+from online_gp_torch.logging import CSVLogger
 from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
 from online_gp_torch.models.wiski import (
     WiskiModel,
@@ -252,6 +290,7 @@ from online_gp_torch.models.wiski import (
     wiski_slim,
     wiski_stream,
 )
+from online_gp_torch.native import native_available
 from online_gp_torch.models.wiski_lowrank import (
     WiskiLowRankModel,
     wiski_lowrank_condition,
@@ -288,6 +327,7 @@ from online_gp_torch.ops.root_update import (
     root_cache_update,
     stencil_rows,
 )
+from online_gp_torch.utils.checkpoint import load_wrapper, save_wrapper
 from online_gp_torch.utils.optim import tree_leaves, tree_rebuild
 
 SEED = 0
@@ -377,6 +417,29 @@ BO_UCB_STEPS, BO_Q, AL_STEPS, MPV_STEPS = 4, 4, 3, 3
 BO_TWIN_PTS = 16  # fixed points the acquisition is compared at
 BO_TWIN_RTOL = 1e-3  # params against max(scale, 1), acquisition values relative, roots against their scale
 BO_K2_CALLS = 16
+# phase 10: the experiment layer's drivers at the presets' widths
+# (online_gp_tpu/experiments/config.py), depth cut; their logs and
+# checkpoints go under build/ (git-ignored), their own prints to a file there
+DRIVER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_drivers"
+ONLINE_METRICS = ["step", "stem_loss", "gp_loss", "batch_rmse", "batch_nll", "online_rmse", "online_nll", "regret",
+                  "test_rmse", "test_nll", "noise", "step_time"]
+CLS_ONLINE_METRICS = ["step", "stem_loss", "gp_loss", "online_acc", "batch_acc", "regret", "test_acc", "step_time"]
+# (a) skillcraft's surrogate (no skillcraft files in the repo): 19 inputs -> 2
+# features, grid 16^2 = 256, batch_size 1; 16 logged steps give the step times
+REG_ARGS = ["model=wiski_gp_regression", "dataset=skillcraft", "stem=linear", "num_batch_epochs=20",
+            "logging_freq=16"]
+REG_STREAM, REG_TWIN_STREAM = 256, 32
+# (b) stream_mode=fused, two segments of 512 points
+FUSED_ARGS = REG_ARGS[:-1] + ["stream_mode=fused", "logging_freq=512", "max_stream=1024"]
+# (c) tests/experiments/test_drivers.py's classification configuration, deeper; its bar
+CLS_DRIVER_ARGS = ["model=wiski_gpd", "dataset=banana", "stem=eye", "num_batch_epochs=30", "max_stream=200",
+                   "logging_freq=10"]
+CLS_DRIVER_GATE = 0.7
+FIXED_NOISE_KW = dict(num_steps=50, eval_every=25)  # (d) at run()'s default grid of 30 (m = 900)
+SWEEP_ARGS = ["model=wiski_gp_regression", "dataset=friedman", "stem=linear", "num_batch_epochs=20",
+              "max_stream=256", "logging_freq=16"]  # (e)
+DRIVER_TWIN_RTOL = 1e-3  # of each column's largest magnitude (regret: of its two terms')
+RESUME_TOL = 1e-6
 
 # (device memory bytes/s, f32 flop/s outside the tensor cores), NVIDIA data
 # sheets, dense, at the full power limit
@@ -502,18 +565,20 @@ def device_ms(fn, make_args, kernels, reps=TIMING_REPS):
     the mean over each kernel's last reps x launches records: torch.profiler
     may lose the records of a window's first launches even after the pad
     (on an H100, three windows in a row lost the first 3 of K2's 20 at
-    m = 256).
-    A window that kept fewer is printed and profiled again, up to
-    PROFILE_ATTEMPTS windows, and then this raises."""
+    m = 256, and three in a row the first 6 of its 25 on phase 9's state).
+    A window that kept fewer is printed and profiled again, with as many
+    more calls first as the short window lost, up to PROFILE_ATTEMPTS
+    windows, and then this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(*make_args())
     torch.cuda.synchronize()
+    extra = PROFILE_EXTRA_CALLS
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
-            for _ in range(reps + PROFILE_EXTRA_CALLS):
+            for _ in range(reps + extra):
                 fn(*make_args())
             torch.cuda.synchronize()
         records = {k: sorted((e.time_range.start, e.time_range.end - e.time_range.start) for e in prof.events()
@@ -523,7 +588,10 @@ def device_ms(fn, make_args, kernels, reps=TIMING_REPS):
             per_kernel = {k: sum(d for _, d in v[-reps * kernels[k]:]) / reps / 1e3 for k, v in records.items()}
             return sum(per_kernel.values()), per_kernel
         want = {k: reps * kernels[k] for k in short}
-        print(f"  torch.profiler recorded {short} launches of at least {want}; profiling again")
+        lost = max(-(-((reps + extra) * kernels[k] - n) // kernels[k]) for k, n in short.items())
+        print(f"  torch.profiler recorded {short} launches of at least {want} ({reps + extra} calls); "
+              f"profiling again with {lost} calls more first")
+        extra += lost
     raise AssertionError(f"no profile of {PROFILE_ATTEMPTS} recorded every launch of {sorted(kernels)}")
 
 
@@ -1766,31 +1834,12 @@ def check_kernels_large(rng, model, params, state, peaks, dev):
     # K3: one chunk on the model's caches
     with torch.no_grad():
         mean_cache, cov_cache = wiski_prediction_caches(model, params, state)
-    C, mu = cov_cache.contiguous(), mean_cache[..., 0].contiguous()
     x, idx, w = stencil(rng, grid, K, dev)
     if pred_cluster_plan(K, m, idx.shape[1]) is not None:
         raise AssertionError(f"(k={K}, m={m}) was expected outside K3's cluster envelope")
     y = torch.sin(3 * x[:, 0])[None].contiguous()
-    nz = torch.ones((1, K), device=dev)
-    before = (pred_chunk.launches, pred_chunk.cluster_launches)
-    got = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
-    again = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
-    torch.cuda.synchronize()
-    if (pred_chunk.launches - before[0], pred_chunk.cluster_launches - before[1]) != (2, 0):
-        raise AssertionError(f"pred_chunk at m={m} did not take the single-block recursion")
-    err = max_err(got, pred_chunk_stencil_plain(C, mu, idx, w, y, nz), 2e-4, f"pred_chunk m={m}")
-    bitwise(got, again, f"pred_chunk m={m}")
-    S = stencil_rows(idx, w, m)
-    library = pred_library(*pred_chunk_factors(S, S @ C, mu @ S.mT, y, nz)[:2])
-    make = lambda: (*clone_all(C, mu), idx, w, y, nz)
-    bms, by = pred_bound(1, m, K, idx.shape[1], peaks)
-    ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, "pred_recursion_kernel": 1,
-                                              "pred_apply_kernel": 1})
-    out["pred_chunk"] = dict(
-        k=K, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(pred_chunk, make),
-        plain_ms=time_ms(pred_chunk_stencil_plain, make, PLAIN_REPS6),
-        library_ms=time_ms(library, lambda: clone_all(C, mu)), bound_ms=bms, bound_by=by,
-        route="single-block recursion (pred_recursion_kernel)")
+    out["pred_chunk"] = check_k3(cov_cache.contiguous(), mean_cache[..., 0].contiguous(), idx, w, y, peaks,
+                                 f"m={m}", False, PLAIN_REPS6)
     out["blocked_cholesky"] = check_k6(q_matrix(model, params, state), peaks, f"Q (m={m})", PLAIN_REPS6)
     return out
 
@@ -1818,11 +1867,11 @@ def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS, atol=1e-5):
         bound_ms=bms, bound_by=by)
 
 
-def check_k1(L, B, idx, wv, peaks, what, cluster, plain_reps=TIMING_REPS):
+def check_k1(L, B, idx, wv, peaks, what, cluster, plain_reps=TIMING_REPS, atol=1e-5):
     """One K1 chunk (idx (k, P), wv (Bd, k, P)) against its plain version to
-    1e-5 and bitwise the same on a second call, its recursion on a cluster
-    or on the single-block kernel as ``cluster`` says (by the counters);
-    then device time, bound and yardstick."""
+    1e-5 (allclose, with ``atol``) and bitwise the same on a second call,
+    its recursion on a cluster or on the single-block kernel as ``cluster``
+    says (by the counters); then device time, bound and yardstick."""
     before = (blocked_chunk.launches, blocked_chunk.cluster_launches)
     got = blocked_chunk(*clone_all(L, B), idx, wv)
     again = blocked_chunk(*clone_all(L, B), idx, wv)
@@ -1830,7 +1879,7 @@ def check_k1(L, B, idx, wv, peaks, what, cluster, plain_reps=TIMING_REPS):
     if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1]) != (2, 2 * cluster):
         route = "cluster" if cluster else "single-block"
         raise AssertionError(f"blocked_chunk {what} did not take the {route} recursion")
-    err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk {what}")
+    err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk {what}", atol)
     bitwise(got, again, f"blocked_chunk {what}")
     library = chunk_library(*blocked_factors(torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()])))
     make = lambda: (*clone_all(L, B), idx, wv)
@@ -1843,6 +1892,36 @@ def check_k1(L, B, idx, wv, peaks, what, cluster, plain_reps=TIMING_REPS):
         k=k, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_chunk, make),
         plain_ms=time_ms(blocked_chunk_plain, make, plain_reps),
         library_ms=time_ms(library, lambda: clone_all(L, B)), bound_ms=bms, bound_by=by,
+        route=f"{'cluster' if cluster else 'single-block'} recursion ({recursion})")
+
+
+def check_k3(C, mu, idx, w, y, peaks, what, cluster, plain_reps=TIMING_REPS):
+    """One K3 chunk (idx, w (k, P); y (Bd, k), unit noise) on the caches
+    (C, mu) against its plain version to 2e-4 and bitwise the same on a
+    second call, its recursion on a cluster or on the single-block kernel
+    as ``cluster`` says (by the counters); then device time, bound and
+    yardstick."""
+    m, (k, P) = C.shape[-1], idx.shape
+    nz = torch.ones_like(y)
+    before = (pred_chunk.launches, pred_chunk.cluster_launches)
+    got = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
+    again = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
+    torch.cuda.synchronize()
+    if (pred_chunk.launches - before[0], pred_chunk.cluster_launches - before[1]) != (2, 2 * cluster):
+        route = "cluster" if cluster else "single-block"
+        raise AssertionError(f"pred_chunk {what} did not take the {route} recursion")
+    err = max_err(got, pred_chunk_stencil_plain(C, mu, idx, w, y, nz), 2e-4, f"pred_chunk {what}")
+    bitwise(got, again, f"pred_chunk {what}")
+    S = stencil_rows(idx, w, m)
+    library = pred_library(*pred_chunk_factors(S, S @ C, mu @ S.mT, y, nz)[:2])
+    make = lambda: (*clone_all(C, mu), idx, w, y, nz)
+    bms, by = pred_bound(C.shape[0], m, k, P, peaks)
+    recursion = "pred_recursion_cluster_kernel" if cluster else "pred_recursion_kernel"
+    ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, recursion: 1, "pred_apply_kernel": 1})
+    return dict(
+        k=k, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(pred_chunk, make),
+        plain_ms=time_ms(pred_chunk_stencil_plain, make, plain_reps),
+        library_ms=time_ms(library, lambda: clone_all(C, mu)), bound_ms=bms, bound_by=by,
         route=f"{'cluster' if cluster else 'single-block'} recursion ({recursion})")
 
 
@@ -2996,6 +3075,217 @@ def bayesopt_phase(peaks, card, dev):
     return rows, launches_rows, windows
 
 
+# --------------------------------------------------------------------------
+# phase 10: the experiment drivers
+# --------------------------------------------------------------------------
+
+
+def driver_cfg(args, name, dev):
+    return exp_config.parse_config(args + [f"log_dir={DRIVER_DIR / name}", f"device={dev}"])
+
+
+def driver_window(what, fn, log):
+    """fn() with the launch counters zeroed just before and read just after,
+    its prints sent to ``log``; returns (result, launches, seconds)."""
+    zero_counters()
+    t0 = time.perf_counter()
+    print(f"==== {what}", file=log, flush=True)
+    with contextlib.redirect_stdout(log):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, read_counters(), time.perf_counter() - t0
+
+
+def online_metrics(log_dir, what, columns):
+    """The online_metrics table: the JAX driver's schema, every value finite."""
+    with open(Path(log_dir) / "online_metrics.csv") as f:
+        reader = csv.DictReader(f)
+        cols, rows = reader.fieldnames, [{k: float(v) for k, v in r.items()} for r in reader]
+    if cols != columns:
+        raise AssertionError(f"phase 10 {what}: online_metrics columns {cols}")
+    if not rows or not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise AssertionError(f"phase 10 {what}: a non-finite or missing online metric: {rows}")
+    return rows
+
+
+def check_resume(cfg, out, what, card, log):
+    """A fresh wrapper on the card, loaded from the driver's final_state,
+    reproduces its test metrics to RESUME_TOL; returns the wrapper."""
+    with contextlib.redirect_stdout(log):
+        train_x, train_y, test_x, test_y = load_dataset(cfg)
+        n0 = int(cfg["model"]["init_ratio"] * len(train_x))
+        fresh = build_model(cfg, train_x[:n0], train_y[:n0])
+    load_wrapper(out["checkpoint"], fresh)
+    got = fresh.evaluate(test_x, test_y)
+    got = got if isinstance(got, tuple) else (got,)
+    want = (out["test_rmse"], out["test_nll"]) if "test_rmse" in out else (out["test_acc"],)
+    err = max(abs(a - b) for a, b in zip(got, want))
+    print(f"  phase 10 {what}: the checkpoint resumes on {card}: {list(got)} against {list(want)}, err {err:.3g}")
+    if not err <= RESUME_TOL:
+        raise AssertionError(f"phase 10 {what}: the resumed wrapper parts by {err} > {RESUME_TOL}")
+    return fresh
+
+
+def check_kernels_drv(reg, cfg, peaks, card, log):
+    """K2 (N_K2_6 calls), K1 and K3 (one chunk of k = K each) and K6 (Q) at
+    the driver path's shapes (Bd = 1, m = 256), on the state and caches of
+    the fused trial's final online model (``reg``, resumed from its
+    checkpoint), against their plain versions, with device times, bounds
+    and yardsticks. The update vectors are stencils of the test split's
+    stem features at unit noise, as the drivers' updates are. K3 keeps
+    phase 2's 2e-4; K2 and K1 keep phase 2's relative 1e-5, their absolute
+    part 1e-5 of max(scale, 1), the scale the largest entry of the roots
+    and of L's update |L p| (phase 9's rule: the state's roots are not of
+    unit scale)."""
+    with contextlib.redirect_stdout(log):
+        _, _, test_x, test_y = load_dataset(cfg)
+        feats = reg._features(reg._inputs(test_x[:K])).detach()
+        y = reg._targets(test_y[:K]).T.contiguous()
+        with torch.no_grad():
+            mean_cache, cov_cache = reg._ensure_pred_caches()
+    grid, state = reg.model.grid, reg.state
+    m = grid.num_points
+    L, B = state.roots.root.contiguous(), state.roots.inv_root.contiguous()
+    idx, w = interp_coeffs(grid, feats)
+    idx, w = idx.to(torch.int32).contiguous(), w.contiguous()
+    p = torch.einsum("bp,bpm->bm", w[None, 0], B[:, idx[0].long()])
+    scale = max(float(L.abs().max()), float(B.abs().max()), float((L @ p[..., None]).abs().max()), 1.0)
+    print(f"  kernels on the driver state (m = {m}): scale {scale:.4g}, atol {1e-5 * scale:.3g}")
+    cluster1, cluster3 = chunk_cluster_plan(K, m) is not None, pred_cluster_plan(K, m, idx.shape[1]) is not None
+    rows = {
+        "rank1_apply": check_k2(L, B, idx[:N_K2_6], w[None, :N_K2_6].contiguous(), peaks, "drv-m256",
+                                atol=1e-5 * scale),
+        "blocked_chunk": check_k1(L, B, idx, w[None].contiguous(), peaks, "drv-m256", cluster1, atol=1e-5 * scale),
+        "pred_chunk": check_k3(cov_cache.contiguous(), mean_cache[..., 0].contiguous(), idx, w, y, peaks,
+                               "drv-m256", cluster3),
+        "blocked_cholesky": check_k6(q_matrix(reg.model, reg.params, state), peaks, "Q (drv-m256)"),
+    }
+    for kname, r in rows.items():
+        print(f"{kname} drv-m256 on {card}: " + json.dumps(r))
+    return {f"{kname}@drv-m256": r for kname, r in rows.items()}
+
+
+def stream_twin(dev, card, log):
+    """(a)'s CPU twin: the trial up to its stream on the card (prepare_trial:
+    dataset, batch fit, online pretrain), both models saved and loaded into
+    CPU wrappers of the same config, then REG_TWIN_STREAM online_regression
+    steps on each side. The twin starts from the card's models because the
+    float32 LinearStem fit itself parts run from run (PERF.md); the stream's
+    online_metrics must agree within DRIVER_TWIN_RTOL."""
+    cfg = driver_cfg(REG_ARGS + [f"max_stream={REG_TWIN_STREAM}"], "twin-card", dev)
+    cfg_cpu = driver_cfg(REG_ARGS + [f"max_stream={REG_TWIN_STREAM}"], "twin-cpu", "cpu")
+    with contextlib.redirect_stdout(log):
+        _, batch, online, (sx, sy, tx, ty) = prepare_trial(cfg)
+        train_x, train_y, _, _ = load_dataset(cfg_cpu)
+        n0 = int(cfg["model"]["init_ratio"] * len(train_x))
+        twins = []
+        for name, model, x, y in (("batch", batch, train_x, train_y), ("online", online, train_x[:n0], train_y[:n0])):
+            save_wrapper(str(DRIVER_DIR / "twin-snap" / name), model)
+            twin = build_model(cfg_cpu, x, y)
+            load_wrapper(str(DRIVER_DIR / "twin-snap" / name), twin)
+            twins.append(twin)
+        base_lr = cfg["dataset"]["base_lr"]
+        twins[1].set_lr(gp_lr=base_lr / 10, stem_lr=base_lr / 100)
+        tables = []
+        for b, o in ((batch, online), twins):
+            logger = CSVLogger(str(DRIVER_DIR / "twin-rows"), "card" if b is batch else "cpu")
+            online_regression(b, o, sx, sy, tx, ty, cfg["update_stem"], cfg["batch_size"], logger,
+                              cfg["logging_freq"], REG_TWIN_STREAM)
+            tables.append(logger.tables["online_metrics"])
+    errs = {}
+    for col in ONLINE_METRICS:
+        if col == "step_time":
+            continue
+        terms = ("online_rmse", "batch_rmse") if col == "regret" else (col,)
+        scale = max(max(abs(r[t]) for r in tables[0] for t in terms), 1e-12)
+        errs[col] = max(abs(a[col] - b[col]) for a, b in zip(*tables)) / scale
+    print(f"  phase 10 (a) CPU twin of {REG_TWIN_STREAM} stream steps on {card}: relative errors {json.dumps(errs)}")
+    bad = {k: v for k, v in errs.items() if not v <= DRIVER_TWIN_RTOL}
+    if bad or len(tables[0]) != len(tables[1]) or not tables[0]:
+        raise AssertionError(f"phase 10 (a): the CPU twin parts from the card: {bad}")
+
+
+def drivers_phase(peaks, card, dev):
+    """Phase 10; returns the kernel checks on the driver state and the
+    launch counts of its windows, summed."""
+    t_phase = time.perf_counter()
+    if not native_available():
+        raise AssertionError("phase 10: the native stream loader did not build (g++)")
+    shutil.rmtree(DRIVER_DIR, ignore_errors=True)
+    DRIVER_DIR.mkdir(parents=True)
+    windows, seconds = {}, {}
+    with open(DRIVER_DIR / "driver_stdout.log", "w") as log:
+        # (a) the regression driver, step mode
+        cfg = driver_cfg(REG_ARGS + [f"max_stream={REG_STREAM}"], "regression", dev)
+        out, windows["a"], seconds["a"] = driver_window("(a)", lambda: regression_trial(cfg), log)
+        rows = online_metrics(out["log_dir"], "(a)", ONLINE_METRICS)
+        steps = spread([1e3 * r["step_time"] for r in rows])
+        print(f"phase 10 (a) regression_trial (skillcraft surrogate, linear stem, grid 16^2, {REG_STREAM} steps) "
+              f"on {card}: {seconds['a']:.1f} s, step ms {json.dumps(steps)}, test RMSE {out['test_rmse']:.4f}, "
+              f"NLL {out['test_nll']:.4f}, launches {json.dumps(windows['a'])}")
+        if windows["a"]["rank1_apply"] == 0 or windows["a"]["blocked_cholesky"] == 0:
+            raise AssertionError(f"phase 10 (a): K2 and K6 must launch: {windows['a']}")
+        check_resume(cfg, out, "(a)", card, log)
+        t0 = time.perf_counter()
+        stream_twin(dev, card, log)
+        seconds["a twin"] = time.perf_counter() - t0
+
+        # (b) the fused stream
+        cfg = driver_cfg(FUSED_ARGS, "fused", dev)
+        out, windows["b"], seconds["b"] = driver_window("(b)", lambda: regression_trial(cfg), log)
+        rows = online_metrics(out["log_dir"], "(b)", ONLINE_METRICS + ["points_per_sec"])
+        pps = [r["points_per_sec"] for r in rows]
+        print(f"phase 10 (b) regression_trial stream_mode=fused (segments of 512) on {card}: {seconds['b']:.1f} s, "
+              f"points/s {json.dumps(pps)}, test RMSE {out['test_rmse']:.4f}, launches {json.dumps(windows['b'])}")
+        if windows["b"]["pred_chunk"] == 0 or len(rows) != 2:
+            raise AssertionError(f"phase 10 (b): K3 never launched, or {len(rows)} segments: {windows['b']}")
+        fused = check_resume(cfg, out, "(b)", card, log)
+        t0 = time.perf_counter()
+        kernels = check_kernels_drv(fused, cfg, peaks, card, log)
+        seconds["kernels"] = time.perf_counter() - t0
+
+        # (c) the classification driver
+        cfg = driver_cfg(CLS_DRIVER_ARGS, "classification", dev)
+        out, windows["c"], seconds["c"] = driver_window("(c)", lambda: classification_trial(cfg), log)
+        rows = online_metrics(out["log_dir"], "(c)", CLS_ONLINE_METRICS)
+        steps = spread([1e3 * r["step_time"] for r in rows])
+        print(f"phase 10 (c) classification_trial (wiski_gpd, banana, eye stem, 200 steps) on {card}: "
+              f"{seconds['c']:.1f} s, step ms {json.dumps(steps)}, cumulative acc {rows[-1]['online_acc']:.4f}, "
+              f"test acc {out['test_acc']:.4f}, launches {json.dumps(windows['c'])}")
+        if not out["test_acc"] >= CLS_DRIVER_GATE:
+            raise AssertionError(f"phase 10 (c): test accuracy {out['test_acc']} < {CLS_DRIVER_GATE}")
+        if windows["c"]["rank1_apply"] == 0 or windows["c"]["blocked_cholesky"] == 0:
+            raise AssertionError(f"phase 10 (c): K2 and K6 must launch: {windows['c']}")
+        check_resume(cfg, out, "(c)", card, log)
+
+        # (d) the fixed-noise driver, both arms
+        kw = dict(FIXED_NOISE_KW, log_dir=str(DRIVER_DIR / "fixed_noise"), verbose=False, arm="both", device=dev)
+        out, windows["d"], seconds["d"] = driver_window("(d)", lambda: fixed_noise_regression.run(**kw), log)
+        arms = {arm: dict(cond_ms=out[arm]["median_cond_ms"], mll_ms=out[arm]["median_mll_ms"],
+                          test_rmse=[r["test_rmse"] for r in out[arm]["eval_rows"]]) for arm in ("wiski", "exact")}
+        print(f"phase 10 (d) fixed_noise_regression arm=both (malaria field, grid 30, {FIXED_NOISE_KW['num_steps']} "
+              f"steps) on {card}: {seconds['d']:.1f} s, {json.dumps(arms)}, cond_speedup {out['cond_speedup']:.3f}, "
+              f"mll_speedup {out['mll_speedup']:.3f}, launches {json.dumps(windows['d'])}")
+        if not all(math.isfinite(v) for a in arms.values() for v in a["test_rmse"]):
+            raise AssertionError(f"phase 10 (d): a non-finite test RMSE: {arms}")
+        if windows["d"]["rank1_apply"] == 0 or windows["d"]["blocked_cholesky"] == 0:
+            raise AssertionError(f"phase 10 (d): K2 (the WISKI conditions) and K6 (the MLL steps) must launch: "
+                                 f"{windows['d']}")
+
+        # (e) the sequential sweep
+        args = SWEEP_ARGS + [f"log_dir={DRIVER_DIR / 'sweep'}", f"device={dev}"]
+        out, windows["e"], seconds["e"] = driver_window("(e)", lambda: run_sweep(2, "seq", args), log)
+        rmse = [r["test_rmse"] for r in out]
+        print(f"phase 10 (e) run_sweep(2, seq) (friedman, linear stem) on {card}: {seconds['e']:.1f} s, "
+              f"test RMSE {rmse}, launches {json.dumps(windows['e'])}")
+        if len(out) != 2 or not all(math.isfinite(v) for v in rmse) or windows["e"]["rank1_apply"] == 0:
+            raise AssertionError(f"phase 10 (e): {rmse}, {windows['e']}")
+    total = {k: sum(w[k] for w in windows.values()) for k in windows["a"]}
+    print(f"phase 10 driver path launches: {json.dumps(total)}")
+    print(f"phase 10 seconds on {card}: {json.dumps(seconds)}, all {time.perf_counter() - t_phase:.1f}")
+    return kernels, total
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3080,6 +3370,10 @@ def main() -> int:
             for kname, count in window.items():
                 launches[kname] += count
 
+        kernels10, launches10 = drivers_phase(peaks, card, dev)
+        for kname, count in launches10.items():
+            launches[kname] += count
+
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
@@ -3103,6 +3397,7 @@ def main() -> int:
     rows = [(f"{kname}@m4096", r, launches6[kname]) for kname, r in kernels6.items()]
     rows += [(row, r, launches7[row]) for row, r in kernels7.items()]
     rows += [(row, r, launches9[row]) for row, r in kernels9.items()]
+    rows += [(row, r, launches10[row.split("@")[0]]) for row, r in kernels10.items()]
     for row, r, count in rows:
         source, replaces = meta[row.split("@")[0]]
         kernels.append({

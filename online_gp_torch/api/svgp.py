@@ -49,7 +49,7 @@ from online_gp_torch.models.svgp import (
     svgp_snapshot,
     svgp_streaming_correction,
 )
-from online_gp_torch.utils.batch_stream import BatchStream
+from online_gp_torch.native import BatchStream
 from online_gp_torch.utils.buffers import ReplayBuffer
 from online_gp_torch.utils.metrics import batched_rmse_nll
 from online_gp_torch.utils.optim import GroupAdam, adam_step
@@ -155,7 +155,7 @@ class _OnlineSVGPBase:
 
     def fit(self, inputs, targets, num_epochs: int, test_dataset=None, batch_size: int = 1024,
             batch_stream: bool = True):
-        """Shuffled minibatch ELBO epochs: batches from a numpy
+        """Shuffled minibatch ELBO epochs: batches from the native loader's
         :class:`BatchStream` (seed 0) with ``batch_stream``, else from one
         permutation an epoch (``np.random.default_rng(0)``)."""
         x = self._inputs(inputs)

@@ -181,7 +181,7 @@ def run_active_learning(
 def main():
     import sys
 
-    from online_gp_torch.bayesopt.cli import parse_cli_kwargs
+    from online_gp_torch.experiments.config import parse_cli_kwargs
 
     out = run_active_learning(**parse_cli_kwargs(sys.argv[1:]))
     print("final:", out["records"][-1])

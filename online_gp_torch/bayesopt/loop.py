@@ -296,7 +296,7 @@ def run_bayesopt(
 def main():
     import sys
 
-    from online_gp_torch.bayesopt.cli import parse_cli_kwargs
+    from online_gp_torch.experiments.config import parse_cli_kwargs
 
     out = run_bayesopt(**parse_cli_kwargs(sys.argv[1:]))
     print("best value trajectory:", [round(v, 3) for v in out["best_per_step"]])

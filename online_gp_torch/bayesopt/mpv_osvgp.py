@@ -123,7 +123,7 @@ def run_mpv_osvgp(
 def main():
     import sys
 
-    from online_gp_torch.bayesopt.cli import parse_cli_kwargs
+    from online_gp_torch.experiments.config import parse_cli_kwargs
 
     out = run_mpv_osvgp(**parse_cli_kwargs(sys.argv[1:]))
     print("final:", out["records"][-1])

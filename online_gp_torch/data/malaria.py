@@ -7,8 +7,9 @@ coordinates and stream pool points. A local ``.npz`` with keys x (n, 2),
 y (n,) and y_var (n,) is read when given; otherwise a smooth deterministic
 spatial field with heteroscedastic observation noise is generated from
 ``default_rng(seed)``, the same arrays as the JAX package's, bit for bit.
-The HDF5 branch needs pandas or h5py and waits for the port of the
-experiment layer (ROADMAP Queue 1 item 9).
+An ``.h5`` / ``.hdf5`` / ``.hdf`` path is read as the reference's HDF5
+frame through :func:`~online_gp_torch.data.formats.read_pandas_hdf5`
+(pandas or h5py, imported when such a file is read).
 """
 
 from __future__ import annotations
@@ -17,6 +18,27 @@ import os
 from typing import NamedTuple, Optional
 
 import numpy as np
+
+
+def _load_malaria_hdf5(path: str):
+    """The reference's HDF5 layout (``experiments/active_learning/data.py``):
+    a 'full' frame with longitude/latitude/year/mean/std_dev/is_ng columns.
+    Rows are filtered to is_ng == 1 (and, when a year column exists, to the
+    2012 training year the AL pool streams from); y_var = std_dev^2 + 1e-6.
+    """
+    from online_gp_torch.data.formats import read_pandas_hdf5
+
+    cols = read_pandas_hdf5(path, key="full")
+    mask = np.ones(len(cols["mean"]), bool)
+    if "is_ng" in cols:
+        mask &= np.asarray(cols["is_ng"]) == 1
+    if "year" in cols:
+        years = np.asarray(cols["year"])
+        mask &= years == years[mask].min()
+    x = np.stack([np.asarray(cols["longitude"])[mask], np.asarray(cols["latitude"])[mask]], axis=-1)
+    y = np.asarray(cols["mean"])[mask]
+    y_var = np.asarray(cols["std_dev"])[mask] ** 2 + 1e-6
+    return x, y, y_var
 
 
 class MalariaData(NamedTuple):
@@ -29,12 +51,10 @@ class MalariaData(NamedTuple):
 def malaria_dataset(path: Optional[str] = None, n: int = 2500, seed: int = 0) -> MalariaData:
     if path and os.path.exists(path):
         if path.endswith((".h5", ".hdf5", ".hdf")):
-            raise NotImplementedError(
-                "the malaria HDF5 reader needs data/formats.read_pandas_hdf5, which the port has not "
-                "yet (ROADMAP Queue 1 item 9, the experiment layer); pass an .npz with x, y, y_var"
-            )
-        blob = np.load(path)
-        x, y, y_var = blob["x"], blob["y"], blob["y_var"]
+            x, y, y_var = _load_malaria_hdf5(path)
+        else:
+            blob = np.load(path)
+            x, y, y_var = blob["x"], blob["y"], blob["y_var"]
         x = (x - x.min(0)) / (x.max(0) - x.min(0))
         y = (y - y.mean()) / y.std()
         return MalariaData(x.astype(np.float32), y.astype(np.float32), y_var.astype(np.float32), False)

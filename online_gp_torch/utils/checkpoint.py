@@ -1,4 +1,4 @@
-"""Checkpoints of model state trees (port of the ``.npz`` part of
+"""Checkpoints of model state trees and task wrappers (port of
 ``online_gp_tpu/utils/checkpoint.py``, in the same format).
 
 Format: an ``.npz`` payload of the leaves (``leaf_0``, ``leaf_1``, ...)
@@ -10,8 +10,14 @@ as the same paths under ``online_gp_torch.`` (the string is mapped; the
 JAX package is never imported), and a field the port's NamedTuple
 annotates ``int`` (``num_data``, ``count``) becomes a Python int.
 
-Left for the port of the experiment layer (ROADMAP Queue 1 item 9): the
-orbax backend and ``save_wrapper`` / ``load_wrapper``.
+:func:`save_wrapper` / :func:`load_wrapper` checkpoint a task wrapper as
+the JAX package does (the components of ``_WRAPPER_KEYS`` it carries),
+with the stem in the JAX stems' layout, so a wrapper either package saved
+loads into the other's.
+
+The JAX package's second backend, orbax-checkpoint, is not ported:
+orbax imports jax, which the port never imports. ``backend="orbax"`` and
+an orbax checkpoint raise ``ValueError`` with that reason.
 """
 
 from __future__ import annotations
@@ -106,10 +112,20 @@ def _shape(spec: Dict) -> Any:
     return (kind,)
 
 
-def save_pytree(path: str, tree: Any) -> None:
+_NO_ORBAX = (
+    "the orbax backend is not ported: orbax-checkpoint imports jax, which online_gp_torch never imports; "
+    "use backend='npz'"
+)
+
+
+def save_pytree(path: str, tree: Any, backend: str = "npz") -> None:
     """Save a tree of tensors, arrays, numbers and strings to ``path``
     (``.npz`` payload plus ``.structure.json``). Tensors are copied to the
-    host."""
+    host. ``backend`` must be "npz" (the JAX package's "orbax" raises)."""
+    if backend == "orbax":
+        raise ValueError(_NO_ORBAX)
+    if backend != "npz":
+        raise ValueError(f"unknown checkpoint backend {backend!r} (npz)")
     leaves: List[Any] = []
     encoding = _encode(tree, leaves)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -138,10 +154,7 @@ def load_pytree(path: str, like: Optional[Any] = None, device="cuda") -> Any:
     with open(_structure_path(path)) as f:
         structure = json.load(f)
     if structure.get("backend", "npz") != "npz":
-        raise NotImplementedError(
-            f"{path}: the {structure['backend']!r} backend waits for the port of the experiment layer "
-            "(ROADMAP Queue 1 item 9); the port reads npz checkpoints"
-        )
+        raise ValueError(f"{path}: {structure['backend']!r} checkpoint; " + _NO_ORBAX)
     npz = np.load(_npz_path(path))
 
     def _leaf(arr):
@@ -156,3 +169,67 @@ def load_pytree(path: str, like: Optional[Any] = None, device="cuda") -> Any:
         if saved != want:
             raise ValueError(f"checkpoint structure mismatch:\n  saved:    {saved}\n  exemplar: {want}")
     return _decode(structure["encoding"], leaves)
+
+
+_WRAPPER_KEYS = ("params", "stem_params", "stem_state", "state", "moments", "old")
+
+
+def _stem_layers(stem) -> List[str]:
+    return [name for name, _ in stem.named_children() if name.startswith("lin")]
+
+
+def _stem_trees(stem):
+    """The stem's weights and BatchNorm statistics in the JAX stems' layout:
+    ``{"lin": {"w": (d_in, d_out), "b": (d_out,)}}`` (or ``lin0``, ``lin1``,
+    ...) and ``{"bn": {"mean", "var", "momentum"}}``; ``{}`` and ``{}`` for a
+    stem without parameters."""
+    if not stem.has_params:
+        return {}, {}
+    params = {name: {"w": layer.weight.T, "b": layer.bias}
+              for name, layer in stem.named_children() if name.startswith("lin")}
+    bn = stem.bn
+    return params, {"bn": {"mean": bn.running_mean, "var": bn.running_var, "momentum": bn.momentum}}
+
+
+def save_wrapper(path: str, wrapper) -> None:
+    """Checkpoint a task wrapper: its params, its stem (as ``stem_params`` and
+    ``stem_state``, the JAX stems' layout), and its ``state``, ``moments``
+    and ``old`` where it carries them."""
+    stem_params, stem_state = _stem_trees(wrapper.stem)
+    parts = dict(params=wrapper.params, stem_params=stem_params, stem_state=stem_state)
+    parts.update({key: getattr(wrapper, key, None) for key in ("state", "moments", "old")})
+    save_pytree(path, {key: parts[key] for key in _WRAPPER_KEYS if parts[key] is not None})
+
+
+def load_wrapper(path: str, wrapper) -> None:
+    """Restore a checkpoint saved by :func:`save_wrapper`, or by the JAX
+    package's ``save_wrapper`` (npz), into ``wrapper`` in place, on its
+    device.
+
+    The component set comes from the saved structure, not the wrapper: a
+    checkpoint saved with ``moments`` restores into a fresh wrapper whose
+    ``moments`` is still None. The params become the wrapper's leaves (they
+    take gradients) and its optimizers are made anew at its rate, as the
+    JAX wrapper keeps the fresh optimizer state it was built with; grid
+    prediction caches built on the old state are dropped.
+    """
+    from online_gp_torch.convert import stem_from_numpy
+    from online_gp_torch.utils.optim import tree_leaves
+
+    restored = load_pytree(path, device=wrapper.device)
+    stem_params = restored.pop("stem_params", None)
+    stem_state = restored.pop("stem_state", None)
+    if wrapper.stem.has_params and stem_params:
+        stem_from_numpy(wrapper.stem, _numpy_tree(stem_params), _numpy_tree(stem_state or {}), wrapper.device)
+    for key, value in restored.items():
+        setattr(wrapper, key, value)
+    if "params" in restored:
+        for leaf in tree_leaves(wrapper.params):
+            leaf.requires_grad_(True)
+        wrapper.set_lr(wrapper.lr)
+    if getattr(wrapper, "_pred_caches", None) is not None:
+        wrapper._pred_caches = None
+
+
+def _numpy_tree(tree):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in tree.items()}

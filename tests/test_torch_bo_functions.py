@@ -2,8 +2,8 @@
 package's: the eight negated functions at float64 to 1e-8 relative (on
 random points in their bounds, at their canonical optima), their bounds
 and optima; ``noisy`` draws from a generator; ``malaria_dataset`` arrays
-equal bit for bit (synthetic field and the .npz branch); the .h5 branch
-raises until the experiment layer is ported. Also the new modules of the
+equal bit for bit (synthetic field, the .npz branch and the .h5 branch on
+both HDF5 fixtures). Also the new modules of the
 slice exist and import nothing of JAX, optax or the JAX package."""
 
 import ast
@@ -93,15 +93,21 @@ def test_malaria_npz_and_hdf5_branches(tmp_path):
     assert not got.synthetic
     for field in ("x", "y", "y_var"):
         np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
-    h5 = tmp_path / "malaria.h5"
-    h5.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        malaria_dataset(str(h5))
+    fixtures = REPO / "tests" / "fixtures"
+    for name in ("tiny_malaria_plain.h5", "tiny_malaria_fixed.h5"):
+        h5 = tmp_path / name
+        h5.write_bytes((fixtures / name).read_bytes())
+        want, got = jmalaria(str(h5)), malaria_dataset(str(h5))
+        assert not got.synthetic
+        for field in ("x", "y", "y_var"):
+            a, b = getattr(got, field), getattr(want, field)
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
 
 
 SLICE_MODULES = [
     "bayesopt/__init__.py", "bayesopt/test_functions.py", "bayesopt/optimize.py", "bayesopt/acquisitions.py",
-    "bayesopt/loop.py", "bayesopt/active_learning.py", "bayesopt/mpv_osvgp.py", "bayesopt/cli.py",
+    "bayesopt/loop.py", "bayesopt/active_learning.py", "bayesopt/mpv_osvgp.py", "experiments/config.py",
     "models/wiski_bayesopt.py", "data/malaria.py", "utils/lbfgs.py", "utils/checkpoint.py",
 ]
 

@@ -2,9 +2,10 @@
 ``banana_dataset``, ``sin_cos_dataset`` and ``streaming_friedman`` array
 for array (the same bits and dtypes), ``minmax_scale`` and
 ``train_test_split`` on their own, and the minibatch ring
-``online_gp_torch.utils.batch_stream.BatchStream`` batch for batch against
-the numpy path of the JAX package's ``BatchStream`` (its native loader
-turned off)."""
+``online_gp_torch.native.BatchStream`` batch for batch against
+the numpy path of the JAX package's ``BatchStream`` (the native loaders of
+both packages turned off; tests/test_torch_native.py holds the native
+ring)."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,8 @@ from online_gp_tpu.native import loader as j_loader
 from online_gp_tpu.data.preprocessing import minmax_scale as j_minmax
 from online_gp_tpu.data.preprocessing import train_test_split as j_split
 from online_gp_torch.data import banana_dataset, minmax_scale, sin_cos_dataset, streaming_friedman, train_test_split
-from online_gp_torch.utils.batch_stream import BatchStream
+from online_gp_torch.native import BatchStream
+from online_gp_torch.native import loader as t_loader
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(n=1200, seed=0), dict(n=301, noise=0.2, seed=3)])
@@ -51,6 +53,7 @@ def test_synthetic_generators_match_the_jax_package(name, kw):
 @pytest.mark.parametrize("n,bs,shuffle", [(10, 3, True), (12, 4, True), (7, 7, False), (5, 8, True)])
 def test_batch_stream_matches_the_jax_numpy_ring(monkeypatch, n, bs, shuffle):
     monkeypatch.setattr(j_loader, "_lib", lambda: None)  # the JAX package's numpy path
+    monkeypatch.setattr(t_loader, "_lib", lambda: None)  # and the port's
     rng = np.random.default_rng(n)
     x, y = rng.normal(size=(n, 3)).astype(np.float32), rng.integers(0, 2, n)
     want = j_loader.BatchStream(x, y, batch_size=bs, shuffle=shuffle, seed=3)
