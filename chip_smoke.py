@@ -219,15 +219,62 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    spread over the logged steps), fused points/s, classifier step ms,
    beside the card's name and power limit.
 
+11. The parallel layer (online_gp_torch/parallel, run_sweep's mode=mesh),
+   its prints beside the card's name and power limit and its seconds.
+   (a) ``run_sweep(8, "mesh", ...)`` at model=wiski_gp_regression
+   dataset=skillcraft (the flagged surrogate) stem=linear (2 features,
+   grid 16^2 = 256), batch_size 1, 20 batch epochs, 256 streamed steps, in
+   this process (a NCCL world of one), the counters zeroed just before and
+   read just after: K2 exactly once a step, at Bd = 8 (the trials folded
+   into the output batch), K6 on every step's caches and Q, every pretrain
+   epoch's Q and the held-out caches (2 x 256 + 20 + 1), all at
+   (8, 256, 256); every trial's online_metrics in the JAX sweep's schema
+   (batch_rmse, batch_nll and regret NaN, test_rmse and test_nll on the
+   last row), every other value finite. Batching: dataset=friedman in 2-D,
+   stem=eye, grid 16^2, 64 steps at T = 8 and at T = 2: trials 0 and 1
+   agree within 1e-4 of each column's largest value; a CPU twin of the
+   T = 2 run within 1e-3 (step_time aside). (b) ``run_sweep(4, "mesh",
+   ...)`` at model=wiski_gpd dataset=banana stem=eye, 30 epochs, 200
+   steps: every trial's test accuracy >= 0.7, K2 at Bd = 8 (4 trials x 2
+   classes), K6 launched. (c) two gloo ranks spawned on this card
+   (``parallel.launch.spawn_ranks``, a FileStore under build/): at m = 900
+   (phase 3's model, rows 450 a rank, 4,096 points in chunks of 128, the
+   recursions on clusters) and m = 4,096 (rows 2,048, 512 points, the
+   single-block recursions), ``sharded_stream_blocked`` against the
+   single-device ``wiski_stream`` (K1) and over a 256-point prefix against
+   the plain per-point update, each rank's rows within 1e-3 * max(scale,
+   1) (bench.py's gate), and ``sharded_pred_stream_blocked`` against the
+   single-device K3 stream, caches and moments to 2e-4; in each rank the
+   stage counters, zeroed just before and read just after, show every
+   stage once a chunk (on clusters at m = 900 only). (d) on the same two
+   ranks, ``localgp_experts_step`` at the localgp_regression preset's 256
+   points an expert, 8 experts (4 a rank), against the one-process step:
+   loss, params, mixture mean and variance within 1e-5 (allclose). (e)
+   each stage wrapper (chunk_gather_rows, chunk_factors, chunk_apply_rows,
+   pred_gather_rows, pred_factors, pred_apply_rows) on rank 0's rows of
+   (c)'s inputs at both sizes, one chunk, against its plain version (K1's
+   at 1e-5, K3's at 2e-4, the absolute part of each output's scale), and
+   K2 (16 calls) and K6 (Q) on a trial-batched state of (a)'s
+   configuration (Bd = 8, m = 256) at phase 10's tolerances, with device
+   times, wrapper times, plain times, bounds and yardsticks (bmm and
+   baddbmm of the same products; none for the recursions). Printed: the
+   sweeps' seconds, trials/s, step ms for all trials and trial-steps/s,
+   each rank's sharded updates/s and points/s beside the single-device
+   run's, the expert step's ms.
+
 It prints the kernels as one JSON line (``launches``: the sum over the
-path windows of phases 3, 4, 5, 6, 7, 9 and 10, phase 8 launching none; rows ``...@m4096``: phase 6's
+path windows of phases 3, 4, 5, 6, 7, 9, 10 and 11, phase 8 launching
+none; rows ``...@m4096``: phase 6's
 kernel checks, with phase 6's launches; rows ``...@cls-m256-bd2`` and
 ``...@cls-m900-bd2``: phase 7's kernel checks, with the launches of the
 windows of (a) and (b); rows ``...@bo-m1000``: phase 9's kernel checks,
 with the launches of its windows; rows ``...@drv-m256``: phase 10's
-kernel checks, with the launches of its windows), then the card's name
-and power limit, and last {"ok": true, "device": {...}}. It needs a CUDA device
-and exits non-zero without one.
+kernel checks, with the launches of its windows; rows
+``...@tp-m900-d2`` and ``...@tp-m4096-d2``: phase 11's stage checks, with
+the launches of both ranks at that size; rows ``...@sweep-m256-bd8``:
+phase 11's K2 and K6 checks, with the launches of its sweep windows), then
+the card's name and power limit, and last {"ok": true, "device": {...}}.
+It needs a CUDA device and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -235,6 +282,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import io
 import json
 import math
 import shutil
@@ -297,7 +345,7 @@ from online_gp_torch.models.wiski_lowrank import (
     wiski_lowrank_init,
     wiski_lowrank_predict,
 )
-from online_gp_torch.ops import _build, cuda_chol, cuda_root_update
+from online_gp_torch.ops import _build, cuda_chol, cuda_pred_stream, cuda_root_update
 from online_gp_torch.ops.cuda_chol import blocked_cholesky, blocked_cholesky_ex, blocked_cholesky_plain
 from online_gp_torch.ops.cuda_pred_stream import (
     pred_chunk,
@@ -313,12 +361,13 @@ from online_gp_torch.ops.cuda_root_update import (
     rank1_apply_plain,
     rank1_update,
     rank1_update_plain,
+    shard_stencil,
 )
 from online_gp_torch.ops.chol import spd_cholesky
 from online_gp_torch.ops.grid import Grid
 from online_gp_torch.ops.interp import dense_w, interp_coeffs
 from online_gp_torch.ops.precision import assert_true_f32, f32_matmul_precision
-from online_gp_torch.ops.pred_stream import pred_chunk_factors
+from online_gp_torch.ops.pred_stream import pred_chunk_factors, pred_stream_blocked
 from online_gp_torch.ops.root_update import (
     RootCache,
     blocked_factors,
@@ -327,6 +376,7 @@ from online_gp_torch.ops.root_update import (
     root_cache_update,
     stencil_rows,
 )
+from online_gp_torch.parallel.launch import spawn_ranks
 from online_gp_torch.utils.checkpoint import load_wrapper, save_wrapper
 from online_gp_torch.utils.optim import tree_leaves, tree_rebuild
 
@@ -3286,6 +3336,533 @@ def drivers_phase(peaks, card, dev):
     return kernels, total
 
 
+# --------------------------------------------------------------------------
+# phase 11: the parallel layer
+# --------------------------------------------------------------------------
+
+# (a) the regression mesh sweep at the preset's width (skillcraft's flagged
+# surrogate, linear stem: 2 features, grid 16^2 = 256), T = 8 trials
+MESH_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+MESH_TRIALS, MESH_EPOCHS, MESH_STREAM = 8, 20, 256
+MESH_REG_ARGS = ["model=wiski_gp_regression", "dataset=skillcraft", "stem=linear", "batch_size=1",
+                 f"num_batch_epochs={MESH_EPOCHS}", f"max_stream={MESH_STREAM}"]
+# batching: friedman in 2-D, an eye stem (no fit that parts run from run),
+# grid 16^2, 64 steps at T = 8 and T = 2, and a CPU twin of the T = 2 run
+BATCHING_ARGS = ["model=wiski_gp_regression", "dataset=friedman", "dataset.input_dim=2", "stem=eye",
+                 "stem.input_dim=2", "model.grid_size=16", f"num_batch_epochs={MESH_EPOCHS}", "max_stream=64"]
+BATCHING_RTOL, MESH_TWIN_RTOL = 1e-4, 1e-3  # of each column's largest magnitude
+# (b) the wiski_gpd mesh sweep: 4 trials of 2 classes (Bd = 8)
+MESH_CLS_ARGS = ["model=wiski_gpd", "dataset=banana", "stem=eye", "num_batch_epochs=30", "max_stream=200"]
+MESH_CLS_TRIALS, MESH_CLS_GATE = 4, 0.7
+# (c) the tensor-parallel streams on two gloo ranks sharing the card:
+# m -> (grid side, streamed points); phase 3's model, and the 64x64 grid
+TP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
+TP_RANKS, TP_PREFIX, TP_PRED_TOL = 2, 256, 2e-4
+TP_CASES = {900: (M_SIDE, 4096), 4096: (M6_SIDE, 4 * K)}
+# (d) the expert-parallel LocalGP step: the localgp_regression preset's
+# 256 points an expert, 8 experts (4 a rank)
+LGP_CAP, LGP_EXPERTS, LGP_TEST, LGP_TOL = 256, 8, 512, 1e-5
+STAGE_META = {
+    "chunk_gather_rows": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
+    "chunk_factors": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
+    "chunk_apply_rows": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
+    "pred_gather_rows": ("online_gp_torch/csrc/pred_stream.cu", "online_gp_tpu/ops/pallas_pred_stream.py:95"),
+    "pred_factors": ("online_gp_torch/csrc/pred_stream.cu", "online_gp_tpu/ops/pallas_pred_stream.py:95"),
+    "pred_apply_rows": ("online_gp_torch/csrc/pred_stream.cu", "online_gp_tpu/ops/pallas_pred_stream.py:95"),
+}
+STAGES = {name: getattr(cuda_root_update if name.startswith("chunk") else cuda_pred_stream, name)
+          for name in STAGE_META}
+
+
+def zero_stage_counters():
+    for fn in STAGES.values():
+        fn.launches = 0
+    cuda_root_update.chunk_factors.cluster_launches = cuda_pred_stream.pred_factors.cluster_launches = 0
+
+
+def read_stage_counters():
+    out = {name: fn.launches for name, fn in STAGES.items()}
+    out["chunk_factors_cluster"] = cuda_root_update.chunk_factors.cluster_launches
+    out["pred_factors_cluster"] = cuda_pred_stream.pred_factors.cluster_launches
+    return out
+
+
+class KernelShapes:
+    """Records the (Bd, m, m) of each K2 call of the trial-batched path and
+    of each K6 call of ``spd_cholesky`` while the block runs (the wrappers
+    themselves count the launches)."""
+
+    def __enter__(self):
+        import online_gp_torch.ops.chol as chol_mod
+        import online_gp_torch.parallel.trials as trials_mod
+
+        self.k2, self.k6 = [], []
+        self._orig = (trials_mod.rank1_apply, chol_mod.blocked_cholesky_ex)
+
+        def k2(L, B, p):
+            self.k2.append(tuple(L.shape))
+            return self._orig[0](L, B, p)
+
+        def k6(q, *args, **kw):
+            self.k6.append(tuple(q.shape))
+            return self._orig[1](q, *args, **kw)
+
+        trials_mod.rank1_apply, chol_mod.blocked_cholesky_ex = k2, k6
+        return self
+
+    def __exit__(self, *exc):
+        import online_gp_torch.ops.chol as chol_mod
+        import online_gp_torch.parallel.trials as trials_mod
+
+        trials_mod.rank1_apply, chol_mod.blocked_cholesky_ex = self._orig
+
+
+def mesh_window(what, trials, args, log, device="cuda"):
+    """run_sweep(trials, "mesh", args) with the counters zeroed just before
+    and read just after; returns (results, launches, seconds, shapes)."""
+    zero_counters()
+    t0 = time.perf_counter()
+    print(f"==== {what}", file=log, flush=True)
+    with KernelShapes() as shapes, contextlib.redirect_stdout(log):
+        out = run_sweep(trials, "mesh", args + [f"log_dir={MESH_DIR / what}", f"device={device}"])
+    torch.cuda.synchronize()
+    return out, read_counters(), time.perf_counter() - t0, shapes
+
+
+def mesh_table(log_dir, what, columns, nan_cols, last_cols):
+    """A mesh trial's online_metrics: the JAX sweep's schema, ``nan_cols``
+    NaN on every row, ``last_cols`` finite on the last row only, every other
+    value finite."""
+    with open(Path(log_dir) / "online_metrics.csv") as f:
+        reader = csv.DictReader(f)
+        cols, rows = reader.fieldnames, [{k: float(v) for k, v in r.items()} for r in reader]
+    if cols != columns or not rows:
+        raise AssertionError(f"phase 11 {what}: online_metrics columns {cols}, {len(rows)} rows")
+    for i, r in enumerate(rows):
+        for k, v in r.items():
+            finite = (k not in nan_cols) and (k not in last_cols or i == len(rows) - 1)
+            if math.isfinite(v) != finite:
+                raise AssertionError(f"phase 11 {what}: row {i} {k} = {v}")
+    return rows
+
+
+def tables_apart(got, want, what):
+    """The largest distance of two runs' online_metrics, column by column
+    (step_time aside), over each column's largest magnitude; NaN must stand
+    where the other run has NaN."""
+    errs = {}
+    for col in want[0]:
+        if col == "step_time":
+            continue
+        a, b = np.array([r[col] for r in got]), np.array([r[col] for r in want])
+        if a.shape != b.shape or not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"phase 11 {what}: column {col} parts: {a} against {b}")
+        if np.isfinite(b).any():
+            errs[col] = float(np.nanmax(np.abs(a - b)) / max(np.nanmax(np.abs(b)), 1e-12))
+    return errs
+
+
+def mesh_sweeps(card, log):
+    """(a) and (b); returns their launch windows, seconds and the (a)
+    sweep's step times."""
+    windows, seconds = {}, {}
+    reg_cols = ONLINE_METRICS
+    nan_reg, last_reg = ("batch_rmse", "batch_nll", "regret"), ("test_rmse", "test_nll")
+    out, windows["a"], seconds["a"], shapes = mesh_window("a", MESH_TRIALS, MESH_REG_ARGS, log)
+    rows = [mesh_table(r["log_dir"], "(a)", reg_cols, nan_reg, last_reg) for r in out]
+    k6_want = 2 * MESH_STREAM + MESH_EPOCHS + 1  # caches and Q a step, Q an epoch, the held-out caches
+    bd = (MESH_TRIALS, 256, 256)
+    step_s = rows[0][-1]["step_time"]  # the sweep's wall time over its steps times its trials
+    print(f"phase 11 (a) run_sweep({MESH_TRIALS}, mesh) (skillcraft surrogate, linear stem, grid 16^2, "
+          f"{MESH_STREAM} steps) on {card}: {seconds['a']:.1f} s ({MESH_TRIALS / seconds['a']:.2f} trials/s), "
+          f"step ms {step_s * MESH_TRIALS * 1e3:.3f} for all {MESH_TRIALS} trials ({1.0 / step_s:.1f} trial-steps/s), "
+          f"test RMSE "
+          f"{[round(r['test_rmse'], 4) for r in out]}, launches {json.dumps(windows['a'])}, "
+          f"K2 shapes {sorted(set(shapes.k2))}, K6 shapes {sorted(set(shapes.k6))}")
+    if (windows["a"]["rank1_apply"], len(shapes.k2)) != (MESH_STREAM, MESH_STREAM) or set(shapes.k2) != {bd}:
+        raise AssertionError(f"phase 11 (a): K2 must launch once a step at {bd}: {windows['a']}, {set(shapes.k2)}")
+    if (windows["a"]["blocked_cholesky"], len(shapes.k6)) != (k6_want, k6_want) or set(shapes.k6) != {bd}:
+        raise AssertionError(f"phase 11 (a): K6 must factor {k6_want} Q at {bd}: {windows['a']}, {set(shapes.k6)}")
+
+    runs = {}
+    for T in (8, 2):
+        runs[T], windows[f"a T={T}"], seconds[f"a T={T}"], _ = mesh_window(f"batch{T}", T, BATCHING_ARGS, log)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        twin = run_sweep(2, "mesh", BATCHING_ARGS + [f"log_dir={MESH_DIR / 'twin'}", "device=cpu"])
+    seconds["a twin"] = time.perf_counter() - t0
+    tab = lambda r: mesh_table(r["log_dir"], "(a) batching", reg_cols, nan_reg, last_reg)
+    batching = max(max(tables_apart(tab(runs[8][t]), tab(runs[2][t]), "(a) T=8 vs T=2").values()) for t in (0, 1))
+    twin_err = max(max(tables_apart(tab(twin[t]), tab(runs[2][t]), "(a) CPU twin").values()) for t in (0, 1))
+    print(f"phase 11 (a) batching (friedman 2-D, eye stem, grid 16^2, 64 steps): trials 0, 1 at T = 8 against "
+          f"T = 2 apart by {batching:.3e} of each column's largest value; the CPU twin of T = 2 by {twin_err:.3e}; "
+          f"{seconds['a T=8']:.1f} s and {seconds['a T=2']:.1f} s on the card, twin {seconds['a twin']:.1f} s")
+    if not batching <= BATCHING_RTOL or not twin_err <= MESH_TWIN_RTOL:
+        raise AssertionError(f"phase 11 (a): batching {batching} (<= {BATCHING_RTOL}), twin {twin_err} "
+                             f"(<= {MESH_TWIN_RTOL})")
+
+    out, windows["b"], seconds["b"], shapes = mesh_window("b", MESH_CLS_TRIALS, MESH_CLS_ARGS, log)
+    crow = [mesh_table(r["log_dir"], "(b)", CLS_ONLINE_METRICS, ("batch_acc", "regret"), ("test_acc",))
+            for r in out]
+    acc = [r["test_acc"] for r in out]
+    print(f"phase 11 (b) run_sweep({MESH_CLS_TRIALS}, mesh) (wiski_gpd, banana, eye stem, 200 steps) on {card}: "
+          f"{seconds['b']:.1f} s, step_time {crow[0][-1]['step_time'] * 1e3:.3f} ms a trial-step, test acc {acc}, "
+          f"launches {json.dumps(windows['b'])}, K2 shapes {sorted(set(shapes.k2))}")
+    if not min(acc) >= MESH_CLS_GATE:
+        raise AssertionError(f"phase 11 (b): test accuracy {acc} below {MESH_CLS_GATE}")
+    if set(shapes.k2) != {(2 * MESH_CLS_TRIALS, 256, 256)} or windows["b"]["blocked_cholesky"] == 0:
+        raise AssertionError(f"phase 11 (b): K2 at Bd = 8 and K6 must launch: {set(shapes.k2)}, {windows['b']}")
+    return windows, seconds
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tp_inputs(m, dev):
+    """Phase 3's configuration at m (2-D inputs, RBF, learned second noise,
+    N_SEED seed points of sin(3 x0), slim state) with its stream and the
+    prediction caches, on the card."""
+    side, n = TP_CASES[m]
+    rng = np.random.default_rng(SEED + m)
+    grid = Grid.create([(-1.1, 1.1)] * 2, side, device=dev)
+    model = WiskiModel(RBFKernel(), grid, num_outputs=1, learn_additional_noise=True)
+    params = model.init_params(2)
+    f32 = dict(dtype=torch.float32, device=dev)
+    x0 = torch.tensor(rng.uniform(-1, 1, (N_SEED, 2)), **f32)
+    state = wiski_slim(wiski_init(model, x0, torch.sin(3 * x0[:, :1]), torch.ones((N_SEED, 1), **f32)))
+    xs = torch.tensor(rng.uniform(-1, 1, (n, 2)), **f32)
+    ys = torch.sin(3 * xs[:, :1])
+    mean_cache, cov_cache = wiski_prediction_caches(model, params, state)
+    idx, w = interp_coeffs(grid, xs)
+    return model, state, xs, ys, dict(L=state.roots.root[0], B=state.roots.inv_root[0], C=cov_cache[0],
+                                      mu=mean_cache[0, :, 0], idx=idx, w=w, y=ys[:, 0], nz=torch.ones_like(ys[:, 0]))
+
+
+def tp_references(m, dev, card):
+    """The single-device runs the ranks are held to: wiski_stream (K1), the
+    plain per-point update over the prefix, the K3 stream; saved under
+    TP_DIR with the inputs. Returns (path, inputs, single-device rates)."""
+    model, state, xs, ys, a = tp_inputs(m, dev)
+    ns = torch.ones_like(ys)
+    roots0 = RootCache(None, a["L"][None].clone(), a["B"][None].clone())
+    sync(dev)
+    t0 = time.perf_counter()
+    streamed = wiski_stream(model, state._replace(roots=RootCache(None, roots0.root.clone(), roots0.inv_root.clone())),
+                            xs, ys, ns, block_size=K)
+    sync(dev)
+    t1 = time.perf_counter()
+    C, mu, pm, pv = pred_stream_blocked(a["C"].clone(), a["mu"].clone(), a["idx"], a["w"], a["y"], a["nz"], block=K)
+    sync(dev)
+    t2 = time.perf_counter()
+    prefix = plain_prefix_roots(model, roots0, xs[:TP_PREFIX], ns[:TP_PREFIX])
+    refs = dict(L=streamed.roots.root[0], B=streamed.roots.inv_root[0], L_prefix=prefix.root[0],
+                B_prefix=prefix.inv_root[0], C=C, mu=mu, pm=pm, pv=pv)
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    path = TP_DIR / f"m{m}.pt"
+    torch.save({"inputs": {k: v.cpu() for k, v in a.items()}, "refs": {k: v.cpu() for k, v in refs.items()}}, path)
+    n = xs.shape[0]
+    rates = dict(stream_updates_per_s=n / (t1 - t0), pred_points_per_s=n / (t2 - t1))
+    print(f"  phase 11 (c) single-device m = {m} on {card}: wiski_stream {rates['stream_updates_per_s']:.1f} "
+          f"updates/s, K3 stream {rates['pred_points_per_s']:.1f} points/s ({n} points)")
+    return str(path), a, rates
+
+
+def lgp_data():
+    rng = np.random.default_rng(SEED)
+    x = rng.uniform(-1, 1, (LGP_CAP * LGP_EXPERTS, 2)).astype(np.float32)
+    return x, np.sin(3 * x[:, 0]) * np.cos(2 * x[:, 1]), rng.uniform(-1, 1, (LGP_TEST, 2)).astype(np.float32)
+
+
+def lgp_step(dev, sharded_mesh=None):
+    """One localgp_experts_step at the preset's expert size: on the whole
+    expert fleet, or with the experts sharded over ``sharded_mesh``."""
+    from online_gp_torch.models.localgp import LocalGPModel, localgp_init
+    from online_gp_torch.parallel.mesh import localgp_experts_step, replicate, shard_leading
+    from online_gp_torch.utils.optim import adam_init
+
+    model = LocalGPModel(RBFKernel(), max_data_per_model=LGP_CAP, max_experts=LGP_EXPERTS)
+    x, y, xt = lgp_data()
+    state = localgp_init(model, x, y, device=dev)
+    params = model.init_params(2, device=dev)
+    opt = adam_init(tree_leaves(params))
+    xt = torch.from_numpy(xt).to(dev)
+    if sharded_mesh is not None:
+        state, params, xt = shard_leading(state, sharded_mesh), replicate(params, sharded_mesh), replicate(
+            xt, sharded_mesh)
+    step = localgp_experts_step(model, 1e-2)
+    step(params, opt, state, xt)  # a warm-up: the first call's one-time costs are set-up
+    sync(dev)
+    t0 = time.perf_counter()
+    p, _, loss, mean, var = step(params, opt, state, xt)
+    sync(dev)
+    out = dict(loss=loss.cpu().numpy(), mean=mean.cpu().numpy(), var=var.cpu().numpy(),
+               params=[a.cpu().numpy() for a in tree_leaves(p)], seconds=time.perf_counter() - t0)
+    if sharded_mesh is not None:
+        out["experts"] = int(state.x.to_local().shape[0])
+    return out
+
+
+def _rel_apart(got, want, tol, what):
+    err = float(np.max(np.abs(np.asarray(got) - np.asarray(want)) / (tol + np.abs(np.asarray(want)))))
+    if not err <= 1.0:
+        raise AssertionError(f"{what}: parts from the one-process run beyond {tol} (allclose ratio {err:.3g})")
+    return float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
+
+
+def tp_rank(rank, world, paths, lgp_ref, device_type="cuda"):
+    """A gloo rank on the card: (c) both sharded streams at each m against
+    the single-device references, the stage counters zeroed just before and
+    read just after; (d) the expert-parallel step against the one-process
+    run."""
+    from online_gp_torch.parallel.mesh import (
+        local_device,
+        make_mesh,
+        sharded_pred_stream_blocked,
+        sharded_stream_blocked,
+    )
+
+    mesh = make_mesh(axis_name="tp", device_type=device_type)
+    dev = local_device(device_type)
+    report = {}
+    with f32_matmul_precision():
+        for m, path in paths.items():
+            saved = torch.load(path)
+            a = {k: v.to(dev) for k, v in saved["inputs"].items()}
+            refs = {k: v.to(dev) for k, v in saved["refs"].items()}
+            rows = slice(rank * (m // world), (rank + 1) * (m // world))
+            wv = a["w"]  # unit noise
+            # a warm-up chunk of each stream (the first collective's and launches' one-time costs)
+            sharded_stream_blocked(a["L"], a["B"], a["idx"][:K], wv[:K], mesh, block=K)
+            sharded_pred_stream_blocked(a["C"], a["mu"], a["idx"][:K], a["w"][:K], a["y"][:K], a["nz"][:K], mesh,
+                                        block=K)
+            zero_stage_counters()
+            sync(dev)
+            t0 = time.perf_counter()
+            L, B = sharded_stream_blocked(a["L"], a["B"], a["idx"], wv, mesh, block=K)
+            sync(dev)
+            t1 = time.perf_counter()
+            C, mu, pm, pv = sharded_pred_stream_blocked(a["C"], a["mu"], a["idx"], a["w"], a["y"], a["nz"], mesh, block=K)
+            sync(dev)
+            t2 = time.perf_counter()
+            Lp, Bp = sharded_stream_blocked(a["L"], a["B"], a["idx"][:TP_PREFIX], wv[:TP_PREFIX], mesh, block=K)
+            sync(dev)
+            launches = read_stage_counters()
+            errs = {}
+            for name, got, want in (("L", L, refs["L"]), ("B", B, refs["B"]), ("L_prefix", Lp, refs["L_prefix"]),
+                                    ("B_prefix", Bp, refs["B_prefix"])):
+                want = want[rows]
+                scale = max(float(want.abs().max()), 1.0)
+                errs[name] = float((got.to_local() - want).abs().max())
+                if not errs[name] <= 1e-3 * scale:
+                    raise AssertionError(f"rank {rank} m = {m}: {name} parts by {errs[name]:.3e} (scale {scale:.3g})")
+            for name, got, want in (("C", C, refs["C"][rows]), ("mu", mu, refs["mu"][rows]), ("pm", pm, refs["pm"]),
+                                    ("pv", pv, refs["pv"])):
+                errs[name] = max_err((got.to_local(),), (want,), TP_PRED_TOL, f"rank {rank} m = {m} {name}")
+            n = a["idx"].shape[0]
+            report[m] = dict(errors=errs, launches=launches, stream_updates_per_s=n / (t1 - t0),
+                             pred_points_per_s=n / (t2 - t1), rows=L.to_local().shape[0])
+        lgp = lgp_step(dev, make_mesh(device_type=device_type))
+        errs = {k: _rel_apart(lgp[k], lgp_ref[k], LGP_TOL, f"rank {rank} (d) {k}") for k in ("loss", "mean", "var")}
+        errs["params"] = max(_rel_apart(a, b, LGP_TOL, f"rank {rank} (d) params")
+                             for a, b in zip(lgp["params"], lgp_ref["params"]))
+        report["localgp"] = dict(errors=errs, experts=lgp["experts"], seconds=lgp["seconds"])
+    return report
+
+
+def tp_phase(card, dev):
+    """(c) and (d): the references, then the two gloo ranks on the card;
+    returns each m's inputs and the summed stage launches by m."""
+    inputs, paths, single = {}, {}, {}
+    for m in TP_CASES:
+        paths[m], inputs[m], single[m] = tp_references(m, dev, card)
+    lgp_ref = lgp_step(dev)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_rank, TP_RANKS, (paths, lgp_ref), store=str(TP_DIR / "store"))
+    spawn_s = time.perf_counter() - t0
+    launches = {}
+    for m in TP_CASES:
+        side, n = TP_CASES[m]
+        cluster = chunk_cluster_plan(K, m) is not None, pred_cluster_plan(K, m, 16) is not None
+        k1 = -(-n // K) + -(-TP_PREFIX // K)
+        want = dict(chunk_gather_rows=k1, chunk_factors=k1, chunk_apply_rows=k1, pred_gather_rows=n // K,
+                    pred_factors=n // K, pred_apply_rows=n // K, chunk_factors_cluster=k1 * cluster[0],
+                    pred_factors_cluster=(n // K) * cluster[1])
+        for r, rep in enumerate(ranks):
+            got = rep[m]["launches"]
+            print(f"phase 11 (c) rank {r} m = {m} (rows {rep[m]['rows']}, {n} points) on {card}: sharded wiski "
+                  f"stream {rep[m]['stream_updates_per_s']:.1f} updates/s (single device "
+                  f"{single[m]['stream_updates_per_s']:.1f}), sharded K3 stream {rep[m]['pred_points_per_s']:.1f} "
+                  f"points/s (single device {single[m]['pred_points_per_s']:.1f}), errors "
+                  f"{json.dumps(rep[m]['errors'])}, launches {json.dumps(got)}")
+            if got != want:
+                raise AssertionError(f"phase 11 (c) rank {r} m = {m}: stage launches {got}, expected {want}")
+        launches[m] = {k: sum(rep[m]["launches"][k] for rep in ranks) for k in STAGES}
+    for r, rep in enumerate(ranks):
+        lg = rep["localgp"]
+        print(f"phase 11 (d) rank {r} localgp_experts_step ({lg['experts']} of {LGP_EXPERTS} experts of {LGP_CAP} "
+              f"points) on {card}: {lg['seconds'] * 1e3:.2f} ms (one process {lgp_ref['seconds'] * 1e3:.2f} ms), "
+              f"apart from the one-process step by {json.dumps(lg['errors'])}")
+        if lg["experts"] != LGP_EXPERTS // TP_RANKS:
+            raise AssertionError(f"phase 11 (d): rank {r} holds {lg['experts']} experts")
+    print(f"phase 11 (c, d) two gloo ranks on {card}: {spawn_s:.1f} s with their start")
+    return inputs, launches
+
+
+def stage_bound(name, Bd, rows, m, k, P, u, e, peaks):
+    """The least time of a stage on a shard of ``rows`` rows: u stencil rows
+    and e stencil entries fall in the shard (counted from this run's
+    stencil)."""
+    if name == "chunk_gather_rows":  # the touched rows of B, the stencil; p0 out
+        return bound_ms(4 * (Bd * (u * m + k * m + k * P) + k * P), Bd * 2 * e * m, peaks)
+    if name == "chunk_factors":  # p0 in; U, P, R out; 10 t m flops at step t
+        return bound_ms(4 * 4 * Bd * k * m, Bd * 5 * k * (k - 1) * m, peaks)
+    if name == "chunk_apply_rows":  # the rows of L and B in and out, U, P, R in
+        return bound_ms(4 * Bd * (4 * rows * m + 3 * k * m), Bd * 8 * rows * m * k, peaks)
+    if name == "pred_gather_rows":
+        return bound_ms(4 * (Bd * (u * (m + 1) + k * (m + 1)) + 2 * k * P), Bd * 2 * e * (m + 1), peaks)
+    if name == "pred_factors":  # c0w in, Z out; the recursion's k^2 m
+        return bound_ms(4 * (Bd * (2 * k * m + 6 * k) + 2 * k * P), Bd * (k * (k - 1) * m + 2 * k * m), peaks)
+    return bound_ms(4 * Bd * (2 * rows * (m + 1) + k * m + k), Bd * 2 * rows * (m + 1) * k, peaks)
+
+
+def check_stage(name, make, tol, peaks, bound, kernels, library, plain_reps):
+    """A stage wrapper against its plain version (allclose at ``tol``, the
+    absolute part ``tol`` times each output's largest magnitude, at least
+    1), then its device time, wrapper time, plain time and yardstick."""
+    fn = STAGES[name]
+    plain = getattr(cuda_root_update if name.startswith("chunk") else cuda_pred_stream, f"{name}_plain")
+    got, want = fn(*make()), plain(*make())
+    torch.cuda.synchronize()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    err = max(max_err((g,), (w,), tol, name, tol * max(float(w.abs().max()), 1.0)) for g, w in zip(got, want))
+    ms, stages = device_ms(fn, make, kernels)
+    return dict(max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(fn, make),
+                plain_ms=time_ms(plain, make, plain_reps),
+                library_ms=None if library is None else time_ms(*library), bound_ms=bound[0], bound_by=bound[1])
+
+
+def check_stages(m, a, peaks, card):
+    """The six stages on rank 0's rows of (c)'s inputs at m, one chunk of
+    k = K: K1's at phase 2's 1e-5, K3's at 2e-4."""
+    rows = m // TP_RANKS
+    idx = a["idx"][:K].to(torch.int32).contiguous()
+    w = a["w"][:K].contiguous()
+    wv = w[None].contiguous()
+    k, P = idx.shape
+    loc, wl = shard_stencil(idx, w, 0, rows)
+    u, e = int(torch.unique(loc[wl != 0]).numel()), int((wl != 0).sum())
+    S = torch.zeros((1, k, rows), device=w.device).scatter_add(2, loc[None].expand(1, k, P), wl[None])
+    L = a["L"][None, :rows].contiguous()
+    B = a["B"][None, :rows].contiguous()
+    C = a["C"][None, :rows].contiguous()
+    mu = a["mu"][None, :rows].contiguous()
+    full_B, full_C, full_mu = a["B"][None].contiguous(), a["C"][None].contiguous(), a["mu"][None].contiguous()
+    p0 = cuda_root_update.chunk_gather_rows(B, idx, wv, 0) + cuda_root_update.chunk_gather_rows(
+        full_B[:, rows:].contiguous(), idx, wv, rows)
+    U, Pm, R = cuda_root_update.chunk_factors(p0)
+    c0w, mu0w = (x + z for x, z in zip(cuda_pred_stream.pred_gather_rows(C, mu, idx, w, 0),
+                                      cuda_pred_stream.pred_gather_rows(full_C[:, rows:].contiguous(),
+                                                                        full_mu[:, rows:].contiguous(), idx, w, rows)))
+    y, nz = a["y"][None, :K].contiguous(), a["nz"][None, :K].contiguous()
+    Z, r, _, _ = cuda_pred_stream.pred_factors(idx, w, c0w, mu0w, y, nz)
+    Zl = Z[..., :rows]
+    recursion = "cluster" if chunk_cluster_plan(K, m) is not None else "single-block"
+    pred_rec = "cluster" if pred_cluster_plan(K, m, P) is not None else "single-block"
+    reps = PLAIN_REPS6 if m > M_SIDE**2 else TIMING_REPS
+    bnd = lambda name: stage_bound(name, 1, rows, m, k, P, u, e, peaks)
+    cases = {
+        "chunk_gather_rows": (lambda: (B, idx, wv, 0), 1e-5, {"chunk_gather_kernel": 1},
+                              (lambda B_, *_: torch.bmm(S, B_), lambda: (B,))),
+        "chunk_factors": (lambda: (p0,), 1e-5,
+                          {"chunk_recursion_cluster_kernel" if recursion == "cluster" else "chunk_recursion_kernel": 1},
+                          None),
+        "chunk_apply_rows": (lambda: (*clone_all(L, B), U, Pm, R), 1e-5,
+                             {"chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1},
+                             (chunk_library(U, Pm, R), lambda: clone_all(L, B))),
+        "pred_gather_rows": (lambda: (C, mu, idx, w, 0), TP_PRED_TOL, {"pred_gather_kernel": 1},
+                             (lambda C_, mu_: (torch.bmm(S, C_), torch.bmm(mu_[:, None], S.mT)), lambda: (C, mu))),
+        "pred_factors": (lambda: (idx, w, c0w, mu0w, y, nz), TP_PRED_TOL,
+                         {"pred_recursion_cluster_kernel" if pred_rec == "cluster" else "pred_recursion_kernel": 1},
+                         None),
+        "pred_apply_rows": (lambda: (*clone_all(C, mu), Z, r, 0), TP_PRED_TOL, {"pred_apply_kernel": 1},
+                            (lambda C_, mu_: (C_.baddbmm_(Zl.mT, Z, alpha=-1.0),
+                                              mu_.add_(torch.bmm(Zl.mT, r[..., None])[..., 0])),
+                             lambda: clone_all(C, mu))),
+    }
+    out = {}
+    for name, (make, tol, kernels, library) in cases.items():
+        out[name] = check_stage(name, make, tol, peaks, bnd(name), kernels, library, reps)
+        out[name]["route"] = f"rows [0, {rows}) of {m}" + (
+            f", {recursion if name.startswith('chunk') else pred_rec} recursion" if "factors" in name else "")
+        print(f"{name} tp-m{m}-d{TP_RANKS} on {card}: " + json.dumps(out[name]))
+    return out
+
+
+def check_kernels_sweep(peaks, card, dev):
+    """K2 (16 calls) and K6 (Q) at the mesh sweep's shapes (T = 8 trials of
+    one output folded, Bd = 8, m = 256): the trial-batched state of (a)'s
+    configuration at the start of its stream (its 8 stems at their seeded
+    init), against their plain versions at phase 10's tolerances."""
+    from online_gp_torch.experiments.sweep import _stack_trial_data, trial_stems
+    from online_gp_torch.kernels.base import make_kernel
+    from online_gp_torch.parallel.trials import fold, trials_init, trials_params
+
+    cfg = exp_config.parse_config(MESH_REG_ARGS + ["device=cuda"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        tx, ty, _, _ = _stack_trial_data(cfg, MESH_TRIALS, "multi")
+    stems = trial_stems(cfg, range(MESH_TRIALS), dev)
+    n0 = max(int(cfg["model"]["init_ratio"] * tx.shape[1]), 2)
+    grid = Grid.create([(-1.1, 1.1)] * 2, 16, device=dev)
+    model = WiskiModel(make_kernel("rbf"), grid, num_outputs=1, learn_additional_noise=True)
+    with torch.no_grad():
+        feats = torch.stack([s(torch.from_numpy(tx[t]).to(dev)) for t, s in enumerate(stems)])
+        y = torch.from_numpy(ty).to(dev)
+        state = trials_init(model, feats[:, :n0], y[:, :n0], torch.ones_like(y[:, :n0]))
+    fmodel, fparams, fstate = fold(model, trials_params(model, 2, MESH_TRIALS, device=dev), state)
+    L, B = fstate.roots.root.contiguous(), fstate.roots.inv_root.contiguous()
+    idx, w = interp_coeffs(grid, feats[0, n0 : n0 + N_K2_6])
+    idx, w = idx.to(torch.int32).contiguous(), w.contiguous()
+    wv = w[None].expand(MESH_TRIALS, *w.shape).contiguous()
+    p = torch.einsum("bp,bpm->bm", wv[:, 0], B[:, idx[0].long()])
+    scale = max(float(L.abs().max()), float(B.abs().max()), float((L @ p[..., None]).abs().max()), 1.0)
+    rows = {
+        "rank1_apply": check_k2(L, B, idx, wv, peaks, "sweep-m256-bd8", atol=1e-5 * scale),
+        "blocked_cholesky": check_k6(q_matrix(fmodel, fparams, fstate), peaks, "Q (sweep-m256-bd8)"),
+    }
+    for kname, r in rows.items():
+        print(f"{kname} sweep-m256-bd8 on {card}: " + json.dumps(r))
+    return rows
+
+
+def parallel_phase(peaks, card, dev):
+    """Phase 11; returns the kernel rows and the launches of its windows
+    (K2 and K6 summed over the sweeps' windows, the stages by m)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    with open(MESH_DIR / "sweep_stdout.log", "w") as log:
+        windows, seconds = mesh_sweeps(card, log)
+    total = {k: sum(w[k] for w in windows.values()) for k in windows["a"]}
+    t0 = time.perf_counter()
+    inputs, stage_launches = tp_phase(card, dev)
+    seconds["c, d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = {}
+    for m, a in inputs.items():
+        for name, r in check_stages(m, a, peaks, card).items():
+            rows[f"{name}@tp-m{m}-d{TP_RANKS}"] = (r, stage_launches[m][name])
+    for kname, r in check_kernels_sweep(peaks, card, dev).items():
+        rows[f"{kname}@sweep-m256-bd8"] = (r, total[kname])
+    seconds["e"] = time.perf_counter() - t0
+    print(f"phase 11 sweep launches: {json.dumps(total)}")
+    print(f"phase 11 seconds on {card}: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
+          f"all {time.perf_counter() - t_phase:.1f}")
+    return rows, total
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3374,6 +3951,10 @@ def main() -> int:
         for kname, count in launches10.items():
             launches[kname] += count
 
+        kernels11, launches11 = parallel_phase(peaks, card, dev)
+        for kname, count in launches11.items():
+            launches[kname] += count
+
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
@@ -3398,6 +3979,8 @@ def main() -> int:
     rows += [(row, r, launches7[row]) for row, r in kernels7.items()]
     rows += [(row, r, launches9[row]) for row, r in kernels9.items()]
     rows += [(row, r, launches10[row.split("@")[0]]) for row, r in kernels10.items()]
+    rows += [(row, r, count) for row, (r, count) in kernels11.items()]
+    meta.update(STAGE_META)
     for row, r, count in rows:
         source, replaces = meta[row.split("@")[0]]
         kernels.append({

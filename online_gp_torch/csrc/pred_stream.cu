@@ -42,7 +42,13 @@
 //       online_gp_torch/ops/cuda_pred_stream.py, by shape only, mirroring
 //       pred_cluster_layout below (the wrapper checks the two agree).
 //   (c) apply: C -= Z^T Z as a shared-memory-tiled f32 GEMM in place, with
-//       mu += Z^T r fused into the blocks of the first tile row.
+//       mu += Z^T r fused into the blocks of the first tile column.
+//   The three stages are also C entries of their own (ogp_pred_gather_rows,
+//   ogp_pred_factors, ogp_pred_apply_rows) for caches row-sharded over
+//   processes: the gather and the apply then run over a shard's rows
+//   [row0, row0 + rows) of C and mu, the recursion on the summed c0w and
+//   mu0w (the JAX package's sharded_pred_stream_blocked runs the plain
+//   pred_chunk_factors there).
 // Bound: operations. C is symmetric, so C -= Z^T Z needs m (m + 1) k flops
 // (a SYRK) and m (m + 1) / 2 floats of C read and written; with the recursion's
 // k^2 m that is 0.12 GFLOP per output at m = 900, k = 128. The apply below
@@ -78,29 +84,31 @@ namespace {
 
 constexpr int kRecursionThreads = 1024;
 
-// (a) grid (k, Bd)
+// (a) over the stencil points in [row0, row0 + rows): C holds those rows of
+// each output's cache, (Bd, rows, m), and mu those entries, (Bd, rows); the
+// whole chunk has row0 = 0, rows = m. grid (k, Bd)
 __global__ void pred_gather_kernel(const float* __restrict__ C, const float* __restrict__ mu,
                                    const int* __restrict__ idx, const float* __restrict__ wv,
                                    float* __restrict__ c0w, float* __restrict__ mu0w, int k,
-                                   int P, int m) {
-  const long long t = blockIdx.x, b = blockIdx.y, mm = m;
-  const float* Cb = C + b * mm * mm;
+                                   int P, int rows, int m, int row0) {
+  const long long t = blockIdx.x, b = blockIdx.y, mm = m, rr = rows;
+  const float* Cb = C + b * rr * mm;
   const int* it = idx + t * P;
   const float* wt = wv + t * P;
   float* out = c0w + (b * k + t) * mm;
   for (int l = threadIdx.x; l < m; l += blockDim.x) {
     float acc = 0.f;
     for (int q = 0; q < P; ++q) {
-      const int row = it[q];
-      if ((unsigned)row < (unsigned)m) acc = fmaf(wt[q], Cb[row * mm + l], acc);
+      const int row = it[q] - row0;
+      if ((unsigned)row < (unsigned)rows) acc = fmaf(wt[q], Cb[row * mm + l], acc);
     }
     out[l] = acc;
   }
   if (threadIdx.x == 0) {
     float acc = 0.f;
     for (int q = 0; q < P; ++q) {
-      const int row = it[q];
-      if ((unsigned)row < (unsigned)m) acc = fmaf(wt[q], mu[b * mm + row], acc);
+      const int row = it[q] - row0;
+      if ((unsigned)row < (unsigned)rows) acc = fmaf(wt[q], mu[b * rr + row], acc);
     }
     mu0w[b * k + t] = acc;
   }
@@ -345,22 +353,25 @@ int pred_recursion(const int* idx, const float* wv, const float* c0w, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
-// (c) C[b] -= Z[b]^T Z[b] in place; the first tile row also does
-// mu[b] += Z[b]^T r[b] for its columns. grid (m tiles, m tiles, Bd)
+// (c) C[b] -= Z[b][:, rows]^T Z[b] in place on the rows [row0, row0 + rows)
+// C holds, (Bd, rows, m) (row0 = 0, rows = m for the whole chunk); the
+// first tile column also does mu[b] += Z[b][:, rows]^T r[b] for its rows.
+// grid (m tiles, row tiles, Bd)
 __global__ void __launch_bounds__(kGemmThreads)
-pred_apply_kernel(float* C, float* mu, const float* Z, const float* r, int k, int m) {
-  const long long b = blockIdx.z, mm = m;
+pred_apply_kernel(float* C, float* mu, const float* Z, const float* r, int k, int rows, int m,
+                  int row0) {
+  const long long b = blockIdx.z, mm = m, rr = rows;
   const float* Zb = Z + b * k * mm;
-  // C(i, j) -= sum_t Z(t, i) Z(t, j)
-  gemm_tile(m, m, k, Zb, 1, mm, Zb, mm, 1, C + b * mm * mm, mm, -1.f, true,
+  // C(i, j) -= sum_t Z(t, row0 + i) Z(t, j)
+  gemm_tile(rows, m, k, Zb + row0, 1, mm, Zb, mm, 1, C + b * rr * mm, mm, -1.f, true,
             blockIdx.y * kTileM, blockIdx.x * kTileN);
-  if (blockIdx.y == 0) {
-    for (int j = threadIdx.x; j < kTileN; j += blockDim.x) {
-      const int col = blockIdx.x * kTileN + j;
-      if (col >= m) continue;
+  if (blockIdx.x == 0) {
+    for (int i = threadIdx.x; i < kTileM; i += blockDim.x) {
+      const int row = blockIdx.y * kTileM + i;
+      if (row >= rows) continue;
       float s = 0.f;
-      for (int t = 0; t < k; ++t) s = fmaf(Zb[t * mm + col], r[b * k + t], s);
-      mu[b * mm + col] += s;
+      for (int t = 0; t < k; ++t) s = fmaf(Zb[t * mm + row0 + row], r[b * k + t], s);
+      mu[b * rr + row] += s;
     }
   }
 }
@@ -389,14 +400,51 @@ int ogp_pred_chunk(float* C, float* mu, const int* idx, const float* wv, const f
                    const float* nz, float* c0w, float* mu0w, float* Z, float* r, float* pm,
                    float* pv, int Bd, int k, int P, int m, int Cl, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pred_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(C, mu, idx, wv, c0w, mu0w, k, P, m);
+  pred_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(C, mu, idx, wv, c0w, mu0w, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rc = pred_recursion(idx, wv, c0w, mu0w, y, nz, Z, r, pm, pv, Bd, k, P, m, Cl, s);
   if (rc != 0) return rc;
 
   pred_apply_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), Bd), kGemmThreads, 0, s>>>(
-      C, mu, Z, r, k, m);
+      C, mu, Z, r, k, m, m, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3's three stages as entries of their own, for caches row-sharded over
+// several processes (online_gp_torch/parallel/mesh.py::
+// sharded_pred_stream_blocked): each process gathers its partial c0w and
+// mu0w from its rows, the partials are summed across the processes, every
+// process runs the recursion on the sums, and each applies Z to its rows.
+
+// The gather over a row shard. C: (Bd, rows, m) and mu: (Bd, rows), rows
+// [row0, row0 + rows) of each output's caches; idx, wv: (k, P); c0w:
+// (Bd, k, m) and mu0w: (Bd, k) out, the partials of these rows.
+int ogp_pred_gather_rows(const float* C, const float* mu, const int* idx, const float* wv, float* c0w,
+                         float* mu0w, int Bd, int k, int P, int rows, int m, int row0, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  pred_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(C, mu, idx, wv, c0w, mu0w, k, P, rows, m, row0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The recursion on the summed c0w (Bd, k, m) and mu0w (Bd, k), with the
+// whole stencil idx, wv (k, P) and y, nz (Bd, k): Z (Bd, k, m), r, pm, pv
+// (Bd, k) out. On clusters of Cl blocks, or one block per output when Cl is
+// 0. Returns cudaGetLastError(), or -1 when no cluster of Cl blocks fits.
+int ogp_pred_factors(const int* idx, const float* wv, const float* c0w, const float* mu0w,
+                     const float* y, const float* nz, float* Z, float* r, float* pm, float* pv,
+                     int Bd, int k, int P, int m, int Cl, void* stream) {
+  return pred_recursion(idx, wv, c0w, mu0w, y, nz, Z, r, pm, pv, Bd, k, P, m, Cl,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The apply on a row shard: C (Bd, rows, m) and mu (Bd, rows), updated in
+// place; Z (Bd, k, m), r (Bd, k).
+int ogp_pred_apply_rows(float* C, float* mu, const float* Z, const float* r, int Bd, int k, int rows,
+                        int m, int row0, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  pred_apply_kernel<<<dim3(cdiv(m, kTileN), cdiv(rows, kTileM), Bd), kGemmThreads, 0, s>>>(
+      C, mu, Z, r, k, rows, m, row0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -51,6 +51,12 @@
 //   (c) apply: T = X A^T into scratch, then X += T U, for (X, A) = (L, R)
 //       and (B, P): shared-memory-tiled f32 GEMMs, 4 m^2 k multiply-adds in
 //       all. X is updated in place: the second GEMM reads only T and U.
+//   The three stages are also C entries of their own (ogp_chunk_gather_rows,
+//   ogp_chunk_factors, ogp_chunk_apply_rows) for roots row-sharded over
+//   processes: the gather and the apply then run over a shard's rows
+//   [row0, row0 + rows) of L and B, the recursion on the p0 summed across
+//   the shards (the JAX package's sharded_stream_blocked in
+//   online_gp_tpu/parallel/mesh.py runs the plain recursion there).
 // Bound: operations, 8 m^2 k + 5 k^2 m flops per output (0.9 GFLOP at
 // m = 900, k = 128) against 4 m^2 floats of L and B traffic. The recursion
 // is bound by latency on this card: at t = 64 a step is ~4.4 us of short
@@ -239,20 +245,22 @@ cudaError_t rank1_rows(float* L, float* B, float* A, const float* v, const float
                      dim3(kRowsPerBlock * 32), 0, s, pdl, L, B, A, v, p, s2, nparts, m);
 }
 
-// (a) p0[b, t, :] = sum_p wv[b, t, p] * B[b, idx[t, p], :]; grid (k, Bd)
+// (a) p0[b, t, :] = sum_p wv[b, t, p] * B[b, idx[t, p] - row0, :] over the
+// stencil points in [row0, row0 + rows): B holds those rows of each output,
+// (Bd, rows, m); the whole chunk has row0 = 0, rows = m. grid (k, Bd)
 __global__ void chunk_gather_kernel(const float* __restrict__ B, const int* __restrict__ idx,
                                     const float* __restrict__ wv, float* __restrict__ p0,
-                                    int k, int P, int m) {
+                                    int k, int P, int rows, int m, int row0) {
   const long long t = blockIdx.x, b = blockIdx.y, mm = m;
-  const float* Bb = B + b * mm * mm;
+  const float* Bb = B + b * rows * mm;
   const int* it = idx + t * P;
   const float* wt = wv + (b * k + t) * P;
   float* out = p0 + (b * k + t) * mm;
   for (int l = threadIdx.x; l < m; l += blockDim.x) {
     float acc = 0.f;
     for (int q = 0; q < P; ++q) {
-      const int row = it[q];
-      if ((unsigned)row < (unsigned)m) acc = fmaf(wt[q], Bb[row * mm + l], acc);
+      const int row = it[q] - row0;
+      if ((unsigned)row < (unsigned)rows) acc = fmaf(wt[q], Bb[row * mm + l], acc);
     }
     out[l] = acc;
   }
@@ -937,30 +945,31 @@ int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// (c1) T[b, w] = X_w[b] A_w[b]^T, (X_0, A_0) = (L, R), (X_1, A_1) = (B, P);
-// T is (Bd, 2, m, k). grid (k tiles, m tiles, 2 Bd)
+// (c1) T[b, w] = X_w[b] A_w[b]^T, (X_0, A_0) = (L, R), (X_1, A_1) = (B, P),
+// over the rows L and B hold, (Bd, rows, m) (rows = m for the whole
+// chunk); T is (Bd, 2, rows, k). grid (k tiles, row tiles, 2 Bd)
 __global__ void __launch_bounds__(kGemmThreads)
 chunk_apply_t_kernel(const float* L, const float* B, const float* R, const float* Pm, float* T,
-                     int k, int m) {
-  const long long b = blockIdx.z >> 1, mm = m;
+                     int k, int rows, int m) {
+  const long long b = blockIdx.z >> 1, mm = m, rr = rows;
   const int w = blockIdx.z & 1;
-  const float* X = (w ? B : L) + b * mm * mm;
+  const float* X = (w ? B : L) + b * rr * mm;
   const float* A = (w ? Pm : R) + b * k * mm;
-  float* Tb = T + (b * 2 + w) * mm * k;
+  float* Tb = T + (b * 2 + w) * rr * k;
   // T(i, j) = sum_l X(i, l) A(j, l)
-  gemm_tile(m, k, m, X, mm, 1, A, 1, mm, Tb, k, 1.f, false, blockIdx.y * kTileM,
+  gemm_tile(rows, k, m, X, mm, 1, A, 1, mm, Tb, k, 1.f, false, blockIdx.y * kTileM,
             blockIdx.x * kTileN);
 }
 
-// (c2) X_w[b] += T[b, w] U[b], in place. grid (m tiles, m tiles, 2 Bd)
+// (c2) X_w[b] += T[b, w] U[b], in place. grid (m tiles, row tiles, 2 Bd)
 __global__ void __launch_bounds__(kGemmThreads)
-chunk_apply_x_kernel(float* L, float* B, const float* T, const float* U, int k, int m) {
-  const long long b = blockIdx.z >> 1, mm = m;
+chunk_apply_x_kernel(float* L, float* B, const float* T, const float* U, int k, int rows, int m) {
+  const long long b = blockIdx.z >> 1, mm = m, rr = rows;
   const int w = blockIdx.z & 1;
-  float* X = (w ? B : L) + b * mm * mm;
-  const float* Tb = T + (b * 2 + w) * mm * k;
+  float* X = (w ? B : L) + b * rr * mm;
+  const float* Tb = T + (b * 2 + w) * rr * k;
   const float* Ub = U + b * k * mm;
-  gemm_tile(m, m, k, Tb, k, 1, Ub, mm, 1, X, mm, 1.f, true, blockIdx.y * kTileM,
+  gemm_tile(rows, m, k, Tb, k, 1, Ub, mm, 1, X, mm, 1.f, true, blockIdx.y * kTileM,
             blockIdx.x * kTileN);
 }
 
@@ -1260,15 +1269,16 @@ coord_recursion_kernel(const float* __restrict__ Mg, float* __restrict__ F, int 
   }
 }
 
-// (c) K1's apply, at rank k: X += (X A^T) U for (X, A) = (L, R), (B, P).
+// (c) K1's apply, at rank k: X += (X A^T) U for (X, A) = (L, R), (B, P), on
+// the rows L and B hold ((Bd, rows, m); rows = m for the whole chunk).
 cudaError_t chunk_apply(float* L, float* B, const float* R, const float* Pm, const float* U,
-                        float* T, int Bd, int k, int m, cudaStream_t s) {
-  chunk_apply_t_kernel<<<dim3(cdiv(k, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
-      L, B, R, Pm, T, k, m);
+                        float* T, int Bd, int k, int rows, int m, cudaStream_t s) {
+  chunk_apply_t_kernel<<<dim3(cdiv(k, kTileN), cdiv(rows, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
+      L, B, R, Pm, T, k, rows, m);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
-      L, B, T, U, k, m);
+  chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(rows, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
+      L, B, T, U, k, rows, m);
   return cudaGetLastError();
 }
 
@@ -1306,12 +1316,12 @@ int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float
                       float* U, float* Pm, float* R, float* T, int Bd, int k, int P, int m,
                       int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m);
+  chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, s);
   if (rc != 0) return rc;
-  return static_cast<int>(chunk_apply(L, B, R, Pm, U, T, Bd, k, m, s));
+  return static_cast<int>(chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, s));
 }
 
 // Column tiles of K4's pass 1: the |p|^2 partials are (Bd, tiles).
@@ -1340,7 +1350,7 @@ int ogp_blocked_chunk_sub_cluster(float* L, float* B, const int* idx, const floa
                                   int P, int m, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C < 1 || C > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
-  chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m);
+  chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C);
@@ -1348,7 +1358,7 @@ int ogp_blocked_chunk_sub_cluster(float* L, float* B, const int* idx, const floa
                                      lay.floats * static_cast<long long>(sizeof(float)), s, p0, U,
                                      Pm, R, k, sub, m, lay);
   if (rc != 0) return rc;
-  return static_cast<int>(chunk_apply(L, B, R, Pm, U, T, Bd, k, m, s));
+  return static_cast<int>(chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, s));
 }
 
 // K5 sub outside the cluster kernel's shapes, one sub-block at a time.
@@ -1367,7 +1377,7 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
   for (int j = 0; j < nb; ++j) {
     chunk_gather_kernel<<<dim3(sub, Bd), 256, 0, s>>>(B, idx + (long long)j * sub * P,
                                                       wv + (long long)j * Bd * sub * P,
-                                                      q + j * blk, sub, P, m);
+                                                      q + j * blk, sub, P, m, m, 0);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -1387,7 +1397,7 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
     if (rc != 0) return rc;
   }
   for (int j = 0; j < nb; ++j) {
-    e = chunk_apply(L, B, R + j * blk, Pm + j * blk, U + j * blk, T, Bd, sub, m, s);
+    e = chunk_apply(L, B, R + j * blk, Pm + j * blk, U + j * blk, T, Bd, sub, m, m, s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
@@ -1409,7 +1419,7 @@ int ogp_blocked_chunk_coord(float* L, float* B, const int* idx, const float* wv,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long mm = m, km = (long long)k * m, kk = (long long)k * k;
-  chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m);
+  chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nt = cdiv(k, kGramTile);
@@ -1431,7 +1441,42 @@ int ogp_blocked_chunk_coord(float* L, float* B, const int* idx, const float* wv,
            3 * Bd, 1.f, false, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long bkm = Bd * km;
-  return static_cast<int>(chunk_apply(L, B, X + bkm, X + 2 * bkm, X, T, Bd, k, m, s));
+  return static_cast<int>(chunk_apply(L, B, X + bkm, X + 2 * bkm, X, T, Bd, k, m, m, s));
+}
+
+// K1's three stages as entries of their own, for a chunk whose roots are
+// row-sharded over several processes (online_gp_torch/parallel/mesh.py::
+// sharded_stream_blocked, the port of mesh.py's shard_map body): each
+// process gathers its partial p0 from its rows, the partials are summed
+// across the processes (torch.distributed all_reduce), every process runs
+// the recursion on the sum, and each applies the factors to its own rows.
+// The kernels are K1's own (chunk_gather_kernel, the recursion kernels,
+// chunk_apply_t/x_kernel), launched as ogp_blocked_chunk launches them.
+
+// The gather over a row shard. B: (Bd, rows, m), rows [row0, row0 + rows) of
+// each output's inverse root; idx: (k, P) int32 in [0, m); wv: (Bd, k, P);
+// p0: (Bd, k, m) out, the partial p0 of these rows.
+int ogp_chunk_gather_rows(const float* B, const int* idx, const float* wv, float* p0, int Bd, int k,
+                          int P, int rows, int m, int row0, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, rows, m, row0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The recursion on the summed p0: (Bd, k, m) in; U, Pm, R: (Bd, k, m) out.
+// On clusters of C blocks, or one block per output when C is 0. Returns
+// cudaGetLastError(), or -1 when no cluster of C blocks fits on the card.
+int ogp_chunk_factors(const float* p0, float* U, float* Pm, float* R, int Bd, int k, int m, int C,
+                      void* stream) {
+  return chunk_recursion(p0, U, Pm, R, Bd, k, m, C, static_cast<cudaStream_t>(stream));
+}
+
+// The apply on a row shard: L, B: (Bd, rows, m), updated in place; R, Pm,
+// U: (Bd, k, m); T: (Bd, 2, rows, k) scratch.
+int ogp_chunk_apply_rows(float* L, float* B, const float* R, const float* Pm, const float* U,
+                         float* T, int Bd, int k, int rows, int m, void* stream) {
+  return static_cast<int>(
+      chunk_apply(L, B, R, Pm, U, T, Bd, k, rows, m, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

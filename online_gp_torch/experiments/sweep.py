@@ -1,36 +1,64 @@
-"""Multi-trial sweep runner (the port of ``online_gp_tpu/experiments/sweep.py``,
-its sequential mode).
+"""Multi-trial sweep runner (the port of ``online_gp_tpu/experiments/sweep.py``).
 
 The reference farms independent trials as separate processes
 (``scripts/launch_jobs.sh``, Hydra submitit launchers, one GPU per
 trial). ``mode=seq`` runs the trials one after another in one process,
 trial ``t`` with ``trial_id=t`` and ``seed=t`` (the bash-loop equivalent).
-The JAX package's ``mode=mesh`` (trials batched and sharded over a device
-mesh in one program) is not ported yet and raises.
+``mode=mesh`` runs them batched: the trials are split over the ranks of the
+``dp`` mesh (:func:`online_gp_torch.parallel.make_mesh`: a world of one in a
+plain process, every rank under ``torchrun``), and each rank runs its
+trials as one batch, the trial dim folded into the WISKI output batch
+(:mod:`online_gp_torch.parallel.trials`): one K2 launch conditions every
+trial of a step and one K6 launch factors every trial's Q.
 
 Usage:
     python -m online_gp_torch.experiments.sweep num_trials=4 mode=seq \\
         model=wiski_gp_regression dataset=friedman stem=linear ...
+    torchrun --nproc-per-node=2 -m online_gp_torch.experiments.sweep \\
+        num_trials=8 mode=mesh model=wiski_gp_regression dataset=skillcraft ...
 """
 
 from __future__ import annotations
 
+import copy
+import os
 import sys
+import time
 from typing import Dict, List
 
 import numpy as np
+import torch
+
+_MESH_MODELS = ("wiski_gp_regression", "wiski_gpd", "svgp_regression", "svgp_classification", "sgpr_regression")
+# the mesh sweeps' per-step and held-out metrics, by classification
+_STEP_METRICS = {False: ("stem_loss", "gp_loss", "online_rmse", "online_nll", "noise"),
+                 True: ("stem_loss", "gp_loss", "online_acc")}
+_TEST_METRICS = {False: ("test_rmse", "test_nll"), True: ("test_acc",)}
 
 
 def run_sweep(num_trials: int, mode: str, overrides: List[str]) -> List[Dict]:
+    from online_gp_torch.experiments.config import parse_config
+
     if mode == "mesh":
-        raise NotImplementedError(
-            "sweep mode=mesh (trials batched and sharded over a device mesh) waits for the port of the "
-            "parallel layer (ROADMAP Queue 1 item 4); use mode=seq"
+        name = parse_config(overrides)["model"]["name"]
+        if name == "wiski_gp_regression":
+            return mesh_regression_sweep(num_trials, overrides)
+        if name == "wiski_gpd":
+            return mesh_classification_sweep(num_trials, overrides)
+        if name in _MESH_MODELS:
+            raise NotImplementedError(
+                f"sweep mode=mesh for {name!r} waits for the port of the baseline mesh sweeps "
+                "(ROADMAP Queue 1 item 4b); use mode=seq"
+            )
+        raise ValueError(
+            f"mode=mesh supports wiski_gp_regression / wiski_gpd / "
+            f"svgp_regression / svgp_classification / sgpr_regression "
+            f"(functional vmappable cores); got {name!r} — use mode=seq "
+            "for other models"
         )
     if mode != "seq":
         raise ValueError(f"unknown sweep mode {mode!r} (seq/mesh)")
     from online_gp_torch.experiments.classification import classification_trial
-    from online_gp_torch.experiments.config import parse_config
     from online_gp_torch.experiments.regression import regression_trial
 
     results = []
@@ -42,6 +70,330 @@ def run_sweep(num_trials: int, mode: str, overrides: List[str]) -> List[Dict]:
         else:
             results.append(regression_trial(cfg))
     return results
+
+
+def _stack_trial_data(cfg, num_trials: int, y_mode: str):
+    """Load ``num_trials`` per-seed datasets and stack along a leading T
+    dim (host side), truncating to the shortest trial. ``y_mode`` picks
+    the target layout: ``"multi"`` (n, B) f32, ``"single"`` (n, 1) f32,
+    ``"labels_i"`` flat int32, ``"labels_f"`` flat f32."""
+    from online_gp_torch.experiments.common import load_dataset
+
+    per_trial = []
+    for t in range(num_trials):
+        ct = copy.deepcopy(cfg)
+        ct["seed"] = t
+        per_trial.append(load_dataset(ct))
+    n_tr = min(d[0].shape[0] for d in per_trial)
+    n_te = min(d[2].shape[0] for d in per_trial)
+
+    def ys(col, n):
+        if y_mode == "multi":
+            return [np.asarray(d[col][:n]).reshape(n, -1) for d in per_trial], np.float32
+        if y_mode == "single":
+            return [np.asarray(d[col][:n]).reshape(n, -1)[:, :1] for d in per_trial], np.float32
+        if y_mode == "labels_i":
+            return [np.asarray(d[col][:n]).reshape(-1) for d in per_trial], np.int32
+        if y_mode == "labels_f":
+            return [np.asarray(d[col][:n]).reshape(-1) for d in per_trial], np.float32
+        raise ValueError(y_mode)
+
+    train_x = np.stack([np.asarray(d[0][:n_tr]) for d in per_trial]).astype(np.float32)
+    rows, dt = ys(1, n_tr)
+    train_y = np.stack(rows).astype(dt)
+    test_x = np.stack([np.asarray(d[2][:n_te]) for d in per_trial]).astype(np.float32)
+    rows, dt = ys(3, n_te)
+    test_y = np.stack(rows).astype(dt)
+    return train_x, train_y, test_x, test_y
+
+
+def trial_stems(cfg, trials, device):
+    """One stem per trial, its weights drawn from a ``torch.Generator``
+    seeded from (cfg seed, trial) (where the JAX sweep splits one key)."""
+    from online_gp_torch.experiments.common import build_stem
+
+    stems = []
+    for t in trials:
+        stem = build_stem(cfg).to(device)
+        seed = int(np.random.SeedSequence([int(cfg["seed"]), int(t)]).generate_state(1)[0])
+        stem.reset_parameters(torch.Generator().manual_seed(seed))
+        stem.eval()
+        stems.append(stem)
+    return stems
+
+
+def _features(stems, x):
+    """Each trial's stem on its own points: x (T, n, D) -> (T, n, F)."""
+    return torch.stack([stem(x[i]) for i, stem in enumerate(stems)])
+
+
+def _adam_apply(leaves, grads, opt_state, lr):
+    from online_gp_torch.utils.optim import adam_update
+
+    updates, opt_state = adam_update(grads, opt_state, lr)
+    with torch.no_grad():
+        for p, u in zip(leaves, updates):
+            p.add_(u)
+    return opt_state
+
+
+def _stream_shape(cfg, n_tr: int):
+    """(initial points, streamed chunks) of a trial of n_tr training points;
+    raises ValueError when the stream has no chunk."""
+    num_init = max(int(cfg["model"]["init_ratio"] * n_tr), 2)
+    n_stream = n_tr - num_init
+    if cfg.get("max_stream"):
+        n_stream = min(n_stream, int(cfg["max_stream"]))
+    num_chunks = n_stream // cfg["batch_size"]
+    if num_chunks == 0:
+        raise ValueError(
+            f"stream of {n_stream} points is shorter than batch_size={cfg['batch_size']} (after init split / "
+            "max_stream cap): nothing to sweep — lower batch_size or raise max_stream"
+        )
+    return num_init, num_chunks
+
+
+def _run_trials(cfg, tx, ty, ex, ey, stems, device, classification: bool):
+    """The local trials of a mesh sweep as one batch, the trial dim folded
+    into the output batch: pretrain epochs (full-cache refits, gradients to
+    the stems through the interpolation weights; BatchNorm statistics frozen
+    after them), then the stream (prequential evaluate, stem step on the
+    partial MLL, GP step with ``skip_logdet_forward``, condition), then the
+    held-out evaluation. Returns ({metric: (T, chunks)}, {test metric: (T,)})."""
+    from online_gp_torch.api.regression import cosine_lr
+    from online_gp_torch.experiments.common import solver_config
+    from online_gp_torch.kernels.base import make_kernel
+    from online_gp_torch.likelihoods.dirichlet import dirichlet_transform
+    from online_gp_torch.likelihoods.gaussian import gaussian_nll
+    from online_gp_torch.models.wiski import WiskiModel
+    from online_gp_torch.ops.grid import Grid
+    from online_gp_torch.parallel.trials import (
+        trials_condition,
+        trials_init,
+        trials_mll,
+        trials_params,
+        trials_partial_mll,
+        trials_predict,
+        trials_prediction_caches,
+    )
+    from online_gp_torch.utils.optim import adam_init, tree_leaves, tree_rebuild
+
+    T, n_tr = tx.shape[:2]
+    feat_dim = stems[0].output_dim
+    C = int(cfg["dataset"].get("num_classes", 2))
+    alpha_eps = float(cfg["model"].get("alpha_eps", 0.01))
+    outputs = C if classification else ty.shape[-1]
+    grid_bound = cfg["model"].get("grid_bound", 1.0) + 1e-1
+    grid = Grid.create([(-grid_bound, grid_bound)] * feat_dim, cfg["model"]["grid_size"], device=device)
+    model = WiskiModel(make_kernel("rbf"), grid, num_outputs=outputs, learn_additional_noise=not classification)
+    scfg = solver_config(cfg)
+    scfg_skip = scfg.replace(skip_logdet_forward=True)
+    base_lr = cfg["dataset"]["base_lr"]
+    batch_size = cfg["batch_size"]
+    num_init, num_chunks = _stream_shape(cfg, n_tr)
+    num_epochs = cfg["num_batch_epochs"] if cfg["pretrain"] else 0
+    has_params = stems[0].has_params
+    update_stem = bool(cfg["update_stem"]) and has_params
+
+    def targets(labels_or_y):
+        """(targets, noise), each (T, n, outputs)."""
+        if not classification:
+            return labels_or_y, torch.ones_like(labels_or_y)
+        tg, _, s2 = dirichlet_transform(labels_or_y.reshape(-1), C, alpha_eps)
+        return tg.reshape(T, -1, C), s2.reshape(T, -1, C)
+
+    t_init, s_init = targets(ty[:, :num_init])
+    init_x = tx[:, :num_init]
+    params = trials_params(model, feat_dim, T, device=device)
+    gp_leaves = tree_leaves(params)  # updated in place by each Adam step
+    stem_leaves = [p for stem in stems for p in stem.parameters()]
+
+    # pretrain epochs: full-cache refits, the stems in training mode
+    gp_opt, stem_opt = adam_init(gp_leaves), adam_init(stem_leaves) if has_params else None
+    fixed_state = None if has_params else trials_init(model, _features(stems, init_x), t_init, s_init)
+    for epoch in range(num_epochs):
+        lr = cosine_lr(base_lr, max(num_epochs, 1), epoch)
+        leaves = [p.detach().requires_grad_(True) for p in gp_leaves]
+        with torch.enable_grad():
+            if has_params:
+                for stem in stems:
+                    stem.train()
+                state = trials_init(model, _features(stems, init_x), t_init, s_init)
+                for stem in stems:
+                    stem.eval()
+            else:
+                state = fixed_state
+            loss = -torch.sum(trials_mll(model, tree_rebuild(params, leaves), state, scfg))
+            grads = torch.autograd.grad(loss, leaves + stem_leaves)
+        gp_opt = _adam_apply(gp_leaves, grads[: len(leaves)], gp_opt, lr)
+        if has_params:
+            stem_opt = _adam_apply(stem_leaves, grads[len(leaves):], stem_opt, lr)
+
+    with torch.no_grad():
+        state = fixed_state if fixed_state is not None else trials_init(model, _features(stems, init_x), t_init, s_init)
+
+    # the stream: prequential evaluate -> stem step -> GP step -> condition
+    span = slice(num_init, num_init + num_chunks * batch_size)
+    xs = tx[:, span].reshape(T, num_chunks, batch_size, -1)
+    ys = ty[:, span].reshape(T, num_chunks, batch_size, *ty.shape[2:])
+    gp_opt = adam_init(gp_leaves)
+    stem_opt = adam_init(stem_leaves) if has_params else None
+    steps = []
+    for c in range(num_chunks):
+        x, y = xs[:, c], ys[:, c]
+        tg, noise = targets(y)
+        with torch.no_grad():
+            feats = _features(stems, x)
+            caches = trials_prediction_caches(model, params, state, scfg)
+            mean, var = trials_predict(model, params, state, feats, scfg, caches)  # (T, outputs, q)
+        if classification:
+            evals = (torch.mean((torch.argmax(mean, dim=1) == y).to(torch.float32), dim=-1),)
+        else:
+            var = var + torch.exp(params["raw_second_noise"])[..., None]
+            evals = (torch.sqrt(torch.mean((mean.mT - y) ** 2, dim=(1, 2))),
+                     torch.mean(gaussian_nll(mean.mT, var.mT, y), dim=(1, 2)))
+        if update_stem:
+            with torch.enable_grad():
+                stem_y = tg / noise if classification else y
+                s_loss = -torch.sum(trials_partial_mll(model, params, state, _features(stems, x), stem_y, caches), -1)
+                grads = torch.autograd.grad(torch.sum(s_loss), stem_leaves)
+            stem_opt = _adam_apply(stem_leaves, grads, stem_opt, base_lr / 100)
+            s_loss = s_loss.detach()
+        else:
+            s_loss = torch.zeros(T, device=device)
+        leaves = [p.detach().requires_grad_(True) for p in gp_leaves]
+        with torch.enable_grad():
+            g_loss = -torch.sum(trials_mll(model, tree_rebuild(params, leaves), state, scfg_skip), dim=-1)
+            grads = torch.autograd.grad(torch.sum(g_loss), leaves)
+        gp_opt = _adam_apply(gp_leaves, grads, gp_opt, base_lr / 10)
+        with torch.no_grad():
+            state = trials_condition(model, state, feats, tg, noise)
+        extra = () if classification else (torch.mean(torch.exp(params["raw_second_noise"]), dim=-1),)
+        steps.append(torch.stack([s_loss, g_loss.detach(), *evals, *extra]))
+
+    # the held-out evaluation
+    with torch.no_grad():
+        mean, var = trials_predict(model, params, state, _features(stems, ex), scfg)
+        if classification:
+            test = {"test_acc": torch.mean((torch.argmax(mean, dim=1) == ey).to(torch.float32), dim=-1)}
+        else:
+            var = var + torch.exp(params["raw_second_noise"])[..., None]
+            test = {"test_rmse": torch.sqrt(torch.mean((mean.mT - ey) ** 2, dim=(1, 2))),
+                    "test_nll": torch.mean(gaussian_nll(mean.mT, var.mT, ey), dim=(1, 2))}
+    by_step = torch.stack(steps, dim=-1)  # (metrics, T, chunks)
+    return {k: by_step[i] for i, k in enumerate(_STEP_METRICS[classification])}, test
+
+
+def _mesh_sweep(num_trials: int, overrides: List[str], classification: bool) -> List[Dict]:
+    """``mode=mesh``: the trials split over the ``dp`` ranks (contiguous
+    blocks, as ``Shard(0)`` cuts them), each rank's trials one batch
+    (:func:`_run_trials`); rank 0 gathers the metrics (one all_reduce of a
+    zero-filled buffer) and writes one ``online_metrics`` CSV per trial in
+    the JAX package's schema. ``step_time`` is the wall time of a rank's
+    batch over its chunks times its trials, as the JAX sweep divides its
+    program's time."""
+    import torch.distributed as dist
+
+    from online_gp_torch.experiments.config import parse_config
+    from online_gp_torch.logging import CSVLogger
+    from online_gp_torch.parallel.mesh import _chunk_bounds, local_device, make_mesh
+
+    cfg = parse_config(overrides)
+    kind = "classification" if classification else "regression"
+    name = "wiski_gpd" if classification else "wiski_gp_regression"
+    if cfg["model"]["name"] != name or cfg["dataset"]["type"] != kind:
+        raise ValueError(
+            f"mode=mesh batches the functional WISKI {kind} core ({name}); got model={cfg['model']['name']!r} "
+            f"dataset type={cfg['dataset']['type']!r} — use mode=seq for other models"
+        )
+    train_x, train_y, test_x, test_y = _stack_trial_data(cfg, num_trials, "labels_i" if classification else "multi")
+    num_chunks = _stream_shape(cfg, train_x.shape[1])[1]
+    device_type = torch.device(cfg.get("device") or "cuda").type
+    owns_group = not dist.is_initialized()
+    mesh = make_mesh(axis_name="dp", device_type=device_type)
+    try:
+        device = local_device(device_type)
+        lo, hi = _chunk_bounds(num_trials, mesh.size(0), mesh.get_local_rank("dp"))
+        names, tests = _STEP_METRICS[classification], _TEST_METRICS[classification]
+        width = num_chunks * len(names) + len(tests) + 1
+        gathered = torch.zeros((num_trials, width), dtype=torch.float64, device=device)
+        if hi > lo:
+            to = lambda a: torch.as_tensor(a[lo:hi], device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            stems = trial_stems(cfg, range(lo, hi), device)
+            steps, test = _run_trials(cfg, to(train_x), to(train_y), to(test_x), to(test_y), stems,
+                                                  device, classification)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            step_time = (time.perf_counter() - t0) / max(num_chunks * (hi - lo), 1)
+            row = torch.cat([*(steps[k] for k in names), *(test[k][:, None] for k in tests),
+                             torch.full((hi - lo, 1), step_time, device=device)], dim=1)
+            gathered[lo:hi] = row.to(torch.float64)
+        if mesh.size(0) > 1:
+            dist.all_reduce(gathered, group=mesh.get_group("dp"))
+        table = gathered.cpu().numpy()
+        rank0 = mesh.get_local_rank("dp") == 0
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+
+    metrics = {k: table[:, i * num_chunks : (i + 1) * num_chunks] for i, k in enumerate(names)}
+    test = {k: table[:, num_chunks * len(names) + i] for i, k in enumerate(tests)}
+    step_times = table[:, -1]
+    if classification:
+        metrics["online_acc"] = np.cumsum(metrics["online_acc"], axis=1) / np.arange(1, num_chunks + 1)
+    else:
+        metrics["online_rmse"] = np.cumsum(metrics["online_rmse"], axis=1)
+        metrics["online_nll"] = np.cumsum(metrics["online_nll"], axis=1)
+    batch_size, freq = cfg["batch_size"], max(int(cfg["logging_freq"]), 1)
+    run_tag = f"mesh-{cfg['model']['name']}-{cfg['dataset']['name']}"
+    log_rows = sorted(set(range(freq - 1, num_chunks, freq)) | {num_chunks - 1})
+    nan = float("nan")
+    results = []
+    for t in range(num_trials):
+        logger = CSVLogger(cfg["log_dir"], f"{run_tag}-trial{t}")
+        for c in log_rows:
+            last = c == num_chunks - 1
+            step = dict(stem_loss=float(metrics["stem_loss"][t, c]), gp_loss=float(metrics["gp_loss"][t, c]))
+            if classification:
+                step.update(online_acc=float(metrics["online_acc"][t, c]), batch_acc=nan, regret=nan,
+                            test_acc=float(test["test_acc"][t]) if last else nan)
+            else:
+                step.update(batch_rmse=nan, batch_nll=nan, online_rmse=float(metrics["online_rmse"][t, c]),
+                            online_nll=float(metrics["online_nll"][t, c]), regret=nan,
+                            test_rmse=float(test["test_rmse"][t]) if last else nan,
+                            test_nll=float(test["test_nll"][t]) if last else nan,
+                            noise=float(metrics["noise"][t, c]))
+            step["step_time"] = float(step_times[t])
+            logger.log(step, step=(c + 1) * batch_size, table_name="online_metrics")
+        if rank0:
+            logger.write_config(cfg)
+            logger.write_csv()
+        results.append(dict(trial=t, **{k: float(test[k][t]) for k in tests}, log_dir=logger.log_dir))
+    return results
+
+
+def mesh_regression_sweep(num_trials: int, overrides: List[str]) -> List[Dict]:
+    """``num_trials`` independent streaming-regression trials of the WISKI
+    flagship, batched (the replacement for the reference's Slurm trial
+    array, ``scripts/launch_jobs.sh:1-21``). Arbitrary model/dataset/stem
+    overrides go through the ``mode=seq`` config grammar; per-trial data
+    shuffles and stem inits differ by seed. Each trial writes its own
+    ``online_metrics`` CSV (reference schema). As in the JAX sweep: no
+    batch-model regret arm (batch_rmse, batch_nll, regret NaN), and the
+    BatchNorm statistics freeze after the pretrain epochs."""
+    return _mesh_sweep(num_trials, overrides, classification=False)
+
+
+def mesh_classification_sweep(num_trials: int, overrides: List[str]) -> List[Dict]:
+    """``mode=mesh`` for the Dirichlet WISKI classifier (``wiski_gpd``):
+    Dirichlet-transformed targets with per-class heteroscedastic noise
+    (C outputs a trial, T * C in the folded batch), prequential predict ->
+    stem step on the partial MLL -> hyper step -> condition; the same
+    deltas from the sequential driver as :func:`mesh_regression_sweep`."""
+    return _mesh_sweep(num_trials, overrides, classification=True)
 
 
 def main():
@@ -56,8 +408,9 @@ def main():
         else:
             overrides.append(a)
     results = run_sweep(num_trials, mode, overrides)
-    for r in results:
-        print(r)
+    if int(os.environ.get("RANK", 0)) == 0:  # torchrun's other ranks hold the same results
+        for r in results:
+            print(r)
 
 
 if __name__ == "__main__":

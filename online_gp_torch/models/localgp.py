@@ -166,13 +166,12 @@ def localgp_joint_mll(model: LocalGPModel, params: Dict, state: LocalGPState) ->
 
 
 @f32_matmuls
-def localgp_predict(
+def localgp_expert_moments(
     model: LocalGPModel, params: Dict, state: LocalGPState, xt: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """The mixture posterior: mean (n,), variance (n,) and the per-expert
-    statistics (weights, means, variances, each (n, E)) for
-    :func:`localgp_log_prob`. The mixture weights are the normalized kernel
-    weights."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each expert's share of the mixture at xt: the kernel weights (not
+    normalized), the posterior means and the predictive variances, each
+    (n, E)."""
     L = _expert_chol(model, params, state)
     alpha = cho_solve(L, (state.y * state.mask)[:, :, None])
     Kxt = torch.func.vmap(lambda xe: model.kernel.matrix(params["kernel"], xt, xe))(state.x)
@@ -183,12 +182,21 @@ def localgp_predict(
     kdiag = scale * _lifted(torch.ones((1, xt.shape[0]), dtype=xt.dtype, device=xt.device), scale)
     fvar = torch.clamp(kdiag - torch.sum(v * v, dim=-2), min=1e-12)
     yvar = fvar + torch.exp(params["raw_noise"])
+    return localgp_weights(model, params, state, xt), means.T, yvar.T
 
-    w = localgp_weights(model, params, state, xt)
+
+def localgp_predict(
+    model: LocalGPModel, params: Dict, state: LocalGPState, xt: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """The mixture posterior: mean (n,), variance (n,) and the per-expert
+    statistics (weights, means, variances, each (n, E)) for
+    :func:`localgp_log_prob`. The mixture weights are the normalized kernel
+    weights."""
+    w, means, yvar = localgp_expert_moments(model, params, state, xt)
     w = w / torch.sum(w, dim=-1, keepdim=True)
-    mix_mean = torch.sum(w * means.T, dim=-1)
-    mix_var = torch.sum(w * (yvar.T + means.T**2), dim=-1) - mix_mean**2
-    return mix_mean, torch.clamp(mix_var, min=1e-12), (w, means.T, yvar.T)
+    mix_mean = torch.sum(w * means, dim=-1)
+    mix_var = torch.sum(w * (yvar + means**2), dim=-1) - mix_mean**2
+    return mix_mean, torch.clamp(mix_var, min=1e-12), (w, means, yvar)
 
 
 def localgp_log_prob(stats, y: torch.Tensor) -> torch.Tensor:

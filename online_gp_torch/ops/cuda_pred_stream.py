@@ -25,6 +25,14 @@ raises ValueError; a failed launch, or a cluster the card cannot
 schedule, raises RuntimeError. On CUDA the caches are updated in place.
 ``pred_chunk.launches`` counts the calls that launched the kernel, and
 ``pred_chunk.cluster_launches`` those whose recursion ran on a cluster.
+
+K3's three stages are also wrappers of their own, for caches whose rows
+are sharded over processes (``parallel/mesh.py::sharded_pred_stream_blocked``):
+:func:`pred_gather_rows` (the partial c0w and mu0w of a shard's rows),
+:func:`pred_factors` (the recursion on the summed partials) and
+:func:`pred_apply_rows` (the apply on a shard's rows), each beside its plain
+version and counting its own ``launches`` (``pred_factors`` also
+``cluster_launches``).
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ import ctypes
 import torch
 
 from online_gp_torch.ops import _build
-from online_gp_torch.ops.pred_stream import pred_chunk_plain
+from online_gp_torch.ops.cuda_root_update import shard_stencil
+from online_gp_torch.ops.precision import f32_matmul_precision
+from online_gp_torch.ops.pred_stream import pred_chunk_factors, pred_chunk_plain
 from online_gp_torch.ops.root_update import stencil_rows
 
 # What the single-block recursion takes, for the chunks outside
@@ -57,6 +67,12 @@ def _pred_stream_lib():
         lib.ogp_pred_chunk_smem.restype = ctypes.c_longlong
         lib.ogp_pred_cluster_smem.argtypes = [i32] * 4
         lib.ogp_pred_cluster_smem.restype = ctypes.c_longlong
+        lib.ogp_pred_gather_rows.argtypes = [vp] * 6 + [i32] * 6 + [vp]
+        lib.ogp_pred_gather_rows.restype = i32
+        lib.ogp_pred_factors.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+        lib.ogp_pred_factors.restype = i32
+        lib.ogp_pred_apply_rows.argtypes = [vp] * 4 + [i32] * 5 + [vp]
+        lib.ogp_pred_apply_rows.restype = i32
         _lib = lib
     return _lib
 
@@ -166,3 +182,131 @@ def pred_chunk(C, mu, idx, wv, y, nz):
 
 pred_chunk.launches = 0
 pred_chunk.cluster_launches = 0
+
+
+# --------------------------------------------------------------------------
+# K3's stages on row shards
+# --------------------------------------------------------------------------
+
+
+def pred_gather_rows_plain(C, mu, idx, wv, row0: int):
+    """Plain version of :func:`pred_gather_rows`: the shard's densified
+    stencil rows S[:, rows] times its rows of C and mu."""
+    rows = C.shape[-2]
+    loc, wl = shard_stencil(idx, wv, row0, rows)
+    S = stencil_rows(loc, wl, rows)  # (k, rows)
+    with f32_matmul_precision():
+        return S @ C, mu @ S.mT
+
+
+def pred_gather_rows(C, mu, idx, wv, row0: int):
+    """K3's gather on a row shard: the partials c0w[b, t] = sum_p wv[t, p]
+    C[b, idx[t, p] - row0] and mu0w[b, t] = sum_p wv[t, p] mu[b, idx[t, p] - row0]
+    over the stencil points in [row0, row0 + rows).
+
+    Args:
+      C: (Bd, rows, m) rows [row0, row0 + rows) of the covariance caches;
+        mu: (Bd, rows) those entries of the mean caches.
+      idx, wv: (k, P) the chunk's stencil (int32 indices in [0, m) on
+        CUDA; weights not noise-scaled), shared by the outputs.
+
+    Returns (c0w (Bd, k, m), mu0w (Bd, k)); the shards' partials sum to the
+    chunk's.
+    """
+    if _build.on_cpu(C, mu, idx, wv):
+        return pred_gather_rows_plain(C, mu, idx, wv, row0)
+    _build.check_cuda_args("pred_gather_rows_plain", ints=("idx",), C=C, mu=mu, idx=idx, wv=wv)
+    if C.dim() != 3 or tuple(mu.shape) != tuple(C.shape[:2]):
+        raise ValueError(f"C must be (Bd, rows, m) and mu (Bd, rows); got {tuple(C.shape)}, {tuple(mu.shape)}")
+    Bd, rows, m = C.shape
+    _check_stencil_args(idx, wv, Bd, Bd * rows * m, {})
+    k, P = idx.shape
+    f32 = dict(dtype=torch.float32, device=C.device)
+    c0w, mu0w = torch.empty((Bd, k, m), **f32), torch.empty((Bd, k), **f32)
+    p_ = _build.ptr
+    rc = _pred_stream_lib().ogp_pred_gather_rows(p_(C), p_(mu), p_(idx), p_(wv), p_(c0w), p_(mu0w), Bd, k, P,
+                                                 rows, m, int(row0), _build.stream_of(C))
+    _build.launch_check(rc, "pred_gather_rows")
+    pred_gather_rows.launches += 1
+    return c0w, mu0w
+
+
+pred_gather_rows.launches = 0
+
+
+def pred_factors_plain(idx, wv, c0w, mu0w, y, nz):
+    """Plain version of :func:`pred_factors`: :func:`pred_chunk_factors` on
+    the densified stencil rows."""
+    return pred_chunk_factors(stencil_rows(idx, wv, c0w.shape[-1]), c0w, mu0w, y, nz)
+
+
+def pred_factors(idx, wv, c0w, mu0w, y, nz):
+    """K3's recursion on a chunk's summed c0w (Bd, k, m) and mu0w (Bd, k),
+    with its stencil idx, wv (k, P) and targets and clamped noise y, nz
+    (Bd, k): returns (Z (Bd, k, m), r, pred_mean, pred_var (Bd, k)), on
+    clusters where :func:`pred_cluster_plan` holds the chunk, else on the
+    single-block kernel."""
+    if _build.on_cpu(idx, wv, c0w, mu0w, y, nz):
+        return pred_factors_plain(idx, wv, c0w, mu0w, y, nz)
+    _build.check_cuda_args("pred_factors_plain", ints=("idx",), idx=idx, wv=wv, c0w=c0w, mu0w=mu0w, y=y, nz=nz)
+    if c0w.dim() != 3 or tuple(c0w.shape[1:2]) != tuple(idx.shape[:1]):
+        raise ValueError(f"c0w must be (Bd, k, m) for idx (k, P); got {tuple(c0w.shape)}, {tuple(idx.shape)}")
+    Bd, k, m = c0w.shape
+    _check_stencil_args(idx, wv, Bd, Bd * k * m, dict(mu0w=mu0w, y=y, nz=nz))
+    P = idx.shape[1]
+    lib = _pred_stream_lib()
+    plan, Cl = _pred_plan(lib, k, m, P)
+    f32 = dict(dtype=torch.float32, device=c0w.device)
+    Z = torch.empty((Bd, k, m), **f32)
+    vecs = torch.empty((3, Bd, k), **f32)  # r, pred_mean, pred_var
+    p_ = _build.ptr
+    rc = lib.ogp_pred_factors(p_(idx), p_(wv), p_(c0w), p_(mu0w), p_(y), p_(nz), p_(Z), p_(vecs[0]),
+                              p_(vecs[1]), p_(vecs[2]), Bd, k, P, m, Cl, _build.stream_of(c0w))
+    _build.launch_check(rc, "pred_factors", plan)
+    pred_factors.launches += 1
+    pred_factors.cluster_launches += plan is not None
+    return Z, vecs[0], vecs[1], vecs[2]
+
+
+pred_factors.launches = 0
+pred_factors.cluster_launches = 0
+
+
+def pred_apply_rows_plain(C, mu, Z, r, row0: int):
+    """Plain version of :func:`pred_apply_rows`; returns new (C', mu')."""
+    Z_loc = Z[..., row0 : row0 + C.shape[-2]]
+    with f32_matmul_precision():
+        return C - Z_loc.mT @ Z, mu + (Z_loc.mT @ r[..., None])[..., 0]
+
+
+def pred_apply_rows(C, mu, Z, r, row0: int):
+    """K3's apply on a row shard: C -= Z[:, rows]^T Z and mu += Z[:, rows]^T r
+    for the shard's rows [row0, row0 + rows).
+
+    Args:
+      C: (Bd, rows, m); mu: (Bd, rows); Z: (Bd, k, m); r: (Bd, k).
+
+    Returns (C', mu'). On CUDA, C and mu are updated in place.
+    """
+    if _build.on_cpu(C, mu, Z, r):
+        return pred_apply_rows_plain(C, mu, Z, r, row0)
+    _build.check_cuda_args("pred_apply_rows_plain", C=C, mu=mu, Z=Z, r=r)
+    if C.dim() != 3 or tuple(mu.shape) != tuple(C.shape[:2]) or Z.dim() != 3 or Z.shape[0] != C.shape[0] \
+            or Z.shape[2] != C.shape[2] or tuple(r.shape) != tuple(Z.shape[:2]):
+        raise ValueError(f"C must be (Bd, rows, m), mu (Bd, rows), Z (Bd, k, m) and r (Bd, k); got "
+                         f"{tuple(C.shape)}, {tuple(mu.shape)}, {tuple(Z.shape)}, {tuple(r.shape)}")
+    Bd, rows, m = C.shape
+    if not 0 <= row0 <= m - rows:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) do not lie in [0, {m})")
+    k = Z.shape[1]
+    if Bd * rows * m >= 2**31 or Bd > MAX_GRID_YZ:
+        raise ValueError(f"Bd={Bd} and {Bd * rows * m} elements exceed what the K3 kernels take")
+    p_ = _build.ptr
+    rc = _pred_stream_lib().ogp_pred_apply_rows(p_(C), p_(mu), p_(Z), p_(r), Bd, k, rows, m, int(row0),
+                                                _build.stream_of(C))
+    _build.launch_check(rc, "pred_apply_rows")
+    pred_apply_rows.launches += 1
+    return C, mu
+
+
+pred_apply_rows.launches = 0

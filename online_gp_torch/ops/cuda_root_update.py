@@ -14,6 +14,14 @@ update with p = B^T v computed on the card. The CUDA sources, with the
 design notes (what bounds each kernel and what the Pallas design could
 not carry over), are ``online_gp_torch/csrc/root_update.cu``.
 
+K1's three stages are also wrappers of their own, for roots whose rows are
+sharded over processes (``parallel/mesh.py::sharded_stream_blocked``):
+:func:`chunk_gather_rows` (the partial p0 of a shard's rows),
+:func:`chunk_factors` (the recursion on the summed p0) and
+:func:`chunk_apply_rows` (the apply on a shard's rows), each beside its
+plain version and counting its own ``launches`` (``chunk_factors`` also
+``cluster_launches``).
+
 K1's recursion runs on a thread-block cluster: :func:`chunk_cluster_plan`
 splits each output's m columns over 8 blocks that keep their columns of
 the factor rows U, P, R in shared memory. A chunk whose slices do not fit
@@ -100,13 +108,20 @@ def _root_update_lib():
         lib.ogp_blocked_chunk_coord_splits.argtypes = []
         lib.ogp_blocked_chunk_coord_splits.restype = i32
         lib.ogp_blocked_chunk_coord.restype = i32
+        lib.ogp_chunk_gather_rows.argtypes = [vp] * 4 + [i32] * 6 + [vp]
+        lib.ogp_chunk_gather_rows.restype = i32
+        lib.ogp_chunk_factors.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+        lib.ogp_chunk_factors.restype = i32
+        lib.ogp_chunk_apply_rows.argtypes = [vp] * 6 + [i32] * 4 + [vp]
+        lib.ogp_chunk_apply_rows.restype = i32
         _lib = lib
     return _lib
 
 
-def _check_sizes(Bd: int, m: int) -> None:
-    if Bd * m * m >= 2**31:
-        raise ValueError(f"Bd * m * m = {Bd * m * m} does not fit the kernels' int32 sizes")
+def _check_sizes(Bd: int, m: int, rows: int = None) -> None:
+    rows = m if rows is None else rows
+    if Bd * rows * m >= 2**31:
+        raise ValueError(f"Bd * rows * m = {Bd * rows * m} does not fit the kernels' int32 sizes")
     if Bd > MAX_GRID_YZ // 2:
         raise ValueError(f"Bd = {Bd} exceeds the launch grid ({MAX_GRID_YZ // 2})")
 
@@ -428,3 +443,131 @@ def _chunk_coord(lib, L, B, idx, wv):
     _build.launch_check(rc, "blocked_chunk (coord)")
     blocked_chunk.coord_launches += 1
     return L, B
+
+
+# --------------------------------------------------------------------------
+# K1's stages on row shards
+# --------------------------------------------------------------------------
+
+
+def shard_stencil(idx: torch.Tensor, w: torch.Tensor, row0: int, rows: int):
+    """A stencil's entries as seen by the shard of rows [row0, row0 + rows):
+    indices shifted by -row0 (int64) and clamped into the shard, weights
+    zeroed outside it, so a densified row has the shard's columns only
+    (the JAX package's ``stencil_rows(idx - row0, ...)``, whose scatter
+    drops the entries outside)."""
+    loc = idx.long() - row0
+    inside = (loc >= 0) & (loc < rows)
+    return loc.clamp(0, rows - 1), torch.where(inside, w, torch.zeros_like(w))
+
+
+def chunk_gather_rows_plain(B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor, row0: int):
+    """Plain version of :func:`chunk_gather_rows`: the shard's densified
+    stencil rows S[:, rows] times its rows of B, (Bd, k, rows) @ (Bd, rows, m)."""
+    Bd, rows, _ = B.shape
+    loc, wl = shard_stencil(idx, wv, row0, rows)
+    S = B.new_zeros((Bd, *idx.shape[:1], rows)).scatter_add(2, loc.expand(wl.shape), wl)
+    with f32_matmul_precision():
+        return S @ B
+
+
+def chunk_gather_rows(B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor, row0: int) -> torch.Tensor:
+    """K1's gather on a row shard: p0_part[b, t] = sum_p wv[b, t, p]
+    B[b, idx[t, p] - row0] over the stencil points in [row0, row0 + rows).
+
+    Args:
+      B: (Bd, rows, m) rows [row0, row0 + rows) of the inverse roots.
+      idx: (k, P) stencil indices in [0, m) (int32 on CUDA); wv: (Bd, k, P)
+        weights over sqrt(noise).
+      row0: the shard's first row.
+
+    Returns the (Bd, k, m) partial p0; the shards' partials sum to the
+    chunk's p0.
+    """
+    if _build.on_cpu(B, idx, wv):
+        return chunk_gather_rows_plain(B, idx, wv, row0)
+    _build.check_cuda_args("chunk_gather_rows_plain", ints=("idx",), B=B, idx=idx, wv=wv)
+    if B.dim() != 3 or idx.dim() != 2 or tuple(wv.shape) != (B.shape[0], *idx.shape):
+        raise ValueError(f"B must be (Bd, rows, m), idx (k, P) and wv (Bd, k, P); got {tuple(B.shape)}, "
+                         f"{tuple(idx.shape)}, {tuple(wv.shape)}")
+    Bd, rows, m = B.shape
+    k, P = idx.shape
+    _check_sizes(Bd, m, rows)
+    p0 = torch.empty((Bd, k, m), dtype=torch.float32, device=B.device)
+    p_ = _build.ptr
+    rc = _root_update_lib().ogp_chunk_gather_rows(p_(B), p_(idx), p_(wv), p_(p0), Bd, k, P, rows, m, int(row0),
+                                                  _build.stream_of(B))
+    _build.launch_check(rc, "chunk_gather_rows")
+    chunk_gather_rows.launches += 1
+    return p0
+
+
+chunk_gather_rows.launches = 0
+
+
+def chunk_factors_plain(p0: torch.Tensor):
+    """Plain version of :func:`chunk_factors`: :func:`blocked_factors`."""
+    return blocked_factors(p0)
+
+
+def chunk_factors(p0: torch.Tensor):
+    """K1's recursion on a chunk's summed p0 (Bd, k, m): returns (U, P, R),
+    each (Bd, k, m), on clusters where :func:`chunk_cluster_plan` holds the
+    chunk, else on the single-block kernel."""
+    if _build.on_cpu(p0):
+        return chunk_factors_plain(p0)
+    _build.check_cuda_args("chunk_factors_plain", p0=p0)
+    if p0.dim() != 3:
+        raise ValueError(f"p0 must be (Bd, k, m); got {tuple(p0.shape)}")
+    Bd, k, m = p0.shape
+    _check_sizes(Bd, m, k)
+    lib = _root_update_lib()
+    plan, C = _recursion_plan(lib, k, m, "chunk_factors")
+    U, Pm, R = torch.empty((3, Bd, k, m), dtype=torch.float32, device=p0.device)
+    p_ = _build.ptr
+    rc = lib.ogp_chunk_factors(p_(p0), p_(U), p_(Pm), p_(R), Bd, k, m, C, _build.stream_of(p0))
+    _build.launch_check(rc, "chunk_factors", plan)
+    chunk_factors.launches += 1
+    chunk_factors.cluster_launches += plan is not None
+    return U, Pm, R
+
+
+chunk_factors.launches = 0
+chunk_factors.cluster_launches = 0
+
+
+def chunk_apply_rows_plain(L: torch.Tensor, B: torch.Tensor, U: torch.Tensor, Pm: torch.Tensor, R: torch.Tensor):
+    """Plain version of :func:`chunk_apply_rows`; returns new (L', B')."""
+    with f32_matmul_precision():
+        return L + (L @ R.mT) @ U, B + (B @ Pm.mT) @ U
+
+
+def chunk_apply_rows(L: torch.Tensor, B: torch.Tensor, U: torch.Tensor, Pm: torch.Tensor, R: torch.Tensor):
+    """K1's apply on a row shard: L += (L R^T) U, B += (B P^T) U.
+
+    Args:
+      L, B: (Bd, rows, m) a shard's rows of the root and inverse root.
+      U, Pm, R: (Bd, k, m) the chunk's factors (:func:`chunk_factors`).
+
+    Returns (L', B'). On CUDA, L and B are updated in place.
+    """
+    if _build.on_cpu(L, B, U, Pm, R):
+        return chunk_apply_rows_plain(L, B, U, Pm, R)
+    _build.check_cuda_args("chunk_apply_rows_plain", L=L, B=B, U=U, Pm=Pm, R=R)
+    if L.dim() != 3 or B.shape != L.shape or U.dim() != 3 or not (U.shape == Pm.shape == R.shape) \
+            or U.shape[0] != L.shape[0] or U.shape[2] != L.shape[2]:
+        raise ValueError(f"L, B must be (Bd, rows, m) and U, Pm, R (Bd, k, m); got {tuple(L.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(U.shape)}, {tuple(Pm.shape)}, {tuple(R.shape)}")
+    Bd, rows, m = L.shape
+    k = U.shape[1]
+    _check_sizes(Bd, m, rows)
+    T = torch.empty((Bd, 2, rows, k), dtype=torch.float32, device=L.device)
+    p_ = _build.ptr
+    rc = _root_update_lib().ogp_chunk_apply_rows(p_(L), p_(B), p_(R), p_(Pm), p_(U), p_(T), Bd, k, rows, m,
+                                                 _build.stream_of(L))
+    _build.launch_check(rc, "chunk_apply_rows")
+    chunk_apply_rows.launches += 1
+    return L, B
+
+
+chunk_apply_rows.launches = 0

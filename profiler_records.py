@@ -3,8 +3,10 @@ time the profile window is open before its first launch.
 
     python3 profiler_records.py [--windows N]   # from the repository root
 
-Needs a CUDA card. For K3 (pred_chunk) and K2 (rank1_apply) at m = 900,
-k = 128, Bd = 1, it profiles N windows of chip_smoke.TIMING_REPS calls
+Needs a CUDA card. For K3 (pred_chunk), K2 (rank1_apply) and the row-shard
+stages of K1 and K3 that run their own short kernels (chunk_gather_rows,
+chunk_apply_rows, pred_gather_rows, pred_apply_rows on rows [0, 450)) at
+m = 900, k = 128, Bd = 1, it profiles N windows of chip_smoke.TIMING_REPS calls
 each (chip_smoke.device_ms runs PROFILE_EXTRA_CALLS more first and counts
 the last TIMING_REPS), with each pad in PADS_S between the
 window's start and its first launch. For each kernel and pad it prints one
@@ -23,8 +25,14 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from online_gp_torch.ops.cuda_pred_stream import pred_chunk
-from online_gp_torch.ops.cuda_root_update import rank1_apply
+from online_gp_torch.ops.cuda_pred_stream import (
+    pred_apply_rows,
+    pred_chunk,
+    pred_cluster_plan,
+    pred_factors,
+    pred_gather_rows,
+)
+from online_gp_torch.ops.cuda_root_update import chunk_apply_rows, chunk_factors, chunk_gather_rows, rank1_apply
 from online_gp_torch.ops.precision import f32_matmul_precision
 
 PADS_S = (0.0, 0.01, cs.PROFILE_PAD_S)
@@ -78,11 +86,24 @@ def main() -> int:
         x, idx, w = cs.stencil(rng, grid, cs.K, dev)
         y = torch.sin(3 * x[:, 0])[None].contiguous()
         nz = torch.ones((1, cs.K), device=dev)
+        recursion = "pred_recursion_cluster_kernel" if pred_cluster_plan(cs.K, grid.num_points, idx.shape[1]) \
+            else "pred_recursion_kernel"
+        rows = grid.num_points // 2
+        Lr, Br, Cr, mur = (t[:, :rows].contiguous() for t in (L, B, C, mu))
+        wv = w[None].contiguous()
+        U, Pm, R = chunk_factors(chunk_gather_rows(B, idx, wv, 0))
+        Z, r, _, _ = pred_factors(idx, w, *pred_gather_rows(C, mu, idx, w, 0), y, nz)
         cases = {
             "pred_chunk": (pred_chunk, lambda: (C.clone(), mu.clone(), idx, w, y, nz),
-                           {"pred_gather_kernel": 1, "pred_recursion_kernel": 1, "pred_apply_kernel": 1}),
+                           {"pred_gather_kernel": 1, recursion: 1, "pred_apply_kernel": 1}),
             "rank1_apply": (rank1_apply, lambda: (L.clone(), B.clone(), p),
                             {"rank1_prepass_kernel": 1, "rank1_rows_kernel": 1}),
+            "chunk_gather_rows": (chunk_gather_rows, lambda: (Br, idx, wv, 0), {"chunk_gather_kernel": 1}),
+            "chunk_apply_rows": (chunk_apply_rows, lambda: (Lr.clone(), Br.clone(), U, Pm, R),
+                                 {"chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1}),
+            "pred_gather_rows": (pred_gather_rows, lambda: (Cr, mur, idx, w, 0), {"pred_gather_kernel": 1}),
+            "pred_apply_rows": (pred_apply_rows, lambda: (Cr.clone(), mur.clone(), Z, r, 0),
+                                {"pred_apply_kernel": 1}),
         }
         for name, (fn, make, kernels) in cases.items():
             for pad_s in PADS_S:

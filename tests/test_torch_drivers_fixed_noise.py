@@ -81,7 +81,8 @@ def test_run_sweep_seq(tmp_path):
     again = regression_trial(parse_config(overrides[:-2] + [f"log_dir={tmp_path / 'again'}", "device=cpu",
                                                             "trial_id=1", "seed=1"]))
     assert again["test_rmse"] == results[1]["test_rmse"] and again["test_nll"] == results[1]["test_nll"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        run_sweep(2, "mesh", overrides)
+    baseline = ["model=svgp_regression" if o.startswith("model=") else o for o in overrides]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
+        run_sweep(2, "mesh", baseline)
     with pytest.raises(ValueError, match="unknown sweep mode"):
         run_sweep(2, "grid", overrides)
