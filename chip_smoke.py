@@ -261,9 +261,46 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    sweeps' seconds, trials/s, step ms for all trials and trial-steps/s,
    each rank's sharded updates/s and points/s beside the single-device
    run's, the expert step's ms.
+12. The slice that finishes the port. (a) Grid-sharded WISKI on two gloo
+   ranks sharing the card, at bench.py's configuration (30 x 30, m = 900,
+   RBF, learned second noise, 256 seed points) and on a 44 x 44 grid
+   (m = 1,936), the state whole (the Gram kept): each rank row-shards it
+   (``parallel.shard_wiski_state``) and runs, with
+   ``SolverConfig(grid_shard_axis="tp")``, one hyper step (MLL, its
+   gradient through autograd, Adam), 64 single-point ``wiski_condition``
+   calls (K2's row-shard entry) and caches + predict of 1,024 points (Q on
+   K6), against the single-device run of the same calls (closed-form
+   gradient, K2, K6) and its float64 twin on the CPU: mll within 1e-5
+   relative, gradients within 1e-4 of each leaf's largest entry (against
+   the single device's gradient through autograd, the sharded MLL's own
+   method; the closed form's distance printed), the roots, inverse roots,
+   Gram and wty (gathered) within 1e-5 * max(scale, 1), mean within 1e-5
+   and var within 1e-4 of their largest magnitude, each bar raised to twice
+   the single device's own distance from the float64 twin where float32
+   cannot resolve it (phase 8's rule); each rank's counters, zeroed just
+   before and read just after, show K2's row-shard entry 64 times, K6 once
+   and K2 never; each rank holds half the state's bytes. Printed: hyper
+   step ms, condition updates/s and caches + predict ms a rank beside the
+   single device's, and the bytes. (b) K2's row-shard entry
+   (``rank1_apply_rows``, 16 calls) on rank 0's rows of (a)'s seed state
+   at both sizes against ``rank1_apply_rows_plain`` to 1e-5 (the absolute
+   part times the roots' scale, at least 1, as phases 9 to 11), with device
+   time, wrapper and plain times, the bytes bound and ``mv`` + ``addr_``
+   on the shard as yardstick; K6 on (a)'s Q (``check_k6``); and K2 at
+   rows = m through ``rank1_apply`` and ``rank1_apply_rows`` on phase 3's
+   roots, bitwise equal. (c) The three baseline mesh sweeps
+   (svgp_regression and sgpr_regression on friedman, svgp_classification
+   on banana, eye stem, 256 inducing points, 10 epochs, 32 steps), T = 8
+   in this process and split over the two ranks: per-trial results within
+   1e-5 of each column's largest magnitude, every kernel counter 0;
+   printed: seconds and trial-steps/s. (d)
+   ``parallel.dryrun_multichip(2, "cuda")``: every arm within 1e-5 of its
+   one-process run. (e) (a)'s conditioned m = 1,936 state saved with
+   ``backend="dcp"`` from both ranks and loaded whole in this process,
+   bitwise the gathered state, with save and load ms.
 
 It prints the kernels as one JSON line (``launches``: the sum over the
-path windows of phases 3, 4, 5, 6, 7, 9, 10 and 11, phase 8 launching
+path windows of phases 3, 4, 5, 6, 7, 9, 10, 11 and 12, phase 8 launching
 none; rows ``...@m4096``: phase 6's
 kernel checks, with phase 6's launches; rows ``...@cls-m256-bd2`` and
 ``...@cls-m900-bd2``: phase 7's kernel checks, with the launches of the
@@ -272,7 +309,10 @@ with the launches of its windows; rows ``...@drv-m256``: phase 10's
 kernel checks, with the launches of its windows; rows
 ``...@tp-m900-d2`` and ``...@tp-m4096-d2``: phase 11's stage checks, with
 the launches of both ranks at that size; rows ``...@sweep-m256-bd8``:
-phase 11's K2 and K6 checks, with the launches of its sweep windows), then
+phase 11's K2 and K6 checks, with the launches of its sweep windows; rows
+``...@gs-m900-d2`` and ``...@gs-m1936-d2``: phase 12's K2 row-shard and K6
+checks, with the launches of both ranks in (a) at that size; phase 12's
+single-device runs add to the K2 and K6 sums), then
 the card's name and power limit, and last {"ok": true, "device": {...}}.
 It needs a CUDA device and exits non-zero without one.
 """
@@ -378,7 +418,7 @@ from online_gp_torch.ops.root_update import (
 )
 from online_gp_torch.parallel.launch import spawn_ranks
 from online_gp_torch.utils.checkpoint import load_wrapper, save_wrapper
-from online_gp_torch.utils.optim import tree_leaves, tree_rebuild
+from online_gp_torch.utils.optim import adam_init, adam_update, tree_leaves, tree_rebuild
 
 SEED = 0
 M_SIDE = 30  # bench.py: 30x30 grid, m = 900
@@ -3863,6 +3903,385 @@ def parallel_phase(peaks, card, dev):
     return rows, total
 
 
+# --------------------------------------------------------------------------
+# phase 12: the slice that finishes the port
+# --------------------------------------------------------------------------
+
+# (a) grid-sharded WISKI on two gloo ranks sharing the card: bench.py's
+# configuration (30 x 30, m = 900) and a 44 x 44 grid (m = 1,936: divides by
+# 2 and 4, under max_cholesky_size), the state whole (the Gram kept)
+GS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_gs"
+GS_RANKS, GS_SIDES, GS_COND, GS_LR, GS_K2_CALLS = 2, (M_SIDE, 44), 64, 1e-2, 16
+GS_MLL_RTOL, GS_GRAD_RTOL, GS_ROOT_TOL, GS_MEAN_RTOL, GS_VAR_RTOL = 1e-5, 1e-4, 1e-5, 1e-5, 1e-4
+GS_DCP_M = 44**2  # (e) the state saved with backend="dcp"
+# (c) the baseline mesh sweeps at the presets' widths (256 inducing points,
+# online_gp_tpu/experiments/config.py:25-50), 8 trials, depth cut to 10
+# epochs and 32 steps (SGPR's hyper step and rebase every 8th). A rank runs
+# its trials one at a time, so a trial's results do not depend on the split
+BASE_SWEEP_TRIALS, BASE_SWEEP_RTOL = 8, 1e-5
+BASE_SWEEPS = {
+    "svgp_regression": ["model=svgp_regression", "dataset=friedman", "stem=eye", "num_batch_epochs=10",
+                        "max_stream=32"],
+    "sgpr_regression": ["model=sgpr_regression", "dataset=friedman", "stem=eye", "num_batch_epochs=10",
+                        "max_stream=32", "model.rebase_every=8"],
+    "svgp_classification": ["model=svgp_classification", "dataset=banana", "stem=eye", "num_batch_epochs=10",
+                            "max_stream=32"],
+}
+
+
+def rank1_rows_bound(Bd, rows, m, peaks):
+    """K2 on a row shard: the shard's rows of L and B read and written, p
+    read; |p|^2, two row-matvecs and two outer products on the rows."""
+    return bound_ms(4 * (4 * Bd * rows * m + Bd * m), Bd * (8 * rows * m + 2 * m), peaks)
+
+
+def gs_sequence(model, params, state, xc, yc, xt, cfg=DEFAULT_CONFIG):
+    """(a)'s calls on one state, whole or row-sharded: a warm-up hyper step
+    and caches + predict first (their one-time costs), then with the
+    counters zeroed a hyper step (MLL, gradient, Adam), GS_COND single-point
+    conditions and caches + predict; returns the outputs (the roots
+    gathered), the times, the counters and the state's bytes on this
+    process."""
+    from online_gp_torch.ops.cuda_root_update import rank1_apply_rows
+    from online_gp_torch.parallel.grid import gather_wiski_state
+
+    dev = xc.device
+
+    def hyper_step():
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = -torch.sum(wiski_mll(model, tree_rebuild(params, leaves), state, cfg))
+            grads = torch.autograd.grad(loss, leaves)
+        updates, _ = adam_update(grads, adam_init(leaves), GS_LR)
+        return loss.detach(), grads, tree_rebuild(params, [p.detach() + u for p, u in zip(leaves, updates)])
+
+    hyper_step()
+    wiski_predict(model, params, state, xt, cfg)
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t
+    nbytes = sum(local(t).nbytes for t in (state.wty, *state.roots))
+    zero_counters()
+    rank1_apply_rows.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    loss, grads, new_params = hyper_step()
+    sync(dev)
+    t1 = time.perf_counter()
+    for i in range(GS_COND):
+        state = wiski_condition(model, state, xc[i : i + 1], yc[i : i + 1], torch.ones_like(yc[:1]))
+    sync(dev)
+    t2 = time.perf_counter()
+    mean, var = wiski_predict(model, new_params, state, xt, cfg)
+    sync(dev)
+    t3 = time.perf_counter()
+    launches = {**read_counters(), "rank1_apply_rows": rank1_apply_rows.launches}
+    whole = gather_wiski_state(state)
+    out = dict(mll=-loss, grads=list(grads), roots=[whole.roots.root, whole.roots.inv_root, whole.roots.mat, whole.wty],
+               mean=mean, var=var)
+    times = dict(hyper_ms=(t1 - t0) * 1e3, updates_per_s=GS_COND / (t2 - t1), predict_ms=(t3 - t2) * 1e3)
+    return out, times, launches, nbytes, dict(params=new_params, state=state)
+
+
+def gs_inputs(side, dev, dtype=torch.float32):
+    """(a)'s model, params, seed state and points at ``side`` x ``side``."""
+    m = side * side
+    rng = np.random.default_rng(SEED + m)
+    grid = Grid.create([(-1.1, 1.1)] * 2, side, dtype=dtype, device=dev)
+    model = WiskiModel(RBFKernel(), grid, num_outputs=1, learn_additional_noise=True)
+    params = model.init_params(2, dtype=dtype)
+    f = dict(dtype=dtype, device=dev)
+    x0 = torch.tensor(rng.uniform(-1, 1, (N_SEED, 2)).astype(np.float32), **f)
+    state = wiski_init(model, x0, torch.sin(3 * x0[:, :1]), torch.ones((N_SEED, 1), **f))
+    xc = torch.tensor(rng.uniform(-1, 1, (GS_COND, 2)).astype(np.float32), **f)
+    xt = torch.tensor(rng.uniform(-1, 1, (N_TEST, 2)).astype(np.float32), **f)
+    return model, params, state, xc, torch.sin(3 * xc[:, :1]), xt
+
+
+def gs_distances(got, want):
+    """(a)'s five distances of ``got`` from ``want``: mll relative,
+    gradients over each leaf's largest entry, roots over max(1, scale),
+    mean and var over their largest magnitude."""
+    rel = lambda a, b: float((a.double().cpu() - b.double().cpu()).abs().max()) / max(float(b.abs().max()), 1e-30)
+    return dict(mll=rel(got["mll"], want["mll"]), grads=max(rel(a, b) for a, b in zip(got["grads"], want["grads"])),
+                roots=max(float((a.double().cpu() - b.double().cpu()).abs().max()) / max(float(b.abs().max()), 1.0)
+                          for a, b in zip(got["roots"], want["roots"])),
+                mean=rel(got["mean"], want["mean"]), var=rel(got["var"], want["var"]))
+
+
+def gs_reference(side, dev, card):
+    """The single-device run (a)'s ranks are held to (closed-form MLL
+    gradient and Q on K6, K2), and its float64 twin on the CPU from the same
+    inputs; the inputs and both runs' outputs saved under GS_DIR."""
+    m = side * side
+    model, params, state, xc, yc, xt = gs_inputs(side, dev)
+    path = GS_DIR / f"m{m}.pt"
+    cpu = lambda t: None if t is None else t.detach().cpu()
+    torch.save(dict(side=side, state=[cpu(t) for t in (state.wty, state.ydy, *state.roots, state.d_logdet)],
+                    num_data=state.num_data, params=[cpu(t) for t in tree_leaves(params)], xc=cpu(xc), yc=cpu(yc),
+                    xt=cpu(xt)), path)
+    initial = RootCache(*(t.clone() for t in state.roots))
+    # the sharded MLL's gradient runs autograd through the Cholesky of Q:
+    # its single-device yardstick is the same (the closed form's is printed)
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        autograd_grads = list(torch.autograd.grad(autograd_mll(model, tree_rebuild(params, leaves), state), leaves))
+    out, times, launches, nbytes, final = gs_sequence(model, params, state, xc, yc, xt)
+    if (launches["rank1_apply"], launches["blocked_cholesky"], launches["rank1_apply_rows"]) != (GS_COND, 2, 0):
+        raise AssertionError(f"phase 12 (a) single device m = {m}: K2 must launch {GS_COND} times, K6 twice: "
+                             f"{launches}")
+    twin = gs_sequence(*gs_inputs(side, "cpu", torch.float64))[0]
+    out["grads_autograd"] = autograd_grads
+    host = lambda o: {k: [cpu(t) for t in v] if isinstance(v, list) else cpu(v) for k, v in o.items()}
+    torch.save(dict(single=host(out), twin=host(twin)), GS_DIR / f"m{m}_refs.pt")
+    single = dict(times, state_bytes=nbytes, twin=gs_distances(dict(out, grads=autograd_grads), twin),
+                  closed_form_twin=gs_distances(out, twin)["grads"])
+    print(f"phase 12 (a) single device m = {m} on {card}: hyper step {times['hyper_ms']:.3f} ms, "
+          f"{times['updates_per_s']:.1f} condition updates/s, caches + predict of {N_TEST} "
+          f"{times['predict_ms']:.3f} ms, persistent state {nbytes} bytes, float32 apart from its float64 twin "
+          f"{json.dumps(single['twin'])} (gradients through autograd; the closed form's "
+          f"{single['closed_form_twin']:.3e}), launches {json.dumps(launches)}")
+    return str(path), dict(model=model, initial=initial, xc=xc, **final), single, launches
+
+
+def gs_rank(rank, world, paths, sweep_root):
+    """A gloo rank on the card: (a) at each m the seed state row-sharded over
+    the ranks and :func:`gs_sequence` with ``grid_shard_axis``, its outputs'
+    distances from the single-device run and from its float64 twin; (e) at
+    GS_DCP_M the conditioned state saved with backend="dcp"; (c) the
+    baseline mesh sweeps with the trials split over the ranks."""
+    import torch.distributed as dist
+
+    from online_gp_torch.models.wiski import WiskiState
+    from online_gp_torch.ops.cuda_root_update import rank1_apply_rows
+    from online_gp_torch.parallel.grid import gather_wiski_state, shard_wiski_state
+    from online_gp_torch.parallel.mesh import local_device, make_mesh
+    from online_gp_torch.utils.checkpoint import save_pytree
+
+    mesh = make_mesh(axis_name="tp", device_type="cuda")
+    dev = local_device("cuda")
+    report = {}
+    with f32_matmul_precision():
+        dist.all_reduce(torch.zeros(1, device=dev))  # the first collective's set-up
+        for m, path in paths.items():
+            saved = torch.load(path)
+            refs = torch.load(path.replace(".pt", "_refs.pt"))
+            grid = Grid.create([(-1.1, 1.1)] * 2, saved["side"], device=dev)
+            model = WiskiModel(RBFKernel(), grid, num_outputs=1, learn_additional_noise=True)
+            params = tree_rebuild(model.init_params(2), [t.to(dev) for t in saved["params"]])
+            wty, ydy, mat, root, inv_root, d_logdet = (t.to(dev) for t in saved["state"])
+            state = shard_wiski_state(WiskiState(wty, ydy, RootCache(mat, root, inv_root), d_logdet,
+                                                 saved["num_data"]), mesh, "tp")
+            del wty, mat, root, inv_root
+            xc, yc, xt = (saved[k].to(dev) for k in ("xc", "yc", "xt"))
+            out, times, launches, nbytes, final = gs_sequence(model, params, state, xc, yc, xt,
+                                                              SolverConfig(grid_shard_axis="tp"))
+            apart = gs_distances(out, dict(refs["single"], grads=refs["single"]["grads_autograd"]))
+            apart["grads_closed_form"] = gs_distances(out, refs["single"])["grads"]
+            report[m] = dict(single=apart, twin=gs_distances(out, refs["twin"]),
+                             launches=launches, state_bytes=nbytes, rows=tuple(final["state"].roots.root.to_local().shape),
+                             **times)
+            if m == GS_DCP_M:
+                sync(dev)
+                t0 = time.perf_counter()
+                save_pytree(str(GS_DIR / "state_dcp"), final["state"], backend="dcp")
+                report[m]["dcp_save_ms"] = (time.perf_counter() - t0) * 1e3
+                whole = gather_wiski_state(final["state"])
+                if rank == 0:
+                    torch.save([whole.wty.cpu(), whole.ydy.cpu(), *(t.cpu() for t in whole.roots),
+                                whole.d_logdet.cpu(), whole.num_data], GS_DIR / "state_gathered.pt")
+                del whole
+            del state, final, out
+        report["sweeps"] = {}
+        for name, args in BASE_SWEEPS.items():
+            zero_counters()
+            rank1_apply_rows.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out = run_sweep(BASE_SWEEP_TRIALS, "mesh", args + [f"log_dir={sweep_root / 'ranks' / name}",
+                                                                  "device=cuda"])
+            sync(dev)
+            counts = {**read_counters(), "rank1_apply_rows": rank1_apply_rows.launches}
+            report["sweeps"][name] = dict(results=out, seconds=time.perf_counter() - t0, launches=counts)
+    return report
+
+
+def check_k2_rows(L, B, idx, w, rows, peaks, what):
+    """K2's row-shard entry on the first ``rows`` rows of (L, B) against
+    rank1_apply_rows_plain, one call a stencil point (p = B^T v from the
+    whole inverse root), to 1e-5 (allclose, the absolute part 1e-5 times
+    the roots' and the update's scale, at least 1: the seed state's inverse
+    root reaches 1/sqrt(jitter), as phases 9 to 11 rule); then device time,
+    bound and yardstick (mv + addr_ on the shard) on the first point."""
+    from online_gp_torch.ops.cuda_root_update import rank1_apply_rows, rank1_apply_rows_plain
+
+    Lr, Br = L[:, :rows].contiguous(), B[:, :rows].contiguous()
+    ps = [torch.einsum("p,bpm->bm", w[i], B[:, idx[i].long()]).contiguous() for i in range(idx.shape[0])]
+    scale = max(float(L.abs().max()), float(B.abs().max()), max(float((L @ p[..., None]).abs().max()) for p in ps),
+                 1.0)
+    err = 0.0
+    for i, p in enumerate(ps):
+        got = rank1_apply_rows(*clone_all(Lr, Br), p)
+        want = rank1_apply_rows_plain(*clone_all(Lr, Br), p)
+        torch.cuda.synchronize()
+        err = max(err, max_err(got, want, 1e-5, f"rank1_apply_rows {what} call {i}", 1e-5 * scale))
+    make = lambda: (*clone_all(Lr, Br), ps[0])
+    bms, by = rank1_rows_bound(L.shape[0], rows, L.shape[-1], peaks)
+    ms, stages = device_ms(rank1_apply_rows, make, {"rank1_prepass_kernel": 1, "rank1_rows_kernel": 1})
+    return dict(calls=len(ps), rows=rows, scale=scale, max_abs_err=err, ms=ms, stages_ms=stages,
+                wrapper_ms=time_ms(rank1_apply_rows, make), plain_ms=time_ms(rank1_apply_rows_plain, make),
+                library_ms=time_ms(rank1_library, make), bound_ms=bms, bound_by=by)
+
+
+def check_k2_rows_at_m(state):
+    """K2 at rows = m through both entries on phase 3's final roots: bitwise
+    the same (one kernel), and against the plain version to 1e-5."""
+    from online_gp_torch.ops.cuda_root_update import rank1_apply_rows
+
+    L, B = state.roots.root.contiguous(), state.roots.inv_root.contiguous()
+    p = (B[:, 7] * 0.3 + B[:, 400] * 0.7).contiguous()
+    whole = rank1_apply(*clone_all(L, B), p)
+    rows = rank1_apply_rows(*clone_all(L, B), p)
+    torch.cuda.synchronize()
+    bitwise(whole, rows, "rank1_apply against rank1_apply_rows at rows = m")
+    return max_err(whole, rank1_apply_plain(L, B, p), 1e-5, "rank1_apply at rows = m")
+
+
+def baseline_sweeps(card, root):
+    """(c) in this process: each baseline sweep at T = BASE_SWEEP_TRIALS, the
+    counters zeroed just before and read just after (every one must stay
+    0: the baselines run no kernel)."""
+    from online_gp_torch.ops.cuda_root_update import rank1_apply_rows
+
+    out = {}
+    for name, args in BASE_SWEEPS.items():
+        zero_counters()
+        rank1_apply_rows.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = run_sweep(BASE_SWEEP_TRIALS, "mesh", args + [f"log_dir={root / 'one' / name}", "device=cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {**read_counters(), "rank1_apply_rows": rank1_apply_rows.launches}
+        if any(counts.values()):
+            raise AssertionError(f"phase 12 (c) {name}: the baseline sweep launched kernels: {counts}")
+        out[name] = dict(results=res, seconds=seconds)
+    return out
+
+
+def _sweep_rows(results):
+    rows = []
+    for r in results:
+        with open(Path(r["log_dir"]) / "online_metrics.csv") as f:
+            rows.append([{k: float(v) for k, v in row.items()} for row in csv.DictReader(f)])
+    return rows
+
+
+def finishing_phase(peaks, card, dev, phase3_state):
+    """Phase 12; returns the kernel rows, the launches of its windows and
+    the seconds of its parts."""
+    from online_gp_torch.parallel.dryrun import dryrun_multichip
+    from online_gp_torch.utils.checkpoint import load_pytree
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(GS_DIR, ignore_errors=True)
+    GS_DIR.mkdir(parents=True)
+    seconds, launches = {}, {"rank1_apply": 0, "blocked_cholesky": 0}
+    paths, inputs, single = {}, {}, {}
+    t0 = time.perf_counter()
+    for side in GS_SIDES:
+        m = side * side
+        paths[m], inputs[m], single[m], counts = gs_reference(side, dev, card)
+        for k in launches:
+            launches[k] += counts[k]
+    one = baseline_sweeps(card, GS_DIR / "sweeps")
+    seconds["a, c single"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(gs_rank, GS_RANKS, (paths, GS_DIR / "sweeps"), store=str(GS_DIR / "store"))
+    seconds["a, c, e ranks"] = time.perf_counter() - t0
+
+    gs_launches = {}
+    bars = dict(mll=GS_MLL_RTOL, grads=GS_GRAD_RTOL, roots=GS_ROOT_TOL, mean=GS_MEAN_RTOL, var=GS_VAR_RTOL)
+    for m in paths:
+        # a distance passes at its bar, or where float32 cannot resolve the
+        # bar, at twice the single device's own distance from its float64 twin
+        allowed = {k: max(v, 2 * single[m]["twin"][k]) for k, v in bars.items()}
+        for r, rep in enumerate(ranks):
+            got = rep[m]["launches"]
+            print(f"phase 12 (a) rank {r} m = {m} (rows {rep[m]['rows']}) on {card}: hyper step "
+                  f"{rep[m]['hyper_ms']:.3f} ms (single device {single[m]['hyper_ms']:.3f}), "
+                  f"{rep[m]['updates_per_s']:.1f} condition updates/s (single device "
+                  f"{single[m]['updates_per_s']:.1f}), caches + predict {rep[m]['predict_ms']:.3f} ms (single device "
+                  f"{single[m]['predict_ms']:.3f}), persistent state {rep[m]['state_bytes']} bytes (single device "
+                  f"{single[m]['state_bytes']}), apart from the single device {json.dumps(rep[m]['single'])}, from "
+                  f"the float64 twin {json.dumps(rep[m]['twin'])}, launches {json.dumps(got)}")
+            if (got["rank1_apply_rows"], got["blocked_cholesky"], got["rank1_apply"]) != (GS_COND, 1, 0):
+                raise AssertionError(f"phase 12 (a) rank {r} m = {m}: K2's row-shard entry must launch {GS_COND} "
+                                     f"times, K6 once (the caches' Q), K2 never: {got}")
+            over = {k: v for k, v in rep[m]["single"].items() if k in allowed and not v <= allowed[k]}
+            if over:
+                raise AssertionError(f"phase 12 (a) rank {r} m = {m}: apart from the single device beyond "
+                                     f"{allowed}: {over}")
+            if rep[m]["state_bytes"] * GS_RANKS != single[m]["state_bytes"]:
+                raise AssertionError(f"phase 12 (a) rank {r} m = {m}: {rep[m]['state_bytes']} bytes of state, "
+                                     f"not 1/{GS_RANKS} of {single[m]['state_bytes']}")
+        gs_launches[m] = {k: sum(rep[m]["launches"][k] for rep in ranks) for k in ("rank1_apply_rows",
+                                                                                   "blocked_cholesky")}
+
+    for name, res in one.items():
+        want = _sweep_rows(res["results"])
+        for r, rep in enumerate(ranks):
+            sw = rep["sweeps"][name]
+            if any(sw["launches"].values()):
+                raise AssertionError(f"phase 12 (c) rank {r} {name}: the baseline sweep launched kernels: "
+                                     f"{sw['launches']}")
+        got = _sweep_rows(ranks[0]["sweeps"][name]["results"])
+        apart = max(max(tables_apart(g, w, f"(c) {name}").values()) for g, w in zip(got, want))
+        step_s = want[0][-1]["step_time"]
+        tests = [round(v, 4) for r in res["results"] for k, v in r.items() if k.startswith("test_") and k != "test_nll"]
+        print(f"phase 12 (c) run_sweep({BASE_SWEEP_TRIALS}, mesh) {name} (256 inducing points, 32 steps) on {card}: "
+              f"{res['seconds']:.1f} s in one process, {1.0 / step_s:.1f} trial-steps/s; on {GS_RANKS} ranks "
+              f"{[round(rep['sweeps'][name]['seconds'], 1) for rep in ranks]} s; per-trial results apart by "
+              f"{apart:.3e}; test metric {tests}")
+        if not apart <= BASE_SWEEP_RTOL:
+            raise AssertionError(f"phase 12 (c) {name}: the ranks' trials part from the one-process run by {apart}")
+
+    t0 = time.perf_counter()
+    loaded = load_pytree(str(GS_DIR / "state_dcp"), device=dev)
+    sync(dev)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    gathered = torch.load(GS_DIR / "state_gathered.pt")
+    got = [loaded.wty, loaded.ydy, *loaded.roots, loaded.d_logdet]
+    if loaded.num_data != gathered[-1] or not all(torch.equal(g.cpu(), w) for g, w in zip(got, gathered[:-1])):
+        raise AssertionError("phase 12 (e): the dcp checkpoint of the sharded state does not load bitwise whole")
+    print(f"phase 12 (e) m = {GS_DCP_M} state saved with backend=dcp from {GS_RANKS} ranks "
+          f"({[round(rep[GS_DCP_M]['dcp_save_ms'], 2) for rep in ranks]} ms) and loaded whole in one process "
+          f"({load_ms:.2f} ms), bitwise the gathered state")
+
+    t0 = time.perf_counter()
+    rows = {}
+    for m, a in inputs.items():
+        L, B = a["initial"].root, a["initial"].inv_root
+        idx, w = interp_coeffs(a["model"].grid, a["xc"][:GS_K2_CALLS])
+        r = check_k2_rows(L, B, idx, w, m // GS_RANKS, peaks, f"gs-m{m}-d{GS_RANKS}")
+        print(f"rank1_apply_rows gs-m{m}-d{GS_RANKS} on {card}: " + json.dumps(r))
+        rows[f"rank1_apply_rows@gs-m{m}-d{GS_RANKS}"] = (r, gs_launches[m]["rank1_apply_rows"])
+        Q = q_matrix(a["model"], a["params"], a["state"])
+        r = check_k6(Q, peaks, f"Q (gs-m{m}-d{GS_RANKS})", PLAIN_REPS6)
+        print(f"blocked_cholesky gs-m{m}-d{GS_RANKS} on {card}: " + json.dumps(r))
+        rows[f"blocked_cholesky@gs-m{m}-d{GS_RANKS}"] = (r, gs_launches[m]["blocked_cholesky"])
+    err = check_k2_rows_at_m(phase3_state)
+    print(f"phase 12 (b) rank1_apply and rank1_apply_rows at rows = m on phase 3's roots: bitwise equal, "
+          f"{err:.3e} from the plain version")
+    seconds["b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    errors = dryrun_multichip(GS_RANKS, "cuda", store=str(GS_DIR / "dryrun_store"))
+    seconds["d"] = time.perf_counter() - t0
+    print(f"phase 12 (d) dryrun_multichip({GS_RANKS}) on {card}: {json.dumps(errors)}")
+    print(f"phase 12 seconds on {card}: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}, "
+          f"all {time.perf_counter() - t_phase:.1f}")
+    return rows, launches
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3955,6 +4374,10 @@ def main() -> int:
         for kname, count in launches11.items():
             launches[kname] += count
 
+        kernels12, launches12 = finishing_phase(peaks, card, dev, final_state)
+        for kname, count in launches12.items():
+            launches[kname] += count
+
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
@@ -3980,7 +4403,9 @@ def main() -> int:
     rows += [(row, r, launches9[row]) for row, r in kernels9.items()]
     rows += [(row, r, launches10[row.split("@")[0]]) for row, r in kernels10.items()]
     rows += [(row, r, count) for row, (r, count) in kernels11.items()]
+    rows += [(row, r, count) for row, (r, count) in kernels12.items()]
     meta.update(STAGE_META)
+    meta["rank1_apply_rows"] = ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264")
     for row, r, count in rows:
         source, replaces = meta[row.split("@")[0]]
         kernels.append({

@@ -8,9 +8,9 @@ rather than compile-time branches.
 Every switch is live: above ``max_cholesky_size`` the MLL runs CG/SLQ
 (``cg_tolerance``, ``max_cg_iterations``, ``use_toeplitz``), and
 ``fast_pred_var`` / ``fast_pred_samples`` below full rank run Lanczos at
-``max_root_decomposition_size``. ``grid_shard_axis`` names a mesh axis in
-the JAX package; the port has no sharded path, so only ``None`` is
-accepted.
+``max_root_decomposition_size``. ``grid_shard_axis`` names the mesh axis
+over which the inducing-grid dimension m is row-sharded
+(:mod:`online_gp_torch.parallel.grid`).
 """
 
 from __future__ import annotations
@@ -34,7 +34,16 @@ class SolverConfig:
     - ``skip_logdet_forward``: drop log|Q| from the MLL's forward value.
     - ``detach_interp_coeff``: stop gradients through the SKI weights.
     - ``use_toeplitz``: Toeplitz (FFT) grid-kernel MVMs.
-    - ``grid_shard_axis``: must be ``None`` in the port.
+    - ``grid_shard_axis``: the name of a mesh axis (a
+      ``torch.distributed`` ``DeviceMesh`` dim) over which WISKI's grid
+      dimension m is row-sharded, for grids past one device's memory.
+      When set, ``wiski_mll``, ``wiski_prediction_caches`` and
+      ``wiski_predict`` take a state whose ``wty`` and roots are DTensors
+      sharded on their m rows over that axis
+      (:func:`online_gp_torch.parallel.grid.shard_wiski_state`) and run
+      :mod:`online_gp_torch.parallel.grid`: each rank works on its rows
+      with explicit ``all_reduce`` calls, Q = I + L^T K L and its factor
+      replicated. ``None``: one device holds the whole state.
     """
 
     max_cholesky_size: int = 2048
@@ -50,13 +59,6 @@ class SolverConfig:
     detach_interp_coeff: bool = False
     use_toeplitz: bool = False
     grid_shard_axis: "str | None" = None
-
-    def __post_init__(self):
-        if self.grid_shard_axis is not None:
-            raise ValueError(
-                "online_gp_torch has no sharded grid path: grid_shard_axis "
-                f"must be None (got {self.grid_shard_axis!r})"
-            )
 
     def replace(self, **kwargs) -> "SolverConfig":
         return dataclasses.replace(self, **kwargs)

@@ -176,7 +176,11 @@ __global__ void rank1_prepass_kernel(const float* __restrict__ p, float* __restr
 
 // grid (row blocks, Bd, 2 or 3): z = 0 updates L with c, z = 1 updates B
 // with d, z = 2 (K4's full variant) does A += v v^T, rounded as the plain
-// version's A + v v^T (product, then sum). |p|^2 is the sum of the nparts
+// version's A + v v^T (product, then sum). L and B hold `rows` rows of m
+// columns per output: rows = m for the whole roots (K2, K4), fewer for a
+// row shard (K2's row-shard entry), whose p is the whole (all-reduced)
+// B^T v; each row's update needs its own entries and p only. A and v only
+// at rows = m. |p|^2 is the sum of the nparts
 // partials s2[b, :] (lane l adds l, l + 32, ... in turn, then a fixed
 // butterfly: every warp gets the same value); then s = |p|, u = p/s (u = 0
 // when s <= 1e-20, the Pallas guard), c = sqrt(s^2 + 1) - 1,
@@ -184,14 +188,15 @@ __global__ void rank1_prepass_kernel(const float* __restrict__ p, float* __restr
 // wrote, so they run before its pdl_wait().
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 rank1_rows_kernel(float* L, float* B, float* A, const float* __restrict__ v,
-                  const float* __restrict__ p, const float* __restrict__ s2, int nparts, int m) {
-  const long long b = blockIdx.y, mm = m;
+                  const float* __restrict__ p, const float* __restrict__ s2, int nparts, int rows,
+                  int m) {
+  const long long b = blockIdx.y, mm = m, rr = rows;
   const int which = blockIdx.z;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (i >= m) return;  // whole warps leave; no block-wide sync below
+  if (i >= rows) return;  // whole warps leave; no block-wide sync below
   if (which == 2) {
-    float* row = A + b * mm * mm + i * mm;
+    float* row = A + b * rr * mm + i * mm;
     const float* vb = v + b * mm;
     const float vi = vb[i];
     for (int l = lane; l < m; l += 32) row[l] = __fadd_rn(row[l], __fmul_rn(vi, vb[l]));
@@ -200,8 +205,9 @@ rank1_rows_kernel(float* L, float* B, float* A, const float* __restrict__ v,
   ogp::pdl_wait();
   // the row's dot with p first: its loads do not wait on the scalars. Up to
   // m = 32 kRowRegs the warp keeps its row and p in registers, every load
-  // in flight at once, and reads the row once.
-  float* row = (which == 0 ? L : B) + b * mm * mm + i * mm;
+  // in flight at once, and reads the row once (the column count decides,
+  // not the rows).
+  float* row = (which == 0 ? L : B) + b * rr * mm + i * mm;
   const float* pb = p + b * mm;
   float x[kRowRegs], pv[kRowRegs];
   const bool in_regs = m <= 32 * kRowRegs;
@@ -238,11 +244,12 @@ rank1_rows_kernel(float* L, float* B, float* A, const float* __restrict__ v,
   }
 }
 
-// The row pass of K2 and K4; A and v only for K4's full variant (else null).
+// The row pass of K2 and K4 over `rows` rows of each output; A and v only
+// for K4's full variant (else null), at rows = m.
 cudaError_t rank1_rows(float* L, float* B, float* A, const float* v, const float* p,
-                       const float* s2, int nparts, int Bd, int m, bool pdl, cudaStream_t s) {
-  return ogp::launch(rank1_rows_kernel, dim3(cdiv(m, kRowsPerBlock), Bd, A ? 3 : 2),
-                     dim3(kRowsPerBlock * 32), 0, s, pdl, L, B, A, v, p, s2, nparts, m);
+                       const float* s2, int nparts, int Bd, int rows, int m, bool pdl, cudaStream_t s) {
+  return ogp::launch(rank1_rows_kernel, dim3(cdiv(rows, kRowsPerBlock), Bd, A ? 3 : 2),
+                     dim3(kRowsPerBlock * 32), 0, s, pdl, L, B, A, v, p, s2, nparts, rows, m);
 }
 
 // (a) p0[b, t, :] = sum_p wv[b, t, p] * B[b, idx[t, p] - row0, :] over the
@@ -1293,7 +1300,19 @@ int ogp_rank1_apply(float* L, float* B, const float* p, float* s2, int Bd, int m
   rank1_prepass_kernel<<<Bd, 256, 0, s>>>(p, s2, m);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(rank1_rows(L, B, nullptr, nullptr, p, s2, 1, Bd, m, false, s));
+  return static_cast<int>(rank1_rows(L, B, nullptr, nullptr, p, s2, 1, Bd, m, m, false, s));
+}
+
+// K2 on a row shard. L, B: (Bd, rows, m), a shard's rows of each output,
+// updated in place; p: (Bd, m), the whole B^T v (summed over the shards);
+// s2: (Bd,) scratch. At rows = m this is ogp_rank1_apply.
+int ogp_rank1_apply_rows(float* L, float* B, const float* p, float* s2, int Bd, int rows, int m,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rank1_prepass_kernel<<<Bd, 256, 0, s>>>(p, s2, m);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(rank1_rows(L, B, nullptr, nullptr, p, s2, 1, Bd, rows, m, false, s));
 }
 
 // Dynamic shared memory of the single-block K1 recursion kernel, in bytes.
@@ -1337,7 +1356,7 @@ int ogp_rank1_update(float* L, float* B, float* A, const float* v, float* p, flo
   rank1_p_kernel<<<dim3(tiles, Bd), kPThreads, 0, s>>>(B, v, p, s2, m);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(rank1_rows(L, B, A, v, p, s2, tiles, Bd, m, true, s));
+  return static_cast<int>(rank1_rows(L, B, A, v, p, s2, tiles, Bd, m, m, true, s));
 }
 
 // K5 sub on a cluster of C blocks per output (C <= 8), the chunk's

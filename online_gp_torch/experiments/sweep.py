@@ -29,7 +29,6 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-_MESH_MODELS = ("wiski_gp_regression", "wiski_gpd", "svgp_regression", "svgp_classification", "sgpr_regression")
 # the mesh sweeps' per-step and held-out metrics, by classification
 _STEP_METRICS = {False: ("stem_loss", "gp_loss", "online_rmse", "online_nll", "noise"),
                  True: ("stem_loss", "gp_loss", "online_acc")}
@@ -45,11 +44,12 @@ def run_sweep(num_trials: int, mode: str, overrides: List[str]) -> List[Dict]:
             return mesh_regression_sweep(num_trials, overrides)
         if name == "wiski_gpd":
             return mesh_classification_sweep(num_trials, overrides)
-        if name in _MESH_MODELS:
-            raise NotImplementedError(
-                f"sweep mode=mesh for {name!r} waits for the port of the baseline mesh sweeps "
-                "(ROADMAP Queue 1 item 4b); use mode=seq"
-            )
+        if name == "svgp_regression":
+            return mesh_svgp_sweep(num_trials, overrides)
+        if name == "svgp_classification":
+            return mesh_svgp_classification_sweep(num_trials, overrides)
+        if name == "sgpr_regression":
+            return mesh_sgpr_sweep(num_trials, overrides)
         raise ValueError(
             f"mode=mesh supports wiski_gp_regression / wiski_gpd / "
             f"svgp_regression / svgp_classification / sgpr_regression "
@@ -120,6 +120,19 @@ def trial_stems(cfg, trials, device):
         stem.eval()
         stems.append(stem)
     return stems
+
+
+def trial_inducing_points(cfg, trials, num_inducing: int, dim: int, device) -> torch.Tensor:
+    """Each trial's initial inducing points, U(-1, 1) of shape
+    (num_inducing, dim), drawn from a ``torch.Generator`` seeded from (cfg
+    seed, trial) as :func:`trial_stems` seeds the stems (where the JAX
+    sweeps split one key). Returns (len(trials), num_inducing, dim)."""
+    zs = []
+    for t in trials:
+        seed = int(np.random.SeedSequence([int(cfg["seed"]), int(t), 1]).generate_state(1)[0])
+        gen = torch.Generator().manual_seed(seed)
+        zs.append(torch.rand((num_inducing, dim), generator=gen) * 2.0 - 1.0)
+    return torch.stack(zs).to(device)
 
 
 def _features(stems, x):
@@ -284,14 +297,16 @@ def _run_trials(cfg, tx, ty, ex, ey, stems, device, classification: bool):
     return {k: by_step[i] for i, k in enumerate(_STEP_METRICS[classification])}, test
 
 
-def _mesh_sweep(num_trials: int, overrides: List[str], classification: bool) -> List[Dict]:
+def _mesh_sweep(num_trials: int, overrides: List[str], name: str, classification: bool, y_mode: str,
+                run_local) -> List[Dict]:
     """``mode=mesh``: the trials split over the ``dp`` ranks (contiguous
-    blocks, as ``Shard(0)`` cuts them), each rank's trials one batch
-    (:func:`_run_trials`); rank 0 gathers the metrics (one all_reduce of a
-    zero-filled buffer) and writes one ``online_metrics`` CSV per trial in
-    the JAX package's schema. ``step_time`` is the wall time of a rank's
-    batch over its chunks times its trials, as the JAX sweep divides its
-    program's time."""
+    blocks, as ``Shard(0)`` cuts them), each rank running its trials
+    through ``run_local(cfg, trials, tx, ty, ex, ey, device)``, which
+    returns ({step metric: (T, chunks)}, {test metric: (T,)}); rank 0
+    gathers the metrics (one all_reduce of a zero-filled buffer) and writes
+    one ``online_metrics`` CSV per trial in the JAX package's schema.
+    ``step_time`` is the wall time of a rank's trials over its chunks times
+    its trials, as the JAX sweep divides its program's time."""
     import torch.distributed as dist
 
     from online_gp_torch.experiments.config import parse_config
@@ -300,13 +315,14 @@ def _mesh_sweep(num_trials: int, overrides: List[str], classification: bool) -> 
 
     cfg = parse_config(overrides)
     kind = "classification" if classification else "regression"
-    name = "wiski_gpd" if classification else "wiski_gp_regression"
     if cfg["model"]["name"] != name or cfg["dataset"]["type"] != kind:
         raise ValueError(
-            f"mode=mesh batches the functional WISKI {kind} core ({name}); got model={cfg['model']['name']!r} "
+            f"mode=mesh runs the {name} {kind} core; got model={cfg['model']['name']!r} "
             f"dataset type={cfg['dataset']['type']!r} — use mode=seq for other models"
         )
-    train_x, train_y, test_x, test_y = _stack_trial_data(cfg, num_trials, "labels_i" if classification else "multi")
+    train_x, train_y, test_x, test_y = _stack_trial_data(cfg, num_trials, y_mode)
+    if y_mode == "labels_f":
+        test_y = test_y.astype(np.int32)
     num_chunks = _stream_shape(cfg, train_x.shape[1])[1]
     device_type = torch.device(cfg.get("device") or "cuda").type
     owns_group = not dist.is_initialized()
@@ -322,9 +338,7 @@ def _mesh_sweep(num_trials: int, overrides: List[str], classification: bool) -> 
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.perf_counter()
-            stems = trial_stems(cfg, range(lo, hi), device)
-            steps, test = _run_trials(cfg, to(train_x), to(train_y), to(test_x), to(test_y), stems,
-                                                  device, classification)
+            steps, test = run_local(cfg, range(lo, hi), to(train_x), to(train_y), to(test_x), to(test_y), device)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             step_time = (time.perf_counter() - t0) / max(num_chunks * (hi - lo), 1)
@@ -375,6 +389,14 @@ def _mesh_sweep(num_trials: int, overrides: List[str], classification: bool) -> 
     return results
 
 
+def _wiski_runner(classification: bool):
+    def run(cfg, trials, tx, ty, ex, ey, device):
+        stems = trial_stems(cfg, trials, device)
+        return _run_trials(cfg, tx, ty, ex, ey, stems, device, classification)
+
+    return run
+
+
 def mesh_regression_sweep(num_trials: int, overrides: List[str]) -> List[Dict]:
     """``num_trials`` independent streaming-regression trials of the WISKI
     flagship, batched (the replacement for the reference's Slurm trial
@@ -384,7 +406,7 @@ def mesh_regression_sweep(num_trials: int, overrides: List[str]) -> List[Dict]:
     ``online_metrics`` CSV (reference schema). As in the JAX sweep: no
     batch-model regret arm (batch_rmse, batch_nll, regret NaN), and the
     BatchNorm statistics freeze after the pretrain epochs."""
-    return _mesh_sweep(num_trials, overrides, classification=False)
+    return _mesh_sweep(num_trials, overrides, "wiski_gp_regression", False, "multi", _wiski_runner(False))
 
 
 def mesh_classification_sweep(num_trials: int, overrides: List[str]) -> List[Dict]:
@@ -393,7 +415,223 @@ def mesh_classification_sweep(num_trials: int, overrides: List[str]) -> List[Dic
     (C outputs a trial, T * C in the folded batch), prequential predict ->
     stem step on the partial MLL -> hyper step -> condition; the same
     deltas from the sequential driver as :func:`mesh_regression_sweep`."""
-    return _mesh_sweep(num_trials, overrides, classification=True)
+    return _mesh_sweep(num_trials, overrides, "wiski_gpd", True, "labels_i", _wiski_runner(True))
+
+
+def _baseline_shape(cfg, n_tr: int):
+    """(initial points, chunks, pretrain epochs) of a baseline trial."""
+    num_init, num_chunks = _stream_shape(cfg, n_tr)
+    num_epochs = cfg["num_batch_epochs"] if cfg["pretrain"] else 0
+    return num_init, num_chunks, num_epochs
+
+
+def _pretrain(stem, init_x, epochs: int, loss_of_feats, opt, stem_opt) -> None:
+    """Full-init-batch epochs, the stem in training mode (its BatchNorm
+    statistics move with each epoch, then stay frozen)."""
+    from online_gp_torch.utils.optim import adam_step
+
+    for _ in range(epochs):
+        stem.train()
+        feats = stem(init_x)
+        stem.eval()
+        adam_step(loss_of_feats(feats), opt, stem_opt)
+
+
+def _regression_evals(mean, var, noise, y):
+    """(rmse, mean nll) of the predictive moments with noise added."""
+    from online_gp_torch.likelihoods.gaussian import gaussian_nll
+
+    var = var + noise
+    return (torch.sqrt(torch.mean((mean[:, None] - y) ** 2)),
+            torch.mean(gaussian_nll(mean[:, None], var[:, None], y)))
+
+
+def _svgp_trial(cfg, stem, z, tx, ty, ex, ey, classification: bool):
+    """One streaming O-SVGP trial (the per-trial body of the JAX package's
+    ``mesh_svgp_sweep`` / ``mesh_svgp_classification_sweep``): full-batch
+    ELBO epochs with beta = 1, then per chunk prequential evaluate ->
+    snapshot -> ``num_update_steps`` ELBO steps at ``prior_beta`` with
+    Bui's streaming correction at ``online_beta``; then the test set. The
+    GP's optimizer is ``optax.zero_nans`` before Adam at lr on the hypers
+    and lr / 10 on the variational params, the stem's Adam at lr / 10
+    (the JAX sweep's ``_make_optimizer(lr)``), one for the whole trial."""
+    from online_gp_torch.api.regression import _leaves, _stem_leaves
+    from online_gp_torch.api.svgp import _split
+    from online_gp_torch.experiments.common import solver_config
+    from online_gp_torch.kernels.base import make_kernel
+    from online_gp_torch.likelihoods.bernoulli import bernoulli_probit_predictive
+    from online_gp_torch.models.svgp import (
+        SVGPModel,
+        svgp_elbo,
+        svgp_init_variational_to_prior,
+        svgp_predict,
+        svgp_snapshot,
+        svgp_streaming_correction,
+    )
+    from online_gp_torch.utils.optim import GroupAdam, adam_step
+
+    model = SVGPModel(make_kernel("rbf"), likelihood="bernoulli" if classification else "gaussian")
+    scfg = solver_config(cfg)
+    base_lr, batch_size = cfg["dataset"]["base_lr"], cfg["batch_size"]
+    prior_beta, online_beta = float(cfg["model"]["prior_beta"]), float(cfg["model"]["online_beta"])
+    num_update_steps = int(cfg["model"]["num_update_steps"] or batch_size)
+    streaming = bool(cfg["model"].get("streaming", True))
+    num_init, num_chunks, num_epochs = _baseline_shape(cfg, tx.shape[0])
+    init_x, init_y = tx[:num_init], ty[:num_init]
+    span = slice(num_init, num_init + num_chunks * batch_size)
+    xs = tx[span].reshape(num_chunks, batch_size, -1)
+    ys = ty[span].reshape(num_chunks, batch_size, *ty.shape[1:])
+
+    with torch.no_grad():
+        params = svgp_init_variational_to_prior(
+            model, model.init_params(z, stem.output_dim, dtype=tx.dtype, device=tx.device))
+    for t in _leaves(params):
+        t.requires_grad_(True)
+    hyper, variational = _split(params)
+    opt = GroupAdam([(hyper, base_lr), (variational, base_lr / 10.0)], zero_nans=True)
+    stem_opt = GroupAdam([(_stem_leaves(stem), base_lr / 10.0)])
+    _pretrain(stem, init_x, num_epochs, lambda f: -svgp_elbo(model, params, f, init_y, num_init, 1.0, scfg),
+              opt, stem_opt)
+
+    steps = []
+    for c in range(num_chunks):
+        x, y = xs[c], ys[c]
+        with torch.no_grad():
+            mean, var = svgp_predict(model, params, stem(x), scfg)
+            if classification:
+                prob = bernoulli_probit_predictive(mean, var)
+                evals = (torch.mean(((prob >= 0.5).to(y.dtype) == y).to(torch.float32)),)
+            else:
+                evals = _regression_evals(mean, var, torch.exp(params["raw_noise"]), y)
+        old = svgp_snapshot(model, params)
+        for _ in range(num_update_steps):
+            loss = -svgp_elbo(model, params, stem(x), y, batch_size, prior_beta, scfg)
+            if streaming:
+                loss = loss + svgp_streaming_correction(model, params, old, batch_size, online_beta, scfg)
+            adam_step(loss, opt, stem_opt)
+        with torch.no_grad():
+            extra = () if classification else (torch.exp(params["raw_noise"]),)
+            steps.append(torch.stack([torch.full_like(loss, float("nan")), loss, *evals, *extra]))
+
+    with torch.no_grad():
+        mean, var = svgp_predict(model, params, stem(ex), scfg)
+        if classification:
+            pred = (bernoulli_probit_predictive(mean, var) >= 0.5).to(ey.dtype)
+            test = {"test_acc": torch.mean((pred == ey).to(torch.float32))}
+        else:
+            rmse, nll = _regression_evals(mean, var, torch.exp(params["raw_noise"]), ey)
+            test = {"test_rmse": rmse, "test_nll": nll}
+    return torch.stack(steps, dim=-1), test
+
+
+def _sgpr_trial(cfg, stem, z, tx, ty, ex, ey):
+    """One streaming O-SGPR trial (the per-trial body of the JAX package's
+    ``mesh_sgpr_sweep``): collapsed-bound epochs on the init batch, an
+    initial absorb, then per chunk prequential evaluate -> (every
+    ``rebase_every``-th chunk) ``num_update_steps`` bound steps and a
+    rebasing absorb, else an exact accumulating absorb; then the test set.
+    JAX's ``lax.cond`` depends on the chunk index alone, so it is a Python
+    branch here. The wrapper's rates: the fit at (1e-1, 1e-2) for (hypers,
+    z) and the stem at 1e-2, the stream at (lr, lr / 10), fresh Adams."""
+    from online_gp_torch.api.regression import _leaves, _stem_leaves
+    from online_gp_torch.api.sgpr_regression import _hyper_leaves
+    from online_gp_torch.kernels.base import make_kernel
+    from online_gp_torch.models.sgpr import SGPRModel, sgpr_absorb, sgpr_bound, sgpr_predict
+    from online_gp_torch.utils.optim import GroupAdam, adam_step
+
+    model = SGPRModel(make_kernel("rbf"), jitter=float(cfg["model"].get("jitter", 1e-4)))
+    base_lr, batch_size = cfg["dataset"]["base_lr"], cfg["batch_size"]
+    num_update_steps = int(cfg["model"].get("num_update_steps") or 1)
+    rebase_every = max(1, int(cfg["model"].get("rebase_every", 25)))
+    num_init, num_chunks, num_epochs = _baseline_shape(cfg, tx.shape[0])
+    init_x, init_y = tx[:num_init], ty[:num_init, 0]
+    span = slice(num_init, num_init + num_chunks * batch_size)
+    xs = tx[span].reshape(num_chunks, batch_size, -1)
+    ys = ty[span].reshape(num_chunks, batch_size)
+
+    params = model.init_params(z, stem.output_dim, dtype=tx.dtype, device=tx.device)
+    for t in _leaves(params):
+        t.requires_grad_(True)
+    adams = lambda gp_lr, z_lr, stem_lr: (GroupAdam([(_hyper_leaves(params), gp_lr), ([params["z"]], z_lr)]),
+                                          GroupAdam([(_stem_leaves(stem), stem_lr)]))
+    _pretrain(stem, init_x, num_epochs, lambda f: -sgpr_bound(model, params, None, f, init_y, combine_terms=True),
+              *adams(1e-1, 1e-2, 1e-2))
+    with torch.no_grad():
+        _, old, moments = sgpr_absorb(model, params, None, None, stem(init_x), init_y)
+    opt, stem_opt = adams(base_lr, base_lr / 10.0, base_lr / 10.0)
+
+    steps = []
+    for c in range(num_chunks):
+        x, y = xs[c], ys[c]
+        with torch.no_grad():
+            mean, var = sgpr_predict(model, params, moments, stem(x))
+            evals = _regression_evals(mean, var, torch.exp(params["raw_noise"]), y[:, None])
+        do_hyper = (c + 1) % rebase_every == 0 and num_update_steps > 0
+        loss = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
+        for _ in range(num_update_steps if do_hyper else 0):
+            logp, trace, _, _ = sgpr_bound(model, params, old, stem(x), y, combine_terms=False)
+            loss = -(logp + trace)
+            adam_step(loss, opt, stem_opt)
+        with torch.no_grad():
+            _, old, moments = sgpr_absorb(model, params, old, None, stem(x), y, rebase=do_hyper)
+            steps.append(torch.stack([torch.full_like(loss, float("nan")), loss, *evals,
+                                      torch.exp(params["raw_noise"])]))
+
+    with torch.no_grad():
+        mean, var = sgpr_predict(model, params, moments, stem(ex))
+        rmse, nll = _regression_evals(mean, var, torch.exp(params["raw_noise"]), ey)
+    return torch.stack(steps, dim=-1), {"test_rmse": rmse, "test_nll": nll}
+
+
+def _baseline_runner(trial_fn, classification: bool):
+    """A ``run_local`` of :func:`_mesh_sweep` running ``trial_fn`` on each
+    of the rank's trials in turn, each with its stem and inducing points."""
+
+    def run(cfg, trials, tx, ty, ex, ey, device):
+        stems = trial_stems(cfg, trials, device)
+        zs = trial_inducing_points(cfg, trials, int(cfg["model"]["num_inducing"]), stems[0].output_dim, device)
+        per = [trial_fn(cfg, stem, zs[i].to(tx.dtype), tx[i], ty[i], ex[i], ey[i])
+               for i, stem in enumerate(stems)]
+        by_step = torch.stack([p[0] for p in per], dim=1)  # (metrics, T, chunks)
+        steps = {k: by_step[i] for i, k in enumerate(_STEP_METRICS[classification])}
+        return steps, {k: torch.stack([p[1][k] for p in per]) for k in _TEST_METRICS[classification]}
+
+    return run
+
+
+def mesh_svgp_sweep(num_trials: int, overrides: List[str]) -> List[Dict]:
+    """``mode=mesh`` for streaming O-SVGP regression: the per-trial
+    semantics of ``OnlineSVGPRegression`` (per-trial inducing points from
+    :func:`trial_inducing_points`, full-init-batch ELBO epochs with beta =
+    1, then per chunk prequential evaluate -> snapshot ->
+    ``num_update_steps`` ELBO steps at ``prior_beta`` with the Bui
+    streaming correction at ``online_beta``), with the JAX sweep's
+    single-program deltas: BatchNorm statistics frozen after the pretrain,
+    no 1,024-point replay padding (the stream is chunked). The GP's
+    optimizer is ``optax.zero_nans`` before Adam at lr on the hypers and
+    lr / 10 on the variational params, the stem's Adam at lr / 10."""
+    return _mesh_sweep(num_trials, overrides, "svgp_regression", False, "single",
+                       _baseline_runner(lambda *a: _svgp_trial(*a, classification=False), False))
+
+
+def mesh_svgp_classification_sweep(num_trials: int, overrides: List[str]) -> List[Dict]:
+    """``mode=mesh`` for the streaming probit O-SVGP classifier
+    (``OnlineSVGPClassifier``): the Bernoulli-probit ELBO, per-chunk
+    snapshot and streaming-corrected update steps, p >= 0.5 decisions;
+    labels enter the ELBO in {0, 1}. The deltas of :func:`mesh_svgp_sweep`."""
+    return _mesh_sweep(num_trials, overrides, "svgp_classification", True, "labels_f",
+                       _baseline_runner(lambda *a: _svgp_trial(*a, classification=True), True))
+
+
+def mesh_sgpr_sweep(num_trials: int, overrides: List[str]) -> List[Dict]:
+    """``mode=mesh`` for streaming O-SGPR regression
+    (``OnlineSGPRegression``): collapsed-bound pretrain epochs on the init
+    batch, an initial absorb, then per chunk prequential evaluate -> (every
+    ``rebase_every``-th chunk) ``num_update_steps`` bound steps then a
+    rebasing absorb, other chunks an exact accumulating absorb with the
+    hypers frozen (``gp_loss`` NaN there). Deltas: BatchNorm statistics
+    frozen after the pretrain, no replay padding, no z resampling."""
+    return _mesh_sweep(num_trials, overrides, "sgpr_regression", False, "single", _baseline_runner(_sgpr_trial, False))
 
 
 def main():

@@ -60,6 +60,7 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
 from online_gp_torch.kernels.base import Kernel
@@ -124,6 +125,35 @@ def _second_noise(model: WiskiModel, params: Dict) -> Optional[torch.Tensor]:
 def _reshape_obs(y: torch.Tensor, noise: torch.Tensor, num_outputs: int):
     """Normalize targets/noise to (n, B)."""
     return y.reshape(-1, num_outputs), noise.reshape(-1, num_outputs)
+
+
+def _grid_sharded(state: WiskiState) -> bool:
+    """True when the state's roots are DTensors, row-sharded over a mesh
+    axis (:mod:`online_gp_torch.parallel.grid`)."""
+    return isinstance(state.roots.root, DTensor)
+
+
+def _refuse_grid_sharded(state: WiskiState, what: str, sharded: str) -> None:
+    if _grid_sharded(state):
+        from online_gp_torch.parallel.grid import state_axis
+
+        raise ValueError(
+            f"{what} takes a whole state; this one is row-sharded over mesh axis {state_axis(state)!r}: "
+            f"stream a row-sharded state with online_gp_torch.parallel.{sharded}"
+        )
+
+
+def _grid_axis(state: WiskiState, cfg: SolverConfig) -> Optional[str]:
+    """The mesh axis of the grid-sharded path, or None for the whole state;
+    ValueError when the state and ``cfg.grid_shard_axis`` disagree."""
+    if cfg.grid_shard_axis is None and _grid_sharded(state):
+        from online_gp_torch.parallel.grid import state_axis
+
+        axis = state_axis(state)
+        raise ValueError(
+            f"the state is row-sharded over mesh axis {axis!r}: pass SolverConfig(grid_shard_axis={axis!r})"
+        )
+    return cfg.grid_shard_axis
 
 
 def _promoted(*ts: torch.Tensor):
@@ -207,7 +237,15 @@ def wiski_condition_coeffs(
 ) -> WiskiState:
     """:func:`wiski_condition` given interpolation coefficients
     (``idx``/``w``: (q, P) from :func:`interp_coeffs`); ``detach_interp``
-    routes the q = 1 root update (K2, or the plain update autograd takes)."""
+    routes the q = 1 root update (K2, or the plain update autograd takes).
+    A state whose roots are row-sharded DTensors
+    (:func:`online_gp_torch.parallel.grid.shard_wiski_state`) is
+    conditioned on each rank's rows
+    (:func:`~online_gp_torch.parallel.grid.grid_condition_coeffs`)."""
+    if _grid_sharded(state):
+        from online_gp_torch.parallel.grid import grid_condition_coeffs
+
+        return grid_condition_coeffs(model, state, idx, w, y, noise, detach_interp)
     B = model.num_outputs
     m = model.grid.num_points
     y, noise = _reshape_obs(y, noise, B)
@@ -299,6 +337,7 @@ def wiski_stream(
     Args:
       xs: (n, D); ys, noises: (n, B) (reshaped, not broadcast).
     """
+    _refuse_grid_sharded(state, "wiski_stream", "sharded_stream_blocked")
     B = model.num_outputs
     m = model.grid.num_points
     n = xs.shape[0]
@@ -578,23 +617,32 @@ def wiski_mll(
     :class:`_DenseInnerCore` (closed-form backward); above it through
     :func:`_mll_inner_iterative`, whose probes are ``probes``, or are drawn
     from ``generator``, or else from a CPU generator seeded 0 (the JAX
-    package's ``slq_key=None`` is its PRNGKey(0)). Returns (B,).
+    package's ``slq_key=None`` is its PRNGKey(0)). Under
+    ``cfg.grid_shard_axis`` the state is row-sharded over that mesh axis
+    and the inner terms come from
+    :func:`online_gp_torch.parallel.grid.grid_mll_inner` (autograd through
+    the pieces, as the JAX package's sharded branch). Returns (B,).
     """
     m = state.roots.root.shape[-1]
-    if m > cfg.max_cholesky_size:
-        if probes is None:
-            gen = torch.Generator().manual_seed(0) if generator is None else generator
-            probes = mll_probes(model.num_outputs, m, gen, state.wty.dtype, state.wty.device)
-        inner_qform, inner_logdet, Kuu_wty = _mll_inner_iterative(model, params, state, cfg, probes)
+    if _grid_axis(state, cfg) is not None:
+        from online_gp_torch.parallel.grid import grid_mll_inner
+
+        inner_qform, inner_logdet, inducing_qform = grid_mll_inner(model, params, state, cfg)
     else:
-        inner_qform, inner_logdet, Kuu_wty = _DenseInnerCore.apply(
-            _kuu_eff(model, params, state.wty), state.roots.root, state.wty
-        )
+        if m > cfg.max_cholesky_size:
+            if probes is None:
+                gen = torch.Generator().manual_seed(0) if generator is None else generator
+                probes = mll_probes(model.num_outputs, m, gen, state.wty.dtype, state.wty.device)
+            inner_qform, inner_logdet, Kuu_wty = _mll_inner_iterative(model, params, state, cfg, probes)
+        else:
+            inner_qform, inner_logdet, Kuu_wty = _DenseInnerCore.apply(
+                _kuu_eff(model, params, state.wty), state.roots.root, state.wty
+            )
+        inducing_qform = torch.sum(state.wty * Kuu_wty, dim=(-2, -1))
     if cfg.skip_logdet_forward:
         # zero in the forward value, gradient intact
         inner_logdet = inner_logdet - inner_logdet.detach()
 
-    inducing_qform = torch.sum(state.wty * Kuu_wty, dim=(-2, -1))
     quad = state.ydy - inducing_qform + inner_qform
     logdet = inner_logdet + state.d_logdet
     n = float(state.num_data)
@@ -640,8 +688,13 @@ def wiski_prediction_caches(
       mean_cache = K W D^{-1} y - (K L) Q^{-1} (L' K W D^{-1} y)   (B, m, 1)
       cov_cache  = K - (K L) Q^{-1} (K L)'                         (B, m, m)
 
-    with K = Kuu / s2.
+    with K = Kuu / s2. Under ``cfg.grid_shard_axis``, both row-sharded
+    like the state (:func:`online_gp_torch.parallel.grid.grid_prediction_caches`).
     """
+    if _grid_axis(state, cfg) is not None:
+        from online_gp_torch.parallel.grid import grid_prediction_caches
+
+        return grid_prediction_caches(model, params, state, cfg)
     Kuu, KuuL, Lq, Kuu_wty, proj = _q_factor(model, params, state)
     m = KuuL.shape[-1]
     k = min(m, cfg.max_root_decomposition_size)
@@ -678,7 +731,13 @@ def wiski_predict(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Posterior f-moments at test points: mean (B, n), var (B, n) or None.
     The second noise rescales the variance; observation noise is not
-    added."""
+    added. Under ``cfg.grid_shard_axis`` the moments come from each rank's
+    rows of the caches and one all_reduce
+    (:func:`online_gp_torch.parallel.grid.grid_predict`)."""
+    if _grid_axis(state, cfg) is not None:
+        from online_gp_torch.parallel.grid import grid_predict
+
+        return grid_predict(model, params, state, x, cfg, caches)
     if caches is None:
         caches = wiski_prediction_caches(model, params, state, cfg)
     mean_cache, cov_cache = caches
@@ -835,6 +894,7 @@ def wiski_prequential_stream(
     Returns (new_state, new_caches, pred_mean (B, n), pred_var (B, n));
     the moments match :func:`wiski_predict` at the same prefix.
     """
+    _refuse_grid_sharded(state, "wiski_prequential_stream", "sharded_pred_stream_blocked")
     mean_cache, cov_cache = caches
     if cov_cache is None:
         raise ValueError(

@@ -14,7 +14,9 @@ update with p = B^T v computed on the card. The CUDA sources, with the
 design notes (what bounds each kernel and what the Pallas design could
 not carry over), are ``online_gp_torch/csrc/root_update.cu``.
 
-K1's three stages are also wrappers of their own, for roots whose rows are
+K2 has a row-shard entry, :func:`rank1_apply_rows` (the same row kernel
+over a shard's rows, for ``parallel/grid.py``'s grid-sharded
+``wiski_condition``). K1's three stages are also wrappers of their own, for roots whose rows are
 sharded over processes (``parallel/mesh.py::sharded_stream_blocked``):
 :func:`chunk_gather_rows` (the partial p0 of a shard's rows),
 :func:`chunk_factors` (the recursion on the summed p0) and
@@ -88,6 +90,8 @@ def _root_update_lib():
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ogp_rank1_apply.argtypes = [vp, vp, vp, vp, i32, i32, vp]
         lib.ogp_rank1_apply.restype = i32
+        lib.ogp_rank1_apply_rows.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
+        lib.ogp_rank1_apply_rows.restype = i32
         lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         lib.ogp_blocked_chunk.restype = i32
         lib.ogp_blocked_chunk_smem.argtypes = [i32, i32]
@@ -165,6 +169,44 @@ def rank1_apply(L: torch.Tensor, B: torch.Tensor, p: torch.Tensor):
 
 
 rank1_apply.launches = 0
+
+
+def rank1_apply_rows_plain(L: torch.Tensor, B: torch.Tensor, p: torch.Tensor):
+    """Plain version of :func:`rank1_apply_rows`: :func:`roots_apply_rank1_p`,
+    which takes a shard's (..., rows, m) as it takes (..., m, m)."""
+    return roots_apply_rank1_p(L, B, p)
+
+
+def rank1_apply_rows(L: torch.Tensor, B: torch.Tensor, p: torch.Tensor):
+    """K2 on a row shard: the rows of L += c (L u) u^T, B += d (B u) u^T
+    with u = p/|p|, for roots whose m rows are sharded over processes
+    (``parallel/grid.py``). A row's update needs only its own entries and
+    p, so each shard applies the whole update to its rows.
+
+    Args:
+      L, B: (Bd, rows, m) the shard's rows of the root and inverse root.
+      p: (Bd, m) = B^T v, summed over every shard's rows.
+
+    Returns (L', B'). On CUDA, L and B are updated in place.
+    """
+    if _build.on_cpu(L, B, p):
+        return rank1_apply_rows_plain(L, B, p)
+    _build.check_cuda_args("rank1_apply_rows_plain", L=L, B=B, p=p)
+    if L.dim() != 3 or B.shape != L.shape:
+        raise ValueError(f"L, B must be (Bd, rows, m) of one shape; got {tuple(L.shape)}, {tuple(B.shape)}")
+    Bd, rows, m = L.shape
+    if tuple(p.shape) != (Bd, m):
+        raise ValueError(f"p must be ({Bd}, {m}); got {tuple(p.shape)}")
+    _check_sizes(Bd, m, rows)
+    s2 = torch.empty((Bd,), dtype=torch.float32, device=L.device)
+    p_ = _build.ptr
+    rc = _root_update_lib().ogp_rank1_apply_rows(p_(L), p_(B), p_(p), p_(s2), Bd, rows, m, _build.stream_of(L))
+    _build.launch_check(rc, "rank1_apply_rows")
+    rank1_apply_rows.launches += 1
+    return L, B
+
+
+rank1_apply_rows.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -78,6 +78,12 @@ def interp_matvec(idx: torch.Tensor, w: torch.Tensor, cache: torch.Tensor) -> to
     return torch.einsum("np,...npk->...nk", w, gathered)
 
 
+def interp_root_matvec(idx: torch.Tensor, w: torch.Tensor, root_cache: torch.Tensor) -> torch.Tensor:
+    """W_x @ R for a covariance root R (the ``fast_pred_samples`` path):
+    (n, P) stencil against a (..., m, k) root, returns (..., n, k)."""
+    return interp_matvec(idx, w, root_cache)
+
+
 def _densify_rows(idx: torch.Tensor, w: torch.Tensor, num_grid: int) -> torch.Tensor:
     """(n, P) stencil -> dense (n, m) rows; duplicate indices are summed."""
     rows = torch.zeros((idx.shape[0], num_grid), dtype=w.dtype, device=w.device)

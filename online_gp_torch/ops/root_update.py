@@ -80,6 +80,17 @@ def root_cache_update(cache: RootCache, v: torch.Tensor) -> RootCache:
     with f32_matmul_precision():
         L, B = cache.root, cache.inv_root
         p = B.mT @ v  # (..., m, q)
+        new_root, new_inv_root = roots_apply_rank_q_p(L, B, p)
+        new_mat = None if cache.mat is None else cache.mat + v @ v.mT
+    return RootCache(mat=new_mat, root=new_root, inv_root=new_inv_root)
+
+
+def roots_apply_rank_q_p(L: torch.Tensor, B: torch.Tensor, p: torch.Tensor):
+    """The root update of :func:`root_cache_update` given p = B^T v (..., m,
+    q): L' = L (I + U diag(c) U^T), B' = B (I + U diag(d) U^T) from the thin
+    SVD of p. L and B may be (..., rows, m), a shard's rows: each row's
+    update needs its own entries and p only."""
+    with f32_matmul_precision():
         q = p.shape[-1]
         floor = torch.tensor(1e-20, dtype=p.dtype, device=p.device)
         if q == 1:
@@ -98,8 +109,7 @@ def root_cache_update(cache: RootCache, v: torch.Tensor) -> RootCache:
         d = (1.0 / torch.sqrt(s2 + 1.0) - 1.0) * valid
         new_root = L + ((L @ U) * c[..., None, :]) @ U.mT
         new_inv_root = B + ((B @ U) * d[..., None, :]) @ U.mT
-        new_mat = None if cache.mat is None else cache.mat + v @ v.mT
-    return RootCache(mat=new_mat, root=new_root, inv_root=new_inv_root)
+    return new_root, new_inv_root
 
 
 def roots_apply_rank1_p(L: torch.Tensor, B: torch.Tensor, p: torch.Tensor):

@@ -15,9 +15,16 @@ the JAX package does (the components of ``_WRAPPER_KEYS`` it carries),
 with the stem in the JAX stems' layout, so a wrapper either package saved
 loads into the other's.
 
-The JAX package's second backend, orbax-checkpoint, is not ported:
-orbax imports jax, which the port never imports. ``backend="orbax"`` and
-an orbax checkpoint raise ``ValueError`` with that reason.
+The JAX package's second backend writes the leaves through
+orbax-checkpoint (tensorstore, asynchronous, multi-host). Its role here is
+``backend="dcp"``: the leaves go through ``torch.distributed.checkpoint``
+into ``<base>.dcp/`` beside the same structure JSON. A DTensor leaf (a
+row-sharded WISKI state, ``parallel/grid.py``) is written by each rank, one
+shard each, and one process, or a group of another size, loads it whole.
+orbax itself is not ported (it imports jax, and the card's machine has no
+tensorstore): ``backend="orbax"`` and an orbax checkpoint raise
+``ValueError`` naming "dcp". Checkpoints shared across the two packages
+stay npz.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import shutil
 import typing
 from typing import Any, Dict, List, Optional
 
@@ -114,36 +122,98 @@ def _shape(spec: Dict) -> Any:
 
 _NO_ORBAX = (
     "the orbax backend is not ported: orbax-checkpoint imports jax, which online_gp_torch never imports; "
-    "use backend='npz'"
+    "use backend='dcp' (torch.distributed.checkpoint, sharded writes) or backend='npz'"
 )
 
 
+def _dcp_dir(path: str) -> str:
+    base = path[:-4] if path.endswith(".npz") else path
+    return os.path.abspath(base + ".dcp")
+
+
+def _group_open() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
 def save_pytree(path: str, tree: Any, backend: str = "npz") -> None:
-    """Save a tree of tensors, arrays, numbers and strings to ``path``
-    (``.npz`` payload plus ``.structure.json``). Tensors are copied to the
-    host. ``backend`` must be "npz" (the JAX package's "orbax" raises)."""
+    """Save a tree of tensors, arrays, numbers and strings to ``path``: the
+    payload plus ``.structure.json``, which records the backend.
+
+    - "npz": an ``.npz`` payload, tensors copied to the host.
+    - "dcp": the leaves through ``torch.distributed.checkpoint.save`` into
+      ``<base>.dcp/`` (string leaves in the structure JSON). With a process
+      group open every rank calls this: a DTensor leaf is written one shard
+      a rank, and rank 0 writes the structure JSON.
+
+    A payload of the other backend at the same path is removed, so the
+    JSON's record never disagrees with the payload on disk. "orbax" (the
+    JAX package's) raises ValueError naming "dcp"."""
     if backend == "orbax":
         raise ValueError(_NO_ORBAX)
-    if backend != "npz":
-        raise ValueError(f"unknown checkpoint backend {backend!r} (npz)")
+    if backend not in ("npz", "dcp"):
+        raise ValueError(f"unknown checkpoint backend {backend!r} (npz/dcp)")
     leaves: List[Any] = []
     encoding = _encode(tree, leaves)
+    group = _group_open()
+    rank0 = not group or torch.distributed.get_rank() == 0
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    arrays = {
-        f"leaf_{i}": leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else np.asarray(leaf)
-        for i, leaf in enumerate(leaves)
-    }
-    np.savez(_npz_path(path), **arrays)
-    with open(_structure_path(path), "w") as f:
-        # "treedef" is the JAX package's record of its own tree type; None
-        # tells its loader there is none to check against
-        json.dump({"treedef": None, "num_leaves": len(leaves), "encoding": encoding, "backend": "npz"}, f)
+    record = {"treedef": None, "num_leaves": len(leaves), "encoding": encoding, "backend": backend}
+    if backend == "npz":
+        arrays = {
+            f"leaf_{i}": leaf.detach().cpu().numpy() if torch.is_tensor(leaf) else np.asarray(leaf)
+            for i, leaf in enumerate(leaves)
+        }
+        np.savez(_npz_path(path), **arrays)
+        shutil.rmtree(_dcp_dir(path), ignore_errors=True)
+    else:
+        import torch.distributed.checkpoint as dcp
+
+        strings, state = {}, {}
+        for i, leaf in enumerate(leaves):
+            if isinstance(leaf, str):
+                strings[str(i)] = leaf
+            else:
+                state[f"leaf_{i}"] = leaf.detach() if torch.is_tensor(leaf) else torch.as_tensor(np.asarray(leaf))
+        record["strings"] = strings
+        if rank0:
+            shutil.rmtree(_dcp_dir(path), ignore_errors=True)
+        if group:
+            torch.distributed.barrier()
+        dcp.save(state, checkpoint_id=_dcp_dir(path), no_dist=not group)
+        if rank0 and os.path.exists(_npz_path(path)):
+            os.remove(_npz_path(path))
+    if rank0:
+        with open(_structure_path(path), "w") as f:
+            # "treedef" is the JAX package's record of its own tree type; None
+            # tells its loader there is none to check against
+            json.dump(record, f)
+    if group and backend == "dcp":
+        torch.distributed.barrier()
+
+
+def _load_dcp_leaves(path: str, structure: Dict, device) -> List[Any]:
+    """The leaves of a "dcp" checkpoint, each tensor whole (allocated from
+    the checkpoint's metadata, whatever shards wrote it) on ``device``."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    reader = dcp.FileSystemReader(_dcp_dir(path))
+    meta = reader.read_metadata().state_dict_metadata
+    state = {}
+    for key, m in meta.items():
+        if not isinstance(m, TensorStorageMetadata):
+            raise ValueError(f"{path}: leaf {key!r} of the dcp payload is not a tensor")
+        state[key] = torch.empty(m.size, dtype=m.properties.dtype)
+    dcp.load(state, storage_reader=reader, no_dist=not _group_open())
+    strings = structure.get("strings", {})
+    return [strings[str(i)] if str(i) in strings else state[f"leaf_{i}"].to(device)
+            for i in range(structure["num_leaves"])]
 
 
 def load_pytree(path: str, like: Optional[Any] = None, device="cuda") -> Any:
-    """Load a tree saved by :func:`save_pytree` or by the JAX package's
-    ``save_pytree`` (npz backend), numeric leaves as tensors on ``device``
-    and string leaves as Python strings.
+    """Load a tree saved by :func:`save_pytree` (npz or dcp) or by the JAX
+    package's ``save_pytree`` (npz backend), numeric leaves as tensors on
+    ``device`` (a sharded leaf whole) and string leaves as Python strings.
 
     With ``like`` the exemplar's structure must match the saved one, which
     raises otherwise, instead of assigning leaves by index to the wrong
@@ -153,16 +223,20 @@ def load_pytree(path: str, like: Optional[Any] = None, device="cuda") -> Any:
         raise ValueError(f"{path}: no self-describing structure JSON")
     with open(_structure_path(path)) as f:
         structure = json.load(f)
-    if structure.get("backend", "npz") != "npz":
-        raise ValueError(f"{path}: {structure['backend']!r} checkpoint; " + _NO_ORBAX)
-    npz = np.load(_npz_path(path))
+    backend = structure.get("backend", "npz")
+    if backend == "dcp":
+        leaves = _load_dcp_leaves(path, structure, device)
+    elif backend == "npz":
+        npz = np.load(_npz_path(path))
 
-    def _leaf(arr):
-        if arr.dtype.kind in ("U", "S"):
-            return str(arr.item()) if arr.ndim == 0 else arr
-        return torch.from_numpy(np.array(arr, copy=True)).to(device)
+        def _leaf(arr):
+            if arr.dtype.kind in ("U", "S"):
+                return str(arr.item()) if arr.ndim == 0 else arr
+            return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
-    leaves = [_leaf(npz[f"leaf_{i}"]) for i in range(len(npz.files))]
+        leaves = [_leaf(npz[f"leaf_{i}"]) for i in range(len(npz.files))]
+    else:
+        raise ValueError(f"{path}: {backend!r} checkpoint; " + _NO_ORBAX)
     if like is not None:
         saved = _shape(structure["encoding"])
         want = _shape(_encode(like, []))

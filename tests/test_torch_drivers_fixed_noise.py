@@ -82,7 +82,10 @@ def test_run_sweep_seq(tmp_path):
                                                             "trial_id=1", "seed=1"]))
     assert again["test_rmse"] == results[1]["test_rmse"] and again["test_nll"] == results[1]["test_nll"]
     baseline = ["model=svgp_regression" if o.startswith("model=") else o for o in overrides]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        run_sweep(2, "mesh", baseline)
+    svgp = run_sweep(2, "mesh", baseline[:-2] + ["model.num_inducing=16", f"log_dir={tmp_path / 'svgp'}",
+                                                  "device=cpu"])
+    assert [os.path.basename(r["log_dir"]) for r in svgp] == [
+        "mesh-svgp_regression-friedman-trial0", "mesh-svgp_regression-friedman-trial1"]
+    assert all(np.isfinite(r["test_rmse"]) and np.isfinite(r["test_nll"]) for r in svgp)
     with pytest.raises(ValueError, match="unknown sweep mode"):
         run_sweep(2, "grid", overrides)

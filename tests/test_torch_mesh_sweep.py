@@ -13,8 +13,7 @@ against the JAX package's, on the CPU.
   ``dp`` mesh, rank 0 writing every trial's CSV) against the one-process
   run.
 - The models ``mode=mesh`` does not run: ``localgp_regression`` raises JAX's
-  ValueError, the baseline sweeps NotImplementedError naming the ROADMAP
-  item that ports them.
+  ValueError (the baseline sweeps are ``test_torch_baseline_sweeps*.py``).
 """
 
 import csv
@@ -94,12 +93,6 @@ def test_mesh_sweep_splits_the_trials_over_the_ranks(tmp_path):
         assert [r["test_rmse"] for r in out] == [r["test_rmse"] for r in ranks[0][0]]
     assert sorted(os.listdir(tmp_path / "ranks")) == [f"mesh-wiski_gp_regression-friedman-trial{t}" for t in range(4)]
     _assert_tables_match(ranks[0][0], one, ("test_rmse", "test_nll"))
-
-
-@pytest.mark.parametrize("name", ["svgp_regression", "svgp_classification", "sgpr_regression"])
-def test_baseline_mesh_sweeps_wait_for_their_port(tmp_path, name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        run_sweep(2, "mesh", [f"model={name}", f"log_dir={tmp_path}", "device=cpu"])
 
 
 def test_mesh_sweep_rejects_models_without_a_mesh_core(tmp_path):

@@ -225,10 +225,11 @@ def test_conditioning_only_update_keeps_the_predictive_caches(data):
 
 
 def test_options_the_port_does_not_have_raise(data):
-    """What the port has no counterpart for raises: an unknown kernel, a
-    sharded grid. Since the large-grid slice, low_rank=, grids above
-    DENSE_GRID_LIMIT and the spectral-mixture names no longer raise: they
-    route to the rank-capped wrapper and build the kernel."""
+    """What the port has no counterpart for raises: an unknown kernel. Since
+    the large-grid slice, low_rank=, grids above DENSE_GRID_LIMIT and the
+    spectral-mixture names no longer raise: they route to the rank-capped
+    wrapper and build the kernel; since the grid-sharded slice a sharded
+    grid's config constructs."""
     from online_gp_torch.api import OnlineSKILowRankRegression
     from online_gp_torch.config import SolverConfig
     from online_gp_torch.kernels.spectral_mixture import SpectralMixtureKernel
@@ -236,8 +237,7 @@ def test_options_the_port_does_not_have_raise(data):
     tx, ty, *_ = data
     with pytest.raises(ValueError, match="unknown kernel"):
         make_kernel("periodic")
-    with pytest.raises(ValueError, match="grid_shard_axis"):
-        SolverConfig(grid_shard_axis="tp")
+    assert SolverConfig(grid_shard_axis="tp").grid_shard_axis == "tp"
     r = OnlineSKIRegression(LinearStem(2, 2), tx[:20], ty[:20], low_rank=64, device="cpu")
     assert isinstance(r, OnlineSKILowRankRegression) and r.model.rank == 64
     r = OnlineSKIRegression(make_stem("identity", 2), tx[:20], ty[:20], grid_size=65, device="cpu")

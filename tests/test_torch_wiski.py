@@ -183,8 +183,8 @@ def test_stream_per_point_path_matches_blocked():
 def test_solver_config_matches_jax_defaults():
     assert dataclasses.asdict(SolverConfig()) == dataclasses.asdict(JSolverConfig())
     assert SolverConfig().replace(fast_pred_var=True).fast_pred_var
-    with pytest.raises(ValueError, match="grid_shard_axis"):
-        SolverConfig(grid_shard_axis="tp")
+    sharded = SolverConfig(grid_shard_axis="tp")  # the grid-sharded path (parallel/grid.py)
+    assert dataclasses.asdict(sharded) == dataclasses.asdict(JSolverConfig(grid_shard_axis="tp"))
 
 
 def test_precision_context_turns_tf32_off_and_restores():
