@@ -299,9 +299,31 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    ``backend="dcp"`` from both ranks and loaded whole in this process,
    bitwise the gathered state, with save and load ms.
 
+13. K1's and K3's applies (the last stage of every K1, K5 and K3 chunk).
+   First the main path's window at m = 900 on copies of phase 3's final
+   state: wiski_stream of 1,024 points and the prequential stream of 512,
+   the counters zeroed just before and read just after; every chunk must
+   end in K1's cluster apply or K3's apply (``chunk_apply_plan.launches``,
+   ``pred_apply_plan.launches``). Then ``chunk_apply_rows`` and
+   ``pred_apply_rows`` on rows = m and m / 2 of roots and caches of Bd = 1
+   and 2 outputs at m = 256, 900 and 4,096, k = 128, with the factors of
+   one chunk from the plain recursions; K1's also at k = 32 (K5 sub's
+   per-sub-block rank) and k = 1,024 (the tiled kernels, the shape rule's
+   other branch) at m = 900. Each call is a window of its own (one launch
+   of the kernel its plan names), then held against its plain version (K1
+   within 1e-5 of each output's largest magnitude, at least 1; K3
+   allclose at 2e-4) and bitwise the same on a second call, with device
+   time (torch.profiler), wrapper time, plain time, the baddbmm
+   yardstick and the bound (8 rows m k flops for K1, 2 rows m k for K3,
+   or the bytes, whichever is longer). Every path window of phases 3-13
+   (both ranks' in phase 11) counts its applies by shape (Bd, rows, m, k);
+   a timed shape's row carries those windows' launches, and a shape that
+   no path window runs (only this phase's checks) is printed and left out
+   of the kernels line.
+
 It prints the kernels as one JSON line (``launches``: the sum over the
-path windows of phases 3, 4, 5, 6, 7, 9, 10, 11 and 12, phase 8 launching
-none; rows ``...@m4096``: phase 6's
+path windows of phases 3, 4, 5, 6, 7, 9, 10, 11, 12 and 13, phase 8
+launching none; rows ``...@m4096``: phase 6's
 kernel checks, with phase 6's launches; rows ``...@cls-m256-bd2`` and
 ``...@cls-m900-bd2``: phase 7's kernel checks, with the launches of the
 windows of (a) and (b); rows ``...@bo-m1000``: phase 9's kernel checks,
@@ -312,13 +334,16 @@ the launches of both ranks at that size; rows ``...@sweep-m256-bd8``:
 phase 11's K2 and K6 checks, with the launches of its sweep windows; rows
 ``...@gs-m900-d2`` and ``...@gs-m1936-d2``: phase 12's K2 row-shard and K6
 checks, with the launches of both ranks in (a) at that size; phase 12's
-single-device runs add to the K2 and K6 sums), then
+single-device runs add to the K2 and K6 sums; rows ``chunk_apply@m{m}-r{rows}-bd{Bd}[-k{k}]``
+and ``pred_apply@...``: phase 13's applies at the shapes a path window
+ran, with the launches of those windows at that shape), then
 the card's name and power limit, and last {"ok": true, "device": {...}}.
 It needs a CUDA device and exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import csv
@@ -388,6 +413,7 @@ from online_gp_torch.models.wiski_lowrank import (
 from online_gp_torch.ops import _build, cuda_chol, cuda_pred_stream, cuda_root_update
 from online_gp_torch.ops.cuda_chol import blocked_cholesky, blocked_cholesky_ex, blocked_cholesky_plain
 from online_gp_torch.ops.cuda_pred_stream import (
+    pred_apply_plan,
     pred_chunk,
     pred_chunk_stencil_plain,
     pred_cluster_plan,
@@ -395,6 +421,7 @@ from online_gp_torch.ops.cuda_pred_stream import (
 from online_gp_torch.ops.cuda_root_update import (
     blocked_chunk,
     blocked_chunk_plain,
+    chunk_apply_plan,
     chunk_cluster_plan,
     fused_root_cache_update,
     rank1_apply,
@@ -607,6 +634,25 @@ def pred_library(Zf, rf):
     return library
 
 
+def k1_apply_kernels(k, rows, m):
+    """The CUDA kernels of K1's apply at (k, rows, m), with their launches
+    a call: the cluster kernel where chunk_apply_plan holds the shape, else
+    the two tiled kernels."""
+    if chunk_apply_plan(k, rows, m) is not None:
+        return {"chunk_apply_cluster_kernel": 1}
+    return {"chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1}
+
+
+def k3_apply_kernels(Bd, rows, m):
+    """The CUDA kernel of K3's apply at (Bd, rows, m) on card 0: its tile
+    height's."""
+    return {f"pred_apply{k3_apply_plan(Bd, rows, m).tile_rows}_kernel": 1}
+
+
+def k3_apply_plan(Bd, rows, m):
+    return pred_apply_plan(Bd, rows, m, _build.card_sms(torch.device("cuda", 0)))
+
+
 def time_ms(fn, make_args, reps=TIMING_REPS):
     """Mean time of fn(*make_args()) between two CUDA events; the inputs
     are made fresh (outside the timed span) since the kernels update
@@ -773,12 +819,45 @@ COUNTED = [(rank1_apply, "launches"), (blocked_chunk, "launches"), (blocked_chun
 def zero_counters():
     for wrapper, attr in COUNTED:
         setattr(wrapper, attr, 0)
+    zero_apply_counters()
 
 
 def read_counters():
     return {"rank1_apply": rank1_apply.launches, "blocked_chunk": blocked_chunk.launches,
             "chunk_recursion_cluster": blocked_chunk.cluster_launches, "pred_chunk": pred_chunk.launches,
             "pred_recursion_cluster": pred_chunk.cluster_launches, "blocked_cholesky": blocked_cholesky.launches}
+
+
+# K1's and K3's applies (the last stage of every chunk) counted by shape,
+# zeroed with the counters above; PATH_APPLIES sums the path windows',
+# (name, Bd, rows, m, k) -> launches, for phase 13's rows
+PATH_APPLIES = collections.Counter()
+
+
+def zero_apply_counters():
+    chunk_apply_plan.launches = chunk_apply_plan.tiled_launches = pred_apply_plan.launches = 0
+    chunk_apply_plan.shapes.clear()
+    pred_apply_plan.shapes.clear()
+
+
+def read_apply_counters():
+    return {"chunk_apply_cluster": chunk_apply_plan.launches, "chunk_apply_tiled": chunk_apply_plan.tiled_launches,
+            "pred_apply": pred_apply_plan.launches}
+
+
+def read_apply_shapes():
+    """The applies launched since the counters were zeroed, by (name, Bd,
+    rows, m, k)."""
+    out = {("chunk_apply", *shape): n for shape, n in chunk_apply_plan.shapes.items()}
+    out.update({("pred_apply", *shape): n for shape, n in pred_apply_plan.shapes.items()})
+    return out
+
+
+def read_window():
+    """read_counters() at the end of a path window; the window's applies
+    by shape go into PATH_APPLIES."""
+    PATH_APPLIES.update(read_apply_shapes())
+    return read_counters()
 
 
 # --------------------------------------------------------------------------
@@ -876,8 +955,7 @@ def check_blocked_chunk(rng, grid, peaks, dev):
         make = lambda: (*clone_all(L, B), i1, wv1)
         bms, by = chunk_bound(Bd, m, K, idx.shape[1], peaks)
         ms, stages = device_ms(blocked_chunk, make, {
-            "chunk_gather_kernel": 1, "chunk_recursion_cluster_kernel": 1, "chunk_apply_t_kernel": 1,
-            "chunk_apply_x_kernel": 1})
+            "chunk_gather_kernel": 1, "chunk_recursion_cluster_kernel": 1, **k1_apply_kernels(K, m, m)})
         out[Bd] = dict(
             max_abs_err=err, stream_max_abs_err=err_stream, ms=ms, stages_ms=stages,
             wrapper_ms=time_ms(blocked_chunk, make), plain_ms=time_ms(blocked_chunk_plain, make),
@@ -912,7 +990,7 @@ def check_chunk_outside_envelope(rng, dev):
     err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk m={m}")
     make = lambda: (*clone_all(L, B), idx, wv)
     ms, stages = device_ms(blocked_chunk, make, {
-        "chunk_gather_kernel": 1, "chunk_recursion_kernel": 1, "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1})
+        "chunk_gather_kernel": 1, "chunk_recursion_kernel": 1, **k1_apply_kernels(K, m, m)})
     return dict(m=m, k=K, max_abs_err=err, ms=ms, stages_ms=stages)
 
 
@@ -952,7 +1030,7 @@ def check_pred_chunk(rng, grid, model, params, peaks, dev):
         P = idx.shape[1]
         bms, by = pred_bound(Bd, m, K, P, peaks)
         ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, "pred_recursion_cluster_kernel": 1,
-                                                          "pred_apply_kernel": 1})
+                                                  **k3_apply_kernels(Bd, m, m)})
         out[Bd] = dict(
             max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(pred_chunk, make),
             plain_ms=time_ms(pred_chunk_stencil_plain, make),
@@ -989,7 +1067,7 @@ def check_pred_chunk_outside_envelope(rng, grid, C, mu, dev):
     err = max_err(got, pred_chunk_stencil_plain(C, mu, idx, w, y, nz), 2e-4, f"pred_chunk k={OUTSIDE_K3}")
     make = lambda: (*clone_all(C, mu), idx, w, y, nz)
     ms, stages = device_ms(pred_chunk, make, {
-        "pred_gather_kernel": 1, "pred_recursion_kernel": 1, "pred_apply_kernel": 1})
+        "pred_gather_kernel": 1, "pred_recursion_kernel": 1, **k3_apply_kernels(1, m, m)})
     return dict(m=m, k=OUTSIDE_K3, max_abs_err=err, ms=ms, stages_ms=stages)
 
 
@@ -1030,6 +1108,7 @@ def main_path(rng, model, params, card, dev):
     for wrapper in wrappers:
         wrapper.launches = 0
     blocked_chunk.cluster_launches = pred_chunk.cluster_launches = 0
+    zero_apply_counters()
     t0 = time.perf_counter()
     state = wiski_stream(model, state, xs, ys, ns, block_size=K)
     torch.cuda.synchronize()
@@ -1055,6 +1134,7 @@ def main_path(rng, model, params, card, dev):
     launches = {w.__name__: w.launches for w in wrappers}
     launches["chunk_recursion_cluster"] = blocked_chunk.cluster_launches
     launches["pred_recursion_cluster"] = pred_chunk.cluster_launches
+    PATH_APPLIES.update(read_apply_shapes())
 
     print(f"main path on {card}:")
     print(f"  wiski_stream {N_STREAM} points, block {K}: {N_STREAM / (t1 - t0):.1f} updates/s ({t1 - t0:.4f} s)")
@@ -1215,6 +1295,7 @@ def remaining_path(rng, model, params, final_state, card, dev):
                 (blocked_chunk, "coord_launches"), (blocked_cholesky, "launches")]
     for wrapper, attr in counters:
         setattr(wrapper, attr, 0)
+    zero_apply_counters()
     t0 = time.perf_counter()
     k4_out = {}
     for name, (_, vs) in k4_cases.items():
@@ -1243,6 +1324,7 @@ def remaining_path(rng, model, params, final_state, card, dev):
         "blocked_chunk_coord": blocked_chunk.coord_launches,
         "blocked_cholesky": blocked_cholesky.launches,
     }
+    PATH_APPLIES.update(read_apply_shapes())
 
     print(f"remaining kernels' entry points on {card}:")
     print(f"  fused_root_cache_update: 3 x {N_K4} dense-v updates in {t1 - t0:.4f} s")
@@ -1362,15 +1444,15 @@ def check_chunk_variants(rng, grid, peaks, dev):
     is the gather, M, its recursion, one rebuild GEMM and one apply. Then a
     K5-sub chunk on each side of the fused kernel's envelope edge."""
     m = grid.num_points
+    apply = k1_apply_kernels(K, m, m)
     profile_kernels = {
-        "blocked_chunk_sub": {"chunk_gather_kernel": 1, "chunk_sub_cluster_kernel": 1, "chunk_apply_t_kernel": 1,
-                              "chunk_apply_x_kernel": 1, "batched_gemm_kernel": 0,
-                              "chunk_recursion_cluster_kernel": 0, "chunk_recursion_kernel": 0},
+        "blocked_chunk_sub": {"chunk_gather_kernel": 1, "chunk_sub_cluster_kernel": 1, **apply,
+                              "batched_gemm_kernel": 0, "chunk_recursion_cluster_kernel": 0,
+                              "chunk_recursion_kernel": 0},
         "blocked_chunk_coord": {"chunk_gather_kernel": 1, "coord_gram_kernel": 1, "coord_recursion_kernel": 1,
-                                "batched_gemm_kernel": 1, "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1},
+                                "batched_gemm_kernel": 1, **apply},
     }
-    flat_kernels = {"chunk_gather_kernel": 1, "chunk_recursion_cluster_kernel": 1, "chunk_apply_t_kernel": 1,
-                    "chunk_apply_x_kernel": 1}
+    flat_kernels = {"chunk_gather_kernel": 1, "chunk_recursion_cluster_kernel": 1, **apply}
     nb = K // SUB
     out = {kname: {} for kname in VARIANTS}
     for Bd in (1, 2):
@@ -1459,14 +1541,14 @@ def check_sub_kernel_is_k1_at_sub_k(L, B, idx, wv, flat):
     Bd, m = L.shape[0], L.shape[-1]
     k, P = idx.shape
     plan = chunk_cluster_plan(k, m)
+    aplan = chunk_apply_plan(k, m, m)
     Lc, Bc = clone_all(L, B)
     f32 = dict(dtype=torch.float32, device=L.device)
     factors = torch.empty((4, Bd, k, m), **f32)
-    T = torch.empty((Bd, 2, m, k), **f32)
     p_ = _build.ptr
-    rc = lib.ogp_blocked_chunk_sub_cluster(p_(Lc), p_(Bc), p_(idx), p_(wv), *(p_(x) for x in factors), p_(T),
-                                           Bd, k, k, P, m, plan.cluster, _build.stream_of(Lc))
-    _build.launch_check(rc, "chunk_sub_cluster_kernel at sub = k", plan)
+    rc = lib.ogp_blocked_chunk_sub_cluster(p_(Lc), p_(Bc), p_(idx), p_(wv), *(p_(x) for x in factors), None,
+                                           Bd, k, k, P, m, aplan.cluster, plan.cluster, _build.stream_of(Lc))
+    _build.launch_check(rc, "chunk_sub_cluster_kernel at sub = k", plan, aplan)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip((Lc, Bc), flat)):
         raise AssertionError(f"K5 sub's kernel at sub = k (Bd={Bd}) is not bitwise K1's")
@@ -1676,7 +1758,7 @@ def training_path(rng, card, dev):
     pm, pv = reg.prequential(xp, yp)
     reg.absorb(xa, ya)
     torch.cuda.synchronize()
-    launches = read_counters()
+    launches = read_window()
 
     print(f"training path (OnlineSKIRegression, LinearStem(2, 2), m={M_SIDE**2}, slim state, lr {TRAIN_LR}) on {card}:")
     print(f"  fit {FIT_EPOCHS} epochs on {N_SEED} points: {fit_s:.4f} s; train losses "
@@ -1977,7 +2059,7 @@ def check_k1(L, B, idx, wv, peaks, what, cluster, plain_reps=TIMING_REPS, atol=1
     bms, by = chunk_bound(L.shape[0], L.shape[-1], k, P, peaks)
     recursion = "chunk_recursion_cluster_kernel" if cluster else "chunk_recursion_kernel"
     ms, stages = device_ms(blocked_chunk, make, {"chunk_gather_kernel": 1, recursion: 1,
-                                                 "chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1})
+                                                 **k1_apply_kernels(k, L.shape[-1], L.shape[-1])})
     return dict(
         k=k, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_chunk, make),
         plain_ms=time_ms(blocked_chunk_plain, make, plain_reps),
@@ -2007,7 +2089,8 @@ def check_k3(C, mu, idx, w, y, peaks, what, cluster, plain_reps=TIMING_REPS):
     make = lambda: (*clone_all(C, mu), idx, w, y, nz)
     bms, by = pred_bound(C.shape[0], m, k, P, peaks)
     recursion = "pred_recursion_cluster_kernel" if cluster else "pred_recursion_kernel"
-    ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, recursion: 1, "pred_apply_kernel": 1})
+    ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, recursion: 1,
+                                              **k3_apply_kernels(C.shape[0], m, m)})
     return dict(
         k=k, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(pred_chunk, make),
         plain_ms=time_ms(pred_chunk_stencil_plain, make, plain_reps),
@@ -2270,7 +2353,7 @@ def large_grid_wrappers(rng, card, dev):
         r["rmse"] = float(torch.sqrt(torch.mean((mean[:, 0].cpu() - torch.sin(3 * torch.tensor(xt[:, 0]))) ** 2)))
         results[name] = r
         print(f"wrapper {name} on {card}: " + json.dumps(r))
-    launches = read_counters()
+    launches = read_window()
     print(f"  phase 6 wrapper path kernel launches: {json.dumps(launches)}")
     for kname in ("rank1_apply", "blocked_chunk", "pred_chunk", "blocked_cholesky"):
         if launches[kname] <= 0:
@@ -2355,7 +2438,7 @@ def gpd_path(card, dev):
     clf.absorb(tr_x[rest], tr_y[rest])
     torch.cuda.synchronize()
     absorb_s = time.perf_counter() - t0
-    launches = read_counters()
+    launches = read_window()
     r = dict(m=clf.model.grid.num_points, classes=clf.num_classes, fit_s=fit_s, cumulative_acc=cum_acc,
              test_acc=test_acc, test_acc_after_absorb=clf.evaluate(te_x, te_y),
              update_ms=spread([1e3 * t for t in upd_s[1:]]), predict_one_ms=spread([1e3 * t for t in pred_s[1:]]),
@@ -2415,7 +2498,7 @@ def classifier_path(card, dev):
     clf.absorb(xa, ya)
     torch.cuda.synchronize()
     absorb_s = time.perf_counter() - t0
-    launches = read_counters()
+    launches = read_window()
     r = dict(m=clf.model.grid.num_points, classes=clf.num_classes,
              update_q1_ms=spread([1e3 * t for t in t1[1:]]),
              update_q32_points_per_s=spread([32 / t for t in t32[1:]]), predict_ms=spread(pred_ms[1:]),
@@ -2928,7 +3011,7 @@ def bo_run(card, dev, what, **kw):
     t0 = time.perf_counter()
     out = bo_loop.run_bayesopt(verbose=False, device=dev, **kw)
     torch.cuda.synchronize()
-    launches = read_counters()
+    launches = read_window()
     bps = out["best_per_step"]
     if not (all(b2 >= b1 for b1, b2 in zip(bps, bps[1:])) and bps[-1] >= bps[0]):
         raise AssertionError(f"phase 9 {what}: best-so-far not monotone: {bps}")
@@ -3033,7 +3116,7 @@ def profile_bo_step(out, card, dev):
                 torch.tensor(0.0, device=dev), noise_value)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    launches = read_counters()
+    launches = read_window()
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
@@ -3088,7 +3171,7 @@ def active_learning_runs(card, dev):
         t0 = time.perf_counter()
         out = run_active_learning(model_type=arm, num_steps=AL_STEPS, verbose=False, device=dev)
         torch.cuda.synchronize()
-        launches = read_counters()
+        launches = read_window()
         recs = out["records"]
         r = dict(test_rmse=[x["test_rmse"] for x in recs], avg_variance=[x["avg_variance"] for x in recs],
                  fit_s=spread([x["fit_time"] for x in recs]), acq_s=spread([x["acq_time"] for x in recs]),
@@ -3183,7 +3266,7 @@ def driver_window(what, fn, log):
     with contextlib.redirect_stdout(log):
         out = fn()
     torch.cuda.synchronize()
-    return out, read_counters(), time.perf_counter() - t0
+    return out, read_window(), time.perf_counter() - t0
 
 
 def online_metrics(log_dir, what, columns):
@@ -3466,7 +3549,7 @@ def mesh_window(what, trials, args, log, device="cuda"):
     with KernelShapes() as shapes, contextlib.redirect_stdout(log):
         out = run_sweep(trials, "mesh", args + [f"log_dir={MESH_DIR / what}", f"device={device}"])
     torch.cuda.synchronize()
-    return out, read_counters(), time.perf_counter() - t0, shapes
+    return out, read_window(), time.perf_counter() - t0, shapes
 
 
 def mesh_table(log_dir, what, columns, nan_cols, last_cols):
@@ -3678,6 +3761,7 @@ def tp_rank(rank, world, paths, lgp_ref, device_type="cuda"):
             sharded_pred_stream_blocked(a["C"], a["mu"], a["idx"][:K], a["w"][:K], a["y"][:K], a["nz"][:K], mesh,
                                         block=K)
             zero_stage_counters()
+            zero_apply_counters()
             sync(dev)
             t0 = time.perf_counter()
             L, B = sharded_stream_blocked(a["L"], a["B"], a["idx"], wv, mesh, block=K)
@@ -3688,7 +3772,7 @@ def tp_rank(rank, world, paths, lgp_ref, device_type="cuda"):
             t2 = time.perf_counter()
             Lp, Bp = sharded_stream_blocked(a["L"], a["B"], a["idx"][:TP_PREFIX], wv[:TP_PREFIX], mesh, block=K)
             sync(dev)
-            launches = read_stage_counters()
+            launches, applies = read_stage_counters(), read_apply_shapes()
             errs = {}
             for name, got, want in (("L", L, refs["L"]), ("B", B, refs["B"]), ("L_prefix", Lp, refs["L_prefix"]),
                                     ("B_prefix", Bp, refs["B_prefix"])):
@@ -3701,7 +3785,7 @@ def tp_rank(rank, world, paths, lgp_ref, device_type="cuda"):
                                     ("pv", pv, refs["pv"])):
                 errs[name] = max_err((got.to_local(),), (want,), TP_PRED_TOL, f"rank {rank} m = {m} {name}")
             n = a["idx"].shape[0]
-            report[m] = dict(errors=errs, launches=launches, stream_updates_per_s=n / (t1 - t0),
+            report[m] = dict(errors=errs, launches=launches, applies=applies, stream_updates_per_s=n / (t1 - t0),
                              pred_points_per_s=n / (t2 - t1), rows=L.to_local().shape[0])
         lgp = lgp_step(dev, make_mesh(device_type=device_type))
         errs = {k: _rel_apart(lgp[k], lgp_ref[k], LGP_TOL, f"rank {rank} (d) {k}") for k in ("loss", "mean", "var")}
@@ -3739,6 +3823,8 @@ def tp_phase(card, dev):
             if got != want:
                 raise AssertionError(f"phase 11 (c) rank {r} m = {m}: stage launches {got}, expected {want}")
         launches[m] = {k: sum(rep[m]["launches"][k] for rep in ranks) for k in STAGES}
+        for rep in ranks:
+            PATH_APPLIES.update(rep[m]["applies"])
     for r, rep in enumerate(ranks):
         lg = rep["localgp"]
         print(f"phase 11 (d) rank {r} localgp_experts_step ({lg['experts']} of {LGP_EXPERTS} experts of {LGP_CAP} "
@@ -3819,14 +3905,14 @@ def check_stages(m, a, peaks, card):
                           {"chunk_recursion_cluster_kernel" if recursion == "cluster" else "chunk_recursion_kernel": 1},
                           None),
         "chunk_apply_rows": (lambda: (*clone_all(L, B), U, Pm, R), 1e-5,
-                             {"chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1},
+                             k1_apply_kernels(K, rows, m),
                              (chunk_library(U, Pm, R), lambda: clone_all(L, B))),
         "pred_gather_rows": (lambda: (C, mu, idx, w, 0), TP_PRED_TOL, {"pred_gather_kernel": 1},
                              (lambda C_, mu_: (torch.bmm(S, C_), torch.bmm(mu_[:, None], S.mT)), lambda: (C, mu))),
         "pred_factors": (lambda: (idx, w, c0w, mu0w, y, nz), TP_PRED_TOL,
                          {"pred_recursion_cluster_kernel" if pred_rec == "cluster" else "pred_recursion_kernel": 1},
                          None),
-        "pred_apply_rows": (lambda: (*clone_all(C, mu), Z, r, 0), TP_PRED_TOL, {"pred_apply_kernel": 1},
+        "pred_apply_rows": (lambda: (*clone_all(C, mu), Z, r, 0), TP_PRED_TOL, k3_apply_kernels(1, rows, m),
                             (lambda C_, mu_: (C_.baddbmm_(Zl.mT, Z, alpha=-1.0),
                                               mu_.add_(torch.bmm(Zl.mT, r[..., None])[..., 0])),
                              lambda: clone_all(C, mu))),
@@ -3973,7 +4059,7 @@ def gs_sequence(model, params, state, xc, yc, xt, cfg=DEFAULT_CONFIG):
     mean, var = wiski_predict(model, new_params, state, xt, cfg)
     sync(dev)
     t3 = time.perf_counter()
-    launches = {**read_counters(), "rank1_apply_rows": rank1_apply_rows.launches}
+    launches = {**read_window(), "rank1_apply_rows": rank1_apply_rows.launches}
     whole = gather_wiski_state(state)
     out = dict(mll=-loss, grads=list(grads), roots=[whole.roots.root, whole.roots.inv_root, whole.roots.mat, whole.wty],
                mean=mean, var=var)
@@ -4282,6 +4368,169 @@ def finishing_phase(peaks, card, dev, phase3_state):
     return rows, launches
 
 
+# --------------------------------------------------------------------------
+# phase 13: K1's and K3's applies
+# --------------------------------------------------------------------------
+
+APPLY_SIDES = (16, M_SIDE, 64)  # m = 256, 900 (the main path's) and 4,096 (phase 6's)
+APPLY_SUB_K, APPLY_LARGE_K = SUB, 1024  # K5 sub's per-sub-block rank; a rank chunk_apply_plan sends to the tiled kernels
+APPLY_STREAM, APPLY_PREQ = 8 * K, 4 * K  # the main-path window: chunks of wiski_stream and of the prequential stream
+APPLY_K1_TOL, APPLY_K3_TOL = 1e-5, 2e-4  # K1: of max(scale, 1); K3: allclose, as phase 2
+APPLY_META = {
+    "chunk_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
+    "pred_apply": ("online_gp_torch/csrc/pred_stream.cu", "online_gp_tpu/ops/pallas_pred_stream.py:95"),
+}
+
+
+def apply_inputs(rng, side, Bd, dev):
+    """Roots (L, B) and caches (C = B B^T, mu) of Bd outputs on a side^2
+    grid, and the factors of one chunk of K stencil points from the plain
+    recursions: (L, B, U, Pm, R, C, mu, Z, r)."""
+    grid = Grid.create([(-1.1, 1.1)] * 2, side, device=dev)
+    m = grid.num_points
+    L, B = synthetic_roots(rng, Bd, m, dev)
+    x, idx, w = stencil(rng, grid, K, dev)
+    wv = (w[None] * torch.tensor([1.0, 1.3][:Bd], device=dev)[:, None, None]).contiguous()
+    U, Pm, R = blocked_factors(torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()]))
+    C = (B @ B.mT).contiguous()
+    mu = torch.tensor(rng.normal(size=(Bd, m)), dtype=torch.float32, device=dev)
+    S = stencil_rows(idx, w, m)
+    y = (torch.sin(3 * x[:, 0])[None] * torch.tensor([1.0, 0.5][:Bd], device=dev)[:, None]).contiguous()
+    Z, r, _, _ = pred_chunk_factors(S, S @ C, mu @ S.mT, y, torch.ones_like(y))
+    return L, B, U, Pm, R, C, mu, Z.contiguous(), r.contiguous()
+
+
+def check_apply(name, make, peaks, Bd, rows, m, k, plain_reps):
+    """One apply (``chunk_apply_rows`` or ``pred_apply_rows`` on the rows
+    make() gives) against its plain version (K1 within APPLY_K1_TOL of each
+    output's largest magnitude, at least 1; K3 allclose at APPLY_K3_TOL),
+    bitwise the same on a second call; then device ms, wrapper ms, plain ms,
+    the baddbmm yardstick and the bound."""
+    k1 = name == "chunk_apply"
+    fn, plain = (cuda_root_update.chunk_apply_rows, cuda_root_update.chunk_apply_rows_plain) if k1 else (
+        cuda_pred_stream.pred_apply_rows, cuda_pred_stream.pred_apply_rows_plain)
+    got, again, want = fn(*make()), fn(*make()), plain(*make())
+    torch.cuda.synchronize()
+    what = f"{name} (Bd={Bd}, rows={rows}, m={m}, k={k})"
+    bitwise(got, again, what)
+    if k1:
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(max(float(w.abs().max()) for w in want), 1.0)
+        if not (all(torch.isfinite(g).all() for g in got) and err <= APPLY_K1_TOL * scale):
+            raise AssertionError(f"{what}: max abs err {err:.3e} exceeds {APPLY_K1_TOL:g} x {scale:.3g}")
+    else:
+        err = max_err(got, want, APPLY_K3_TOL, what)
+    if k1:
+        L, B, U, Pm, R = make()
+        library = (chunk_library(U, Pm, R), lambda: clone_all(*make()[:2]))
+        kernels = k1_apply_kernels(k, rows, m)
+    else:
+        C, mu, Z, r, row0 = make()
+        Zl = Z[..., row0 : row0 + rows]
+        library = (lambda C_, mu_: (C_.baddbmm_(Zl.mT, Z, alpha=-1.0), mu_.add_(torch.bmm(Zl.mT, r[..., None])[..., 0])),
+                   lambda: clone_all(*make()[:2]))
+        kernels = k3_apply_kernels(Bd, rows, m)
+    bms, by = stage_bound(f"{name}_rows", Bd, rows, m, k, 0, 0, 0, peaks)
+    ms, stages = device_ms(fn, make, kernels)
+    return dict(k=k, rows=rows, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(fn, make),
+                plain_ms=time_ms(plain, make, plain_reps), library_ms=time_ms(*library), bound_ms=bms, bound_by=by)
+
+
+def apply_main_path(model, params, phase3_state, dev):
+    """The main path's window at m = 900: wiski_stream of APPLY_STREAM points
+    and the prequential stream of APPLY_PREQ on copies of phase 3's final
+    state, each chunk ending in an apply; returns the counters read just
+    after, zeroed just before."""
+    rng = np.random.default_rng(SEED + 13)
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = phase3_state._replace(roots=RootCache(None, phase3_state.roots.root.clone(),
+                                                  phase3_state.roots.inv_root.clone()))
+    caches = wiski_prediction_caches(model, params, state)
+    x = torch.tensor(rng.uniform(-1, 1, (APPLY_STREAM + APPLY_PREQ, 2)), **f32)
+    y = torch.sin(3 * x[:, :1])
+    n = torch.ones_like(y)
+    torch.cuda.synchronize()
+    zero_counters()
+    state = wiski_stream(model, state, x[:APPLY_STREAM], y[:APPLY_STREAM], n[:APPLY_STREAM], block_size=K)
+    wiski_prequential_stream(model, params, state, caches, x[APPLY_STREAM:], y[APPLY_STREAM:], n[APPLY_STREAM:],
+                             block_size=K)
+    torch.cuda.synchronize()
+    return {**read_window(), **read_apply_counters()}
+
+
+def apply_phase(peaks, card, dev, model, params, phase3_state):
+    """Phase 13; returns the kernel rows of the shapes that a path window
+    of phases 3-13 ran, with those windows' launches (PATH_APPLIES), and
+    the main-path launches. A shape that only this phase's checks run is
+    printed and left out of the rows."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    main = apply_main_path(model, params, phase3_state, dev)
+    want = {"blocked_chunk": APPLY_STREAM // K + APPLY_PREQ // K, "pred_chunk": APPLY_PREQ // K}
+    print(f"phase 13 main path (wiski_stream {APPLY_STREAM} points, prequential {APPLY_PREQ}, m = {M_SIDE**2}) on "
+          f"{card}: launches {json.dumps(main)}")
+    if (main["blocked_chunk"], main["pred_chunk"], main["chunk_apply_cluster"], main["chunk_apply_tiled"],
+            main["pred_apply"]) != (want["blocked_chunk"], want["pred_chunk"], want["blocked_chunk"], 0,
+                                    want["pred_chunk"]):
+        raise AssertionError(f"phase 13: every chunk of the main path must end in the cluster apply (K1) and K3's "
+                             f"apply: {main}, expected {want}")
+    rows = {}
+    for side in APPLY_SIDES:
+        m = side * side
+        for Bd in (1, 2):
+            L, B, U, Pm, R, C, mu, Z, r = apply_inputs(rng, side, Bd, dev)
+            factors = {K: (U, Pm, R)}
+            if side == M_SIDE and Bd == 1:
+                factors[APPLY_SUB_K] = tuple(f[:, :APPLY_SUB_K].contiguous() for f in (U, Pm, R))
+                _, idx, w = stencil(rng, Grid.create([(-1.1, 1.1)] * 2, side, device=dev), APPLY_LARGE_K, dev)
+                factors[APPLY_LARGE_K] = blocked_factors(torch.einsum("kp,bkpm->bkm", w, B[:, idx.long()]))
+            for n_rows in (m, m // 2):
+                Lr, Br, Cr, mur = (t[:, :n_rows].contiguous() for t in (L, B, C, mu))
+                reps = PLAIN_REPS6 if m > M_SIDE**2 else TIMING_REPS
+                for k, (Uk, Pk, Rk) in factors.items():
+                    if k != K and n_rows != m:
+                        continue
+                    make = lambda Uk=Uk, Pk=Pk, Rk=Rk: (*clone_all(Lr, Br), Uk, Pk, Rk)
+                    zero_apply_counters()
+                    cuda_root_update.chunk_apply_rows(*make())
+                    torch.cuda.synchronize()
+                    count = read_apply_counters()
+                    plan = chunk_apply_plan(k, n_rows, m)
+                    cluster = plan is not None
+                    launched = count["chunk_apply_cluster" if cluster else "chunk_apply_tiled"]
+                    if launched != 1:
+                        raise AssertionError(f"phase 13: chunk_apply_rows (k={k}, rows={n_rows}, m={m}) launched "
+                                             f"{count}; its plan says {'cluster' if cluster else 'tiled'}")
+                    res = check_apply("chunk_apply", make, peaks, Bd, n_rows, m, k, reps)
+                    res["route"] = (f"cluster, {plan.blocks} blocks of {plan.tile_rows} rows x {plan.cols} columns"
+                                    if cluster else "tiled (gemm_tile)")
+                    row = f"chunk_apply@m{m}-r{n_rows}-bd{Bd}" + ("" if k == K else f"-k{k}")
+                    rows[row] = (res, PATH_APPLIES[("chunk_apply", Bd, n_rows, m, k)])
+                    print(f"{row} on {card}: " + json.dumps(res))
+                make = lambda: (*clone_all(Cr, mur), Z, r, 0)
+                zero_apply_counters()
+                cuda_pred_stream.pred_apply_rows(*make())
+                torch.cuda.synchronize()
+                launched = read_apply_counters()["pred_apply"]
+                if launched != 1:
+                    raise AssertionError(f"phase 13: pred_apply_rows (rows={n_rows}, m={m}) launched {launched}")
+                res = check_apply("pred_apply", make, peaks, Bd, n_rows, m, K, reps)
+                plan = k3_apply_plan(Bd, n_rows, m)
+                res["route"] = f"{plan.blocks} tiles of {plan.tile_rows} x {plan.tile_cols}"
+                row = f"pred_apply@m{m}-r{n_rows}-bd{Bd}"
+                rows[row] = (res, PATH_APPLIES[("pred_apply", Bd, n_rows, m, K)])
+                print(f"{row} on {card}: " + json.dumps(res))
+            del L, B, C, mu, Z, r, factors
+            torch.cuda.empty_cache()
+    print(f"phase 13 applies of the path windows of phases 3-13 by (name, Bd, rows, m, k): "
+          + json.dumps(sorted([*shape, n] for shape, n in PATH_APPLIES.items())))
+    for row, (_, count) in rows.items():
+        print(f"{row}: {count} launches in the path windows" if count else
+              f"{row}: no path window runs this shape; timed above, left out of the kernels line")
+    print(f"phase 13 seconds on {card}: {time.perf_counter() - t_phase:.1f}")
+    return {row: rc for row, rc in rows.items() if rc[1]}, main
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4378,6 +4627,10 @@ def main() -> int:
         for kname, count in launches12.items():
             launches[kname] += count
 
+        kernels13, launches13 = apply_phase(peaks, card, dev, model, params, final_state)
+        for kname in read_counters():
+            launches[kname] += launches13[kname]
+
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
@@ -4404,7 +4657,9 @@ def main() -> int:
     rows += [(row, r, launches10[row.split("@")[0]]) for row, r in kernels10.items()]
     rows += [(row, r, count) for row, (r, count) in kernels11.items()]
     rows += [(row, r, count) for row, (r, count) in kernels12.items()]
+    rows += [(row, r, count) for row, (r, count) in kernels13.items()]
     meta.update(STAGE_META)
+    meta.update(APPLY_META)
     meta["rank1_apply_rows"] = ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264")
     for row, r, count in rows:
         source, replaces = meta[row.split("@")[0]]

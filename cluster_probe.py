@@ -46,6 +46,8 @@ from pathlib import Path
 import torch
 
 from online_gp_torch.ops import _build
+from online_gp_torch.ops.cuda_pred_stream import pred_apply_plan
+from online_gp_torch.ops.cuda_root_update import chunk_apply_plan
 
 SOURCE = r"""
 #include <cooperative_groups.h>
@@ -333,11 +335,14 @@ def stamped_splits(dev, per_ns, k=128, side=30):
         lib = build(f"cluster_probe_{src}", STAMPED.format(name=src))
         lib.probe_set_stamps.argtypes = [vp]
         if src == "root_update":
-            lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 5 + [vp]
-            lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 6 + [vp]
-            lib.ogp_blocked_chunk_coord.argtypes = [vp] * 9 + [i32] * 4 + [vp]
+            lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+            lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 7 + [vp]
+            lib.ogp_blocked_chunk_coord.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         else:
-            lib.ogp_pred_chunk.argtypes = [vp] * 12 + [i32] * 5 + [vp]
+            lib.ogp_pred_chunk.argtypes = [vp] * 12 + [i32] * 6 + [vp]
+        # the applies as the wrappers launch them (their stages are not stamped)
+        aplan = chunk_apply_plan(k, m, m)
+        AC, AM = (0 if aplan is None else aplan.cluster), pred_apply_plan(Bd, m, m, _build.card_sms(dev)).tile_rows
         for clusters, names, what in runs:
             stamps = torch.zeros(max(clusters, 1) * Bd * k * STAMP_SLOTS, dtype=torch.int64, device=dev)
             rc = lib.probe_set_stamps(P_(stamps))
@@ -349,25 +354,25 @@ def stamped_splits(dev, per_ns, k=128, side=30):
                     if what == "K5 sub cluster":
                         rc = rc or lib.ogp_blocked_chunk_sub_cluster(
                             P_(Lc), P_(Bc), P_(idx), P_(wv), *(P_(s) for s in scratch), P_(T), Bd, k, SUB, P,
-                            m, clusters, None)
+                            m, AC, clusters, None)
                     elif what == "K5 coord":
                         lib.ogp_blocked_chunk_coord_splits.restype = i32
                         Mg, F, X = (torch.empty(shape, **f32) for shape in (
                             (Bd, lib.ogp_blocked_chunk_coord_splits(), k, k), (3, Bd, k, k), (3, Bd, k, m)))
                         rc = rc or lib.ogp_blocked_chunk_coord(
                             P_(Lc), P_(Bc), P_(idx), P_(wv), P_(scratch[0]), P_(Mg), P_(F), P_(X), P_(T), Bd, k,
-                            P, m, None)
+                            P, m, AC, None)
                     else:
                         rc = rc or lib.ogp_blocked_chunk(
                             P_(Lc), P_(Bc), P_(idx), P_(wv), *(P_(s) for s in scratch), P_(T), Bd, k, P, m,
-                            clusters, None)
+                            AC, clusters, None)
                 else:
                     Cc, muc = C[None].clone(), mu[None].clone()
                     bufs = torch.empty((2, Bd, k, m), **f32)
                     vecs = torch.empty((4, Bd, k), **f32)
                     rc = rc or lib.ogp_pred_chunk(
                         P_(Cc), P_(muc), P_(idx), P_(w), P_(y), P_(nz), P_(bufs[0]), P_(vecs[0]),
-                        P_(bufs[1]), P_(vecs[1]), P_(vecs[2]), P_(vecs[3]), Bd, k, P, m, clusters, None)
+                        P_(bufs[1]), P_(vecs[1]), P_(vecs[2]), P_(vecs[3]), Bd, k, P, m, AM, clusters, None)
                 torch.cuda.synchronize()
             if rc:
                 raise RuntimeError(f"stamped {what}: {rc}")

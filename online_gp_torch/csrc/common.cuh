@@ -1,6 +1,7 @@
 // Helpers shared by the port's CUDA kernels: warp and block sums, one
-// shared-memory-tiled f32 GEMM tile routine, and what the recursion kernels
-// that run on a thread-block cluster share (launch, exchange, column sums).
+// shared-memory-tiled f32 GEMM tile routine, asynchronous copies into shared
+// memory, and what the kernels that run on a thread-block cluster share
+// (launch, exchange, column sums).
 //
 // All math is f32 with FMA; nothing here uses tensor cores (TF32 is off by
 // the port's precision policy) and nothing uses wgmma or TMA yet.
@@ -36,6 +37,15 @@ constexpr int kTileN = 64;
 constexpr int kTileK = 16;
 constexpr int kGemmThreads = 256;
 
+// gemm_tile is the port's first GEMM: scalar global loads, one 64 x 64 tile
+// a block, two barriers a depth-16 step. Its callers: batched_gemm_kernel
+// (K5's sub-block corrections and coord's factor rebuild, root_update.cu),
+// and K1's apply for the shapes chunk_apply_plan sends to the tiled kernels
+// (chunk_apply_t_kernel, chunk_apply_x_kernel: k too large for the cluster
+// kernel's shared memory). K1's and K3's applies on the main path have
+// kernels of their own (chunk_apply_cluster_kernel; pred_apply128_kernel
+// and pred_apply64_kernel).
+//
 // One kTileM x kTileN tile of
 //     C(i, j) = [C(i, j) if accumulate] + alpha * sum_l A(i, l) * B(l, j)
 // for an M x N output with inner size K, where
@@ -122,6 +132,65 @@ __device__ __forceinline__ void gemm_tile(
 }
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ---- asynchronous copies into shared memory (cp.async) ----
+//
+// cp_async16 copies 16 bytes (both addresses 16-byte aligned), cp_async4
+// 4 bytes; a copy whose `valid` is false reads nothing (src-size 0) and
+// zero-fills its destination, so a tile's ragged edge arrives as zeros.
+// Copies are grouped by cp_async_commit; cp_async_wait<N> returns when at
+// most N of this thread's groups are still in flight (a __syncthreads()
+// after it makes every thread's copies visible to the block).
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A rows x (4 groups) tile of floats into shared memory, by every thread
+// of the block: element (r, c) = src[r ld + c] when r < nr and c < nc, else
+// 0. Row r of the tile starts at dst + r ld_dst; its 16-byte group g sits at
+// group g ^ (r & 7) when swz (ld_dst then a multiple of 32), so that a
+// warp's 16-byte loads of one group of eight consecutive rows hit eight
+// distinct bank quads. With vec, src and ld are 16-byte aligned and nc is a
+// multiple of 4 (one 16-byte copy a group); else four 4-byte copies.
+// `any` is an address the copies may name when they read nothing.
+__device__ __forceinline__ void tile_async(float* dst, int ld_dst, bool swz, const float* src,
+                                           long long ld, int rows, int groups, int nr, int nc,
+                                           bool vec, const float* any) {
+  for (int e = threadIdx.x; e < rows * groups; e += blockDim.x) {
+    const int r = e / groups, g = e - r * groups;
+    float* d = dst + r * ld_dst + ((swz ? g ^ (r & 7) : g) << 2);
+    const float* s = src + r * ld + 4 * g;
+    if (vec) {
+      const bool ok = r < nr && 4 * g < nc;
+      cp_async16(d, ok ? s : any, ok);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = r < nr && 4 * g + q < nc;
+        cp_async4(d + q, ok ? s + q : any, ok);
+      }
+    }
+  }
+}
 
 // ---- programmatic dependent launch (PDL) ----
 //
@@ -291,10 +360,6 @@ struct Exchange {
   int C, stride, rank;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 // Every thread of every block calls it once, before the first use.
 __device__ __forceinline__ void exchange_init(const Exchange& x) {
   if (threadIdx.x == 0) {
@@ -356,14 +421,16 @@ __device__ __forceinline__ float exchange_sum(const Exchange& x, int n, int i) {
   return s;
 }
 
-// Launches kernel(args...) on a (C, Bd) grid of kClusterThreads-thread
-// blocks in clusters of C along x, with smem bytes of dynamic shared memory.
-// Returns kNoCluster when the card cannot hold one such cluster, else the
-// launch's cudaError_t. Nothing is retried or rerouted here. C above 8, the
-// portable limit, also needs cudaFuncAttributeNonPortableClusterSizeAllowed
-// set on the kernel first (the port's kernels use C = 8).
+// Launches kernel(args...) on a grid of `threads`-thread blocks in
+// clusters of C along x (grid.x a multiple of C), with smem bytes of
+// dynamic shared memory. Returns kNoCluster when the card cannot hold one
+// such cluster, else the launch's cudaError_t. Nothing is retried or
+// rerouted here. C above 8, the portable limit, also needs
+// cudaFuncAttributeNonPortableClusterSizeAllowed set on the kernel first
+// (the port's kernels use C = 8).
 template <typename Kernel, typename... Args>
-int launch_cluster(Kernel kernel, int C, int Bd, long long smem, cudaStream_t s, Args... args) {
+int launch_cluster_grid(Kernel kernel, int C, dim3 grid, int threads, long long smem,
+                        cudaStream_t s, Args... args) {
   // a refused attribute is returned here and cleared, so that the next
   // launch's cudaGetLastError() does not report it again
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -373,8 +440,8 @@ int launch_cluster(Kernel kernel, int C, int Bd, long long smem, cudaStream_t s,
     return static_cast<int>(e);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, Bd, 1);
-  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -391,6 +458,12 @@ int launch_cluster(Kernel kernel, int C, int Bd, long long smem, cudaStream_t s,
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The recursions' launch: a (C, Bd) grid of kClusterThreads-thread blocks.
+template <typename Kernel, typename... Args>
+int launch_cluster(Kernel kernel, int C, int Bd, long long smem, cudaStream_t s, Args... args) {
+  return launch_cluster_grid(kernel, C, dim3(C, Bd, 1), kClusterThreads, smem, s, args...);
 }
 
 }  // namespace ogp

@@ -41,8 +41,21 @@
 //       instead (one block per output, Z in L2): pred_cluster_plan in
 //       online_gp_torch/ops/cuda_pred_stream.py, by shape only, mirroring
 //       pred_cluster_layout below (the wrapper checks the two agree).
-//   (c) apply: C -= Z^T Z as a shared-memory-tiled f32 GEMM in place, with
-//       mu += Z^T r fused into the blocks of the first tile column.
+//   (c) apply: C -= Z^T Z in place, with mu += Z^T r fused into the blocks
+//       of the first tile column (pred_apply128_kernel, pred_apply64_kernel).
+//       Bound by operations: 2 rows m k flops against 2 rows m floats of C
+//       in and out (0.032 ms of f32 FMA at m = 4,096 and 2,048 rows on an
+//       H100, 0.020 ms of bytes). It replaces the port's first design, 64 x 64 tiles of
+//       ogp::gemm_tile with scalar loads and two barriers a depth-16 step:
+//       a block owns a 128 x 128 tile of C (64 x 128 where 128-row tiles
+//       would leave SMs idle, a rule by shape: pred_apply_plan in
+//       ops/cuda_pred_stream.py), each thread an 8 x 8 (4 x 8) block of it
+//       fed by 16-byte shared loads; the rows of Z stream through a
+//       three-slot cp.async ring of 16 rows, neither operand transposed
+//       (both are rows of Z); C's tile is prefetched to L2 during the loop
+//       and read and written with 16-byte accesses. The k sum is not split:
+//       each entry is the same fmaf chain, in the same order, as before, so
+//       a chunk's results are bitwise those of the first design.
 //   The three stages are also C entries of their own (ogp_pred_gather_rows,
 //   ogp_pred_factors, ogp_pred_apply_rows) for caches row-sharded over
 //   processes: the gather and the apply then run over a shard's rows
@@ -70,13 +83,9 @@ using ogp::ColSplit;
 using ogp::ColTask;
 using ogp::col_partials;
 using ogp::col_sum;
-using ogp::gemm_tile;
 using ogp::kClusterRegs;
 using ogp::kClusterThreads;
 using ogp::kClusterWarps;
-using ogp::kGemmThreads;
-using ogp::kTileM;
-using ogp::kTileN;
 using ogp::warp_sum;
 namespace cg = cooperative_groups;
 
@@ -353,27 +362,158 @@ int pred_recursion(const int* idx, const float* wv, const float* c0w, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
-// (c) C[b] -= Z[b][:, rows]^T Z[b] in place on the rows [row0, row0 + rows)
-// C holds, (Bd, rows, m) (row0 = 0, rows = m for the whole chunk); the
-// first tile column also does mu[b] += Z[b][:, rows]^T r[b] for its rows.
-// grid (m tiles, row tiles, Bd)
-__global__ void __launch_bounds__(kGemmThreads)
-pred_apply_kernel(float* C, float* mu, const float* Z, const float* r, int k, int rows, int m,
-                  int row0) {
+// (c) the apply. A block owns a BM x kPredBN tile of C (BM = 128, or 64
+// where 128-row tiles would not give every SM a block: pred_apply_plan in
+// ops/cuda_pred_stream.py); the rows of Z feeding it, Z[t][row0 + i] and
+// Z[t][j], stream through a ring of kPredStages cp.async slots of kPredKT
+// rows each. Both operands are rows of Z, contiguous along m, so each
+// thread's 16-byte shared loads feed an 8 x 8 (BM = 128) or 4 x 8 outer
+// product a row of Z with no transpose.
+constexpr int kPredBN = 128;     // columns of C a block owns
+constexpr int kPredKT = 16;      // rows of Z a ring slot holds
+constexpr int kPredStages = 3;
+constexpr int kPredThreads = 256;
+
+// Dynamic shared memory of the apply at BM-row tiles, in floats.
+__host__ __device__ inline long long pred_apply_floats(int bm) {
+  return static_cast<long long>(kPredStages) * kPredKT * (bm + kPredBN);
+}
+
+// C[b] -= Z[b][:, rows]^T Z[b] in place on the rows [row0, row0 + rows) C
+// holds, (Bd, rows, m) (row0 = 0, rows = m for the whole chunk); the first
+// tile column also does mu[b] += Z[b][:, rows]^T r[b] for its rows.
+// grid (column tiles, row tiles, Bd). Thread (ti, tj) owns rows 4 ti +
+// [0, 4) (and 64 + 4 ti + [0, 4) at BM = 128) and columns 4 tj + [0, 4) and
+// 64 + 4 tj + [0, 4); a warp's eight tj read 128 contiguous bytes. Each
+// entry is an fmaf chain over t = 0, 1, ..., padded with zero rows to a
+// multiple of kPredKT, then C - chain: the same sums, in the same order, as
+// the tiled GEMM (ogp::gemm_tile) this replaces, so results are bitwise
+// the same.
+template <int BM>
+__device__ __forceinline__ void pred_apply_tile(float* C, float* mu, const float* Z, const float* r, int k,
+                                                int rows, int m, int row0) {
+  static_assert(BM == 64 || BM == 128, "tiles of 64 or 128 rows");
+  constexpr int kI = BM / 16;  // rows a thread owns
+  constexpr int kSlot = kPredKT * (BM + kPredBN);
+  extern __shared__ __align__(16) float apply_sh[];
   const long long b = blockIdx.z, mm = m, rr = rows;
+  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * kPredBN;
+  const int nA = min(BM, rows - i0), nB = min(kPredBN, m - j0), nK = cdiv(k, kPredKT);
   const float* Zb = Z + b * k * mm;
-  // C(i, j) -= sum_t Z(t, row0 + i) Z(t, j)
-  gemm_tile(rows, m, k, Zb + row0, 1, mm, Zb, mm, 1, C + b * rr * mm, mm, -1.f, true,
-            blockIdx.y * kTileM, blockIdx.x * kTileN);
+  const float* Za = Zb + row0 + i0;  // Z(t, row0 + i0 + i)
+  const float* Zc = Zb + j0;         // Z(t, j0 + j)
+  float* Cb = C + (b * rr + i0) * mm + j0;
+  const bool vecA = ((m | row0) & 3) == 0, vecC = (m & 3) == 0;
+
+  // the tile of C is read only after the loop: have it on its way to L2
+  for (int e = threadIdx.x; e < BM * (kPredBN / 32); e += kPredThreads) {
+    const int i = e / (kPredBN / 32), q = e - i * (kPredBN / 32);
+    if (i < nA && 32 * q < nB)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(Cb + i * mm + 32 * q));
+  }
+  auto issue = [&](int st) {
+    float* As = apply_sh + (st % kPredStages) * kSlot;
+    const int t0 = st * kPredKT;
+    ogp::tile_async(As, BM, false, Za + t0 * mm, mm, kPredKT, BM / 4, k - t0, nA, vecA, Z);
+    ogp::tile_async(As + kPredKT * BM, kPredBN, false, Zc + t0 * mm, mm, kPredKT, kPredBN / 4, k - t0, nB,
+                    vecC, Z);
+  };
+#pragma unroll
+  for (int st = 0; st < kPredStages - 1; ++st) {
+    if (st < nK) issue(st);
+    ogp::cp_async_commit();
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ti = (lane >> 3) + 4 * (warp >> 1);
+  const int tj = (lane & 7) + 8 * (warp & 1);
+  float acc[kI][8];
+#pragma unroll
+  for (int a = 0; a < kI; ++a)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+  for (int st = 0; st < nK; ++st) {
+    ogp::cp_async_wait<kPredStages - 2>();
+    __syncthreads();  // slot st arrived; every thread is done with slot st - 1
+    if (st + kPredStages - 1 < nK) issue(st + kPredStages - 1);
+    ogp::cp_async_commit();
+    const float* As = apply_sh + (st % kPredStages) * kSlot;
+    const float* Bs = As + kPredKT * BM;
+#pragma unroll
+    for (int t = 0; t < kPredKT; ++t) {
+      float av[kI], bv[8];
+#pragma unroll
+      for (int h = 0; h < kI / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(As + t * BM + 64 * h + 4 * ti);
+        av[4 * h] = v.x, av[4 * h + 1] = v.y, av[4 * h + 2] = v.z, av[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(Bs + t * kPredBN + 64 * h + 4 * tj);
+        bv[4 * h] = v.x, bv[4 * h + 1] = v.y, bv[4 * h + 2] = v.z, bv[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int a = 0; a < kI; ++a)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+    }
+  }
+  ogp::cp_async_wait<0>();
+
+#pragma unroll
+  for (int a = 0; a < kI; ++a) {
+    const int i = 64 * (a / 4) + 4 * ti + (a & 3);
+    if (i >= nA) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 64 * h + 4 * tj;
+      if (j >= nB) continue;
+      float* out = Cb + i * mm + j;
+      if (vecC) {
+        float4 c = *reinterpret_cast<float4*>(out);
+        c.x = c.x - acc[a][4 * h];
+        c.y = c.y - acc[a][4 * h + 1];
+        c.z = c.z - acc[a][4 * h + 2];
+        c.w = c.w - acc[a][4 * h + 3];
+        *reinterpret_cast<float4*>(out) = c;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j + q < nB) out[q] = out[q] - acc[a][4 * h + q];
+      }
+    }
+  }
   if (blockIdx.x == 0) {
-    for (int i = threadIdx.x; i < kTileM; i += blockDim.x) {
-      const int row = blockIdx.y * kTileM + i;
-      if (row >= rows) continue;
+    for (int i = threadIdx.x; i < nA; i += kPredThreads) {
+      const int row = i0 + i;
       float s = 0.f;
       for (int t = 0; t < k; ++t) s = fmaf(Zb[t * mm + row0 + row], r[b * k + t], s);
       mu[b * rr + row] += s;
     }
   }
+}
+
+// The two tile heights as kernels of their own names (the profiler's).
+__global__ void __launch_bounds__(kPredThreads)
+pred_apply128_kernel(float* C, float* mu, const float* Z, const float* r, int k, int rows, int m, int row0) {
+  pred_apply_tile<128>(C, mu, Z, r, k, rows, m, row0);
+}
+
+__global__ void __launch_bounds__(kPredThreads)
+pred_apply64_kernel(float* C, float* mu, const float* Z, const float* r, int k, int rows, int m, int row0) {
+  pred_apply_tile<64>(C, mu, Z, r, k, rows, m, row0);
+}
+
+// (c) on Bd outputs at BM-row tiles (64 or 128). Returns a cudaError_t.
+int pred_apply(float* C, float* mu, const float* Z, const float* r, int Bd, int k, int rows, int m,
+               int row0, int BM, cudaStream_t s) {
+  if (BM != 64 && BM != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(cdiv(m, kPredBN), cdiv(rows, BM), Bd);
+  const size_t smem = pred_apply_floats(BM) * sizeof(float);  // <= 48 KB: no attribute needed
+  if (BM == 128)
+    pred_apply128_kernel<<<grid, kPredThreads, smem, s>>>(C, mu, Z, r, k, rows, m, row0);
+  else
+    pred_apply64_kernel<<<grid, kPredThreads, smem, s>>>(C, mu, Z, r, k, rows, m, row0);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -393,22 +533,20 @@ long long ogp_pred_cluster_smem(int k, int m, int P, int C) {
 // K3. C: (Bd, m, m) and mu: (Bd, m), updated in place; idx: (k, P) int32 and
 // wv: (k, P), shared by the outputs; y, nz: (Bd, k); c0w, Z: (Bd, k, m)
 // scratch; mu0w, r: (Bd, k) scratch; pm, pv: (Bd, k) outputs. The recursion
-// runs on clusters of Cl blocks, or one block per output when Cl is 0.
+// runs on clusters of Cl blocks, or one block per output when Cl is 0; the
+// apply on tiles of AM rows (64 or 128).
 // Returns cudaGetLastError() after the launches, or -1 when no cluster of
 // Cl blocks fits on the card.
 int ogp_pred_chunk(float* C, float* mu, const int* idx, const float* wv, const float* y,
                    const float* nz, float* c0w, float* mu0w, float* Z, float* r, float* pm,
-                   float* pv, int Bd, int k, int P, int m, int Cl, void* stream) {
+                   float* pv, int Bd, int k, int P, int m, int AM, int Cl, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   pred_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(C, mu, idx, wv, c0w, mu0w, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rc = pred_recursion(idx, wv, c0w, mu0w, y, nz, Z, r, pm, pv, Bd, k, P, m, Cl, s);
   if (rc != 0) return rc;
-
-  pred_apply_kernel<<<dim3(cdiv(m, kTileN), cdiv(m, kTileM), Bd), kGemmThreads, 0, s>>>(
-      C, mu, Z, r, k, m, m, 0);
-  return static_cast<int>(cudaGetLastError());
+  return pred_apply(C, mu, Z, r, Bd, k, m, m, 0, AM, s);
 }
 
 // K3's three stages as entries of their own, for caches row-sharded over
@@ -439,13 +577,15 @@ int ogp_pred_factors(const int* idx, const float* wv, const float* c0w, const fl
 }
 
 // The apply on a row shard: C (Bd, rows, m) and mu (Bd, rows), updated in
-// place; Z (Bd, k, m), r (Bd, k).
+// place; Z (Bd, k, m), r (Bd, k); tiles of AM rows (64 or 128).
 int ogp_pred_apply_rows(float* C, float* mu, const float* Z, const float* r, int Bd, int k, int rows,
-                        int m, int row0, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pred_apply_kernel<<<dim3(cdiv(m, kTileN), cdiv(rows, kTileM), Bd), kGemmThreads, 0, s>>>(
-      C, mu, Z, r, k, rows, m, row0);
-  return static_cast<int>(cudaGetLastError());
+                        int m, int row0, int AM, void* stream) {
+  return pred_apply(C, mu, Z, r, Bd, k, rows, m, row0, AM, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of the apply at tiles of AM rows, in bytes.
+long long ogp_pred_apply_smem(int AM) {
+  return pred_apply_floats(AM) * static_cast<long long>(sizeof(float));
 }
 
 }  // extern "C"

@@ -48,9 +48,44 @@
 //       L2. The rule is by shape only, chunk_cluster_plan in
 //       online_gp_torch/ops/cuda_root_update.py, mirroring
 //       chunk_cluster_layout below (the wrapper checks the two agree).
-//   (c) apply: T = X A^T into scratch, then X += T U, for (X, A) = (L, R)
-//       and (B, P): shared-memory-tiled f32 GEMMs, 4 m^2 k multiply-adds in
-//       all. X is updated in place: the second GEMM reads only T and U.
+//   (c) apply: X += (X A^T) U for (X, A) = (L, R) and (B, P), 4 m^2 k
+//       multiply-adds in all, bound by operations (8 m^2 k flops against
+//       4 m^2 floats of L and B in and out: 0.26 ms of f32 FMA at m = 4,096
+//       on an H100, 0.09 ms of bytes). One launch on thread-block clusters
+//       (chunk_apply_cluster_kernel) replaces the port's first design, two
+//       tiled GEMMs (T = X A^T into device memory, then X += T U; 64 x 64
+//       tiles, 4 x 4 outputs a thread, scalar loads): a cluster of C = 8
+//       blocks owns a 64-row tile of one X, block r its columns [r W,
+//       r W + W), W = cdiv(m, C) rounded up to 4. The block forms its
+//       partial T_r = X_slice A_slice^T (64 x k) in registers while its
+//       columns of X and of A (transposed on the way in) stream through a
+//       three-slot cp.async ring, adds the C partials in rank order over
+//       DSMEM (cluster_reduce, float4), then X_slice += T U_slice with U
+//       streaming through the same ring, reading X again (from L2) as each
+//       128-column chunk is written: T never leaves shared memory, one
+//       launch where there were two. What bounds it on this card: shared
+//       memory and register banks before FMAs. A warp's 16-byte shared
+//       load of distinct addresses takes 4 cycles of the SM's 128 bytes a
+//       cycle and feeds 4 FMAs a thread, so each thread owns 4 x 8
+//       outputs, one factor broadcast along the sum's index (X's, T's) and
+//       the other across its 8 columns (A^T's, U's): the 8 values then sit
+//       in registers of alternating parity, and each accumulator can take
+//       the bank its other operand does not (with both factors loaded
+//       along the sum's index, every FMA's two multiplicands share a
+//       parity).
+//       64-row tiles keep a block at 112 KB of shared memory and 128
+//       registers a thread, so two blocks share an SM and twice as many
+//       clusters run at once as with one block a SM (at 128-row tiles m =
+//       900 took two waves); one block's reduce and epilogue then overlap
+//       the other's FMAs. Holding the X slice in shared memory instead (X
+//       read once) does not leave room for two blocks at m = 4,096. True
+//       f32 FMA, no atomics: a second call is bitwise the same. Shapes
+//       whose T does not fit one block beside the ring (k > 544;
+//       chunk_apply_plan in ops/cuda_root_update.py, by shape, mirroring
+//       chunk_apply_layout below) run the tiled kernels instead
+//       (chunk_apply_t_kernel, chunk_apply_x_kernel on ogp::gemm_tile). X
+//       is updated in place: each block writes only its own slice, after it
+//       has read it.
 //   The three stages are also C entries of their own (ogp_chunk_gather_rows,
 //   ogp_chunk_factors, ogp_chunk_apply_rows) for roots row-sharded over
 //   processes: the gather and the apply then run over a shard's rows
@@ -137,8 +172,8 @@
 //       the next step is loaded during the step. M itself comes from a
 //       split-K Gram kernel over the lower triangle. The apply rebuilds the
 //       flat factors, (U, R, P) = (Ut, Rt, Pt) P0 in one batched GEMM, and
-//       runs K1's two apply kernels once: the same flops as the Pallas
-//       association X += ((X P0^T)(Rt^T Ut)) P0, one launch fewer.
+//       runs K1's apply once: the same flops as the Pallas association
+//       X += ((X P0^T)(Rt^T Ut)) P0.
 #include "common.cuh"
 
 using ogp::block_sum;
@@ -800,6 +835,11 @@ __device__ __forceinline__ void row_combine(const Combine* cms, int n, int ld, i
 
 constexpr int kMaxCluster = 8;
 
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
 // coef[0, n) of every block of the cluster summed in rank order; every block
 // ends with the sums in its coef. Block r sums entries [r S, r S + S),
 // S = cdiv(n, C), over DSMEM into its csum, and every block then gathers
@@ -808,34 +848,43 @@ constexpr int kMaxCluster = 8;
 // serves every call: a block's coef is read by others only before the
 // call's second barrier, and its csum is rewritten only after the next
 // call's first barrier, which no block passes before all have gathered.
+// The block has kThreads threads; each keeps kBatch loads of the gather in
+// flight. V = float4 moves four entries a load (n a multiple of 4 C, coef
+// and csum 16-byte aligned); each entry's sum is the same as with
+// V = float. A block that reads no DSMEM after its last
+// call must still not exit before the others have gathered from its csum.
+template <int kThreads = kClusterThreads, typename V = float, int kBatch = 4>
 __device__ __forceinline__ void cluster_reduce(cg::cluster_group& cluster, float* coef, float* csum,
                                                int n, int C, int rank) {
+  constexpr int kW = sizeof(V) / sizeof(float);
+  V* cv = reinterpret_cast<V*>(coef);
+  V* sv = reinterpret_cast<V*>(csum);
+  n /= kW;
   cluster.sync();  // every block's partials are written
   const int S = cdiv(n, C);
-  for (int i = threadIdx.x; i < S && rank * S + i < n; i += kClusterThreads) {
-    float v[kMaxCluster];
+  for (int i = threadIdx.x; i < S && rank * S + i < n; i += kThreads) {
+    V v[kMaxCluster];
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r)
-      if (r < C) v[r] = *cluster.map_shared_rank(coef + rank * S + i, r);
-    float s = v[0];
+      if (r < C) v[r] = *cluster.map_shared_rank(cv + rank * S + i, r);
+    V s = v[0];
 #pragma unroll
     for (int r = 1; r < kMaxCluster; ++r)
-      if (r < C) s += v[r];
-    csum[i] = s;
+      if (r < C) s = vadd(s, v[r]);
+    sv[i] = s;
   }
   cluster.sync();  // every block's sums are written
-  // four loads in flight a thread before its stores
-  constexpr int kBatch = 4;
-  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * kClusterThreads) {
-    float v[kBatch];
+  // kBatch loads in flight a thread before its stores
+  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * kThreads) {
+    V v[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
-      const int e = e0 + b * kClusterThreads, r = e / S;
-      v[b] = e < n ? *cluster.map_shared_rank(csum + (e - r * S), r) : 0.f;
+      const int e = e0 + b * kThreads, r = e / S;
+      if (e < n) v[b] = *cluster.map_shared_rank(sv + (e - r * S), r);
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
-      if (e0 + b * kClusterThreads < n) coef[e0 + b * kClusterThreads] = v[b];
+      if (e0 + b * kThreads < n) cv[e0 + b * kThreads] = v[b];
   }
   __syncthreads();
 }
@@ -952,9 +1001,261 @@ int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- (c) K1's apply ----
+//
+// On thread-block clusters (chunk_apply_cluster_kernel), as the file's
+// header describes: a cluster of C blocks owns one tile of kApplyBM rows of
+// one X of (L, B), block r its columns [r W, r W + W).
+constexpr int kApplyBM = 64;       // rows of X a cluster owns
+constexpr int kApplyThreads = 256;
+constexpr int kApplyStages = 3;    // ring slots
+constexpr int kApplyL = 32;        // columns of X and A a T-stage slot holds
+constexpr int kApplyTJ = 128;      // columns of T a pass of the T stage forms
+constexpr int kApplyUJ = 32;       // rows of U an update slot holds
+constexpr int kApplyUC = 128;      // columns of the slice an update chunk covers
+constexpr int kApplyLDA = kApplyTJ + 4;  // row length of a slot's A^T: 16-byte rows, 4 banks apart
+constexpr int kApplySlot = kApplyBM * kApplyL + kApplyL * kApplyLDA;  // floats a ring slot holds
+static_assert(kApplyUJ * kApplyUC <= kApplySlot, "an update slot fits a ring slot");
+constexpr int kApplyRT = kApplyBM / 16;  // rows of the tile a thread owns
+static_assert(kApplyThreads == 256 && kApplyBM % 16 == 0 && kApplyTJ == 128 && kApplyUC == 128,
+              "16 x 16 threads, each kApplyRT rows and 8 columns, cover kApplyBM x 128");
+
+// One block's shared memory: T (kApplyBM x ldt, ldt = k rounded up to
+// kApplyUJ), the block's share of T's cluster sums (kApplyBM ldt / C) and
+// the ring, each T-stage slot a kApplyBM x 32 block of X (row-major, rows
+// swizzled) and the matching 32 x 128 block of A^T, each update slot 32
+// rows of U's 128-column chunk. W is cdiv(m, C) rounded up to 4, so
+// 16-byte copies of a slice start aligned.
+struct ApplyLayout {
+  int W, ldt;
+  long long floats;
+};
+
+__host__ __device__ inline ApplyLayout chunk_apply_layout(int k, int m, int C) {
+  const int W = 4 * cdiv(cdiv(m, C), 4);
+  const int ldt = kApplyUJ * cdiv(k, kApplyUJ);
+  const long long t = static_cast<long long>(kApplyBM) * ldt;
+  return ApplyLayout{W, ldt, t + t / C + static_cast<long long>(kApplyStages) * kApplySlot};
+}
+
+// The float4 at (i, 4 g) of a buffer of row length ld whose rows keep their
+// 16-byte groups swizzled (tile_async's swz).
+__device__ __forceinline__ const float4* swz4(const float* p, int i, int g, int ld) {
+  return reinterpret_cast<const float4*>(p + i * ld + ((g ^ (i & 7)) << 2));
+}
+
+// A's kApplyTJ x kApplyL block at src (row stride ld) into the slot as A^T,
+// element (j, l) at l kApplyLDA + j, by 4-byte copies (zero where j >= nj
+// or l >= nl), by all kApplyThreads threads. Thread t copies column
+// l = (t & 7) + 8 ((t >> 5) & 3) of rows j = ((t >> 3) & 3) + 4 (t >> 7) +
+// 8 it: a warp copies eight columns of four rows, 32-byte pieces of global
+// memory into 32 distinct banks of shared memory.
+__device__ __forceinline__ void transpose_async(float* dst, const float* src, long long ld, int nj, int nl,
+                                                const float* any) {
+  static_assert(kApplyThreads == 256 && kApplyTJ * kApplyL == 16 * kApplyThreads, "16 copies a thread");
+  const int t = threadIdx.x;
+  const int l = (t & 7) + 8 * ((t >> 5) & 3), j0 = ((t >> 3) & 3) + 4 * (t >> 7);
+  const float* s = src + j0 * ld + l;
+  float* d = dst + l * kApplyLDA + j0;
+  const bool lok = l < nl;
+#pragma unroll
+  for (int it = 0; it < 16; ++it) {
+    const bool ok = lok && j0 + 8 * it < nj;
+    ogp::cp_async4(d + 8 * it, ok ? s + 8 * it * ld : any, ok);
+  }
+}
+
+// grid (C, row tiles, 2 Bd) in clusters of C along x; X is (Bd, rows, m).
+// Thread (ti, tj) owns rows ti + 16 a (a < kApplyRT) of the tile and
+// columns 4 tj + [0, 4) and 64 + 4 tj + [0, 4) of a 128-column pass of T
+// (or chunk of the slice). In both stages one factor is a value the thread
+// broadcasts over its 8 columns (X's, or T's, four a 16-byte load along the
+// sum's index) and the other a pair of 16-byte loads across those columns
+// (A^T's, or U's). A quarter-warp shares ti, so its loads of X and T are
+// broadcasts; its eight tj read 128 contiguous bytes. Sums: T_r(i, j) an
+// fmaf chain over the block's columns in order, T = the C partials in rank
+// order, X + (an fmaf chain over j < k).
+__global__ void __launch_bounds__(kApplyThreads, 2)
+chunk_apply_cluster_kernel(float* L, float* B, const float* R, const float* Pm, const float* U, int k,
+                           int rows, int m, ApplyLayout lay) {
+  extern __shared__ __align__(16) float apply_sh[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long b = blockIdx.z >> 1, mm = m;
+  const int w = blockIdx.z & 1;
+  const int row0 = blockIdx.y * kApplyBM, c0 = rank * lay.W;
+  const int wr = max(0, min(lay.W, m - c0));  // this block's columns
+  const int nr = min(kApplyBM, rows - row0);  // the tile's rows
+  const bool vec = (m & 3) == 0;              // then every row and slice starts 16-byte aligned
+  const int ldt = lay.ldt;
+  float* X0 = w ? B : L;
+  const float* A0 = w ? Pm : R;
+  float* X = X0 + (b * rows + row0) * mm + c0;
+  const float* A = A0 + b * k * mm + c0;
+  const float* Ub = U + b * k * mm + c0;
+  float* Ts = apply_sh;
+  float* csum = Ts + kApplyBM * ldt;
+  float* ring = csum + kApplyBM * ldt / C;
+
+  // the ring's slots in order: the T stage's (pass jb, column chunk lc) of
+  // X and A, then the update's (column chunk cc, row chunk ju) of U
+  const int nJB = cdiv(k, kApplyTJ), nL = cdiv(wr, kApplyL), nT = nJB * nL;
+  const int nU = cdiv(wr, kApplyUC), nJU = cdiv(k, kApplyUJ), nS = nT + nU * nJU;
+  auto issue = [&](int s) {
+    float* slot = ring + (s % kApplyStages) * kApplySlot;
+    if (s < nT) {
+      const int jb = s / nL, l0 = (s - jb * nL) * kApplyL;
+      ogp::tile_async(slot, kApplyL, true, X + l0, mm, kApplyBM, kApplyL / 4, nr, wr - l0, vec, X0);
+      transpose_async(slot + kApplyBM * kApplyL, A + jb * kApplyTJ * mm + l0, mm, k - jb * kApplyTJ, wr - l0,
+                      A0);
+    } else {
+      const int u = s - nT, cc = u / nJU, j0 = (u - cc * nJU) * kApplyUJ;
+      ogp::tile_async(slot, kApplyUC, false, Ub + j0 * mm + cc * kApplyUC, mm, kApplyUJ, kApplyUC / 4,
+                      k - j0, wr - cc * kApplyUC, vec, U);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kApplyStages - 1; ++s) {
+    if (s < nS) issue(s);
+    ogp::cp_async_commit();
+  }
+  int s = 0;
+  // waits for slot s, then queues slot s + kApplyStages - 1 into the slot
+  // every thread finished with at the last iteration
+  auto next = [&]() -> const float* {
+    ogp::cp_async_wait<kApplyStages - 2>();
+    __syncthreads();
+    if (s + kApplyStages - 1 < nS) issue(s + kApplyStages - 1);
+    ogp::cp_async_commit();
+    return ring + (s % kApplyStages) * kApplySlot;
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ti = (lane >> 3) + 4 * (warp >> 1);
+  const int tj = (lane & 7) + 8 * (warp & 1);
+
+  // T_r = X_slice A_slice^T, 128 columns of T a pass
+  for (int jb = 0; jb < nJB; ++jb) {
+    float acc[kApplyRT][8];
+#pragma unroll
+    for (int a = 0; a < kApplyRT; ++a)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[a][q] = 0.f;
+    for (int lc = 0; lc < nL; ++lc, ++s) {
+      const float* Xs = next();
+      const float* At = Xs + kApplyBM * kApplyL;
+#pragma unroll 2
+      for (int g = 0; g < kApplyL / 4; ++g) {
+        float4 xv[kApplyRT];
+#pragma unroll
+        for (int a = 0; a < kApplyRT; ++a) xv[a] = *swz4(Xs, ti + 16 * a, g, kApplyL);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float4 av[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            av[h] = *reinterpret_cast<const float4*>(At + (4 * g + q) * kApplyLDA + 64 * h + 4 * tj);
+#pragma unroll
+          for (int a = 0; a < kApplyRT; ++a) {
+            const float x = q == 0 ? xv[a].x : q == 1 ? xv[a].y : q == 2 ? xv[a].z : xv[a].w;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              acc[a][4 * h] = fmaf(x, av[h].x, acc[a][4 * h]);
+              acc[a][4 * h + 1] = fmaf(x, av[h].y, acc[a][4 * h + 1]);
+              acc[a][4 * h + 2] = fmaf(x, av[h].z, acc[a][4 * h + 2]);
+              acc[a][4 * h + 3] = fmaf(x, av[h].w, acc[a][4 * h + 3]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kApplyRT; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int i = ti + 16 * a, j = jb * kApplyTJ + 64 * (c >> 2) + 4 * tj + (c & 3);
+        if (j < ldt) Ts[i * ldt + (((j >> 2) ^ (i & 7)) << 2) + (j & 3)] = acc[a][c];
+      }
+  }
+  cluster_reduce<kApplyThreads, float4, 16>(cluster, Ts, csum, kApplyBM * ldt, C, rank);
+  // this block reads no other block's shared memory from here on; none may
+  // exit before every block has gathered from its csum
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+
+  // X_slice += T U_slice, 128 columns at a time
+  for (int cc = 0; cc < nU; ++cc) {
+    // the chunk of X the epilogue reads: on its way to L2 while the chunk
+    // computes (four 128-byte lines a row)
+    for (int e = threadIdx.x; e < kApplyBM * 4; e += kApplyThreads) {
+      const int i = e >> 2, c = cc * kApplyUC + 32 * (e & 3);
+      if (i < nr && c < wr) asm volatile("prefetch.global.L2 [%0];" ::"l"(X + i * mm + c));
+    }
+    float acc[kApplyRT][8];
+#pragma unroll
+    for (int a = 0; a < kApplyRT; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+    for (int ju = 0; ju < nJU; ++ju, ++s) {
+      const float* Us = next();
+      const int g0 = ju * (kApplyUJ / 4);
+#pragma unroll 2
+      for (int g = 0; g < kApplyUJ / 4; ++g) {
+        float4 tv[kApplyRT], uv[4][2];
+#pragma unroll
+        for (int a = 0; a < kApplyRT; ++a) tv[a] = *swz4(Ts, ti + 16 * a, g0 + g, ldt);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            uv[q][h] = *reinterpret_cast<const float4*>(Us + (4 * g + q) * kApplyUC + 64 * h + 4 * tj);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int a = 0; a < kApplyRT; ++a) {
+            const float t = q == 0 ? tv[a].x : q == 1 ? tv[a].y : q == 2 ? tv[a].z : tv[a].w;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              acc[a][4 * h] = fmaf(t, uv[q][h].x, acc[a][4 * h]);
+              acc[a][4 * h + 1] = fmaf(t, uv[q][h].y, acc[a][4 * h + 1]);
+              acc[a][4 * h + 2] = fmaf(t, uv[q][h].z, acc[a][4 * h + 2]);
+              acc[a][4 * h + 3] = fmaf(t, uv[q][h].w, acc[a][4 * h + 3]);
+            }
+          }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kApplyRT; ++a) {
+      const int i = ti + 16 * a;
+      if (i >= nr) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = cc * kApplyUC + 64 * h + 4 * tj;  // the thread's first column in the slice
+        if (c >= wr) continue;
+        float* out = X + i * mm + c;
+        if (vec) {
+          float4 x = *reinterpret_cast<const float4*>(out);
+          x.x += acc[a][4 * h];
+          x.y += acc[a][4 * h + 1];
+          x.z += acc[a][4 * h + 2];
+          x.w += acc[a][4 * h + 3];
+          *reinterpret_cast<float4*>(out) = x;
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (c + q < wr) out[q] += acc[a][4 * h + q];
+        }
+      }
+    }
+  }
+  ogp::cp_async_wait<0>();
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 // (c1) T[b, w] = X_w[b] A_w[b]^T, (X_0, A_0) = (L, R), (X_1, A_1) = (B, P),
 // over the rows L and B hold, (Bd, rows, m) (rows = m for the whole
-// chunk); T is (Bd, 2, rows, k). grid (k tiles, row tiles, 2 Bd)
+// chunk); T is (Bd, 2, rows, k). grid (k tiles, row tiles, 2 Bd). The
+// tiled kernels run the apply where chunk_apply_plan holds no cluster
+// (k too large for T in one block's shared memory).
 __global__ void __launch_bounds__(kGemmThreads)
 chunk_apply_t_kernel(const float* L, const float* B, const float* R, const float* Pm, float* T,
                      int k, int rows, int m) {
@@ -1277,16 +1578,26 @@ coord_recursion_kernel(const float* __restrict__ Mg, float* __restrict__ F, int 
 }
 
 // (c) K1's apply, at rank k: X += (X A^T) U for (X, A) = (L, R), (B, P), on
-// the rows L and B hold ((Bd, rows, m); rows = m for the whole chunk).
-cudaError_t chunk_apply(float* L, float* B, const float* R, const float* Pm, const float* U,
-                        float* T, int Bd, int k, int rows, int m, cudaStream_t s) {
+// the rows L and B hold ((Bd, rows, m); rows = m for the whole chunk): on
+// clusters of AC blocks (chunk_apply_cluster_kernel), or by the two tiled
+// kernels through T (Bd, 2, rows, k) when AC is 0 (T unused otherwise).
+// Returns a cudaError_t, or ogp::kNoCluster.
+int chunk_apply(float* L, float* B, const float* R, const float* Pm, const float* U, float* T, int Bd,
+                int k, int rows, int m, int AC, cudaStream_t s) {
+  if (AC > 0) {
+    if (AC > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+    const ApplyLayout lay = chunk_apply_layout(k, m, AC);
+    return ogp::launch_cluster_grid(chunk_apply_cluster_kernel, AC, dim3(AC, cdiv(rows, kApplyBM), 2 * Bd),
+                                    kApplyThreads, lay.floats * static_cast<long long>(sizeof(float)), s, L,
+                                    B, R, Pm, U, k, rows, m, lay);
+  }
   chunk_apply_t_kernel<<<dim3(cdiv(k, kTileN), cdiv(rows, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
       L, B, R, Pm, T, k, rows, m);
   const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return static_cast<int>(e);
   chunk_apply_x_kernel<<<dim3(cdiv(m, kTileN), cdiv(rows, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
       L, B, T, U, k, rows, m);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1328,19 +1639,21 @@ long long ogp_chunk_cluster_smem(int k, int m, int C) {
 
 // K1. L, B: (Bd, m, m), updated in place; idx: (k, P) int32, shared by the
 // outputs; wv: (Bd, k, P); p0, U, Pm, R: (Bd, k, m) scratch; T: (Bd, 2, m, k)
-// scratch. The recursion runs on clusters of C blocks, or one block per
-// output when C is 0. Returns cudaGetLastError() after the launches, or -1
-// when no cluster of C blocks fits on the card.
+// scratch of the tiled apply (unused when AC > 0). The recursion runs on
+// clusters of C blocks, or one block per output when C is 0; the apply on
+// clusters of AC blocks, or on the tiled kernels when AC is 0. Returns
+// cudaGetLastError() after the launches, or -1 when no cluster of C (AC)
+// blocks fits on the card.
 int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float* p0,
                       float* U, float* Pm, float* R, float* T, int Bd, int k, int P, int m,
-                      int C, void* stream) {
+                      int AC, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, s);
   if (rc != 0) return rc;
-  return static_cast<int>(chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, s));
+  return chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, AC, s);
 }
 
 // Column tiles of K4's pass 1: the |p|^2 partials are (Bd, tiles).
@@ -1361,12 +1674,12 @@ int ogp_rank1_update(float* L, float* B, float* A, const float* v, float* p, flo
 
 // K5 sub on a cluster of C blocks per output (C <= 8), the chunk's
 // arguments as K1's (p0, U, Pm, R: (Bd, k, m); T: (Bd, 2, m, k)): one
-// gather, chunk_sub_cluster_kernel, one apply at rank k. Returns
-// cudaGetLastError() after the launches, or -1 when no cluster of C blocks
-// fits on the card.
+// gather, chunk_sub_cluster_kernel, one apply at rank k (on clusters of AC
+// blocks, or tiled when AC is 0). Returns cudaGetLastError() after the
+// launches, or -1 when no cluster of C (AC) blocks fits on the card.
 int ogp_blocked_chunk_sub_cluster(float* L, float* B, const int* idx, const float* wv, float* p0,
                                   float* U, float* Pm, float* R, float* T, int Bd, int k, int sub,
-                                  int P, int m, int C, void* stream) {
+                                  int P, int m, int AC, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C < 1 || C > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
   chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
@@ -1377,17 +1690,18 @@ int ogp_blocked_chunk_sub_cluster(float* L, float* B, const int* idx, const floa
                                      lay.floats * static_cast<long long>(sizeof(float)), s, p0, U,
                                      Pm, R, k, sub, m, lay);
   if (rc != 0) return rc;
-  return static_cast<int>(chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, s));
+  return chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, AC, s);
 }
 
 // K5 sub outside the cluster kernel's shapes, one sub-block at a time.
 // L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
 // (nb, Bd, sub, P) with nb = k / sub; q, U, Pm, R: (nb, Bd, sub, m) scratch;
 // a2: (Bd, sub, sub) and T: (Bd, 2, m, sub) scratch. Each sub-block's
-// recursion runs on clusters of C blocks (C = 0: one block per output).
+// recursion runs on clusters of C blocks (C = 0: one block per output),
+// its apply (at rank sub) on clusters of AC blocks (AC = 0: tiled).
 int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, float* q,
                           float* U, float* Pm, float* R, float* a2, float* T, int Bd, int k,
-                          int sub, int P, int m, int C, void* stream) {
+                          int sub, int P, int m, int AC, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = k / sub;
   const long long mm = m, rows = (long long)sub * m, blk = Bd * rows;
@@ -1416,8 +1730,8 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
     if (rc != 0) return rc;
   }
   for (int j = 0; j < nb; ++j) {
-    e = chunk_apply(L, B, R + j * blk, Pm + j * blk, U + j * blk, T, Bd, sub, m, m, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    const int rc = chunk_apply(L, B, R + j * blk, Pm + j * blk, U + j * blk, T, Bd, sub, m, m, AC, s);
+    if (rc != 0) return rc;
   }
   return 0;
 }
@@ -1432,10 +1746,11 @@ int ogp_blocked_chunk_coord_splits() { return kGramSplit; }
 
 // K5 coord. L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
 // (Bd, k, P); p0: (Bd, k, m), Mg: (Bd, splits, k, k), F: (3, Bd, k, k),
-// X: (3, Bd, k, m), T: (Bd, 2, m, k) scratch.
+// X: (3, Bd, k, m), T: (Bd, 2, m, k) scratch; the apply on clusters of AC
+// blocks, or tiled when AC is 0.
 int ogp_blocked_chunk_coord(float* L, float* B, const int* idx, const float* wv, float* p0,
                             float* Mg, float* F, float* X, float* T, int Bd, int k, int P, int m,
-                            void* stream) {
+                            int AC, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long mm = m, km = (long long)k * m, kk = (long long)k * k;
   chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
@@ -1460,7 +1775,7 @@ int ogp_blocked_chunk_coord(float* L, float* B, const int* idx, const float* wv,
            3 * Bd, 1.f, false, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long bkm = Bd * km;
-  return static_cast<int>(chunk_apply(L, B, X + bkm, X + 2 * bkm, X, T, Bd, k, m, m, s));
+  return chunk_apply(L, B, X + bkm, X + 2 * bkm, X, T, Bd, k, m, m, AC, s);
 }
 
 // K1's three stages as entries of their own, for a chunk whose roots are
@@ -1470,7 +1785,7 @@ int ogp_blocked_chunk_coord(float* L, float* B, const int* idx, const float* wv,
 // across the processes (torch.distributed all_reduce), every process runs
 // the recursion on the sum, and each applies the factors to its own rows.
 // The kernels are K1's own (chunk_gather_kernel, the recursion kernels,
-// chunk_apply_t/x_kernel), launched as ogp_blocked_chunk launches them.
+// the apply's), launched as ogp_blocked_chunk launches them.
 
 // The gather over a row shard. B: (Bd, rows, m), rows [row0, row0 + rows) of
 // each output's inverse root; idx: (k, P) int32 in [0, m); wv: (Bd, k, P);
@@ -1491,11 +1806,18 @@ int ogp_chunk_factors(const float* p0, float* U, float* Pm, float* R, int Bd, in
 }
 
 // The apply on a row shard: L, B: (Bd, rows, m), updated in place; R, Pm,
-// U: (Bd, k, m); T: (Bd, 2, rows, k) scratch.
+// U: (Bd, k, m); T: (Bd, 2, rows, k) scratch of the tiled apply. On
+// clusters of AC blocks, or tiled when AC is 0; returns cudaGetLastError(),
+// or -1 when no cluster of AC blocks fits on the card.
 int ogp_chunk_apply_rows(float* L, float* B, const float* R, const float* Pm, const float* U,
-                         float* T, int Bd, int k, int rows, int m, void* stream) {
-  return static_cast<int>(
-      chunk_apply(L, B, R, Pm, U, T, Bd, k, rows, m, static_cast<cudaStream_t>(stream)));
+                         float* T, int Bd, int k, int rows, int m, int AC, void* stream) {
+  return chunk_apply(L, B, R, Pm, U, T, Bd, k, rows, m, AC, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of one block of K1's apply on clusters of C
+// blocks, in bytes (chunk_apply_layout).
+long long ogp_chunk_apply_smem(int k, int m, int C) {
+  return chunk_apply_layout(k, m, C).floats * static_cast<long long>(sizeof(float));
 }
 
 }  // extern "C"

@@ -26,6 +26,7 @@ the shape rule of the kernels that run on thread-block clusters
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -159,18 +160,31 @@ def check_layout(plan: ClusterPlan, cuda_bytes: int, what: str) -> None:
                            f"block, the kernel's layout takes {cuda_bytes}; they must be changed together")
 
 
-def launch_check(rc: int, what: str, plan: Optional[ClusterPlan] = None) -> None:
-    if rc == NO_CLUSTER and plan is not None:
-        raise RuntimeError(
-            f"{what}: the card cannot hold one cluster of {plan.cluster} blocks with "
-            f"{plan.shared_bytes} bytes of shared memory each"
-        )
+def launch_check(rc: int, what: str, *plans) -> None:
+    """Raise unless ``rc`` is 0. ``plans``: the cluster plans of the call's
+    launches (None for a launch without one), named when the card could not
+    hold a cluster."""
+    plans = [p for p in plans if p is not None]
+    if rc == NO_CLUSTER and plans:
+        shapes = " or ".join(f"{p.cluster} blocks with {p.shared_bytes} bytes of shared memory each" for p in plans)
+        raise RuntimeError(f"{what}: the card cannot hold one cluster of {shapes}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def card_sms(device: torch.device) -> int:
+    """The SMs of the CUDA device (read once a card). K3's apply picks its
+    tile so that each gets a block."""
+    return _card_sms(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -26,6 +26,14 @@ schedule, raises RuntimeError. On CUDA the caches are updated in place.
 ``pred_chunk.launches`` counts the calls that launched the kernel, and
 ``pred_chunk.cluster_launches`` those whose recursion ran on a cluster.
 
+K3's apply (C -= Z^T Z, mu += Z^T r), which ends :func:`pred_chunk` and
+is :func:`pred_apply_rows`, runs 128 x 128 tiles of C a block, or 64 x
+128 where those would leave SMs without a block (:func:`pred_apply_plan`,
+by shape and the card's SM count; the wrappers check its shared memory
+against the kernel's, ``ogp_pred_apply_smem``). Every apply launched adds
+one to ``pred_apply_plan.launches`` and to
+``pred_apply_plan.shapes[(Bd, rows, m, k)]``.
+
 K3's three stages are also wrappers of their own, for caches whose rows
 are sharded over processes (``parallel/mesh.py::sharded_pred_stream_blocked``):
 :func:`pred_gather_rows` (the partial c0w and mu0w of a shard's rows),
@@ -37,7 +45,9 @@ version and counting its own ``launches`` (``pred_factors`` also
 
 from __future__ import annotations
 
+import collections
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -61,7 +71,7 @@ def _pred_stream_lib():
     if _lib is None:
         lib = _build.load("pred_stream")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ogp_pred_chunk.argtypes = [vp] * 12 + [i32] * 5 + [vp]
+        lib.ogp_pred_chunk.argtypes = [vp] * 12 + [i32] * 6 + [vp]
         lib.ogp_pred_chunk.restype = i32
         lib.ogp_pred_chunk_smem.argtypes = [i32, i32]
         lib.ogp_pred_chunk_smem.restype = ctypes.c_longlong
@@ -71,8 +81,10 @@ def _pred_stream_lib():
         lib.ogp_pred_gather_rows.restype = i32
         lib.ogp_pred_factors.argtypes = [vp] * 10 + [i32] * 5 + [vp]
         lib.ogp_pred_factors.restype = i32
-        lib.ogp_pred_apply_rows.argtypes = [vp] * 4 + [i32] * 5 + [vp]
+        lib.ogp_pred_apply_rows.argtypes = [vp] * 4 + [i32] * 6 + [vp]
         lib.ogp_pred_apply_rows.restype = i32
+        lib.ogp_pred_apply_smem.argtypes = [i32]
+        lib.ogp_pred_apply_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -117,6 +129,54 @@ def _pred_plan(lib, k: int, m: int, P: int):
                          f"cluster holds it, and the single-block kernel takes k <= {MAX_CHUNK} with "
                          f"(m + 2k + 1) floats of shared memory <= {MAX_SHARED_BYTES} bytes")
     return None, 0
+
+
+# What the layout of pred_apply_kernel (csrc/pred_stream.cu) depends on:
+# kPredBN, kPredKT, kPredStages.
+PRED_APPLY_COLS = 128
+PRED_APPLY_DEPTH = 16
+PRED_APPLY_STAGES = 3
+
+
+class PredApplyPlan(NamedTuple):
+    """K3's apply: tiles of ``tile_rows`` x ``tile_cols`` of C a block, with
+    ``shared_bytes`` of shared memory; ``blocks`` in all."""
+
+    tile_rows: int
+    tile_cols: int
+    shared_bytes: int
+    blocks: int
+
+
+def pred_apply_plan(Bd: int, rows: int, m: int, sms: int) -> PredApplyPlan:
+    """The tile rule of K3's apply on ``rows`` rows of Bd caches of width m
+    on a card of ``sms`` SMs (:func:`~online_gp_torch.ops._build.card_sms`):
+    128-row tiles where they give every SM a block, else 64-row tiles (an
+    H100 SXM's 132 SMs at m = 900: 120 blocks of 64 rows against 64 of
+    128). The ring's three slots of 16 rows of Z, for the tile's rows and
+    its 128 columns, are its shared memory."""
+    blocks = lambda bm: Bd * -(-rows // bm) * -(-m // PRED_APPLY_COLS)
+    bm = 128 if blocks(128) >= sms else 64
+    nbytes = 4 * PRED_APPLY_STAGES * PRED_APPLY_DEPTH * (bm + PRED_APPLY_COLS)
+    return PredApplyPlan(bm, PRED_APPLY_COLS, nbytes, blocks(bm))
+
+
+pred_apply_plan.launches = 0
+pred_apply_plan.shapes = collections.Counter()  # (Bd, rows, m, k) -> launches
+
+
+def _pred_apply_tile(lib, C: torch.Tensor, rows: int, m: int, what: str) -> int:
+    """The tile rows of the apply on ``rows`` rows of the caches C (Bd
+    outputs, on the card that holds C), its plan checked against the
+    kernel's layout."""
+    plan = pred_apply_plan(C.shape[0], rows, m, _build.card_sms(C.device))
+    _build.check_layout(plan, lib.ogp_pred_apply_smem(plan.tile_rows), f"{what}'s apply (rows={rows}, m={m})")
+    return plan.tile_rows
+
+
+def _count_apply(Bd: int, rows: int, m: int, k: int) -> None:
+    pred_apply_plan.launches += 1
+    pred_apply_plan.shapes[(Bd, rows, m, k)] += 1
 
 
 def _check_stencil_args(idx, wv, Bd, size, k_vectors):
@@ -164,6 +224,7 @@ def pred_chunk(C, mu, idx, wv, y, nz):
     k, P = idx.shape
     lib = _pred_stream_lib()
     plan, Cl = _pred_plan(lib, k, m, P)
+    AM = _pred_apply_tile(lib, C, m, m, "pred_chunk")
     dev = C.device
     f32 = dict(dtype=torch.float32, device=dev)
     c0w = torch.empty((Bd, k, m), **f32)
@@ -172,11 +233,12 @@ def pred_chunk(C, mu, idx, wv, y, nz):
     p_ = _build.ptr
     rc = lib.ogp_pred_chunk(
         p_(C), p_(mu), p_(idx), p_(wv), p_(y), p_(nz), p_(c0w), p_(vecs[0]), p_(Z),
-        p_(vecs[1]), p_(vecs[2]), p_(vecs[3]), Bd, k, P, m, Cl, _build.stream_of(C),
+        p_(vecs[1]), p_(vecs[2]), p_(vecs[3]), Bd, k, P, m, AM, Cl, _build.stream_of(C),
     )
     _build.launch_check(rc, "pred_chunk", plan)
     pred_chunk.launches += 1
     pred_chunk.cluster_launches += plan is not None
+    _count_apply(Bd, m, m, k)
     return C, mu, vecs[2], vecs[3]
 
 
@@ -301,11 +363,13 @@ def pred_apply_rows(C, mu, Z, r, row0: int):
     k = Z.shape[1]
     if Bd * rows * m >= 2**31 or Bd > MAX_GRID_YZ:
         raise ValueError(f"Bd={Bd} and {Bd * rows * m} elements exceed what the K3 kernels take")
+    lib = _pred_stream_lib()
+    AM = _pred_apply_tile(lib, C, rows, m, "pred_apply_rows")
     p_ = _build.ptr
-    rc = _pred_stream_lib().ogp_pred_apply_rows(p_(C), p_(mu), p_(Z), p_(r), Bd, k, rows, m, int(row0),
-                                                _build.stream_of(C))
+    rc = lib.ogp_pred_apply_rows(p_(C), p_(mu), p_(Z), p_(r), Bd, k, rows, m, int(row0), AM, _build.stream_of(C))
     _build.launch_check(rc, "pred_apply_rows")
     pred_apply_rows.launches += 1
+    _count_apply(Bd, rows, m, k)
     return C, mu
 
 

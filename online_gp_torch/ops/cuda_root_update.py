@@ -24,6 +24,18 @@ sharded over processes (``parallel/mesh.py::sharded_stream_blocked``):
 plain version and counting its own ``launches`` (``chunk_factors`` also
 ``cluster_launches``).
 
+K1's apply (X += (X A^T) U for (X, A) = (L, R), (B, P)), which every
+wrapper here that updates L and B ends with, also runs on clusters:
+:func:`chunk_apply_plan` gives a 64-row tile of one X to 8 blocks, each
+taking its columns of the tile, the partial products X A^T summed over
+the cluster; where T (64 x k) does not fit a block's shared memory
+beside the ring (k > 544) the two tiled kernels run it instead. Each
+wrapper checks the plan against the kernel's layout
+(``ogp_chunk_apply_smem``), and every apply launched adds one to
+``chunk_apply_plan.launches`` (on clusters) or
+``chunk_apply_plan.tiled_launches``, and to
+``chunk_apply_plan.shapes[(Bd, rows, m, k)]``.
+
 K1's recursion runs on a thread-block cluster: :func:`chunk_cluster_plan`
 splits each output's m columns over 8 blocks that keep their columns of
 the factor rows U, P, R in shared memory. A chunk whose slices do not fit
@@ -55,7 +67,9 @@ fused cluster kernel in ``sub_cluster_launches``) and ``coord_launches``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -92,7 +106,7 @@ def _root_update_lib():
         lib.ogp_rank1_apply.restype = i32
         lib.ogp_rank1_apply_rows.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
         lib.ogp_rank1_apply_rows.restype = i32
-        lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 5 + [vp]
+        lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 6 + [vp]
         lib.ogp_blocked_chunk.restype = i32
         lib.ogp_blocked_chunk_smem.argtypes = [i32, i32]
         lib.ogp_blocked_chunk_smem.restype = ctypes.c_longlong
@@ -102,13 +116,13 @@ def _root_update_lib():
         lib.ogp_rank1_update_tiles.restype = i32
         lib.ogp_rank1_update.argtypes = [vp] * 6 + [i32, i32, vp]
         lib.ogp_rank1_update.restype = i32
-        lib.ogp_blocked_chunk_sub.argtypes = [vp] * 10 + [i32] * 6 + [vp]
+        lib.ogp_blocked_chunk_sub.argtypes = [vp] * 10 + [i32] * 7 + [vp]
         lib.ogp_blocked_chunk_sub.restype = i32
-        lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+        lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 7 + [vp]
         lib.ogp_blocked_chunk_sub_cluster.restype = i32
         lib.ogp_blocked_chunk_coord_smem.argtypes = [i32]
         lib.ogp_blocked_chunk_coord_smem.restype = ctypes.c_longlong
-        lib.ogp_blocked_chunk_coord.argtypes = [vp] * 9 + [i32] * 4 + [vp]
+        lib.ogp_blocked_chunk_coord.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         lib.ogp_blocked_chunk_coord_splits.argtypes = []
         lib.ogp_blocked_chunk_coord_splits.restype = i32
         lib.ogp_blocked_chunk_coord.restype = i32
@@ -116,8 +130,10 @@ def _root_update_lib():
         lib.ogp_chunk_gather_rows.restype = i32
         lib.ogp_chunk_factors.argtypes = [vp] * 4 + [i32] * 4 + [vp]
         lib.ogp_chunk_factors.restype = i32
-        lib.ogp_chunk_apply_rows.argtypes = [vp] * 6 + [i32] * 4 + [vp]
+        lib.ogp_chunk_apply_rows.argtypes = [vp] * 6 + [i32] * 5 + [vp]
         lib.ogp_chunk_apply_rows.restype = i32
+        lib.ogp_chunk_apply_smem.argtypes = [i32] * 3
+        lib.ogp_chunk_apply_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
@@ -284,6 +300,91 @@ def fused_root_cache_update(cache: RootCache, v: torch.Tensor) -> RootCache:
 
 
 # --------------------------------------------------------------------------
+# K1's apply: the shape rule of its cluster kernel
+# --------------------------------------------------------------------------
+
+# What the layout of chunk_apply_cluster_kernel (csrc/root_update.cu)
+# depends on: kApplyBM, kApplyStages, kApplySlot, kApplyUJ.
+APPLY_TILE_ROWS = 64
+APPLY_STAGES = 3
+APPLY_SLOT = 64 * 32 + 32 * (128 + 4)
+APPLY_UJ = 32
+
+
+class ApplyPlan(NamedTuple):
+    """K1's apply on clusters: ``cluster`` blocks own each ``tile_rows``-row
+    tile of one X, each its ``cols`` columns, with ``shared_bytes`` of
+    shared memory; ``blocks`` per output (both of L and B)."""
+
+    cluster: int
+    tile_rows: int
+    cols: int
+    shared_bytes: int
+    blocks: int
+
+
+def _chunk_apply_floats(k: int, m: int, C: int):
+    """(columns per block, floats per block) of the cluster apply:
+    ``chunk_apply_layout`` in ``csrc/root_update.cu``. A block's columns,
+    cdiv(m, C) rounded up to 4; T (64 x k, k rounded up to 32), a C-th of
+    it for its cluster sums, and the ring's three slots (64 rows of X, 32
+    columns each, and those columns of A^T, rows of 128 + 4)."""
+    W = 4 * -(-(-(-m // C)) // 4)  # 4 cdiv(cdiv(m, C), 4)
+    t = APPLY_TILE_ROWS * APPLY_UJ * -(-k // APPLY_UJ)
+    return W, t + t // C + APPLY_STAGES * APPLY_SLOT
+
+
+def chunk_apply_plan(k: int, rows: int, m: int) -> Optional[ApplyPlan]:
+    """The shape rule of K1's apply on ``rows`` rows of (L, B) (rows = m for
+    a whole chunk) at rank k: the :class:`ApplyPlan` on clusters of 8 blocks
+    when one block holds T (64 x k) with its share of the cluster sums and
+    the ring in at most 232,448 bytes of shared memory (k <= 544, at any
+    m; two blocks a SM up to k = 128); None where it does not, and the two
+    tiled kernels run the apply. The layout does not depend on rows, the
+    grid does."""
+    C = _build.CLUSTER_SIZE
+    W, floats = _chunk_apply_floats(k, m, C)
+    if 4 * floats > MAX_SHARED_BYTES:
+        return None
+    return ApplyPlan(C, APPLY_TILE_ROWS, W, 4 * floats, 2 * C * -(-rows // APPLY_TILE_ROWS))
+
+
+chunk_apply_plan.launches = 0
+chunk_apply_plan.tiled_launches = 0
+chunk_apply_plan.shapes = collections.Counter()  # (Bd, rows, m, k) -> launches
+
+
+def _apply_plan(lib, k: int, rows: int, m: int, what: str):
+    """(plan, blocks per cluster) of K1's apply at (k, rows, m): the
+    cluster plan, or (None, 0) for the tiled kernels; raises RuntimeError
+    where the plan is not the kernel's layout."""
+    plan = chunk_apply_plan(k, rows, m)
+    if plan is None:
+        return None, 0
+    _build.check_layout(plan, lib.ogp_chunk_apply_smem(k, m, plan.cluster), f"{what}'s apply (k={k}, m={m})")
+    return plan, plan.cluster
+
+
+def _apply_scratch(plan, Bd: int, rows: int, k: int, device):
+    """T (Bd, 2, rows, k) of the tiled apply; None when the apply runs on
+    clusters, which keep T in shared memory."""
+    return None if plan is not None else torch.empty((Bd, 2, rows, k), dtype=torch.float32, device=device)
+
+
+def _count_applies(plan, Bd: int, rows: int, m: int, k: int, n: int = 1) -> None:
+    """Counts n applies launched at (Bd, rows, m, k) on the route of plan."""
+    if plan is None:
+        chunk_apply_plan.tiled_launches += n
+    else:
+        chunk_apply_plan.launches += n
+    chunk_apply_plan.shapes[(Bd, rows, m, k)] += n
+
+
+def _ptr_or_null(t):
+    return None if t is None else _build.ptr(t)
+
+
+# --------------------------------------------------------------------------
 # K1 and K5: one blocked chunk of the root stream
 # --------------------------------------------------------------------------
 
@@ -404,17 +505,19 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
     if sub < k:
         return _chunk_sub(lib, L, B, idx, wv, sub)
     plan, C = _recursion_plan(lib, k, m, "chunk")
+    aplan, AC = _apply_plan(lib, k, m, m, "chunk")
     dev = L.device
     factors = torch.empty((4, Bd, k, m), dtype=torch.float32, device=dev)  # p0, U, P, R
-    T = torch.empty((Bd, 2, m, k), dtype=torch.float32, device=dev)
+    T = _apply_scratch(aplan, Bd, m, k, dev)
     p_ = _build.ptr
     rc = lib.ogp_blocked_chunk(
         p_(L), p_(B), p_(idx), p_(wv), p_(factors[0]), p_(factors[1]), p_(factors[2]),
-        p_(factors[3]), p_(T), Bd, k, P, m, C, _build.stream_of(L),
+        p_(factors[3]), _ptr_or_null(T), Bd, k, P, m, AC, C, _build.stream_of(L),
     )
-    _build.launch_check(rc, "blocked_chunk", plan)
+    _build.launch_check(rc, "blocked_chunk", plan, aplan)
     blocked_chunk.launches += 1
     blocked_chunk.cluster_launches += plan is not None
+    _count_applies(aplan, Bd, m, m, k)
     return L, B
 
 
@@ -438,29 +541,33 @@ def _chunk_sub(lib, L, B, idx, wv, sub):
     if plan is not None:
         what = f"blocked_chunk (sub={sub}, k={k}, m={m})"
         _build.check_layout(plan, lib.ogp_chunk_cluster_smem(k, m, plan.cluster), what)
+        aplan, AC = _apply_plan(lib, k, m, m, what)
         factors = torch.empty((4, Bd, k, m), **f32)  # p0, U, Pc, Rc
-        T = torch.empty((Bd, 2, m, k), **f32)
+        T = _apply_scratch(aplan, Bd, m, k, L.device)
         rc = lib.ogp_blocked_chunk_sub_cluster(
-            p_(L), p_(B), p_(idx), p_(wv), *(p_(f) for f in factors), p_(T), Bd, k, sub, P, m,
-            plan.cluster, _build.stream_of(L),
+            p_(L), p_(B), p_(idx), p_(wv), *(p_(f) for f in factors), _ptr_or_null(T), Bd, k, sub, P, m,
+            AC, plan.cluster, _build.stream_of(L),
         )
-        _build.launch_check(rc, what, plan)
+        _build.launch_check(rc, what, plan, aplan)
         blocked_chunk.sub_launches += 1
         blocked_chunk.sub_cluster_launches += 1
+        _count_applies(aplan, Bd, m, m, k)
         return L, B
     nb = k // sub
     plan, C = _recursion_plan(lib, sub, m, "sub-block")
+    aplan, AC = _apply_plan(lib, sub, m, m, "sub-block")
     # sub-block j's weights contiguous, as its gather reads them
     wv_sub = wv.reshape(Bd, nb, sub, P).transpose(0, 1).contiguous()
     factors = torch.empty((4, nb, Bd, sub, m), **f32)  # corrected rows q, U, P, R
     a2 = torch.empty((Bd, sub, sub), **f32)
-    T = torch.empty((Bd, 2, m, sub), **f32)
+    T = _apply_scratch(aplan, Bd, m, sub, L.device)
     rc = lib.ogp_blocked_chunk_sub(
         p_(L), p_(B), p_(idx), p_(wv_sub), p_(factors[0]), p_(factors[1]), p_(factors[2]),
-        p_(factors[3]), p_(a2), p_(T), Bd, k, sub, P, m, C, _build.stream_of(L),
+        p_(factors[3]), p_(a2), _ptr_or_null(T), Bd, k, sub, P, m, AC, C, _build.stream_of(L),
     )
-    _build.launch_check(rc, "blocked_chunk (sub)", plan)
+    _build.launch_check(rc, "blocked_chunk (sub)", plan, aplan)
     blocked_chunk.sub_launches += 1
+    _count_applies(aplan, Bd, m, m, sub, nb)
     return L, B
 
 
@@ -476,14 +583,16 @@ def _chunk_coord(lib, L, B, idx, wv):
     M = torch.empty((Bd, lib.ogp_blocked_chunk_coord_splits(), k, k), **f32)  # partials of P0 P0^T
     F = torch.empty((3, Bd, k, k), **f32)  # Ut, Rt, Pt
     X = torch.empty((3, Bd, k, m), **f32)  # U, R, P = F P0
-    T = torch.empty((Bd, 2, m, k), **f32)
+    aplan, AC = _apply_plan(lib, k, m, m, "blocked_chunk (coord)")
+    T = _apply_scratch(aplan, Bd, m, k, L.device)
     p_ = _build.ptr
     rc = lib.ogp_blocked_chunk_coord(
-        p_(L), p_(B), p_(idx), p_(wv), p_(p0), p_(M), p_(F), p_(X), p_(T), Bd, k, P, m,
+        p_(L), p_(B), p_(idx), p_(wv), p_(p0), p_(M), p_(F), p_(X), _ptr_or_null(T), Bd, k, P, m, AC,
         _build.stream_of(L),
     )
-    _build.launch_check(rc, "blocked_chunk (coord)")
+    _build.launch_check(rc, "blocked_chunk (coord)", aplan)
     blocked_chunk.coord_launches += 1
+    _count_applies(aplan, Bd, m, m, k)
     return L, B
 
 
@@ -585,7 +694,9 @@ def chunk_apply_rows_plain(L: torch.Tensor, B: torch.Tensor, U: torch.Tensor, Pm
 
 
 def chunk_apply_rows(L: torch.Tensor, B: torch.Tensor, U: torch.Tensor, Pm: torch.Tensor, R: torch.Tensor):
-    """K1's apply on a row shard: L += (L R^T) U, B += (B P^T) U.
+    """K1's apply on a row shard: L += (L R^T) U, B += (B P^T) U, on
+    clusters where :func:`chunk_apply_plan` holds (k, rows, m), else on the
+    tiled kernels. At rows = m it is the whole chunk's apply.
 
     Args:
       L, B: (Bd, rows, m) a shard's rows of the root and inverse root.
@@ -603,12 +714,15 @@ def chunk_apply_rows(L: torch.Tensor, B: torch.Tensor, U: torch.Tensor, Pm: torc
     Bd, rows, m = L.shape
     k = U.shape[1]
     _check_sizes(Bd, m, rows)
-    T = torch.empty((Bd, 2, rows, k), dtype=torch.float32, device=L.device)
+    lib = _root_update_lib()
+    aplan, AC = _apply_plan(lib, k, rows, m, "chunk_apply_rows")
+    T = _apply_scratch(aplan, Bd, rows, k, L.device)
     p_ = _build.ptr
-    rc = _root_update_lib().ogp_chunk_apply_rows(p_(L), p_(B), p_(R), p_(Pm), p_(U), p_(T), Bd, k, rows, m,
-                                                 _build.stream_of(L))
-    _build.launch_check(rc, "chunk_apply_rows")
+    rc = lib.ogp_chunk_apply_rows(p_(L), p_(B), p_(R), p_(Pm), p_(U), _ptr_or_null(T), Bd, k, rows, m, AC,
+                                  _build.stream_of(L))
+    _build.launch_check(rc, "chunk_apply_rows", aplan)
     chunk_apply_rows.launches += 1
+    _count_applies(aplan, Bd, rows, m, k)
     return L, B
 
 

@@ -88,22 +88,23 @@ def main() -> int:
         nz = torch.ones((1, cs.K), device=dev)
         recursion = "pred_recursion_cluster_kernel" if pred_cluster_plan(cs.K, grid.num_points, idx.shape[1]) \
             else "pred_recursion_kernel"
-        rows = grid.num_points // 2
+        m = grid.num_points
+        rows = m // 2
         Lr, Br, Cr, mur = (t[:, :rows].contiguous() for t in (L, B, C, mu))
         wv = w[None].contiguous()
         U, Pm, R = chunk_factors(chunk_gather_rows(B, idx, wv, 0))
         Z, r, _, _ = pred_factors(idx, w, *pred_gather_rows(C, mu, idx, w, 0), y, nz)
         cases = {
             "pred_chunk": (pred_chunk, lambda: (C.clone(), mu.clone(), idx, w, y, nz),
-                           {"pred_gather_kernel": 1, recursion: 1, "pred_apply_kernel": 1}),
+                           {"pred_gather_kernel": 1, recursion: 1, **cs.k3_apply_kernels(1, m, m)}),
             "rank1_apply": (rank1_apply, lambda: (L.clone(), B.clone(), p),
                             {"rank1_prepass_kernel": 1, "rank1_rows_kernel": 1}),
             "chunk_gather_rows": (chunk_gather_rows, lambda: (Br, idx, wv, 0), {"chunk_gather_kernel": 1}),
             "chunk_apply_rows": (chunk_apply_rows, lambda: (Lr.clone(), Br.clone(), U, Pm, R),
-                                 {"chunk_apply_t_kernel": 1, "chunk_apply_x_kernel": 1}),
+                                 cs.k1_apply_kernels(cs.K, rows, m)),
             "pred_gather_rows": (pred_gather_rows, lambda: (Cr, mur, idx, w, 0), {"pred_gather_kernel": 1}),
             "pred_apply_rows": (pred_apply_rows, lambda: (Cr.clone(), mur.clone(), Z, r, 0),
-                                {"pred_apply_kernel": 1}),
+                                cs.k3_apply_kernels(1, rows, m)),
         }
         for name, (fn, make, kernels) in cases.items():
             for pad_s in PADS_S:

@@ -182,6 +182,10 @@ class _SizeQueries:
     def ogp_pred_cluster_smem(self, k, m, P, C):
         return 4 * tcps._pred_cluster_floats(k, m, P, C)[1] + self.skew
 
+    @staticmethod
+    def ogp_chunk_apply_smem(k, m, C):  # K1's apply, which every K1 and K5 chunk ends with
+        return 4 * tcru._chunk_apply_floats(k, m, C)[1]
+
 
 @pytest.mark.parametrize("which", ["K1", "K3"])
 def test_wrapper_dispatch_admits_every_chunk_the_single_block_kernel_took(which):
