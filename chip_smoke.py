@@ -10,10 +10,11 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    its plain PyTorch version on the card, on the same inputs, at m=900
    and k=128, for Bd=1 and Bd=2: K2 and one K1 chunk to 1e-5, a 4-chunk
    K1 stream to 2e-4, K3 to 2e-4 (allclose: |a-b| <= tol + tol*|b|); K1
-   and K3 bitwise the same on a second call. Outside the cluster
-   envelope, on the single-block recursion kernels: one K1 chunk at
-   m=2,500 (a 50x50 grid) to 1e-5 and one K3 chunk of k=512 at m=900 to
-   2e-4. Each kernel's device time (torch.profiler, summed over its CUDA
+   and K3 bitwise the same on a second call. Outside the one-cluster
+   envelope: one K1 chunk at m=2,500 (a 50x50 grid), on G = 3 clusters
+   of 8 (the grid recursion kernel), to 1e-5, and one K3 chunk of k=512
+   at m=900, on the single-block recursion kernel, to 2e-4. Each
+   kernel's device time (torch.profiler, summed over its CUDA
    kernels, with each one's share), its wrapper's time between CUDA
    events (host issue included), its plain version's time, one PyTorch
    library call's (a yardstick the port never calls) and the least time
@@ -30,7 +31,9 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    metrics 7 times after a warm-up (median and min-max spread),
    wiski_prequential_stream of 4,096 points (K3 and K1). The launch
    counters are zeroed just before and read just after; each kernel must
-   have launched, every K1 and K3 chunk with its recursion on a cluster. Then a short profiled pass of both
+   have launched, every K1 and K3 chunk with its recursion on one cluster
+   of 8 (none on G > 1 clusters or 16 blocks). Then a short profiled
+   pass of both
    streams: torch.profiler must record the cluster recursion kernels and
    no single-block recursion. Gates: the stream's
    roots match the plain root update over a 256-point prefix to within
@@ -57,7 +60,7 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    to 2e-4 at Bd=1 and 2, with each variant's distance to flat K1 and K1
    flat's device time on the same inputs, one sub chunk at m=1,089 (fused,
    near the envelope's edge; also bitwise) and one at m=2,500 (outside it,
-   one sub-block at a time) to 1e-5;
+   one sub-block at a time, each on one cluster) to 1e-5;
    K6 on SPD batches at m = 900, 1,000 and
    130 for Bd = 1 and 4 and on a (2, 2, 900, 900) batch, against its plain
    version and torch.linalg.cholesky to atol 2e-5, rtol 1e-4, bitwise the
@@ -92,11 +95,19 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
 
 6. The large-grid regime at m = 4,096 (a 64x64 grid, bench.py:474-640):
    - K1 (one chunk of k = 128), K2 (16 calls), K3 (one chunk) and K6 (Q of
-     a state of the model) against their plain versions on the card, K1 and
-     K3 on their single-block recursion kernels (checked by their
-     counters), at phase 2's tolerances (K1 and K2 1e-5, K3 2e-4; K6 5e-4
-     relative, as phase 4's Q), with device times, bounds and library
-     yardsticks as in phases 2 and 4.
+     a state of the model) against their plain versions on the card, K1's
+     recursion on G = 4 clusters of 8 (chunk_recursion_grid_kernel) and
+     K3's on one cluster of 16 blocks (checked by their counters), at
+     phase 2's tolerances (K1 and K2 1e-5, K3 2e-4; K6 5e-4 relative, as
+     phase 4's Q), K1 and K3 bitwise the same on a second call, with device
+     times, bounds and library yardsticks as in phases 2 and 4. Beside
+     them (printed, not in the kernels line): the card's capacity for
+     those clusters (cudaOccupancyMaxActiveClusters), K1 and K3 at Bd = 2,
+     and one K1 chunk at each edge of the grid envelope (m = 1,121, the
+     first on G = 2; 4,480, the last on G = 4; 4,481, the single-block
+     kernel) and one K3 chunk at each edge of the 16-block one (3,137;
+     6,016; 6,017, the single-block kernel), each against its plain
+     version, bitwise on a second call, with its device time and bound.
    - The iterative hyper step at bench_iterative_hyper_step's
      configuration: RBF, learned second noise, 1,024 seed points,
      max_cholesky_size 2,048, use_toeplitz. Gate first: the CG/SLQ MLL
@@ -113,7 +124,8 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
      zeroed just before and read just after: OnlineSKIRegression
      (LinearStem(2, 2), grid_size=64: dense, iterative GP step by default):
      16 update()s at q = 1, predict of 1,024, prequential of 512, absorb of
-     1,024 (K2, K6, K3 and K1, the latter two on single blocks); the same
+     1,024 (K2, K6, K3 and K1, every K1 chunk's recursion on G >= 2
+     clusters and every K3 chunk's on 16 blocks, by the counters); the same
      with low_rank=512, and grid_size=128 (m = 16,384, routed to the
      rank-capped core): 16 updates and a predict each. Each has a CPU twin
      (the dense one runs the first update, the others the first 2): params
@@ -239,14 +251,16 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    classes), K6 launched. (c) two gloo ranks spawned on this card
    (``parallel.launch.spawn_ranks``, a FileStore under build/): at m = 900
    (phase 3's model, rows 450 a rank, 4,096 points in chunks of 128, the
-   recursions on clusters) and m = 4,096 (rows 2,048, 512 points, the
-   single-block recursions), ``sharded_stream_blocked`` against the
+   recursions on one cluster of 8) and m = 4,096 (rows 2,048, 512 points,
+   K1's recursion on G = 4 clusters, K3's on 16 blocks),
+   ``sharded_stream_blocked`` against the
    single-device ``wiski_stream`` (K1) and over a 256-point prefix against
    the plain per-point update, each rank's rows within 1e-3 * max(scale,
    1) (bench.py's gate), and ``sharded_pred_stream_blocked`` against the
    single-device K3 stream, caches and moments to 2e-4; in each rank the
    stage counters, zeroed just before and read just after, show every
-   stage once a chunk (on clusters at m = 900 only). (d) on the same two
+   stage once a chunk, the recursions on the clusters of their plans.
+   (d) on the same two
    ranks, ``localgp_experts_step`` at the localgp_regression preset's 256
    points an expert, 8 experts (4 a rank), against the one-process step:
    loss, params, mixture mean and variance within 1e-5 (allclose). (e)
@@ -473,7 +487,7 @@ VARIANTS = {"blocked_chunk_sub": dict(sub=SUB), "blocked_chunk_coord": dict(mode
 CHOL_BLOCK = 128
 CHOL_SIZES = (900, 1000, 130)  # phase 4: K6 at m = 900 (4-column last panel), 1,000, 130
 CHOL_BATCHES = (1, 4)
-OUTSIDE_SIDE = 50  # phase 2: a K1 chunk at m = 2,500, outside the cluster envelope
+OUTSIDE_SIDE = 50  # phase 2: a K1 chunk at m = 2,500, outside one cluster's envelope (on G = 3)
 SUB_EDGE_SIDE = 33  # phase 4: a K5-sub chunk at m = 1,089, near the envelope's edge
 OUTSIDE_K3 = 512  # phase 2: a K3 chunk of k = 512 at m = 900, outside it
 ROWS_OUTSIDE_REGS_M = 1100  # phase 4: K4 where its row kernel cannot hold a row in registers
@@ -491,6 +505,12 @@ M6_SIDE = 64  # a 64x64 grid, m = 4,096
 N_SEED6 = 1024  # bench_iterative_hyper_step's seed points
 N_K2_6 = 16  # K2 calls checked at m = 4,096
 PLAIN_REPS6 = 3  # timing repeats of the plain versions at m = 4,096
+# phase 6: the edges of K1's grid envelope at k = 128 (1,121: the first m on
+# G = 2 clusters; 4,480: the last on G = 4; 4,481: the single-block kernel)
+# and of K3's 16-block one (3,137: the first on 16 blocks; 6,016: the last;
+# 6,017: the single-block kernel)
+K1_EDGES = (1121, 4480, 4481)
+K3_EDGES = (3137, 6016, 6017)
 HYPER_LR, HYPER_STEPS, HYPER_REPEATS = 1e-2, 10, 3
 ITER_GATE_REL = 5e-2  # bench.py:611
 LR_RANK, LR_SEED, LR_CHUNK, LR_CHUNKS, LR_REPEATS = 512, 256, 256, 64, 3
@@ -813,7 +833,8 @@ def clone_all(*ts):
 # the launch counters of the main-path kernels (K2, K1, K3, K6), zeroed just
 # before a path window and read just after
 COUNTED = [(rank1_apply, "launches"), (blocked_chunk, "launches"), (blocked_chunk, "cluster_launches"),
-           (pred_chunk, "launches"), (pred_chunk, "cluster_launches"), (blocked_cholesky, "launches")]
+           (blocked_chunk, "grid_cluster_launches"), (pred_chunk, "launches"), (pred_chunk, "cluster_launches"),
+           (pred_chunk, "wide_cluster_launches"), (blocked_cholesky, "launches")]
 
 
 def zero_counters():
@@ -972,26 +993,46 @@ def check_blocked_chunk(rng, grid, peaks, dev):
     return out, rec
 
 
+def k1_recursion_kernel(k, m):
+    """The CUDA kernel of K1's recursion at (k, m), by chunk_cluster_plan:
+    one cluster of 8, G > 1 of them, or the single block."""
+    plan = chunk_cluster_plan(k, m)
+    if plan is None:
+        return "chunk_recursion_kernel"
+    return "chunk_recursion_cluster_kernel" if plan.clusters == 1 else "chunk_recursion_grid_kernel"
+
+
+def recursion_route(plan):
+    """A recursion plan in words."""
+    if plan is None:
+        return "single-block recursion"
+    return (f"recursion on {plan.clusters} cluster{'s' * (plan.clusters > 1)} of {plan.cluster} blocks, "
+            f"{plan.cols} columns and {plan.shared_bytes} bytes a block")
+
+
 def check_chunk_outside_envelope(rng, dev):
-    """One K1 chunk at a shape no cluster holds (OUTSIDE_SIDE^2 grid, k = K):
-    it runs the single-block recursion kernel, against the plain version."""
+    """One K1 chunk at a shape one cluster does not hold (OUTSIDE_SIDE^2
+    grid, k = K): it runs the grid recursion kernel on G > 1 clusters of 8,
+    against the plain version."""
     grid = Grid.create([(-1.1, 1.1)] * 2, OUTSIDE_SIDE, device=dev)
     m = grid.num_points
-    if chunk_cluster_plan(K, m) is not None:
-        raise AssertionError(f"(k={K}, m={m}) was meant to lie outside the cluster envelope")
+    plan = chunk_cluster_plan(K, m)
+    if plan is None or plan.clusters < 2:
+        raise AssertionError(f"(k={K}, m={m}) was meant to lie outside one cluster's envelope, on G > 1 clusters")
     L, B = synthetic_roots(rng, 1, m, dev)
     _, idx, w = stencil(rng, grid, K, dev)
     wv = w[None].contiguous()
-    before = (blocked_chunk.launches, blocked_chunk.cluster_launches)
+    before = (blocked_chunk.launches, blocked_chunk.cluster_launches, blocked_chunk.grid_cluster_launches)
     got = blocked_chunk(*clone_all(L, B), idx, wv)
     torch.cuda.synchronize()
-    if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1]) != (1, 0):
-        raise AssertionError(f"blocked_chunk at m={m} did not take the single-block recursion")
+    if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1],
+            blocked_chunk.grid_cluster_launches - before[2]) != (1, 1, 1):
+        raise AssertionError(f"blocked_chunk at m={m} did not take the grid recursion")
     err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk m={m}")
     make = lambda: (*clone_all(L, B), idx, wv)
     ms, stages = device_ms(blocked_chunk, make, {
-        "chunk_gather_kernel": 1, "chunk_recursion_kernel": 1, **k1_apply_kernels(K, m, m)})
-    return dict(m=m, k=K, max_abs_err=err, ms=ms, stages_ms=stages)
+        "chunk_gather_kernel": 1, "chunk_recursion_grid_kernel": 1, **k1_apply_kernels(K, m, m)})
+    return dict(m=m, k=K, max_abs_err=err, ms=ms, stages_ms=stages, route=recursion_route(plan))
 
 
 def bitwise(got, again, what):
@@ -1108,6 +1149,7 @@ def main_path(rng, model, params, card, dev):
     for wrapper in wrappers:
         wrapper.launches = 0
     blocked_chunk.cluster_launches = pred_chunk.cluster_launches = 0
+    blocked_chunk.grid_cluster_launches = pred_chunk.wide_cluster_launches = 0
     zero_apply_counters()
     t0 = time.perf_counter()
     state = wiski_stream(model, state, xs, ys, ns, block_size=K)
@@ -1151,6 +1193,8 @@ def main_path(rng, model, params, card, dev):
     if (launches["chunk_recursion_cluster"], launches["pred_recursion_cluster"]) != (
             launches["blocked_chunk"], launches["pred_chunk"]):
         raise AssertionError("a chunk of the main path at m = 900 did not run its recursion on a cluster")
+    if blocked_chunk.grid_cluster_launches or pred_chunk.wide_cluster_launches:
+        raise AssertionError("a chunk of the main path at m = 900 left its one cluster of 8")
 
     if tuple(mean.shape) != (1, N_TEST) or tuple(var.shape) != (1, N_TEST):
         raise AssertionError(f"predict shapes {tuple(mean.shape)}, {tuple(var.shape)}")
@@ -1564,7 +1608,8 @@ def check_sub_sizes(rng, dev):
     for side, fused in ((SUB_EDGE_SIDE, True), (OUTSIDE_SIDE, False)):
         grid = Grid.create([(-1.1, 1.1)] * 2, side, device=dev)
         m = grid.num_points
-        if (chunk_cluster_plan(K, m) is not None) != fused:
+        plan = chunk_cluster_plan(K, m)
+        if (plan is not None and plan.clusters == 1) != fused:
             raise AssertionError(f"(k={K}, sub={SUB}, m={m}) was meant to lie {'in' if fused else 'out'}side "
                                  "the fused kernel's envelope")
         L, B = synthetic_roots(rng, 1, m, dev)
@@ -1988,9 +2033,11 @@ def large_model(dev, seed_rng):
 
 
 def check_kernels_large(rng, model, params, state, peaks, dev):
-    """K2 (16 calls), K1 and K3 (one chunk each, on their single-block
-    recursion kernels) and K6 (Q of the state) at m = 4,096 against their
-    plain versions on the card, with device times, bounds and yardsticks."""
+    """K2 (16 calls), K1 and K3 (one chunk each: K1's recursion on G = 4
+    clusters of 8, K3's on a cluster of 16) and K6 (Q of the state) at
+    m = 4,096 against their plain versions on the card, with device times,
+    bounds and yardsticks. Returns (those rows, the checks beside them:
+    K1 and K3 at Bd = 2 and at the edges of their envelopes)."""
     grid = model.grid
     m = grid.num_points
     L, B = synthetic_roots(rng, 1, m, dev)
@@ -1999,21 +2046,83 @@ def check_kernels_large(rng, model, params, state, peaks, dev):
     out["rank1_apply"] = check_k2(L, B, idx2, w2[None], peaks, f"m={m}", PLAIN_REPS6)
     out["rank1_apply"]["route"] = "row kernel looping over each row (m > 32 kRowRegs)"
     _, idx, w = stencil(rng, grid, K, dev)
-    if chunk_cluster_plan(K, m) is not None:
-        raise AssertionError(f"(k={K}, m={m}) was expected outside K1's cluster envelope")
-    out["blocked_chunk"] = check_k1(L, B, idx, w[None].contiguous(), peaks, f"m={m}", False, PLAIN_REPS6)
+    plan = chunk_cluster_plan(K, m)
+    if plan is None or plan.clusters < 2:
+        raise AssertionError(f"(k={K}, m={m}) was expected on G >= 2 clusters of K1's grid recursion")
+    out["blocked_chunk"] = check_k1(L, B, idx, w[None].contiguous(), peaks, f"m={m}", True, PLAIN_REPS6)
+    # its recursion as a row of its own, as phase 2's: the device time within
+    # the chunk, the plain recursion's; 10 t m flops at step t, p0 in, U, P, R out
+    p0 = torch.einsum("bkp,bkpm->bkm", w[None], B[:, idx.long()]).contiguous()
+    bms, by = bound_ms(4 * 4 * K * m, 5 * K * (K - 1) * m, peaks)
+    out["chunk_recursion_grid"] = dict(
+        max_abs_err=out["blocked_chunk"]["max_abs_err"],
+        ms=out["blocked_chunk"]["stages_ms"]["chunk_recursion_grid_kernel"],
+        route=recursion_route(plan), plain_ms=time_ms(blocked_factors, lambda: (p0,), PLAIN_REPS6), library_ms=None,
+        bound_ms=bms, bound_by=by)
 
     # K3: one chunk on the model's caches
     with torch.no_grad():
         mean_cache, cov_cache = wiski_prediction_caches(model, params, state)
-    x, idx, w = stencil(rng, grid, K, dev)
-    if pred_cluster_plan(K, m, idx.shape[1]) is not None:
-        raise AssertionError(f"(k={K}, m={m}) was expected outside K3's cluster envelope")
+    x, idx3, w3 = stencil(rng, grid, K, dev)
+    plan3 = pred_cluster_plan(K, m, idx3.shape[1])
+    if plan3 is None or plan3.cluster != 16:
+        raise AssertionError(f"(k={K}, m={m}) was expected on K3's cluster of 16 blocks")
     y = torch.sin(3 * x[:, 0])[None].contiguous()
-    out["pred_chunk"] = check_k3(cov_cache.contiguous(), mean_cache[..., 0].contiguous(), idx, w, y, peaks,
-                                 f"m={m}", False, PLAIN_REPS6)
+    C1, mu1 = cov_cache.contiguous(), mean_cache[..., 0].contiguous()
+    out["pred_chunk"] = check_k3(C1, mu1, idx3, w3, y, peaks, f"m={m}", True, PLAIN_REPS6)
+    S, P = stencil_rows(idx3, w3, m), idx3.shape[1]
+    plain_args = (S, S @ C1, mu1 @ S.mT, y, torch.ones_like(y))
+    # a: 2 t P, ct: 2 t m flops at step t; c0w in, Z out
+    bms, by = bound_ms(4 * (2 * K * m + 5 * K) + 8 * K * P, K * (K - 1) * (m + P), peaks)
+    out["pred_recursion_wide"] = dict(
+        max_abs_err=out["pred_chunk"]["max_abs_err"],
+        ms=out["pred_chunk"]["stages_ms"]["pred_recursion_cluster_kernel"],
+        route=recursion_route(plan3), plain_ms=time_ms(pred_chunk_factors, lambda: plain_args, PLAIN_REPS6),
+        library_ms=None, bound_ms=bms, bound_by=by)
     out["blocked_cholesky"] = check_k6(q_matrix(model, params, state), peaks, f"Q (m={m})", PLAIN_REPS6)
-    return out
+
+    lib, plib = cuda_root_update._root_update_lib(), cuda_pred_stream._pred_stream_lib()
+    beside = {"capacity": {
+        "K1 grid recursion": dict(plan=plan._asdict(), clusters_at_once=lib.ogp_chunk_grid_capacity(
+            K, m, plan.cluster, plan.clusters)),
+        "K3 cluster recursion": dict(plan=plan3._asdict(), clusters_at_once=plib.ogp_pred_cluster_capacity(
+            K, m, idx3.shape[1], plan3.cluster))}}
+    L2, B2 = synthetic_roots(rng, 2, m, dev)
+    wv2 = (w[None] * torch.tensor([1.0, 1.3], device=dev)[:, None, None]).contiguous()
+    beside["blocked_chunk Bd=2"] = check_k1(L2, B2, idx, wv2, peaks, f"m={m} Bd=2", True, 1)
+    C2 = torch.cat([C1, 0.9 * C1]).contiguous()
+    mu2 = torch.cat([mu1, -mu1]).contiguous()
+    y2 = torch.cat([y, 0.5 * y]).contiguous()
+    beside["pred_chunk Bd=2"] = check_k3(C2, mu2, idx3, w3, y2, peaks, f"m={m} Bd=2", True, 1)
+    for me in K1_EDGES:
+        Le, Be = synthetic_roots(rng, 1, me, dev)
+        ie, we = edge_stencil(rng, K, me, dev)
+        beside[f"blocked_chunk m={me}"] = check_k1(Le, Be, ie, we[None].contiguous(), peaks, f"m={me}",
+                                                   chunk_cluster_plan(K, me) is not None, 1)
+    for me in K3_EDGES:
+        Ce, mue = edge_caches(rng, me, dev)
+        ie, we = edge_stencil(rng, K, me, dev)
+        ye = torch.tensor(rng.normal(size=(1, K)), dtype=torch.float32, device=dev)
+        beside[f"pred_chunk m={me}"] = check_k3(Ce, mue, ie, we, ye, peaks, f"m={me}",
+                                                pred_cluster_plan(K, me, 16) is not None, 1)
+    return out, beside
+
+
+def edge_stencil(rng, k, m, dev):
+    """(idx (k, 16) int32, w (k, 16)) of k random points' stencils over
+    [0, m), weights positive and summing to 1: for the envelopes' edges,
+    whose m is no grid's."""
+    w = rng.uniform(0.0, 1.0, (k, 16))
+    return (torch.tensor(rng.integers(0, m, (k, 16)), dtype=torch.int32, device=dev),
+            torch.tensor(w / w.sum(1, keepdims=True), dtype=torch.float32, device=dev))
+
+
+def edge_caches(rng, m, dev):
+    """(C (1, m, m), mu (1, m)): an SPD covariance cache G G^T / 64 + 0.1 I
+    of rank-64 G, and a mean cache."""
+    G = torch.tensor(rng.normal(size=(1, m, 64)), dtype=torch.float32, device=dev)
+    return ((G @ G.mT / 64 + 0.1 * torch.eye(m, device=dev)).contiguous(),
+            torch.tensor(rng.normal(size=(1, m)), dtype=torch.float32, device=dev))
 
 
 def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS, atol=1e-5):
@@ -2042,29 +2151,32 @@ def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS, atol=1e-5):
 def check_k1(L, B, idx, wv, peaks, what, cluster, plain_reps=TIMING_REPS, atol=1e-5):
     """One K1 chunk (idx (k, P), wv (Bd, k, P)) against its plain version to
     1e-5 (allclose, with ``atol``) and bitwise the same on a second call,
-    its recursion on a cluster or on the single-block kernel as ``cluster``
-    says (by the counters); then device time, bound and yardstick."""
-    before = (blocked_chunk.launches, blocked_chunk.cluster_launches)
+    its recursion on clusters (one, or G > 1 where chunk_cluster_plan
+    says) or on the single-block kernel as ``cluster`` says (by the
+    counters); then device time, bound and yardstick."""
+    plan = chunk_cluster_plan(idx.shape[0], L.shape[-1])
+    grid = cluster and plan is not None and plan.clusters > 1
+    before = (blocked_chunk.launches, blocked_chunk.cluster_launches, blocked_chunk.grid_cluster_launches)
     got = blocked_chunk(*clone_all(L, B), idx, wv)
     again = blocked_chunk(*clone_all(L, B), idx, wv)
     torch.cuda.synchronize()
-    if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1]) != (2, 2 * cluster):
-        route = "cluster" if cluster else "single-block"
-        raise AssertionError(f"blocked_chunk {what} did not take the {route} recursion")
+    if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1],
+            blocked_chunk.grid_cluster_launches - before[2]) != (2, 2 * cluster, 2 * grid):
+        raise AssertionError(f"blocked_chunk {what} did not take the {recursion_route(plan if cluster else None)}")
     err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk {what}", atol)
     bitwise(got, again, f"blocked_chunk {what}")
     library = chunk_library(*blocked_factors(torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()])))
     make = lambda: (*clone_all(L, B), idx, wv)
     k, P = idx.shape
     bms, by = chunk_bound(L.shape[0], L.shape[-1], k, P, peaks)
-    recursion = "chunk_recursion_cluster_kernel" if cluster else "chunk_recursion_kernel"
+    recursion = k1_recursion_kernel(k, L.shape[-1])
     ms, stages = device_ms(blocked_chunk, make, {"chunk_gather_kernel": 1, recursion: 1,
                                                  **k1_apply_kernels(k, L.shape[-1], L.shape[-1])})
     return dict(
         k=k, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_chunk, make),
         plain_ms=time_ms(blocked_chunk_plain, make, plain_reps),
         library_ms=time_ms(library, lambda: clone_all(L, B)), bound_ms=bms, bound_by=by,
-        route=f"{'cluster' if cluster else 'single-block'} recursion ({recursion})")
+        route=f"{recursion_route(plan)} ({recursion})")
 
 
 def check_k3(C, mu, idx, w, y, peaks, what, cluster, plain_reps=TIMING_REPS):
@@ -2074,14 +2186,16 @@ def check_k3(C, mu, idx, w, y, peaks, what, cluster, plain_reps=TIMING_REPS):
     as ``cluster`` says (by the counters); then device time, bound and
     yardstick."""
     m, (k, P) = C.shape[-1], idx.shape
+    plan = pred_cluster_plan(k, m, P)
+    wide = cluster and plan is not None and plan.cluster == 16
     nz = torch.ones_like(y)
-    before = (pred_chunk.launches, pred_chunk.cluster_launches)
+    before = (pred_chunk.launches, pred_chunk.cluster_launches, pred_chunk.wide_cluster_launches)
     got = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
     again = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
     torch.cuda.synchronize()
-    if (pred_chunk.launches - before[0], pred_chunk.cluster_launches - before[1]) != (2, 2 * cluster):
-        route = "cluster" if cluster else "single-block"
-        raise AssertionError(f"pred_chunk {what} did not take the {route} recursion")
+    if (pred_chunk.launches - before[0], pred_chunk.cluster_launches - before[1],
+            pred_chunk.wide_cluster_launches - before[2]) != (2, 2 * cluster, 2 * wide):
+        raise AssertionError(f"pred_chunk {what} did not take the {recursion_route(plan if cluster else None)}")
     err = max_err(got, pred_chunk_stencil_plain(C, mu, idx, w, y, nz), 2e-4, f"pred_chunk {what}")
     bitwise(got, again, f"pred_chunk {what}")
     S = stencil_rows(idx, w, m)
@@ -2095,7 +2209,7 @@ def check_k3(C, mu, idx, w, y, peaks, what, cluster, plain_reps=TIMING_REPS):
         k=k, max_abs_err=err, ms=ms, stages_ms=stages, wrapper_ms=time_ms(pred_chunk, make),
         plain_ms=time_ms(pred_chunk_stencil_plain, make, plain_reps),
         library_ms=time_ms(library, lambda: clone_all(C, mu)), bound_ms=bms, bound_by=by,
-        route=f"{'cluster' if cluster else 'single-block'} recursion ({recursion})")
+        route=f"{recursion_route(plan)} ({recursion})")
 
 
 def check_k6(Q, peaks, what, plain_reps=TIMING_REPS):
@@ -2358,8 +2472,13 @@ def large_grid_wrappers(rng, card, dev):
     for kname in ("rank1_apply", "blocked_chunk", "pred_chunk", "blocked_cholesky"):
         if launches[kname] <= 0:
             raise AssertionError(f"the phase 6 wrapper path never launched {kname}")
-    if launches["chunk_recursion_cluster"] or launches["pred_recursion_cluster"]:
-        raise AssertionError("a chunk at m = 4,096 ran its recursion on a cluster")
+    grid, wide = blocked_chunk.grid_cluster_launches, pred_chunk.wide_cluster_launches
+    print(f"  phase 6 wrapper path: K1 chunks on G >= 2 clusters {grid}, K3 chunks on 16 blocks {wide}")
+    if not launches["chunk_recursion_cluster"] == grid == launches["blocked_chunk"]:
+        raise AssertionError("a K1 chunk at m = 4,096 did not run its recursion on G >= 2 clusters")
+    if not launches["pred_recursion_cluster"] == wide == launches["pred_chunk"]:
+        raise AssertionError("a K3 chunk at m = 4,096 did not run its recursion on a cluster of 16")
+    launches["chunk_recursion_grid"], launches["pred_recursion_wide"] = grid, wide
     return launches, results
 
 
@@ -2368,9 +2487,11 @@ def large_grid(rng, peaks, card, dev):
     path, results)."""
     t0 = time.perf_counter()
     model, params, state = large_model(dev, rng)
-    kernels6 = check_kernels_large(rng, model, params, state, peaks, dev)
+    kernels6, beside = check_kernels_large(rng, model, params, state, peaks, dev)
     for kname, r in kernels6.items():
         print(f"{kname} m={model.grid.num_points} on {card}: " + json.dumps(r))
+    for what, r in beside.items():
+        print(f"phase 6 {what} on {card}: " + json.dumps(r))
     t1 = time.perf_counter()
     results = {"hyper": iterative_hyper_step(model, params, state, card)}
     t2 = time.perf_counter()
@@ -3501,12 +3622,15 @@ def zero_stage_counters():
     for fn in STAGES.values():
         fn.launches = 0
     cuda_root_update.chunk_factors.cluster_launches = cuda_pred_stream.pred_factors.cluster_launches = 0
+    cuda_root_update.chunk_factors.grid_cluster_launches = cuda_pred_stream.pred_factors.wide_cluster_launches = 0
 
 
 def read_stage_counters():
     out = {name: fn.launches for name, fn in STAGES.items()}
     out["chunk_factors_cluster"] = cuda_root_update.chunk_factors.cluster_launches
     out["pred_factors_cluster"] = cuda_pred_stream.pred_factors.cluster_launches
+    out["chunk_factors_grid"] = cuda_root_update.chunk_factors.grid_cluster_launches
+    out["pred_factors_wide"] = cuda_pred_stream.pred_factors.wide_cluster_launches
     return out
 
 
@@ -3808,11 +3932,14 @@ def tp_phase(card, dev):
     launches = {}
     for m in TP_CASES:
         side, n = TP_CASES[m]
-        cluster = chunk_cluster_plan(K, m) is not None, pred_cluster_plan(K, m, 16) is not None
+        plans = chunk_cluster_plan(K, m), pred_cluster_plan(K, m, 16)
+        cluster = plans[0] is not None, plans[1] is not None
+        grid, wide = cluster[0] and plans[0].clusters > 1, cluster[1] and plans[1].cluster == 16
         k1 = -(-n // K) + -(-TP_PREFIX // K)
         want = dict(chunk_gather_rows=k1, chunk_factors=k1, chunk_apply_rows=k1, pred_gather_rows=n // K,
                     pred_factors=n // K, pred_apply_rows=n // K, chunk_factors_cluster=k1 * cluster[0],
-                    pred_factors_cluster=(n // K) * cluster[1])
+                    pred_factors_cluster=(n // K) * cluster[1], chunk_factors_grid=k1 * grid,
+                    pred_factors_wide=(n // K) * wide)
         for r, rep in enumerate(ranks):
             got = rep[m]["launches"]
             print(f"phase 11 (c) rank {r} m = {m} (rows {rep[m]['rows']}, {n} points) on {card}: sharded wiski "
@@ -3894,24 +4021,21 @@ def check_stages(m, a, peaks, card):
     y, nz = a["y"][None, :K].contiguous(), a["nz"][None, :K].contiguous()
     Z, r, _, _ = cuda_pred_stream.pred_factors(idx, w, c0w, mu0w, y, nz)
     Zl = Z[..., :rows]
-    recursion = "cluster" if chunk_cluster_plan(K, m) is not None else "single-block"
-    pred_rec = "cluster" if pred_cluster_plan(K, m, P) is not None else "single-block"
+    recursion, pred_rec = recursion_route(chunk_cluster_plan(K, m)), recursion_route(pred_cluster_plan(K, m, P))
     reps = PLAIN_REPS6 if m > M_SIDE**2 else TIMING_REPS
     bnd = lambda name: stage_bound(name, 1, rows, m, k, P, u, e, peaks)
     cases = {
         "chunk_gather_rows": (lambda: (B, idx, wv, 0), 1e-5, {"chunk_gather_kernel": 1},
                               (lambda B_, *_: torch.bmm(S, B_), lambda: (B,))),
-        "chunk_factors": (lambda: (p0,), 1e-5,
-                          {"chunk_recursion_cluster_kernel" if recursion == "cluster" else "chunk_recursion_kernel": 1},
-                          None),
+        "chunk_factors": (lambda: (p0,), 1e-5, {k1_recursion_kernel(K, m): 1}, None),
         "chunk_apply_rows": (lambda: (*clone_all(L, B), U, Pm, R), 1e-5,
                              k1_apply_kernels(K, rows, m),
                              (chunk_library(U, Pm, R), lambda: clone_all(L, B))),
         "pred_gather_rows": (lambda: (C, mu, idx, w, 0), TP_PRED_TOL, {"pred_gather_kernel": 1},
                              (lambda C_, mu_: (torch.bmm(S, C_), torch.bmm(mu_[:, None], S.mT)), lambda: (C, mu))),
         "pred_factors": (lambda: (idx, w, c0w, mu0w, y, nz), TP_PRED_TOL,
-                         {"pred_recursion_cluster_kernel" if pred_rec == "cluster" else "pred_recursion_kernel": 1},
-                         None),
+                         {"pred_recursion_kernel" if pred_cluster_plan(K, m, P) is None
+                          else "pred_recursion_cluster_kernel": 1}, None),
         "pred_apply_rows": (lambda: (*clone_all(C, mu), Z, r, 0), TP_PRED_TOL, k3_apply_kernels(1, rows, m),
                             (lambda C_, mu_: (C_.baddbmm_(Zl.mT, Z, alpha=-1.0),
                                               mu_.add_(torch.bmm(Zl.mT, r[..., None])[..., 0])),
@@ -3921,7 +4045,7 @@ def check_stages(m, a, peaks, card):
     for name, (make, tol, kernels, library) in cases.items():
         out[name] = check_stage(name, make, tol, peaks, bnd(name), kernels, library, reps)
         out[name]["route"] = f"rows [0, {rows}) of {m}" + (
-            f", {recursion if name.startswith('chunk') else pred_rec} recursion" if "factors" in name else "")
+            f", {recursion if name.startswith('chunk') else pred_rec}" if "factors" in name else "")
         print(f"{name} tp-m{m}-d{TP_RANKS} on {card}: " + json.dumps(out[name]))
     return out
 
@@ -4601,7 +4725,7 @@ def main() -> int:
 
         kernels6, launches6, _ = large_grid(rng, peaks, card, dev)
         for kname, count in launches6.items():
-            launches[kname] += count
+            launches[kname] = launches.get(kname, 0) + count
 
         kernels7, launches7, windows7 = classification(peaks, card, dev)
         for window in windows7:
@@ -4660,6 +4784,8 @@ def main() -> int:
     rows += [(row, r, count) for row, (r, count) in kernels13.items()]
     meta.update(STAGE_META)
     meta.update(APPLY_META)
+    meta["chunk_recursion_grid"] = meta["chunk_recursion_cluster"]
+    meta["pred_recursion_wide"] = meta["pred_recursion_cluster"]
     meta["rank1_apply_rows"] = ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264")
     for row, r, count in rows:
         source, replaces = meta[row.split("@")[0]]

@@ -18,7 +18,12 @@ NVIDIA GPU of compute capability 9.0:
     `pred_recursion_cluster_kernel`; block 0 of the cluster) and K5 coord's
     one-block recursion (`coord_recursion_kernel`), launched through their
     C entries (`ogp_blocked_chunk`, `ogp_blocked_chunk_sub_cluster`,
-    `ogp_blocked_chunk_coord`, `ogp_pred_chunk`). Each
+    `ogp_blocked_chunk_coord`, `ogp_pred_chunk`); and at m = 4,096 (a
+    64 x 64 grid) K1's recursion on G = 4 clusters of 8 (the plan's) and on
+    G = 8 (`chunk_recursion_grid_kernel`, G forced through the C entry),
+    with the two cross-cluster sums of a step (GridExchange: block 0's
+    wait for the G clusters' sums, from the rank-order sum to stamp 10 or
+    11), and K3's on one cluster of 16 blocks. Each
     source is built as it stands with OGP_STAMPS defined (see
     csrc/common.cuh), so that the kernels write clock64() at their stage
     boundaries: each stage's time at steps t = 32, 64 and 127, and summed
@@ -263,20 +268,29 @@ SINGLE_BLOCK_K1 = ("q load", "a-dots (P rows . q)", "p = q + U^T a, |p|^2", "u",
 CLUSTER_K1 = ("p0 row in", "partial a pushed", "a received", "a summed", "p", "partial Up, |p|^2 pushed",
               "Up received", "sums", "row t")
 CLUSTER_K3 = ("ct", "partials pushed", "received", "sums, pm, inv, r", "Z row t")
+# K1's grid kernel: CLUSTER_K1's stages, of which "a summed" and "sums"
+# hold the cross-cluster sums (stamps 3 -> 10 and 7 -> 11)
+GRID_CROSS = {"a across clusters": (3, 10), "Up, |p|^2 across clusters": (7, 11)}
 COORD_K5 = ("h, pi, s^2 partials", "barrier 1", "s^2, row t", "barrier 2")
 SUB = 32  # K5 sub's sub-block size, as chip_smoke.py runs it
 
 
+_built = {}
+
+
 def build(name: str, source: str) -> ctypes.CDLL:
     """nvcc source into build/online_gp_torch/<name>.so, with the port's
-    csrc/ on the include path, and load it."""
+    csrc/ on the include path, and load it (once a process)."""
+    if name in _built:
+        return _built[name]
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = _build.BUILD_DIR / f"{name}.cu"
     src.write_text(source)
     so = src.with_suffix(".so")
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(src)],
                    check=True)
-    return ctypes.CDLL(str(so))
+    _built[name] = ctypes.CDLL(str(so))
+    return _built[name]
 
 
 def stencil(g, k, side, dev):
@@ -302,6 +316,17 @@ def stage_split(stamps, names, per_ns, k):
     return out
 
 
+def cross_split(stamps, per_ns, k):
+    """K1's grid kernel: block 0's cross-cluster sums of each step
+    (GRID_CROSS), ns at steps 32, 64 and k - 1 and summed over the steps."""
+    st = stamps[: k * STAMP_SLOTS].reshape(k, STAMP_SLOTS).double().cpu()
+    out = {}
+    for name, (a, b) in GRID_CROSS.items():
+        d = (st[:, b] - st[:, a]) / per_ns
+        out[name] = {**{f"t={t}": float(d[t]) for t in (32, 64, k - 1)}, "sum_over_steps_ns": float(d.sum())}
+    return out
+
+
 def boundary_split(stamps, per_ns, k, sub):
     """K5 sub's sub-block boundaries from block 0's stamps: the boundary
     after the sub-block at rows [J, J + sub) (its collapse and the next
@@ -314,7 +339,8 @@ def boundary_split(stamps, per_ns, k, sub):
 
 def stamped_splits(dev, per_ns, k=128, side=30):
     """(b): the stage splits of the single-block and cluster recursions,
-    K5 sub's fused cluster kernel and K5 coord's recursion."""
+    K5 sub's fused cluster kernel and K5 coord's recursion at m = 900; K1's
+    grid recursion (G = 4, 8) and K3's 16-block one at m = 4,096."""
     m, P, Bd = side * side, 16, 1
     g = torch.Generator(device="cpu").manual_seed(0)
     W = torch.randn((m, m), generator=g, dtype=torch.float64)
@@ -329,13 +355,18 @@ def stamped_splits(dev, per_ns, k=128, side=30):
     f32 = dict(dtype=torch.float32, device=dev)
     vp, i32, P_ = ctypes.c_void_p, ctypes.c_int, lambda t: ctypes.c_void_p(t.data_ptr())
     out = {}
-    runs_root = ((0, SINGLE_BLOCK_K1, "K1 single block"), (8, CLUSTER_K1, "K1 cluster"),
-                 (8, CLUSTER_K1, "K5 sub cluster"), (1, COORD_K5, "K5 coord"))
-    for src, runs in (("root_update", runs_root), ("pred_stream", ((8, CLUSTER_K3, "K3 cluster"),))):
+    if side == 30:
+        runs_root = ((0, SINGLE_BLOCK_K1, "K1 single block"), (8, CLUSTER_K1, "K1 cluster"),
+                     (8, CLUSTER_K1, "K5 sub cluster"), (1, COORD_K5, "K5 coord"))
+        runs_pred = ((8, CLUSTER_K3, "K3 cluster"),)
+    else:  # blocks per output: 8 G
+        runs_root = ((32, CLUSTER_K1, "K1 grid G=4"), (64, CLUSTER_K1, "K1 grid G=8"))
+        runs_pred = ((16, CLUSTER_K3, "K3 cluster of 16"),)
+    for src, runs in (("root_update", runs_root), ("pred_stream", runs_pred)):
         lib = build(f"cluster_probe_{src}", STAMPED.format(name=src))
         lib.probe_set_stamps.argtypes = [vp]
         if src == "root_update":
-            lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+            lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 8 + [vp]
             lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 7 + [vp]
             lib.ogp_blocked_chunk_coord.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         else:
@@ -363,9 +394,11 @@ def stamped_splits(dev, per_ns, k=128, side=30):
                             P_(Lc), P_(Bc), P_(idx), P_(wv), P_(scratch[0]), P_(Mg), P_(F), P_(X), P_(T), Bd, k,
                             P, m, AC, None)
                     else:
+                        size, G = min(clusters, 8), max(clusters // 8, 1)
+                        slots = torch.zeros((Bd, 2 * k, G, k + 1), dtype=torch.int64, device=dev)
                         rc = rc or lib.ogp_blocked_chunk(
-                            P_(Lc), P_(Bc), P_(idx), P_(wv), *(P_(s) for s in scratch), P_(T), Bd, k, P, m,
-                            AC, clusters, None)
+                            P_(Lc), P_(Bc), P_(idx), P_(wv), *(P_(s) for s in scratch), P_(T), P_(slots), Bd,
+                            k, P, m, G, Bd, AC, size, None)
                 else:
                     Cc, muc = C[None].clone(), mu[None].clone()
                     bufs = torch.empty((2, Bd, k, m), **f32)
@@ -377,6 +410,8 @@ def stamped_splits(dev, per_ns, k=128, side=30):
             if rc:
                 raise RuntimeError(f"stamped {what}: {rc}")
             out[what] = stage_split(stamps, names, per_ns, k)
+            if what.startswith("K1 grid"):
+                out[what]["cross-cluster sums"] = cross_split(stamps, per_ns, k)
             if what == "K5 sub cluster":
                 out[what]["boundaries"] = boundary_split(stamps, per_ns, k, SUB)
     return out
@@ -445,6 +480,7 @@ def main():
     per_ns = sum(c for c, _ in runs) / sum(ns for _, ns in runs)
     result["sm_cycles_per_ns"] = per_ns
     result["recursion_stage_split"] = stamped_splits(dev, per_ns)
+    result["recursion_stage_split_m4096"] = stamped_splits(dev, per_ns, side=64)
 
     # (d) one cross-block sum of L = 64 values: ns per use, three runs each
     xch = {}

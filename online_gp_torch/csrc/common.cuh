@@ -228,7 +228,10 @@ cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
 // One output's m columns are split over the C blocks of a cluster: block r
 // owns columns [r W, r W + w), W = cdiv(m, C), and keeps them of the
 // recursion's factor rows in its own shared memory. Cross-block sums go
-// through distributed shared memory (DSMEM): see Exchange.
+// through distributed shared memory (DSMEM): see Exchange. Past what one
+// cluster holds, K1 splits the columns over G clusters (W = cdiv(m, C G),
+// block r of cluster g owning [(g C + r) W, ...)) and adds the clusters'
+// sums through device memory: see GridExchange.
 
 namespace cg = cooperative_groups;
 
@@ -421,40 +424,126 @@ __device__ __forceinline__ float exchange_sum(const Exchange& x, int n, int i) {
   return s;
 }
 
-// Launches kernel(args...) on a grid of `threads`-thread blocks in
-// clusters of C along x (grid.x a multiple of C), with smem bytes of
-// dynamic shared memory. Returns kNoCluster when the card cannot hold one
-// such cluster, else the launch's cudaError_t. Nothing is retried or
-// rerouted here. C above 8, the portable limit, also needs
-// cudaFuncAttributeNonPortableClusterSizeAllowed set on the kernel first
-// (the port's kernels use C = 8).
-template <typename Kernel, typename... Args>
-int launch_cluster_grid(Kernel kernel, int C, dim3 grid, int threads, long long smem,
-                        cudaStream_t s, Args... args) {
-  // a refused attribute is returned here and cleared, so that the next
-  // launch's cudaGetLastError() does not report it again
+// ---- sums across the clusters of one output (GridExchange) ----
+//
+// Where one output's columns span G clusters (K1's recursion past what one
+// cluster's shared memory holds), a sum is taken in two levels: within
+// each cluster through Exchange, then across the G clusters through device
+// memory. Block rank 0 of cluster g writes its cluster's sum of slot i of
+// use n into word (n G + g) stride + i of the output's slots, the float
+// and a flag in one 64-bit store (a 64-bit word is read all or nothing, so
+// no fence stands between a value and its flag); a thread that needs slot
+// i reads its G words, again until each carries the flag, and adds the G
+// cluster sums in cluster order, so every block gets the same sums, and a
+// second call the same bits. No atomics. The slots of a launch are zeroed
+// before it (torch.zeros in the wrappers) and each is written once: none
+// is reused within a launch, so no write can overtake a read. Every
+// cluster of the launch must be resident at once, or a cluster waits on
+// one that is never scheduled: the launch checks the clusters against
+// cudaOccupancyMaxActiveClusters (launch_cluster_grid's `need`), and a
+// wait that outlasts ~10 s of clock traps rather than hangs the card.
+constexpr int kMaxGridClusters = 8;
+constexpr unsigned long long kGridFlag = 1ULL << 32;
+
+struct GridExchange {
+  unsigned long long* slots;  // this output's words, (uses, G, stride)
+  int G, stride, g;           // clusters per output, words per use of a cluster, this block's cluster
+  bool writer;                // block rank 0 of its cluster
+};
+
+// v, this cluster's sum of slot i of use n (the same in each of its
+// blocks), summed over the G clusters in cluster order.
+__device__ __forceinline__ float grid_sum(const GridExchange& gx, int n, int i, float v) {
+  const unsigned long long* row = gx.slots + static_cast<long long>(n) * gx.G * gx.stride + i;
+  if (gx.writer) {
+    const unsigned long long word = kGridFlag | __float_as_uint(v);
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(row + gx.g * gx.stride), "l"(word) : "memory");
+  }
+  unsigned long long w[kMaxGridClusters];
+#pragma unroll
+  for (int g = 0; g < kMaxGridClusters; ++g) w[g] = 0;
+  unsigned ready = 0;
+  const unsigned all = (1u << gx.G) - 1;
+  const long long start = clock64();
+  for (;;) {
+#pragma unroll
+    for (int g = 0; g < kMaxGridClusters; ++g)
+      if (g < gx.G && !((ready >> g) & 1u))
+        asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w[g]) : "l"(row + g * gx.stride) : "memory");
+#pragma unroll
+    for (int g = 0; g < kMaxGridClusters; ++g)
+      if (g < gx.G && (w[g] & kGridFlag)) ready |= 1u << g;
+    if (ready == all) break;
+    if (clock64() - start > (1LL << 34)) __trap();
+  }
+  float s = __uint_as_float(static_cast<unsigned>(w[0]));
+#pragma unroll
+  for (int g = 1; g < kMaxGridClusters; ++g)
+    if (g < gx.G) s += __uint_as_float(static_cast<unsigned>(w[g]));
+  return s;
+}
+
+// The launch configuration of kernel on `grid` (grid.x a multiple of C)
+// of `threads`-thread blocks in clusters of C along x, with smem bytes of
+// dynamic shared memory, into cfg (whose attrs point at attr[0]), after
+// setting the kernel's attributes: its dynamic shared memory, and above 8
+// blocks, the portable limit, cudaFuncAttributeNonPortableClusterSizeAllowed.
+// A refused attribute is returned here and cleared, so that the next
+// launch's cudaGetLastError() does not report it again.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, int C, dim3 grid, int threads, long long smem, cudaStream_t s,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
+  if (e == cudaSuccess && C > 8) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (e != cudaSuccess) {
     cudaGetLastError();
-    return static_cast<int>(e);
+    return e;
   }
-  cudaLaunchConfig_t cfg = {};
+  cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = C;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of C blocks of the shape the card holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of a refused
+// attribute or query.
+template <typename Kernel>
+int cluster_capacity(Kernel kernel, int C, int threads, long long smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config(kernel, C, dim3(C, 1, 1), threads, smem, 0, cfg, attr);
+  int clusters = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return e == cudaSuccess ? clusters : -static_cast<int>(e);
+}
+
+// Launches kernel(args...) on a grid of `threads`-thread blocks in
+// clusters of C along x (grid.x a multiple of C), with smem bytes of
+// dynamic shared memory. Returns kNoCluster when the card cannot hold
+// `need` such clusters at once (one, unless the clusters of the launch
+// wait on each other: GridExchange), else the launch's cudaError_t.
+// Nothing is retried or rerouted here.
+template <typename Kernel, typename... Args>
+int launch_cluster_grid(Kernel kernel, int C, dim3 grid, int threads, long long smem,
+                        cudaStream_t s, int need, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config(kernel, C, grid, threads, smem, s, cfg, attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
   int clusters = 0;
   e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (clusters < 1) return kNoCluster;
+  if (clusters < need) return kNoCluster;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -463,7 +552,7 @@ int launch_cluster_grid(Kernel kernel, int C, dim3 grid, int threads, long long 
 // The recursions' launch: a (C, Bd) grid of kClusterThreads-thread blocks.
 template <typename Kernel, typename... Args>
 int launch_cluster(Kernel kernel, int C, int Bd, long long smem, cudaStream_t s, Args... args) {
-  return launch_cluster_grid(kernel, C, dim3(C, Bd, 1), kClusterThreads, smem, s, args...);
+  return launch_cluster_grid(kernel, C, dim3(C, Bd, 1), kClusterThreads, smem, s, 1, args...);
 }
 
 }  // namespace ogp

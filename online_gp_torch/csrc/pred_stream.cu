@@ -18,8 +18,10 @@
 //       this is row t of S C_0) and mu0w[t] = sum_p wv[t, p] mu[idx[t, p]];
 //       the Pallas kernel multiplies a dense stencil S by the VMEM-resident C.
 //   (b) recursion, on a thread-block cluster: C = 8 blocks per output (the
-//       portable cluster size), block r owning columns [r W, r W + W), W =
-//       cdiv(m, C), with its columns of Z (k rows) in its own shared
+//       portable cluster size), or 16 (the largest an H100 takes, a
+//       non-portable size) where 8 blocks cannot hold the slices, block r
+//       owning columns [r W, r W + W), W = cdiv(m, C), with its columns of Z
+//       (k rows) in its own shared
 //       memory. a and s_t . ct are P-sparse (P = 4^D), so a step has one
 //       O(t m) pass, local to each block, and one exchange. Step t:
 //         1. ct = c0w[t] - Z^T a on the slice (a of step t, the same in
@@ -37,8 +39,11 @@
 //       their owners over DSMEM would queue the whole cluster's reads on
 //       those one or two SMs. Z goes to the scratch of the apply after the
 //       last step. Shapes whose slice, stencil and vectors do not fit a
-//       block (m > 3,136 at k = 128, P = 16) run the single-block kernel
-//       instead (one block per output, Z in L2): pred_cluster_plan in
+//       block of 8 (m > 3,136 at k = 128, P = 16) run on 16 blocks (C = 16
+//       at m = 4,096: 170.6 KB a block, one a SM, so one cluster takes 16
+//       SMs of a GPC; the step's exchange then fans out to 16 blocks), and
+//       those that do not fit a block of 16 either (m > 6,016 at k = 128)
+//       the single-block kernel (one block per output, Z in L2): pred_cluster_plan in
 //       online_gp_torch/ops/cuda_pred_stream.py, by shape only, mirroring
 //       pred_cluster_layout below (the wrapper checks the two agree).
 //   (c) apply: C -= Z^T Z in place, with mu += Z^T r fused into the blocks
@@ -528,6 +533,12 @@ long long ogp_pred_chunk_smem(int k, int m) {
 // Dynamic shared memory of one block of the cluster recursion, in bytes.
 long long ogp_pred_cluster_smem(int k, int m, int P, int C) {
   return pred_cluster_layout(k, m, P, C).floats * static_cast<long long>(sizeof(float));
+}
+
+// Clusters of C blocks of the cluster recursion at (k, m, P) that the card
+// holds at once, or minus a cudaError_t.
+int ogp_pred_cluster_capacity(int k, int m, int P, int C) {
+  return ogp::cluster_capacity(pred_recursion_cluster_kernel, C, kClusterThreads, ogp_pred_cluster_smem(k, m, P, C));
 }
 
 // K3. C: (Bd, m, m) and mu: (Bd, m), updated in place; idx: (k, P) int32 and

@@ -42,12 +42,24 @@
 //       last step. No cluster barrier inside the loop: on this card one
 //       compiles to a GPU-scope fence (MEMBAR.ALL.GPU) and cost 0.65-0.74
 //       us; an exchange's wait is 0.04-0.2 us. Shapes whose slice does not
-//       fit a block (3 k ld floats, the receive buffers and the vectors
-//       over 227 KB at C = 8: m > 1,120 at k = 128) run the single-block
-//       kernel instead, one block per output with the rows of U, P, R in
-//       L2. The rule is by shape only, chunk_cluster_plan in
-//       online_gp_torch/ops/cuda_root_update.py, mirroring
-//       chunk_cluster_layout below (the wrapper checks the two agree).
+//       fit a block of one cluster (3 k ld floats, the receive buffers and
+//       the vectors over 227 KB at C = 8: m > 1,120 at k = 128) spread
+//       their columns over G clusters of 8 (chunk_recursion_grid_kernel,
+//       W = cdiv(m, 8 G), the smallest G up to 4 whose slice fits: G = 4 at
+//       m = 4,096, k = 128, 32 SMs an output, where one block read U, P, R
+//       from L2 at one SM's rate before). Each exchange is then summed in
+//       two levels, within the cluster as above and across the G clusters
+//       through device memory (ogp::GridExchange, common.cuh): block 0 of
+//       each cluster writes its cluster's sums with their flags, every
+//       block waits for the G flags and adds the sums in cluster order.
+//       The clusters of one output wait on each other, so a launch holds no
+//       more outputs than the card runs at once (cudaOccupancyMaxActiveClusters,
+//       read by the wrapper, which launches in waves). Past G = 4 (m > 4,480
+//       at k = 128) the single-block kernel runs, one block per output with
+//       the rows of U, P, R in L2. The rule is by shape only,
+//       chunk_cluster_plan in online_gp_torch/ops/cuda_root_update.py,
+//       mirroring chunk_cluster_layout below (the wrapper checks the two
+//       agree).
 //   (c) apply: X += (X A^T) U for (X, A) = (L, R) and (B, P), 4 m^2 k
 //       multiply-adds in all, bound by operations (8 m^2 k flops against
 //       4 m^2 floats of L and B in and out: 0.26 ms of f32 FMA at m = 4,096
@@ -401,10 +413,13 @@ struct ChunkClusterLayout {
   long long floats;
 };
 
-__host__ __device__ inline ChunkClusterLayout chunk_cluster_layout(int k, int m, int C) {
+// On G clusters of C blocks per output (G > 1: chunk_recursion_grid_kernel)
+// a block owns W = cdiv(m, C G) columns; its receive buffers stay those of
+// its own cluster's C blocks.
+__host__ __device__ inline ChunkClusterLayout chunk_cluster_layout(int k, int m, int C, int G = 1) {
   ChunkClusterLayout lay;
   lay.C = C;
-  lay.W = cdiv(m, C);
+  lay.W = cdiv(m, C * G);
   lay.Sr = 1;
   while (lay.Sr < 32 && 2 * lay.Sr * k <= kClusterThreads) lay.Sr *= 2;
   lay.ld = lay.W;
@@ -569,17 +584,24 @@ __device__ __forceinline__ void cluster_store(const ClusterBlock& cb, float* U, 
 }
 
 // (b) the k-step factor recursion on a cluster of lay.C blocks per output,
-// grid (C, Bd). Writes rows 0..k-1 of U, P, R for the block's columns.
-// Its step is a copy of cluster_step's body (K5 sub's), and its pointers
-// spell out chunk_cluster_layout as cluster_block does, each kept in step
-// with the other: through the shared step the compiler spilled this
-// kernel's registers and its recursion took 9% longer on an H100, and
-// through cluster_block 1.5% longer. chip_smoke.py holds K5 sub's kernel
-// at sub = k bitwise to this one.
-__global__ void __launch_bounds__(kClusterThreads)
-chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__ U,
-                               float* __restrict__ Pm, float* __restrict__ R, int k, int m,
-                               ChunkClusterLayout lay) {
+// grid (C, Bd), or, with kGrid, on gx.G clusters of them, grid (C G, Bd),
+// the sums of each exchange then added across the clusters (GridExchange;
+// stamps 10 and 11 of step t close the two cross-cluster sums). Writes rows
+// 0..k-1 of U, P, R for the block's columns. Its step is a copy of
+// cluster_step's body (K5 sub's), and its pointers spell out
+// chunk_cluster_layout as cluster_block does, each kept in step with the
+// other: through the shared step the compiler spilled this kernel's
+// registers and its recursion took 9% longer on an H100, and through
+// cluster_block 1.5% longer. chip_smoke.py holds K5 sub's kernel at
+// sub = k bitwise to this one. The grid branch compiles out without kGrid,
+// so the one-cluster kernel's sums keep their order and bits
+// (scripts/compare_recursion_builds.py holds two checkouts' chunks bit for
+// bit).
+template <bool kGrid>
+__device__ __forceinline__ void chunk_recursion_cluster_body(const float* __restrict__ p0, float* __restrict__ U,
+                                                             float* __restrict__ Pm, float* __restrict__ R,
+                                                             int k, int m, const ChunkClusterLayout& lay,
+                                                             const ogp::GridExchange& gx) {
   extern __shared__ float sh[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = lay.C, ld = lay.ld;
@@ -598,7 +620,7 @@ chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__
   float* s2_sh = red + 2 * cs.S * cs.CT * 32;
   const int tid = threadIdx.x;
   const ColTask task = ogp::col_task(cs);
-  const int c0 = rank * lay.W;
+  const int c0 = (kGrid ? gx.g * C + rank : rank) * lay.W;
   const int w = max(0, min(lay.W, m - c0));
   const long long mm = m;
   const long long off = blockIdx.y * k * mm + c0;
@@ -630,7 +652,11 @@ chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__
     OGP_STAMP(k, t, 2);
     ogp::exchange_wait(x, 2 * t);
     OGP_STAMP(k, t, 3);
-    for (int j = tid; j < t; j += kClusterThreads) a[j] = ogp::exchange_sum(x, 2 * t, j);
+    for (int j = tid; j < t; j += kClusterThreads) {
+      const float v = ogp::exchange_sum(x, 2 * t, j);
+      a[j] = kGrid ? ogp::grid_sum(gx, 2 * t, j, v) : v;
+    }
+    if (kGrid) OGP_STAMP(k, t, 10);
     __syncthreads();
     OGP_STAMP(k, t, 4);
     // 2. p = p0_t + U^T a; U p and |p|^2: exchange use 2 t + 1
@@ -644,13 +670,15 @@ chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__
     ogp::exchange_wait(x, 2 * t + 1);
     OGP_STAMP(k, t, 7);
     for (int j = tid; j <= t; j += kClusterThreads) {
-      const float v = ogp::exchange_sum(x, 2 * t + 1, j);
+      float v = ogp::exchange_sum(x, 2 * t + 1, j);
+      if (kGrid) v = ogp::grid_sum(gx, 2 * t + 1, j, v);
       if (j < t) {
         g[j] = v;
       } else {
         *s2_sh = v;
       }
     }
+    if (kGrid) OGP_STAMP(k, t, 11);
     __syncthreads();
     OGP_STAMP(k, t, 8);
     const float s2 = *s2_sh;
@@ -680,6 +708,27 @@ chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__
     Rb[j * mm + l] = Rs[j * ld + l];
   }
   cluster.sync();  // no block leaves while a push to another may be in flight
+}
+
+// (b) on one cluster of lay.C blocks per output, grid (C, Bd).
+__global__ void __launch_bounds__(kClusterThreads)
+chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__ U,
+                               float* __restrict__ Pm, float* __restrict__ R, int k, int m,
+                               ChunkClusterLayout lay) {
+  chunk_recursion_cluster_body<false>(p0, U, Pm, R, k, m, lay, ogp::GridExchange{});
+}
+
+// (b) on G clusters of lay.C blocks per output, grid (C G, Bd); slots:
+// (Bd, 2 k, G, k + 1) zeroed words, exchange use n of output b at
+// slots[b][n].
+__global__ void __launch_bounds__(kClusterThreads)
+chunk_recursion_grid_kernel(const float* __restrict__ p0, float* __restrict__ U, float* __restrict__ Pm,
+                            float* __restrict__ R, int k, int m, ChunkClusterLayout lay, int G,
+                            unsigned long long* __restrict__ slots) {
+  const int C = lay.C;
+  const ogp::GridExchange gx{slots + blockIdx.y * (2LL * k * G * (k + 1)), G, k + 1,
+                             static_cast<int>(blockIdx.x) / C, cg::this_cluster().block_rank() == 0};
+  chunk_recursion_cluster_body<true>(p0, U, Pm, R, k, m, lay, gx);
 }
 
 // ---- K5 sub on a cluster ----
@@ -981,10 +1030,28 @@ chunk_sub_cluster_kernel(const float* __restrict__ p0, float* __restrict__ U, fl
   cluster.sync();  // no block leaves while a push to another may be in flight
 }
 
-// (b) for Bd outputs: on clusters of C blocks, or one block per output
-// when C is 0. Returns a cudaError_t, or ogp::kNoCluster.
-int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int k, int m, int C,
-                    cudaStream_t s) {
+// (b) for Bd outputs: on one cluster of C blocks per output (G = 1), on G
+// clusters of C blocks per output (G > 1; slots: (Bd, 2 k, G, k + 1)
+// zeroed words), or one block per output when C is 0. The G > 1 kernel
+// runs in waves of `wave` outputs, in order on the stream, each launch
+// checked to fit the card at once (G clusters per output wait on each
+// other). Returns a cudaError_t, or ogp::kNoCluster.
+int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int k, int m, int C, int G,
+                    int wave, unsigned long long* slots, cudaStream_t s) {
+  if (C > 0 && G > 1) {
+    if (G > ogp::kMaxGridClusters || wave < 1 || slots == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C, G);
+    const long long smem = lay.floats * static_cast<long long>(sizeof(float));
+    const long long km = static_cast<long long>(k) * m, words = 2LL * k * G * (k + 1);
+    for (int b0 = 0; b0 < Bd; b0 += wave) {
+      const int nb = Bd - b0 < wave ? Bd - b0 : wave;
+      const int rc = ogp::launch_cluster_grid(chunk_recursion_grid_kernel, C, dim3(C * G, nb, 1), kClusterThreads,
+                                              smem, s, nb * G, p0 + b0 * km, U + b0 * km, Pm + b0 * km,
+                                              R + b0 * km, k, m, lay, G, slots + b0 * words);
+      if (rc != 0) return rc;
+    }
+    return 0;
+  }
   if (C > 0) {
     const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C);
     return ogp::launch_cluster(chunk_recursion_cluster_kernel, C, Bd,
@@ -1588,7 +1655,7 @@ int chunk_apply(float* L, float* B, const float* R, const float* Pm, const float
     if (AC > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
     const ApplyLayout lay = chunk_apply_layout(k, m, AC);
     return ogp::launch_cluster_grid(chunk_apply_cluster_kernel, AC, dim3(AC, cdiv(rows, kApplyBM), 2 * Bd),
-                                    kApplyThreads, lay.floats * static_cast<long long>(sizeof(float)), s, L,
+                                    kApplyThreads, lay.floats * static_cast<long long>(sizeof(float)), s, 1, L,
                                     B, R, Pm, U, k, rows, m, lay);
   }
   chunk_apply_t_kernel<<<dim3(cdiv(k, kTileN), cdiv(rows, kTileM), 2 * Bd), kGemmThreads, 0, s>>>(
@@ -1632,26 +1699,34 @@ long long ogp_blocked_chunk_smem(int k, int m) {
 }
 
 // Dynamic shared memory of one block of the cluster recursions (K1's, and
-// K5 sub's), in bytes.
-long long ogp_chunk_cluster_smem(int k, int m, int C) {
-  return chunk_cluster_layout(k, m, C).floats * static_cast<long long>(sizeof(float));
+// K5 sub's at G = 1) on G clusters of C blocks per output, in bytes.
+long long ogp_chunk_cluster_smem(int k, int m, int C, int G) {
+  return chunk_cluster_layout(k, m, C, G).floats * static_cast<long long>(sizeof(float));
+}
+
+// Clusters of C blocks of K1's grid recursion kernel at (k, m, G) that the
+// card holds at once, or minus a cudaError_t.
+int ogp_chunk_grid_capacity(int k, int m, int C, int G) {
+  return ogp::cluster_capacity(chunk_recursion_grid_kernel, C, kClusterThreads, ogp_chunk_cluster_smem(k, m, C, G));
 }
 
 // K1. L, B: (Bd, m, m), updated in place; idx: (k, P) int32, shared by the
 // outputs; wv: (Bd, k, P); p0, U, Pm, R: (Bd, k, m) scratch; T: (Bd, 2, m, k)
-// scratch of the tiled apply (unused when AC > 0). The recursion runs on
-// clusters of C blocks, or one block per output when C is 0; the apply on
+// scratch of the tiled apply (unused when AC > 0); slots: (Bd, 2 k, G, k + 1)
+// zeroed words of the recursion on G > 1 clusters (else unused). The
+// recursion runs on G clusters of C blocks per output (in waves of `wave`
+// outputs when G > 1), or one block per output when C is 0; the apply on
 // clusters of AC blocks, or on the tiled kernels when AC is 0. Returns
-// cudaGetLastError() after the launches, or -1 when no cluster of C (AC)
-// blocks fits on the card.
+// cudaGetLastError() after the launches, or -1 when the card cannot hold a
+// wave's clusters of C blocks (or one of AC).
 int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float* p0,
-                      float* U, float* Pm, float* R, float* T, int Bd, int k, int P, int m,
-                      int AC, int C, void* stream) {
+                      float* U, float* Pm, float* R, float* T, unsigned long long* slots, int Bd, int k,
+                      int P, int m, int G, int wave, int AC, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, s);
+  const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, slots, s);
   if (rc != 0) return rc;
   return chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, AC, s);
 }
@@ -1696,15 +1771,19 @@ int ogp_blocked_chunk_sub_cluster(float* L, float* B, const int* idx, const floa
 // K5 sub outside the cluster kernel's shapes, one sub-block at a time.
 // L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
 // (nb, Bd, sub, P) with nb = k / sub; q, U, Pm, R: (nb, Bd, sub, m) scratch;
-// a2: (Bd, sub, sub) and T: (Bd, 2, m, sub) scratch. Each sub-block's
-// recursion runs on clusters of C blocks (C = 0: one block per output),
-// its apply (at rank sub) on clusters of AC blocks (AC = 0: tiled).
+// a2: (Bd, sub, sub) and T: (Bd, 2, m, sub) scratch; slots:
+// (nb, Bd, 2 sub, G, sub + 1) zeroed words when G > 1. Each sub-block's
+// recursion runs on G clusters of C blocks per output, in waves of `wave`
+// outputs (C = 0: one block per output), its apply (at rank sub) on
+// clusters of AC blocks (AC = 0: tiled).
 int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, float* q,
-                          float* U, float* Pm, float* R, float* a2, float* T, int Bd, int k,
-                          int sub, int P, int m, int AC, int C, void* stream) {
+                          float* U, float* Pm, float* R, float* a2, float* T, unsigned long long* slots,
+                          int Bd, int k, int sub, int P, int m, int G, int wave, int AC, int C,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = k / sub;
   const long long mm = m, rows = (long long)sub * m, blk = Bd * rows;
+  const long long words = G > 1 ? Bd * 2LL * sub * G * (sub + 1) : 0;
   cudaError_t e;
   // every sub-block's raw rows come from B before the chunk changes it
   for (int j = 0; j < nb; ++j) {
@@ -1726,7 +1805,8 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
                MatArg{U + i * blk, mm, 1, rows, 1, kEveryBatch}, qj, mm, rows, Bd, 1.f, true, s);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, s);
+    const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, G, wave,
+                                   G > 1 ? slots + j * words : nullptr, s);
     if (rc != 0) return rc;
   }
   for (int j = 0; j < nb; ++j) {
@@ -1797,12 +1877,14 @@ int ogp_chunk_gather_rows(const float* B, const int* idx, const float* wv, float
   return static_cast<int>(cudaGetLastError());
 }
 
-// The recursion on the summed p0: (Bd, k, m) in; U, Pm, R: (Bd, k, m) out.
-// On clusters of C blocks, or one block per output when C is 0. Returns
-// cudaGetLastError(), or -1 when no cluster of C blocks fits on the card.
-int ogp_chunk_factors(const float* p0, float* U, float* Pm, float* R, int Bd, int k, int m, int C,
-                      void* stream) {
-  return chunk_recursion(p0, U, Pm, R, Bd, k, m, C, static_cast<cudaStream_t>(stream));
+// The recursion on the summed p0: (Bd, k, m) in; U, Pm, R: (Bd, k, m) out;
+// slots: (Bd, 2 k, G, k + 1) zeroed words when G > 1. On G clusters of C
+// blocks per output, in waves of `wave` outputs, or one block per output
+// when C is 0. Returns cudaGetLastError(), or -1 when the card cannot hold
+// a wave's clusters.
+int ogp_chunk_factors(const float* p0, float* U, float* Pm, float* R, unsigned long long* slots, int Bd, int k,
+                      int m, int G, int wave, int C, void* stream) {
+  return chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, slots, static_cast<cudaStream_t>(stream));
 }
 
 // The apply on a row shard: L, B: (Bd, rows, m), updated in place; R, Pm,

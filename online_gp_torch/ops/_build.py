@@ -15,8 +15,8 @@ build raises with the compiler's output.
 The wrappers call each C entry with ``ctypes``: pointers and the stream
 (``torch.cuda.current_stream().cuda_stream``) as ``c_void_p``, sizes as
 ``c_int``. Every entry returns ``cudaGetLastError()`` after its launches
-(or -1 when a cluster launch finds that the card cannot hold one cluster
-of the asked shape) and :func:`launch_check` raises if that is not 0.
+(or -1 when a cluster launch finds that the card cannot hold the
+clusters it asks for at once) and :func:`launch_check` raises if that is not 0.
 
 This module also holds the argument checks the kernel wrappers share, and
 the shape rule of the kernels that run on thread-block clusters
@@ -121,18 +121,24 @@ def load(name: str) -> ctypes.CDLL:
 # of csrc/common.cuh that their shared-memory layouts depend on.
 CLUSTER_THREADS = 512  # kClusterThreads
 CLUSTER_COLS = 4 * CLUSTER_THREADS  # kClusterRegs * kClusterThreads: columns a block may own
-CLUSTER_SIZE = 8  # blocks per output: the portable cluster size
+CLUSTER_SIZE = 8  # blocks per cluster: the portable cluster size
+WIDE_CLUSTER_SIZE = 16  # the largest non-portable cluster size (K3 past 8 blocks)
+MAX_GRID_CLUSTERS = 4  # clusters per output K1's grid recursion is planned on (ogp::kMaxGridClusters: 8)
 MAX_SHARED_BYTES = 232448  # dynamic shared memory one block may use
-NO_CLUSTER = -1  # kNoCluster: the card cannot hold one cluster of the shape
+NO_CLUSTER = -1  # kNoCluster: the card cannot hold the launch's clusters at once
 
 
 class ClusterPlan(NamedTuple):
-    """A recursion on clusters: ``cluster`` blocks per output, each owning
-    ``cols`` columns and using ``shared_bytes`` of shared memory."""
+    """A recursion on clusters: ``clusters`` clusters of ``cluster`` blocks
+    per output, each block owning ``cols`` columns and using
+    ``shared_bytes`` of shared memory. With ``clusters`` > 1 (K1's grid
+    recursion) the clusters of an output exchange sums through device
+    memory and must all be resident at once."""
 
     cluster: int
     cols: int
     shared_bytes: int
+    clusters: int = 1
 
 
 def col_split(cols: int):
@@ -142,13 +148,15 @@ def col_split(cols: int):
     return tiles, max(1, (CLUSTER_THREADS // 32) // tiles)
 
 
-def cluster_plan(floats_of) -> Optional[ClusterPlan]:
-    """The plan on clusters of :data:`CLUSTER_SIZE` blocks, given
-    ``floats_of(C) -> (cols, floats per block)``; None if one block cannot
-    hold its part."""
-    cols, floats = floats_of(CLUSTER_SIZE)
-    if cols <= CLUSTER_COLS and 4 * floats <= MAX_SHARED_BYTES:
-        return ClusterPlan(CLUSTER_SIZE, cols, 4 * floats)
+def cluster_plan(floats_of, sizes=(CLUSTER_SIZE,), clusters=(1,)) -> Optional[ClusterPlan]:
+    """The first plan, by clusters per output G in ``clusters`` and then by
+    cluster size C in ``sizes``, whose block holds its part, given
+    ``floats_of(C, G) -> (cols, floats per block)``; None if none does."""
+    for G in clusters:
+        for C in sizes:
+            cols, floats = floats_of(C, G)
+            if cols <= CLUSTER_COLS and 4 * floats <= MAX_SHARED_BYTES:
+                return ClusterPlan(C, cols, 4 * floats, G)
     return None
 
 
@@ -166,8 +174,9 @@ def launch_check(rc: int, what: str, *plans) -> None:
     hold a cluster."""
     plans = [p for p in plans if p is not None]
     if rc == NO_CLUSTER and plans:
-        shapes = " or ".join(f"{p.cluster} blocks with {p.shared_bytes} bytes of shared memory each" for p in plans)
-        raise RuntimeError(f"{what}: the card cannot hold one cluster of {shapes}")
+        shapes = " or ".join(f"{'one cluster' if p.clusters == 1 else f'{p.clusters} clusters'} of {p.cluster} "
+                             f"blocks with {p.shared_bytes} bytes of shared memory each" for p in plans)
+        raise RuntimeError(f"{what}: the card cannot hold {shapes}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 

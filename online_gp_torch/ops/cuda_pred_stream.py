@@ -10,21 +10,24 @@ a lane-tile multiple: the kernel masks its own ragged edge.
 
 The recursion runs on a thread-block cluster: :func:`pred_cluster_plan`
 splits each output's m columns over 8 blocks that keep their columns of
-Z in shared memory. A chunk whose slices do not fit a block (m > 3,136
-at k = 128 with a 2-D cubic stencil, P = 16, or k > 342 at m = 900)
-runs the single-block recursion kernel instead; that rule is by
-shape alone, nothing is tried and caught, and every shape the kernel
-took before still runs. Before each cluster launch the wrapper checks
-that the plan's shared memory is the kernel's layout
-(``ogp_pred_cluster_smem``) and raises RuntimeError if not.
+Z in shared memory, or over 16 (a non-portable cluster size) where 8
+blocks cannot hold them (m > 3,136 at k = 128 with a 2-D cubic stencil,
+P = 16). A chunk whose slices 16 blocks cannot hold either (m > 6,016 at
+k = 128, P = 16, or k > 342 at m = 900) runs the single-block recursion
+kernel instead; that rule is by shape alone, nothing is tried and
+caught, and every shape the kernel took before still runs. Before each
+cluster launch the wrapper checks that the plan's shared memory is the
+kernel's layout (``ogp_pred_cluster_smem``) and raises RuntimeError if
+not.
 
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
 raises TypeError and names the plain version. A shape no kernel takes
 raises ValueError; a failed launch, or a cluster the card cannot
 schedule, raises RuntimeError. On CUDA the caches are updated in place.
-``pred_chunk.launches`` counts the calls that launched the kernel, and
-``pred_chunk.cluster_launches`` those whose recursion ran on a cluster.
+``pred_chunk.launches`` counts the calls that launched the kernel,
+``pred_chunk.cluster_launches`` those whose recursion ran on a cluster,
+and ``pred_chunk.wide_cluster_launches`` those of them on 16 blocks.
 
 K3's apply (C -= Z^T Z, mu += Z^T r), which ends :func:`pred_chunk` and
 is :func:`pred_apply_rows`, runs 128 x 128 tiles of C a block, or 64 x
@@ -40,7 +43,7 @@ are sharded over processes (``parallel/mesh.py::sharded_pred_stream_blocked``):
 :func:`pred_factors` (the recursion on the summed partials) and
 :func:`pred_apply_rows` (the apply on a shard's rows), each beside its plain
 version and counting its own ``launches`` (``pred_factors`` also
-``cluster_launches``).
+``cluster_launches`` and ``wide_cluster_launches``).
 """
 
 from __future__ import annotations
@@ -77,6 +80,8 @@ def _pred_stream_lib():
         lib.ogp_pred_chunk_smem.restype = ctypes.c_longlong
         lib.ogp_pred_cluster_smem.argtypes = [i32] * 4
         lib.ogp_pred_cluster_smem.restype = ctypes.c_longlong
+        lib.ogp_pred_cluster_capacity.argtypes = [i32] * 4
+        lib.ogp_pred_cluster_capacity.restype = i32
         lib.ogp_pred_gather_rows.argtypes = [vp] * 6 + [i32] * 6 + [vp]
         lib.ogp_pred_gather_rows.restype = i32
         lib.ogp_pred_factors.argtypes = [vp] * 10 + [i32] * 5 + [vp]
@@ -108,11 +113,13 @@ def _pred_cluster_floats(k: int, m: int, P: int, C: int):
 
 def pred_cluster_plan(k: int, m: int, P: int):
     """The shape rule of K3's recursion: the :class:`~online_gp_torch.ops._build.ClusterPlan`
-    on clusters of 8 blocks, when each block holds its slice of Z
+    on one cluster of 8 blocks, when each block holds its slice of Z
     (k ceil(m / 8) floats), the chunk's stencil and the step's vectors in
-    at most 232,448 bytes of shared memory; None where it does not, and the
-    chunk then runs the single-block recursion kernel."""
-    return _build.cluster_plan(lambda C: _pred_cluster_floats(k, m, P, C))
+    at most 232,448 bytes of shared memory, else on one cluster of 16
+    blocks (k ceil(m / 16) floats) when that holds them; None where neither
+    does, and the chunk then runs the single-block recursion kernel."""
+    return _build.cluster_plan(lambda C, G: _pred_cluster_floats(k, m, P, C),
+                               sizes=(_build.CLUSTER_SIZE, _build.WIDE_CLUSTER_SIZE))
 
 
 def _pred_plan(lib, k: int, m: int, P: int):
@@ -201,8 +208,9 @@ def pred_chunk(C, mu, idx, wv, y, nz):
         stencil weights (not noise-scaled); both shared by the outputs.
       y, nz: (Bd, k) targets and clamped noise.
 
-    On CUDA the recursion runs on clusters of :func:`pred_cluster_plan`,
-    or on the single-block kernel where that returns None. Raises
+    On CUDA the recursion runs on a cluster of :func:`pred_cluster_plan`
+    (8 or 16 blocks), or on the single-block kernel where that returns
+    None. Raises
     ValueError for a shape neither takes, RuntimeError when a launch fails,
     the card cannot hold the planned cluster, or the plan is not the
     kernel's layout.
@@ -238,12 +246,14 @@ def pred_chunk(C, mu, idx, wv, y, nz):
     _build.launch_check(rc, "pred_chunk", plan)
     pred_chunk.launches += 1
     pred_chunk.cluster_launches += plan is not None
+    pred_chunk.wide_cluster_launches += Cl == _build.WIDE_CLUSTER_SIZE
     _count_apply(Bd, m, m, k)
     return C, mu, vecs[2], vecs[3]
 
 
 pred_chunk.launches = 0
 pred_chunk.cluster_launches = 0
+pred_chunk.wide_cluster_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -327,11 +337,13 @@ def pred_factors(idx, wv, c0w, mu0w, y, nz):
     _build.launch_check(rc, "pred_factors", plan)
     pred_factors.launches += 1
     pred_factors.cluster_launches += plan is not None
+    pred_factors.wide_cluster_launches += Cl == _build.WIDE_CLUSTER_SIZE
     return Z, vecs[0], vecs[1], vecs[2]
 
 
 pred_factors.launches = 0
 pred_factors.cluster_launches = 0
+pred_factors.wide_cluster_launches = 0
 
 
 def pred_apply_rows_plain(C, mu, Z, r, row0: int):

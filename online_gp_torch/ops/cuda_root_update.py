@@ -22,7 +22,7 @@ sharded over processes (``parallel/mesh.py::sharded_stream_blocked``):
 :func:`chunk_factors` (the recursion on the summed p0) and
 :func:`chunk_apply_rows` (the apply on a shard's rows), each beside its
 plain version and counting its own ``launches`` (``chunk_factors`` also
-``cluster_launches``).
+``cluster_launches`` and ``grid_cluster_launches``).
 
 K1's apply (X += (X A^T) U for (X, A) = (L, R), (B, P)), which every
 wrapper here that updates L and B ends with, also runs on clusters:
@@ -36,13 +36,20 @@ wrapper checks the plan against the kernel's layout
 ``chunk_apply_plan.tiled_launches``, and to
 ``chunk_apply_plan.shapes[(Bd, rows, m, k)]``.
 
-K1's recursion runs on a thread-block cluster: :func:`chunk_cluster_plan`
+K1's recursion runs on thread-block clusters: :func:`chunk_cluster_plan`
 splits each output's m columns over 8 blocks that keep their columns of
-the factor rows U, P, R in shared memory. A chunk whose slices do not fit
-a block (m > 1,120 at k = 128) runs the single-block recursion kernel
-instead. K5 sub runs its whole two-level recursion, corrections and
-collapse to one rank-k operator included, in one cluster kernel on K1's
-layout, so wherever :func:`chunk_cluster_plan` holds the chunk, and one
+the factor rows U, P, R in shared memory, or, where one cluster's blocks
+cannot hold them (m > 1,120 at k = 128), over G = 2 to 4 such clusters
+whose sums meet in device memory (``chunk_recursion_grid_kernel``: G = 4
+at m = 4,096). The G clusters of an output wait on each other, so the
+wrapper asks the card how many it holds at once
+(``ogp_chunk_grid_capacity``) and launches the outputs in waves within
+that; a card that cannot hold one output's G clusters raises
+RuntimeError naming the plan. A chunk that 4 clusters cannot hold
+(m > 4,480 at k = 128) runs the single-block recursion kernel. K5 sub runs
+its whole two-level recursion, corrections and collapse to one rank-k
+operator included, in one cluster kernel on K1's layout, so wherever
+:func:`chunk_cluster_plan` holds the chunk on one cluster, and one
 sub-block at a time elsewhere. Those rules are by shape alone: nothing is
 tried and caught, and every shape the kernels took before still runs.
 Before each cluster launch the wrapper checks that the plan's shared
@@ -60,9 +67,11 @@ On CUDA each wrapper updates its state tensors in place and returns them;
 the plain versions return new tensors. Each wrapper counts its calls that
 launched the kernel in its ``launches`` attribute (one per call; a call
 is several CUDA launches, listed in the source); ``blocked_chunk`` counts
-K1 there (and the K1 calls whose recursion ran on a cluster in
-``cluster_launches``) and K5 in ``sub_launches`` (of them, those on the
-fused cluster kernel in ``sub_cluster_launches``) and ``coord_launches``.
+K1 there (and the K1 calls whose recursion ran on clusters in
+``cluster_launches``, of them those on G > 1 clusters in
+``grid_cluster_launches``) and K5 in ``sub_launches`` (of them, those on
+the fused cluster kernel in ``sub_cluster_launches``) and
+``coord_launches``.
 """
 
 from __future__ import annotations
@@ -106,17 +115,19 @@ def _root_update_lib():
         lib.ogp_rank1_apply.restype = i32
         lib.ogp_rank1_apply_rows.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
         lib.ogp_rank1_apply_rows.restype = i32
-        lib.ogp_blocked_chunk.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+        lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 8 + [vp]
         lib.ogp_blocked_chunk.restype = i32
         lib.ogp_blocked_chunk_smem.argtypes = [i32, i32]
         lib.ogp_blocked_chunk_smem.restype = ctypes.c_longlong
-        lib.ogp_chunk_cluster_smem.argtypes = [i32, i32, i32]
+        lib.ogp_chunk_cluster_smem.argtypes = [i32] * 4
         lib.ogp_chunk_cluster_smem.restype = ctypes.c_longlong
+        lib.ogp_chunk_grid_capacity.argtypes = [i32] * 4
+        lib.ogp_chunk_grid_capacity.restype = i32
         lib.ogp_rank1_update_tiles.argtypes = [i32]
         lib.ogp_rank1_update_tiles.restype = i32
         lib.ogp_rank1_update.argtypes = [vp] * 6 + [i32, i32, vp]
         lib.ogp_rank1_update.restype = i32
-        lib.ogp_blocked_chunk_sub.argtypes = [vp] * 10 + [i32] * 7 + [vp]
+        lib.ogp_blocked_chunk_sub.argtypes = [vp] * 11 + [i32] * 9 + [vp]
         lib.ogp_blocked_chunk_sub.restype = i32
         lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 7 + [vp]
         lib.ogp_blocked_chunk_sub_cluster.restype = i32
@@ -128,7 +139,7 @@ def _root_update_lib():
         lib.ogp_blocked_chunk_coord.restype = i32
         lib.ogp_chunk_gather_rows.argtypes = [vp] * 4 + [i32] * 6 + [vp]
         lib.ogp_chunk_gather_rows.restype = i32
-        lib.ogp_chunk_factors.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+        lib.ogp_chunk_factors.argtypes = [vp] * 5 + [i32] * 6 + [vp]
         lib.ogp_chunk_factors.restype = i32
         lib.ogp_chunk_apply_rows.argtypes = [vp] * 6 + [i32] * 5 + [vp]
         lib.ogp_chunk_apply_rows.restype = i32
@@ -415,12 +426,13 @@ def blocked_chunk_plain(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv:
     return L, B
 
 
-def _chunk_cluster_floats(k: int, m: int, C: int):
+def _chunk_cluster_floats(k: int, m: int, C: int, G: int = 1):
     """(columns per block, floats per block) of the cluster recursions (K1's
-    and K5 sub's) at (k, m) on clusters of C blocks: ``chunk_cluster_layout``
-    in ``csrc/root_update.cu``. A row pass gives Sr lanes to a row; the row
-    stride ld = Sr (mod 2 Sr) keeps a warp's rows on distinct banks."""
-    W = -(-m // C)
+    and K5 sub's) at (k, m) on G clusters of C blocks per output:
+    ``chunk_cluster_layout`` in ``csrc/root_update.cu``. A row pass gives
+    Sr lanes to a row; the row stride ld = Sr (mod 2 Sr) keeps a warp's rows
+    on distinct banks. The receive buffers are the block's own cluster's."""
+    W = -(-m // (C * G))
     Sr = 1
     while Sr < 32 and 2 * Sr * k <= _build.CLUSTER_THREADS:
         Sr *= 2
@@ -436,30 +448,64 @@ def _chunk_cluster_floats(k: int, m: int, C: int):
 
 def chunk_cluster_plan(k: int, m: int):
     """The shape rule of the K1 and K5-sub recursions: the
-    :class:`~online_gp_torch.ops._build.ClusterPlan` (blocks per output,
-    columns per block, shared bytes per block) on clusters of 8 blocks,
-    when each block holds its slices of U, P and R (3 k ceil(m / 8) floats,
-    padded) and the step's vectors in at most 232,448 bytes of shared
-    memory; None where it does not, and the chunk then runs the
-    single-block recursion kernel (K1) or one sub-block at a time (K5 sub,
-    each sub-block's recursion by this rule at k = sub)."""
-    return _build.cluster_plan(lambda C: _chunk_cluster_floats(k, m, C))
+    :class:`~online_gp_torch.ops._build.ClusterPlan` on the fewest clusters
+    of 8 blocks per output, G = 1 to 4, whose blocks each hold their slices
+    of U, P and R (3 k ceil(m / 8 G) floats, padded) and the step's vectors
+    in at most 232,448 bytes of shared memory (at k = 128: G = 1 up to
+    m = 1,120, G = 2 to 2,240, 3 to 3,360, 4 to 4,480); None where even 4
+    clusters do not hold it, and the chunk then runs the single-block
+    recursion kernel (K1) or one sub-block at a time (K5 sub, each
+    sub-block's recursion by this rule at k = sub). K5 sub's fused kernel
+    takes the one-cluster plans (G = 1) only."""
+    return _build.cluster_plan(lambda C, G: _chunk_cluster_floats(k, m, C, G),
+                               clusters=range(1, _build.MAX_GRID_CLUSTERS + 1))
 
 
 def _recursion_plan(lib, k: int, m: int, what: str):
-    """(plan, blocks per output) of a K1 recursion at (k, m): the cluster
+    """(plan, blocks per cluster) of a K1 recursion at (k, m): the cluster
     plan, or (None, 0) for the single-block kernel where that takes the
     shape; raises ValueError where neither does, RuntimeError where the
     plan is not the kernel's layout."""
     plan = chunk_cluster_plan(k, m)
     if plan is not None:
-        _build.check_layout(plan, lib.ogp_chunk_cluster_smem(k, m, plan.cluster), f"{what} (k={k}, m={m})")
+        nbytes = lib.ogp_chunk_cluster_smem(k, m, plan.cluster, plan.clusters)
+        _build.check_layout(plan, nbytes, f"{what} (k={k}, m={m})")
         return plan, plan.cluster
     if k > MAX_CHUNK or lib.ogp_blocked_chunk_smem(k, m) > MAX_SHARED_BYTES:
         raise ValueError(f"{what} (k={k}, m={m}) exceeds what the K1 recursion kernels take: no cluster "
                          f"holds it, and the single-block kernel takes k <= {MAX_CHUNK} with (2m + 2k + 32) "
                          f"floats of shared memory <= {MAX_SHARED_BYTES} bytes")
     return None, 0
+
+
+class GridLaunch(NamedTuple):
+    """How a K1 recursion's C entry is launched past one cluster: G
+    clusters per output, outputs in waves of ``wave`` (each wave's G wave
+    clusters resident at once), ``slots`` the zeroed words of the
+    cross-cluster sums (None, with G = 1, for the other routes)."""
+
+    G: int
+    wave: int
+    slots: Optional[torch.Tensor]
+
+
+def _grid_launch(lib, plan, Bd: int, k: int, m: int, device, what: str, n: int = 1) -> GridLaunch:
+    """The :class:`GridLaunch` of ``n`` recursions of Bd outputs at (k, m)
+    on ``plan`` (n sub-blocks of K5 sub, one otherwise): for a plan on G > 1
+    clusters the card's capacity for them (``ogp_chunk_grid_capacity``)
+    sets the wave; raises RuntimeError, naming the plan, where the card
+    cannot hold the G clusters of one output at once."""
+    if plan is None or plan.clusters == 1:
+        return GridLaunch(1, Bd, None)
+    C, G = plan.cluster, plan.clusters
+    cap = lib.ogp_chunk_grid_capacity(k, m, C, G)
+    if cap < 0:
+        raise RuntimeError(f"{what}: the occupancy query of the grid recursion failed with cudaError {-cap}")
+    if cap < G:
+        raise RuntimeError(f"{what} (k={k}, m={m}): the card holds {cap} clusters of {C} blocks with "
+                           f"{plan.shared_bytes} bytes of shared memory each at once; the plan {plan} needs {G}")
+    slots = torch.zeros((n, Bd, 2 * k, G, k + 1), dtype=torch.int64, device=device)
+    return GridLaunch(G, min(Bd, cap // G), slots)
 
 
 def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor,
@@ -477,10 +523,12 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
       mode: "flat", or "coord" for the recursion on k-dim coordinates
         (``sub`` is then only checked).
 
-    On CUDA the flat recursion runs on clusters of :func:`chunk_cluster_plan`,
-    or on the single-block kernel where that returns None; the sub recursion
-    on the fused cluster kernel where that rule holds the chunk at k, else
-    one sub-block at a time (each by the flat rule at k = sub). Raises
+    On CUDA the flat recursion runs on the clusters of
+    :func:`chunk_cluster_plan` (one, or G > 1 in waves of outputs), or on
+    the single-block kernel where that returns None; the sub recursion on
+    the fused cluster kernel where that rule holds the chunk at k on one
+    cluster, else one sub-block at a time (each by the flat rule at
+    k = sub). Raises
     ValueError for a shape neither takes, RuntimeError when a launch fails,
     the card cannot hold the planned cluster, or the plan is not the
     kernel's layout.
@@ -507,22 +555,26 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
     plan, C = _recursion_plan(lib, k, m, "chunk")
     aplan, AC = _apply_plan(lib, k, m, m, "chunk")
     dev = L.device
+    grid = _grid_launch(lib, plan, Bd, k, m, dev, "chunk")
     factors = torch.empty((4, Bd, k, m), dtype=torch.float32, device=dev)  # p0, U, P, R
     T = _apply_scratch(aplan, Bd, m, k, dev)
     p_ = _build.ptr
     rc = lib.ogp_blocked_chunk(
         p_(L), p_(B), p_(idx), p_(wv), p_(factors[0]), p_(factors[1]), p_(factors[2]),
-        p_(factors[3]), _ptr_or_null(T), Bd, k, P, m, AC, C, _build.stream_of(L),
+        p_(factors[3]), _ptr_or_null(T), _ptr_or_null(grid.slots), Bd, k, P, m, grid.G, grid.wave, AC, C,
+        _build.stream_of(L),
     )
     _build.launch_check(rc, "blocked_chunk", plan, aplan)
     blocked_chunk.launches += 1
     blocked_chunk.cluster_launches += plan is not None
+    blocked_chunk.grid_cluster_launches += grid.G > 1
     _count_applies(aplan, Bd, m, m, k)
     return L, B
 
 
 blocked_chunk.launches = 0
 blocked_chunk.cluster_launches = 0
+blocked_chunk.grid_cluster_launches = 0
 blocked_chunk.sub_launches = 0
 blocked_chunk.sub_cluster_launches = 0
 blocked_chunk.coord_launches = 0
@@ -531,16 +583,17 @@ blocked_chunk.coord_launches = 0
 def _chunk_sub(lib, L, B, idx, wv, sub):
     """K5 with ``sub < k``; arguments checked by :func:`blocked_chunk`. On
     the fused cluster kernel where :func:`chunk_cluster_plan` holds the
-    chunk (counted in ``blocked_chunk.sub_cluster_launches``), else one
-    sub-block at a time."""
+    chunk on one cluster (counted in ``blocked_chunk.sub_cluster_launches``),
+    else one sub-block at a time, each sub-block's recursion by the same
+    rule at k = sub."""
     Bd, m = L.shape[0], L.shape[-1]
     k, P = idx.shape
     f32 = dict(dtype=torch.float32, device=L.device)
     p_ = _build.ptr
     plan = chunk_cluster_plan(k, m)
-    if plan is not None:
+    if plan is not None and plan.clusters == 1:
         what = f"blocked_chunk (sub={sub}, k={k}, m={m})"
-        _build.check_layout(plan, lib.ogp_chunk_cluster_smem(k, m, plan.cluster), what)
+        _build.check_layout(plan, lib.ogp_chunk_cluster_smem(k, m, plan.cluster, 1), what)
         aplan, AC = _apply_plan(lib, k, m, m, what)
         factors = torch.empty((4, Bd, k, m), **f32)  # p0, U, Pc, Rc
         T = _apply_scratch(aplan, Bd, m, k, L.device)
@@ -556,6 +609,7 @@ def _chunk_sub(lib, L, B, idx, wv, sub):
     nb = k // sub
     plan, C = _recursion_plan(lib, sub, m, "sub-block")
     aplan, AC = _apply_plan(lib, sub, m, m, "sub-block")
+    grid = _grid_launch(lib, plan, Bd, sub, m, L.device, "sub-block", nb)
     # sub-block j's weights contiguous, as its gather reads them
     wv_sub = wv.reshape(Bd, nb, sub, P).transpose(0, 1).contiguous()
     factors = torch.empty((4, nb, Bd, sub, m), **f32)  # corrected rows q, U, P, R
@@ -563,7 +617,8 @@ def _chunk_sub(lib, L, B, idx, wv, sub):
     T = _apply_scratch(aplan, Bd, m, sub, L.device)
     rc = lib.ogp_blocked_chunk_sub(
         p_(L), p_(B), p_(idx), p_(wv_sub), p_(factors[0]), p_(factors[1]), p_(factors[2]),
-        p_(factors[3]), p_(a2), _ptr_or_null(T), Bd, k, sub, P, m, AC, C, _build.stream_of(L),
+        p_(factors[3]), p_(a2), _ptr_or_null(T), _ptr_or_null(grid.slots), Bd, k, sub, P, m, grid.G,
+        grid.wave, AC, C, _build.stream_of(L),
     )
     _build.launch_check(rc, "blocked_chunk (sub)", plan, aplan)
     blocked_chunk.sub_launches += 1
@@ -663,8 +718,10 @@ def chunk_factors_plain(p0: torch.Tensor):
 
 def chunk_factors(p0: torch.Tensor):
     """K1's recursion on a chunk's summed p0 (Bd, k, m): returns (U, P, R),
-    each (Bd, k, m), on clusters where :func:`chunk_cluster_plan` holds the
-    chunk, else on the single-block kernel."""
+    each (Bd, k, m), on the clusters of :func:`chunk_cluster_plan` where it
+    holds the chunk (counted in ``cluster_launches``, and those on G > 1
+    clusters also in ``grid_cluster_launches``), else on the single-block
+    kernel."""
     if _build.on_cpu(p0):
         return chunk_factors_plain(p0)
     _build.check_cuda_args("chunk_factors_plain", p0=p0)
@@ -674,17 +731,21 @@ def chunk_factors(p0: torch.Tensor):
     _check_sizes(Bd, m, k)
     lib = _root_update_lib()
     plan, C = _recursion_plan(lib, k, m, "chunk_factors")
+    grid = _grid_launch(lib, plan, Bd, k, m, p0.device, "chunk_factors")
     U, Pm, R = torch.empty((3, Bd, k, m), dtype=torch.float32, device=p0.device)
     p_ = _build.ptr
-    rc = lib.ogp_chunk_factors(p_(p0), p_(U), p_(Pm), p_(R), Bd, k, m, C, _build.stream_of(p0))
+    rc = lib.ogp_chunk_factors(p_(p0), p_(U), p_(Pm), p_(R), _ptr_or_null(grid.slots), Bd, k, m, grid.G,
+                               grid.wave, C, _build.stream_of(p0))
     _build.launch_check(rc, "chunk_factors", plan)
     chunk_factors.launches += 1
     chunk_factors.cluster_launches += plan is not None
+    chunk_factors.grid_cluster_launches += grid.G > 1
     return U, Pm, R
 
 
 chunk_factors.launches = 0
 chunk_factors.cluster_launches = 0
+chunk_factors.grid_cluster_launches = 0
 
 
 def chunk_apply_rows_plain(L: torch.Tensor, B: torch.Tensor, U: torch.Tensor, Pm: torch.Tensor, R: torch.Tensor):

@@ -1,0 +1,220 @@
+"""Hold K1's and K3's recursions of two checkouts of the port against each
+other on the card, and time them in turns.
+
+    python3 scripts/compare_recursion_builds.py OTHER_CHECKOUT [--time] [--pairs N]
+
+(a) Each checkout, in a process of its own with its own ``build/``, runs
+    the same inputs (made from one seed in each process: random roots,
+    covariance and mean caches, stencils over [0, m) of 16 points a row,
+    k = 128, Bd = 1 and 2) through ``blocked_chunk`` and ``chunk_factors``
+    (K1) and ``pred_chunk`` and ``pred_factors`` (K3) at m = 256, 900,
+    1,120, 3,136 and 4,096. Inside the envelopes of one cluster of 8
+    (K1 m <= 1,120, K3 m <= 3,136 at k = 128) the two checkouts must agree
+    bit for bit (exit 1 otherwise); elsewhere the largest difference is
+    printed, since a recursion on more blocks sums in another order.
+(b) With ``--time``, N pairs (default 1) of processes, each pair run as
+    other, this, this, other: the device ms (``chip_smoke.device_ms`` of
+    that checkout, torch.profiler, over every kernel the call launches but
+    the copies that make its inputs) of ``blocked_chunk``, ``pred_chunk``,
+    ``chunk_factors`` and ``pred_factors`` at m = 4,096, Bd = 1, with each
+    kernel's share (the recursion's among them); then phase 6's dense
+    wrapper, ``OnlineSKIRegression(LinearStem(2, 2), grid_size=64)``
+    seeded with 256 points of sin(3 x0): ``prequential`` of 512 points and
+    ``absorb`` of 1,024, host clock around synchronised work, three fresh
+    wrappers after a warm-up, the median. One JSON line a process, then
+    each number's medians over the two checkouts' processes.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+INPUTS = r'''
+import torch
+
+
+def inputs(m, Bd, dev, k=128):
+    """The same inputs in every process: seeded on the CPU, moved to dev."""
+    g = torch.Generator().manual_seed(1000 * m + Bd)
+    L = torch.randn((Bd, m, m), generator=g) / m**0.5 + torch.eye(m)
+    B = torch.randn((Bd, m, m), generator=g) / m**0.5 + torch.eye(m)
+    idx = torch.randint(0, m, (k, 16), generator=g, dtype=torch.int32)
+    w = torch.rand((k, 16), generator=g)
+    w = w / w.sum(1, keepdim=True)
+    wv = w[None] * torch.tensor([1.0, 1.3][:Bd])[:, None, None]
+    G = torch.randn((Bd, m, 64), generator=g)
+    mu = torch.randn((Bd, m), generator=g)
+    y = torch.randn((Bd, k), generator=g)
+    t = lambda x: x.to(dev).contiguous()
+    G = t(G)
+    C = (G @ G.mT / 64 + 0.1 * torch.eye(m, device=dev)).contiguous()
+    return dict(L=t(L), B=t(B), idx=t(idx), w=t(w), wv=t(wv), C=C, mu=t(mu), y=t(y), nz=torch.ones((Bd, k), device=dev))
+'''
+
+RUN = INPUTS + r'''
+import sys
+from online_gp_torch.ops import _build
+from online_gp_torch.ops.cuda_pred_stream import pred_chunk, pred_factors
+from online_gp_torch.ops.cuda_root_update import blocked_chunk, chunk_factors
+from online_gp_torch.ops.precision import f32_matmul_precision
+from online_gp_torch.ops.root_update import stencil_rows
+
+dev = torch.device("cuda", 0)
+out = {}
+with f32_matmul_precision():
+    _build.build_all()
+    for m in (256, 900, 1120, 3136, 4096):
+        for Bd in (1, 2):
+            a = inputs(m, Bd, dev)
+            tag = f"m{m}_bd{Bd}"
+            out[f"k1_root_{tag}"], out[f"k1_inv_root_{tag}"] = blocked_chunk(a["L"].clone(), a["B"].clone(), a["idx"],
+                                                                               a["wv"])
+            p0 = torch.einsum("bkp,bkpm->bkm", a["wv"], a["B"][:, a["idx"].long()]).contiguous()
+            for name, f in zip("UPR", chunk_factors(p0)):
+                out[f"k1_factors_{name}_{tag}"] = f
+            C, mu, pm, pv = pred_chunk(a["C"].clone(), a["mu"].clone(), a["idx"], a["w"], a["y"], a["nz"])
+            out[f"k3_cov_{tag}"], out[f"k3_mean_{tag}"], out[f"k3_pm_{tag}"], out[f"k3_pv_{tag}"] = C, mu, pm, pv
+            S = stencil_rows(a["idx"], a["w"], m)
+            for name, f in zip(("Z", "r", "pm", "pv"), pred_factors(a["idx"], a["w"], (S @ a["C"]).contiguous(),
+                                                                  (a["mu"] @ S.mT).contiguous(), a["y"], a["nz"])):
+                out[f"k3_factors_{name}_{tag}"] = f
+    torch.cuda.synchronize()
+    torch.save({key: v.cpu() for key, v in out.items()}, sys.argv[1])
+'''
+
+TIME = INPUTS + r'''
+import json
+import re
+import sys
+import time
+import warnings
+import numpy as np
+import chip_smoke as cs
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from online_gp_torch.api import LinearStem, OnlineSKIRegression
+from online_gp_torch.ops import _build
+from online_gp_torch.ops.cuda_pred_stream import pred_chunk, pred_factors
+from online_gp_torch.ops.cuda_root_update import blocked_chunk, chunk_factors
+from online_gp_torch.ops.precision import f32_matmul_precision
+from online_gp_torch.ops.root_update import stencil_rows
+
+
+def kernels_of(fn, make, calls=4):
+    """{kernel: 1} for the port's kernels that fn(*make()) launches (each
+    once a call at Bd = 1), seen in a window of a few calls opened
+    cs.PROFILE_PAD_S before them (torch.profiler may lose a window's first
+    records); PyTorch's own kernels, the copies make launches, aside."""
+    args = [make() for _ in range(calls)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(cs.PROFILE_PAD_S)
+        for a in args:
+            fn(*a)
+        torch.cuda.synchronize()
+    names = {hit.group(1): 1 for e in prof.events() if e.device_type == DeviceType.CUDA
+             and "_kernel(" in e.name and "at::" not in e.name and (hit := re.search(r"::(\w+)\(", e.name))}
+    if not names:
+        raise AssertionError(f"no kernel of {fn.__name__} recorded in {calls} calls")
+    return names
+
+
+tag = sys.argv[1]
+dev = torch.device("cuda", 0)
+res = dict(run=tag)
+with f32_matmul_precision():
+    _build.build_all()
+    m = 4096
+    a = inputs(m, 1, dev)
+    p0 = torch.einsum("bkp,bkpm->bkm", a["wv"], a["B"][:, a["idx"].long()]).contiguous()
+    S = stencil_rows(a["idx"], a["w"], m)
+    c0w, mu0w = (S @ a["C"]).contiguous(), (a["mu"] @ S.mT).contiguous()
+    calls = {
+        "blocked_chunk": (blocked_chunk, lambda: (a["L"].clone(), a["B"].clone(), a["idx"], a["wv"])),
+        "pred_chunk": (pred_chunk, lambda: (a["C"].clone(), a["mu"].clone(), a["idx"], a["w"], a["y"], a["nz"])),
+        "chunk_factors": (chunk_factors, lambda: (p0,)),
+        "pred_factors": (pred_factors, lambda: (a["idx"], a["w"], c0w, mu0w, a["y"], a["nz"])),
+    }
+    for name, (fn, make) in calls.items():
+        ms, stages = cs.device_ms(fn, make, kernels_of(fn, make))
+        res[f"{name}_ms"], res[f"{name}_stages_ms"] = ms, stages
+
+    rng = np.random.default_rng(0)
+
+    def points(n):
+        x = rng.uniform(-1, 1, (n, 2)).astype(np.float32)
+        return x, np.sin(3 * x[:, :1])
+
+    x0, y0 = points(256)
+    xp, yp = points(512)
+    xa, ya = points(1024)
+    preq, absorb = [], []
+    for rep in range(4):  # the first is a warm-up
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            reg = OnlineSKIRegression(LinearStem(2, 2), x0, y0, lr=1e-2, grid_size=64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg.prequential(xp, yp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reg.absorb(xa, ya)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if rep:
+            preq.append(1e3 * (t1 - t0))
+            absorb.append(1e3 * (t2 - t1))
+    res.update(prequential_ms=float(np.median(preq)), prequential_runs_ms=preq, absorb_ms=float(np.median(absorb)),
+               absorb_runs_ms=absorb)
+print(json.dumps(res), flush=True)
+'''
+
+
+def run(root: Path, out: Path) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(root))
+    subprocess.run([sys.executable, "-c", RUN, str(out)], cwd=root, env=env, check=True)
+    return torch.load(out)
+
+
+def old_envelope(key: str) -> bool:
+    """Whether a result lies inside the one-cluster envelope of its kernel."""
+    m = int(key.split("_m")[-1].split("_")[0])
+    return m <= (1120 if key.startswith("k1") else 3136)
+
+
+def main() -> int:
+    other, this = Path(sys.argv[1]).resolve(), Path(__file__).resolve().parents[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = run(other, Path(tmp) / "other.pt"), run(this, Path(tmp) / "this.pt")
+    differ = [k for k in b if old_envelope(k) and not torch.equal(a[k], b[k])]
+    for k in b:
+        d = float((a[k] - b[k]).abs().max())
+        scale = max(float(a[k].abs().max()), 1.0)
+        same = "bitwise equal" if torch.equal(a[k], b[k]) else ("DIFFERS" if k in differ else "differs")
+        print(f"{k}: {same}, max |d| {d:.3e} ({d / scale:.3e} of the scale)")
+    print(json.dumps(dict(bitwise_inside_old_envelopes=sum(old_envelope(k) for k in b) - len(differ),
+                          of=sum(old_envelope(k) for k in b))))
+    if "--time" in sys.argv[2:]:
+        pairs = int(sys.argv[sys.argv.index("--pairs") + 1]) if "--pairs" in sys.argv else 1
+        runs = {"other": [], "this": []}
+        for _ in range(pairs):
+            for tag, root in (("other", other), ("this", this), ("this", this), ("other", other)):
+                out = subprocess.run([sys.executable, "-c", TIME, tag], cwd=root, check=True, capture_output=True,
+                                     text=True, env=dict(os.environ, PYTHONPATH=str(root)))
+                line = out.stdout.strip().splitlines()[-1]
+                print(line, flush=True)
+                runs[tag].append(json.loads(line))
+        keys = [k for k, v in runs["this"][0].items() if isinstance(v, float)]
+        print(json.dumps({"medians": {k: {tag: statistics.median(r[k] for r in runs[tag]) for tag in runs}
+                                      for k in keys}}))
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

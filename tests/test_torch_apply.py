@@ -143,8 +143,12 @@ class _Layouts:
     def ogp_pred_apply_smem(self, bm):
         return 4 * 3 * 16 * (bm + 128) + self.skew
 
-    def ogp_chunk_cluster_smem(self, k, m, C):
-        return 4 * tcru._chunk_cluster_floats(k, m, C)[1]
+    def ogp_chunk_cluster_smem(self, k, m, C, G):
+        return 4 * tcru._chunk_cluster_floats(k, m, C, G)[1]
+
+    @staticmethod
+    def ogp_chunk_grid_capacity(k, m, C, G):  # an H100 SXM's clusters of 8 at m = 4,096
+        return 15
 
     @staticmethod
     def ogp_blocked_chunk_smem(k, m):

@@ -1,31 +1,40 @@
-"""The K1 and K3 recursions on thread-block clusters, held on the CPU.
+"""The K1 and K3 recursions on thread-block clusters, held on the CPU (and,
+marked ``cuda``, on a card).
 
-- The shape rules ``chunk_cluster_plan`` (K1's recursion, and K5 sub's
-  fused one on the same layout) and ``pred_cluster_plan``: which
-  chunks run on a cluster, within the shared memory of one block, that
-  every chunk the single-block kernels took still has a kernel, and that
-  the wrappers refuse a plan that is not the kernel's layout.
+- The shape rules ``chunk_cluster_plan`` (K1's recursion on one cluster of
+  8 blocks, or on G = 2 to 4 of them past what one holds, and K5 sub's
+  fused one on the one-cluster layout) and ``pred_cluster_plan`` (K3's,
+  on 8 blocks or 16): which chunks run on which clusters, within the
+  shared memory of one block, that every chunk the single-block kernels
+  took still has a kernel, and that the wrappers refuse a plan that is
+  not the kernel's layout; K1's grid launch through a stand-in library
+  (its G, its waves within the card's capacity, its counters, and a
+  capacity below G raising).
 - The cluster kernels' order of summation, emulated in float32 torch
   (``cluster_chunk_factors``, ``cluster_pred_factors``): each output's m
-  columns split over C blocks, each block's partial sums added in rank
-  order, and for K1 g = (U p) / s in one reduction. Held against the
-  Pallas kernels they replace, in interpret mode as the JAX package's own
-  tests run them (K1 1e-5 as tests/test_torch_root_update.py, K3 2e-4 as
-  tests/test_torch_pred_stream.py), and against the plain recursions at
-  float64, at m = 64, k = 16, C in {2, 4}, on a random chunk and on one
-  whose points repeat or nearly repeat (near-dependent rows of p0).
+  columns split over the C G blocks of G clusters, each block's partial
+  sums added in rank order within its cluster and the G cluster sums in
+  cluster order, and for K1 g = (U p) / s in one reduction. Held against
+  the Pallas kernels they replace, in interpret mode as the JAX package's
+  own tests run them (K1 1e-5 as tests/test_torch_root_update.py, K3 2e-4
+  as tests/test_torch_pred_stream.py), and against the plain recursions at
+  float64, at m = 64, k = 16, C in {2, 4} and G in {1, 2, 3} (K3 also one
+  cluster of 16), on a random chunk and on one whose points repeat or
+  nearly repeat (near-dependent rows of p0).
+- The kernels against their plain versions on the card at m = 4,096 (K1 on
+  4 clusters, Bd = 1 and 2; K3 on 16 blocks) and at the envelopes' edges,
+  bitwise the same on a second call; skipped without one (``-m cuda``; the
+  JAX imports sit inside the CPU tests, so ``pytest --noconftest -m cuda``
+  runs this file on a machine without JAX).
 """
 
+import collections
 import functools
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from online_gp_tpu.ops import root_update as jru
-from online_gp_tpu.ops.pallas_pred_stream import pad_cache_to_tile, pallas_pred_chunk
-from online_gp_tpu.ops.pallas_root_update import pallas_blocked_chunk_batched
 from online_gp_torch.ops import _build
 from online_gp_torch.ops import cuda_pred_stream as tcps
 from online_gp_torch.ops import cuda_root_update as tcru
@@ -44,24 +53,32 @@ def _rank_sum(parts):
     return functools.reduce(lambda x, y: x + y, parts)
 
 
-def _slices(m, C):
-    W = -(-m // C)
-    return [slice(r * W, min((r + 1) * W, m)) for r in range(C)]
+def _cluster_sum(parts, C):
+    """The partials of the blocks of G clusters (block r of cluster g at
+    g C + r): each cluster's C in rank order, then the G cluster sums in
+    cluster order (ogp::GridExchange). At G = 1, _rank_sum."""
+    return _rank_sum([_rank_sum(parts[g : g + C]) for g in range(0, len(parts), C)])
 
 
-def cluster_chunk_factors(p0, C):
+def _slices(m, C, G=1):
+    W = -(-m // (C * G))
+    return [slice(r * W, min((r + 1) * W, m)) for r in range(C * G)]
+
+
+def cluster_chunk_factors(p0, C, G=1):
     """K1's cluster recursion in its order of summation: (U, P, R) of p0
-    (Bd, k, m). Block r owns the columns of slice r; a, U p and |p|^2 are
-    rank-order sums of the blocks' partials; g = (U p) inv_s."""
+    (Bd, k, m) on G clusters of C blocks. Block g C + r owns the columns of
+    slice g C + r; a, U p and |p|^2 are two-level sums of the blocks'
+    partials (_cluster_sum); g = (U p) inv_s."""
     Bd, k, m = p0.shape
-    cols = _slices(m, C)
+    cols = _slices(m, C, G)
     U, Pm, R = (torch.zeros_like(p0) for _ in range(3))
     for t in range(k):
         q = p0[:, t]
-        a = _rank_sum([(Pm[:, :t, c] @ q[:, c, None])[..., 0] for c in cols])
+        a = _cluster_sum([(Pm[:, :t, c] @ q[:, c, None])[..., 0] for c in cols], C)
         p = q + (U[:, :t].mT @ a[..., None])[..., 0]
-        s2 = _rank_sum([torch.sum(p[:, c] * p[:, c], dim=-1) for c in cols])[:, None]
-        Up = _rank_sum([(U[:, :t, c] @ p[:, c, None])[..., 0] for c in cols])
+        s2 = _cluster_sum([torch.sum(p[:, c] * p[:, c], dim=-1) for c in cols], C)[:, None]
+        Up = _cluster_sum([(U[:, :t, c] @ p[:, c, None])[..., 0] for c in cols], C)
         s = torch.sqrt(s2)
         inv_s = torch.where(s > 1e-20, 1.0 / torch.clamp(s, min=1e-20), torch.zeros_like(s))
         c_, d_ = torch.sqrt(s2 + 1.0) - 1.0, 1.0 / torch.sqrt(s2 + 1.0) - 1.0
@@ -73,14 +90,15 @@ def cluster_chunk_factors(p0, C):
     return U, Pm, R
 
 
-def cluster_pred_factors(S, c0w, mu0w, y, nz, C):
+def cluster_pred_factors(S, c0w, mu0w, y, nz, C, G=1):
     """K3's cluster recursion in its order of summation: (Z, r, pred_mean,
     pred_var). ct = c0w[t] - Z^T a on each block's columns with its rows
     in row groups (added in order); the owners' partials of a (one step
     ahead, row t - 1 as ct unscaled, then times inv) and of pv, added in
-    rank order."""
+    rank order (in two levels over G clusters, as K1's: _cluster_sum; the
+    kernel runs one cluster of 8 or 16)."""
     Bd, k, m = c0w.shape
-    cols = _slices(m, C)
+    cols = _slices(m, C, G)
     groups = _build.col_split(cols[0].stop - cols[0].start)[1]
     Z = torch.zeros_like(c0w)
     r = torch.zeros_like(mu0w)
@@ -89,7 +107,7 @@ def cluster_pred_factors(S, c0w, mu0w, y, nz, C):
     for t in range(k):
         ct = c0w[:, t] - _rank_sum([(Z[:, g:t:groups].mT @ a[:, g:t:groups, None])[..., 0]
                                      for g in range(groups)])
-        pv = _rank_sum([ct[:, c] @ S[t, c] for c in cols])
+        pv = _cluster_sum([ct[:, c] @ S[t, c] for c in cols], C)
         pm = mu0w[:, t] + torch.sum(r[:, :t] * a[:, :t], dim=-1)
         inv = torch.rsqrt(torch.clamp(pv + nz[:, t], min=1e-20))
         r[:, t] = (y[:, t] - pm) * inv
@@ -98,7 +116,7 @@ def cluster_pred_factors(S, c0w, mu0w, y, nz, C):
         if t + 1 < k:
             rows = torch.cat([Z[:, :t], ct[:, None]], dim=1)
             a = torch.zeros_like(mu0w)
-            a[:, : t + 1] = _rank_sum([rows[:, :, c] @ S[t + 1, c] for c in cols])
+            a[:, : t + 1] = _cluster_sum([rows[:, :, c] @ S[t + 1, c] for c in cols], C)
             a[:, t] = a[:, t] * inv
         Z[:, t] = ct * inv[:, None]
     return Z, r, torch.stack(pms, dim=-1), torch.stack(pvs, dim=-1)
@@ -145,17 +163,22 @@ def test_cluster_plans_fit_one_block_and_leave_no_chunk_without_a_kernel(which):
             plan, old, slices = tcru.chunk_cluster_plan(k, m), _old_k1_takes(k, m), 3 * k
         else:
             plan, old, slices = tcps.pred_cluster_plan(k, m, 16), _old_k3_takes(k, m), k
+        # the widest plan: 4 clusters of 8 blocks (K1), one of 16 (K3)
+        widest = 32 if which == "K1" else 16
         if plan is None:
-            # None only where the slices of a cluster of 8 (with at most 63
+            # None only where the slices of the widest plan (with at most 63
             # columns of padding, the vectors and the partials) may not fit a
             # block, or a block would own more columns than it keeps in
             # registers; such chunks go to the single-block kernel
-            W8 = -(-m // 8)
+            W8 = -(-m // widest)
             upper = 4 * ((slices + 3) * (W8 + 64) + 40 * k + 4200)
             assert W8 > _build.CLUSTER_COLS or upper > _build.MAX_SHARED_BYTES, (k, m)
             continue
-        assert plan.cluster == _build.CLUSTER_SIZE == 8
-        assert plan.cols == -(-m // plan.cluster) <= _build.CLUSTER_COLS
+        if which == "K1":
+            assert plan.cluster == _build.CLUSTER_SIZE == 8 and 1 <= plan.clusters <= _build.MAX_GRID_CLUSTERS == 4
+        else:
+            assert plan.cluster in (8, 16) and plan.clusters == 1
+        assert plan.cols == -(-m // (plan.cluster * plan.clusters)) <= _build.CLUSTER_COLS
         assert 4 * slices * plan.cols <= plan.shared_bytes <= _build.MAX_SHARED_BYTES == 232448, (k, m, plan)
 
 
@@ -176,8 +199,8 @@ class _SizeQueries:
     def ogp_pred_chunk_smem(k, m):
         return (m + 2 * k + 1) * 4
 
-    def ogp_chunk_cluster_smem(self, k, m, C):
-        return 4 * tcru._chunk_cluster_floats(k, m, C)[1] + self.skew
+    def ogp_chunk_cluster_smem(self, k, m, C, G):  # K1's and K5 sub's, on G clusters of C blocks
+        return 4 * tcru._chunk_cluster_floats(k, m, C, G)[1] + self.skew
 
     def ogp_pred_cluster_smem(self, k, m, P, C):
         return 4 * tcps._pred_cluster_floats(k, m, P, C)[1] + self.skew
@@ -211,16 +234,53 @@ def test_wrapper_dispatch_admits_every_chunk_the_single_block_kernel_took(which)
 @pytest.mark.parametrize("k,m,cluster,nbytes", [
     (128, 900, 8, 192036),  # the main path's chunk: 113 columns a block
     (32, 900, 8, 62356),  # K5-sub's sub-blocks at m = 900
-    (128, 1120, 8, 228740),  # the envelope's edge at k = 128
+    (128, 1120, 8, 228740),  # the one-cluster envelope's edge at k = 128
     (128, 1121, None, None),
-    (128, 2500, None, None),  # chip_smoke's chunk outside the envelope (50 x 50 grid)
+    (128, 2500, None, None),  # chip_smoke's chunk outside the one-cluster envelope (50 x 50 grid)
 ])
 def test_chunk_cluster_plan_at_the_smoke_shapes(k, m, cluster, nbytes):
+    """Inside one cluster's envelope the plans are as they were; past it
+    (cluster None), where the single-block kernel ran, G > 1 clusters of 8
+    take the chunk."""
     plan = tcru.chunk_cluster_plan(k, m)
     if cluster is None:
-        assert plan is None and _old_k1_takes(k, m)
+        assert plan.cluster == 8 and plan.clusters > 1 and _old_k1_takes(k, m)
     else:
         assert plan == _build.ClusterPlan(cluster, -(-m // cluster), nbytes)
+
+
+def _layout(k, m, C, G=1):
+    """chunk_cluster_layout of csrc/root_update.cu, written out: (ld, floats)."""
+    W = -(-m // (C * G))
+    Sr = max(s for s in (1, 2, 4, 8, 16, 32) if s == 1 or s * k <= 512)
+    ld = W if Sr == 32 else next(x for x in range(W, W + 2 * Sr) if x % (2 * Sr) == Sr)
+    CT = -(-W // 32)
+    S = max(1, 16 // CT)
+    return ld, 4 + 3 * k * ld + ld + 2 * k + 2 * C * (k + 1) + 2 * S * CT * 32 + 1
+
+
+@pytest.mark.parametrize("k,m,G,nbytes", [
+    (128, 1121, 2, 4 * _layout(128, 1121, 8, 2)[1]),  # past one cluster: the first grid plan
+    (128, 2048, 2, 4 * _layout(128, 2048, 8, 2)[1]),
+    (128, 2240, 2, 228740),  # the edges of G = 2, 3 and 4 at k = 128
+    (128, 2241, 3, 4 * _layout(128, 2241, 8, 3)[1]),
+    (128, 3360, 3, 228740),
+    (128, 3361, 4, 4 * _layout(128, 3361, 8, 4)[1]),
+    (128, 4096, 4, 216676),  # bench.py's 64 x 64 grid: 128 columns a block, 32 SMs an output
+    (128, 4480, 4, 228740),  # the grid envelope's edge
+    (128, 4481, None, None),  # past it: the single-block kernel, as before
+    (32, 4096, 1, 4 * _layout(32, 4096, 8)[1]),  # K5 sub's sub-blocks at m = 4,096: one cluster
+])
+def test_chunk_grid_plan_at_its_envelope_edges(k, m, G, nbytes):
+    plan = tcru.chunk_cluster_plan(k, m)
+    if G is None:
+        assert plan is None and _old_k1_takes(k, m)
+        assert tcru._recursion_plan(_SizeQueries(), k, m, "chunk") == (None, 0)
+        return
+    assert plan == _build.ClusterPlan(8, -(-m // (8 * G)), nbytes, G)
+    assert tcru._recursion_plan(_SizeQueries(), k, m, "chunk") == (plan, 8)
+    # the C layout of the grid kernel, through its query, is the rule's
+    assert 4 * _layout(k, m, 8, G)[1] == nbytes == _SizeQueries().ogp_chunk_cluster_smem(k, m, 8, G)
 
 
 @pytest.mark.parametrize("k,m", [(128, 900), (32, 900)])
@@ -231,16 +291,40 @@ def test_pred_cluster_plan_picks_a_cluster_at_the_main_path_shapes(k, m):
 
 
 @pytest.mark.parametrize("k,m,inside", [
-    (128, 3136, True),  # the envelope's edge at k = 128, P = 16
+    (128, 3136, True),  # the 8-block envelope's edge at k = 128, P = 16
     (128, 3137, False),
     (512, 900, False),  # chip_smoke's chunk outside the envelope
 ])
 def test_pred_cluster_plan_at_the_envelope_edge(k, m, inside):
+    """``inside``: inside the 8-block envelope, as the plan was. Outside it,
+    where the single-block kernel ran, 16 blocks take the chunk when they
+    hold it (m = 3,137), else the single-block kernel still does (k = 512
+    at m = 900)."""
     plan = tcps.pred_cluster_plan(k, m, 16)
-    assert (plan is not None) == inside
+    assert (plan is not None and plan.cluster == 8) == inside
     if not inside:
         assert _old_k3_takes(k, m)
-        assert tcps._pred_plan(_SizeQueries(), k, m, 16) == (None, 0)
+        want = (None, 0) if plan is None else (plan, 16)
+        assert tcps._pred_plan(_SizeQueries(), k, m, 16) == want
+        assert plan is None or (plan.cluster, plan.clusters) == (16, 1)
+
+
+@pytest.mark.parametrize("k,m,cluster,nbytes", [
+    (128, 3137, 16, 139948),  # past 8 blocks: one cluster of 16
+    (128, 4096, 16, 170648),  # bench.py's 64 x 64 grid: 256 columns a block
+    (128, 6016, 16, 232056),  # the 16-block envelope's edge
+    (128, 6017, None, None),  # past it: the single-block kernel
+    (342, 900, 8, None),  # the 8-block envelope's edge in k at m = 900
+    (343, 900, 16, None),
+])
+def test_pred_wide_cluster_plan_at_its_envelope_edges(k, m, cluster, nbytes):
+    plan = tcps.pred_cluster_plan(k, m, 16)
+    if cluster is None:
+        assert plan is None and _old_k3_takes(k, m)
+        return
+    assert (plan.cluster, plan.clusters, plan.cols) == (cluster, 1, -(-m // cluster))
+    assert plan.shared_bytes == 4 * tcps._pred_cluster_floats(k, m, 16, cluster)[1] <= 232448
+    assert nbytes is None or plan.shared_bytes == nbytes
 
 
 @pytest.mark.parametrize("which", ["K1", "K3"])
@@ -263,16 +347,6 @@ def test_no_cluster_raises_naming_the_cluster():
     with pytest.raises(RuntimeError, match="cudaError 1"):
         _build.launch_check(1, "blocked_chunk", plan)
     _build.launch_check(0, "blocked_chunk", plan)
-
-
-def _layout(k, m, C):
-    """chunk_cluster_layout of csrc/root_update.cu, written out: (ld, floats)."""
-    W = -(-m // C)
-    Sr = max(s for s in (1, 2, 4, 8, 16, 32) if s == 1 or s * k <= 512)
-    ld = W if Sr == 32 else next(x for x in range(W, W + 2 * Sr) if x % (2 * Sr) == Sr)
-    CT = -(-W // 32)
-    S = max(1, 16 // CT)
-    return ld, 4 + 3 * k * ld + ld + 2 * k + 2 * C * (k + 1) + 2 * S * CT * 32 + 1
 
 
 @pytest.mark.parametrize("k,sub,m", [(128, 32, 900), (128, 16, 900), (128, 64, 900), (64, 8, 400), (128, 32, 1120),
@@ -299,8 +373,8 @@ def test_sub_cluster_floats_are_the_layout_formula(k, sub, m):
 ])
 def test_chunk_sub_cluster_plan_at_the_smoke_shapes(k, sub, m, nbytes):
     plan = tcru.chunk_cluster_plan(k, m)
-    if nbytes is None:
-        assert plan is None
+    if nbytes is None:  # a grid plan, which the fused kernel does not take
+        assert plan.clusters > 1
     else:
         assert plan == _build.ClusterPlan(8, -(-m // 8), nbytes) and 4 * _layout(k, m, 8)[1] == nbytes
 
@@ -356,22 +430,151 @@ def test_k5_sub_refuses_a_plan_that_is_not_the_kernel_layout(monkeypatch):
         assert lib.calls == []
 
 
+class _Card(_SizeQueries):
+    """Stands in for the libraries on a card that holds ``capacity``
+    clusters of 8 of K1's grid kernel at once: the layout and capacity
+    queries answer, and every other C entry is recorded with its
+    arguments."""
+
+    def __init__(self, capacity=16, skew=0):
+        super().__init__(skew)
+        self.capacity = capacity
+        self.calls = []
+
+    def ogp_chunk_grid_capacity(self, k, m, C, G):
+        return self.capacity
+
+    @staticmethod
+    def ogp_chunk_apply_smem(k, m, C):
+        return 4 * tcru._chunk_apply_floats(k, m, C)[1]
+
+    @staticmethod
+    def ogp_pred_apply_smem(AM):
+        return 4 * 3 * 16 * (AM + 128)
+
+    def __getattr__(self, name):
+        if not name.startswith("ogp_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, device="meta", dtype=dtype)
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """The wrappers' CUDA branch on meta tensors, routed to a _Card: the
+    plan, the waves and the counters, with no kernel."""
+    lib = _Card()
+    monkeypatch.setattr(_build, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(_build, "check_cuda_args", lambda *a, **kw: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    monkeypatch.setattr(_build, "card_sms", lambda device: 132)
+    monkeypatch.setattr(tcru, "_root_update_lib", lambda: lib)
+    monkeypatch.setattr(tcps, "_pred_stream_lib", lambda: lib)
+    for fn in (tcru.blocked_chunk, tcru.chunk_factors):
+        for attr in ("launches", "cluster_launches", "grid_cluster_launches"):
+            monkeypatch.setattr(fn, attr, 0)
+    for fn in (tcps.pred_chunk, tcps.pred_factors):
+        for attr in ("launches", "cluster_launches", "wide_cluster_launches"):
+            monkeypatch.setattr(fn, attr, 0)
+    monkeypatch.setattr(tcru.chunk_apply_plan, "shapes", collections.Counter())
+    monkeypatch.setattr(tcps.pred_apply_plan, "shapes", collections.Counter())
+    return lib
+
+
+# Bd -> the outputs a wave of K1's grid recursion launches at m = 4,096 (G = 4)
+# on a card holding 16 clusters of 8 at once: 4, in as many waves as that
+# takes (6 outputs: 4, then 2)
+@pytest.mark.parametrize("Bd,wave", [(1, 1), (2, 2), (6, 4)])
+def test_k1_chunk_at_m4096_takes_the_grid_kernel_in_waves(card, Bd, wave):
+    k, P, m = 128, 16, 4096
+    L = _meta(Bd, m, m)
+    tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(Bd, k, P))
+    tcru.chunk_factors(_meta(Bd, k, m))
+    (name, args), (fname, fargs) = card.calls
+    # the slots of the cross-cluster sums, then (Bd, k, P, m, G, wave, AC, C)
+    assert name == "ogp_blocked_chunk" and args[9] is not None and args[10:18] == (Bd, k, P, m, 4, wave, 8, 8)
+    assert fname == "ogp_chunk_factors" and fargs[4] is not None and fargs[5:11] == (Bd, k, m, 4, wave, 8)
+    for fn in (tcru.blocked_chunk, tcru.chunk_factors):  # never the single-block kernel
+        assert (fn.launches, fn.cluster_launches, fn.grid_cluster_launches) == (1, 1, 1)
+
+
+def test_k1_chunk_inside_one_cluster_is_launched_as_before(card):
+    """m = 900: one cluster of 8, G = 1, no slots, no grid launch."""
+    k, P, m, Bd = 128, 16, 900, 2
+    L = _meta(Bd, m, m)
+    tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(Bd, k, P))
+    (name, args), = card.calls
+    assert name == "ogp_blocked_chunk" and args[9] is None and args[10:18] == (Bd, k, P, m, 1, Bd, 8, 8)
+    assert (tcru.blocked_chunk.cluster_launches, tcru.blocked_chunk.grid_cluster_launches) == (1, 0)
+
+
+@pytest.mark.parametrize("capacity", [3, 0])
+def test_k1_grid_plan_the_card_cannot_hold_raises_naming_it(card, capacity):
+    """G = 4 clusters of one output that do not fit the card at once would
+    wait on each other forever: the wrapper raises, names the plan, and
+    launches nothing."""
+    card.capacity = capacity
+    k, P, m = 128, 16, 4096
+    L = _meta(1, m, m)
+    with pytest.raises(RuntimeError, match=r"holds %d clusters of 8 blocks.*the plan ClusterPlan\(cluster=8, "
+                                           r"cols=128, shared_bytes=216676, clusters=4\) needs 4" % capacity):
+        tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(1, k, P))
+    assert card.calls == [] and tcru.blocked_chunk.launches == 0
+
+
+def test_k1_grid_plan_that_is_not_the_kernel_layout_raises():
+    for skew in (4, -4):
+        with pytest.raises(RuntimeError, match="they must be changed together"):
+            tcru._recursion_plan(_SizeQueries(skew), 128, 4096, "chunk")
+
+
+def test_no_grid_cluster_raises_naming_the_clusters():
+    plan = tcru.chunk_cluster_plan(128, 4096)
+    with pytest.raises(RuntimeError, match="cannot hold 4 clusters of 8 blocks with 216676 bytes"):
+        _build.launch_check(_build.NO_CLUSTER, "blocked_chunk", plan)
+
+
+@pytest.mark.parametrize("m,cluster,wide", [(900, 8, 0), (4096, 16, 1)])
+def test_k3_chunk_takes_its_cluster(card, m, cluster, wide):
+    k, P, Bd = 128, 16, 1
+    y = _meta(Bd, k)
+    tcps.pred_chunk(_meta(Bd, m, m), _meta(Bd, m), _meta(k, P, dtype=torch.int32), _meta(k, P), y, y)
+    tcps.pred_factors(_meta(k, P, dtype=torch.int32), _meta(k, P), _meta(Bd, k, m), y, y, y)
+    (name, args), (fname, fargs) = card.calls
+    assert name == "ogp_pred_chunk" and args[-2] == cluster
+    assert fname == "ogp_pred_factors" and fargs[-2] == cluster
+    for fn in (tcps.pred_chunk, tcps.pred_factors):
+        assert (fn.launches, fn.cluster_launches, fn.wide_cluster_launches) == (1, 1, wide)
+
+
 # --------------------------------------------------------------------------
 # (b) K1's summation order
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("C", [2, 4])
+# (C, G): one cluster of C blocks (the ids of the first cases), or G of them
+ORDERS = [(2, 1), (4, 1), (2, 2), (4, 2), (2, 3), (4, 3)]
+ORDER_IDS = ["2", "4", "2-G2", "4-G2", "2-G3", "4-G3"]
+
+
+@pytest.mark.parametrize("C,G", ORDERS, ids=ORDER_IDS)
 @pytest.mark.parametrize("repeats", [False, True])
-def test_k1_cluster_order_matches_pallas_and_the_plain_recursion(C, repeats):
-    rng = np.random.default_rng(30 + C + 10 * repeats)
+def test_k1_cluster_order_matches_pallas_and_the_plain_recursion(C, G, repeats):
+    import jax.numpy as jnp
+    from online_gp_tpu.ops import root_update as jru
+    from online_gp_tpu.ops.pallas_root_update import pallas_blocked_chunk_batched
+
+    rng = np.random.default_rng(30 + C + 10 * repeats + 100 * (G - 1))
     Bd = 2
     L, B = _roots(rng, Bd, M, np.float32)
     idx, w = _stencil(rng, K, M, repeats)
     wv = (w[None] * np.array([1.0, 0.7])[:, None, None]).astype(np.float32)
     S = np.stack([np.asarray(jru.stencil_rows(jnp.asarray(idx, jnp.int32), jnp.asarray(wv[b]), M)) for b in range(Bd)])
     p0 = torch.einsum("bkp,bkpm->bkm", torch.tensor(wv), torch.tensor(B)[:, torch.tensor(idx)])
-    U, Pm, R = cluster_chunk_factors(p0, C)
+    U, Pm, R = cluster_chunk_factors(p0, C, G)
     tL = torch.tensor(L) + (torch.tensor(L) @ R.mT) @ U
     tB = torch.tensor(B) + (torch.tensor(B) @ Pm.mT) @ U
     jL, jB = pallas_blocked_chunk_batched(jnp.asarray(L), jnp.asarray(B), jnp.asarray(S), interpret=True)
@@ -379,7 +582,7 @@ def test_k1_cluster_order_matches_pallas_and_the_plain_recursion(C, repeats):
     _close(jB, tB, 1e-5)
     # at float64 the reassociation is the plain recursion's to rounding
     p0d = p0.double()
-    for a, b in zip(blocked_factors(p0d), cluster_chunk_factors(p0d, C)):
+    for a, b in zip(blocked_factors(p0d), cluster_chunk_factors(p0d, C, G)):
         _close(a, b, 1e-9)
     # and at float32, within the chunk tolerance of the plain version
     for a, b in zip(blocked_factors(p0), (U, Pm, R)):
@@ -401,15 +604,19 @@ def _pred_problem(rng, Bd, repeats):
     return C, mu, idx, w.astype(np.float32), y, nz
 
 
-@pytest.mark.parametrize("C", [2, 4])
+@pytest.mark.parametrize("C,G", ORDERS + [(16, 1)], ids=ORDER_IDS + ["16"])
 @pytest.mark.parametrize("repeats", [False, True])
-def test_k3_cluster_order_matches_pallas_and_the_plain_recursion(C, repeats):
-    rng = np.random.default_rng(40 + C + 10 * repeats)
+def test_k3_cluster_order_matches_pallas_and_the_plain_recursion(C, G, repeats):
+    import jax.numpy as jnp
+    from online_gp_tpu.ops import root_update as jru
+    from online_gp_tpu.ops.pallas_pred_stream import pad_cache_to_tile, pallas_pred_chunk
+
+    rng = np.random.default_rng(40 + C + 10 * repeats + 100 * (G - 1))
     Cm, mu, idx, w, y, nz = _pred_problem(rng, 1, repeats)
     S = stencil_rows(torch.tensor(idx), torch.tensor(w), M)
     Ct, mut = torch.tensor(Cm), torch.tensor(mu)
     c0w, mu0w = S @ Ct, mut @ S.mT
-    Z, r, pm, pv = cluster_pred_factors(S, c0w, mu0w, torch.tensor(y), torch.tensor(nz), C)
+    Z, r, pm, pv = cluster_pred_factors(S, c0w, mu0w, torch.tensor(y), torch.tensor(nz), C, G)
     newC, newmu = Ct - Z.mT @ Z, mut + (Z.mT @ r[..., None])[..., 0]
     Sj = jnp.pad(jru.stencil_rows(jnp.asarray(idx, jnp.int32), jnp.asarray(w), M), ((0, 0), (0, 128 - M)))
     C_p, mu_p, _ = pad_cache_to_tile(jnp.asarray(Cm), jnp.asarray(mu))
@@ -420,5 +627,103 @@ def test_k3_cluster_order_matches_pallas_and_the_plain_recursion(C, repeats):
     _close(pvj, pv[0], 2e-4)
     # at float64 the reassociation is the plain recursion's to rounding
     args64 = [t.double() for t in (S, c0w, mu0w, torch.tensor(y), torch.tensor(nz))]
-    for a, b in zip(pred_chunk_factors(*args64), cluster_pred_factors(*args64, C)):
+    for a, b in zip(pred_chunk_factors(*args64), cluster_pred_factors(*args64, C, G)):
         _close(a, b, 1e-9)
+
+
+# --------------------------------------------------------------------------
+# (d) on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the recursion kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _bitwise(a, b):
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), "two calls on the same inputs differ"
+
+
+def _card_roots(rng, Bd, m, dev):
+    """(L, B) float32 on the card: L the Cholesky factor of W W^T / m + I,
+    B = L^-T, formed in float64."""
+    W = torch.tensor(rng.normal(size=(Bd, m, m)), dtype=torch.float64, device=dev)
+    L = torch.linalg.cholesky(W @ W.mT / m + torch.eye(m, dtype=torch.float64, device=dev))
+    B = torch.linalg.inv(L).mT
+    return L.float().contiguous(), B.float().contiguous()
+
+
+def _card_stencil(rng, k, m, dev):
+    """(idx (k, 16) int32, w (k, 16)) with weights positive, summing to 1."""
+    w = rng.uniform(0.0, 1.0, (k, 16))
+    return (torch.tensor(rng.integers(0, m, (k, 16)), dtype=torch.int32, device=dev),
+            torch.tensor(w / w.sum(1, keepdims=True), dtype=torch.float32, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bd,m,G", [(1, 4096, 4), (2, 4096, 4), (1, 1120, 1), (1, 1121, 2), (1, 4480, 4),
+                                    (1, 4481, 0)])
+def test_k1_chunk_kernel_matches_its_plain_version(gpu, Bd, m, G):
+    """K1 at k = 128 on G clusters of 8 (0: the single-block kernel) at
+    m = 4,096 and the envelopes' edges, to 1e-5 (allclose) of the plain
+    version, bitwise the same on a second call; with chunk_factors on the
+    chunk's p0 at 1e-5 of its own plain version."""
+    rng = np.random.default_rng(Bd + m)
+    k = 128
+    L, B = _card_roots(rng, Bd, m, gpu)
+    idx, w = _card_stencil(rng, k, m, gpu)
+    wv = (w[None] * torch.tensor([1.0, 0.7][:Bd], device=gpu)[:, None, None]).contiguous()
+    plan = tcru.chunk_cluster_plan(k, m)
+    assert (0 if plan is None else plan.clusters) == G
+    before = (tcru.blocked_chunk.launches, tcru.blocked_chunk.grid_cluster_launches)
+    got = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv)
+    again = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv)
+    torch.cuda.synchronize()
+    assert (tcru.blocked_chunk.launches - before[0], tcru.blocked_chunk.grid_cluster_launches - before[1]) == (
+        2, 2 * (G > 1))
+    _bitwise(got, again)
+    for g, want in zip(got, tcru.blocked_chunk_plain(L, B, idx, wv)):
+        assert torch.allclose(g, want, rtol=1e-5, atol=1e-5), float((g - want).abs().max())
+    p0 = torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()]).contiguous()
+    got, again = tcru.chunk_factors(p0), tcru.chunk_factors(p0)
+    torch.cuda.synchronize()
+    _bitwise(got, again)
+    for g, want in zip(got, tcru.chunk_factors_plain(p0)):
+        scale = max(float(want.abs().max()), 1.0)
+        assert float((g - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bd,m,cluster", [(1, 4096, 16), (2, 4096, 16), (1, 3136, 8), (1, 3137, 16),
+                                          (1, 6016, 16), (1, 6017, 0)])
+def test_k3_chunk_kernel_matches_its_plain_version(gpu, Bd, m, cluster):
+    """K3 at k = 128, P = 16 on a cluster of 8 or 16 blocks (0: the
+    single-block kernel), to 2e-4 (allclose) of the plain version, bitwise
+    the same on a second call; pred_factors on the chunk's partials too."""
+    rng = np.random.default_rng(Bd + m + 1)
+    k = 128
+    f32 = dict(dtype=torch.float32, device=gpu)
+    G = torch.tensor(rng.normal(size=(Bd, m, 64)), **f32)
+    C = (G @ G.mT / 64 + 0.1 * torch.eye(m, device=gpu)).contiguous()
+    mu = torch.tensor(rng.normal(size=(Bd, m)), **f32)
+    idx, w = _card_stencil(rng, k, m, gpu)
+    y = torch.tensor(rng.normal(size=(Bd, k)), **f32)
+    nz = torch.ones((Bd, k), **f32)
+    plan = tcps.pred_cluster_plan(k, m, 16)
+    assert (0 if plan is None else plan.cluster) == cluster
+    got = tcps.pred_chunk(C.clone(), mu.clone(), idx, w, y, nz)
+    again = tcps.pred_chunk(C.clone(), mu.clone(), idx, w, y, nz)
+    torch.cuda.synchronize()
+    _bitwise(got, again)
+    for g, want in zip(got, tcps.pred_chunk_stencil_plain(C, mu, idx, w, y, nz)):
+        assert torch.allclose(g, want, rtol=2e-4, atol=2e-4), float((g - want).abs().max())
+    S = stencil_rows(idx, w, m)
+    args = (idx, w, (S @ C).contiguous(), (mu @ S.mT).contiguous(), y, nz)
+    got, again = tcps.pred_factors(*args), tcps.pred_factors(*args)
+    torch.cuda.synchronize()
+    _bitwise(got, again)
+    for g, want in zip(got, tcps.pred_factors_plain(*args)):
+        assert torch.allclose(g, want, rtol=2e-4, atol=2e-4), float((g - want).abs().max())
