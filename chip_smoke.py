@@ -311,7 +311,23 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    ``parallel.dryrun_multichip(2, "cuda")``: every arm within 1e-5 of its
    one-process run. (e) (a)'s conditioned m = 1,936 state saved with
    ``backend="dcp"`` from both ranks and loaded whole in this process,
-   bitwise the gathered state, with save and load ms.
+   bitwise the gathered state, with save and load ms. (f) Grid-sharded
+   WISKI past ``max_cholesky_size`` on the same two ranks, at bench.py's
+   iterative configuration (64 x 64, m = 4,096, RBF, learned second noise,
+   1,024 seed points, ``use_toeplitz``, ``max_cholesky_size=2048``, 32
+   probes): after a warm-up of the same calls at short counts, one hyper
+   step on the CG/SLQ MLL (its gradient, Adam; probes from one seeded
+   generator), 16 single-point ``wiski_condition`` calls (K2's row-shard
+   entry), caches + predict of 1,024 points under ``fast_pred_var`` (LOVE
+   at rank 512, Q on K6) and predict under ``fast_pred_samples`` on those
+   caches (the Lanczos root of rank 512), against the single-device run of
+   the same calls and its float64 twin on the CPU, at (a)'s bars (the
+   sampling path's mean and var at the mean's and var's); each rank's
+   counters show K2's row-shard entry 16 times, K6 once and K2 never; each
+   rank holds half the state's bytes; K2's row-shard entry and K6 checked
+   as in (b) at m = 4,096 (rows ``...@gs-m4096-d2``). Printed: each rank's
+   hyper step seconds, conditions/s, caches + predict ms, sampling predict
+   ms and bytes beside the single device's.
 
 13. K1's and K3's applies (the last stage of every K1, K5 and K3 chunk).
    First the main path's window at m = 900 on copies of phase 3's final
@@ -346,8 +362,9 @@ kernel checks, with the launches of its windows; rows
 ``...@tp-m900-d2`` and ``...@tp-m4096-d2``: phase 11's stage checks, with
 the launches of both ranks at that size; rows ``...@sweep-m256-bd8``:
 phase 11's K2 and K6 checks, with the launches of its sweep windows; rows
-``...@gs-m900-d2`` and ``...@gs-m1936-d2``: phase 12's K2 row-shard and K6
-checks, with the launches of both ranks in (a) at that size; phase 12's
+``...@gs-m900-d2``, ``...@gs-m1936-d2`` and ``...@gs-m4096-d2``: phase 12's
+K2 row-shard and K6 checks, with the launches of both ranks in (a) or (f)
+at that size; phase 12's
 single-device runs add to the K2 and K6 sums; rows ``chunk_apply@m{m}-r{rows}-bd{Bd}[-k{k}]``
 and ``pred_apply@...``: phase 13's applies at the shapes a path window
 ran, with the launches of those windows at that shape), then
@@ -3827,18 +3844,19 @@ def lgp_step(dev, sharded_mesh=None):
     expert fleet, or with the experts sharded over ``sharded_mesh``."""
     from online_gp_torch.models.localgp import LocalGPModel, localgp_init
     from online_gp_torch.parallel.mesh import localgp_experts_step, replicate, shard_leading
-    from online_gp_torch.utils.optim import adam_init
+    from online_gp_torch.utils.optim import adam
 
     model = LocalGPModel(RBFKernel(), max_data_per_model=LGP_CAP, max_experts=LGP_EXPERTS)
     x, y, xt = lgp_data()
     state = localgp_init(model, x, y, device=dev)
     params = model.init_params(2, device=dev)
-    opt = adam_init(tree_leaves(params))
+    optimizer = adam(1e-2)
+    opt = optimizer.init(tree_leaves(params))
     xt = torch.from_numpy(xt).to(dev)
     if sharded_mesh is not None:
         state, params, xt = shard_leading(state, sharded_mesh), replicate(params, sharded_mesh), replicate(
             xt, sharded_mesh)
-    step = localgp_experts_step(model, 1e-2)
+    step = localgp_experts_step(model, optimizer)
     step(params, opt, state, xt)  # a warm-up: the first call's one-time costs are set-up
     sync(dev)
     t0 = time.perf_counter()
@@ -4124,6 +4142,15 @@ GS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_gs"
 GS_RANKS, GS_SIDES, GS_COND, GS_LR, GS_K2_CALLS = 2, (M_SIDE, 44), 64, 1e-2, 16
 GS_MLL_RTOL, GS_GRAD_RTOL, GS_ROOT_TOL, GS_MEAN_RTOL, GS_VAR_RTOL = 1e-5, 1e-4, 1e-5, 1e-5, 1e-4
 GS_DCP_M = 44**2  # (e) the state saved with backend="dcp"
+# (f) grid-sharded WISKI past max_cholesky_size at bench.py's iterative
+# configuration (bench.py:569-600: 64 x 64, m = 4,096, RBF, learned second
+# noise, 1,024 seed points, Toeplitz, max_cholesky_size 2,048, 32 probes),
+# LOVE and the sampling root at rank 512; the warm-up runs the same calls
+# with GSI_WARM's short counts (their one-time costs)
+GSI_SIDE, GSI_SEED_POINTS, GSI_COND, GSI_RANK, GSI_PROBE_SEED = M6_SIDE, N_SEED6, 16, 512, 1
+GSI_CFG = DEFAULT_CONFIG.replace(max_cholesky_size=2048, use_toeplitz=True, max_root_decomposition_size=GSI_RANK)
+GSI_WARM = dict(max_cg_iterations=4, max_root_decomposition_size=8)
+GSI_M = GSI_SIDE * GSI_SIDE
 # (c) the baseline mesh sweeps at the presets' widths (256 inducing points,
 # online_gp_tpu/experiments/config.py:25-50), 8 trials, depth cut to 10
 # epochs and 32 steps (SGPR's hyper step and rebase every 8th). A rank runs
@@ -4145,6 +4172,17 @@ def rank1_rows_bound(Bd, rows, m, peaks):
     return bound_ms(4 * (4 * Bd * rows * m + Bd * m), Bd * (8 * rows * m + 2 * m), peaks)
 
 
+def gs_hyper_step(model, params, state, cfg, **mll_kw):
+    """(a)'s and (f)'s hyper step: -sum(wiski_mll), its gradient, one Adam
+    step at GS_LR; returns (loss, gradients, new params)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = -torch.sum(wiski_mll(model, tree_rebuild(params, leaves), state, cfg, **mll_kw))
+        grads = torch.autograd.grad(loss, leaves)
+    updates, _ = adam_update(grads, adam_init(leaves), GS_LR)
+    return loss.detach(), grads, tree_rebuild(params, [p.detach() + u for p, u in zip(leaves, updates)])
+
+
 def gs_sequence(model, params, state, xc, yc, xt, cfg=DEFAULT_CONFIG):
     """(a)'s calls on one state, whole or row-sharded: a warm-up hyper step
     and caches + predict first (their one-time costs), then with the
@@ -4156,16 +4194,7 @@ def gs_sequence(model, params, state, xc, yc, xt, cfg=DEFAULT_CONFIG):
     from online_gp_torch.parallel.grid import gather_wiski_state
 
     dev = xc.device
-
-    def hyper_step():
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        with torch.enable_grad():
-            loss = -torch.sum(wiski_mll(model, tree_rebuild(params, leaves), state, cfg))
-            grads = torch.autograd.grad(loss, leaves)
-        updates, _ = adam_update(grads, adam_init(leaves), GS_LR)
-        return loss.detach(), grads, tree_rebuild(params, [p.detach() + u for p, u in zip(leaves, updates)])
-
-    hyper_step()
+    gs_hyper_step(model, params, state, cfg)
     wiski_predict(model, params, state, xt, cfg)
     local = lambda t: t.to_local() if hasattr(t, "to_local") else t
     nbytes = sum(local(t).nbytes for t in (state.wty, *state.roots))
@@ -4173,7 +4202,7 @@ def gs_sequence(model, params, state, xc, yc, xt, cfg=DEFAULT_CONFIG):
     rank1_apply_rows.launches = 0
     sync(dev)
     t0 = time.perf_counter()
-    loss, grads, new_params = hyper_step()
+    loss, grads, new_params = gs_hyper_step(model, params, state, cfg)
     sync(dev)
     t1 = time.perf_counter()
     for i in range(GS_COND):
@@ -4191,17 +4220,18 @@ def gs_sequence(model, params, state, xc, yc, xt, cfg=DEFAULT_CONFIG):
     return out, times, launches, nbytes, dict(params=new_params, state=state)
 
 
-def gs_inputs(side, dev, dtype=torch.float32):
-    """(a)'s model, params, seed state and points at ``side`` x ``side``."""
+def gs_inputs(side, dev, dtype=torch.float32, n_seed=N_SEED, n_cond=GS_COND):
+    """(a)'s model, params, seed state and points at ``side`` x ``side``
+    (and (f)'s, with its counts)."""
     m = side * side
     rng = np.random.default_rng(SEED + m)
     grid = Grid.create([(-1.1, 1.1)] * 2, side, dtype=dtype, device=dev)
     model = WiskiModel(RBFKernel(), grid, num_outputs=1, learn_additional_noise=True)
     params = model.init_params(2, dtype=dtype)
     f = dict(dtype=dtype, device=dev)
-    x0 = torch.tensor(rng.uniform(-1, 1, (N_SEED, 2)).astype(np.float32), **f)
-    state = wiski_init(model, x0, torch.sin(3 * x0[:, :1]), torch.ones((N_SEED, 1), **f))
-    xc = torch.tensor(rng.uniform(-1, 1, (GS_COND, 2)).astype(np.float32), **f)
+    x0 = torch.tensor(rng.uniform(-1, 1, (n_seed, 2)).astype(np.float32), **f)
+    state = wiski_init(model, x0, torch.sin(3 * x0[:, :1]), torch.ones((n_seed, 1), **f))
+    xc = torch.tensor(rng.uniform(-1, 1, (n_cond, 2)).astype(np.float32), **f)
     xt = torch.tensor(rng.uniform(-1, 1, (N_TEST, 2)).astype(np.float32), **f)
     return model, params, state, xc, torch.sin(3 * xc[:, :1]), xt
 
@@ -4209,12 +4239,44 @@ def gs_inputs(side, dev, dtype=torch.float32):
 def gs_distances(got, want):
     """(a)'s five distances of ``got`` from ``want``: mll relative,
     gradients over each leaf's largest entry, roots over max(1, scale),
-    mean and var over their largest magnitude."""
+    mean and var over their largest magnitude; (f)'s also the sampling
+    path's mean and var."""
     rel = lambda a, b: float((a.double().cpu() - b.double().cpu()).abs().max()) / max(float(b.abs().max()), 1e-30)
-    return dict(mll=rel(got["mll"], want["mll"]), grads=max(rel(a, b) for a, b in zip(got["grads"], want["grads"])),
-                roots=max(float((a.double().cpu() - b.double().cpu()).abs().max()) / max(float(b.abs().max()), 1.0)
-                          for a, b in zip(got["roots"], want["roots"])),
-                mean=rel(got["mean"], want["mean"]), var=rel(got["var"], want["var"]))
+    out = dict(mll=rel(got["mll"], want["mll"]), grads=max(rel(a, b) for a, b in zip(got["grads"], want["grads"])),
+               roots=max(float((a.double().cpu() - b.double().cpu()).abs().max()) / max(float(b.abs().max()), 1.0)
+                         for a, b in zip(got["roots"], want["roots"])),
+               mean=rel(got["mean"], want["mean"]), var=rel(got["var"], want["var"]))
+    for k in ("samples_mean", "samples_var"):
+        if k in want:
+            out[k] = rel(got[k], want[k])
+    return out
+
+
+def gs_save_inputs(path, side, params, state, xc, yc, xt):
+    """A seed state and its points on the host, for the ranks
+    (:func:`gs_load_inputs`)."""
+    cpu = lambda t: None if t is None else t.detach().cpu()
+    torch.save(dict(side=side, state=[cpu(t) for t in (state.wty, state.ydy, *state.roots, state.d_logdet)],
+                    num_data=state.num_data, params=[cpu(t) for t in tree_leaves(params)], xc=cpu(xc), yc=cpu(yc),
+                    xt=cpu(xt)), path)
+
+
+def gs_load_inputs(path, mesh, dev):
+    """A rank's (model, params, seed state row-sharded over ``tp``, xc, yc,
+    xt) from :func:`gs_save_inputs`' file, and the single-device runs'
+    outputs saved beside it."""
+    from online_gp_torch.models.wiski import WiskiState
+    from online_gp_torch.parallel.grid import shard_wiski_state
+
+    saved = torch.load(path)
+    refs = torch.load(path.replace(".pt", "_refs.pt"))
+    grid = Grid.create([(-1.1, 1.1)] * 2, saved["side"], device=dev)
+    model = WiskiModel(RBFKernel(), grid, num_outputs=1, learn_additional_noise=True)
+    params = tree_rebuild(model.init_params(2), [t.to(dev) for t in saved["params"]])
+    wty, ydy, mat, root, inv_root, d_logdet = (t.to(dev) for t in saved["state"])
+    state = shard_wiski_state(WiskiState(wty, ydy, RootCache(mat, root, inv_root), d_logdet, saved["num_data"]),
+                              mesh, "tp")
+    return (model, params, state, *(saved[k].to(dev) for k in ("xc", "yc", "xt"))), refs
 
 
 def gs_reference(side, dev, card):
@@ -4224,10 +4286,8 @@ def gs_reference(side, dev, card):
     m = side * side
     model, params, state, xc, yc, xt = gs_inputs(side, dev)
     path = GS_DIR / f"m{m}.pt"
+    gs_save_inputs(path, side, params, state, xc, yc, xt)
     cpu = lambda t: None if t is None else t.detach().cpu()
-    torch.save(dict(side=side, state=[cpu(t) for t in (state.wty, state.ydy, *state.roots, state.d_logdet)],
-                    num_data=state.num_data, params=[cpu(t) for t in tree_leaves(params)], xc=cpu(xc), yc=cpu(yc),
-                    xt=cpu(xt)), path)
     initial = RootCache(*(t.clone() for t in state.roots))
     # the sharded MLL's gradient runs autograd through the Cholesky of Q:
     # its single-device yardstick is the same (the closed form's is printed)
@@ -4252,17 +4312,100 @@ def gs_reference(side, dev, card):
     return str(path), dict(model=model, initial=initial, xc=xc, **final), single, launches
 
 
-def gs_rank(rank, world, paths, sweep_root):
+def gsi_sequence(model, params, state, xc, yc, xt, cfg):
+    """(f)'s calls on one state, whole or row-sharded: a warm-up of the hyper
+    step and the caches + predict at GSI_WARM's short counts, then with the
+    counters zeroed one hyper step on the CG/SLQ MLL (probes from a
+    generator seeded GSI_PROBE_SEED, Adam), GSI_COND single-point
+    conditions, caches + predict under fast_pred_var (LOVE at rank
+    GSI_RANK) and predict under fast_pred_samples on those caches (the
+    Lanczos root of the covariance cache); returns the outputs (the roots
+    gathered), the times, the counters and the state's bytes on this
+    process."""
+    from online_gp_torch.ops.cuda_root_update import rank1_apply_rows
+    from online_gp_torch.parallel.grid import gather_wiski_state
+
+    dev = xc.device
+    hyper_step = lambda cfg: gs_hyper_step(model, params, state, cfg,
+                                           generator=torch.Generator().manual_seed(GSI_PROBE_SEED))
+
+    def predict(p, cfg):
+        with torch.no_grad():
+            caches = wiski_prediction_caches(model, p, state, cfg)
+            return caches, wiski_predict(model, p, state, xt, cfg, caches=caches)
+
+    cfg_var = cfg.replace(fast_pred_var=True)
+    warm = cfg.replace(**GSI_WARM)
+    hyper_step(warm)
+    predict(params, warm.replace(fast_pred_var=True))
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t
+    nbytes = sum(local(t).nbytes for t in (state.wty, *state.roots))
+    zero_counters()
+    rank1_apply_rows.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    loss, grads, new_params = hyper_step(cfg)
+    sync(dev)
+    t1 = time.perf_counter()
+    for i in range(GSI_COND):
+        state = wiski_condition(model, state, xc[i : i + 1], yc[i : i + 1], torch.ones_like(yc[:1]))
+    sync(dev)
+    t2 = time.perf_counter()
+    caches, (mean, var) = predict(new_params, cfg_var)
+    sync(dev)
+    t3 = time.perf_counter()
+    with torch.no_grad():
+        s_mean, s_var = wiski_predict(model, new_params, state, xt, cfg_var.replace(fast_pred_samples=True),
+                                      caches=caches)
+    sync(dev)
+    t4 = time.perf_counter()
+    launches = {**read_window(), "rank1_apply_rows": rank1_apply_rows.launches}
+    whole = gather_wiski_state(state)
+    out = dict(mll=-loss, grads=list(grads), roots=[whole.roots.root, whole.roots.inv_root, whole.roots.mat, whole.wty],
+               mean=mean, var=var, samples_mean=s_mean, samples_var=s_var)
+    times = dict(hyper_s=t1 - t0, updates_per_s=GSI_COND / (t2 - t1), predict_ms=(t3 - t2) * 1e3,
+                 samples_ms=(t4 - t3) * 1e3)
+    return out, times, launches, nbytes, dict(params=new_params, state=state)
+
+
+def gsi_reference(dev, card):
+    """(f)'s single-device run (K2, Q on K6) and its float64 twin on the
+    CPU from the same inputs; the inputs and both runs' outputs saved under
+    GS_DIR."""
+    model, params, state, xc, yc, xt = gs_inputs(GSI_SIDE, dev, n_seed=GSI_SEED_POINTS, n_cond=GSI_COND)
+    path = GS_DIR / "iterative.pt"
+    gs_save_inputs(path, GSI_SIDE, params, state, xc, yc, xt)
+    cpu = lambda t: None if t is None else t.detach().cpu()
+    initial = RootCache(*(t.clone() for t in state.roots))
+    out, times, launches, nbytes, final = gsi_sequence(model, params, state, xc, yc, xt, GSI_CFG)
+    if (launches["rank1_apply"], launches["blocked_cholesky"], launches["rank1_apply_rows"]) != (GSI_COND, 1, 0):
+        raise AssertionError(f"phase 12 (f) single device m = {GSI_M}: K2 must launch {GSI_COND} times, K6 once: "
+                             f"{launches}")
+    t0 = time.perf_counter()
+    twin = gsi_sequence(*gs_inputs(GSI_SIDE, "cpu", torch.float64, GSI_SEED_POINTS, GSI_COND), GSI_CFG)[0]
+    twin_s = time.perf_counter() - t0
+    host = lambda o: {k: [cpu(t) for t in v] if isinstance(v, list) else cpu(v) for k, v in o.items()}
+    torch.save(dict(single=host(out), twin=host(twin)), GS_DIR / "iterative_refs.pt")
+    single = dict(times, state_bytes=nbytes, twin=gs_distances(out, twin))
+    print(f"phase 12 (f) single device m = {GSI_M} on {card}: iterative hyper step {times['hyper_s']:.3f} s, "
+          f"{times['updates_per_s']:.1f} condition updates/s, caches + predict of {N_TEST} under fast_pred_var "
+          f"{times['predict_ms']:.3f} ms, predict under fast_pred_samples {times['samples_ms']:.3f} ms, persistent "
+          f"state {nbytes} bytes, float32 apart from its float64 twin {json.dumps(single['twin'])} (the twin "
+          f"{twin_s:.1f} s on the CPU), launches {json.dumps(launches)}")
+    return str(path), dict(model=model, initial=initial, xc=xc, **final), single, launches
+
+
+def gs_rank(rank, world, paths, sweep_root, iterative_path=None):
     """A gloo rank on the card: (a) at each m the seed state row-sharded over
     the ranks and :func:`gs_sequence` with ``grid_shard_axis``, its outputs'
     distances from the single-device run and from its float64 twin; (e) at
-    GS_DCP_M the conditioned state saved with backend="dcp"; (c) the
-    baseline mesh sweeps with the trials split over the ranks."""
+    GS_DCP_M the conditioned state saved with backend="dcp"; (f) from
+    ``iterative_path`` the same for :func:`gsi_sequence`; (c) the baseline
+    mesh sweeps with the trials split over the ranks."""
     import torch.distributed as dist
 
-    from online_gp_torch.models.wiski import WiskiState
     from online_gp_torch.ops.cuda_root_update import rank1_apply_rows
-    from online_gp_torch.parallel.grid import gather_wiski_state, shard_wiski_state
+    from online_gp_torch.parallel.grid import gather_wiski_state
     from online_gp_torch.parallel.mesh import local_device, make_mesh
     from online_gp_torch.utils.checkpoint import save_pytree
 
@@ -4272,18 +4415,8 @@ def gs_rank(rank, world, paths, sweep_root):
     with f32_matmul_precision():
         dist.all_reduce(torch.zeros(1, device=dev))  # the first collective's set-up
         for m, path in paths.items():
-            saved = torch.load(path)
-            refs = torch.load(path.replace(".pt", "_refs.pt"))
-            grid = Grid.create([(-1.1, 1.1)] * 2, saved["side"], device=dev)
-            model = WiskiModel(RBFKernel(), grid, num_outputs=1, learn_additional_noise=True)
-            params = tree_rebuild(model.init_params(2), [t.to(dev) for t in saved["params"]])
-            wty, ydy, mat, root, inv_root, d_logdet = (t.to(dev) for t in saved["state"])
-            state = shard_wiski_state(WiskiState(wty, ydy, RootCache(mat, root, inv_root), d_logdet,
-                                                 saved["num_data"]), mesh, "tp")
-            del wty, mat, root, inv_root
-            xc, yc, xt = (saved[k].to(dev) for k in ("xc", "yc", "xt"))
-            out, times, launches, nbytes, final = gs_sequence(model, params, state, xc, yc, xt,
-                                                              SolverConfig(grid_shard_axis="tp"))
+            inputs, refs = gs_load_inputs(path, mesh, dev)
+            out, times, launches, nbytes, final = gs_sequence(*inputs, SolverConfig(grid_shard_axis="tp"))
             apart = gs_distances(out, dict(refs["single"], grads=refs["single"]["grads_autograd"]))
             apart["grads_closed_form"] = gs_distances(out, refs["single"])["grads"]
             report[m] = dict(single=apart, twin=gs_distances(out, refs["twin"]),
@@ -4299,7 +4432,9 @@ def gs_rank(rank, world, paths, sweep_root):
                     torch.save([whole.wty.cpu(), whole.ydy.cpu(), *(t.cpu() for t in whole.roots),
                                 whole.d_logdet.cpu(), whole.num_data], GS_DIR / "state_gathered.pt")
                 del whole
-            del state, final, out
+            del inputs, final, out
+        if iterative_path is not None:
+            report["iterative"] = gsi_rank(mesh, dev, iterative_path)
         report["sweeps"] = {}
         for name, args in BASE_SWEEPS.items():
             zero_counters()
@@ -4312,6 +4447,16 @@ def gs_rank(rank, world, paths, sweep_root):
             counts = {**read_counters(), "rank1_apply_rows": rank1_apply_rows.launches}
             report["sweeps"][name] = dict(results=out, seconds=time.perf_counter() - t0, launches=counts)
     return report
+
+
+def gsi_rank(mesh, dev, path):
+    """(f) on a rank: the saved seed state row-sharded and
+    :func:`gsi_sequence` with ``grid_shard_axis``, its outputs' distances
+    from the single-device run and from its float64 twin."""
+    inputs, refs = gs_load_inputs(path, mesh, dev)
+    out, times, launches, nbytes, final = gsi_sequence(*inputs, GSI_CFG.replace(grid_shard_axis="tp"))
+    return dict(single=gs_distances(out, refs["single"]), twin=gs_distances(out, refs["twin"]), launches=launches,
+                state_bytes=nbytes, rows=tuple(final["state"].roots.root.to_local().shape), **times)
 
 
 def check_k2_rows(L, B, idx, w, rows, peaks, what):
@@ -4405,8 +4550,13 @@ def finishing_phase(peaks, card, dev, phase3_state):
     one = baseline_sweeps(card, GS_DIR / "sweeps")
     seconds["a, c single"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ranks = spawn_ranks(gs_rank, GS_RANKS, (paths, GS_DIR / "sweeps"), store=str(GS_DIR / "store"))
-    seconds["a, c, e ranks"] = time.perf_counter() - t0
+    gsi_path, inputs[GSI_M], gsi_single, counts = gsi_reference(dev, card)
+    for k in launches:
+        launches[k] += counts[k]
+    seconds["f single and twin"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(gs_rank, GS_RANKS, (paths, GS_DIR / "sweeps", gsi_path), store=str(GS_DIR / "store"))
+    seconds["a, c, e, f ranks"] = time.perf_counter() - t0
 
     gs_launches = {}
     bars = dict(mll=GS_MLL_RTOL, grads=GS_GRAD_RTOL, roots=GS_ROOT_TOL, mean=GS_MEAN_RTOL, var=GS_VAR_RTOL)
@@ -4435,6 +4585,31 @@ def finishing_phase(peaks, card, dev, phase3_state):
                                      f"not 1/{GS_RANKS} of {single[m]['state_bytes']}")
         gs_launches[m] = {k: sum(rep[m]["launches"][k] for rep in ranks) for k in ("rank1_apply_rows",
                                                                                    "blocked_cholesky")}
+
+    allowed = {k: max(v, 2 * gsi_single["twin"][k]) for k, v in dict(
+        bars, samples_mean=GS_MEAN_RTOL, samples_var=GS_VAR_RTOL).items()}
+    for r, rep in enumerate(ranks):
+        it = rep["iterative"]
+        got = it["launches"]
+        print(f"phase 12 (f) rank {r} m = {GSI_M} (rows {it['rows']}) on {card}: iterative hyper step "
+              f"{it['hyper_s']:.3f} s (single device {gsi_single['hyper_s']:.3f}), {it['updates_per_s']:.1f} "
+              f"condition updates/s (single device {gsi_single['updates_per_s']:.1f}), caches + predict under "
+              f"fast_pred_var {it['predict_ms']:.3f} ms (single device {gsi_single['predict_ms']:.3f}), predict "
+              f"under fast_pred_samples {it['samples_ms']:.3f} ms (single device {gsi_single['samples_ms']:.3f}), "
+              f"persistent state {it['state_bytes']} bytes (single device {gsi_single['state_bytes']}), apart from "
+              f"the single device {json.dumps(it['single'])}, from the float64 twin {json.dumps(it['twin'])}, "
+              f"launches {json.dumps(got)}")
+        if (got["rank1_apply_rows"], got["blocked_cholesky"], got["rank1_apply"]) != (GSI_COND, 1, 0):
+            raise AssertionError(f"phase 12 (f) rank {r}: K2's row-shard entry must launch {GSI_COND} times, K6 once "
+                                 f"(the caches' Q), K2 never: {got}")
+        over = {k: v for k, v in it["single"].items() if not v <= allowed[k]}
+        if over:
+            raise AssertionError(f"phase 12 (f) rank {r}: apart from the single device beyond {allowed}: {over}")
+        if it["state_bytes"] * GS_RANKS != gsi_single["state_bytes"]:
+            raise AssertionError(f"phase 12 (f) rank {r}: {it['state_bytes']} bytes of state, not 1/{GS_RANKS} of "
+                                 f"{gsi_single['state_bytes']}")
+    gs_launches[GSI_M] = {k: sum(rep["iterative"]["launches"][k] for rep in ranks) for k in ("rank1_apply_rows",
+                                                                                             "blocked_cholesky")}
 
     for name, res in one.items():
         want = _sweep_rows(res["results"])

@@ -37,8 +37,9 @@ class SolverConfig:
     - ``grid_shard_axis``: the name of a mesh axis (a
       ``torch.distributed`` ``DeviceMesh`` dim) over which WISKI's grid
       dimension m is row-sharded, for grids past one device's memory.
-      When set, ``wiski_mll``, ``wiski_prediction_caches`` and
-      ``wiski_predict`` take a state whose ``wty`` and roots are DTensors
+      When set, ``wiski_mll``, ``wiski_prediction_caches``,
+      ``wiski_predict``, ``wiski_grid_root`` and ``wiski_predict_root``
+      take a state whose ``wty`` and roots are DTensors
       sharded on their m rows over that axis
       (:func:`online_gp_torch.parallel.grid.shard_wiski_state`) and run
       :mod:`online_gp_torch.parallel.grid`: each rank works on its rows

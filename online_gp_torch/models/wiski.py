@@ -621,18 +621,20 @@ def wiski_mll(
     ``cfg.grid_shard_axis`` the state is row-sharded over that mesh axis
     and the inner terms come from
     :func:`online_gp_torch.parallel.grid.grid_mll_inner` (autograd through
-    the pieces, as the JAX package's sharded branch). Returns (B,).
+    the pieces, as the JAX package's sharded branch; above
+    ``max_cholesky_size`` CG/SLQ on the same probes, drawn alike on every
+    rank). Returns (B,).
     """
     m = state.roots.root.shape[-1]
+    if m > cfg.max_cholesky_size and probes is None:
+        gen = torch.Generator().manual_seed(0) if generator is None else generator
+        probes = mll_probes(model.num_outputs, m, gen, state.wty.dtype, state.wty.device)
     if _grid_axis(state, cfg) is not None:
         from online_gp_torch.parallel.grid import grid_mll_inner
 
-        inner_qform, inner_logdet, inducing_qform = grid_mll_inner(model, params, state, cfg)
+        inner_qform, inner_logdet, inducing_qform = grid_mll_inner(model, params, state, cfg, probes)
     else:
         if m > cfg.max_cholesky_size:
-            if probes is None:
-                gen = torch.Generator().manual_seed(0) if generator is None else generator
-                probes = mll_probes(model.num_outputs, m, gen, state.wty.dtype, state.wty.device)
             inner_qform, inner_logdet, Kuu_wty = _mll_inner_iterative(model, params, state, cfg, probes)
         else:
             inner_qform, inner_logdet, Kuu_wty = _DenseInnerCore.apply(
@@ -688,7 +690,8 @@ def wiski_prediction_caches(
       mean_cache = K W D^{-1} y - (K L) Q^{-1} (L' K W D^{-1} y)   (B, m, 1)
       cov_cache  = K - (K L) Q^{-1} (K L)'                         (B, m, m)
 
-    with K = Kuu / s2. Under ``cfg.grid_shard_axis``, both row-sharded
+    with K = Kuu / s2; under ``fast_pred_var`` below full rank the LOVE
+    root's cov_cache. Under ``cfg.grid_shard_axis``, both row-sharded
     like the state (:func:`online_gp_torch.parallel.grid.grid_prediction_caches`).
     """
     if _grid_axis(state, cfg) is not None:
@@ -776,7 +779,12 @@ def wiski_grid_root(
     m <= cfg.max_root_decomposition_size, else a rank-capped Lanczos root
     started from :func:`root_start_vector`. It does not depend on the query
     points, so an acquisition optimization builds it once and hands it to
-    every call."""
+    every call. Under ``cfg.grid_shard_axis``, the root row-sharded like
+    the state (:func:`online_gp_torch.parallel.grid.grid_grid_root`)."""
+    if _grid_axis(state, cfg) is not None:
+        from online_gp_torch.parallel.grid import grid_grid_root
+
+        return grid_grid_root(model, params, state, cfg, caches)
     if caches is None:
         caches = wiski_prediction_caches(model, params, state, cfg)
     cov_cache = caches[1]
@@ -812,8 +820,14 @@ def wiski_predict_root(
     :func:`wiski_grid_root` of the caches.
 
     Returns mean (B, n) and root (B, n, k) with cov ~= root @ root^T,
-    k = min(m, cfg.max_root_decomposition_size).
+    k = min(m, cfg.max_root_decomposition_size). Under
+    ``cfg.grid_shard_axis``, from each rank's rows and one all_reduce
+    (:func:`online_gp_torch.parallel.grid.grid_predict_root`).
     """
+    if _grid_axis(state, cfg) is not None:
+        from online_gp_torch.parallel.grid import grid_predict_root
+
+        return grid_predict_root(model, params, state, x, cfg, caches, grid_root)
     if caches is None:
         caches = wiski_prediction_caches(model, params, state, cfg)
     if grid_root is None:

@@ -14,6 +14,11 @@ the CPU. The arms:
   ``wiski_condition(detach_interp=False)`` of two points, then
   ``sharded_stream_blocked`` of the conditioned roots; against the whole
   state's ``wiski_mll``, ``wiski_condition`` and ``roots_stream_blocked``.
+- ``grid_sharded_iterative``: the same axis past ``max_cholesky_size`` on
+  an 8 x 8 grid (m = 64 > 32): a hyper step with Adam on the CG/SLQ MLL
+  (Toeplitz K_uu products, probes from one seeded generator), then the
+  ``fast_pred_var`` caches (LOVE at rank 16) and a predict; against the
+  whole state's run of the same calls.
 - ``lowrank_toeplitz``: rank-capped WISKI trials with Toeplitz K_uu
   products (an MLL step, a condition, a predict), the trials split over
   ``dp``.
@@ -43,7 +48,8 @@ import torch
 import torch.distributed as dist
 
 BOUND = 1e-5
-ARMS = ("grid_sharded", "lowrank_toeplitz", "svgp_dp", "localgp_experts", "sgpr_dp", "fantasy_bo")
+ARMS = ("grid_sharded", "grid_sharded_iterative", "lowrank_toeplitz", "svgp_dp", "localgp_experts", "sgpr_dp",
+        "fantasy_bo")
 
 
 class _World:
@@ -156,6 +162,30 @@ def _grid_sharded(w: _World) -> Dict[str, np.ndarray]:
                 streamed=_flat(L, B))
 
 
+def _grid_sharded_iterative(w: _World) -> Dict[str, np.ndarray]:
+    from online_gp_torch.config import SolverConfig
+    from online_gp_torch.kernels.base import RBFKernel
+    from online_gp_torch.models.wiski import WiskiModel, wiski_init, wiski_mll, wiski_predict
+    from online_gp_torch.ops.grid import Grid
+    from online_gp_torch.parallel.grid import shard_wiski_state
+    from online_gp_torch.utils.optim import tree_leaves
+
+    dev = w.device
+    model = WiskiModel(RBFKernel(), Grid.create([(-1.1, 1.1)] * 2, 8, device=dev), num_outputs=1,
+                       learn_additional_noise=True)
+    x = _uniform((48, 2), 60, dev)
+    y = torch.sin(3 * x[:, :1])
+    state = wiski_init(model, x, y, torch.ones_like(y))
+    cfg = SolverConfig(max_cholesky_size=32, use_toeplitz=True, fast_pred_var=True, max_root_decomposition_size=16)
+    if w.size > 1:
+        state, cfg = shard_wiski_state(state, w.mesh("tp"), "tp"), cfg.replace(grid_shard_axis="tp")
+    loss, params = _adam_step(lambda p: -torch.sum(wiski_mll(model, p, state, cfg, generator=_gen(61))),
+                              model.init_params(2))
+    with torch.no_grad():
+        mean, var = wiski_predict(model, params, state, _uniform((16, 2), 62, dev), cfg)
+    return dict(loss=_flat(loss), params=_flat(*tree_leaves(params)), mean=_flat(mean), var=_flat(var))
+
+
 def _lowrank_toeplitz(w: _World) -> Dict[str, np.ndarray]:
     from online_gp_torch.config import SolverConfig
     from online_gp_torch.kernels.base import RBFKernel
@@ -224,7 +254,7 @@ def _localgp_experts(w: _World) -> Dict[str, np.ndarray]:
     from online_gp_torch.kernels.base import RBFKernel
     from online_gp_torch.models.localgp import LocalGPModel, localgp_init
     from online_gp_torch.parallel.mesh import localgp_experts_step, replicate, shard_leading
-    from online_gp_torch.utils.optim import adam_init, tree_leaves
+    from online_gp_torch.utils.optim import adam, tree_leaves
 
     dev, E = w.device, 2 * w.n_ranks
     model = LocalGPModel(RBFKernel(), max_data_per_model=8, max_experts=E)
@@ -232,11 +262,12 @@ def _localgp_experts(w: _World) -> Dict[str, np.ndarray]:
     state = localgp_init(model, x, np.sin(3 * x[:, 0]), device=dev)
     params = model.init_params(2, device=dev)
     xt = _uniform((8, 2), 7, dev)
-    opt = adam_init(tree_leaves(params))
+    optimizer = adam(1e-2)
+    opt = optimizer.init(tree_leaves(params))
     if w.size > 1:
         mesh = w.mesh("dp")
         state, params, xt = shard_leading(state, mesh), replicate(params, mesh), replicate(xt, mesh)
-    params, _, loss, mean, var = localgp_experts_step(model, 1e-2)(params, opt, state, xt)
+    params, _, loss, mean, var = localgp_experts_step(model, optimizer)(params, opt, state, xt)
     return dict(loss=_flat(loss), params=_flat(*tree_leaves(params)), mean=_flat(mean), var=_flat(var))
 
 
@@ -309,8 +340,9 @@ def _fantasy_bo(w: _World) -> Dict[str, np.ndarray]:
     return dict(lookahead=_flat(w.gather(F, local)))
 
 
-_ARM_FNS = dict(grid_sharded=_grid_sharded, lowrank_toeplitz=_lowrank_toeplitz, svgp_dp=_svgp_dp,
-                localgp_experts=_localgp_experts, sgpr_dp=_sgpr_dp, fantasy_bo=_fantasy_bo)
+_ARM_FNS = dict(grid_sharded=_grid_sharded, grid_sharded_iterative=_grid_sharded_iterative,
+                lowrank_toeplitz=_lowrank_toeplitz, svgp_dp=_svgp_dp, localgp_experts=_localgp_experts,
+                sgpr_dp=_sgpr_dp, fantasy_bo=_fantasy_bo)
 
 
 def _rank_main(rank: int, world: int, device_type: str, n_ranks: int):

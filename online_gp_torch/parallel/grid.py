@@ -10,31 +10,44 @@ rows of every output. ``ydy``, ``d_logdet`` and ``num_data`` are
 replicated plain values. Q = I + L^T K L (m x m, contracted over the grid)
 and its Cholesky factor are replicated. Inside, every function works on
 the local rows with explicit ``all_reduce`` calls; the only m x m tensors
-beyond the rank's rows are temporaries of one call (the gathered root in
-the MLL, the gathered covariance root in the caches, Q).
+beyond the rank's rows are temporaries of one call (the gathered root and
+Q in the dense MLL and the caches, the gathered covariance root of the
+exact caches, the gathered covariance cache of a full-rank sampling
+root); the iterative MLL gathers vectors only.
 
 Gradients across the collectives follow Megatron's pair: :func:`_reduce`
 (forward all_reduce, backward identity) sums partials that feed
 replicated work (Q, proj, the inducing quadratic form), and :func:`_copy`
 (forward identity, backward all_reduce) marks replicated values that feed
 rank-local work (the hyperparameters that build each rank's rows of
-K_uu, the gathered root). A loss computed the same on every rank then
-gets the gradient of one process.
+K_uu, the gathered root, the iterates of CG and Lanczos). A loss computed
+the same on every rank then gets the gradient of one process.
 
 - :func:`grid_mll_inner`: the Woodbury MLL's inner terms through
   autograd (no closed-form core, as in the JAX package's sharded branch;
   Q then needs grad, so ``spd_cholesky`` takes ``cholesky``, not K6).
+  Above ``max_cholesky_size``, :func:`grid_mll_inner_iterative`: CG, SLQ
+  and the Hutchinson surrogate on whole m-vectors, the same on every
+  rank, through the sharded product Q v (:func:`_q_mvm`, two all_reduces).
 - :func:`grid_prediction_caches`, :func:`grid_predict`: row-sharded caches
-  (Q factored by K6 on the card: nothing there needs a grad), and the
-  moments from each rank's rows plus one all_reduce.
+  (Q factored by K6 on the card: nothing there needs a grad; under
+  ``fast_pred_var`` below full rank the LOVE root from Lanczos on the
+  sharded Q v), and the moments from each rank's rows plus one all_reduce.
+- :func:`grid_grid_root`, :func:`grid_predict_root`: the covariance root
+  of ``fast_pred_samples`` (Lanczos on the sharded covariance cache, or
+  the Cholesky factor of the gathered cache at full rank), row-sharded,
+  and the interpolated root summed over the ranks.
 - :func:`grid_condition_coeffs`: q = 1 sums each rank's partial p = B^T v
   by all_reduce and applies K2's row-shard entry
   (:func:`~online_gp_torch.ops.cuda_root_update.rank1_apply_rows`) to the
   local rows in place; q > 1 the same with the rank-q update in plain
   torch. The Gram and ``wty`` scatter into the local rows only.
 
-The collectives are all_reduce only, which gloo takes on CUDA tensors, so
-two ranks may share one card.
+Every rank takes the same branches and runs the same number of
+iterations: CG and Lanczos run fixed counts with masks and read no value
+back, and the values they branch on are replicated, with the same bits on
+every rank. The collectives are all_reduce only, which gloo takes on CUDA
+tensors, so two ranks may share one card.
 """
 
 from __future__ import annotations
@@ -46,9 +59,11 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from online_gp_torch.config import SolverConfig
-from online_gp_torch.kernels.grid_kernel import _num_components, grid_kuu_factors
-from online_gp_torch.models.wiski import WiskiModel, WiskiState, _promoted, _reshape_obs, _second_noise
-from online_gp_torch.ops.chol import chol_logdet, cho_solve, spd_cholesky, tri_solve
+from online_gp_torch.kernels.grid_kernel import _num_components, grid_kuu_factors, grid_kuu_operator
+from online_gp_torch.models import wiski as _wiski
+from online_gp_torch.models.wiski import MllProbes, WiskiModel, WiskiState, _promoted, _reshape_obs, _second_noise
+from online_gp_torch.ops.cg import _tridiag, batched_cg, lanczos, lanczos_root, slq_logdet
+from online_gp_torch.ops.chol import chol_logdet, cho_solve, psd_safe_cholesky, spd_cholesky, tri_solve
 from online_gp_torch.ops.cuda_root_update import rank1_apply_rows, shard_stencil
 from online_gp_torch.ops.interp import dense_w, interp_coeffs, interp_matvec
 from online_gp_torch.ops.precision import f32_matmul_precision
@@ -271,20 +286,42 @@ def _kuu_eff_rows(model: WiskiModel, params: Dict, lay: RowLayout, like: torch.T
     return E.to(torch.promote_types(E.dtype, like.dtype))
 
 
+def _kuu_rows_mvm(model: WiskiModel, params: Dict, lay: RowLayout, like: torch.Tensor, use_toeplitz: bool,
+                  E_r: Optional[torch.Tensor] = None):
+    """x (B, m, k), whole and the same on every rank -> this rank's rows of
+    K_uu x / s2, (B, r, k): under ``use_toeplitz`` the Toeplitz-FFT product
+    over the whole grid (every rank the same), then the rank's rows; else
+    ``E_r`` (:func:`_kuu_eff_rows`, built here when not given) under a
+    matmul. The params enter through :func:`_copy`; the whole K_uu is never
+    built."""
+    if not use_toeplitz:
+        E_r = _kuu_eff_rows(model, params, lay, like) if E_r is None else E_r
+        return lambda x: E_r @ x
+    local = _tree_map(lambda p: _copy(p, lay), params)
+    kuu = grid_kuu_operator(model.kernel, local["kernel"], model.grid, use_toeplitz=True)
+    s2 = _second_noise(model, local)
+    rows = slice(lay.row0, lay.row0 + lay.rows)
+    if s2 is None:
+        return lambda x: kuu(x)[:, rows]
+    return lambda x: (kuu(x) / s2[:, None, None])[:, rows]
+
+
+def _q_mvm(L_r: torch.Tensor, kuu_r, lay: RowLayout):
+    """v (B, m, k), replicated -> Q v = v + L^T K L v, replicated: each
+    rank's L_r v gathered (one all_reduce), this rank's rows of K (L v),
+    and the partials L_r^T (K L v)_r summed (one all_reduce). v enters the
+    rank-local product through :func:`_copy`."""
+
+    def q_mvm(v):
+        x = _gather(L_r @ _copy(v, lay), lay)
+        return v + _reduce(L_r.mT @ kuu_r(x), lay)
+
+    return q_mvm
+
+
 # ---------------------------------------------------------------------------
 # MLL, caches, predict
 # ---------------------------------------------------------------------------
-
-
-def _check_cfg(cfg: SolverConfig, m: int, caches: bool) -> None:
-    if m > cfg.max_cholesky_size:
-        raise ValueError(
-            f"grid_shard_axis={cfg.grid_shard_axis!r} runs the dense Woodbury path: m={m} must be "
-            f"<= max_cholesky_size={cfg.max_cholesky_size}"
-        )
-    if caches and (cfg.fast_pred_var or cfg.fast_pred_samples):
-        raise ValueError(f"grid_shard_axis={cfg.grid_shard_axis!r} builds the exact caches: unset fast_pred_var "
-                         "and fast_pred_samples")
 
 
 def _q_pieces(model: WiskiModel, params: Dict, state: WiskiState, lay: RowLayout):
@@ -302,16 +339,56 @@ def _q_pieces(model: WiskiModel, params: Dict, state: WiskiState, lay: RowLayout
     return E_r, KL_r, Lq, Kw_r, proj, inducing_qform
 
 
-def grid_mll_inner(model: WiskiModel, params: Dict, state: WiskiState, cfg: SolverConfig):
+def grid_mll_inner(model: WiskiModel, params: Dict, state: WiskiState, cfg: SolverConfig,
+                   probes: Optional[MllProbes] = None):
     """(inner_qform, inner_logdet, inducing_qform), each (B,) and the same
     on every rank, of ``wiski_mll`` on a state row-sharded over
-    ``cfg.grid_shard_axis``; autograd runs through the pieces."""
+    ``cfg.grid_shard_axis``; autograd runs through the pieces. Above
+    ``cfg.max_cholesky_size``, :func:`grid_mll_inner_iterative` on
+    ``probes`` (``wiski_mll`` draws them)."""
     lay = state_layout(state, cfg.grid_shard_axis)
-    _check_cfg(cfg, lay.m, caches=False)
+    if lay.m > cfg.max_cholesky_size:
+        return grid_mll_inner_iterative(model, params, state, cfg, probes)
     _, _, Lq, _, proj, inducing_qform = _q_pieces(model, params, state, lay)
     with f32_matmul_precision():
         sol = cho_solve(Lq, proj)
         return torch.sum(proj * sol, dim=(-2, -1)), chol_logdet(Lq), inducing_qform
+
+
+def grid_mll_inner_iterative(model: WiskiModel, params: Dict, state: WiskiState, cfg: SolverConfig,
+                             probes: MllProbes):
+    """The CG/SLQ inner terms of ``models.wiski._mll_inner_iterative`` on a
+    row-sharded state: (inner_qform, inner_logdet, inducing_qform), (B,),
+    the same on every rank.
+
+    Q v runs on the ranks' rows (:func:`_q_mvm`: K_uu by Toeplitz FFTs over
+    the whole vector, or this rank's ``kuu_rows``); CG, SLQ and the
+    Hutchinson surrogate run on whole m-vectors, computed alike on every
+    rank, with autograd through the CG iterations. K wty comes from the
+    gathered ``wty``, and the inducing quadratic form sums each rank's
+    w_r . (K wty)_r. ``probes`` are the single device's
+    (:func:`~online_gp_torch.models.wiski.mll_probes`), the same on every
+    rank."""
+    lay = state_layout(state, cfg.grid_shard_axis)
+    cg_iters = min(cfg.max_cg_iterations, lay.m)
+    slq_iters = min(cfg.max_root_decomposition_size, lay.m, 64)
+    L_r, w_r = _local(state.roots.root), _local(state.wty)
+    num_probes = probes.hutch.shape[-1]
+    with f32_matmul_precision():
+        kuu_r = _kuu_rows_mvm(model, params, lay, w_r, cfg.use_toeplitz)
+        q_mvm = _q_mvm(L_r, kuu_r, lay)
+        Kw_r = kuu_r(_gather(w_r, lay))  # (B, r, 1)
+        proj = _reduce(L_r.mT @ Kw_r, lay)  # (B, m, 1)
+        inducing_qform = _reduce(torch.sum(w_r * Kw_r, dim=(-2, -1)), lay)
+        sol = batched_cg(q_mvm, proj, max_iters=cg_iters, tol=cfg.cg_tolerance)
+        qform = torch.sum(proj * sol, dim=(-2, -1))
+        with torch.no_grad():
+            slq_val = slq_logdet(lambda v: q_mvm(v.mT).mT, probes.slq.to(L_r.dtype), num_iters=slq_iters)
+            z = probes.hutch.to(L_r.dtype)
+            qinv_z = batched_cg(q_mvm, z, max_iters=cg_iters, tol=cfg.cg_tolerance)
+        surrogate = torch.sum(qinv_z * q_mvm(z), dim=(-2, -1)) / num_probes
+        logdet = (slq_val - surrogate).detach() + surrogate
+    return qform, logdet, inducing_qform
 
 
 def grid_prediction_caches(model: WiskiModel, params: Dict, state: WiskiState, cfg: SolverConfig):
@@ -323,30 +400,55 @@ def grid_prediction_caches(model: WiskiModel, params: Dict, state: WiskiState, c
       cov_cache_r  = K_r - R[:, r]^T R,  R = Lq^{-1} (K L)^T
 
     R's columns are each rank's own; the whole R is gathered for the one
-    product (a temporary)."""
+    product (a temporary). Under ``fast_pred_var`` with k =
+    ``max_root_decomposition_size`` < m, LOVE as the JAX package: Lanczos
+    on the sharded Q v (:func:`_q_mvm`) from proj, the k x k tridiagonal's
+    eigenvectors giving Rq (B, m, k) with Q^{-1} ~= Rq Rq^T, every rank the
+    same; then R_r = (K L)_r Rq and cov_cache_r = K_r - R_r R^T, the
+    (B, m, k) R gathered."""
     lay = state_layout(state, cfg.grid_shard_axis)
-    _check_cfg(cfg, lay.m, caches=True)
     E_r, KL_r, Lq, Kw_r, proj, _ = _q_pieces(model, params, state, lay)
+    k = min(lay.m, cfg.max_root_decomposition_size)
     with f32_matmul_precision():
         mean_r = Kw_r - KL_r @ cho_solve(Lq, proj)
         if cfg.skip_posterior_variances:
             return _put(mean_r, lay), None
+        if cfg.fast_pred_var and k < lay.m:
+            L_r = _local(state.roots.root)
+            q_mvm = _q_mvm(L_r, _kuu_rows_mvm(model, params, lay, L_r, cfg.use_toeplitz, E_r), lay)
+            Qlan, alphas, betas = lanczos(lambda v: q_mvm(v[..., None])[..., 0], proj[..., 0], k)
+            evals, evecs = torch.linalg.eigh(_tridiag(alphas, betas))
+            evals = torch.clamp(evals, min=1e-10)
+            R_r = KL_r @ (Qlan.mT @ (evecs / torch.sqrt(evals)[..., None, :]))  # (B, r, k)
+            return _put(mean_r, lay), _put(E_r - R_r @ _gather(R_r, lay).mT, lay)
         R_r = tri_solve(Lq, KL_r.mT)  # (B, m, r)
         cov_r = E_r - R_r.mT @ _gather(R_r, lay, dim=2)
     return _put(mean_r, lay), _put(cov_r, lay)
+
+
+def _interp(model: WiskiModel, x: torch.Tensor, cfg: SolverConfig, lay: RowLayout):
+    """The stencil of x; the weights, replicated, enter each rank's rows
+    through :func:`_copy` (the gradient to x sums the ranks' parts)."""
+    idx, w = interp_coeffs(model.grid, x, detach=cfg.detach_interp_coeff)
+    return idx, _copy(w, lay)
 
 
 def grid_predict(model: WiskiModel, params: Dict, state: WiskiState, x: torch.Tensor, cfg: SolverConfig,
                  caches: Optional[Tuple] = None):
     """``wiski_predict`` on a row-sharded state: mean = sum_r W_x[:, r]
     mean_cache_r and var = sum_r diag(W_x[:, r] C_r W_x^T), each rank's part
-    from its rows and the two summed in one all_reduce. Returns (mean,
-    var) (B, n), plain tensors, the same on every rank."""
+    from its rows and the two summed in one all_reduce; under
+    ``fast_pred_samples`` the row norms of :func:`grid_predict_root`'s
+    root. Returns (mean, var) (B, n), plain tensors, the same on every
+    rank."""
     lay = state_layout(state, cfg.grid_shard_axis)
     if caches is None:
         caches = grid_prediction_caches(model, params, state, cfg)
+    if cfg.fast_pred_samples and caches[1] is not None:
+        mean, root = grid_predict_root(model, params, state, x, cfg, caches)
+        return mean, torch.clamp(torch.sum(root * root, dim=-1), min=1e-12)
     mean_r, cov_r = (None if c is None else _local(c) for c in caches)
-    idx, w = interp_coeffs(model.grid, x, detach=cfg.detach_interp_coeff)
+    idx, w = _interp(model, x, cfg, lay)
     loc, wl = shard_stencil(idx, w, lay.row0, lay.rows)
     mean = interp_matvec(loc, wl, mean_r)[..., 0]  # (B, n)
     if cov_r is None:
@@ -362,6 +464,58 @@ def grid_predict(model: WiskiModel, params: Dict, state: WiskiState, x: torch.Te
     return mean, torch.clamp(var, min=1e-12)
 
 
+def grid_grid_root(model: WiskiModel, params: Dict, state: WiskiState, cfg: SolverConfig,
+                   caches: Optional[Tuple] = None) -> DTensor:
+    """``wiski_grid_root`` on a row-sharded state: the (B, m, k) root of the
+    covariance cache, row-sharded like it. Below full rank (k =
+    ``max_root_decomposition_size`` < m) ``lanczos_root`` on v -> the
+    gathered cov_cache_r v, started from ``root_start_vector`` (the same on
+    every rank), every rank computing the whole root and keeping its rows;
+    at full rank (m <= k) the jittered Cholesky factor of the gathered
+    cache (a temporary), then this rank's rows."""
+    lay = state_layout(state, cfg.grid_shard_axis)
+    if caches is None:
+        caches = grid_prediction_caches(model, params, state, cfg)
+    if caches[1] is None:
+        raise ValueError(
+            "wiski_predict_root needs the covariance cache: unset skip_posterior_variances "
+            "(mean-only configs have no root)"
+        )
+    cov_r = _local(caches[1])
+    k = min(lay.m, cfg.max_root_decomposition_size)
+    if k < lay.m:
+        v0 = _wiski.root_start_vector(lay.m, cov_r.dtype, cov_r.device)
+        with f32_matmul_precision():
+            root = lanczos_root(
+                lambda v: _gather((cov_r @ _copy(v, lay)[..., None])[..., 0], lay), v0.expand(cov_r.shape[0], lay.m), k
+            )  # (B, m, k)
+    else:
+        root = psd_safe_cholesky(_gather(cov_r, lay), jitter=cfg.cholesky_jitter, tries=cfg.max_cholesky_jitter_tries)
+    return _put(root[:, lay.row0 : lay.row0 + lay.rows].contiguous(), lay)
+
+
+def grid_predict_root(model: WiskiModel, params: Dict, state: WiskiState, x: torch.Tensor, cfg: SolverConfig,
+                      caches: Optional[Tuple] = None, grid_root: Optional[torch.Tensor] = None):
+    """``wiski_predict_root`` on a row-sharded state: mean (B, n) and root
+    (B, n, k), plain tensors, the same on every rank. Each rank
+    interpolates its rows of the mean cache and of the grid root
+    (:func:`grid_grid_root` unless ``grid_root`` is given) with its local
+    stencil, one all_reduce sums the two, and the root takes sqrt(s2)."""
+    lay = state_layout(state, cfg.grid_shard_axis)
+    if caches is None:
+        caches = grid_prediction_caches(model, params, state, cfg)
+    if grid_root is None:
+        grid_root = grid_grid_root(model, params, state, cfg, caches)
+    idx, w = _interp(model, x, cfg, lay)
+    loc, wl = shard_stencil(idx, w, lay.row0, lay.rows)
+    both = _reduce(interp_matvec(loc, wl, torch.cat([_local(caches[0]), _local(grid_root)], dim=-1)), lay)
+    mean, root = both[..., 0], both[..., 1:]  # (B, n), (B, n, k)
+    s2 = _second_noise(model, params)
+    if s2 is not None:
+        root = root * torch.sqrt(s2)[..., None, None]
+    return mean, root
+
+
 # ---------------------------------------------------------------------------
 # conditioning
 # ---------------------------------------------------------------------------
@@ -374,11 +528,14 @@ def grid_condition_coeffs(model: WiskiModel, state: WiskiState, idx: torch.Tenso
     the root update runs on the local rows: at q = 1 through K2's row-shard
     entry (with ``detach_interp``; in place on CUDA) or its plain version
     (without), at q > 1 the rank-q update in plain torch. The Gram and
-    ``wty`` take the stencil's entries in the local rows."""
+    ``wty`` take the stencil's entries in the local rows. The weights enter
+    through :func:`_copy`, so a gradient to them (``detach_interp=False``)
+    is the one process's."""
     lay = state_layout(state, state_axis(state))
     B = model.num_outputs
     y, noise = _reshape_obs(y, noise, B)
     q = idx.shape[0]
+    w = _copy(w, lay)  # replicated weights into rank-local work: the ranks' parts of their gradient summed
     L_r, Bi_r, w_r = _local(state.roots.root), _local(state.roots.inv_root), _local(state.wty)
     A_r = None if state.roots.mat is None else _local(state.roots.mat)
     root_noise = torch.sqrt(torch.clamp(noise, min=1e-7))  # (q, B)

@@ -38,7 +38,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
 from online_gp_torch.models.wiski import WiskiModel, WiskiState
 from online_gp_torch.ops.precision import f32_matmul_precision
-from online_gp_torch.utils.optim import AdamState, adam_update, tree_leaves, tree_rebuild
+from online_gp_torch.utils.optim import GradientTransformation, tree_leaves, tree_rebuild
 
 
 def _open_world(device_type: str) -> None:
@@ -255,31 +255,34 @@ def sharded_pred_stream_blocked(
     return rows_of(Cl), rows_of(mul), rep(moments[0]), rep(moments[1])
 
 
-def batched_trials_step(model: WiskiModel, lr: float, cfg: SolverConfig = DEFAULT_CONFIG):
+def batched_trials_step(model: WiskiModel, optimizer: GradientTransformation, cfg: SolverConfig = DEFAULT_CONFIG):
     """Build ``step(params, opt_state, state, x, y, noise) -> (params,
     opt_state, state, losses)`` over a leading trials dim: a hyper gradient
     step on -sum(wiski_mll) per trial, then ``wiski_condition`` per trial.
+    ``optimizer`` is a :class:`~online_gp_torch.utils.optim.
+    GradientTransformation` (``utils.optim.adam(lr)``, or a chain), as the
+    JAX package's step takes an optax one.
 
-    Every argument carries a leading T: params (each leaf), ``opt_state`` an
-    :class:`~online_gp_torch.utils.optim.AdamState` of
-    ``adam_init(tree_leaves(params))``, the trial-batched state of
+    Every argument carries a leading T: params (each leaf), ``opt_state``
+    ``optimizer.init(tree_leaves(params))``, the trial-batched state of
     :mod:`online_gp_torch.parallel.trials`, x (T, q, D), y and noise
     (T, q, B); DTensors from :func:`shard_leading` are taken as this rank's
     trials, with no communication (the trials are independent, as in the
     JAX package's sharded vmap). The trial dim is folded into the output
     batch: one K6 launch factors every trial's Q and, at q = 1, one K2
-    launch conditions every trial. One Adam (optax's, entry by entry) over
-    the stacked params, on the sum of the trials' losses, is T separate
-    Adams. Returns plain tensors; losses (T,)."""
+    launch conditions every trial. One elementwise optimizer (Adam, with
+    or without ``zero_nans``) over the stacked params, on the sum of the
+    trials' losses, is T separate ones. Returns plain tensors; losses
+    (T,)."""
     from online_gp_torch.parallel.trials import trials_condition, trials_mll
 
-    def step(params, opt_state: AdamState, state: WiskiState, x, y, noise):
+    def step(params, opt_state, state: WiskiState, x, y, noise):
         params, opt_state, state, x, y, noise = to_local((params, opt_state, state, x, y, noise))
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
             losses = -torch.sum(trials_mll(model, tree_rebuild(params, leaves), state, cfg), dim=-1)
             grads = torch.autograd.grad(torch.sum(losses), leaves)
-        updates, opt_state = adam_update(grads, opt_state, lr)
+        updates, opt_state = optimizer.update(grads, opt_state, leaves)
         params = tree_rebuild(params, [p.detach() + u for p, u in zip(leaves, updates)])
         state = trials_condition(model, state, x, y, noise)
         return params, opt_state, state, losses.detach()
@@ -298,7 +301,7 @@ def _all_reduce(tensors, group):
     return out
 
 
-def localgp_experts_step(model, lr: float):
+def localgp_experts_step(model, optimizer: GradientTransformation):
     """Expert-parallel LocalGP step: the joint-MLL hyper gradient step and
     the mixture prediction, with the EXPERT dim of ``LocalGPState`` sharded.
 
@@ -309,13 +312,15 @@ def localgp_experts_step(model, lr: float):
     mixture; the loss and the gradient of the replicated params are summed
     by ``all_reduce`` (as DDP sums), and so, before the division, are the
     mixture's normaliser sum_E w and its sums sum_E w mean and
-    sum_E w (var + mean^2). Every rank then takes the same Adam step
-    (``opt_state`` from ``adam_init(tree_leaves(params))``). With plain
+    sum_E w (var + mean^2). Every rank then takes the same step of
+    ``optimizer`` (a :class:`~online_gp_torch.utils.optim.
+    GradientTransformation`; ``opt_state`` from
+    ``optimizer.init(tree_leaves(params))``). With plain
     tensors it is the one-process step. :func:`localgp_mixture` also returns
     each rank's per-expert statistics, sharded on E."""
     from online_gp_torch.models.localgp import localgp_joint_mll
 
-    def step(params, opt_state: AdamState, state, xt):
+    def step(params, opt_state, state, xt):
         group = _group_of(state)
         params, opt_state, state, xt = to_local((params, opt_state, state, xt))
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -325,7 +330,7 @@ def localgp_experts_step(model, lr: float):
         loss = loss.detach()
         if group is not None:
             loss, *grads = _all_reduce([loss, *grads], group)
-        updates, opt_state = adam_update(grads, opt_state, lr)
+        updates, opt_state = optimizer.update(grads, opt_state, leaves)
         params = tree_rebuild(params, [p.detach() + u for p, u in zip(leaves, updates)])
         with torch.no_grad():
             mean, var, _ = localgp_mixture(model, params, state, xt, group)

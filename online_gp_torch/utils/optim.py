@@ -20,6 +20,14 @@ explicit state, batched over rows that each keep their own count (the
 restarts of ``bayesopt.optimize.optimize_acqf``); :func:`adam_fit` runs
 them on a loss of a nested dict of params (the BayesOpt and
 active-learning refits).
+
+:class:`GradientTransformation` is optax's contract on the params' leaves
+(a list in :func:`tree_leaves` order): ``init(leaves) -> state`` and
+``update(grads, state, leaves=None) -> (updates, state)``, the updates
+added to the leaves. :func:`adam`, :func:`zero_nans` and :func:`chain` are
+``optax.adam``, ``optax.zero_nans`` and ``optax.chain``; the mesh steps of
+``parallel.mesh`` take one, as the JAX package's take an optax
+transformation.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ class GroupAdam:
         """One step on these gradients, one per leaf (None: no gradient)."""
         for p, g in zip(self.leaves, grads):
             g = torch.zeros_like(p) if g is None else g
-            p.grad = torch.where(torch.isnan(g), torch.zeros_like(g), g) if self.zero_nans else g
+            p.grad = _nan_to_zero(g) if self.zero_nans else g
         for group, rate in zip(self.opt.param_groups, self.rates):
             group["lr"] = self._rate(rate)
         self.opt.step()
@@ -119,6 +127,66 @@ def adam_update(grads: Sequence[torch.Tensor], state: AdamState, lr: float, b1: 
     if active is not None:
         count_inc = torch.where(active, count_inc, state.count)
     return updates, AdamState(count_inc, tuple(mus), tuple(nus))
+
+
+def _nan_to_zero(g: torch.Tensor) -> torch.Tensor:
+    """NaN entries set to 0, +-Inf kept (``optax.zero_nans``)."""
+    return torch.where(torch.isnan(g), torch.zeros_like(g), g)
+
+
+class GradientTransformation(NamedTuple):
+    """optax's (init, update) pair on a list of leaves:
+    ``init(leaves) -> state``, ``update(grads, state, leaves=None) ->
+    (updates, state)``."""
+
+    init: Callable
+    update: Callable
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> GradientTransformation:
+    """``optax.adam(lr)``: state an :class:`AdamState` of
+    :func:`adam_init`, updates from :func:`adam_update`."""
+    def update(grads, state, leaves=None):
+        return adam_update(grads, state, lr, b1, b2, eps)
+
+    return GradientTransformation(adam_init, update)
+
+
+class ZeroNansState(NamedTuple):
+    """Whether each leaf's last gradient held a NaN (optax's state, read by
+    nobody inside)."""
+
+    found_nan: Tuple[torch.Tensor, ...]
+
+
+def zero_nans() -> GradientTransformation:
+    """``optax.zero_nans()``: NaN entries of each gradient set to 0, +-Inf
+    passed through."""
+
+    def init(leaves):
+        return ZeroNansState(tuple(torch.zeros((), dtype=torch.bool, device=p.device) for p in leaves))
+
+    def update(grads, state, leaves=None):
+        return [_nan_to_zero(g) for g in grads], ZeroNansState(tuple(torch.isnan(g).any() for g in grads))
+
+    return GradientTransformation(init, update)
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """``optax.chain``: each transformation's updates feed the next; the
+    state is the tuple of theirs."""
+
+    def init(leaves):
+        return tuple(t.init(leaves) for t in transforms)
+
+    def update(grads, state, leaves=None):
+        new = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, leaves)
+            new.append(s)
+        return grads, tuple(new)
+
+    return GradientTransformation(init, update)
 
 
 def tree_leaves(tree) -> list:

@@ -14,6 +14,12 @@ JAX package's.
   ``tests/parallel/test_mesh.py::test_localgp_experts_sharded_matches_replicated``
   (loss 1e-6, mixture moments 1e-5, params 1e-6), and against the port's
   one-process step.
+- Both steps take an optimizer (``utils.optim``'s optax contract): with
+  ``adam(LR)`` and with ``chain(zero_nans(), adam(LR))``, against JAX's
+  step with ``optax.adam`` and ``optax.chain(optax.zero_nans(),
+  optax.adam)``; and that chain's steps on gradients with NaN and +-Inf
+  entries against optax's, update by update and state by state, at
+  float64.
 
 The spawned ranks import this module, so JAX is imported inside the tests
 only.
@@ -44,13 +50,14 @@ from online_gp_torch.parallel.trials import (
     trials_predict,
     trials_prediction_caches,
 )
-from online_gp_torch.utils.optim import adam_init, adam_update, tree_leaves, tree_rebuild
+from online_gp_torch.utils.optim import adam, adam_init, adam_update, chain, tree_leaves, tree_rebuild, zero_nans
 
 T = 4
 N_SEED = 12
 LR = 1e-2
 F64 = dict(dtype=torch.float64, device="cpu")
 E, CAP = 8, 8  # experts (4 a rank on 2 ranks) of 8 points each
+OPTIMIZERS = ("adam", "zero_nans_adam")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -85,11 +92,21 @@ def _port_trials(q):
     return model, stacked, states, xb, yb
 
 
-@pytest.mark.parametrize("q", [1, 2])
-def test_batched_trials_step_matches_jax_vmap(q):
+def _port_optimizer(name):
+    return adam(LR) if name == "adam" else chain(zero_nans(), adam(LR))
+
+
+def _optimizers(name):
+    """(the port's, JAX's) optimizer of that name."""
+    import optax
+
+    jax_opt = optax.adam(LR) if name == "adam" else optax.chain(optax.zero_nans(), optax.adam(LR))
+    return _port_optimizer(name), jax_opt
+
+
+def _batched_trials_against_jax(q, opt_name):
     import jax
     import jax.numpy as jnp
-    import optax
 
     from online_gp_tpu.kernels.base import RBFKernel as JRBF
     from online_gp_tpu.models.wiski import WiskiModel as JModel
@@ -99,7 +116,7 @@ def test_batched_trials_step_matches_jax_vmap(q):
 
     x, y, xb, yb = _trial_data(q)
     jmodel = JModel(JRBF(), JGrid.create([(-1.1, 1.1)], 10), num_outputs=1, learn_additional_noise=True)
-    opt = optax.adam(LR)
+    optimizer, opt = _optimizers(opt_name)
     jparams = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jmodel.init_params(1))
     init = jax.jit(jinit, static_argnums=0)
     per = [init(jmodel, jnp.asarray(x[t]), jnp.asarray(y[t]), jnp.ones((N_SEED, 1))) for t in range(T)]
@@ -115,8 +132,8 @@ def test_batched_trials_step_matches_jax_vmap(q):
     params = tree_rebuild(params, [torch.tensor(np.asarray(a)) for a in jax.tree.leaves(jp)])
     states = [convert.state_from_numpy(s.wty, s.ydy, s.roots.mat, s.roots.root, s.roots.inv_root, s.d_logdet,
                                        s.num_data, device="cpu") for s in per]
-    step = batched_trials_step(model, LR)
-    got_p, _, got_s, got_l = step(params, adam_init(tree_leaves(params)), stack_states(states), xbt, ybt,
+    step = batched_trials_step(model, optimizer)
+    got_p, _, got_s, got_l = step(params, optimizer.init(tree_leaves(params)), stack_states(states), xbt, ybt,
                                   torch.ones_like(ybt))
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), rtol=1e-8, atol=1e-8)
     for a, b in zip(tree_leaves(got_p), jax.tree.leaves(want_p)):
@@ -128,10 +145,47 @@ def test_batched_trials_step_matches_jax_vmap(q):
 
 
 @pytest.mark.parametrize("q", [1, 2])
+def test_batched_trials_step_matches_jax_vmap(q):
+    _batched_trials_against_jax(q, "adam")
+
+
+@pytest.mark.parametrize("q", [1, 2])
+def test_batched_trials_step_with_zero_nans_matches_jax_chain(q):
+    _batched_trials_against_jax(q, "zero_nans_adam")
+
+
+def test_zero_nans_adam_matches_the_optax_chain():
+    """Two steps of chain(zero_nans(), adam(lr)) on float64 gradients with
+    NaN and +-Inf entries against optax's chain: updates, the NaN flags and
+    Adam's count and moments."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(3)
+    leaves = [rng.normal(size=(3, 2)), rng.normal(size=(4,)), np.array(0.5)]
+    grads = [[rng.normal(size=np.shape(p)) for p in leaves] for _ in range(2)]
+    grads[0][0][1, 0], grads[0][1][2], grads[1][1][0] = np.nan, np.inf, -np.inf
+    grads[1][2] = np.array(np.nan)
+    ours, theirs = _optimizers("zero_nans_adam")
+    state = ours.init([torch.from_numpy(p) for p in leaves])
+    jstate = theirs.init([jnp.asarray(p) for p in leaves])
+    for g in grads:
+        updates, state = ours.update([torch.from_numpy(x) for x in g], state)
+        jupdates, jstate = theirs.update([jnp.asarray(x) for x in g], jstate)
+        for a, b in zip(updates, jupdates):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-15)
+        assert [bool(f) for f in state[0].found_nan] == [bool(f) for f in jstate[0].found_nan]
+        jadam = jstate[1][0]  # optax.adam's scale_by_adam state
+        assert int(state[1].count) == int(jadam.count)
+        for a, b in zip(state[1].mu + state[1].nu, list(jadam.mu) + list(jadam.nu)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("q", [1, 2])
 def test_batched_trials_step_is_a_loop_of_single_trial_steps(q):
     model, params, states, xb, yb = _port_trials(q)
-    step = batched_trials_step(model, LR)
-    got_p, got_o, got_s, got_l = step(params, adam_init(tree_leaves(params)), stack_states(states), xb, yb,
+    optimizer = adam(LR)
+    step = batched_trials_step(model, optimizer)
+    got_p, got_o, got_s, got_l = step(params, optimizer.init(tree_leaves(params)), stack_states(states), xb, yb,
                                       torch.ones_like(yb))
     for t in range(T):
         leaves = [p[t].detach().requires_grad_(True) for p in tree_leaves(params)]
@@ -188,21 +242,25 @@ def _localgp_port(leaves):
 
 
 def _experts_rank(rank, world, leaves):
+    """The sharded step with each optimizer of ``OPTIMIZERS``."""
     from online_gp_torch.parallel.mesh import make_mesh, replicate, shard_leading
 
     model, state, params, xt = _localgp_port(leaves)
     mesh = make_mesh(device_type="cpu")
     state_sh = shard_leading(state, mesh)
-    p, _, loss, mean, var = localgp_experts_step(model, LR)(replicate(params, mesh), adam_init(tree_leaves(params)),
-                                                           state_sh, replicate(xt, mesh))
-    return dict(experts=int(state_sh.x.to_local().shape[0]), loss=loss.item(), mean=mean.numpy(), var=var.numpy(),
-                params=[a.numpy() for a in tree_leaves(p)])
+    out = {}
+    for name in OPTIMIZERS:
+        optimizer = _port_optimizer(name)
+        p, _, loss, mean, var = localgp_experts_step(model, optimizer)(
+            replicate(params, mesh), optimizer.init(tree_leaves(params)), state_sh, replicate(xt, mesh))
+        out[name] = dict(experts=int(state_sh.x.to_local().shape[0]), loss=loss.item(), mean=mean.numpy(),
+                         var=var.numpy(), params=[a.numpy() for a in tree_leaves(p)])
+    return out
 
 
 def test_localgp_experts_step_matches_jax(tmp_path):
     import jax
     import jax.numpy as jnp
-    import optax
 
     from online_gp_tpu.kernels.base import RBFKernel as JRBF
     from online_gp_tpu.models import localgp as jl
@@ -216,11 +274,19 @@ def test_localgp_experts_step_matches_jax(tmp_path):
     jparams = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jmodel.init_params(2))
     leaves = [np.asarray(a) for a in jax.tree.leaves(jparams)]
     ranks = spawn_ranks(_experts_rank, 2, (leaves,), store=str(tmp_path / "store"))
-    opt = optax.adam(LR)
-    want_p, _, want_l, want_m, want_v = jax.jit(jstep(jmodel, opt))(jparams, opt.init(jparams), jstate,
-                                                                     jnp.asarray(xt))
-    model, state, params, xtt = _localgp_port(leaves)
-    one = localgp_experts_step(model, LR)(params, adam_init(tree_leaves(params)), state, xtt)
+    for name in OPTIMIZERS:
+        optimizer, opt = _optimizers(name)
+        want_p, _, want_l, want_m, want_v = jax.jit(jstep(jmodel, opt))(jparams, opt.init(jparams), jstate,
+                                                                         jnp.asarray(xt))
+        model, state, params, xtt = _localgp_port(leaves)
+        one = localgp_experts_step(model, optimizer)(params, optimizer.init(tree_leaves(params)), state, xtt)
+        _assert_experts_match([r[name] for r in ranks], (want_p, want_l, want_m, want_v), one)
+
+
+def _assert_experts_match(ranks, want, one):
+    import jax
+
+    want_p, want_l, want_m, want_v = want
     for r in ranks:
         assert r["experts"] == E // 2
         np.testing.assert_allclose(r["loss"], float(want_l), rtol=1e-6)
