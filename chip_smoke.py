@@ -107,7 +107,14 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
      first on G = 2; 4,480, the last on G = 4; 4,481, the single-block
      kernel) and one K3 chunk at each edge of the 16-block one (3,137;
      6,016; 6,017, the single-block kernel), each against its plain
-     version, bitwise on a second call, with its device time and bound.
+     version, bitwise on a second call, with its device time and bound;
+     K6 on SPD matrices at m = 2,048, 2,049 and 4,097 and at Bd = 2,
+     m = 4,096, as Q's check. K6's stage kernels and their launches come
+     from its plan (cuda_chol.cholesky_plan); every K6 check also holds the
+     factor with look-ahead on bitwise to the one with it off, and times
+     both (la_on_ms, la_off_ms) and the stages alone (trailing_ms,
+     factor_ms, solve_ms), here and on phase 12's Q at m = 1,936 and
+     4,096.
    - The iterative hyper step at bench_iterative_hyper_step's
      configuration: RBF, learned second noise, 1,024 seed points,
      max_cholesky_size 2,048, use_toeplitz. Gate first: the CG/SLQ MLL
@@ -528,6 +535,10 @@ PLAIN_REPS6 = 3  # timing repeats of the plain versions at m = 4,096
 # 6,017: the single-block kernel)
 K1_EDGES = (1121, 4480, 4481)
 K3_EDGES = (3137, 6016, 6017)
+# phase 6: K6 (Bd, m) where its panels turn ragged or its plan changes
+# (2,048: 16 whole panels; 2,049 and 4,097: a last panel of one column)
+# and Bd = 2 at 4,096
+K6_EDGES = ((1, 2048), (1, 2049), (1, 4097), (2, 4096))
 HYPER_LR, HYPER_STEPS, HYPER_REPEATS = 1e-2, 10, 3
 ITER_GATE_REL = 5e-2  # bench.py:611
 LR_RANK, LR_SEED, LR_CHUNK, LR_CHUNKS, LR_REPEATS = 512, 256, 256, 64, 3
@@ -639,6 +650,25 @@ def pred_bound(Bd, m, k, P, peaks):
 def chol_bound(Bd, m, peaks):
     """K6: Q read, L written; m^3 / 3 flops a matrix."""
     return bound_ms(4 * 2 * Bd * m * m, Bd * m**3 / 3, peaks)
+
+
+def k6_plan(Bd, m, dev, lookahead=None):
+    """K6's plan for (Bd, m, m) on this card (cuda_chol.cholesky_plan)."""
+    return cuda_chol.cholesky_plan(m, Bd, _build.card_sms(dev), lookahead)
+
+
+def k6_trailing_ms(stages):
+    """The trailing update's share of a K6 call's kernel times."""
+    return sum(ms for k, ms in stages.items() if k in cuda_chol.TRAIL_KERNELS.values())
+
+
+def k6_route(plan):
+    """K6's route at a plan: its panels and each trailing tile's count."""
+    tiles = collections.Counter(pp.tile for pp in plan.panels)
+    return (f"{len(plan.panels) + 1} panels of {CHOL_BLOCK}; trailing tiles "
+            + ", ".join(f"{t} x {t} on {c}" for t, c in sorted(tiles.items(), reverse=True))
+            + (" panels, look-ahead (next block on " + ", ".join(sorted({str(pp.next_tile) for pp in plan.panels}))
+               + ")" if plan.lookahead else " panels"))
 
 
 def rank1_library(L, B, p):
@@ -1696,18 +1726,17 @@ def check_cholesky(rng, Q, peaks, dev):
     torch.cuda.synchronize()
     bitwise((Lq,), (again,), f"blocked_cholesky on Q (m={m})")
     want = blocked_cholesky_plain(Q, CHOL_BLOCK)
-    nb = -(-m // CHOL_BLOCK)
-    stage_kernels = {"chol_init_kernel": 1, "chol_factor_kernel": nb, "chol_solve_kernel": nb - 1,
-                     "chol_syrk_kernel": nb - 1}
     out = {}
     for Bd, q in ((1, Q), (4, spd_batch(rng, (4, m, m), dev))):
         make = lambda q=q: (q, CHOL_BLOCK)
         bms, by = chol_bound(Bd, m, peaks)
-        r = dict(bound_ms=bms, bound_by=by)
+        plan = k6_plan(Bd, m, dev)
+        r = dict(bound_ms=bms, bound_by=by, route=k6_route(plan))
         for key, pdl in (("", True), ("plain_launch_", False)):
             cuda_chol.PROGRAMMATIC_LAUNCH = pdl
             try:
-                r[f"{key}ms"], r[f"{key}stages_ms"] = device_span_ms(blocked_cholesky_ex, make, stage_kernels)
+                r[f"{key}ms"], r[f"{key}stages_ms"] = device_span_ms(blocked_cholesky_ex, make,
+                                                                     cuda_chol.stage_launches(plan))
                 r[f"{key}kernel_sum_ms"] = sum(r[f"{key}stages_ms"].values())
             finally:
                 cuda_chol.PROGRAMMATIC_LAUNCH = True
@@ -2122,6 +2151,9 @@ def check_kernels_large(rng, model, params, state, peaks, dev):
         ye = torch.tensor(rng.normal(size=(1, K)), dtype=torch.float32, device=dev)
         beside[f"pred_chunk m={me}"] = check_k3(Ce, mue, ie, we, ye, peaks, f"m={me}",
                                                 pred_cluster_plan(K, me, 16) is not None, 1)
+    for Bd, me in K6_EDGES:
+        beside[f"blocked_cholesky Bd={Bd} m={me}"] = check_k6(spd_batch(rng, (Bd, me, me), dev), peaks,
+                                                              f"SPD (Bd={Bd}, m={me})", 1)
     return out, beside
 
 
@@ -2229,32 +2261,64 @@ def check_k3(C, mu, idx, w, y, peaks, what, cluster, plain_reps=TIMING_REPS):
         route=f"{recursion_route(plan)} ({recursion})")
 
 
+@contextlib.contextmanager
+def k6_lookahead(on):
+    """K6's plans with look-ahead on (at every m) or off, inside the block."""
+    saved = cuda_chol.LOOKAHEAD, cuda_chol.LOOKAHEAD_MIN_BD_M
+    cuda_chol.LOOKAHEAD, cuda_chol.LOOKAHEAD_MIN_BD_M = on, (0 if on else saved[1])
+    try:
+        yield
+    finally:
+        cuda_chol.LOOKAHEAD, cuda_chol.LOOKAHEAD_MIN_BD_M = saved
+
+
 def check_k6(Q, peaks, what, plain_reps=TIMING_REPS):
     """K6 on Q (..., m, m) against its plain version and
     torch.linalg.cholesky (relative max error <= 5e-4), bitwise the same on
-    a second call, strict upper triangle exactly 0; then the device span of
-    blocked_cholesky_ex, bound and the library's span."""
-    m = Q.shape[-1]
+    a second call and with look-ahead on and off; strict upper triangle
+    exactly 0; then the device span of blocked_cholesky_ex on its plan
+    with each kernel's summed time, bound and the library's span; the span
+    of each look-ahead arm (la_on_ms, la_off_ms; one of them the plan's
+    own); and the stages alone (trailing_ms, factor_ms, solve_ms): their
+    kernels' summed durations with look-ahead and programmatic dependent
+    launch off, so that no kernel's time holds a wait or an overlap."""
+    m, Bd = Q.shape[-1], Q[..., 0, 0].numel()
+    plan = k6_plan(Bd, m, Q.device)
     Lq, again = blocked_cholesky(Q, CHOL_BLOCK), blocked_cholesky(Q, CHOL_BLOCK)
+    with k6_lookahead(not plan.lookahead):
+        other = blocked_cholesky(Q, CHOL_BLOCK)
     torch.cuda.synchronize()
     bitwise((Lq,), (again,), f"blocked_cholesky on {what}")
+    bitwise((Lq,), (other,), f"blocked_cholesky on {what}, look-ahead on and off")
     want = blocked_cholesky_plain(Q, CHOL_BLOCK)
     e_plain, e_lib = rel_max_err(Lq, want), rel_max_err(Lq, torch.linalg.cholesky(Q))
     if not (e_plain <= 5e-4 and e_lib <= 5e-4):
         raise AssertionError(f"K6 on {what}: relative max err {e_plain:.3e} vs plain, {e_lib:.3e} vs library")
     if not bool((torch.triu(Lq, 1) == 0).all()):
         raise AssertionError(f"K6 on {what}: the strict upper triangle is not exactly 0")
-    nb = -(-m // CHOL_BLOCK)
     make = lambda: (Q, CHOL_BLOCK)
-    bms, by = chol_bound(Q[..., 0, 0].numel(), m, peaks)
-    ms, stages = device_span_ms(blocked_cholesky_ex, make, {"chol_init_kernel": 1, "chol_factor_kernel": nb,
-                                                            "chol_solve_kernel": nb - 1, "chol_syrk_kernel": nb - 1})
-    return dict(
-        panels=nb, max_abs_err=float((Lq - want).abs().max()), rel_max_err=e_plain, rel_max_err_vs_library=e_lib,
-        ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_cholesky_ex, make),
+    bms, by = chol_bound(Bd, m, peaks)
+    ms, stages = device_span_ms(blocked_cholesky_ex, make, cuda_chol.stage_launches(plan))
+    r = dict(
+        panels=len(plan.panels) + 1, max_abs_err=float((Lq - want).abs().max()), rel_max_err=e_plain,
+        rel_max_err_vs_library=e_lib, ms=ms, stages_ms=stages, wrapper_ms=time_ms(blocked_cholesky_ex, make),
         plain_ms=time_ms(blocked_cholesky_plain, make, plain_reps),
         library_ms=device_span_ms(lambda q, b: torch.linalg.cholesky(q), make)[0], bound_ms=bms, bound_by=by,
-        route=f"{nb} panels of {CHOL_BLOCK}")
+        route=k6_route(plan))
+    own, flip = ("la_on", "la_off") if plan.lookahead else ("la_off", "la_on")
+    r[f"{own}_ms"] = ms
+    with k6_lookahead(not plan.lookahead):
+        r[f"{flip}_ms"] = device_span_ms(blocked_cholesky_ex, make,
+                                         cuda_chol.stage_launches(k6_plan(Bd, m, Q.device)))[0]
+    cuda_chol.PROGRAMMATIC_LAUNCH = False
+    try:
+        with k6_lookahead(False):
+            alone = device_span_ms(blocked_cholesky_ex, make, cuda_chol.stage_launches(k6_plan(Bd, m, Q.device)))[1]
+    finally:
+        cuda_chol.PROGRAMMATIC_LAUNCH = True
+    r.update(trailing_ms=k6_trailing_ms(alone), factor_ms=alone["chol_factor_kernel"],
+             solve_ms=alone["chol_solve_kernel"])
+    return r
 
 
 def iterative_hyper_step(model, params, state, card):

@@ -43,14 +43,39 @@
 //      panel at m = 900), in place: blocked forward substitution over the
 //      four column blocks, P_i = (A_i - sum_{k<i} P_k L_ik^T) W_i^T, with
 //      L_kk and the W_i in shared memory.
-//   3. chol_syrk_kernel, over the 32 x 32 tiles of the trailing lower
-//      triangle only (325 blocks on the first panel).
+//   3. the trailing update over the T x T tiles of the trailing lower
+//      triangle only: chol_syrk_kernel at T = 32 (325 blocks on the first
+//      panel at m = 900; a thread owns 2 x 2 outputs and reads two floats
+//      a pair of FMAs, so it is bound by shared-memory loads), or
+//      chol_trail_kernel<T> at T = 64 and 128 for the wide trailing
+//      matrices (m = 1,936 and 4,096 on the paths): a thread owns 4 x 4 or
+//      8 x 8 outputs, so one float4 load from shared memory feeds 16 or 32
+//      FMAs, its operands read from a transposed, swizzled layout; the two
+//      strips stream in 16-column slices, 16-byte loads staged in
+//      registers while the slice before runs its FMAs, into two shared
+//      buffers; the old values of the tile are read and written back by
+//      float4s. The Python plan (cholesky_plan in ops/cuda_chol.py) picks
+//      T per panel from a launch-cost model fitted on the card and hands
+//      it to ogp_blocked_cholesky, which refuses a T it has no kernel for.
+//      Every element sums its panel's 128 products in order of the
+//      column, from 0, and is then subtracted once (tile_mm's order), so
+//      every T gives the same bits.
 // The launches after the first use programmatic dependent launch
 // (ogp::launch with pdl): each kernel is scheduled while the one before
 // runs and waits in pdl_wait() for its results. Every sum runs in a fixed
 // order: the same result on every call. The ragged last panel (4 columns
 // at m = 900) is padded with the identity inside the factor kernel's tile
 // only.
+//
+// Look-ahead (the plan's choice, for wide batches): the trailing update of
+// panel p splits into the next panel's column block (rows hi..m, columns
+// hi..hi + 128), which the next factor waits on, and the rest. The factor,
+// the solve and the next block run on a stream of the highest priority,
+// the rest on the caller's stream, joined by two events: the rest of panel
+// p waits for panel p's solve, the next block of panel p + 1 for the rest
+// of panel p (both update columns of panel p + 2). So panel p + 1's factor
+// and solve overlap panel p's rest, and every element still takes the
+// panels' updates in panel order: the same bits as without look-ahead.
 //
 // The upper triangle: chol_init copies the lower triangle of q and zeros the
 // rest (and zeros info); the factor writes each L_kk with zeros above its diagonal; the syrk
@@ -75,7 +100,11 @@ constexpr int kThreads = 256;  // a 16 x 16 thread grid (tile_mm)
 constexpr int kWarps = kThreads / 32;
 constexpr int kInitThreads = 256;
 constexpr int kSolveRows = 16;  // panel solve: rows per block
-constexpr int kSyrkTile = 32;   // trailing update: a tile per block
+constexpr int kSyrkTile = 32;   // chol_syrk_kernel: a 32 x 32 tile per block
+constexpr int kTrailK = 16;     // chol_trail_kernel: panel columns a slice
+constexpr int kTrailSlices = kB / kTrailK;
+constexpr int kTrailStages = 2;  // slice buffers in shared memory
+constexpr int kBadPlan = -2;     // ogp_blocked_cholesky: the plan asks for a tile it has no kernel for
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWFloats = kNIn * kIn * kWLd;  // the four inverses W_i
 // shared floats of the factor kernel (the tile, W, a column) and of the
@@ -363,20 +392,36 @@ chol_solve_kernel(float* out, const float* __restrict__ Wg, int m, int lo) {
   store_rows<kSolveRows>(Ob + r0 * mm + lo, mm, X, nr, kB);
 }
 
-// Step 3: A(hi + r, hi + c) -= sum_l P(r, l) P(c, l) on the 32 x 32 tiles
-// (I, J), J <= I, of the trailing lower triangle, tile t = I (I + 1) / 2 + J,
-// with P = out[hi:, lo:hi]. grid (lower tiles, Bd)
+// The tile (I, J) of tiles of T that block t of a trailing-update launch
+// of panel lo owns, over the trailing matrix of width n = m - lo - kB
+// (nt = cdiv(n, T) tiles a side): with jn > 0 the tiles of the first jn
+// tile columns, t = I jn + J (blocks with J > I own nothing), else the
+// lower triangle from tile column j0 on, t = I' (I' + 1) / 2 + J' with
+// (I, J) = (I' + j0, J' + j0). False where the block owns no tile.
+__device__ __forceinline__ bool trail_tile(int t, int j0, int jn, int& I, int& J) {
+  if (jn > 0) {
+    I = t / jn;
+    J = t - I * jn;
+    return J <= I;
+  }
+  I = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  while (I * (I + 1) / 2 > t) --I;
+  while ((I + 1) * (I + 2) / 2 <= t) ++I;
+  J = t - I * (I + 1) / 2 + j0;
+  I += j0;
+  return true;
+}
+
+// Step 3 at T = 32: A(hi + r, hi + c) -= sum_l P(r, l) P(c, l) on the tiles
+// (I, J) of trail_tile, J <= I, with P = out[hi:, lo:hi]. grid (tiles, Bd)
 __global__ void __launch_bounds__(kThreads)
-chol_syrk_kernel(float* out, int m, int lo) {
+chol_syrk_kernel(float* out, int m, int lo, int j0, int jn) {
   __shared__ float Xs[kSyrkTile * kLd];
   __shared__ float Ys[kSyrkTile * kLd];
   pdl_wait();
   pdl_trigger();
-  const int t = blockIdx.x;
-  int I = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
-  while (I * (I + 1) / 2 > t) --I;
-  while ((I + 1) * (I + 2) / 2 <= t) ++I;
-  const int J = t - I * (I + 1) / 2;
+  int I, J;
+  if (!trail_tile(blockIdx.x, j0, jn, I, J)) return;
   const long long mm = m;
   const int hi = lo + kB, n = m - hi;
   const int r0 = I * kSyrkTile, c0 = J * kSyrkTile;
@@ -393,17 +438,280 @@ chol_syrk_kernel(float* out, int m, int lo) {
       });
 }
 
+// Floats of shared memory chol_trail_kernel<T> takes: two buffers, each a
+// kTrailK-column slice of the two strips of T rows.
+template <int T>
+__host__ __device__ constexpr int trail_floats() {
+  return kTrailStages * 2 * kTrailK * T;
+}
+
+// The swizzle of column l of a slice stored transposed: P(r, l) sits at
+// [l T + (r ^ trail_sw(l))]. It flips bits 3-4 of the row, so each aligned
+// group of 4 rows stays whole (a float4 for the reader) and a warp's stores
+// (4 columns of 8 rows, one row each from its 4 float4s) hit 32 banks.
+__device__ __forceinline__ int trail_sw(int l) { return ((l >> 2) & 3) << 3; }
+
+// Float4s of one strip's slice a thread stages in registers.
+template <int T>
+__host__ __device__ constexpr int trail_regs() {
+  static_assert(T * kTrailK % (4 * kThreads) == 0, "whole float4s a thread");
+  return T * kTrailK / (4 * kThreads);
+}
+
+// Slice s of a strip of T rows of P (row stride ld, nr rows valid) into
+// registers: float4 i of a thread is P(r, s kTrailK + 4 g ...) with
+// g = e % 4, r = e / 4, e = i kThreads + threadIdx.x (a warp reads 8 rows of
+// 64 bytes: whole sectors). Rows past nr are zeros. With vec (m % 4 == 0)
+// one 16-byte load, else four 4-byte loads.
+template <int T>
+__device__ __forceinline__ void trail_load(float4 (&v)[trail_regs<T>()], const float* src, long long ld, int nr,
+                                           int s, bool vec) {
+#pragma unroll
+  for (int i = 0; i < trail_regs<T>(); ++i) {
+    const int e = i * kThreads + threadIdx.x, r = e >> 2;
+    const float* p = src + r * ld + s * kTrailK + 4 * (e & 3);
+    if (r >= nr)
+      v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    else if (vec)
+      v[i] = *reinterpret_cast<const float4*>(p);
+    else
+      v[i] = make_float4(p[0], p[1], p[2], p[3]);
+  }
+}
+
+// The staged float4s into a slice buffer, transposed and swizzled.
+template <int T>
+__device__ __forceinline__ void trail_store(float* dst, const float4 (&v)[trail_regs<T>()]) {
+#pragma unroll
+  for (int i = 0; i < trail_regs<T>(); ++i) {
+    const int e = i * kThreads + threadIdx.x, r = e >> 2, l = 4 * (e & 3);
+    dst[l * T + (r ^ trail_sw(l))] = v[i].x;
+    dst[(l + 1) * T + (r ^ trail_sw(l + 1))] = v[i].y;
+    dst[(l + 2) * T + (r ^ trail_sw(l + 2))] = v[i].z;
+    dst[(l + 3) * T + (r ^ trail_sw(l + 3))] = v[i].w;
+  }
+}
+
+// The FMAs of one slice: acc(a, b) += X(ra, l) Y(cb, l) for the slice's
+// columns l in order, thread (ty, tx) owning rows ra = 4 ty + 64 (a / 4) +
+// a % 4 and columns cb = 4 tx + 64 (b / 4) + b % 4. DIAG skips the outputs
+// of a diagonal tile that lie above its diagonal by whole 64 x 64 blocks.
+template <int T, bool DIAG>
+__device__ __forceinline__ void trail_fma(const float* Xs, const float* Ys, float (&acc)[T / 16][T / 16]) {
+  constexpr int R = T / 16, H = T / 64;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int l = 0; l < kTrailK; ++l) {
+    const int sw = trail_sw(l);
+    float x[R], y[R];
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float4 u = *reinterpret_cast<const float4*>(Xs + l * T + ((4 * ty + 64 * h) ^ sw));
+      const float4 v = *reinterpret_cast<const float4*>(Ys + l * T + ((4 * tx + 64 * h) ^ sw));
+      x[4 * h] = u.x, x[4 * h + 1] = u.y, x[4 * h + 2] = u.z, x[4 * h + 3] = u.w;
+      y[4 * h] = v.x, y[4 * h + 1] = v.y, y[4 * h + 2] = v.z, y[4 * h + 3] = v.w;
+    }
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < R; ++b)
+        if (!DIAG || b / 4 <= a / 4) acc[a][b] = fmaf(x[a], y[b], acc[a][b]);
+  }
+}
+
+// Step 3 at T = 64 or 128 on tile (I, J) of trail_tile: the two strips of P
+// (rows r0 and c0; one strip on a diagonal tile) slice by slice through
+// registers into two shared buffers (slice s + 1's loads in flight during
+// slice s's FMAs, one barrier a slice), the FMAs in registers, then
+// Ot -= acc on and below the diagonal.
+template <int T, bool DIAG>
+__device__ __forceinline__ void trail_tile_update(float* sh, const float* P, float* Ot, long long mm, int r0,
+                                                  int c0, int nr, int nc, bool vec) {
+  constexpr int R = T / 16, H = T / 64, kSlice = kTrailK * T;
+  static_assert(kTrailStages == 2, "the slices alternate between two buffers");
+  float acc[R][R];
+#pragma unroll
+  for (int a = 0; a < R; ++a)
+#pragma unroll
+    for (int b = 0; b < R; ++b) acc[a][b] = 0.f;
+  const float* Xg = P + r0 * mm;
+  const float* Yg = P + c0 * mm;
+  float4 sx[trail_regs<T>()], sy[trail_regs<T>()];
+  trail_load<T>(sx, Xg, mm, nr, 0, vec);
+  if (!DIAG) trail_load<T>(sy, Yg, mm, nc, 0, vec);
+  trail_store<T>(sh, sx);
+  if (!DIAG) trail_store<T>(sh + kSlice, sy);
+  __syncthreads();
+#pragma unroll 1
+  for (int s = 0; s < kTrailSlices; ++s) {
+    const bool more = s + 1 < kTrailSlices;
+    if (more) {
+      trail_load<T>(sx, Xg, mm, nr, s + 1, vec);
+      if (!DIAG) trail_load<T>(sy, Yg, mm, nc, s + 1, vec);
+    }
+    const float* Xs = sh + (s & 1) * 2 * kSlice;
+    trail_fma<T, DIAG>(Xs, DIAG ? Xs : Xs + kSlice, acc);
+    if (more) {  // the other buffer: every thread passed the barrier after reading it
+      float* Xn = sh + ((s + 1) & 1) * 2 * kSlice;
+      trail_store<T>(Xn, sx);
+      if (!DIAG) trail_store<T>(Xn + kSlice, sy);
+    }
+    __syncthreads();
+  }
+  // Ot -= acc by float4s (a thread's 4 columns of a row are contiguous),
+  // element by element where a float4 would cross the tile's edge or the
+  // diagonal or m % 4 != 0; in groups of rows whose old values are all
+  // loaded before the first store: the compiler cannot tell Ot's elements
+  // apart, so it would otherwise wait out one load's latency at a time
+  constexpr int G = R < 8 / H ? R : 8 / H;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int a0 = 0; a0 < R; a0 += G) {
+    float4 o[G][H];
+#pragma unroll
+    for (int a = 0; a < G; ++a) {
+      const int r = 4 * ty + 64 * ((a0 + a) / 4) + (a0 + a) % 4;
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const int c = 4 * tx + 64 * h;
+        const float* src = Ot + r * mm + c;
+        if (vec && r < nr && c + 3 < nc && (!DIAG || c + 3 <= r)) {
+          o[a][h] = *reinterpret_cast<const float4*>(src);
+        } else {
+          auto keep = [&](int q) { return r < nr && c + q < nc && (!DIAG || c + q <= r); };
+          o[a][h] = make_float4(keep(0) ? src[0] : 0.f, keep(1) ? src[1] : 0.f, keep(2) ? src[2] : 0.f,
+                                keep(3) ? src[3] : 0.f);
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < G; ++a) {
+      const int r = 4 * ty + 64 * ((a0 + a) / 4) + (a0 + a) % 4;
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const int c = 4 * tx + 64 * h;
+        float* dst = Ot + r * mm + c;
+        const float* ac = acc[a0 + a] + 4 * h;
+        const float4 v = make_float4(o[a][h].x - ac[0], o[a][h].y - ac[1], o[a][h].z - ac[2], o[a][h].w - ac[3]);
+        if (vec && r < nr && c + 3 < nc && (!DIAG || c + 3 <= r)) {
+          *reinterpret_cast<float4*>(dst) = v;
+        } else {
+          auto keep = [&](int q) { return r < nr && c + q < nc && (!DIAG || c + q <= r); };
+          if (keep(0)) dst[0] = v.x;
+          if (keep(1)) dst[1] = v.y;
+          if (keep(2)) dst[2] = v.z;
+          if (keep(3)) dst[3] = v.w;
+        }
+      }
+    }
+  }
+}
+
+// Step 3 at T = 64 and 128: A(hi + r, hi + c) -= sum_l P(r, l) P(c, l) on
+// the tiles (I, J) of trail_tile, J <= I, with P = out[hi:, lo:hi]; each
+// element's sum in order of l from 0, as tile_mm's. grid (tiles, Bd)
+template <int T>
+__global__ void __launch_bounds__(kThreads, T == 128 ? 2 : 3)
+chol_trail_kernel(float* out, int m, int lo, int j0, int jn) {
+  __shared__ __align__(16) float sh[trail_floats<T>()];
+  pdl_wait();
+  pdl_trigger();
+  int I, J;
+  if (!trail_tile(blockIdx.x, j0, jn, I, J)) return;
+  const long long mm = m;
+  const int hi = lo + kB, n = m - hi;
+  const int r0 = I * T, c0 = J * T;
+  const int nr = min(T, n - r0), nc = min(T, n - c0);
+  float* Ob = out + blockIdx.y * mm * mm;
+  const float* P = Ob + hi * mm + lo;
+  float* Ot = Ob + (hi + r0) * mm + hi + c0;
+  const bool vec = (m & 3) == 0;  // rows of P and of Ot start 16-byte aligned
+  if (I == J)
+    trail_tile_update<T, true>(sh, P, Ot, mm, r0, c0, nr, nc, vec);
+  else
+    trail_tile_update<T, false>(sh, P, Ot, mm, r0, c0, nr, nc, vec);
+}
+
+// Shared memory of the trailing update's block at T; -1 for a T with no
+// kernel.
+int trail_smem(int T) {
+  switch (T) {
+    case 32: return 2 * kSyrkTile * kLd * static_cast<int>(sizeof(float));
+    case 64: return trail_floats<64>() * static_cast<int>(sizeof(float));
+    case 128: return trail_floats<128>() * static_cast<int>(sizeof(float));
+    default: return -1;
+  }
+}
+
+// Launches panel lo's trailing update on tiles of T (a T of trail_smem):
+// the first jn tile columns when jn > 0, else the lower triangle from tile
+// column j0 (nothing when that is empty). grid (tiles, Bd)
+cudaError_t launch_trail(int T, float* out, int Bd, int m, int lo, int j0, int jn, cudaStream_t s, bool pdl) {
+  const int nt = cdiv(m - lo - kB, T);
+  const int side = nt - j0, blocks = jn > 0 ? nt * jn : (side > 0 ? side * (side + 1) / 2 : 0);
+  if (blocks <= 0) return cudaSuccess;
+  const dim3 grid(blocks, Bd);
+  switch (T) {
+    case 32: return launch(chol_syrk_kernel, grid, dim3(kThreads), 0, s, pdl, out, m, lo, j0, jn);
+    case 64: return launch(chol_trail_kernel<64>, grid, dim3(kThreads), 0, s, pdl, out, m, lo, j0, jn);
+    default: return launch(chol_trail_kernel<128>, grid, dim3(kThreads), 0, s, pdl, out, m, lo, j0, jn);
+  }
+}
+
+// The stream and events of look-ahead, made once per device and host thread:
+// a stream of the highest priority for the panel chain, and the two events
+// that join it with the caller's stream.
+struct Lookahead {
+  bool made = false;
+  cudaStream_t chain;
+  cudaEvent_t chain_done, rest_done;
+};
+
+constexpr int kMaxDevices = 64;
+
+cudaError_t lookahead_streams(Lookahead*& out) {
+  static thread_local Lookahead per_device[kMaxDevices];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Lookahead& la = per_device[dev];
+  if (!la.made) {
+    int least, greatest;
+    if ((e = cudaDeviceGetStreamPriorityRange(&least, &greatest)) != cudaSuccess) return e;
+    if ((e = cudaStreamCreateWithPriority(&la.chain, cudaStreamNonBlocking, greatest)) != cudaSuccess) return e;
+    if ((e = cudaEventCreateWithFlags(&la.chain_done, cudaEventDisableTiming)) != cudaSuccess) return e;
+    if ((e = cudaEventCreateWithFlags(&la.rest_done, cudaEventDisableTiming)) != cudaSuccess) return e;
+    la.made = true;
+  }
+  out = &la;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
+// The shared memory of a block of K6's trailing update at tile T, in bytes,
+// or -1 where T has no kernel: the wrapper holds its plan to it.
+int ogp_chol_trail_smem(int T) { return trail_smem(T); }
+
 // K6. q: (Bd, m, m); out: (Bd, m, m), the lower factor; W: (Bd, 4, 32, 32)
-// scratch; info: (Bd,), nonzero where a pivot failed. pdl = 0 launches every
-// kernel in plain stream order (the measurement that chose programmatic
-// dependent launch compares the two).
-// Returns cudaGetLastError() after the launches.
-int ogp_blocked_cholesky(const float* q, float* out, float* W, int* info, int Bd, int m, int pdl,
-                         void* stream) {
+// scratch; info: (Bd,), nonzero where a pivot failed. The plan (cholesky_plan
+// in ops/cuda_chol.py), for each of the npanels = cdiv(m, 128) - 1 panels
+// with a trailing matrix: tiles[p], the tile of its trailing update (with
+// lookahead, of the rest), and with lookahead next_tiles[p], the tile of the
+// next panel's column block. pdl = 0 launches every kernel in plain stream
+// order (the measurement that chose programmatic dependent launch compares
+// the two). Returns kBadPlan (-2), launching nothing, where the plan is not
+// of this layout (a panel count other than m's, a tile with no kernel);
+// else cudaGetLastError() after the launches.
+int ogp_blocked_cholesky(const float* q, float* out, float* W, int* info, int Bd, int m, int pdl, int lookahead,
+                         const int* tiles, const int* next_tiles, int npanels, void* stream) {
+  if (npanels != (m > kB ? cdiv(m, kB) - 1 : 0)) return kBadPlan;
+  for (int p = 0; p < npanels; ++p) {
+    if (trail_smem(tiles[p]) < 0 || (lookahead && trail_smem(next_tiles[p]) < 0)) return kBadPlan;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long mm = m;
   const long long blocks = (mm * mm + kInitThreads - 1) / kInitThreads;
@@ -418,21 +726,45 @@ int ogp_blocked_cholesky(const float* q, float* out, float* W, int* info, int Bd
   e = cudaFuncSetAttribute(chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(solve_smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  for (int lo = 0; lo < m; lo += kB) {
-    e = launch(chol_factor_kernel, dim3(Bd), dim3(kThreads), factor_smem, s, pdl != 0, out, W, info, m,
-               lo);
+  Lookahead* la = nullptr;
+  if (lookahead) {
+    if ((e = lookahead_streams(la)) != cudaSuccess) return static_cast<int>(e);
+    // the chain starts after chol_init on the caller's stream
+    if ((e = cudaEventRecord(la->chain_done, s)) != cudaSuccess) return static_cast<int>(e);
+    if ((e = cudaStreamWaitEvent(la->chain, la->chain_done, 0)) != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaStream_t c = lookahead ? la->chain : s;  // the factor, the solve and the next column block
+  for (int lo = 0, p = 0; lo < m; lo += kB, ++p) {
+    e = launch(chol_factor_kernel, dim3(Bd), dim3(kThreads), factor_smem, c, pdl != 0 && (!lookahead || p > 0),
+               out, W, info, m, lo);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int n = m - lo - kB;
     if (n <= 0) break;
-    e = launch(chol_solve_kernel, dim3(cdiv(n, kSolveRows), Bd), dim3(kThreads), solve_smem, s,
-               pdl != 0, out, W, m, lo);
+    e = launch(chol_solve_kernel, dim3(cdiv(n, kSolveRows), Bd), dim3(kThreads), solve_smem, c, pdl != 0, out, W,
+               m, lo);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int tiles = cdiv(n, kSyrkTile);
-    e = launch(chol_syrk_kernel, dim3(tiles * (tiles + 1) / 2, Bd), dim3(kThreads), 0, s, pdl != 0,
-               out, m, lo);
+    if (!lookahead) {
+      e = launch_trail(tiles[p], out, Bd, m, lo, 0, 0, s, pdl != 0);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      continue;
+    }
+    // the rest of panel p (tile columns past the next panel's block) on the
+    // caller's stream after panel p's solve; the next block on the chain
+    // after the rest of panel p - 1 (rest_done's last record)
+    if ((e = cudaEventRecord(la->chain_done, c)) != cudaSuccess) return static_cast<int>(e);
+    if ((e = cudaStreamWaitEvent(s, la->chain_done, 0)) != cudaSuccess) return static_cast<int>(e);
+    e = launch_trail(tiles[p], out, Bd, m, lo, kB / tiles[p], 0, s, false);
     if (e != cudaSuccess) return static_cast<int>(e);
+    if (p > 0 && (e = cudaStreamWaitEvent(c, la->rest_done, 0)) != cudaSuccess) return static_cast<int>(e);
+    e = launch_trail(next_tiles[p], out, Bd, m, lo, 0, kB / next_tiles[p], c, false);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if ((e = cudaEventRecord(la->rest_done, s)) != cudaSuccess) return static_cast<int>(e);
   }
-  return 0;
+  if (lookahead) {  // the caller's stream resumes after the chain's last factor
+    if ((e = cudaEventRecord(la->chain_done, c)) != cudaSuccess) return static_cast<int>(e);
+    if ((e = cudaStreamWaitEvent(s, la->chain_done, 0)) != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"
