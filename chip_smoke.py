@@ -13,7 +13,7 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    and K3 bitwise the same on a second call. Outside the one-cluster
    envelope: one K1 chunk at m=2,500 (a 50x50 grid), on G = 3 clusters
    of 8 (the grid recursion kernel), to 1e-5, and one K3 chunk of k=512
-   at m=900, on the single-block recursion kernel, to 2e-4. Each
+   at m=900, its recursion spread over the card, to 2e-4. Each
    kernel's device time (torch.profiler, summed over its CUDA
    kernels, with each one's share), its wrapper's time between CUDA
    events (host issue included), its plain version's time, one PyTorch
@@ -35,7 +35,7 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    of 8 (none on G > 1 clusters or 16 blocks). Then a short profiled
    pass of both
    streams: torch.profiler must record the cluster recursion kernels and
-   no single-block recursion. Gates: the stream's
+   no other recursion kernel. Gates: the stream's
    roots match the plain root update over a 256-point prefix to within
    1e-3 * scale (bench.py's gate), the predictions are finite, and the
    decomposition check's inverse_root_err is finite.
@@ -103,10 +103,10 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
      times, bounds and library yardsticks as in phases 2 and 4. Beside
      them (printed, not in the kernels line): the card's capacity for
      those clusters (cudaOccupancyMaxActiveClusters), K1 and K3 at Bd = 2,
-     and one K1 chunk at each edge of the grid envelope (m = 1,121, the
-     first on G = 2; 4,480, the last on G = 4; 4,481, the single-block
-     kernel) and one K3 chunk at each edge of the 16-block one (3,137;
-     6,016; 6,017, the single-block kernel), each against its plain
+     and one K1 chunk at each edge of the G <= 4 grid envelope (m = 1,121,
+     the first on G = 2; 4,480, the last on G = 4; 4,481, the first on
+     G = 5) and one K3 chunk at each edge of the 16-block one (3,137;
+     6,016; 6,017, spread over the card), each against its plain
      version, bitwise on a second call, with its device time and bound;
      K6 on SPD matrices at m = 2,048, 2,049 and 4,097 and at Bd = 2,
      m = 4,096, as Q's check. K6's stage kernels and their launches come
@@ -358,8 +358,45 @@ Phases, each of which raises (exit code 1, no final ok line) on failure:
    no path window runs (only this phase's checks) is printed and left out
    of the kernels line.
 
+14. Every grid size the JAX package streams, at k = 128 and P = 16 (K1's
+   and K3's recursions spread over the card past their cluster envelopes,
+   and every kernel past 2^31 elements), the inputs made on the card from
+   seeded generators (roots I + 0.01 N / sqrt(m); caches G G^T / 64 +
+   0.1 I), each size freed before the next. (a) K1 (blocked_chunk) and
+   chunk_factors at m = 4,481, 8,192, 16,384, 32,400 and 46,656 and at
+   Bd = 2 at 16,384: the recursion against chunk_factors_plain and the
+   chunk against blocked_chunk_plain (past m = 32,400, whose plain copy
+   does not fit beside the roots, 256 rows of the chunk and
+   chunk_apply_rows on them against the plain apply of the plain factors)
+   at 1e-5 of the scale, bitwise the same on a second call, on the route
+   named for each size (G = 5 and 8 clusters at 4,481 and 8,192, spread
+   over the card from 16,384): planned so, and taken so by the counters
+   (cluster, grid-cluster and spread launches). (b) K3 (pred_chunk) and
+   pred_factors at m = 6,017, 16,384 and 65,536 (each spread) at 2e-4
+   (past 16,384, 256 rows of C and mu, pred_apply_rows on them and the
+   moments against the plain factors). (c) K2 through 16 single-point
+   wiski_condition calls on a 216 x 216 grid (m = 46,656), each against
+   rank1_apply_plain at 1e-5 of the scale, and K6 on an SPD Q at m =
+   46,656 against torch.linalg.cholesky (5e-4 relative), bitwise on a
+   second call, its failure flag clear. (d) The functional path at
+   m = 16,384 (a 128 x 128 grid, the dense core): wiski_init of 256
+   points, wiski_stream of 4,096, wiski_prediction_caches and
+   wiski_prequential_stream of 1,024, the counters zeroed just before and
+   read just after (every K1 and K3 chunk spread over the card, K6 on Q),
+   against the same calls on the plain chunk forms (detach_interp=False,
+   on the card): roots within 1e-3 of the scale, moments and caches at
+   2e-4. (e) sharded_stream_blocked at m = 46,656 and
+   sharded_pred_stream_blocked at m = 65,536, 8 chunks each, on two gloo
+   ranks sharing the card (each drawing its own rows from the seeds),
+   against the single device's streams run first (sampled rows, mu and the
+   moments kept on the host), each rank's stage counters zeroed just
+   before and read just after. Printed: device times (torch.profiler) with
+   the chunk's stages, wrapper, plain and library times (baddbmm of the
+   applies, torch.linalg.cholesky), bounds (chunk_bound, pred_bound,
+   chol_bound, rank1_bound) and peak device memory a size.
+
 It prints the kernels as one JSON line (``launches``: the sum over the
-path windows of phases 3, 4, 5, 6, 7, 9, 10, 11, 12 and 13, phase 8
+path windows of phases 3, 4, 5, 6, 7, 9, 10, 11, 12, 13 and 14, phase 8
 launching none; rows ``...@m4096``: phase 6's
 kernel checks, with phase 6's launches; rows ``...@cls-m256-bd2`` and
 ``...@cls-m900-bd2``: phase 7's kernel checks, with the launches of the
@@ -371,7 +408,11 @@ the launches of both ranks at that size; rows ``...@sweep-m256-bd8``:
 phase 11's K2 and K6 checks, with the launches of its sweep windows; rows
 ``...@gs-m900-d2``, ``...@gs-m1936-d2`` and ``...@gs-m4096-d2``: phase 12's
 K2 row-shard and K6 checks, with the launches of both ranks in (a) or (f)
-at that size; phase 12's
+at that size; rows ``chunk_recursion_spread@m16384`` and
+``pred_recursion_spread@m16384``: phase 14's recursions at (d)'s width,
+with (d)'s spread launches, and ``chunk_factors@m46656-d2`` and
+``pred_factors@m65536-d2``: its recursions at (e)'s widths, with both
+ranks' spread launches in (e); phase 12's
 single-device runs add to the K2 and K6 sums; rows ``chunk_apply@m{m}-r{rows}-bd{Bd}[-k{k}]``
 and ``pred_apply@...``: phase 13's applies at the shapes a path window
 ran, with the launches of those windows at that shape), then
@@ -388,6 +429,7 @@ import csv
 import io
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -430,6 +472,7 @@ from online_gp_torch.logging import CSVLogger
 from online_gp_torch.kernels.grid_kernel import grid_kuu_dense
 from online_gp_torch.models.wiski import (
     WiskiModel,
+    WiskiState,
     wiski_check_decomposition,
     wiski_condition,
     wiski_fantasize,
@@ -479,6 +522,7 @@ from online_gp_torch.ops.root_update import (
     blocked_factors_coord,
     blocked_factors_sub,
     root_cache_update,
+    roots_stream_blocked,
     stencil_rows,
 )
 from online_gp_torch.parallel.launch import spawn_ranks
@@ -530,11 +574,12 @@ N_SEED6 = 1024  # bench_iterative_hyper_step's seed points
 N_K2_6 = 16  # K2 calls checked at m = 4,096
 PLAIN_REPS6 = 3  # timing repeats of the plain versions at m = 4,096
 # phase 6: the edges of K1's grid envelope at k = 128 (1,121: the first m on
-# G = 2 clusters; 4,480: the last on G = 4; 4,481: the single-block kernel)
-# and of K3's 16-block one (3,137: the first on 16 blocks; 6,016: the last;
-# 6,017: the single-block kernel)
-K1_EDGES = (1121, 4480, 4481)
-K3_EDGES = (3137, 6016, 6017)
+# G = 2 clusters; 4,480: the last on G = 4; 4,481: the first on G = 5, where
+# the port's first design ran the recursion on one block) and of K3's
+# 16-block one (3,137: the first on 16 blocks; 6,016: the last; 6,017: the
+# first spread over the card), each with the route (route_name) it must take
+K1_EDGES = {1121: "grid", 4480: "grid", 4481: "grid"}  # m -> the route of K1's recursion there
+K3_EDGES = {3137: "wide", 6016: "wide", 6017: "spread"}
 # phase 6: K6 (Bd, m) where its panels turn ragged or its plan changes
 # (2,048: 16 whole panels; 2,049 and 4,097: a last panel of one column)
 # and Bd = 2 at 4,096
@@ -1040,19 +1085,53 @@ def check_blocked_chunk(rng, grid, peaks, dev):
     return out, rec
 
 
-def k1_recursion_kernel(k, m):
-    """The CUDA kernel of K1's recursion at (k, m), by chunk_cluster_plan:
-    one cluster of 8, G > 1 of them, or the single block."""
-    plan = chunk_cluster_plan(k, m)
-    if plan is None:
-        return "chunk_recursion_kernel"
-    return "chunk_recursion_cluster_kernel" if plan.clusters == 1 else "chunk_recursion_grid_kernel"
+def route_name(plan):
+    """A recursion plan's route: "cluster" (one cluster of 8 blocks an
+    output), "wide" (one of 16), "grid" (G >= 2 clusters of 8) or "spread"
+    (over the card)."""
+    if isinstance(plan, _build.SpreadPlan):
+        return "spread"
+    if plan.clusters > 1:
+        return "grid"
+    return "wide" if plan.cluster == 16 else "cluster"
+
+
+def expect_route(plan, expect, what):
+    """Raise unless the wrappers' planner took the route ``expect`` the
+    caller names for this shape (route_name)."""
+    if route_name(plan) != expect:
+        raise AssertionError(f"{what} was expected on the {expect} route; the wrappers' planner takes the "
+                             f"{recursion_route(plan)}")
+
+
+def k1_route(k, m, expect):
+    """(plan, CUDA kernel) of K1's recursion at (k, m) on card 0, as the
+    wrappers take it, after checking that this is the route ``expect``:
+    one cluster of 8 ("cluster", the cluster kernel), G >= 2 of them
+    ("grid", the grid kernel) or spread over the card ("spread")."""
+    plan, _ = cuda_root_update._recursion_plan(cuda_root_update._root_update_lib(), k, m, "chunk", 0)
+    expect_route(plan, expect, f"K1's recursion at (k={k}, m={m})")
+    if expect == "spread":
+        return plan, f"chunk_recursion_spread_kernel<{plan.slices}>"
+    return plan, "chunk_recursion_cluster_kernel" if expect == "cluster" else "chunk_recursion_grid_kernel"
+
+
+def k3_route(k, m, P, expect):
+    """(plan, CUDA kernel) of K3's recursion at (k, m, P) on card 0, after
+    checking that this is the route ``expect``: one cluster of 8
+    ("cluster") or of 16 ("wide"), or spread over the card ("spread")."""
+    plan, _ = cuda_pred_stream._pred_plan(cuda_pred_stream._pred_stream_lib(), k, m, P, 0)
+    expect_route(plan, expect, f"K3's recursion at (k={k}, m={m}, P={P})")
+    if expect == "spread":
+        return plan, f"pred_recursion_spread_kernel<{plan.slices}>"
+    return plan, "pred_recursion_cluster_kernel"
 
 
 def recursion_route(plan):
     """A recursion plan in words."""
-    if plan is None:
-        return "single-block recursion"
+    if isinstance(plan, _build.SpreadPlan):
+        return (f"recursion spread over {plan.clusters} clusters of {plan.cluster} blocks, {plan.cols} columns, "
+                f"{plan.slices} slices and {plan.shared_bytes} bytes a block")
     return (f"recursion on {plan.clusters} cluster{'s' * (plan.clusters > 1)} of {plan.cluster} blocks, "
             f"{plan.cols} columns and {plan.shared_bytes} bytes a block")
 
@@ -1138,7 +1217,7 @@ def check_pred_chunk(rng, grid, model, params, peaks, dev):
 
 def check_pred_chunk_outside_envelope(rng, grid, C, mu, dev):
     """One K3 chunk at a shape no cluster holds (k = OUTSIDE_K3 at the main
-    path's m): it runs the single-block recursion kernel, against the plain
+    path's m): its recursion runs spread over the card, against the plain
     version."""
     m = grid.num_points
     x, idx, w = stencil(rng, grid, OUTSIDE_K3, dev)
@@ -1147,16 +1226,18 @@ def check_pred_chunk_outside_envelope(rng, grid, C, mu, dev):
     C, mu = C.contiguous(), mu.contiguous()
     y = torch.sin(3 * x[:, 0])[None].contiguous()
     nz = torch.ones((1, OUTSIDE_K3), device=dev)
-    before = (pred_chunk.launches, pred_chunk.cluster_launches)
+    before = (pred_chunk.launches, pred_chunk.cluster_launches, pred_chunk.spread_launches)
     got = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
     torch.cuda.synchronize()
-    if (pred_chunk.launches - before[0], pred_chunk.cluster_launches - before[1]) != (1, 0):
-        raise AssertionError(f"pred_chunk at k={OUTSIDE_K3} did not take the single-block recursion")
+    if (pred_chunk.launches - before[0], pred_chunk.cluster_launches - before[1],
+            pred_chunk.spread_launches - before[2]) != (1, 0, 1):
+        raise AssertionError(f"pred_chunk at k={OUTSIDE_K3} did not take the spread recursion")
     err = max_err(got, pred_chunk_stencil_plain(C, mu, idx, w, y, nz), 2e-4, f"pred_chunk k={OUTSIDE_K3}")
     make = lambda: (*clone_all(C, mu), idx, w, y, nz)
+    plan, recursion = k3_route(OUTSIDE_K3, m, idx.shape[1], "spread")
     ms, stages = device_ms(pred_chunk, make, {
-        "pred_gather_kernel": 1, "pred_recursion_kernel": 1, **k3_apply_kernels(1, m, m)})
-    return dict(m=m, k=OUTSIDE_K3, max_abs_err=err, ms=ms, stages_ms=stages)
+        "pred_gather_kernel": 1, recursion: 1, **k3_apply_kernels(1, m, m)})
+    return dict(m=m, k=OUTSIDE_K3, max_abs_err=err, ms=ms, stages_ms=stages, route=recursion_route(plan))
 
 
 # --------------------------------------------------------------------------
@@ -1278,7 +1359,8 @@ def main_path(rng, model, params, card, dev):
 def profile_main_path(model, params, state, caches, stream, preq, n=2 * K):
     """The CUDA kernels torch.profiler records over a short pass of the
     main path's streams (n points of each) on copies of its final state:
-    the cluster recursions run, and the single-block ones do not."""
+    the one-cluster recursions run, and no other recursion kernel (K1's
+    grid or spread kernel, K3's spread kernel) does."""
     from torch.profiler import ProfilerActivity, profile
 
     copy = lambda st: st._replace(roots=RootCache(None, st.roots.root.clone(), st.roots.inv_root.clone()))
@@ -1291,15 +1373,15 @@ def profile_main_path(model, params, state, caches, stream, preq, n=2 * K):
         torch.cuda.synchronize()
     counts = {}
     for ev in prof.key_averages():
-        for name in ("chunk_recursion_cluster_kernel", "pred_recursion_cluster_kernel",
-                     "chunk_recursion_kernel", "pred_recursion_kernel"):
-            if f"::{name}(" in ev.key:
-                counts[name] = counts.get(name, 0) + ev.count
+        hit = re.search(r"::((?:chunk|pred)_recursion_\w+(?:<\d+>)?)\(", ev.key)
+        if hit:
+            counts[hit.group(1)] = counts.get(hit.group(1), 0) + ev.count
     print(f"  recursion kernels recorded over {n} + {n} main-path points: {json.dumps(counts)}")
     if not (counts.get("chunk_recursion_cluster_kernel") and counts.get("pred_recursion_cluster_kernel")):
         raise AssertionError("torch.profiler recorded no cluster recursion on the main path")
-    if counts.get("chunk_recursion_kernel") or counts.get("pred_recursion_kernel"):
-        raise AssertionError("the main path at m = 900 launched a single-block recursion kernel")
+    others = sorted(set(counts) - {"chunk_recursion_cluster_kernel", "pred_recursion_cluster_kernel"})
+    if others:
+        raise AssertionError(f"the main path at m = 900 launched recursion kernels off one cluster: {others}")
 
 
 def profile_condition(rng, model, dev):
@@ -1538,8 +1620,7 @@ def check_chunk_variants(rng, grid, peaks, dev):
     apply = k1_apply_kernels(K, m, m)
     profile_kernels = {
         "blocked_chunk_sub": {"chunk_gather_kernel": 1, "chunk_sub_cluster_kernel": 1, **apply,
-                              "batched_gemm_kernel": 0, "chunk_recursion_cluster_kernel": 0,
-                              "chunk_recursion_kernel": 0},
+                              "batched_gemm_kernel": 0, "chunk_recursion_cluster_kernel": 0},
         "blocked_chunk_coord": {"chunk_gather_kernel": 1, "coord_gram_kernel": 1, "coord_recursion_kernel": 1,
                                 "batched_gemm_kernel": 1, **apply},
     }
@@ -2095,7 +2176,7 @@ def check_kernels_large(rng, model, params, state, peaks, dev):
     plan = chunk_cluster_plan(K, m)
     if plan is None or plan.clusters < 2:
         raise AssertionError(f"(k={K}, m={m}) was expected on G >= 2 clusters of K1's grid recursion")
-    out["blocked_chunk"] = check_k1(L, B, idx, w[None].contiguous(), peaks, f"m={m}", True, PLAIN_REPS6)
+    out["blocked_chunk"] = check_k1(L, B, idx, w[None].contiguous(), peaks, f"m={m}", "grid", PLAIN_REPS6)
     # its recursion as a row of its own, as phase 2's: the device time within
     # the chunk, the plain recursion's; 10 t m flops at step t, p0 in, U, P, R out
     p0 = torch.einsum("bkp,bkpm->bkm", w[None], B[:, idx.long()]).contiguous()
@@ -2115,7 +2196,7 @@ def check_kernels_large(rng, model, params, state, peaks, dev):
         raise AssertionError(f"(k={K}, m={m}) was expected on K3's cluster of 16 blocks")
     y = torch.sin(3 * x[:, 0])[None].contiguous()
     C1, mu1 = cov_cache.contiguous(), mean_cache[..., 0].contiguous()
-    out["pred_chunk"] = check_k3(C1, mu1, idx3, w3, y, peaks, f"m={m}", True, PLAIN_REPS6)
+    out["pred_chunk"] = check_k3(C1, mu1, idx3, w3, y, peaks, f"m={m}", "wide", PLAIN_REPS6)
     S, P = stencil_rows(idx3, w3, m), idx3.shape[1]
     plain_args = (S, S @ C1, mu1 @ S.mT, y, torch.ones_like(y))
     # a: 2 t P, ct: 2 t m flops at step t; c0w in, Z out
@@ -2135,22 +2216,20 @@ def check_kernels_large(rng, model, params, state, peaks, dev):
             K, m, idx3.shape[1], plan3.cluster))}}
     L2, B2 = synthetic_roots(rng, 2, m, dev)
     wv2 = (w[None] * torch.tensor([1.0, 1.3], device=dev)[:, None, None]).contiguous()
-    beside["blocked_chunk Bd=2"] = check_k1(L2, B2, idx, wv2, peaks, f"m={m} Bd=2", True, 1)
+    beside["blocked_chunk Bd=2"] = check_k1(L2, B2, idx, wv2, peaks, f"m={m} Bd=2", "grid", 1)
     C2 = torch.cat([C1, 0.9 * C1]).contiguous()
     mu2 = torch.cat([mu1, -mu1]).contiguous()
     y2 = torch.cat([y, 0.5 * y]).contiguous()
-    beside["pred_chunk Bd=2"] = check_k3(C2, mu2, idx3, w3, y2, peaks, f"m={m} Bd=2", True, 1)
-    for me in K1_EDGES:
+    beside["pred_chunk Bd=2"] = check_k3(C2, mu2, idx3, w3, y2, peaks, f"m={m} Bd=2", "wide", 1)
+    for me, route in K1_EDGES.items():
         Le, Be = synthetic_roots(rng, 1, me, dev)
         ie, we = edge_stencil(rng, K, me, dev)
-        beside[f"blocked_chunk m={me}"] = check_k1(Le, Be, ie, we[None].contiguous(), peaks, f"m={me}",
-                                                   chunk_cluster_plan(K, me) is not None, 1)
-    for me in K3_EDGES:
+        beside[f"blocked_chunk m={me}"] = check_k1(Le, Be, ie, we[None].contiguous(), peaks, f"m={me}", route, 1)
+    for me, route in K3_EDGES.items():
         Ce, mue = edge_caches(rng, me, dev)
         ie, we = edge_stencil(rng, K, me, dev)
         ye = torch.tensor(rng.normal(size=(1, K)), dtype=torch.float32, device=dev)
-        beside[f"pred_chunk m={me}"] = check_k3(Ce, mue, ie, we, ye, peaks, f"m={me}",
-                                                pred_cluster_plan(K, me, 16) is not None, 1)
+        beside[f"pred_chunk m={me}"] = check_k3(Ce, mue, ie, we, ye, peaks, f"m={me}", route, 1)
     for Bd, me in K6_EDGES:
         beside[f"blocked_cholesky Bd={Bd} m={me}"] = check_k6(spd_batch(rng, (Bd, me, me), dev), peaks,
                                                               f"SPD (Bd={Bd}, m={me})", 1)
@@ -2197,28 +2276,36 @@ def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS, atol=1e-5):
         bound_ms=bms, bound_by=by)
 
 
-def check_k1(L, B, idx, wv, peaks, what, cluster, plain_reps=TIMING_REPS, atol=1e-5):
+def k1_counts(wrapper):
+    """A K1 wrapper's (launches, cluster, grid-cluster, spread) counters."""
+    return (wrapper.launches, wrapper.cluster_launches, wrapper.grid_cluster_launches, wrapper.spread_launches)
+
+
+def k1_route_counts(plan, n=1):
+    """The counters' moves of n K1 recursions on ``plan``."""
+    spread = isinstance(plan, _build.SpreadPlan)
+    return (n, n * (not spread), n * (not spread and plan.clusters > 1), n * spread)
+
+
+def check_k1(L, B, idx, wv, peaks, what, route, plain_reps=TIMING_REPS, atol=1e-5):
     """One K1 chunk (idx (k, P), wv (Bd, k, P)) against its plain version to
     1e-5 (allclose, with ``atol``) and bitwise the same on a second call,
-    its recursion on clusters (one, or G > 1 where chunk_cluster_plan
-    says) or on the single-block kernel as ``cluster`` says (by the
-    counters); then device time, bound and yardstick."""
-    plan = chunk_cluster_plan(idx.shape[0], L.shape[-1])
-    grid = cluster and plan is not None and plan.clusters > 1
-    before = (blocked_chunk.launches, blocked_chunk.cluster_launches, blocked_chunk.grid_cluster_launches)
+    its recursion on the route the caller names (k1_route: "cluster",
+    "grid" or "spread"; planned so, and taken so by the counters); then
+    device time, bound and yardstick."""
+    plan, recursion = k1_route(idx.shape[0], L.shape[-1], route)
+    before = k1_counts(blocked_chunk)
     got = blocked_chunk(*clone_all(L, B), idx, wv)
     again = blocked_chunk(*clone_all(L, B), idx, wv)
     torch.cuda.synchronize()
-    if (blocked_chunk.launches - before[0], blocked_chunk.cluster_launches - before[1],
-            blocked_chunk.grid_cluster_launches - before[2]) != (2, 2 * cluster, 2 * grid):
-        raise AssertionError(f"blocked_chunk {what} did not take the {recursion_route(plan if cluster else None)}")
+    if tuple(a - b for a, b in zip(k1_counts(blocked_chunk), before)) != k1_route_counts(plan, 2):
+        raise AssertionError(f"blocked_chunk {what} did not take the {recursion_route(plan)}")
     err = max_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk {what}", atol)
     bitwise(got, again, f"blocked_chunk {what}")
     library = chunk_library(*blocked_factors(torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()])))
     make = lambda: (*clone_all(L, B), idx, wv)
     k, P = idx.shape
     bms, by = chunk_bound(L.shape[0], L.shape[-1], k, P, peaks)
-    recursion = k1_recursion_kernel(k, L.shape[-1])
     ms, stages = device_ms(blocked_chunk, make, {"chunk_gather_kernel": 1, recursion: 1,
                                                  **k1_apply_kernels(k, L.shape[-1], L.shape[-1])})
     return dict(
@@ -2228,30 +2315,38 @@ def check_k1(L, B, idx, wv, peaks, what, cluster, plain_reps=TIMING_REPS, atol=1
         route=f"{recursion_route(plan)} ({recursion})")
 
 
-def check_k3(C, mu, idx, w, y, peaks, what, cluster, plain_reps=TIMING_REPS):
+def k3_counts(wrapper):
+    """A K3 wrapper's (launches, cluster, wide-cluster, spread) counters."""
+    return (wrapper.launches, wrapper.cluster_launches, wrapper.wide_cluster_launches, wrapper.spread_launches)
+
+
+def k3_route_counts(plan, n=1):
+    """The counters' moves of n K3 recursions on ``plan``."""
+    spread = isinstance(plan, _build.SpreadPlan)
+    return (n, n * (not spread), n * (not spread and plan.cluster == 16), n * spread)
+
+
+def check_k3(C, mu, idx, w, y, peaks, what, route, plain_reps=TIMING_REPS):
     """One K3 chunk (idx, w (k, P); y (Bd, k), unit noise) on the caches
     (C, mu) against its plain version to 2e-4 and bitwise the same on a
-    second call, its recursion on a cluster or on the single-block kernel
-    as ``cluster`` says (by the counters); then device time, bound and
-    yardstick."""
+    second call, its recursion on the route the caller names (k3_route:
+    "cluster", "wide" or "spread"; planned so, and taken so by the
+    counters); then device time, bound and yardstick."""
     m, (k, P) = C.shape[-1], idx.shape
-    plan = pred_cluster_plan(k, m, P)
-    wide = cluster and plan is not None and plan.cluster == 16
+    plan, recursion = k3_route(k, m, P, route)
     nz = torch.ones_like(y)
-    before = (pred_chunk.launches, pred_chunk.cluster_launches, pred_chunk.wide_cluster_launches)
+    before = k3_counts(pred_chunk)
     got = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
     again = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
     torch.cuda.synchronize()
-    if (pred_chunk.launches - before[0], pred_chunk.cluster_launches - before[1],
-            pred_chunk.wide_cluster_launches - before[2]) != (2, 2 * cluster, 2 * wide):
-        raise AssertionError(f"pred_chunk {what} did not take the {recursion_route(plan if cluster else None)}")
+    if tuple(a - b for a, b in zip(k3_counts(pred_chunk), before)) != k3_route_counts(plan, 2):
+        raise AssertionError(f"pred_chunk {what} did not take the {recursion_route(plan)}")
     err = max_err(got, pred_chunk_stencil_plain(C, mu, idx, w, y, nz), 2e-4, f"pred_chunk {what}")
     bitwise(got, again, f"pred_chunk {what}")
     S = stencil_rows(idx, w, m)
     library = pred_library(*pred_chunk_factors(S, S @ C, mu @ S.mT, y, nz)[:2])
     make = lambda: (*clone_all(C, mu), idx, w, y, nz)
     bms, by = pred_bound(C.shape[0], m, k, P, peaks)
-    recursion = "pred_recursion_cluster_kernel" if cluster else "pred_recursion_kernel"
     ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, recursion: 1,
                                               **k3_apply_kernels(C.shape[0], m, m)})
     return dict(
@@ -2854,7 +2949,7 @@ def check_kernels_cls(clfs, peaks, card):
         rows = {"rank1_apply": check_k2(L, B, idx[:N_K2_6], wv[:, :N_K2_6], peaks, f"{tag} Bd=2")}
         if chunk_cluster_plan(K, m) is None:
             raise AssertionError(f"(k={K}, m={m}) was expected inside K1's cluster envelope")
-        rows["blocked_chunk"] = check_k1(L, B, idx, wv, peaks, f"{tag} Bd=2", True)
+        rows["blocked_chunk"] = check_k1(L, B, idx, wv, peaks, f"{tag} Bd=2", "cluster")
         rows["blocked_cholesky"] = check_k6(q_matrix(clf.model, clf.params, state), peaks, f"Q ({tag}, Bd=2)")
         for kname, r in rows.items():
             out[f"{kname}@{tag}-bd2"] = r
@@ -3526,13 +3621,13 @@ def check_kernels_drv(reg, cfg, peaks, card, log):
     p = torch.einsum("bp,bpm->bm", w[None, 0], B[:, idx[0].long()])
     scale = max(float(L.abs().max()), float(B.abs().max()), float((L @ p[..., None]).abs().max()), 1.0)
     print(f"  kernels on the driver state (m = {m}): scale {scale:.4g}, atol {1e-5 * scale:.3g}")
-    cluster1, cluster3 = chunk_cluster_plan(K, m) is not None, pred_cluster_plan(K, m, idx.shape[1]) is not None
     rows = {
         "rank1_apply": check_k2(L, B, idx[:N_K2_6], w[None, :N_K2_6].contiguous(), peaks, "drv-m256",
                                 atol=1e-5 * scale),
-        "blocked_chunk": check_k1(L, B, idx, w[None].contiguous(), peaks, "drv-m256", cluster1, atol=1e-5 * scale),
+        "blocked_chunk": check_k1(L, B, idx, w[None].contiguous(), peaks, "drv-m256", "cluster",
+                                  atol=1e-5 * scale),
         "pred_chunk": check_k3(cov_cache.contiguous(), mean_cache[..., 0].contiguous(), idx, w, y, peaks,
-                               "drv-m256", cluster3),
+                               "drv-m256", "cluster"),
         "blocked_cholesky": check_k6(q_matrix(reg.model, reg.params, state), peaks, "Q (drv-m256)"),
     }
     for kname, r in rows.items():
@@ -3684,6 +3779,7 @@ MESH_CLS_TRIALS, MESH_CLS_GATE = 4, 0.7
 TP_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tp"
 TP_RANKS, TP_PREFIX, TP_PRED_TOL = 2, 256, 2e-4
 TP_CASES = {900: (M_SIDE, 4096), 4096: (M6_SIDE, 4 * K)}
+TP_ROUTES = {900: ("cluster", "cluster"), 4096: ("grid", "wide")}  # m -> K1's and K3's recursion routes
 # (d) the expert-parallel LocalGP step: the localgp_regression preset's
 # 256 points an expert, 8 experts (4 a rank)
 LGP_CAP, LGP_EXPERTS, LGP_TEST, LGP_TOL = 256, 8, 512, 1e-5
@@ -4103,21 +4199,20 @@ def check_stages(m, a, peaks, card):
     y, nz = a["y"][None, :K].contiguous(), a["nz"][None, :K].contiguous()
     Z, r, _, _ = cuda_pred_stream.pred_factors(idx, w, c0w, mu0w, y, nz)
     Zl = Z[..., :rows]
-    recursion, pred_rec = recursion_route(chunk_cluster_plan(K, m)), recursion_route(pred_cluster_plan(K, m, P))
+    (k1_plan, k1_kernel), (k3_plan, k3_kernel) = k1_route(K, m, TP_ROUTES[m][0]), k3_route(K, m, P, TP_ROUTES[m][1])
+    recursion, pred_rec = recursion_route(k1_plan), recursion_route(k3_plan)
     reps = PLAIN_REPS6 if m > M_SIDE**2 else TIMING_REPS
     bnd = lambda name: stage_bound(name, 1, rows, m, k, P, u, e, peaks)
     cases = {
         "chunk_gather_rows": (lambda: (B, idx, wv, 0), 1e-5, {"chunk_gather_kernel": 1},
                               (lambda B_, *_: torch.bmm(S, B_), lambda: (B,))),
-        "chunk_factors": (lambda: (p0,), 1e-5, {k1_recursion_kernel(K, m): 1}, None),
+        "chunk_factors": (lambda: (p0,), 1e-5, {k1_kernel: 1}, None),
         "chunk_apply_rows": (lambda: (*clone_all(L, B), U, Pm, R), 1e-5,
                              k1_apply_kernels(K, rows, m),
                              (chunk_library(U, Pm, R), lambda: clone_all(L, B))),
         "pred_gather_rows": (lambda: (C, mu, idx, w, 0), TP_PRED_TOL, {"pred_gather_kernel": 1},
                              (lambda C_, mu_: (torch.bmm(S, C_), torch.bmm(mu_[:, None], S.mT)), lambda: (C, mu))),
-        "pred_factors": (lambda: (idx, w, c0w, mu0w, y, nz), TP_PRED_TOL,
-                         {"pred_recursion_kernel" if pred_cluster_plan(K, m, P) is None
-                          else "pred_recursion_cluster_kernel": 1}, None),
+        "pred_factors": (lambda: (idx, w, c0w, mu0w, y, nz), TP_PRED_TOL, {k3_kernel: 1}, None),
         "pred_apply_rows": (lambda: (*clone_all(C, mu), Z, r, 0), TP_PRED_TOL, k3_apply_kernels(1, rows, m),
                             (lambda C_, mu_: (C_.baddbmm_(Zl.mT, Z, alpha=-1.0),
                                               mu_.add_(torch.bmm(Zl.mT, r[..., None])[..., 0])),
@@ -4894,6 +4989,572 @@ def apply_phase(peaks, card, dev, model, params, phase3_state):
     return {row: rc for row, rc in rows.items() if rc[1]}, main
 
 
+# --------------------------------------------------------------------------
+# phase 14: every grid size the JAX package streams
+# --------------------------------------------------------------------------
+
+# (a), Bd = 1, m -> the route of K1's recursion (route_name); and Bd = 2 at SPREAD_BD2_M
+SPREAD_K1_MS = {4481: "grid", 8192: "grid", 16384: "spread", 32400: "spread", 46656: "spread"}
+SPREAD_BD2_M = 16384
+SPREAD_K3_MS = {6017: "spread", 16384: "spread", 65536: "spread"}  # (b), m -> K3's route
+SPREAD_BIG_SIDE = 216  # (c): m = 46,656, K2 through wiski_condition and K6
+SPREAD_K2_CALLS = 16
+SPREAD_FUNC_SIDE = 128  # (d): m = 16,384 on the dense core
+SPREAD_FUNC_SEED, SPREAD_FUNC_STREAM, SPREAD_FUNC_PREQ = 256, 4096, 1024
+SPREAD_SHARD_M = (46656, 65536)  # (e): K1's and K3's row-sharded streams
+SPREAD_SHARD_CHUNKS = 8
+SPREAD_PLAIN_K1_M, SPREAD_PLAIN_K3_M = 32400, 16384  # whole chunks against the plain chunk up to here
+SPREAD_ROWS = 256  # past them, rows held against the plain apply
+SPREAD_REPS = 3
+ROW_BLOCK = 32  # rows of a seeded block of the synthetic matrices (divides each rank's rows)
+SPREAD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_spread"
+SPREAD_SEEDS = dict(k1=1400, k3=1500, big=1600, spd=1700, shard_k1=1800, shard_k3=1900)
+
+
+def seeded_rows(seed, r0, r1, m, dev):
+    """Rows [r0, r1) of an (m, m) matrix of standard normals drawn on the
+    card ROW_BLOCK rows at a time, block i from a generator seeded with
+    (seed, i): a rank draws its own rows alone, the same as the whole
+    matrix's."""
+    out = torch.empty((r1 - r0, m), device=dev)
+    g = torch.Generator(device=dev)
+    for i in range(r0 // ROW_BLOCK, -(-r1 // ROW_BLOCK)):
+        lo, hi = i * ROW_BLOCK, min((i + 1) * ROW_BLOCK, m)
+        g.manual_seed(1_000_003 * seed + i)
+        blk = torch.randn((hi - lo, m), generator=g, device=dev)
+        a, b = max(lo, r0), min(hi, r1)
+        out[a - r0 : b - r0] = blk[a - lo : b - lo]
+    return out
+
+
+def spread_roots(m, seed, dev, r0=0, r1=None):
+    """Rows [r0, r1) of synthetic roots L = I + 0.01 N / sqrt(m) and
+    B = I + 0.01 N' / sqrt(m), N and N' seeded normals (seeded_rows), made
+    on the card: near the identity, so every chunk is well conditioned. B
+    is not L^-T: the kernels' arithmetic takes any pair, and a rank draws
+    its rows of both alone, without the whole inverse."""
+    r1 = m if r1 is None else r1
+    out = []
+    for s in (seed, seed + 1):
+        X = seeded_rows(s, r0, r1, m, dev).mul_(0.01 / math.sqrt(m))
+        X.diagonal(offset=r0).add_(1.0)
+        out.append(X)
+    return out
+
+
+def spread_gram(m, seed, dev, r0=0, r1=None, scale=1 / 64, shift=0.1):
+    """Rows [r0, r1) of scale G G^T + shift I for a seeded G (m, 64), and a
+    seeded m-vector's entries [r0, r1): made on the card in row blocks."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((m, 64), generator=g, device=dev)
+    v = torch.randn((m,), generator=g, device=dev)
+    r1 = m if r1 is None else r1
+    out = torch.empty((r1 - r0, m), device=dev)
+    for a in range(r0, r1, 4096):
+        b = min(a + 4096, r1)
+        torch.matmul(G[a:b], G.T, out=out[a - r0 : b - r0])
+    out.mul_(scale).diagonal(offset=r0).add_(shift)
+    return out, v[r0:r1].contiguous()
+
+
+def scaled_err(got, want, tol, what):
+    """max |got - want| over the pairs; raises unless each pair is within tol
+    times its scale, max(max |want|, 1)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite kernel output")
+        scale = max(float(w.abs().max()), 1.0)
+        d = float((g - w).abs().max())
+        if not d <= tol * scale:
+            raise AssertionError(f"{what}: max abs err {d:.3e} beyond {tol:g} of the scale {scale:.4g}")
+        worst = max(worst, d)
+    return worst
+
+
+def moved(counts, before):
+    return tuple(a - b for a, b in zip(counts, before))
+
+
+def peak_gb(dev):
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def spread_k1(rng, peaks, card, dev):
+    """(a): K1 and chunk_factors at k = 128, P = 16 past the cluster
+    envelopes. Returns {m: the recursion's row} for the kernels line."""
+    recs = {}
+    for Bd, m in [(1, m) for m in SPREAD_K1_MS] + [(2, SPREAD_BD2_M)]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        pairs = [spread_roots(m, SPREAD_SEEDS["k1"] + 2 * b, dev) for b in range(Bd)]
+        L, B = (torch.stack(x) for x in zip(*pairs))
+        del pairs
+        idx, w = edge_stencil(rng, K, m, dev)
+        wv = (w[None] * torch.tensor([1.0, 1.3][:Bd], device=dev)[:, None, None]).contiguous()
+        plan, recursion = k1_route(K, m, SPREAD_K1_MS[m])
+        p0 = torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()]).contiguous()
+        before = k1_counts(cuda_root_update.chunk_factors)
+        f1, f2 = cuda_root_update.chunk_factors(p0), cuda_root_update.chunk_factors(p0)
+        torch.cuda.synchronize()
+        route = moved(k1_counts(cuda_root_update.chunk_factors), before)
+        if route != k1_route_counts(plan, 2):
+            raise AssertionError(f"chunk_factors m={m} Bd={Bd}: counters moved {route}, its plan {plan}")
+        fp = cuda_root_update.chunk_factors_plain(p0)
+        rec_err = scaled_err(f1, fp, 1e-5, f"chunk_factors m={m} Bd={Bd}")
+        bitwise(f1, f2, f"chunk_factors m={m} Bd={Bd}")
+        del f1, f2
+        before = k1_counts(blocked_chunk)
+        got = blocked_chunk(*clone_all(L, B), idx, wv)
+        again = blocked_chunk(*clone_all(L, B), idx, wv)
+        torch.cuda.synchronize()
+        route = moved(k1_counts(blocked_chunk), before)
+        if route != k1_route_counts(plan, 2):
+            raise AssertionError(f"blocked_chunk m={m} Bd={Bd}: counters moved {route}, its plan {plan}")
+        bitwise(got, again, f"blocked_chunk m={m} Bd={Bd}")
+        del again
+        held = "whole chunk"
+        if m <= SPREAD_PLAIN_K1_M:
+            err = scaled_err(got, blocked_chunk_plain(L, B, idx, wv), 1e-5, f"blocked_chunk m={m} Bd={Bd}")
+            apply_err = None
+        else:  # the plain copy of L and B does not fit beside them: rows at both ends
+            rows = torch.cat([torch.arange(SPREAD_ROWS // 2), torch.arange(m - SPREAD_ROWS // 2, m)]).to(dev)
+            want = cuda_root_update.chunk_apply_rows_plain(L[:, rows], B[:, rows], *fp)
+            err = scaled_err((got[0][:, rows], got[1][:, rows]), want, 1e-5, f"blocked_chunk m={m} rows")
+            ga = cuda_root_update.chunk_apply_rows(*clone_all(L[:, rows].contiguous(), B[:, rows].contiguous()), *fp)
+            apply_err = scaled_err(ga, want, 1e-5, f"chunk_apply_rows m={m} rows")
+            held = f"{SPREAD_ROWS} rows against the plain apply of the plain factors"
+        del got
+        make = lambda: (*clone_all(L, B), idx, wv)
+        bms, by = chunk_bound(Bd, m, K, idx.shape[1], peaks)
+        ms, stages = device_ms(blocked_chunk, make, {"chunk_gather_kernel": 1, recursion: 1,
+                                                     **k1_apply_kernels(K, m, m)}, SPREAD_REPS)
+        rec_ms, _ = device_ms(cuda_root_update.chunk_factors, lambda: (p0,), {recursion: 1}, SPREAD_REPS)
+        rbms, rby = bound_ms(4 * 4 * Bd * K * m, Bd * 5 * K * (K - 1) * m, peaks)
+        rec = dict(max_abs_err=rec_err, ms=rec_ms, plain_ms=time_ms(blocked_factors, lambda: (p0,), 1),
+                   wrapper_ms=time_ms(cuda_root_update.chunk_factors, lambda: (p0,), SPREAD_REPS),
+                   bound_ms=rbms, bound_by=rby, library_ms=None, route=recursion_route(plan), kernel=recursion)
+        row = dict(Bd=Bd, max_abs_err=err, held=held, apply_rows_err=apply_err, ms=ms, stages_ms=stages,
+                   wrapper_ms=time_ms(blocked_chunk, make, SPREAD_REPS),
+                   plain_ms=time_ms(blocked_chunk_plain, make, 1) if m <= SPREAD_PLAIN_K1_M else None,
+                   library_ms=time_ms(chunk_library(*fp), lambda: clone_all(L, B), SPREAD_REPS),
+                   bound_ms=bms, bound_by=by, recursion=rec, counters=dict(zip(
+                       ("launches", "cluster_launches", "grid_cluster_launches", "spread_launches"), route)),
+                   peak_gb=peak_gb(dev))
+        print(f"phase 14 (a) blocked_chunk m={m} Bd={Bd} k={K} on {card}: " + json.dumps(row))
+        if Bd == 1:
+            recs[m] = rec
+        del L, B, p0, fp
+    return recs
+
+
+def spread_k3(rng, peaks, card, dev):
+    """(b): K3 and pred_factors at k = 128, P = 16 past the 16-block
+    envelope. Returns {m: the recursion's row} for the kernels line."""
+    recs = {}
+    for m in SPREAD_K3_MS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        C, mu = spread_gram(m, SPREAD_SEEDS["k3"] + m, dev)
+        C, mu = C[None], mu[None]
+        idx, w = edge_stencil(rng, K, m, dev)
+        y = torch.tensor(rng.normal(size=(1, K)), dtype=torch.float32, device=dev)
+        nz = torch.ones_like(y)
+        plan, recursion = k3_route(K, m, idx.shape[1], SPREAD_K3_MS[m])
+        c0w, mu0w = cuda_pred_stream.pred_gather_rows(C, mu, idx, w, 0)
+        args = (idx, w, c0w, mu0w, y, nz)
+        before = k3_counts(cuda_pred_stream.pred_factors)
+        f1, f2 = cuda_pred_stream.pred_factors(*args), cuda_pred_stream.pred_factors(*args)
+        torch.cuda.synchronize()
+        route = moved(k3_counts(cuda_pred_stream.pred_factors), before)
+        if route != k3_route_counts(plan, 2):
+            raise AssertionError(f"pred_factors m={m}: counters moved {route}, its plan {plan}")
+        fp = cuda_pred_stream.pred_factors_plain(*args)
+        rec_err = scaled_err(f1, fp, 2e-4, f"pred_factors m={m}")
+        bitwise(f1, f2, f"pred_factors m={m}")
+        del f1, f2
+        before = k3_counts(pred_chunk)
+        got = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
+        again = pred_chunk(*clone_all(C, mu), idx, w, y, nz)
+        torch.cuda.synchronize()
+        route = moved(k3_counts(pred_chunk), before)
+        if route != k3_route_counts(plan, 2):
+            raise AssertionError(f"pred_chunk m={m}: counters moved {route}, its plan {plan}")
+        bitwise(got, again, f"pred_chunk m={m}")
+        del again
+        Zp, rp = fp[0], fp[1]
+        held = "whole chunk"
+        if m <= SPREAD_PLAIN_K3_M:
+            err = scaled_err(got, pred_chunk_stencil_plain(C, mu, idx, w, y, nz), 2e-4, f"pred_chunk m={m}")
+            apply_err = None
+        else:  # the plain copy of C does not fit beside it: rows at both ends, and the moments
+            rows = torch.cat([torch.arange(SPREAD_ROWS // 2), torch.arange(m - SPREAD_ROWS // 2, m)]).to(dev)
+            Cr, mur = C[:, rows].contiguous(), mu[:, rows].contiguous()
+            want = (Cr - Zp[:, :, rows].mT @ Zp, mur + (Zp[:, :, rows].mT @ rp[..., None])[..., 0])
+            err = scaled_err((got[0][:, rows], got[1][:, rows], got[2], got[3]), (*want, fp[2], fp[3]), 2e-4,
+                             f"pred_chunk m={m} rows")
+            ga = cuda_pred_stream.pred_apply_rows(*clone_all(C[:, : SPREAD_ROWS // 2].contiguous(),
+                                                             mu[:, : SPREAD_ROWS // 2].contiguous()), Zp, rp, 0)
+            wa = cuda_pred_stream.pred_apply_rows_plain(C[:, : SPREAD_ROWS // 2], mu[:, : SPREAD_ROWS // 2], Zp, rp, 0)
+            apply_err = scaled_err(ga, wa, 2e-4, f"pred_apply_rows m={m} rows")
+            held = f"{SPREAD_ROWS} rows of C and mu and the moments against the plain factors' apply"
+        del got
+        make = lambda: (*clone_all(C, mu), idx, w, y, nz)
+        bms, by = pred_bound(1, m, K, idx.shape[1], peaks)
+        ms, stages = device_ms(pred_chunk, make, {"pred_gather_kernel": 1, recursion: 1,
+                                                  **k3_apply_kernels(1, m, m)}, SPREAD_REPS)
+        rec_ms, _ = device_ms(cuda_pred_stream.pred_factors, lambda: args, {recursion: 1}, SPREAD_REPS)
+        P = idx.shape[1]
+        rbms, rby = bound_ms(4 * (2 * K * m + 5 * K) + 8 * K * P, K * (K - 1) * (m + P), peaks)
+        rec = dict(max_abs_err=rec_err, ms=rec_ms,
+                   plain_ms=time_ms(cuda_pred_stream.pred_factors_plain, lambda: args, 1),
+                   wrapper_ms=time_ms(cuda_pred_stream.pred_factors, lambda: args, SPREAD_REPS),
+                   bound_ms=rbms, bound_by=rby, library_ms=None, route=recursion_route(plan), kernel=recursion)
+        row = dict(max_abs_err=err, held=held, apply_rows_err=apply_err, ms=ms, stages_ms=stages,
+                   wrapper_ms=time_ms(pred_chunk, make, SPREAD_REPS),
+                   plain_ms=time_ms(pred_chunk_stencil_plain, make, 1) if m <= SPREAD_PLAIN_K3_M else None,
+                   library_ms=time_ms(pred_library(Zp, rp), lambda: clone_all(C, mu), SPREAD_REPS),
+                   bound_ms=bms, bound_by=by, recursion=rec, counters=dict(zip(
+                       ("launches", "cluster_launches", "wide_cluster_launches", "spread_launches"), route)),
+                   peak_gb=peak_gb(dev))
+        print(f"phase 14 (b) pred_chunk m={m} k={K} on {card}: " + json.dumps(row))
+        recs[m] = rec
+        del C, mu, c0w, mu0w, args, fp, Zp, rp
+    return recs
+
+
+def spread_big(rng, peaks, card, dev):
+    """(c): K2 through wiski_condition (q = 1) and K6 at m = 46,656, each
+    output of more than 2^31 elements. Returns the path window's counts."""
+    side = SPREAD_BIG_SIDE
+    m = side * side
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    grid = Grid.create([(-1.1, 1.1)] * 2, side, device=dev)
+    model = WiskiModel(RBFKernel(), grid, num_outputs=1, learn_additional_noise=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    state = WiskiState(wty=torch.zeros((1, m, 1), **f32), ydy=torch.zeros((1,), **f32),
+                       roots=RootCache(None, *(X[None] for X in spread_roots(m, SPREAD_SEEDS["big"], dev))),
+                       d_logdet=torch.zeros((1,), **f32), num_data=0)
+    x = torch.tensor(rng.uniform(-1, 1, (SPREAD_K2_CALLS, 2)), **f32)
+    y, noise = torch.sin(3 * x[:, :1]), torch.full((SPREAD_K2_CALLS, 1), 0.5, **f32)
+    zero_counters()
+    err = 0.0
+    for i in range(SPREAD_K2_CALLS):
+        idx, w = interp_coeffs(grid, x[i : i + 1], detach=True)
+        with f32_matmul_precision():
+            p = torch.einsum("p,bpm->bm", w[0], state.roots.inv_root[:, idx[0], :]) / math.sqrt(0.5)
+        want = rank1_apply_plain(state.roots.root, state.roots.inv_root, p)
+        state = wiski_condition(model, state, x[i : i + 1], y[i : i + 1], noise[i : i + 1])
+        torch.cuda.synchronize()
+        err = max(err, scaled_err((state.roots.root, state.roots.inv_root), want, 1e-5,
+                                  f"wiski_condition m={m} call {i}"))
+        del want
+    window = read_window()
+    if window["rank1_apply"] != SPREAD_K2_CALLS:
+        raise AssertionError(f"phase 14 (c): wiski_condition at m={m} launched K2 {window['rank1_apply']} times")
+    del state
+    L, B = spread_roots(m, SPREAD_SEEDS["big"], dev)  # the roots again, for the times
+    idx, w = interp_coeffs(grid, x[:1], detach=True)
+    p = torch.einsum("p,bpm->bm", w[0], B[None][:, idx[0], :]).contiguous()
+    make = lambda: (*clone_all(L[None], B[None]), p)
+    bms, by = rank1_bound(1, m, peaks)
+    ms, stages = device_ms(rank1_apply, make, {"rank1_prepass_kernel": 1, "rank1_rows_kernel": 1}, SPREAD_REPS)
+    k2 = dict(calls=SPREAD_K2_CALLS, max_abs_err=err, ms=ms, stages_ms=stages,
+              wrapper_ms=time_ms(rank1_apply, make, SPREAD_REPS), plain_ms=time_ms(rank1_apply_plain, make, 1),
+              library_ms=time_ms(rank1_library, make, SPREAD_REPS), bound_ms=bms, bound_by=by, peak_gb=peak_gb(dev))
+    print(f"phase 14 (c) rank1_apply (wiski_condition, q = 1) m={m} on {card}: " + json.dumps(k2))
+    del L, B
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    Q, _ = spread_gram(m, SPREAD_SEEDS["spd"], dev, scale=1.0 / m, shift=1.0)
+    Q = Q[None]
+    before = blocked_cholesky.launches
+    L1, info = blocked_cholesky_ex(Q)
+    L2, _ = blocked_cholesky_ex(Q)
+    torch.cuda.synchronize()
+    if blocked_cholesky.launches - before != 2 or int(info.max()) != 0:
+        raise AssertionError(f"phase 14 (c): K6 at m={m} launched {blocked_cholesky.launches - before} "
+                             f"times, info {info.tolist()}")
+    bitwise((L1,), (L2,), f"blocked_cholesky m={m}")
+    del L2
+    if not bool((torch.triu(L1[0], 1) == 0).all()):
+        raise AssertionError(f"blocked_cholesky m={m}: the strict upper triangle is not 0")
+    events = lambda fn: time_ms(fn, lambda: (Q,), 1)
+    k6_ms = events(blocked_cholesky)
+    lib_ms = events(torch.linalg.cholesky)
+    ref = torch.linalg.cholesky(Q)
+    rel = rel_max_err(L1, ref)
+    del ref, L1
+    if not rel <= 5e-4:
+        raise AssertionError(f"blocked_cholesky m={m}: relative max error {rel:.3e} against torch.linalg.cholesky")
+    bms, by = chol_bound(1, m, peaks)
+    k6 = dict(rel_max_err=rel, ms=k6_ms, library_ms=lib_ms, plain_ms=None, bound_ms=bms, bound_by=by,
+              timing="CUDA events around one call after two warm-up calls", peak_gb=peak_gb(dev))
+    print(f"phase 14 (c) blocked_cholesky m={m} on {card}: " + json.dumps(k6))
+    del Q
+    return window
+
+
+def spread_functional(rng, card, dev):
+    """(d): the functional path at m = 16,384 on the dense core (a 128 x 128
+    grid): wiski_init, wiski_stream, wiski_prediction_caches and
+    wiski_prequential_stream, the counters zeroed just before and read just
+    after, against the same calls on the plain chunk forms, which
+    detach_interp=False runs on the card (the caches once, from the
+    kernels' state). Returns the window's counts and its spread launches
+    (K1, K3)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    grid = Grid.create([(-1.1, 1.1)] * 2, SPREAD_FUNC_SIDE, device=dev)
+    m = grid.num_points
+    model = WiskiModel(RBFKernel(), grid, num_outputs=1, learn_additional_noise=True)
+    params = model.init_params(2)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def points(n):
+        x = torch.tensor(rng.uniform(-1, 1, (n, 2)), **f32)
+        y = torch.sin(3 * x[:, :1])
+        return x, y, torch.ones_like(y)
+
+    x0, y0, n0 = points(SPREAD_FUNC_SEED)
+    xs, ys, ns = points(SPREAD_FUNC_STREAM)
+    xp, yp, npr = points(SPREAD_FUNC_PREQ)
+    copy = lambda st: st._replace(roots=RootCache(*(None if t is None else t.clone() for t in st.roots)),
+                                  wty=st.wty.clone())
+    zero_counters()
+    spread0 = (blocked_chunk.spread_launches, pred_chunk.spread_launches)
+    t0 = time.perf_counter()
+    state0 = wiski_init(model, x0, y0, n0)
+    twin_start = copy(state0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state = wiski_stream(model, state0, xs, ys, ns, block_size=K)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    streamed = (state.roots.root.clone(), state.roots.inv_root.clone())
+    twin_state = copy(state)
+    with torch.no_grad():
+        caches = wiski_prediction_caches(model, params, state)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    twin_caches = tuple(c.clone() for c in caches)
+    state, caches, pm, pv = wiski_prequential_stream(model, params, state, caches, xp, yp, npr, block_size=K)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    window = read_window()
+    spread = (blocked_chunk.spread_launches - spread0[0], pred_chunk.spread_launches - spread0[1])
+    chunks = -(-SPREAD_FUNC_STREAM // K) + -(-SPREAD_FUNC_PREQ // K)
+    if (window["blocked_chunk"], spread[0], window["pred_chunk"], spread[1]) != (
+            chunks, chunks, SPREAD_FUNC_PREQ // K, SPREAD_FUNC_PREQ // K) or window["blocked_cholesky"] < 1:
+        raise AssertionError(f"phase 14 (d): launches {window}, spread {spread}: every K1 and K3 chunk at m={m} "
+                             f"must run spread over the card, and K6 factor Q")
+    # the twin: the same calls on the plain chunk forms
+    twin = wiski_stream(model, twin_start, xs, ys, ns, detach_interp=False, block_size=K)
+    errs = dict(stream_roots=scaled_err(streamed, (twin.roots.root, twin.roots.inv_root), 1e-3,
+                                        f"wiski_stream m={m}"))
+    del twin, streamed
+    twin_state, twin_caches, tpm, tpv = wiski_prequential_stream(model, params, twin_state, twin_caches, xp, yp, npr,
+                                                                 detach_interp=False, block_size=K)
+    errs["prequential_roots"] = scaled_err((state.roots.root, state.roots.inv_root),
+                                           (twin_state.roots.root, twin_state.roots.inv_root), 1e-3,
+                                           f"wiski_prequential_stream m={m} roots")
+    errs["prequential_moments"] = max_err((pm, pv), (tpm, tpv), TP_PRED_TOL, f"wiski_prequential_stream m={m}")
+    errs["prequential_caches"] = max_err(caches, twin_caches, TP_PRED_TOL, f"wiski_prequential_stream m={m} caches")
+    out = dict(m=m, seconds=dict(init=t1 - t0, stream=t2 - t1, caches=t3 - t2, prequential=t4 - t3),
+               stream_updates_per_s=SPREAD_FUNC_STREAM / (t2 - t1), prequential_points_per_s=SPREAD_FUNC_PREQ / (t4 - t3),
+               errors=errs, launches=window, spread_launches=dict(blocked_chunk=spread[0], pred_chunk=spread[1]),
+               peak_gb=peak_gb(dev))
+    print(f"phase 14 (d) functional path m={m} (wiski_init of {SPREAD_FUNC_SEED}, wiski_stream of "
+          f"{SPREAD_FUNC_STREAM}, caches, wiski_prequential_stream of {SPREAD_FUNC_PREQ}) on {card}: " + json.dumps(out))
+    return window, spread
+
+
+def sampled_rows(m):
+    """Rows of an m-row matrix held between the sharded and the single-device
+    streams: 32 at each end of each of the two ranks' shards."""
+    half = m // 2
+    picks = [torch.arange(a, a + 32) for a in (0, half - 32, half, m - 32)]
+    return torch.cat(picks)
+
+
+def spread_references(rng, dev):
+    """(e)'s single-device streams, first: K1's at m = 46,656 and K3's at
+    m = 65,536, SPREAD_SHARD_CHUNKS chunks of K each, on inputs made on
+    the card from seeds the ranks share; sampled rows (sampled_rows), mu and
+    the moments kept on the host, in a file the ranks read."""
+    SPREAD_DIR.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(SPREAD_DIR / "store", ignore_errors=True)
+    n = SPREAD_SHARD_CHUNKS * K
+    m1, m3 = SPREAD_SHARD_M
+    saved, single = {}, {}
+    torch.cuda.empty_cache()
+    idx, w = edge_stencil(rng, n, m1, dev)
+    L, B = spread_roots(m1, SPREAD_SEEDS["shard_k1"], dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    L, B = roots_stream_blocked(L, B, idx, w, block=K)
+    sync(dev)
+    single["stream_updates_per_s"] = n / (time.perf_counter() - t0)
+    rows = sampled_rows(m1)
+    saved.update(k1_idx=idx.cpu(), k1_wv=w.cpu(), k1_rows=rows, k1_L=L[rows.to(dev)].cpu(), k1_B=B[rows.to(dev)].cpu())
+    del L, B
+    torch.cuda.empty_cache()
+    idx3, w3 = edge_stencil(rng, n, m3, dev)
+    y = torch.tensor(rng.normal(size=(n,)), dtype=torch.float32, device=dev)
+    nz = torch.ones_like(y)
+    C, mu = spread_gram(m3, SPREAD_SEEDS["shard_k3"], dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    C, mu, pm, pv = pred_stream_blocked(C, mu, idx3, w3, y, nz, block=K)
+    sync(dev)
+    single["pred_points_per_s"] = n / (time.perf_counter() - t0)
+    rows3 = sampled_rows(m3)
+    saved.update(k3_idx=idx3.cpu(), k3_w=w3.cpu(), k3_y=y.cpu(), k3_nz=nz.cpu(), k3_rows=rows3,
+                 k3_C=C[rows3.to(dev)].cpu(), k3_mu=mu.cpu(), k3_pm=pm.cpu(), k3_pv=pv.cpu())
+    del C, mu
+    torch.cuda.empty_cache()
+    path = SPREAD_DIR / "refs.pt"
+    torch.save(saved, path)
+    return path, single
+
+
+def spread_counts():
+    """The stage counters and the recursions' spread counters."""
+    out = read_stage_counters()
+    out["chunk_factors_spread"] = cuda_root_update.chunk_factors.spread_launches
+    out["pred_factors_spread"] = cuda_pred_stream.pred_factors.spread_launches
+    return out
+
+
+def spread_rank(rank, world, path):
+    """(e) on one gloo rank sharing the card: its rows of the inputs made
+    from the single device's seeds, sharded_stream_blocked (K1, m = 46,656)
+    and sharded_pred_stream_blocked (K3, m = 65,536), each with the stage
+    counters zeroed just before and read just after, held against the
+    single device's sampled rows, mu and moments."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from online_gp_torch.parallel.mesh import (
+        local_device,
+        make_mesh,
+        sharded_pred_stream_blocked,
+        sharded_stream_blocked,
+    )
+
+    mesh = make_mesh(axis_name="tp", device_type="cuda")
+    dev = local_device("cuda")
+    saved = torch.load(path)
+    put = lambda x: DTensor.from_local(x, mesh, [Shard(0)], run_check=False)
+    report = {}
+    with f32_matmul_precision():
+        m1, m3 = SPREAD_SHARD_M
+        rows = m1 // world
+        r0 = rank * rows
+        L, B = spread_roots(m1, SPREAD_SEEDS["shard_k1"], dev, r0, r0 + rows)
+        idx, wv = saved["k1_idx"].to(dev), saved["k1_wv"].to(dev)
+        zero_stage_counters()
+        zero_apply_counters()
+        cuda_root_update.chunk_factors.spread_launches = cuda_pred_stream.pred_factors.spread_launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        Ls, Bs = sharded_stream_blocked(put(L), put(B), idx, wv, mesh, block=K)
+        sync(dev)
+        t1 = time.perf_counter()
+        counts1, applies1 = spread_counts(), read_apply_shapes()
+        del L, B
+        sel = saved["k1_rows"]
+        mine = (sel >= r0) & (sel < r0 + rows)
+        loc = (sel[mine] - r0).to(dev)
+        errs = {}
+        for name, got, want in (("L", Ls.to_local()[loc], saved["k1_L"][mine]),
+                                ("B", Bs.to_local()[loc], saved["k1_B"][mine])):
+            errs[name] = scaled_err((got,), (want.to(dev),), 1e-3, f"rank {rank} sharded K1 {name}")
+        del Ls, Bs
+        torch.cuda.empty_cache()
+        rows3 = m3 // world
+        r3 = rank * rows3
+        C, mu = spread_gram(m3, SPREAD_SEEDS["shard_k3"], dev, r3, r3 + rows3)
+        args = [saved[k].to(dev) for k in ("k3_idx", "k3_w", "k3_y", "k3_nz")]
+        zero_stage_counters()
+        zero_apply_counters()
+        cuda_root_update.chunk_factors.spread_launches = cuda_pred_stream.pred_factors.spread_launches = 0
+        sync(dev)
+        t2 = time.perf_counter()
+        Cs, mus, pm, pv = sharded_pred_stream_blocked(put(C), put(mu), *args, mesh, block=K)
+        sync(dev)
+        t3 = time.perf_counter()
+        counts3, applies3 = spread_counts(), read_apply_shapes()
+        del C, mu
+        sel = saved["k3_rows"]
+        mine = (sel >= r3) & (sel < r3 + rows3)
+        loc = (sel[mine] - r3).to(dev)
+        errs["C"] = max_err((Cs.to_local()[loc],), (saved["k3_C"][mine].to(dev),), TP_PRED_TOL, f"rank {rank} C")
+        for name, got, want in (("mu", mus.to_local(), saved["k3_mu"][r3 : r3 + rows3]), ("pm", pm.to_local(),
+                                saved["k3_pm"]), ("pv", pv.to_local(), saved["k3_pv"])):
+            errs[name] = max_err((got,), (want.to(dev),), TP_PRED_TOL, f"rank {rank} {name}")
+        n = idx.shape[0]
+        report = dict(errors=errs, k1_launches=counts1, k3_launches=counts3, applies={**applies1, **applies3},
+                      stream_updates_per_s=n / (t1 - t0), pred_points_per_s=n / (t3 - t2), rows=(rows, rows3),
+                      peak_gb=peak_gb(dev))
+    return report
+
+
+def spread_sharded(rng, card, dev):
+    """(e): the references, then two gloo ranks sharing the card. Returns
+    each stage's launches summed over the ranks (K1's recursion's spread
+    launches and K3's among them)."""
+    path, single = spread_references(rng, dev)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(spread_rank, TP_RANKS, (path,), store=str(SPREAD_DIR / "store"))
+    spawn_s = time.perf_counter() - t0
+    c = SPREAD_SHARD_CHUNKS
+    want1 = dict(chunk_gather_rows=c, chunk_factors=c, chunk_apply_rows=c, chunk_factors_spread=c)
+    want3 = dict(pred_gather_rows=c, pred_factors=c, pred_apply_rows=c, pred_factors_spread=c)
+    for r, rep in enumerate(ranks):
+        print(f"phase 14 (e) rank {r} (rows {rep['rows']}) on {card}: sharded K1 stream at m={SPREAD_SHARD_M[0]} "
+              f"{rep['stream_updates_per_s']:.1f} updates/s (single device {single['stream_updates_per_s']:.1f}), "
+              f"sharded K3 stream at m={SPREAD_SHARD_M[1]} {rep['pred_points_per_s']:.1f} points/s (single device "
+              f"{single['pred_points_per_s']:.1f}), errors {json.dumps(rep['errors'])}, launches "
+              f"{json.dumps(rep['k1_launches'])} / {json.dumps(rep['k3_launches'])}, peak {rep['peak_gb']:.1f} GB")
+        got1 = {k: rep["k1_launches"][k] for k in want1}
+        got3 = {k: rep["k3_launches"][k] for k in want3}
+        if got1 != want1 or got3 != want3:
+            raise AssertionError(f"phase 14 (e) rank {r}: launches {got1}, {got3}; expected {want1}, {want3}")
+        PATH_APPLIES.update(rep["applies"])
+    print(f"phase 14 (e) two gloo ranks on {card}: {spawn_s:.1f} s with their start")
+    return {k: sum(rep["k1_launches"][k] for rep in ranks) for k in want1} | {
+        k: sum(rep["k3_launches"][k] for rep in ranks) for k in want3}
+
+
+def spread_phase(peaks, card, dev):
+    """Phase 14; returns the kernel rows of the spread recursions with the
+    launches of its path windows ((d) and (e)), and the main-path launches
+    of its windows ((c) and (d))."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 15)
+    rec1 = spread_k1(rng, peaks, card, dev)
+    rec3 = spread_k3(rng, peaks, card, dev)
+    window_c = spread_big(rng, peaks, card, dev)
+    window_d, spread_d = spread_functional(rng, card, dev)
+    sharded = spread_sharded(rng, card, dev)
+    torch.cuda.empty_cache()
+    mf, (m1, m3) = SPREAD_FUNC_SIDE**2, SPREAD_SHARD_M
+    rows = {
+        f"chunk_recursion_spread@m{mf}": (rec1[mf], spread_d[0]),
+        f"pred_recursion_spread@m{mf}": (rec3[mf], spread_d[1]),
+        f"chunk_factors@m{m1}-d2": (rec1[m1], sharded["chunk_factors_spread"]),
+        f"pred_factors@m{m3}-d2": (rec3[m3], sharded["pred_factors_spread"]),
+    }
+    for row, (r, count) in rows.items():
+        print(f"{row} on {card}: {count} launches in the path windows; " + json.dumps(r))
+        if count <= 0:
+            raise AssertionError(f"phase 14: no path window launched {row}")
+    launches = {k: window_c[k] + window_d[k] for k in window_c}
+    print(f"phase 14 seconds on {card}: {time.perf_counter() - t_phase:.1f}")
+    return rows, launches
+
+
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4994,6 +5655,10 @@ def main() -> int:
         for kname in read_counters():
             launches[kname] += launches13[kname]
 
+        kernels14, launches14 = spread_phase(peaks, card, dev)
+        for kname, count in launches14.items():
+            launches[kname] += count
+
     meta = {
         "rank1_apply": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264"),
         "blocked_chunk": ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:608"),
@@ -5021,10 +5686,13 @@ def main() -> int:
     rows += [(row, r, count) for row, (r, count) in kernels11.items()]
     rows += [(row, r, count) for row, (r, count) in kernels12.items()]
     rows += [(row, r, count) for row, (r, count) in kernels13.items()]
+    rows += [(row, r, count) for row, (r, count) in kernels14.items()]
     meta.update(STAGE_META)
     meta.update(APPLY_META)
     meta["chunk_recursion_grid"] = meta["chunk_recursion_cluster"]
     meta["pred_recursion_wide"] = meta["pred_recursion_cluster"]
+    meta["chunk_recursion_spread"] = meta["chunk_recursion_cluster"]
+    meta["pred_recursion_spread"] = meta["pred_recursion_cluster"]
     meta["rank1_apply_rows"] = ("online_gp_torch/csrc/root_update.cu", "online_gp_tpu/ops/pallas_root_update.py:264")
     for row, r, count in rows:
         source, replaces = meta[row.split("@")[0]]

@@ -11,8 +11,7 @@ NVIDIA GPU of compute capability 9.0:
     DSMEM (another block's shared memory in the cluster), and L2.
 (b) The stage split of the recursion kernels of online_gp_torch/csrc at
     m = 900, k = 128, Bd = 1, a 2-D cubic stencil (P = 16) on a 30 x 30
-    grid: the single-block K1 kernel (`chunk_recursion_kernel`), the
-    cluster kernels of K1, K5 sub (sub = 32) and K3
+    grid: the cluster kernels of K1, K5 sub (sub = 32) and K3
     (`chunk_recursion_cluster_kernel`, `chunk_sub_cluster_kernel`, with its
     sub-block boundaries' corrections and collapses,
     `pred_recursion_cluster_kernel`; block 0 of the cluster) and K5 coord's
@@ -263,8 +262,6 @@ extern "C" int probe_set_stamps(long long* p) {{
 STAMP_SLOTS = 12  # ogp::kStampSlots
 
 # the stages between a step's stamps, in order
-SINGLE_BLOCK_K1 = ("q load", "a-dots (P rows . q)", "p = q + U^T a, |p|^2", "u", "g-dots (U rows . u)",
-                   "row t: P^T g, R^T g")
 CLUSTER_K1 = ("p0 row in", "partial a pushed", "a received", "a summed", "p", "partial Up, |p|^2 pushed",
               "Up received", "sums", "row t")
 CLUSTER_K3 = ("ct", "partials pushed", "received", "sums, pm, inv, r", "Z row t")
@@ -338,7 +335,7 @@ def boundary_split(stamps, per_ns, k, sub):
 
 
 def stamped_splits(dev, per_ns, k=128, side=30):
-    """(b): the stage splits of the single-block and cluster recursions,
+    """(b): the stage splits of the cluster recursions,
     K5 sub's fused cluster kernel and K5 coord's recursion at m = 900; K1's
     grid recursion (G = 4, 8) and K3's 16-block one at m = 4,096."""
     m, P, Bd = side * side, 16, 1
@@ -356,8 +353,7 @@ def stamped_splits(dev, per_ns, k=128, side=30):
     vp, i32, P_ = ctypes.c_void_p, ctypes.c_int, lambda t: ctypes.c_void_p(t.data_ptr())
     out = {}
     if side == 30:
-        runs_root = ((0, SINGLE_BLOCK_K1, "K1 single block"), (8, CLUSTER_K1, "K1 cluster"),
-                     (8, CLUSTER_K1, "K5 sub cluster"), (1, COORD_K5, "K5 coord"))
+        runs_root = ((8, CLUSTER_K1, "K1 cluster"), (8, CLUSTER_K1, "K5 sub cluster"), (1, COORD_K5, "K5 coord"))
         runs_pred = ((8, CLUSTER_K3, "K3 cluster"),)
     else:  # blocks per output: 8 G
         runs_root = ((32, CLUSTER_K1, "K1 grid G=4"), (64, CLUSTER_K1, "K1 grid G=8"))
@@ -366,16 +362,16 @@ def stamped_splits(dev, per_ns, k=128, side=30):
         lib = build(f"cluster_probe_{src}", STAMPED.format(name=src))
         lib.probe_set_stamps.argtypes = [vp]
         if src == "root_update":
-            lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 8 + [vp]
+            lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 9 + [vp]
             lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 7 + [vp]
             lib.ogp_blocked_chunk_coord.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         else:
-            lib.ogp_pred_chunk.argtypes = [vp] * 12 + [i32] * 6 + [vp]
+            lib.ogp_pred_chunk.argtypes = [vp] * 13 + [i32] * 9 + [vp]
         # the applies as the wrappers launch them (their stages are not stamped)
         aplan = chunk_apply_plan(k, m, m)
         AC, AM = (0 if aplan is None else aplan.cluster), pred_apply_plan(Bd, m, m, _build.card_sms(dev)).tile_rows
         for clusters, names, what in runs:
-            stamps = torch.zeros(max(clusters, 1) * Bd * k * STAMP_SLOTS, dtype=torch.int64, device=dev)
+            stamps = torch.zeros(clusters * Bd * k * STAMP_SLOTS, dtype=torch.int64, device=dev)
             rc = lib.probe_set_stamps(P_(stamps))
             for _ in range(3):  # the last run's stamps are read
                 if src == "root_update":
@@ -395,17 +391,18 @@ def stamped_splits(dev, per_ns, k=128, side=30):
                             P, m, AC, None)
                     else:
                         size, G = min(clusters, 8), max(clusters // 8, 1)
-                        slots = torch.zeros((Bd, 2 * k, G, k + 1), dtype=torch.int64, device=dev)
+                        slots = torch.zeros((Bd, 2, G, k + 1), dtype=torch.int64, device=dev)
                         rc = rc or lib.ogp_blocked_chunk(
                             P_(Lc), P_(Bc), P_(idx), P_(wv), *(P_(s) for s in scratch), P_(T), P_(slots), Bd,
-                            k, P, m, G, Bd, AC, size, None)
+                            k, P, m, G, Bd, AC, size, -1, None)
                 else:
                     Cc, muc = C[None].clone(), mu[None].clone()
                     bufs = torch.empty((2, Bd, k, m), **f32)
                     vecs = torch.empty((4, Bd, k), **f32)
                     rc = rc or lib.ogp_pred_chunk(
                         P_(Cc), P_(muc), P_(idx), P_(w), P_(y), P_(nz), P_(bufs[0]), P_(vecs[0]),
-                        P_(bufs[1]), P_(vecs[1]), P_(vecs[2]), P_(vecs[3]), Bd, k, P, m, AM, clusters, None)
+                        P_(bufs[1]), P_(vecs[1]), P_(vecs[2]), P_(vecs[3]), None, Bd, k, P, m, AM, clusters, 1, Bd, -1,
+                        None)
                 torch.cuda.synchronize()
             if rc:
                 raise RuntimeError(f"stamped {what}: {rc}")

@@ -231,7 +231,9 @@ cudaError_t launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
 // through distributed shared memory (DSMEM): see Exchange. Past what one
 // cluster holds, K1 splits the columns over G clusters (W = cdiv(m, C G),
 // block r of cluster g owning [(g C + r) W, ...)) and adds the clusters'
-// sums through device memory: see GridExchange.
+// sums through device memory: see GridExchange. The recursions spread over
+// the card (K1's and K3's past their cluster plans) do the same on as many
+// clusters as the card holds at once.
 
 namespace cg = cooperative_groups;
 
@@ -427,58 +429,65 @@ __device__ __forceinline__ float exchange_sum(const Exchange& x, int n, int i) {
 // ---- sums across the clusters of one output (GridExchange) ----
 //
 // Where one output's columns span G clusters (K1's recursion past what one
-// cluster's shared memory holds), a sum is taken in two levels: within
-// each cluster through Exchange, then across the G clusters through device
-// memory. Block rank 0 of cluster g writes its cluster's sum of slot i of
-// use n into word (n G + g) stride + i of the output's slots, the float
-// and a flag in one 64-bit store (a 64-bit word is read all or nothing, so
-// no fence stands between a value and its flag); a thread that needs slot
-// i reads its G words, again until each carries the flag, and adds the G
-// cluster sums in cluster order, so every block gets the same sums, and a
-// second call the same bits. No atomics. The slots of a launch are zeroed
-// before it (torch.zeros in the wrappers) and each is written once: none
-// is reused within a launch, so no write can overtake a read. Every
-// cluster of the launch must be resident at once, or a cluster waits on
-// one that is never scheduled: the launch checks the clusters against
-// cudaOccupancyMaxActiveClusters (launch_cluster_grid's `need`), and a
-// wait that outlasts ~10 s of clock traps rather than hangs the card.
-constexpr int kMaxGridClusters = 8;
-constexpr unsigned long long kGridFlag = 1ULL << 32;
+// cluster's shared memory holds, and the recursions spread over the card,
+// K1's and K3's), a sum is taken in two levels: within each cluster through
+// Exchange, then across the G clusters through device memory. Block rank 0
+// of cluster g writes its cluster's sum of slot i of use n into word
+// (b G + g) stride + i of the output's slots, b = n & 1, the float and the
+// use's tag n + 1 in one 64-bit store (a 64-bit word is read all or
+// nothing, so no fence stands between a value and its tag); a thread that
+// needs slot i reads its G words, again until each carries use n's tag, and
+// adds the G cluster sums in cluster order, so every block gets the same
+// sums, and a second call the same bits. No atomics. Uses alternate between
+// two buffers, as Exchange's do: a cluster writes use n + 2 only after its
+// writer has read every cluster's use n + 1, which each cluster wrote only
+// after all its blocks had read use n, so no write overtakes a read, and a
+// reader that waits for use n's exact tag never takes an older or a newer
+// use. The slots of a launch are zeroed before it (torch.zeros in the
+// wrappers: tag 0 is no use's), 2 G stride words an output. Every cluster of
+// the launch must be resident at once, or a cluster waits on one that is
+// never scheduled: the launch checks the clusters against
+// cudaOccupancyMaxActiveClusters (launch_cluster_grid's `need`), and a wait
+// that outlasts ~10 s of clock traps rather than hangs the card.
+constexpr int kMaxGridClusters = 8;     // K1's grid recursion (all of a block's slices in shared memory)
+constexpr int kMaxSpreadClusters = 16;  // the recursions spread over the card
 
 struct GridExchange {
-  unsigned long long* slots;  // this output's words, (uses, G, stride)
+  unsigned long long* slots;  // this output's words, (2, G, stride)
   int G, stride, g;           // clusters per output, words per use of a cluster, this block's cluster
   bool writer;                // block rank 0 of its cluster
 };
 
 // v, this cluster's sum of slot i of use n (the same in each of its
-// blocks), summed over the G clusters in cluster order.
+// blocks), summed over the G <= kMaxG clusters in cluster order.
+template <int kMaxG>
 __device__ __forceinline__ float grid_sum(const GridExchange& gx, int n, int i, float v) {
-  const unsigned long long* row = gx.slots + static_cast<long long>(n) * gx.G * gx.stride + i;
+  const unsigned long long* row = gx.slots + static_cast<long long>(n & 1) * gx.G * gx.stride + i;
+  const unsigned long long tag = static_cast<unsigned long long>(n + 1) << 32;
   if (gx.writer) {
-    const unsigned long long word = kGridFlag | __float_as_uint(v);
+    const unsigned long long word = tag | __float_as_uint(v);
     asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(row + gx.g * gx.stride), "l"(word) : "memory");
   }
-  unsigned long long w[kMaxGridClusters];
+  unsigned long long w[kMaxG];
 #pragma unroll
-  for (int g = 0; g < kMaxGridClusters; ++g) w[g] = 0;
+  for (int g = 0; g < kMaxG; ++g) w[g] = 0;
   unsigned ready = 0;
   const unsigned all = (1u << gx.G) - 1;
   const long long start = clock64();
   for (;;) {
 #pragma unroll
-    for (int g = 0; g < kMaxGridClusters; ++g)
+    for (int g = 0; g < kMaxG; ++g)
       if (g < gx.G && !((ready >> g) & 1u))
         asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w[g]) : "l"(row + g * gx.stride) : "memory");
 #pragma unroll
-    for (int g = 0; g < kMaxGridClusters; ++g)
-      if (g < gx.G && (w[g] & kGridFlag)) ready |= 1u << g;
+    for (int g = 0; g < kMaxG; ++g)
+      if (g < gx.G && (w[g] & 0xffffffff00000000ULL) == tag) ready |= 1u << g;
     if (ready == all) break;
     if (clock64() - start > (1LL << 34)) __trap();
   }
   float s = __uint_as_float(static_cast<unsigned>(w[0]));
 #pragma unroll
-  for (int g = 1; g < kMaxGridClusters; ++g)
+  for (int g = 1; g < kMaxG; ++g)
     if (g < gx.G) s += __uint_as_float(static_cast<unsigned>(w[g]));
   return s;
 }

@@ -42,10 +42,20 @@
 //       block of 8 (m > 3,136 at k = 128, P = 16) run on 16 blocks (C = 16
 //       at m = 4,096: 170.6 KB a block, one a SM, so one cluster takes 16
 //       SMs of a GPC; the step's exchange then fans out to 16 blocks), and
-//       those that do not fit a block of 16 either (m > 6,016 at k = 128)
-//       the single-block kernel (one block per output, Z in L2): pred_cluster_plan in
-//       online_gp_torch/ops/cuda_pred_stream.py, by shape only, mirroring
-//       pred_cluster_layout below (the wrapper checks the two agree).
+//       those that do not fit a block of 16 either (m > 6,016 at k = 128,
+//       k > 342 at m = 900) run spread over the card
+//       (pred_recursion_spread_kernel): as many clusters of 8 as the card
+//       holds at once, up to 16, each step's sums added within each cluster
+//       in rank order, then across the clusters in cluster order through
+//       device memory (ogp::GridExchange), each block keeping its slice of Z
+//       and its stencil entries in shared memory where they fit, else the
+//       stencil entries alone (Z's rows in the output Z), else neither (the
+//       entries read from idx and wv, in the same order): the step's
+//       column pass runs on 120 SMs, not one.
+//       The rule is by shape and the card's capacity: pred_cluster_plan and
+//       pred_spread_plan in online_gp_torch/ops/cuda_pred_stream.py,
+//       mirroring pred_cluster_layout below (the wrapper checks the two
+//       agree).
 //   (c) apply: C -= Z^T Z in place, with mu += Z^T r fused into the blocks
 //       of the first tile column (pred_apply128_kernel, pred_apply64_kernel).
 //       Bound by operations: 2 rows m k flops against 2 rows m floats of C
@@ -96,8 +106,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRecursionThreads = 1024;
-
 // (a) over the stencil points in [row0, row0 + rows): C holds those rows of
 // each output's cache, (Bd, rows, m), and mu those entries, (Bd, rows); the
 // whole chunk has row0 = 0, rows = m. grid (k, Bd)
@@ -128,70 +136,6 @@ __global__ void pred_gather_kernel(const float* __restrict__ C, const float* __r
   }
 }
 
-// (b) one block per output. Rows < t of Z are read at step t, row t written.
-__global__ void __launch_bounds__(kRecursionThreads)
-pred_recursion_kernel(const int* __restrict__ idx, const float* __restrict__ wv,
-                      const float* __restrict__ c0w, const float* __restrict__ mu0w,
-                      const float* __restrict__ y, const float* __restrict__ nz, float* Z,
-                      float* r, float* pm, float* pv, int k, int P, int m) {
-  extern __shared__ float sh[];
-  float* ct = sh;        // m
-  float* a = ct + m;     // k
-  float* rs = a + k;     // k: r so far
-  float* inv_sh = rs + k;  // 1
-  const long long b = blockIdx.x, mm = m;
-  float* Zb = Z + b * k * mm;
-  const float* c0b = c0w + b * k * mm;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  for (int t = 0; t < k; ++t) {
-    const int* it = idx + (long long)t * P;
-    const float* wt = wv + (long long)t * P;
-    // a_j = sum_p wv[t, p] Z[j, idx[t, p]] for j < t
-    for (int j = threadIdx.x; j < t; j += blockDim.x) {
-      float s = 0.f;
-      for (int q = 0; q < P; ++q) {
-        const int col = it[q];
-        if ((unsigned)col < (unsigned)m) s = fmaf(wt[q], Zb[j * mm + col], s);
-      }
-      a[j] = s;
-    }
-    __syncthreads();
-    // ct = c0w[t] - Z^T a
-    for (int l = threadIdx.x; l < m; l += blockDim.x) {
-      float v = c0b[t * mm + l];
-      for (int j = 0; j < t; ++j) v = fmaf(-Zb[j * mm + l], a[j], v);
-      ct[l] = v;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float wctw = 0.f, ra = 0.f;
-      for (int q = lane; q < P; q += 32) {
-        const int col = it[q];
-        if ((unsigned)col < (unsigned)m) wctw = fmaf(wt[q], ct[col], wctw);
-      }
-      for (int j = lane; j < t; j += 32) ra = fmaf(rs[j], a[j], ra);
-      wctw = warp_sum(wctw);
-      ra = warp_sum(ra);
-      if (lane == 0) {
-        const float pmv = mu0w[b * k + t] + ra;
-        const float inv = rsqrtf(fmaxf(wctw + nz[b * k + t], 1e-20f));
-        const float rt = (y[b * k + t] - pmv) * inv;
-        rs[t] = rt;
-        r[b * k + t] = rt;
-        pm[b * k + t] = pmv;
-        pv[b * k + t] = wctw;
-        *inv_sh = inv;
-      }
-    }
-    __syncthreads();
-    const float inv = *inv_sh;
-    for (int l = threadIdx.x; l < m; l += blockDim.x) Zb[t * mm + l] = ct[l] * inv;
-    __syncthreads();  // row t is read by every thread at step t + 1
-  }
-}
-
 // Shared-memory layout of one block of the cluster recursion;
 // pred_cluster_plan (online_gp_torch/ops/cuda_pred_stream.py) mirrors it.
 struct PredClusterLayout {
@@ -200,65 +144,93 @@ struct PredClusterLayout {
   long long floats;
 };
 
-__host__ __device__ inline PredClusterLayout pred_cluster_layout(int k, int m, int P, int C) {
+// On G clusters of C blocks per output (G > 1: pred_recursion_spread_kernel)
+// a block owns W = cdiv(m, C G) columns; its receive buffers stay those of
+// its own cluster's C blocks. `slices`: what sits in shared memory beside
+// the step's vectors: 2, the block's slice of Z and its stencil entries
+// (the cluster kernel's layout); in the spread kernel also 1, the stencil
+// entries alone (Z in device memory), or 0, neither (the stencil read from
+// idx and wv in device memory).
+__host__ __device__ inline PredClusterLayout pred_cluster_layout(int k, int m, int P, int C, int G = 1,
+                                                                 int slices = 2) {
   PredClusterLayout lay;
   lay.C = C;
-  lay.W = cdiv(m, C);
+  lay.W = cdiv(m, C * G);
   lay.cs = ogp::col_split(lay.W);
-  // two mbarriers; Z slice; ct; a (two steps); the receive buffers (two
-  // uses of C rows of k + 1); r, mu0w, y, nz; column partials; the chunk's
-  // stencil entries in this block (local columns, weights, counts); inv,
-  // r . a
-  lay.floats = 4 + static_cast<long long>(k) * lay.W + lay.W + 2LL * k + 2LL * C * (k + 1) +
-               4LL * k + static_cast<long long>(lay.cs.S) * lay.cs.CT * 32 + 2LL * k * P + k + 2;
+  // two mbarriers; Z slice (slices 2); ct; a (two steps); the receive
+  // buffers (two uses of C rows of k + 1); r, mu0w, y, nz; column partials;
+  // the chunk's stencil entries in this block (local columns, weights,
+  // counts; slices >= 1); inv, r . a
+  lay.floats = 4 + (slices == 2 ? static_cast<long long>(k) * lay.W : 0) + lay.W + 2LL * k + 2LL * C * (k + 1) +
+               4LL * k + static_cast<long long>(lay.cs.S) * lay.cs.CT * 32 + (slices >= 1 ? 2LL * k * P + k : 0) + 2;
   return lay;
 }
 
-// (b) on a cluster of lay.C blocks per output, grid (C, Bd).
-__global__ void __launch_bounds__(kClusterThreads)
-pred_recursion_cluster_kernel(const int* __restrict__ idx, const float* __restrict__ wv,
-                              const float* __restrict__ c0w, const float* __restrict__ mu0w,
-                              const float* __restrict__ y, const float* __restrict__ nz,
-                              float* __restrict__ Z, float* __restrict__ r, float* __restrict__ pm,
-                              float* __restrict__ pv, int k, int P, int m, PredClusterLayout lay) {
+// (b) the k-step recursion on a cluster of lay.C blocks per output, grid
+// (C, Bd), or, with kGrid, on gx.G clusters of them, grid (C G, Bd), each
+// exchange's sums then added across the clusters (GridExchange, in cluster
+// order after the rank order within each). kZShared: the block's slice of
+// Z in shared memory; else (the spread kernel only) Z's rows stay in the
+// output Z in device memory, where the step writes its row anyway and the
+// block reads only its own columns. kStencilShared: the block's stencil
+// entries staged in shared memory; else (the spread kernel only, where the
+// k P entries do not fit beside the rest) read from idx and wv in device
+// memory in the same order, so the same sums. The grid branch compiles out
+// without kGrid, so the one-cluster kernel keeps its sums' order and bits.
+template <bool kGrid, bool kZShared, bool kStencilShared, int kMaxG>
+__device__ __forceinline__ void pred_recursion_body(const int* __restrict__ idx, const float* __restrict__ wv,
+                                                    const float* __restrict__ c0w, const float* __restrict__ mu0w,
+                                                    const float* __restrict__ y, const float* __restrict__ nz,
+                                                    float* __restrict__ Z, float* __restrict__ r,
+                                                    float* __restrict__ pm, float* __restrict__ pv, int k, int P,
+                                                    int m, const PredClusterLayout& lay,
+                                                    const ogp::GridExchange& gx) {
+  static_assert((kZShared && kStencilShared) || kGrid, "device-memory operands only in the spread kernel");
+  static_assert(kStencilShared || !kZShared, "Z in shared memory only beside the stencil");
   extern __shared__ float sh[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = lay.C, W = lay.W;
   const ColSplit cs = lay.cs;
   const int rank = static_cast<int>(cluster.block_rank());
-  float* Zs = sh + 4;               // k x W: this block's columns of Z (after two mbarriers)
-  float* ct = Zs + k * W;           // W
+  const int c0 = ((kGrid ? gx.g * C : 0) + rank) * W;
+  const long long b = blockIdx.y, mm = m;
+  float* Zb = Z + b * k * mm + c0;
+  // k x ldz: this block's columns of Z (in shared memory after two
+  // mbarriers, or in the output)
+  float* Zs = kZShared ? sh + 4 : Zb;
+  const int ldz = kZShared ? W : m;
+  float* ct = sh + 4 + (kZShared ? k * W : 0);  // W
   float* a = ct + W;                // 2 x k: a of step t at (t & 1)
   const ogp::Exchange x{reinterpret_cast<unsigned long long*>(sh), a + 2 * k, C, k + 1, rank};
   float* rs = x.recv + 2 * C * (k + 1);  // k: r so far
   float* vec = rs + k;              // 3 k: mu0w, y, nz of this output
   float* red = vec + 3 * k;         // S CT 32: column partials
-  int* sloc = reinterpret_cast<int*>(red + cs.S * cs.CT * 32);  // k x P
+  int* sloc = reinterpret_cast<int*>(red + cs.S * cs.CT * 32);  // k x P (kStencilShared)
   float* swv = reinterpret_cast<float*>(sloc + k * P);            // k x P
   int* scnt = reinterpret_cast<int*>(swv + k * P);                // k
-  float* sc = reinterpret_cast<float*>(scnt + k);                 // inv, r . a of step t
+  float* sc = kStencilShared ? reinterpret_cast<float*>(scnt + k)  // inv, r . a of step t
+                             : reinterpret_cast<float*>(sloc);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const ColTask task = ogp::col_task(cs);
-  const int c0 = rank * W;
   const int w = max(0, min(W, m - c0));
-  const long long b = blockIdx.y, mm = m;
   const float* c0b = c0w + b * k * mm + c0;
-  float* Zb = Z + b * k * mm + c0;
   // step t's stencil entries in this block's columns, in stencil order:
   // local column and weight, scnt[t] of them
   for (int t = tid; t < k; t += kClusterThreads) {
-    int n = 0;
-    for (int q = 0; q < P; ++q) {
-      const int col = idx[t * P + q];
-      const int l = col - c0;
-      if ((unsigned)col < (unsigned)m && l >= 0 && l < w) {
-        sloc[t * P + n] = l;
-        swv[t * P + n] = wv[t * P + q];
-        ++n;
+    if (kStencilShared) {
+      int n = 0;
+      for (int q = 0; q < P; ++q) {
+        const int col = idx[t * P + q];
+        const int l = col - c0;
+        if ((unsigned)col < (unsigned)m && l >= 0 && l < w) {
+          sloc[t * P + n] = l;
+          swv[t * P + n] = wv[t * P + q];
+          ++n;
+        }
       }
+      scnt[t] = n;
     }
-    scnt[t] = n;
     vec[t] = mu0w[b * k + t];
     vec[k + t] = y[b * k + t];
     vec[2 * k + t] = nz[b * k + t];
@@ -276,7 +248,7 @@ pred_recursion_cluster_kernel(const int* __restrict__ idx, const float* __restri
     const float* at = a + (t & 1) * k;
     float* an = a + ((t + 1) & 1) * k;
     // 1. ct = c0w[t] - Z^T a on the slice
-    col_partials<1>(Zs, nullptr, W, at, 1.f, t, w, cs, task, red);
+    col_partials<1>(Zs, nullptr, ldz, at, 1.f, t, w, cs, task, red);
 #pragma unroll
     for (int i = 0; i < kClusterRegs; ++i) {
       const int l = tid + i * kClusterThreads;
@@ -292,11 +264,19 @@ pred_recursion_cluster_kernel(const int* __restrict__ idx, const float* __restri
     ogp::exchange_expect(x, t, nrows + 1);
     for (int j = tid; j <= nrows; j += kClusterThreads) {
       const int tq = j == nrows ? t : t + 1;
-      const int* lq = sloc + tq * P;
-      const float* wq = swv + tq * P;
-      const float* row = j < t && j != nrows ? Zs + j * W : ct;
+      const float* row = j < t && j != nrows ? Zs + j * ldz : ct;
       float s = 0.f;
-      for (int q = 0; q < scnt[tq]; ++q) s = fmaf(wq[q], row[lq[q]], s);
+      if (kStencilShared) {
+        const int* lq = sloc + tq * P;
+        const float* wq = swv + tq * P;
+        for (int q = 0; q < scnt[tq]; ++q) s = fmaf(wq[q], row[lq[q]], s);
+      } else {
+        for (int q = 0; q < P; ++q) {
+          const int col = idx[tq * P + q];
+          const int l = col - c0;
+          if ((unsigned)col < (unsigned)m && l >= 0 && l < w) s = fmaf(wv[tq * P + q], row[l], s);
+        }
+      }
       ogp::exchange_push(x, t, j, s);
     }
     if ((tid >> 5) == kClusterWarps - 1) {
@@ -312,7 +292,8 @@ pred_recursion_cluster_kernel(const int* __restrict__ idx, const float* __restri
     // 3. the partials of all blocks, added in rank order; with pv_t:
     // pm_t = mu0w[t] + r . a, inv = rsqrt(max(pv_t + nz_t, 1e-20)), r_t
     for (int j = tid; j <= nrows; j += kClusterThreads) {
-      const float v = ogp::exchange_sum(x, t, j);
+      float v = ogp::exchange_sum(x, t, j);
+      if (kGrid) v = ogp::grid_sum<kMaxG>(gx, t, j, v);
       if (j < nrows) {
         an[j] = v;
         continue;
@@ -322,7 +303,7 @@ pred_recursion_cluster_kernel(const int* __restrict__ idx, const float* __restri
       const float rt = (vec[k + t] - pmv) * inv;
       rs[t] = rt;
       sc[0] = inv;
-      if (rank == 0) {
+      if (rank == 0 && (!kGrid || gx.g == 0)) {
         r[b * k + t] = rt;
         pm[b * k + t] = pmv;
         pv[b * k + t] = v;
@@ -332,39 +313,100 @@ pred_recursion_cluster_kernel(const int* __restrict__ idx, const float* __restri
     OGP_STAMP(k, t, 4);
     // 4. Z[t] = ct inv on the slice; a_t of step t + 1 gets its inv
     const float inv = sc[0];
-    for (int l = tid; l < w; l += kClusterThreads) Zs[t * W + l] = ct[l] * inv;
+    for (int l = tid; l < w; l += kClusterThreads) Zs[t * ldz + l] = ct[l] * inv;
     if (tid == 0 && t + 1 < k) an[t] *= inv;
     __syncthreads();
     OGP_STAMP(k, t, 5);
   }
-  // the slice goes to the scratch of the apply once, after the last step
-  for (int e = tid; e < k * w; e += kClusterThreads) {
-    const int j = e / w, l = e - j * w;
-    Zb[j * mm + l] = Zs[j * W + l];
+  // the slice in shared memory goes to the scratch of the apply once,
+  // after the last step
+  if (kZShared) {
+    for (int e = tid; e < k * w; e += kClusterThreads) {
+      const int j = e / w, l = e - j * w;
+      Zb[j * mm + l] = Zs[j * W + l];
+    }
   }
   cluster.sync();  // no block leaves while a push to another may be in flight
 }
 
-// (b) for Bd outputs: on clusters of C blocks, or one block per output
-// when C is 0. Returns a cudaError_t, or ogp::kNoCluster.
+// (b) on a cluster of lay.C blocks per output, grid (C, Bd).
+__global__ void __launch_bounds__(kClusterThreads)
+pred_recursion_cluster_kernel(const int* __restrict__ idx, const float* __restrict__ wv,
+                              const float* __restrict__ c0w, const float* __restrict__ mu0w,
+                              const float* __restrict__ y, const float* __restrict__ nz,
+                              float* __restrict__ Z, float* __restrict__ r, float* __restrict__ pm,
+                              float* __restrict__ pv, int k, int P, int m, PredClusterLayout lay) {
+  pred_recursion_body<false, true, true, 1>(idx, wv, c0w, mu0w, y, nz, Z, r, pm, pv, k, P, m, lay,
+                                             ogp::GridExchange{});
+}
+
+// (b) spread over the card: past what one cluster of 16 holds (m > 6,016
+// at k = 128, P = 16; k > 342 at m = 900), G <= 16 clusters of lay.C
+// blocks per output, as many as the card holds at once (pred_spread_plan in
+// ops/cuda_pred_stream.py), grid (C G, Bd), the block's slice of Z and its
+// stencil entries in shared memory where they fit (kSlices 2), else the
+// stencil entries alone (1, Z in the output), else neither (0). slots:
+// (Bd, 2, G, k + 1) zeroed words, output b's at slots[b].
+template <int kSlices>
+__global__ void __launch_bounds__(kClusterThreads)
+pred_recursion_spread_kernel(const int* __restrict__ idx, const float* __restrict__ wv,
+                             const float* __restrict__ c0w, const float* __restrict__ mu0w,
+                             const float* __restrict__ y, const float* __restrict__ nz, float* __restrict__ Z,
+                             float* __restrict__ r, float* __restrict__ pm, float* __restrict__ pv, int k, int P,
+                             int m, PredClusterLayout lay, int G, unsigned long long* __restrict__ slots) {
+  const ogp::GridExchange gx{slots + blockIdx.y * (2LL * G * (k + 1)), G, k + 1,
+                             static_cast<int>(blockIdx.x) / lay.C, cg::this_cluster().block_rank() == 0};
+  pred_recursion_body<true, (kSlices == 2), (kSlices >= 1), ogp::kMaxSpreadClusters>(idx, wv, c0w, mu0w, y, nz, Z, r,
+                                                                                  pm, pv, k, P, m, lay, gx);
+}
+
+using PredSpreadKernel = void (*)(const int*, const float*, const float*, const float*, const float*,
+                                 const float*, float*, float*, float*, float*, int, int, int, PredClusterLayout,
+                                 int, unsigned long long*);
+
+// The spread kernel with `slices` (2: Z and the stencil in shared memory,
+// 1: the stencil alone, 0: neither), or null for any other count.
+PredSpreadKernel pred_spread_kernel(int slices) {
+  switch (slices) {
+    case 2: return pred_recursion_spread_kernel<2>;
+    case 1: return pred_recursion_spread_kernel<1>;
+    case 0: return pred_recursion_spread_kernel<0>;
+    default: return nullptr;
+  }
+}
+
+// (b) for Bd outputs: spread over G clusters of C blocks per output with
+// `spread` of Z and the stencil in shared memory (2, 1 or 0) when
+// spread >= 0, in waves
+// of `wave` outputs, each checked to fit the card at once (slots: (Bd, 2, G,
+// k + 1) zeroed words); else on one cluster of C blocks per output. Returns
+// a cudaError_t, or ogp::kNoCluster.
 int pred_recursion(const int* idx, const float* wv, const float* c0w, const float* mu0w,
                    const float* y, const float* nz, float* Z, float* r, float* pm, float* pv,
-                   int Bd, int k, int P, int m, int C, cudaStream_t s) {
-  if (C > 0) {
-    const PredClusterLayout lay = pred_cluster_layout(k, m, P, C);
-    return ogp::launch_cluster(pred_recursion_cluster_kernel, C, Bd,
-                               lay.floats * static_cast<long long>(sizeof(float)), s, idx, wv,
-                               c0w, mu0w, y, nz, Z, r, pm, pv, k, P, m, lay);
+                   int Bd, int k, int P, int m, int C, int G, int wave, int spread, unsigned long long* slots,
+                   cudaStream_t s) {
+  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (spread >= 0) {
+    const PredSpreadKernel kernel = pred_spread_kernel(spread);
+    if (kernel == nullptr || G < 1 || G > ogp::kMaxSpreadClusters || wave < 1 || slots == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const PredClusterLayout lay = pred_cluster_layout(k, m, P, C, G, spread);
+    const long long smem = lay.floats * static_cast<long long>(sizeof(float));
+    const long long km = static_cast<long long>(k) * m, words = 2LL * G * (k + 1);
+    for (int b0 = 0; b0 < Bd; b0 += wave) {
+      const int nb = Bd - b0 < wave ? Bd - b0 : wave;
+      const int rc = ogp::launch_cluster_grid(kernel, C, dim3(C * G, nb, 1), kClusterThreads, smem, s, nb * G, idx,
+                                              wv, c0w + b0 * km, mu0w + b0 * k, y + b0 * k, nz + b0 * k,
+                                              Z + b0 * km, r + b0 * k, pm + b0 * k, pv + b0 * k, k, P, m, lay, G,
+                                              slots + b0 * words);
+      if (rc != 0) return rc;
+    }
+    return 0;
   }
-  const long long smem = (static_cast<long long>(m) + 2LL * k + 1) * static_cast<long long>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pred_recursion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  pred_recursion_kernel<<<Bd, kRecursionThreads, smem, s>>>(idx, wv, c0w, mu0w, y, nz, Z, r, pm,
-                                                             pv, k, P, m);
-  return static_cast<int>(cudaGetLastError());
+  const PredClusterLayout lay = pred_cluster_layout(k, m, P, C);
+  return ogp::launch_cluster(pred_recursion_cluster_kernel, C, Bd,
+                             lay.floats * static_cast<long long>(sizeof(float)), s, idx, wv,
+                             c0w, mu0w, y, nz, Z, r, pm, pv, k, P, m, lay);
 }
 
 // (c) the apply. A block owns a BM x kPredBN tile of C (BM = 128, or 64
@@ -525,11 +567,6 @@ int pred_apply(float* C, float* mu, const float* Z, const float* r, int Bd, int 
 
 extern "C" {
 
-// Dynamic shared memory of the single-block K3 recursion kernel, in bytes.
-long long ogp_pred_chunk_smem(int k, int m) {
-  return (static_cast<long long>(m) + 2LL * k + 1) * static_cast<long long>(sizeof(float));
-}
-
 // Dynamic shared memory of one block of the cluster recursion, in bytes.
 long long ogp_pred_cluster_smem(int k, int m, int P, int C) {
   return pred_cluster_layout(k, m, P, C).floats * static_cast<long long>(sizeof(float));
@@ -541,21 +578,40 @@ int ogp_pred_cluster_capacity(int k, int m, int P, int C) {
   return ogp::cluster_capacity(pred_recursion_cluster_kernel, C, kClusterThreads, ogp_pred_cluster_smem(k, m, P, C));
 }
 
+// Dynamic shared memory of one block of the spread recursion on G clusters
+// of C blocks per output, with `slices` of Z and the stencil in shared
+// memory (2, 1 or 0), in bytes.
+long long ogp_pred_spread_smem(int k, int m, int P, int C, int G, int slices) {
+  return pred_cluster_layout(k, m, P, C, G, slices).floats * static_cast<long long>(sizeof(float));
+}
+
+// Clusters of C blocks of the spread recursion at (k, m, P, G, slices) that
+// the card holds at once, or minus a cudaError_t.
+int ogp_pred_spread_capacity(int k, int m, int P, int C, int G, int slices) {
+  const PredSpreadKernel kernel = pred_spread_kernel(slices);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  return ogp::cluster_capacity(kernel, C, kClusterThreads, ogp_pred_spread_smem(k, m, P, C, G, slices));
+}
+
 // K3. C: (Bd, m, m) and mu: (Bd, m), updated in place; idx: (k, P) int32 and
 // wv: (k, P), shared by the outputs; y, nz: (Bd, k); c0w, Z: (Bd, k, m)
-// scratch; mu0w, r: (Bd, k) scratch; pm, pv: (Bd, k) outputs. The recursion
-// runs on clusters of Cl blocks, or one block per output when Cl is 0; the
-// apply on tiles of AM rows (64 or 128).
-// Returns cudaGetLastError() after the launches, or -1 when no cluster of
-// Cl blocks fits on the card.
+// scratch; mu0w, r: (Bd, k) scratch; pm, pv: (Bd, k) outputs; slots:
+// (Bd, 2, G, k + 1) zeroed words of the spread recursion (else unused). The
+// recursion runs spread over G clusters of Cl blocks per output with
+// `spread` of Z and the stencil in shared memory when spread >= 0 (in waves of
+// `wave` outputs), else on clusters of Cl blocks; the apply on tiles of AM
+// rows (64 or 128).
+// Returns cudaGetLastError() after the launches, or -1 when the card
+// cannot hold the clusters of a launch.
 int ogp_pred_chunk(float* C, float* mu, const int* idx, const float* wv, const float* y,
                    const float* nz, float* c0w, float* mu0w, float* Z, float* r, float* pm,
-                   float* pv, int Bd, int k, int P, int m, int AM, int Cl, void* stream) {
+                   float* pv, unsigned long long* slots, int Bd, int k, int P, int m, int AM, int Cl, int G,
+                   int wave, int spread, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   pred_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(C, mu, idx, wv, c0w, mu0w, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rc = pred_recursion(idx, wv, c0w, mu0w, y, nz, Z, r, pm, pv, Bd, k, P, m, Cl, s);
+  const int rc = pred_recursion(idx, wv, c0w, mu0w, y, nz, Z, r, pm, pv, Bd, k, P, m, Cl, G, wave, spread, slots, s);
   if (rc != 0) return rc;
   return pred_apply(C, mu, Z, r, Bd, k, m, m, 0, AM, s);
 }
@@ -578,12 +634,14 @@ int ogp_pred_gather_rows(const float* C, const float* mu, const int* idx, const 
 
 // The recursion on the summed c0w (Bd, k, m) and mu0w (Bd, k), with the
 // whole stencil idx, wv (k, P) and y, nz (Bd, k): Z (Bd, k, m), r, pm, pv
-// (Bd, k) out. On clusters of Cl blocks, or one block per output when Cl is
-// 0. Returns cudaGetLastError(), or -1 when no cluster of Cl blocks fits.
+// (Bd, k) out; slots as ogp_pred_chunk's. Spread (spread >= 0) or on
+// clusters of Cl blocks, as ogp_pred_chunk's recursion. Returns cudaGetLastError(), or -1 when the
+// card cannot hold the clusters of a launch.
 int ogp_pred_factors(const int* idx, const float* wv, const float* c0w, const float* mu0w,
                      const float* y, const float* nz, float* Z, float* r, float* pm, float* pv,
-                     int Bd, int k, int P, int m, int Cl, void* stream) {
-  return pred_recursion(idx, wv, c0w, mu0w, y, nz, Z, r, pm, pv, Bd, k, P, m, Cl,
+                     unsigned long long* slots, int Bd, int k, int P, int m, int Cl, int G, int wave, int spread,
+                     void* stream) {
+  return pred_recursion(idx, wv, c0w, mu0w, y, nz, Z, r, pm, pv, Bd, k, P, m, Cl, G, wave, spread, slots,
                         static_cast<cudaStream_t>(stream));
 }
 

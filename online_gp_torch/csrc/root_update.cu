@@ -45,19 +45,29 @@
 //       fit a block of one cluster (3 k ld floats, the receive buffers and
 //       the vectors over 227 KB at C = 8: m > 1,120 at k = 128) spread
 //       their columns over G clusters of 8 (chunk_recursion_grid_kernel,
-//       W = cdiv(m, 8 G), the smallest G up to 4 whose slice fits: G = 4 at
+//       W = cdiv(m, 8 G), the smallest G up to 8 whose slice fits: G = 4 at
 //       m = 4,096, k = 128, 32 SMs an output, where one block read U, P, R
 //       from L2 at one SM's rate before). Each exchange is then summed in
 //       two levels, within the cluster as above and across the G clusters
 //       through device memory (ogp::GridExchange, common.cuh): block 0 of
-//       each cluster writes its cluster's sums with their flags, every
-//       block waits for the G flags and adds the sums in cluster order.
+//       each cluster writes its cluster's sums with their use's tag, every
+//       block waits for the G tags and adds the sums in cluster order.
 //       The clusters of one output wait on each other, so a launch holds no
 //       more outputs than the card runs at once (cudaOccupancyMaxActiveClusters,
-//       read by the wrapper, which launches in waves). Past G = 4 (m > 4,480
-//       at k = 128) the single-block kernel runs, one block per output with
-//       the rows of U, P, R in L2. The rule is by shape only,
-//       chunk_cluster_plan in online_gp_torch/ops/cuda_root_update.py,
+//       read by the wrapper, which launches in waves). Past G = 8 (m > 8,960
+//       at k = 128), or where the card cannot hold the G clusters, the
+//       recursion is spread over the card (chunk_recursion_spread_kernel):
+//       as many clusters of 8 as the card holds at once, up to 16 (15 on an
+//       H100 SXM, 120 SMs an output), the sums in the same two levels, each
+//       block keeping in shared memory its slices of U, P and R where they
+//       fit (m <= ~16,800 at k = 128), else of U alone (P and R, 2 k m
+//       floats, read and written in the outputs, from L2 where they fit:
+//       33 MB at m = 32,400), else none. What bounds it: the two exchanges
+//       a step (latency) and, with slices in device memory, each step's
+//       passes over t of their rows from L2 at 120 SMs' rate, not one
+//       SM's.
+//       The rule is by shape and the card's capacity: chunk_cluster_plan
+//       and chunk_spread_plan in online_gp_torch/ops/cuda_root_update.py,
 //       mirroring chunk_cluster_layout below (the wrapper checks the two
 //       agree).
 //   (c) apply: X += (X A^T) U for (X, A) = (L, R) and (B, P), 4 m^2 k
@@ -109,9 +119,9 @@
 // is bound by latency on this card: at t = 64 a step is ~4.4 us of short
 // stages (row and column passes over ~36 K floats of shared memory per
 // block, two exchanges, six block barriers), each a chain of dependent
-// shared-memory loads and shuffles. The single-block kernel reads U, P, R
+// shared-memory loads and shuffles. One block an output would read U, P, R
 // from L2 at one SM's rate (~75 GB/s on an H100, 16.5 us a step at
-// t = 64). cluster_probe.py measures both splits, building this file with
+// t = 64). cluster_probe.py measures the split, building this file with
 // OGP_STAMPS (common.cuh) so that the kernels stamp their stages.
 //
 // What does not carry over from the Pallas design: the TPU keeps B and four
@@ -169,7 +179,7 @@
 //       the shorter local steps save, so sub costs about what flat K1 does.
 //       Shapes K1's cluster kernel does not take (m > 1,120 at k = 128) run
 //       one sub-block at a time (ogp_blocked_chunk_sub, each recursion on
-//       K1's kernels at k = sub).
+//       K1's route at k = sub).
 //   coord (body _fused_chunk_kernel_coord): every factor row lies in the span
 //       of the chunk's raw rows p0, so the recursion runs on k-dim
 //       coordinates (u_t = Ut_t P0, p_t = Pt_t P0, r_t = Rt_t P0). Ut, Pt and
@@ -208,7 +218,6 @@ namespace {
 
 constexpr int kRowsPerBlock = 8;  // K2: one warp per row
 constexpr int kRowRegs = 32;      // K2: a row's entries per lane held in registers
-constexpr int kRecursionThreads = 1024;
 
 // K2's pre-pass: s2[b] = |p_b|^2, the single partial of the row kernel.
 __global__ void rank1_prepass_kernel(const float* __restrict__ p, float* __restrict__ s2, int m) {
@@ -320,87 +329,6 @@ __global__ void chunk_gather_kernel(const float* __restrict__ B, const int* __re
   }
 }
 
-// (b) the k-step factor recursion, one block per output. Rows < t of U, P, R
-// are read at step t and row t is written; nothing needs zeroing first.
-__global__ void __launch_bounds__(kRecursionThreads)
-chunk_recursion_kernel(const float* __restrict__ p0, float* U, float* Pm, float* R, int k,
-                       int m) {
-  extern __shared__ float sh[];
-  float* q = sh;         // m: the raw row p0[t], then p
-  float* u = q + m;      // m
-  float* a = u + m;      // k
-  float* g = a + k;      // k
-  float* red = g + k;    // 32
-  const long long mm = m;
-  const long long off = (long long)blockIdx.x * k * mm;
-  const float* p0b = p0 + off;
-  float* Ub = U + off;
-  float* Pb = Pm + off;
-  float* Rb = R + off;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-
-  for (int t = 0; t < k; ++t) {
-    OGP_STAMP(k, t, 0);
-    for (int l = threadIdx.x; l < m; l += blockDim.x) q[l] = p0b[t * mm + l];
-    __syncthreads();
-    OGP_STAMP(k, t, 1);
-    // a_j = P_j . p0_t for j < t, one warp per row
-    for (int j = warp; j < t; j += nwarps) {
-      const float* row = Pb + j * mm;
-      float s = 0.f;
-      for (int l = lane; l < m; l += 32) s = fmaf(row[l], q[l], s);
-      s = warp_sum(s);
-      if (lane == 0) a[j] = s;
-    }
-    __syncthreads();
-    OGP_STAMP(k, t, 2);
-    // p = p0_t + U^T a, and |p|^2
-    float s2 = 0.f;
-    for (int l = threadIdx.x; l < m; l += blockDim.x) {
-      float v = q[l];
-      for (int j = 0; j < t; ++j) v = fmaf(Ub[j * mm + l], a[j], v);
-      q[l] = v;
-      s2 = fmaf(v, v, s2);
-    }
-    s2 = block_sum(s2, red);
-    OGP_STAMP(k, t, 3);
-    const float s = sqrtf(s2);
-    const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
-    const float r1 = sqrtf(s2 + 1.f);
-    const float c = r1 - 1.f;
-    const float d = 1.f / r1 - 1.f;
-    for (int l = threadIdx.x; l < m; l += blockDim.x) u[l] = q[l] * inv_s;
-    __syncthreads();
-    OGP_STAMP(k, t, 4);
-    // g_j = U_j . u for j < t
-    for (int j = warp; j < t; j += nwarps) {
-      const float* row = Ub + j * mm;
-      float sg = 0.f;
-      for (int l = lane; l < m; l += 32) sg = fmaf(row[l], u[l], sg);
-      sg = warp_sum(sg);
-      if (lane == 0) g[j] = sg;
-    }
-    __syncthreads();
-    OGP_STAMP(k, t, 5);
-    // row t: u, p_col = d (u + P^T g), r_col = c (u + R^T g)
-    for (int l = threadIdx.x; l < m; l += blockDim.x) {
-      const float ul = u[l];
-      float pc = ul, rc = ul;
-      for (int j = 0; j < t; ++j) {
-        pc = fmaf(Pb[j * mm + l], g[j], pc);
-        rc = fmaf(Rb[j * mm + l], g[j], rc);
-      }
-      Ub[t * mm + l] = ul;
-      Pb[t * mm + l] = d * pc;
-      Rb[t * mm + l] = c * rc;
-    }
-    __syncthreads();  // row t is read by every thread at step t + 1
-    OGP_STAMP(k, t, 6);
-  }
-}
-
 // Shared-memory layout of one block of the cluster recursions, K1's and
 // K5 sub's; chunk_cluster_plan (online_gp_torch/ops/cuda_root_update.py)
 // mirrors it.
@@ -413,10 +341,12 @@ struct ChunkClusterLayout {
   long long floats;
 };
 
-// On G clusters of C blocks per output (G > 1: chunk_recursion_grid_kernel)
-// a block owns W = cdiv(m, C G) columns; its receive buffers stay those of
-// its own cluster's C blocks.
-__host__ __device__ inline ChunkClusterLayout chunk_cluster_layout(int k, int m, int C, int G = 1) {
+// On G clusters of C blocks per output (G > 1: chunk_recursion_grid_kernel
+// and chunk_recursion_spread_kernel) a block owns W = cdiv(m, C G) columns;
+// its receive buffers stay those of its own cluster's C blocks. `slices` of
+// the factor rows sit in shared memory: 3 (U, P, R), or, in the spread
+// kernel, 1 (U; P and R in device memory) or 0 (all three there).
+__host__ __device__ inline ChunkClusterLayout chunk_cluster_layout(int k, int m, int C, int G = 1, int slices = 3) {
   ChunkClusterLayout lay;
   lay.C = C;
   lay.W = cdiv(m, C * G);
@@ -426,9 +356,9 @@ __host__ __device__ inline ChunkClusterLayout chunk_cluster_layout(int k, int m,
   if (lay.Sr < 32)
     while (lay.ld % (2 * lay.Sr) != lay.Sr) ++lay.ld;
   lay.cs = ogp::col_split(lay.W);
-  // two mbarriers; U, P, R slices; p; a, g; the receive buffers (two uses
-  // of C rows of k + 1); column partials; s^2
-  lay.floats = 4 + 3LL * k * lay.ld + lay.ld + 2LL * k + 2LL * C * (k + 1) +
+  // two mbarriers; U, P, R slices (those in shared memory); p; a, g; the
+  // receive buffers (two uses of C rows of k + 1); column partials; s^2
+  lay.floats = 4 + static_cast<long long>(slices) * k * lay.ld + lay.ld + 2LL * k + 2LL * C * (k + 1) +
                2LL * lay.cs.S * lay.cs.CT * 32 + 1;
   return lay;
 }
@@ -596,28 +526,27 @@ __device__ __forceinline__ void cluster_store(const ClusterBlock& cb, float* U, 
 // sub = k bitwise to this one. The grid branch compiles out without kGrid,
 // so the one-cluster kernel's sums keep their order and bits
 // (scripts/compare_recursion_builds.py holds two checkouts' chunks bit for
-// bit).
-template <bool kGrid>
+// bit). kSlices < 3 (the spread kernel only) keeps P and R (and U, at 0)
+// in device memory, in the rows of the outputs Pm and R (U) that the step
+// writes anyway: a block reads and writes only its own columns there, so
+// __syncthreads() orders a row's writes before the next step's reads. Rows
+// in device memory are summed by row_partials with 8 lanes or more a row
+// (32 contiguous bytes a load), rows in shared memory with lay.Sr.
+template <bool kGrid, int kSlices, int kMaxG>
 __device__ __forceinline__ void chunk_recursion_cluster_body(const float* __restrict__ p0, float* __restrict__ U,
                                                              float* __restrict__ Pm, float* __restrict__ R,
                                                              int k, int m, const ChunkClusterLayout& lay,
                                                              const ogp::GridExchange& gx) {
+  static_assert(kSlices == 3 || (kGrid && (kSlices == 1 || kSlices == 0)), "slices in shared memory: 3, 1 or 0");
   extern __shared__ float sh[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = lay.C, ld = lay.ld;
   const ColSplit cs = lay.cs;
   const int rank = static_cast<int>(cluster.block_rank());
   // two mbarriers, then k x ld slices of this block's columns of U, P, R
-  const ogp::Exchange x{reinterpret_cast<unsigned long long*>(sh), sh + 4 + 3 * k * ld + ld + 2 * k,
+  // (those of kSlices)
+  const ogp::Exchange x{reinterpret_cast<unsigned long long*>(sh), sh + 4 + kSlices * k * ld + ld + 2 * k,
                         C, k + 1, rank};
-  float* Us = sh + 4;
-  float* Ps = Us + k * ld;
-  float* Rs = Ps + k * ld;
-  float* q = Rs + k * ld;                        // ld: the raw row p0[t], then p
-  float* a = q + ld;                             // k
-  float* g = a + k;                              // k: U p, unscaled
-  float* red = x.recv + 2 * C * (k + 1);         // 2 S CT 32: column partials
-  float* s2_sh = red + 2 * cs.S * cs.CT * 32;
   const int tid = threadIdx.x;
   const ColTask task = ogp::col_task(cs);
   const int c0 = (kGrid ? gx.g * C + rank : rank) * lay.W;
@@ -628,6 +557,16 @@ __device__ __forceinline__ void chunk_recursion_cluster_body(const float* __rest
   float* Ub = U + off;
   float* Pb = Pm + off;
   float* Rb = R + off;
+  float* Us = kSlices >= 1 ? sh + 4 : Ub;
+  float* Ps = kSlices == 3 ? Us + k * ld : Pb;
+  float* Rs = kSlices == 3 ? Ps + k * ld : Rb;
+  const int ldU = kSlices >= 1 ? ld : m, ldP = kSlices == 3 ? ld : m;
+  const int SrU = kSlices >= 1 ? lay.Sr : 8, SrP = kSlices == 3 ? lay.Sr : 8;
+  float* q = sh + 4 + kSlices * k * ld;           // ld: the raw row p0[t], then p
+  float* a = q + ld;                             // k
+  float* g = a + k;                              // k: U p, unscaled
+  float* red = x.recv + 2 * C * (k + 1);         // 2 S CT 32: column partials
+  float* s2_sh = red + 2 * cs.S * cs.CT * 32;
   ogp::exchange_init(x);
 
   float next[kClusterRegs];  // p0[t + 1] for this thread's columns
@@ -648,30 +587,30 @@ __device__ __forceinline__ void chunk_recursion_cluster_body(const float* __rest
     OGP_STAMP(k, t, 1);
     // 1. a_j = P_j . p0_t for j < t: exchange use 2 t
     ogp::exchange_expect(x, 2 * t, t);
-    row_partials(Ps, ld, q, t, t, w, lay.Sr, x, 2 * t);
+    row_partials(Ps, ldP, q, t, t, w, SrP, x, 2 * t);
     OGP_STAMP(k, t, 2);
     ogp::exchange_wait(x, 2 * t);
     OGP_STAMP(k, t, 3);
     for (int j = tid; j < t; j += kClusterThreads) {
       const float v = ogp::exchange_sum(x, 2 * t, j);
-      a[j] = kGrid ? ogp::grid_sum(gx, 2 * t, j, v) : v;
+      a[j] = kGrid ? ogp::grid_sum<kMaxG>(gx, 2 * t, j, v) : v;
     }
     if (kGrid) OGP_STAMP(k, t, 10);
     __syncthreads();
     OGP_STAMP(k, t, 4);
     // 2. p = p0_t + U^T a; U p and |p|^2: exchange use 2 t + 1
-    col_partials<1>(Us, nullptr, ld, a, 1.f, t, w, cs, task, red);
+    col_partials<1>(Us, nullptr, ldU, a, 1.f, t, w, cs, task, red);
     for (int l = tid; l < w; l += kClusterThreads) q[l] += col_sum(red, 0, l, cs);
     __syncthreads();
     OGP_STAMP(k, t, 5);
     ogp::exchange_expect(x, 2 * t + 1, t + 1);
-    row_partials(Us, ld, q, t + 1, t, w, lay.Sr, x, 2 * t + 1);
+    row_partials(Us, ldU, q, t + 1, t, w, SrU, x, 2 * t + 1);
     OGP_STAMP(k, t, 6);
     ogp::exchange_wait(x, 2 * t + 1);
     OGP_STAMP(k, t, 7);
     for (int j = tid; j <= t; j += kClusterThreads) {
       float v = ogp::exchange_sum(x, 2 * t + 1, j);
-      if (kGrid) v = ogp::grid_sum(gx, 2 * t + 1, j, v);
+      if (kGrid) v = ogp::grid_sum<kMaxG>(gx, 2 * t + 1, j, v);
       if (j < t) {
         g[j] = v;
       } else {
@@ -688,24 +627,29 @@ __device__ __forceinline__ void chunk_recursion_cluster_body(const float* __rest
     const float c = r1 - 1.f;
     const float d = 1.f / r1 - 1.f;
     // 3. row t: u, d (u + P^T g), c (u + R^T g) with g = (U p) inv_s
-    col_partials<2>(Ps, Rs, ld, g, inv_s, t, w, cs, task, red);
+    col_partials<2>(Ps, Rs, ldP, g, inv_s, t, w, cs, task, red);
     for (int l = tid; l < w; l += kClusterThreads) {
       const float ul = q[l] * inv_s;
       const float pc = d * (ul + col_sum(red, 0, l, cs));
       const float rc = c * (ul + col_sum(red, 1, l, cs));
-      Us[t * ld + l] = ul;
-      Ps[t * ld + l] = pc;
-      Rs[t * ld + l] = rc;
+      Us[t * ldU + l] = ul;
+      Ps[t * ldP + l] = pc;
+      Rs[t * ldP + l] = rc;
     }
     __syncthreads();  // row t is read at step t + 1, and q is rewritten
     OGP_STAMP(k, t, 9);
   }
-  // the slices go to the scratch of the applies once, after the last step
-  for (int e = tid; e < k * w; e += kClusterThreads) {
-    const int j = e / w, l = e - j * w;
-    Ub[j * mm + l] = Us[j * ld + l];
-    Pb[j * mm + l] = Ps[j * ld + l];
-    Rb[j * mm + l] = Rs[j * ld + l];
+  // the slices in shared memory go to the scratch of the applies once,
+  // after the last step
+  if (kSlices > 0) {
+    for (int e = tid; e < k * w; e += kClusterThreads) {
+      const int j = e / w, l = e - j * w;
+      Ub[j * mm + l] = Us[j * ld + l];
+      if (kSlices == 3) {
+        Pb[j * mm + l] = Ps[j * ld + l];
+        Rb[j * mm + l] = Rs[j * ld + l];
+      }
+    }
   }
   cluster.sync();  // no block leaves while a push to another may be in flight
 }
@@ -715,20 +659,40 @@ __global__ void __launch_bounds__(kClusterThreads)
 chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__ U,
                                float* __restrict__ Pm, float* __restrict__ R, int k, int m,
                                ChunkClusterLayout lay) {
-  chunk_recursion_cluster_body<false>(p0, U, Pm, R, k, m, lay, ogp::GridExchange{});
+  chunk_recursion_cluster_body<false, 3, 1>(p0, U, Pm, R, k, m, lay, ogp::GridExchange{});
 }
 
 // (b) on G clusters of lay.C blocks per output, grid (C G, Bd); slots:
-// (Bd, 2 k, G, k + 1) zeroed words, exchange use n of output b at
-// slots[b][n].
+// (Bd, 2, G, k + 1) zeroed words, output b's at slots[b].
 __global__ void __launch_bounds__(kClusterThreads)
 chunk_recursion_grid_kernel(const float* __restrict__ p0, float* __restrict__ U, float* __restrict__ Pm,
                             float* __restrict__ R, int k, int m, ChunkClusterLayout lay, int G,
                             unsigned long long* __restrict__ slots) {
   const int C = lay.C;
-  const ogp::GridExchange gx{slots + blockIdx.y * (2LL * k * G * (k + 1)), G, k + 1,
+  const ogp::GridExchange gx{slots + blockIdx.y * (2LL * G * (k + 1)), G, k + 1,
                              static_cast<int>(blockIdx.x) / C, cg::this_cluster().block_rank() == 0};
-  chunk_recursion_cluster_body<true>(p0, U, Pm, R, k, m, lay, gx);
+  chunk_recursion_cluster_body<true, 3, ogp::kMaxGridClusters>(p0, U, Pm, R, k, m, lay, gx);
+}
+
+// (b) spread over the card: the recursion past what G <= 8 clusters hold
+// with every slice in shared memory (m > 8,960 at k = 128), or where the
+// card cannot hold those G clusters at once. G <= 16 clusters of lay.C
+// blocks per output, as many as the card holds at once
+// (chunk_spread_plan in ops/cuda_root_update.py), grid (C G, Bd), the
+// sums in the grid kernel's two levels and order; kSlices of U, P, R in
+// shared memory (3, else U alone, else none) and the rest read and written
+// in the outputs in device memory, where the step's row and column passes
+// stream them (P and R, 2 k m floats, 33.6 MB at m = 32,400, k = 128: the
+// L2 holds them). Slots as the grid kernel's.
+template <int kSlices>
+__global__ void __launch_bounds__(kClusterThreads)
+chunk_recursion_spread_kernel(const float* __restrict__ p0, float* __restrict__ U, float* __restrict__ Pm,
+                              float* __restrict__ R, int k, int m, ChunkClusterLayout lay, int G,
+                              unsigned long long* __restrict__ slots) {
+  const int C = lay.C;
+  const ogp::GridExchange gx{slots + blockIdx.y * (2LL * G * (k + 1)), G, k + 1,
+                             static_cast<int>(blockIdx.x) / C, cg::this_cluster().block_rank() == 0};
+  chunk_recursion_cluster_body<true, kSlices, ogp::kMaxSpreadClusters>(p0, U, Pm, R, k, m, lay, gx);
 }
 
 // ---- K5 sub on a cluster ----
@@ -1030,42 +994,54 @@ chunk_sub_cluster_kernel(const float* __restrict__ p0, float* __restrict__ U, fl
   cluster.sync();  // no block leaves while a push to another may be in flight
 }
 
-// (b) for Bd outputs: on one cluster of C blocks per output (G = 1), on G
-// clusters of C blocks per output (G > 1; slots: (Bd, 2 k, G, k + 1)
-// zeroed words), or one block per output when C is 0. The G > 1 kernel
-// runs in waves of `wave` outputs, in order on the stream, each launch
-// checked to fit the card at once (G clusters per output wait on each
-// other). Returns a cudaError_t, or ogp::kNoCluster.
+// The spread kernel with `slices` factor slices in shared memory (3, 1
+// or 0), or null for any other count.
+using SpreadKernel = void (*)(const float*, float*, float*, float*, int, int, ChunkClusterLayout, int,
+                              unsigned long long*);
+SpreadKernel spread_kernel(int slices) {
+  switch (slices) {
+    case 3: return chunk_recursion_spread_kernel<3>;
+    case 1: return chunk_recursion_spread_kernel<1>;
+    case 0: return chunk_recursion_spread_kernel<0>;
+    default: return nullptr;
+  }
+}
+
+// (b) for Bd outputs: with spread >= 0, spread over G clusters of C blocks
+// per output with `spread` slices in shared memory; else on one cluster of
+// C blocks per output (G = 1), or on G clusters of C blocks per output
+// (G > 1). With G > 1 (slots: (Bd, 2, G, k + 1) zeroed words) the launches
+// run in waves of `wave` outputs, in order on the stream, each checked to
+// fit the card at once (G clusters per output wait on each other). Returns
+// a cudaError_t, or ogp::kNoCluster.
 int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int k, int m, int C, int G,
-                    int wave, unsigned long long* slots, cudaStream_t s) {
-  if (C > 0 && G > 1) {
-    if (G > ogp::kMaxGridClusters || wave < 1 || slots == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C, G);
+                    int wave, int spread, unsigned long long* slots, cudaStream_t s) {
+  if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (spread >= 0 || G > 1) {
+    const int max_g = spread >= 0 ? ogp::kMaxSpreadClusters : ogp::kMaxGridClusters;
+    const SpreadKernel spread_k = spread >= 0 ? spread_kernel(spread) : nullptr;
+    if (G < 1 || G > max_g || wave < 1 || slots == nullptr || (spread >= 0 && spread_k == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C, G, spread >= 0 ? spread : 3);
     const long long smem = lay.floats * static_cast<long long>(sizeof(float));
-    const long long km = static_cast<long long>(k) * m, words = 2LL * k * G * (k + 1);
+    const long long km = static_cast<long long>(k) * m, words = 2LL * G * (k + 1);
     for (int b0 = 0; b0 < Bd; b0 += wave) {
       const int nb = Bd - b0 < wave ? Bd - b0 : wave;
-      const int rc = ogp::launch_cluster_grid(chunk_recursion_grid_kernel, C, dim3(C * G, nb, 1), kClusterThreads,
-                                              smem, s, nb * G, p0 + b0 * km, U + b0 * km, Pm + b0 * km,
-                                              R + b0 * km, k, m, lay, G, slots + b0 * words);
+      const int rc = spread_k != nullptr
+          ? ogp::launch_cluster_grid(spread_k, C, dim3(C * G, nb, 1), kClusterThreads, smem, s, nb * G,
+                                     p0 + b0 * km, U + b0 * km, Pm + b0 * km, R + b0 * km, k, m, lay, G,
+                                     slots + b0 * words)
+          : ogp::launch_cluster_grid(chunk_recursion_grid_kernel, C, dim3(C * G, nb, 1), kClusterThreads, smem,
+                                     s, nb * G, p0 + b0 * km, U + b0 * km, Pm + b0 * km, R + b0 * km, k, m,
+                                     lay, G, slots + b0 * words);
       if (rc != 0) return rc;
     }
     return 0;
   }
-  if (C > 0) {
-    const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C);
-    return ogp::launch_cluster(chunk_recursion_cluster_kernel, C, Bd,
-                               lay.floats * static_cast<long long>(sizeof(float)), s, p0, U, Pm,
-                               R, k, m, lay);
-  }
-  const long long smem = (2LL * m + 2LL * k + 32) * static_cast<long long>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        chunk_recursion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  chunk_recursion_kernel<<<Bd, kRecursionThreads, smem, s>>>(p0, U, Pm, R, k, m);
-  return static_cast<int>(cudaGetLastError());
+  const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C);
+  return ogp::launch_cluster(chunk_recursion_cluster_kernel, C, Bd,
+                             lay.floats * static_cast<long long>(sizeof(float)), s, p0, U, Pm,
+                             R, k, m, lay);
 }
 
 // ---- (c) K1's apply ----
@@ -1693,11 +1669,6 @@ int ogp_rank1_apply_rows(float* L, float* B, const float* p, float* s2, int Bd, 
   return static_cast<int>(rank1_rows(L, B, nullptr, nullptr, p, s2, 1, Bd, rows, m, false, s));
 }
 
-// Dynamic shared memory of the single-block K1 recursion kernel, in bytes.
-long long ogp_blocked_chunk_smem(int k, int m) {
-  return (2LL * m + 2LL * k + 32) * static_cast<long long>(sizeof(float));
-}
-
 // Dynamic shared memory of one block of the cluster recursions (K1's, and
 // K5 sub's at G = 1) on G clusters of C blocks per output, in bytes.
 long long ogp_chunk_cluster_smem(int k, int m, int C, int G) {
@@ -1710,23 +1681,39 @@ int ogp_chunk_grid_capacity(int k, int m, int C, int G) {
   return ogp::cluster_capacity(chunk_recursion_grid_kernel, C, kClusterThreads, ogp_chunk_cluster_smem(k, m, C, G));
 }
 
+// Dynamic shared memory of one block of K1's spread recursion on G
+// clusters of C blocks per output with `slices` factor slices in shared
+// memory (3, 1 or 0), in bytes.
+long long ogp_chunk_spread_smem(int k, int m, int C, int G, int slices) {
+  return chunk_cluster_layout(k, m, C, G, slices).floats * static_cast<long long>(sizeof(float));
+}
+
+// Clusters of C blocks of K1's spread recursion kernel at (k, m, G, slices)
+// that the card holds at once, or minus a cudaError_t.
+int ogp_chunk_spread_capacity(int k, int m, int C, int G, int slices) {
+  const SpreadKernel kernel = spread_kernel(slices);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  return ogp::cluster_capacity(kernel, C, kClusterThreads, ogp_chunk_spread_smem(k, m, C, G, slices));
+}
+
 // K1. L, B: (Bd, m, m), updated in place; idx: (k, P) int32, shared by the
 // outputs; wv: (Bd, k, P); p0, U, Pm, R: (Bd, k, m) scratch; T: (Bd, 2, m, k)
-// scratch of the tiled apply (unused when AC > 0); slots: (Bd, 2 k, G, k + 1)
+// scratch of the tiled apply (unused when AC > 0); slots: (Bd, 2, G, k + 1)
 // zeroed words of the recursion on G > 1 clusters (else unused). The
-// recursion runs on G clusters of C blocks per output (in waves of `wave`
-// outputs when G > 1), or one block per output when C is 0; the apply on
-// clusters of AC blocks, or on the tiled kernels when AC is 0. Returns
-// cudaGetLastError() after the launches, or -1 when the card cannot hold a
-// wave's clusters of C blocks (or one of AC).
+// recursion runs spread over G clusters of C blocks per output with
+// `spread` slices in shared memory when spread >= 0, else on G clusters of
+// C blocks per output (in waves of `wave` outputs when G > 1); the apply
+// on clusters of AC blocks, or on the tiled kernels when AC is 0. Returns cudaGetLastError() after the
+// launches, or -1 when the card cannot hold a wave's clusters of C blocks
+// (or one of AC).
 int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float* p0,
                       float* U, float* Pm, float* R, float* T, unsigned long long* slots, int Bd, int k,
-                      int P, int m, int G, int wave, int AC, int C, void* stream) {
+                      int P, int m, int G, int wave, int AC, int C, int spread, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, slots, s);
+  const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, slots, s);
   if (rc != 0) return rc;
   return chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, AC, s);
 }
@@ -1772,18 +1759,19 @@ int ogp_blocked_chunk_sub_cluster(float* L, float* B, const int* idx, const floa
 // L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
 // (nb, Bd, sub, P) with nb = k / sub; q, U, Pm, R: (nb, Bd, sub, m) scratch;
 // a2: (Bd, sub, sub) and T: (Bd, 2, m, sub) scratch; slots:
-// (nb, Bd, 2 sub, G, sub + 1) zeroed words when G > 1. Each sub-block's
-// recursion runs on G clusters of C blocks per output, in waves of `wave`
-// outputs (C = 0: one block per output), its apply (at rank sub) on
+// (nb, Bd, 2, G, sub + 1) zeroed words when G > 1. Each sub-block's
+// recursion runs as K1's at k = sub (chunk_recursion: spread with `spread`
+// slices in shared memory when spread >= 0, else on G clusters of C blocks
+// per output in waves of `wave` outputs), its apply (at rank sub) on
 // clusters of AC blocks (AC = 0: tiled).
 int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, float* q,
                           float* U, float* Pm, float* R, float* a2, float* T, unsigned long long* slots,
-                          int Bd, int k, int sub, int P, int m, int G, int wave, int AC, int C,
+                          int Bd, int k, int sub, int P, int m, int G, int wave, int AC, int C, int spread,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = k / sub;
   const long long mm = m, rows = (long long)sub * m, blk = Bd * rows;
-  const long long words = G > 1 ? Bd * 2LL * sub * G * (sub + 1) : 0;
+  const long long words = G > 1 ? Bd * 2LL * G * (sub + 1) : 0;
   cudaError_t e;
   // every sub-block's raw rows come from B before the chunk changes it
   for (int j = 0; j < nb; ++j) {
@@ -1805,7 +1793,7 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
                MatArg{U + i * blk, mm, 1, rows, 1, kEveryBatch}, qj, mm, rows, Bd, 1.f, true, s);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, G, wave,
+    const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, G, wave, spread,
                                    G > 1 ? slots + j * words : nullptr, s);
     if (rc != 0) return rc;
   }
@@ -1878,13 +1866,14 @@ int ogp_chunk_gather_rows(const float* B, const int* idx, const float* wv, float
 }
 
 // The recursion on the summed p0: (Bd, k, m) in; U, Pm, R: (Bd, k, m) out;
-// slots: (Bd, 2 k, G, k + 1) zeroed words when G > 1. On G clusters of C
-// blocks per output, in waves of `wave` outputs, or one block per output
-// when C is 0. Returns cudaGetLastError(), or -1 when the card cannot hold
-// a wave's clusters.
+// slots: (Bd, 2, G, k + 1) zeroed words when G > 1. Spread over G clusters
+// of C blocks per output with `spread` slices in shared memory when
+// spread >= 0, else on G clusters of C blocks per output, in waves of
+// `wave` outputs. Returns cudaGetLastError(), or -1 when the card cannot
+// hold a wave's clusters.
 int ogp_chunk_factors(const float* p0, float* U, float* Pm, float* R, unsigned long long* slots, int Bd, int k,
-                      int m, int G, int wave, int C, void* stream) {
-  return chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, slots, static_cast<cudaStream_t>(stream));
+                      int m, int G, int wave, int C, int spread, void* stream) {
+  return chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, slots, static_cast<cudaStream_t>(stream));
 }
 
 // The apply on a row shard: L, B: (Bd, rows, m), updated in place; R, Pm,

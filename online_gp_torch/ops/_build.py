@@ -18,9 +18,10 @@ The wrappers call each C entry with ``ctypes``: pointers and the stream
 (or -1 when a cluster launch finds that the card cannot hold the
 clusters it asks for at once) and :func:`launch_check` raises if that is not 0.
 
-This module also holds the argument checks the kernel wrappers share, and
-the shape rule of the kernels that run on thread-block clusters
-(:func:`cluster_plan`).
+This module also holds the argument checks the kernel wrappers share
+(:func:`check_grid` among them), the shape rules of the kernels that run
+on thread-block clusters (:func:`cluster_plan`, :func:`spread_plan`) and
+the launch of a recursion past one cluster (:func:`grid_launch`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, NamedTuple, Optional
+from typing import Callable, Dict, Iterable, NamedTuple, Optional
 
 import torch
 
@@ -123,9 +124,20 @@ CLUSTER_THREADS = 512  # kClusterThreads
 CLUSTER_COLS = 4 * CLUSTER_THREADS  # kClusterRegs * kClusterThreads: columns a block may own
 CLUSTER_SIZE = 8  # blocks per cluster: the portable cluster size
 WIDE_CLUSTER_SIZE = 16  # the largest non-portable cluster size (K3 past 8 blocks)
-MAX_GRID_CLUSTERS = 4  # clusters per output K1's grid recursion is planned on (ogp::kMaxGridClusters: 8)
+MAX_GRID_CLUSTERS = 8  # clusters per output K1's grid recursion is planned on (ogp::kMaxGridClusters)
+MAX_SPREAD_CLUSTERS = 16  # clusters per output of the spread recursions, K1's and K3's (ogp::kMaxSpreadClusters)
 MAX_SHARED_BYTES = 232448  # dynamic shared memory one block may use
 NO_CLUSTER = -1  # kNoCluster: the card cannot hold the launch's clusters at once
+MAX_GRID_YZ = 65535  # a launch grid's y and z extents
+
+
+def check_grid(Bd: int, per_output: int = 1) -> None:
+    """Raise ValueError for a batch of Bd outputs past the launch grid,
+    where a kernel puts ``per_output`` blocks an output along its y or z
+    (K1's and K2's 2: L and B). The kernels form 64-bit element offsets, so
+    no size of the operands is refused."""
+    if Bd * per_output > MAX_GRID_YZ:
+        raise ValueError(f"Bd = {Bd} exceeds the launch grid ({MAX_GRID_YZ // per_output})")
 
 
 class ClusterPlan(NamedTuple):
@@ -160,7 +172,103 @@ def cluster_plan(floats_of, sizes=(CLUSTER_SIZE,), clusters=(1,)) -> Optional[Cl
     return None
 
 
-def check_layout(plan: ClusterPlan, cuda_bytes: int, what: str) -> None:
+class SpreadPlan(NamedTuple):
+    """A recursion spread over the card (K1's and K3's past their cluster
+    plans): ``clusters`` clusters of ``cluster`` blocks per output, as many
+    as the card holds at once (all resident: their sums meet in device
+    memory), each block owning ``cols`` columns with ``shared_bytes`` of
+    shared memory, ``slices`` of its operands kept there (K1: 3 = its
+    columns of U, P, R; 1 = of U; 0 = none; K3: 2 = of Z and its stencil
+    entries; 1 = the stencil entries; 0 = none), the rest in device memory."""
+
+    cluster: int
+    cols: int
+    shared_bytes: int
+    clusters: int
+    slices: int
+
+
+def spread_plan(floats_of, capacity_of, slices=(3, 1, 0)) -> Optional[SpreadPlan]:
+    """The plan of a recursion spread over clusters of CLUSTER_SIZE blocks:
+    the first slice count in ``slices`` (most in shared memory first) with
+    a G <= MAX_SPREAD_CLUSTERS whose block holds its part and whose G
+    clusters the card holds at once, at the largest such G (the narrowest
+    slices, and the most SMs and L2 bandwidth an output). ``floats_of(C, G,
+    slices) -> (cols, floats per block)``; ``capacity_of(C, G, slices)``:
+    the clusters the card holds at once at that layout (a negative value,
+    minus a CUDA error, raises RuntimeError). None where no layout fits or
+    the card holds none of them."""
+    C = CLUSTER_SIZE
+    for sl in slices:
+        for G in range(MAX_SPREAD_CLUSTERS, 0, -1):
+            cols, floats = floats_of(C, G, sl)
+            if cols > CLUSTER_COLS or 4 * floats > MAX_SHARED_BYTES:
+                break  # fewer clusters give each block more columns
+            if occupancy(capacity_of(C, G, sl), "the spread recursion") >= G:
+                return SpreadPlan(C, cols, 4 * floats, G, sl)
+    return None
+
+
+def occupancy(cap: int, what: str) -> int:
+    """An occupancy query's answer, the clusters the card holds at once;
+    raises RuntimeError for a failed one (minus a cudaError)."""
+    if cap < 0:
+        raise RuntimeError(f"{what}: the occupancy query failed with cudaError {-cap}")
+    return cap
+
+
+class GridLaunch(NamedTuple):
+    """How a recursion's C entry is launched: G clusters per output,
+    outputs in waves of ``wave`` (each wave's G wave clusters resident at
+    once), ``slots`` the zeroed words of the cross-cluster sums (None, with
+    G = 1, on one cluster an output), and ``spread`` the spread kernel's
+    slices in shared memory (-1 for the other kernels)."""
+
+    G: int
+    wave: int
+    slots: Optional[torch.Tensor]
+    spread: int = -1
+
+
+def grid_launch(plan, capacity: Callable[[], int], Bd: int, k: int, device, what: str,
+                n: int = 1) -> GridLaunch:
+    """The :class:`GridLaunch` of ``n`` recursions of Bd outputs at rank k
+    on ``plan`` (a :class:`ClusterPlan` or a :class:`SpreadPlan`). One
+    cluster an output takes no slots. Past
+    it, ``capacity()``, the clusters of the plan's layout the card holds at
+    once (``ogp_*_capacity``), sets the wave, and a card that cannot hold
+    one output's G clusters raises RuntimeError naming the plan: they would
+    wait on each other forever. The slots: two buffers of the G clusters'
+    sums an output (``ogp::GridExchange``, csrc/common.cuh), zeroed."""
+    spread = isinstance(plan, SpreadPlan)
+    if plan.clusters == 1 and not spread:
+        return GridLaunch(1, Bd, None)
+    C, G = plan.cluster, plan.clusters
+    cap = occupancy(capacity(), what)
+    if cap < G:
+        raise RuntimeError(f"{what}: the card holds {cap} clusters of {C} blocks with "
+                           f"{plan.shared_bytes} bytes of shared memory each at once; the plan {plan} needs {G}")
+    slots = torch.zeros((n, Bd, 2, G, k + 1), dtype=torch.int64, device=device)
+    return GridLaunch(G, min(Bd, cap // G), slots, plan.slices if spread else -1)
+
+
+def count_recursion(wrapper, plan, launch: GridLaunch) -> None:
+    """Counts a recursion launched on ``launch``'s route on ``wrapper``:
+    spread over the card (``spread_launches``), else on clusters
+    (``cluster_launches``; those on G > 1 clusters, K1's, also in
+    ``grid_cluster_launches``, those of 16 blocks, K3's, in
+    ``wide_cluster_launches``)."""
+    if launch.spread >= 0:
+        wrapper.spread_launches += 1
+        return
+    wrapper.cluster_launches += 1
+    if launch.G > 1:
+        wrapper.grid_cluster_launches += 1
+    if plan.cluster == WIDE_CLUSTER_SIZE:
+        wrapper.wide_cluster_launches += 1
+
+
+def check_layout(plan, cuda_bytes: int, what: str) -> None:
     """Raise unless the CUDA layout of one block (``cuda_bytes``, from the
     built library) is the plan's: the Python shape rule mirrors it."""
     if cuda_bytes != plan.shared_bytes:
@@ -174,8 +282,9 @@ def launch_check(rc: int, what: str, *plans) -> None:
     hold a cluster."""
     plans = [p for p in plans if p is not None]
     if rc == NO_CLUSTER and plans:
-        shapes = " or ".join(f"{'one cluster' if p.clusters == 1 else f'{p.clusters} clusters'} of {p.cluster} "
-                             f"blocks with {p.shared_bytes} bytes of shared memory each" for p in plans)
+        shapes = " or ".join(f"{'one cluster' if getattr(p, 'clusters', 1) == 1 else f'{p.clusters} clusters'} "
+                             f"of {p.cluster} blocks with {p.shared_bytes} bytes of shared memory each"
+                             for p in plans)
         raise RuntimeError(f"{what}: the card cannot hold {shapes}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")

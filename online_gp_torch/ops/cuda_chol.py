@@ -264,8 +264,7 @@ def blocked_cholesky_ex(q: torch.Tensor, block: int = 128):
     m = q.shape[-1]
     q3 = q.reshape(-1, m, m)
     Bd = q3.shape[0]
-    if Bd * m * m >= 2**31 or Bd > 65535:
-        raise ValueError(f"(Bd, m) = ({Bd}, {m}) exceeds the kernel's int32 sizes and grid")
+    _build.check_grid(Bd)
     out = torch.empty_like(q3)
     if out.numel() == 0:
         return out.view(q.shape), torch.zeros(q.shape[:-2], dtype=torch.int32, device=q.device)

@@ -13,21 +13,27 @@ splits each output's m columns over 8 blocks that keep their columns of
 Z in shared memory, or over 16 (a non-portable cluster size) where 8
 blocks cannot hold them (m > 3,136 at k = 128 with a 2-D cubic stencil,
 P = 16). A chunk whose slices 16 blocks cannot hold either (m > 6,016 at
-k = 128, P = 16, or k > 342 at m = 900) runs the single-block recursion
-kernel instead; that rule is by shape alone, nothing is tried and
-caught, and every shape the kernel took before still runs. Before each
-cluster launch the wrapper checks that the plan's shared memory is the
-kernel's layout (``ogp_pred_cluster_smem``) and raises RuntimeError if
-not.
+k = 128, P = 16, or k > 342 at m = 900) runs spread over the card
+(:func:`pred_spread_plan`, ``pred_recursion_spread_kernel``): as many
+clusters of 8 as the card holds at once, up to 16, whose sums meet in
+device memory, each block keeping its slice of Z in shared memory where
+it fits, else in the output Z. The rule is by shape and the card's
+capacity: nothing is tried and caught, and every k <= 1,024 and every m
+the card's memory holds has a kernel. Before each cluster launch the
+wrapper checks that the plan's shared memory is the kernel's layout
+(``ogp_pred_cluster_smem``, ``ogp_pred_spread_smem``) and raises
+RuntimeError if not.
 
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
-raises TypeError and names the plain version. A shape no kernel takes
-raises ValueError; a failed launch, or a cluster the card cannot
-schedule, raises RuntimeError. On CUDA the caches are updated in place.
-``pred_chunk.launches`` counts the calls that launched the kernel,
+raises TypeError and names the plain version. The kernels take 64-bit
+element offsets, so no size of the caches is refused; a batch past the
+launch grid raises ValueError; a failed launch, or a cluster the card
+cannot schedule, raises RuntimeError. On CUDA the caches are updated in
+place. ``pred_chunk.launches`` counts the calls that launched the kernel,
 ``pred_chunk.cluster_launches`` those whose recursion ran on a cluster,
-and ``pred_chunk.wide_cluster_launches`` those of them on 16 blocks.
+``pred_chunk.wide_cluster_launches`` those of them on 16 blocks, and
+``pred_chunk.spread_launches`` those spread over the card.
 
 K3's apply (C -= Z^T Z, mu += Z^T r), which ends :func:`pred_chunk` and
 is :func:`pred_apply_rows`, runs 128 x 128 tiles of C a block, or 64 x
@@ -43,28 +49,27 @@ are sharded over processes (``parallel/mesh.py::sharded_pred_stream_blocked``):
 :func:`pred_factors` (the recursion on the summed partials) and
 :func:`pred_apply_rows` (the apply on a shard's rows), each beside its plain
 version and counting its own ``launches`` (``pred_factors`` also
-``cluster_launches`` and ``wide_cluster_launches``).
+``cluster_launches``, ``wide_cluster_launches`` and ``spread_launches``).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
 from online_gp_torch.ops import _build
-from online_gp_torch.ops.cuda_root_update import shard_stencil
+from online_gp_torch.ops.cuda_root_update import _ptr_or_null, shard_stencil
 from online_gp_torch.ops.precision import f32_matmul_precision
 from online_gp_torch.ops.pred_stream import pred_chunk_factors, pred_chunk_plain
 from online_gp_torch.ops.root_update import stencil_rows
 
-# What the single-block recursion takes, for the chunks outside
-# pred_cluster_plan: k <= MAX_CHUNK, (m + 2k + 1) floats of shared memory.
+# What the spread recursion takes past pred_cluster_plan: k <= MAX_CHUNK.
 MAX_CHUNK = 1024
 MAX_SHARED_BYTES = _build.MAX_SHARED_BYTES
-MAX_GRID_YZ = 65535
 
 _lib = None
 
@@ -74,17 +79,19 @@ def _pred_stream_lib():
     if _lib is None:
         lib = _build.load("pred_stream")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ogp_pred_chunk.argtypes = [vp] * 12 + [i32] * 6 + [vp]
+        lib.ogp_pred_chunk.argtypes = [vp] * 13 + [i32] * 9 + [vp]
         lib.ogp_pred_chunk.restype = i32
-        lib.ogp_pred_chunk_smem.argtypes = [i32, i32]
-        lib.ogp_pred_chunk_smem.restype = ctypes.c_longlong
         lib.ogp_pred_cluster_smem.argtypes = [i32] * 4
         lib.ogp_pred_cluster_smem.restype = ctypes.c_longlong
         lib.ogp_pred_cluster_capacity.argtypes = [i32] * 4
         lib.ogp_pred_cluster_capacity.restype = i32
+        lib.ogp_pred_spread_smem.argtypes = [i32] * 6
+        lib.ogp_pred_spread_smem.restype = ctypes.c_longlong
+        lib.ogp_pred_spread_capacity.argtypes = [i32] * 6
+        lib.ogp_pred_spread_capacity.restype = i32
         lib.ogp_pred_gather_rows.argtypes = [vp] * 6 + [i32] * 6 + [vp]
         lib.ogp_pred_gather_rows.restype = i32
-        lib.ogp_pred_factors.argtypes = [vp] * 10 + [i32] * 5 + [vp]
+        lib.ogp_pred_factors.argtypes = [vp] * 11 + [i32] * 8 + [vp]
         lib.ogp_pred_factors.restype = i32
         lib.ogp_pred_apply_rows.argtypes = [vp] * 4 + [i32] * 6 + [vp]
         lib.ogp_pred_apply_rows.restype = i32
@@ -100,15 +107,19 @@ def pred_chunk_stencil_plain(C, mu, idx, wv, y, nz):
     return pred_chunk_plain(C, mu, stencil_rows(idx, wv, C.shape[-1]), y, nz)
 
 
-def _pred_cluster_floats(k: int, m: int, P: int, C: int):
-    """(columns per block, floats per block) of the cluster recursion:
-    ``pred_cluster_layout`` in ``csrc/pred_stream.cu``."""
-    W = -(-m // C)
+def _pred_cluster_floats(k: int, m: int, P: int, C: int, G: int = 1, slices: int = 2):
+    """(columns per block, floats per block) of the cluster recursion on G
+    clusters of C blocks per output with ``slices`` in shared memory: 2,
+    the block's slice of Z and its stencil entries; the spread kernel's 1,
+    the stencil entries alone, or 0, neither: ``pred_cluster_layout`` in
+    ``csrc/pred_stream.cu``."""
+    W = -(-m // (C * G))
     tiles, groups = _build.col_split(W)
     # two mbarriers; Z slice; ct; a (two steps); the receive buffers (two
     # uses of C rows of k + 1); r, mu0w, y, nz; column partials; the chunk's
     # stencil entries in this block (local columns, weights, counts); inv, r . a
-    return W, 4 + k * W + W + 2 * k + 2 * C * (k + 1) + 4 * k + groups * tiles * 32 + 2 * k * P + k + 2
+    return W, (4 + (k * W if slices == 2 else 0) + W + 2 * k + 2 * C * (k + 1) + 4 * k + groups * tiles * 32
+               + (2 * k * P + k if slices >= 1 else 0) + 2)
 
 
 def pred_cluster_plan(k: int, m: int, P: int):
@@ -117,25 +128,53 @@ def pred_cluster_plan(k: int, m: int, P: int):
     (k ceil(m / 8) floats), the chunk's stencil and the step's vectors in
     at most 232,448 bytes of shared memory, else on one cluster of 16
     blocks (k ceil(m / 16) floats) when that holds them; None where neither
-    does, and the chunk then runs the single-block recursion kernel."""
+    does, and the chunk then runs spread over the card
+    (:func:`pred_spread_plan`)."""
     return _build.cluster_plan(lambda C, G: _pred_cluster_floats(k, m, P, C),
                                sizes=(_build.CLUSTER_SIZE, _build.WIDE_CLUSTER_SIZE))
 
 
-def _pred_plan(lib, k: int, m: int, P: int):
-    """(plan, blocks per output) of a K3 recursion: the cluster plan, or
-    (None, 0) for the single-block kernel where that takes the shape;
-    raises ValueError where neither does, RuntimeError where the plan is
-    not the kernel's layout."""
+@functools.lru_cache(maxsize=None)
+def pred_spread_plan(lib, k: int, m: int, P: int, device=None):
+    """The shape rule of K3's recursion spread over the card, past
+    :func:`pred_cluster_plan`: the :class:`~online_gp_torch.ops._build.SpreadPlan`
+    of :func:`~online_gp_torch.ops._build.spread_plan` on
+    ``pred_cluster_layout`` with the block's slice of Z and its stencil
+    entries in shared memory (2), the stencil entries alone (1, Z in device
+    memory) or neither (0, every k <= 1,024 at every P), the card's capacity
+    asked of ``lib`` (``ogp_pred_spread_capacity``). Kept by (library, k,
+    m, P, device): the plan is the card's."""
+    floats = lambda C, G, sl: _pred_cluster_floats(k, m, P, C, G, sl)
+    return _build.spread_plan(floats, lambda C, G, sl: lib.ogp_pred_spread_capacity(k, m, P, C, G, sl),
+                              slices=(2, 1, 0))
+
+
+def _pred_plan(lib, k: int, m: int, P: int, device=None):
+    """(plan, blocks per cluster) of a K3 recursion: the cluster plan, else
+    the spread plan. Raises ValueError for k past MAX_CHUNK where no
+    cluster holds the chunk, RuntimeError where the card holds no spread
+    clusters or a plan is not the kernel's layout."""
     plan = pred_cluster_plan(k, m, P)
     if plan is not None:
         _build.check_layout(plan, lib.ogp_pred_cluster_smem(k, m, P, plan.cluster), f"chunk (k={k}, m={m}, P={P})")
         return plan, plan.cluster
-    if k > MAX_CHUNK or lib.ogp_pred_chunk_smem(k, m) > MAX_SHARED_BYTES:
-        raise ValueError(f"chunk (k={k}, m={m}, P={P}) exceeds what the K3 recursion kernels take: no "
-                         f"cluster holds it, and the single-block kernel takes k <= {MAX_CHUNK} with "
-                         f"(m + 2k + 1) floats of shared memory <= {MAX_SHARED_BYTES} bytes")
-    return None, 0
+    if k > MAX_CHUNK:
+        raise ValueError(f"chunk (k={k}, m={m}, P={P}) exceeds what the K3 recursion kernels take: k <= {MAX_CHUNK}")
+    splan = pred_spread_plan(lib, k, m, P, device)
+    if splan is None:
+        raise RuntimeError(f"chunk (k={k}, m={m}, P={P}): the card holds no clusters of {_build.CLUSTER_SIZE} "
+                           f"blocks of the spread recursion at once, or no layout of it fits a block")
+    nbytes = lib.ogp_pred_spread_smem(k, m, P, splan.cluster, splan.clusters, splan.slices)
+    _build.check_layout(splan, nbytes, f"chunk (k={k}, m={m}, P={P}, spread)")
+    return splan, splan.cluster
+
+
+def _pred_launch(lib, plan, Bd: int, k: int, m: int, P: int, device, what: str) -> _build.GridLaunch:
+    """The :func:`~online_gp_torch.ops._build.grid_launch` of a K3
+    recursion of Bd outputs on ``plan``, a spread plan's wave set by the
+    card's capacity for it (``ogp_pred_spread_capacity``)."""
+    capacity = lambda: lib.ogp_pred_spread_capacity(k, m, P, plan.cluster, plan.clusters, plan.slices)
+    return _build.grid_launch(plan, capacity, Bd, k, device, f"{what} (k={k}, m={m})")
 
 
 # What the layout of pred_apply_kernel (csrc/pred_stream.cu) depends on:
@@ -186,17 +225,16 @@ def _count_apply(Bd: int, rows: int, m: int, k: int) -> None:
     pred_apply_plan.shapes[(Bd, rows, m, k)] += 1
 
 
-def _check_stencil_args(idx, wv, Bd, size, k_vectors):
+def _check_stencil_args(idx, wv, Bd, k_vectors):
     """Raise ValueError unless idx, wv are (k, P), each of ``k_vectors``
-    (Bd, k), and the largest array (``size`` elements) fits int32 sizes."""
+    (Bd, k), and Bd fits the launch grid."""
     if idx.dim() != 2 or wv.shape != idx.shape:
         raise ValueError(f"idx and wv must be (k, P); got {tuple(idx.shape)}, {tuple(wv.shape)}")
     k = idx.shape[0]
     for name, t in k_vectors.items():
         if tuple(t.shape) != (Bd, k):
             raise ValueError(f"{name} must be ({Bd}, {k}); got {tuple(t.shape)}")
-    if size >= 2**31 or Bd > MAX_GRID_YZ:
-        raise ValueError(f"Bd={Bd} and {size} elements exceed what the K3 kernels take")
+    _build.check_grid(Bd)
 
 
 def pred_chunk(C, mu, idx, wv, y, nz):
@@ -209,11 +247,10 @@ def pred_chunk(C, mu, idx, wv, y, nz):
       y, nz: (Bd, k) targets and clamped noise.
 
     On CUDA the recursion runs on a cluster of :func:`pred_cluster_plan`
-    (8 or 16 blocks), or on the single-block kernel where that returns
-    None. Raises
-    ValueError for a shape neither takes, RuntimeError when a launch fails,
-    the card cannot hold the planned cluster, or the plan is not the
-    kernel's layout.
+    (8 or 16 blocks), or spread over the card (:func:`pred_spread_plan`)
+    where that returns None. Raises ValueError for a shape no kernel
+    takes, RuntimeError when a launch fails, the card cannot hold the
+    planned clusters, or the plan is not the kernel's layout.
 
     Returns (C', mu', pred_mean (Bd, k), pred_var (Bd, k)). On CUDA, C and
     mu are updated in place.
@@ -228,12 +265,13 @@ def pred_chunk(C, mu, idx, wv, y, nz):
     Bd, m = C.shape[0], C.shape[-1]
     if tuple(mu.shape) != (Bd, m):
         raise ValueError(f"mu must be ({Bd}, {m}); got {tuple(mu.shape)}")
-    _check_stencil_args(idx, wv, Bd, Bd * m * m, dict(y=y, nz=nz))
+    _check_stencil_args(idx, wv, Bd, dict(y=y, nz=nz))
     k, P = idx.shape
     lib = _pred_stream_lib()
-    plan, Cl = _pred_plan(lib, k, m, P)
-    AM = _pred_apply_tile(lib, C, m, m, "pred_chunk")
     dev = C.device
+    plan, Cl = _pred_plan(lib, k, m, P, dev.index)
+    AM = _pred_apply_tile(lib, C, m, m, "pred_chunk")
+    launch = _pred_launch(lib, plan, Bd, k, m, P, dev, "pred_chunk")
     f32 = dict(dtype=torch.float32, device=dev)
     c0w = torch.empty((Bd, k, m), **f32)
     Z = torch.empty((Bd, k, m), **f32)
@@ -241,12 +279,12 @@ def pred_chunk(C, mu, idx, wv, y, nz):
     p_ = _build.ptr
     rc = lib.ogp_pred_chunk(
         p_(C), p_(mu), p_(idx), p_(wv), p_(y), p_(nz), p_(c0w), p_(vecs[0]), p_(Z),
-        p_(vecs[1]), p_(vecs[2]), p_(vecs[3]), Bd, k, P, m, AM, Cl, _build.stream_of(C),
+        p_(vecs[1]), p_(vecs[2]), p_(vecs[3]), _ptr_or_null(launch.slots), Bd, k, P, m, AM, Cl, launch.G,
+        launch.wave, launch.spread, _build.stream_of(C),
     )
     _build.launch_check(rc, "pred_chunk", plan)
     pred_chunk.launches += 1
-    pred_chunk.cluster_launches += plan is not None
-    pred_chunk.wide_cluster_launches += Cl == _build.WIDE_CLUSTER_SIZE
+    _build.count_recursion(pred_chunk, plan, launch)
     _count_apply(Bd, m, m, k)
     return C, mu, vecs[2], vecs[3]
 
@@ -254,6 +292,7 @@ def pred_chunk(C, mu, idx, wv, y, nz):
 pred_chunk.launches = 0
 pred_chunk.cluster_launches = 0
 pred_chunk.wide_cluster_launches = 0
+pred_chunk.spread_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -291,7 +330,7 @@ def pred_gather_rows(C, mu, idx, wv, row0: int):
     if C.dim() != 3 or tuple(mu.shape) != tuple(C.shape[:2]):
         raise ValueError(f"C must be (Bd, rows, m) and mu (Bd, rows); got {tuple(C.shape)}, {tuple(mu.shape)}")
     Bd, rows, m = C.shape
-    _check_stencil_args(idx, wv, Bd, Bd * rows * m, {})
+    _check_stencil_args(idx, wv, Bd, {})
     k, P = idx.shape
     f32 = dict(dtype=torch.float32, device=C.device)
     c0w, mu0w = torch.empty((Bd, k, m), **f32), torch.empty((Bd, k), **f32)
@@ -316,34 +355,37 @@ def pred_factors(idx, wv, c0w, mu0w, y, nz):
     """K3's recursion on a chunk's summed c0w (Bd, k, m) and mu0w (Bd, k),
     with its stencil idx, wv (k, P) and targets and clamped noise y, nz
     (Bd, k): returns (Z (Bd, k, m), r, pred_mean, pred_var (Bd, k)), on
-    clusters where :func:`pred_cluster_plan` holds the chunk, else on the
-    single-block kernel."""
+    clusters where :func:`pred_cluster_plan` holds the chunk, else spread
+    over the card (:func:`pred_spread_plan`)."""
     if _build.on_cpu(idx, wv, c0w, mu0w, y, nz):
         return pred_factors_plain(idx, wv, c0w, mu0w, y, nz)
     _build.check_cuda_args("pred_factors_plain", ints=("idx",), idx=idx, wv=wv, c0w=c0w, mu0w=mu0w, y=y, nz=nz)
     if c0w.dim() != 3 or tuple(c0w.shape[1:2]) != tuple(idx.shape[:1]):
         raise ValueError(f"c0w must be (Bd, k, m) for idx (k, P); got {tuple(c0w.shape)}, {tuple(idx.shape)}")
     Bd, k, m = c0w.shape
-    _check_stencil_args(idx, wv, Bd, Bd * k * m, dict(mu0w=mu0w, y=y, nz=nz))
+    _check_stencil_args(idx, wv, Bd, dict(mu0w=mu0w, y=y, nz=nz))
     P = idx.shape[1]
     lib = _pred_stream_lib()
-    plan, Cl = _pred_plan(lib, k, m, P)
-    f32 = dict(dtype=torch.float32, device=c0w.device)
+    dev = c0w.device
+    plan, Cl = _pred_plan(lib, k, m, P, dev.index)
+    launch = _pred_launch(lib, plan, Bd, k, m, P, dev, "pred_factors")
+    f32 = dict(dtype=torch.float32, device=dev)
     Z = torch.empty((Bd, k, m), **f32)
     vecs = torch.empty((3, Bd, k), **f32)  # r, pred_mean, pred_var
     p_ = _build.ptr
     rc = lib.ogp_pred_factors(p_(idx), p_(wv), p_(c0w), p_(mu0w), p_(y), p_(nz), p_(Z), p_(vecs[0]),
-                              p_(vecs[1]), p_(vecs[2]), Bd, k, P, m, Cl, _build.stream_of(c0w))
+                              p_(vecs[1]), p_(vecs[2]), _ptr_or_null(launch.slots), Bd, k, P, m, Cl, launch.G,
+                              launch.wave, launch.spread, _build.stream_of(c0w))
     _build.launch_check(rc, "pred_factors", plan)
     pred_factors.launches += 1
-    pred_factors.cluster_launches += plan is not None
-    pred_factors.wide_cluster_launches += Cl == _build.WIDE_CLUSTER_SIZE
+    _build.count_recursion(pred_factors, plan, launch)
     return Z, vecs[0], vecs[1], vecs[2]
 
 
 pred_factors.launches = 0
 pred_factors.cluster_launches = 0
 pred_factors.wide_cluster_launches = 0
+pred_factors.spread_launches = 0
 
 
 def pred_apply_rows_plain(C, mu, Z, r, row0: int):
@@ -373,8 +415,7 @@ def pred_apply_rows(C, mu, Z, r, row0: int):
     if not 0 <= row0 <= m - rows:
         raise ValueError(f"rows [{row0}, {row0 + rows}) do not lie in [0, {m})")
     k = Z.shape[1]
-    if Bd * rows * m >= 2**31 or Bd > MAX_GRID_YZ:
-        raise ValueError(f"Bd={Bd} and {Bd * rows * m} elements exceed what the K3 kernels take")
+    _build.check_grid(Bd)
     lib = _pred_stream_lib()
     AM = _pred_apply_tile(lib, C, rows, m, "pred_apply_rows")
     p_ = _build.ptr

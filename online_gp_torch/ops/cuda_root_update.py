@@ -39,27 +39,33 @@ wrapper checks the plan against the kernel's layout
 K1's recursion runs on thread-block clusters: :func:`chunk_cluster_plan`
 splits each output's m columns over 8 blocks that keep their columns of
 the factor rows U, P, R in shared memory, or, where one cluster's blocks
-cannot hold them (m > 1,120 at k = 128), over G = 2 to 4 such clusters
+cannot hold them (m > 1,120 at k = 128), over G = 2 to 8 such clusters
 whose sums meet in device memory (``chunk_recursion_grid_kernel``: G = 4
-at m = 4,096). The G clusters of an output wait on each other, so the
-wrapper asks the card how many it holds at once
+at m = 4,096, 8 up to m = 8,960). The G clusters of an output wait on each
+other, so the wrapper asks the card how many it holds at once
 (``ogp_chunk_grid_capacity``) and launches the outputs in waves within
-that; a card that cannot hold one output's G clusters raises
-RuntimeError naming the plan. A chunk that 4 clusters cannot hold
-(m > 4,480 at k = 128) runs the single-block recursion kernel. K5 sub runs
-its whole two-level recursion, corrections and collapse to one rank-k
-operator included, in one cluster kernel on K1's layout, so wherever
-:func:`chunk_cluster_plan` holds the chunk on one cluster, and one
-sub-block at a time elsewhere. Those rules are by shape alone: nothing is
-tried and caught, and every shape the kernels took before still runs.
-Before each cluster launch the wrapper checks that the plan's shared
-memory is the kernel's layout (``ogp_chunk_cluster_smem``) and raises
+that. A chunk that 8 clusters cannot hold, or whose G clusters the card
+cannot hold at once, runs spread over the card
+(:func:`chunk_spread_plan`, ``chunk_recursion_spread_kernel``): as many
+clusters of 8 as the card holds at once, up to 16, each block keeping in
+shared memory U, P and R, else U alone, else none, and the rest in the
+outputs in device memory; every k <= 1,024 and every m the card's memory
+holds has such a plan. K5 sub runs its whole two-level recursion,
+corrections and collapse to one rank-k operator included, in one cluster
+kernel on K1's layout, so wherever :func:`chunk_cluster_plan` holds the
+chunk on one cluster, and one sub-block at a time elsewhere (each by K1's
+route at k = sub). Those rules are by shape and the card's capacity:
+nothing is tried and caught. Before each cluster launch the wrapper checks
+that the plan's shared memory is the kernel's layout
+(``ogp_chunk_cluster_smem``, ``ogp_chunk_spread_smem``) and raises
 RuntimeError if not.
 
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
 (float64 on CUDA, a tensor that requires grad, a non-contiguous tensor)
-raises TypeError and names the plain version. A shape no kernel takes
+raises TypeError and names the plain version. The kernels take 64-bit
+element offsets, so no size of the roots is refused; a shape no kernel
+takes (a batch past the launch grid, k past what a spread block holds)
 raises ValueError; a failed launch, or a cluster the card cannot
 schedule, raises RuntimeError. There is no fallback.
 
@@ -69,15 +75,16 @@ launched the kernel in its ``launches`` attribute (one per call; a call
 is several CUDA launches, listed in the source); ``blocked_chunk`` counts
 K1 there (and the K1 calls whose recursion ran on clusters in
 ``cluster_launches``, of them those on G > 1 clusters in
-``grid_cluster_launches``) and K5 in ``sub_launches`` (of them, those on
-the fused cluster kernel in ``sub_cluster_launches``) and
-``coord_launches``.
+``grid_cluster_launches``; those spread over the card in
+``spread_launches``) and K5 in ``sub_launches`` (of them, those on the
+fused cluster kernel in ``sub_cluster_launches``) and ``coord_launches``.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -94,14 +101,12 @@ from online_gp_torch.ops.root_update import (
     roots_apply_rank1_p,
 )
 
-# What the kernels take. The cluster recursion's shape rule is
-# chunk_cluster_plan. The single-block recursion, for the chunks outside
-# it, keeps a[k] and g[k] in shared memory beside two m-vectors (k <=
-# MAX_CHUNK); the coordinate recursion keeps six k x k triangles there.
-# Both within MAX_SHARED_BYTES of dynamic shared memory per block.
+# What the kernels take. The recursion's shape rules are chunk_cluster_plan
+# and, past it, chunk_spread_plan (every k <= MAX_CHUNK); the coordinate
+# recursion keeps six k x k triangles in shared memory. Both within
+# MAX_SHARED_BYTES of dynamic shared memory per block.
 MAX_CHUNK = 1024
 MAX_SHARED_BYTES = _build.MAX_SHARED_BYTES
-MAX_GRID_YZ = 65535
 
 _lib = None
 
@@ -115,19 +120,21 @@ def _root_update_lib():
         lib.ogp_rank1_apply.restype = i32
         lib.ogp_rank1_apply_rows.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
         lib.ogp_rank1_apply_rows.restype = i32
-        lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 8 + [vp]
+        lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 9 + [vp]
         lib.ogp_blocked_chunk.restype = i32
-        lib.ogp_blocked_chunk_smem.argtypes = [i32, i32]
-        lib.ogp_blocked_chunk_smem.restype = ctypes.c_longlong
         lib.ogp_chunk_cluster_smem.argtypes = [i32] * 4
         lib.ogp_chunk_cluster_smem.restype = ctypes.c_longlong
         lib.ogp_chunk_grid_capacity.argtypes = [i32] * 4
         lib.ogp_chunk_grid_capacity.restype = i32
+        lib.ogp_chunk_spread_smem.argtypes = [i32] * 5
+        lib.ogp_chunk_spread_smem.restype = ctypes.c_longlong
+        lib.ogp_chunk_spread_capacity.argtypes = [i32] * 5
+        lib.ogp_chunk_spread_capacity.restype = i32
         lib.ogp_rank1_update_tiles.argtypes = [i32]
         lib.ogp_rank1_update_tiles.restype = i32
         lib.ogp_rank1_update.argtypes = [vp] * 6 + [i32, i32, vp]
         lib.ogp_rank1_update.restype = i32
-        lib.ogp_blocked_chunk_sub.argtypes = [vp] * 11 + [i32] * 9 + [vp]
+        lib.ogp_blocked_chunk_sub.argtypes = [vp] * 11 + [i32] * 10 + [vp]
         lib.ogp_blocked_chunk_sub.restype = i32
         lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 7 + [vp]
         lib.ogp_blocked_chunk_sub_cluster.restype = i32
@@ -139,7 +146,7 @@ def _root_update_lib():
         lib.ogp_blocked_chunk_coord.restype = i32
         lib.ogp_chunk_gather_rows.argtypes = [vp] * 4 + [i32] * 6 + [vp]
         lib.ogp_chunk_gather_rows.restype = i32
-        lib.ogp_chunk_factors.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+        lib.ogp_chunk_factors.argtypes = [vp] * 5 + [i32] * 7 + [vp]
         lib.ogp_chunk_factors.restype = i32
         lib.ogp_chunk_apply_rows.argtypes = [vp] * 6 + [i32] * 5 + [vp]
         lib.ogp_chunk_apply_rows.restype = i32
@@ -147,14 +154,6 @@ def _root_update_lib():
         lib.ogp_chunk_apply_smem.restype = ctypes.c_longlong
         _lib = lib
     return _lib
-
-
-def _check_sizes(Bd: int, m: int, rows: int = None) -> None:
-    rows = m if rows is None else rows
-    if Bd * rows * m >= 2**31:
-        raise ValueError(f"Bd * rows * m = {Bd * rows * m} does not fit the kernels' int32 sizes")
-    if Bd > MAX_GRID_YZ // 2:
-        raise ValueError(f"Bd = {Bd} exceeds the launch grid ({MAX_GRID_YZ // 2})")
 
 
 # --------------------------------------------------------------------------
@@ -185,7 +184,7 @@ def rank1_apply(L: torch.Tensor, B: torch.Tensor, p: torch.Tensor):
     Bd, m = L.shape[0], L.shape[-1]
     if tuple(p.shape) != (Bd, m):
         raise ValueError(f"p must be ({Bd}, {m}); got {tuple(p.shape)}")
-    _check_sizes(Bd, m)
+    _build.check_grid(Bd, 2)
     s2 = torch.empty((Bd,), dtype=torch.float32, device=L.device)
     lib = _root_update_lib()
     p_ = _build.ptr
@@ -224,7 +223,7 @@ def rank1_apply_rows(L: torch.Tensor, B: torch.Tensor, p: torch.Tensor):
     Bd, rows, m = L.shape
     if tuple(p.shape) != (Bd, m):
         raise ValueError(f"p must be ({Bd}, {m}); got {tuple(p.shape)}")
-    _check_sizes(Bd, m, rows)
+    _build.check_grid(Bd, 2)
     s2 = torch.empty((Bd,), dtype=torch.float32, device=L.device)
     p_ = _build.ptr
     rc = _root_update_lib().ogp_rank1_apply_rows(p_(L), p_(B), p_(p), p_(s2), Bd, rows, m, _build.stream_of(L))
@@ -268,7 +267,7 @@ def rank1_update(L: torch.Tensor, B: torch.Tensor, A, v: torch.Tensor):
     Bd, m = L.shape[0], L.shape[-1]
     if tuple(v.shape) != (Bd, m, 1):
         raise ValueError(f"v must be ({Bd}, {m}, 1); got {tuple(v.shape)}")
-    _check_sizes(Bd, m)
+    _build.check_grid(Bd, 2)
     lib = _root_update_lib()
     f32 = dict(dtype=torch.float32, device=L.device)
     p = torch.empty((Bd, m), **f32)
@@ -426,9 +425,10 @@ def blocked_chunk_plain(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv:
     return L, B
 
 
-def _chunk_cluster_floats(k: int, m: int, C: int, G: int = 1):
+def _chunk_cluster_floats(k: int, m: int, C: int, G: int = 1, slices: int = 3):
     """(columns per block, floats per block) of the cluster recursions (K1's
-    and K5 sub's) at (k, m) on G clusters of C blocks per output:
+    and K5 sub's) at (k, m) on G clusters of C blocks per output, with
+    ``slices`` of U, P, R in shared memory (the spread kernel's 1 or 0):
     ``chunk_cluster_layout`` in ``csrc/root_update.cu``. A row pass gives
     Sr lanes to a row; the row stride ld = Sr (mod 2 Sr) keeps a warp's rows
     on distinct banks. The receive buffers are the block's own cluster's."""
@@ -441,71 +441,76 @@ def _chunk_cluster_floats(k: int, m: int, C: int, G: int = 1):
         while ld % (2 * Sr) != Sr:
             ld += 1
     tiles, groups = _build.col_split(W)
-    # two mbarriers; U, P, R slices; p; a, g; the receive buffers (two uses
-    # of C rows of k + 1); column partials; s^2
-    return W, 4 + 3 * k * ld + ld + 2 * k + 2 * C * (k + 1) + 2 * groups * tiles * 32 + 1
+    # two mbarriers; U, P, R slices (those in shared memory); p; a, g; the
+    # receive buffers (two uses of C rows of k + 1); column partials; s^2
+    return W, 4 + slices * k * ld + ld + 2 * k + 2 * C * (k + 1) + 2 * groups * tiles * 32 + 1
 
 
 def chunk_cluster_plan(k: int, m: int):
     """The shape rule of the K1 and K5-sub recursions: the
     :class:`~online_gp_torch.ops._build.ClusterPlan` on the fewest clusters
-    of 8 blocks per output, G = 1 to 4, whose blocks each hold their slices
+    of 8 blocks per output, G = 1 to 8, whose blocks each hold their slices
     of U, P and R (3 k ceil(m / 8 G) floats, padded) and the step's vectors
     in at most 232,448 bytes of shared memory (at k = 128: G = 1 up to
-    m = 1,120, G = 2 to 2,240, 3 to 3,360, 4 to 4,480); None where even 4
-    clusters do not hold it, and the chunk then runs the single-block
-    recursion kernel (K1) or one sub-block at a time (K5 sub, each
-    sub-block's recursion by this rule at k = sub). K5 sub's fused kernel
-    takes the one-cluster plans (G = 1) only."""
+    m = 1,120, G = 2 to 2,240, ..., 4 to 4,480, 8 to 8,960); None where
+    even 8 clusters do not hold it, and the chunk then runs spread over the
+    card (K1, :func:`chunk_spread_plan`) or one sub-block at a time (K5
+    sub, each sub-block's recursion by K1's route at k = sub). K5 sub's
+    fused kernel takes the one-cluster plans (G = 1) only."""
     return _build.cluster_plan(lambda C, G: _chunk_cluster_floats(k, m, C, G),
                                clusters=range(1, _build.MAX_GRID_CLUSTERS + 1))
 
 
-def _recursion_plan(lib, k: int, m: int, what: str):
+@functools.lru_cache(maxsize=None)
+def chunk_spread_plan(lib, k: int, m: int, device=None):
+    """The shape rule of K1's recursion spread over the card (past
+    :func:`chunk_cluster_plan`, or where the card cannot hold its G
+    clusters at once): the :class:`~online_gp_torch.ops._build.SpreadPlan`
+    of :func:`~online_gp_torch.ops._build.spread_plan` on
+    ``chunk_cluster_layout`` with 3, 1 or 0 slices of U, P, R in shared
+    memory, the card's capacity asked of ``lib``
+    (``ogp_chunk_spread_capacity``). At k = 128 on an H100 SXM: U, P and R
+    in shared memory up to m of about 16,800 (G = 15), U alone up to about
+    50,400, then none. Kept by (library, k, m, device): the plan is the
+    card's."""
+    floats = lambda C, G, sl: _chunk_cluster_floats(k, m, C, G, sl)
+    return _build.spread_plan(floats, lambda C, G, sl: lib.ogp_chunk_spread_capacity(k, m, C, G, sl))
+
+
+def _recursion_plan(lib, k: int, m: int, what: str, device=None):
     """(plan, blocks per cluster) of a K1 recursion at (k, m): the cluster
-    plan, or (None, 0) for the single-block kernel where that takes the
-    shape; raises ValueError where neither does, RuntimeError where the
-    plan is not the kernel's layout."""
+    plan where it holds the chunk and the card holds its G clusters at
+    once, else the spread plan. Raises ValueError where no spread layout
+    holds k (k past MAX_CHUNK), RuntimeError where the card holds none of
+    them or a plan is not the kernel's layout."""
     plan = chunk_cluster_plan(k, m)
     if plan is not None:
         nbytes = lib.ogp_chunk_cluster_smem(k, m, plan.cluster, plan.clusters)
         _build.check_layout(plan, nbytes, f"{what} (k={k}, m={m})")
-        return plan, plan.cluster
-    if k > MAX_CHUNK or lib.ogp_blocked_chunk_smem(k, m) > MAX_SHARED_BYTES:
-        raise ValueError(f"{what} (k={k}, m={m}) exceeds what the K1 recursion kernels take: no cluster "
-                         f"holds it, and the single-block kernel takes k <= {MAX_CHUNK} with (2m + 2k + 32) "
-                         f"floats of shared memory <= {MAX_SHARED_BYTES} bytes")
-    return None, 0
+        if plan.clusters == 1 or _build.occupancy(lib.ogp_chunk_grid_capacity(k, m, plan.cluster, plan.clusters),
+                                                  what) >= plan.clusters:
+            return plan, plan.cluster
+    if k > MAX_CHUNK:
+        raise ValueError(f"{what} (k={k}, m={m}) exceeds what the K1 recursion kernels take: k <= {MAX_CHUNK}")
+    splan = chunk_spread_plan(lib, k, m, device)
+    if splan is None:
+        raise RuntimeError(f"{what} (k={k}, m={m}): the card holds no clusters of {_build.CLUSTER_SIZE} blocks "
+                           f"of the spread recursion at once")
+    nbytes = lib.ogp_chunk_spread_smem(k, m, splan.cluster, splan.clusters, splan.slices)
+    _build.check_layout(splan, nbytes, f"{what} (k={k}, m={m}, spread)")
+    return splan, splan.cluster
 
 
-class GridLaunch(NamedTuple):
-    """How a K1 recursion's C entry is launched past one cluster: G
-    clusters per output, outputs in waves of ``wave`` (each wave's G wave
-    clusters resident at once), ``slots`` the zeroed words of the
-    cross-cluster sums (None, with G = 1, for the other routes)."""
-
-    G: int
-    wave: int
-    slots: Optional[torch.Tensor]
-
-
-def _grid_launch(lib, plan, Bd: int, k: int, m: int, device, what: str, n: int = 1) -> GridLaunch:
-    """The :class:`GridLaunch` of ``n`` recursions of Bd outputs at (k, m)
-    on ``plan`` (n sub-blocks of K5 sub, one otherwise): for a plan on G > 1
-    clusters the card's capacity for them (``ogp_chunk_grid_capacity``)
-    sets the wave; raises RuntimeError, naming the plan, where the card
-    cannot hold the G clusters of one output at once."""
-    if plan is None or plan.clusters == 1:
-        return GridLaunch(1, Bd, None)
-    C, G = plan.cluster, plan.clusters
-    cap = lib.ogp_chunk_grid_capacity(k, m, C, G)
-    if cap < 0:
-        raise RuntimeError(f"{what}: the occupancy query of the grid recursion failed with cudaError {-cap}")
-    if cap < G:
-        raise RuntimeError(f"{what} (k={k}, m={m}): the card holds {cap} clusters of {C} blocks with "
-                           f"{plan.shared_bytes} bytes of shared memory each at once; the plan {plan} needs {G}")
-    slots = torch.zeros((n, Bd, 2 * k, G, k + 1), dtype=torch.int64, device=device)
-    return GridLaunch(G, min(Bd, cap // G), slots)
+def _grid_launch(lib, plan, Bd: int, k: int, m: int, device, what: str, n: int = 1) -> _build.GridLaunch:
+    """The :func:`~online_gp_torch.ops._build.grid_launch` of ``n`` K1
+    recursions of Bd outputs at (k, m) on ``plan`` (n sub-blocks of K5
+    sub, one otherwise), the card's capacity asked of the plan's kernel
+    (``ogp_chunk_grid_capacity``, or ``ogp_chunk_spread_capacity``)."""
+    if isinstance(plan, _build.SpreadPlan):
+        capacity = lambda: lib.ogp_chunk_spread_capacity(k, m, plan.cluster, plan.clusters, plan.slices)
+    else:
+        capacity = lambda: lib.ogp_chunk_grid_capacity(k, m, plan.cluster, plan.clusters)
+    return _build.grid_launch(plan, capacity, Bd, k, device, f"{what} (k={k}, m={m})", n)
 
 
 def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor,
@@ -524,14 +529,13 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
         (``sub`` is then only checked).
 
     On CUDA the flat recursion runs on the clusters of
-    :func:`chunk_cluster_plan` (one, or G > 1 in waves of outputs), or on
-    the single-block kernel where that returns None; the sub recursion on
-    the fused cluster kernel where that rule holds the chunk at k on one
-    cluster, else one sub-block at a time (each by the flat rule at
-    k = sub). Raises
-    ValueError for a shape neither takes, RuntimeError when a launch fails,
-    the card cannot hold the planned cluster, or the plan is not the
-    kernel's layout.
+    :func:`chunk_cluster_plan` (one, or G > 1 in waves of outputs), or
+    spread over the card (:func:`chunk_spread_plan`) past it; the sub
+    recursion on the fused cluster kernel where that rule holds the chunk
+    at k on one cluster, else one sub-block at a time (each by the flat
+    route at k = sub). Raises ValueError for a shape no kernel takes,
+    RuntimeError when a launch fails, the card cannot hold the planned
+    clusters, or the plan is not the kernel's layout.
 
     Returns (L', B'). On CUDA, L and B are updated in place.
     """
@@ -546,15 +550,15 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
     if idx.dim() != 2 or tuple(wv.shape) != (Bd, *idx.shape):
         raise ValueError(f"idx must be (k, P) and wv (Bd, k, P); got {tuple(idx.shape)}, {tuple(wv.shape)}")
     k, P = idx.shape
-    _check_sizes(Bd, m)
+    _build.check_grid(Bd, 2)
     lib = _root_update_lib()
     if mode == "coord":
         return _chunk_coord(lib, L, B, idx, wv)
     if sub < k:
         return _chunk_sub(lib, L, B, idx, wv, sub)
-    plan, C = _recursion_plan(lib, k, m, "chunk")
-    aplan, AC = _apply_plan(lib, k, m, m, "chunk")
     dev = L.device
+    plan, C = _recursion_plan(lib, k, m, "chunk", dev.index)
+    aplan, AC = _apply_plan(lib, k, m, m, "chunk")
     grid = _grid_launch(lib, plan, Bd, k, m, dev, "chunk")
     factors = torch.empty((4, Bd, k, m), dtype=torch.float32, device=dev)  # p0, U, P, R
     T = _apply_scratch(aplan, Bd, m, k, dev)
@@ -562,12 +566,11 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
     rc = lib.ogp_blocked_chunk(
         p_(L), p_(B), p_(idx), p_(wv), p_(factors[0]), p_(factors[1]), p_(factors[2]),
         p_(factors[3]), _ptr_or_null(T), _ptr_or_null(grid.slots), Bd, k, P, m, grid.G, grid.wave, AC, C,
-        _build.stream_of(L),
+        grid.spread, _build.stream_of(L),
     )
     _build.launch_check(rc, "blocked_chunk", plan, aplan)
     blocked_chunk.launches += 1
-    blocked_chunk.cluster_launches += plan is not None
-    blocked_chunk.grid_cluster_launches += grid.G > 1
+    _build.count_recursion(blocked_chunk, plan, grid)
     _count_applies(aplan, Bd, m, m, k)
     return L, B
 
@@ -575,6 +578,7 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
 blocked_chunk.launches = 0
 blocked_chunk.cluster_launches = 0
 blocked_chunk.grid_cluster_launches = 0
+blocked_chunk.spread_launches = 0
 blocked_chunk.sub_launches = 0
 blocked_chunk.sub_cluster_launches = 0
 blocked_chunk.coord_launches = 0
@@ -607,7 +611,7 @@ def _chunk_sub(lib, L, B, idx, wv, sub):
         _count_applies(aplan, Bd, m, m, k)
         return L, B
     nb = k // sub
-    plan, C = _recursion_plan(lib, sub, m, "sub-block")
+    plan, C = _recursion_plan(lib, sub, m, "sub-block", L.device.index)
     aplan, AC = _apply_plan(lib, sub, m, m, "sub-block")
     grid = _grid_launch(lib, plan, Bd, sub, m, L.device, "sub-block", nb)
     # sub-block j's weights contiguous, as its gather reads them
@@ -618,7 +622,7 @@ def _chunk_sub(lib, L, B, idx, wv, sub):
     rc = lib.ogp_blocked_chunk_sub(
         p_(L), p_(B), p_(idx), p_(wv_sub), p_(factors[0]), p_(factors[1]), p_(factors[2]),
         p_(factors[3]), p_(a2), _ptr_or_null(T), _ptr_or_null(grid.slots), Bd, k, sub, P, m, grid.G,
-        grid.wave, AC, C, _build.stream_of(L),
+        grid.wave, AC, C, grid.spread, _build.stream_of(L),
     )
     _build.launch_check(rc, "blocked_chunk (sub)", plan, aplan)
     blocked_chunk.sub_launches += 1
@@ -698,7 +702,7 @@ def chunk_gather_rows(B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor, row0
                          f"{tuple(idx.shape)}, {tuple(wv.shape)}")
     Bd, rows, m = B.shape
     k, P = idx.shape
-    _check_sizes(Bd, m, rows)
+    _build.check_grid(Bd, 2)
     p0 = torch.empty((Bd, k, m), dtype=torch.float32, device=B.device)
     p_ = _build.ptr
     rc = _root_update_lib().ogp_chunk_gather_rows(p_(B), p_(idx), p_(wv), p_(p0), Bd, k, P, rows, m, int(row0),
@@ -720,32 +724,32 @@ def chunk_factors(p0: torch.Tensor):
     """K1's recursion on a chunk's summed p0 (Bd, k, m): returns (U, P, R),
     each (Bd, k, m), on the clusters of :func:`chunk_cluster_plan` where it
     holds the chunk (counted in ``cluster_launches``, and those on G > 1
-    clusters also in ``grid_cluster_launches``), else on the single-block
-    kernel."""
+    clusters also in ``grid_cluster_launches``), else spread over the card
+    (:func:`chunk_spread_plan`, counted in ``spread_launches``)."""
     if _build.on_cpu(p0):
         return chunk_factors_plain(p0)
     _build.check_cuda_args("chunk_factors_plain", p0=p0)
     if p0.dim() != 3:
         raise ValueError(f"p0 must be (Bd, k, m); got {tuple(p0.shape)}")
     Bd, k, m = p0.shape
-    _check_sizes(Bd, m, k)
+    _build.check_grid(Bd, 2)
     lib = _root_update_lib()
-    plan, C = _recursion_plan(lib, k, m, "chunk_factors")
+    plan, C = _recursion_plan(lib, k, m, "chunk_factors", p0.device.index)
     grid = _grid_launch(lib, plan, Bd, k, m, p0.device, "chunk_factors")
     U, Pm, R = torch.empty((3, Bd, k, m), dtype=torch.float32, device=p0.device)
     p_ = _build.ptr
     rc = lib.ogp_chunk_factors(p_(p0), p_(U), p_(Pm), p_(R), _ptr_or_null(grid.slots), Bd, k, m, grid.G,
-                               grid.wave, C, _build.stream_of(p0))
+                               grid.wave, C, grid.spread, _build.stream_of(p0))
     _build.launch_check(rc, "chunk_factors", plan)
     chunk_factors.launches += 1
-    chunk_factors.cluster_launches += plan is not None
-    chunk_factors.grid_cluster_launches += grid.G > 1
+    _build.count_recursion(chunk_factors, plan, grid)
     return U, Pm, R
 
 
 chunk_factors.launches = 0
 chunk_factors.cluster_launches = 0
 chunk_factors.grid_cluster_launches = 0
+chunk_factors.spread_launches = 0
 
 
 def chunk_apply_rows_plain(L: torch.Tensor, B: torch.Tensor, U: torch.Tensor, Pm: torch.Tensor, R: torch.Tensor):
@@ -774,7 +778,7 @@ def chunk_apply_rows(L: torch.Tensor, B: torch.Tensor, U: torch.Tensor, Pm: torc
                          f"{tuple(B.shape)}, {tuple(U.shape)}, {tuple(Pm.shape)}, {tuple(R.shape)}")
     Bd, rows, m = L.shape
     k = U.shape[1]
-    _check_sizes(Bd, m, rows)
+    _build.check_grid(Bd, 2)
     lib = _root_update_lib()
     aplan, AC = _apply_plan(lib, k, rows, m, "chunk_apply_rows")
     T = _apply_scratch(aplan, Bd, rows, k, L.device)

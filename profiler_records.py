@@ -28,7 +28,6 @@ import chip_smoke as cs
 from online_gp_torch.ops.cuda_pred_stream import (
     pred_apply_rows,
     pred_chunk,
-    pred_cluster_plan,
     pred_factors,
     pred_gather_rows,
 )
@@ -86,8 +85,7 @@ def main() -> int:
         x, idx, w = cs.stencil(rng, grid, cs.K, dev)
         y = torch.sin(3 * x[:, 0])[None].contiguous()
         nz = torch.ones((1, cs.K), device=dev)
-        recursion = "pred_recursion_cluster_kernel" if pred_cluster_plan(cs.K, grid.num_points, idx.shape[1]) \
-            else "pred_recursion_kernel"
+        recursion = cs.k3_route(cs.K, grid.num_points, idx.shape[1], "cluster")[1]
         m = grid.num_points
         rows = m // 2
         Lr, Br, Cr, mur = (t[:, :rows].contiguous() for t in (L, B, C, mu))

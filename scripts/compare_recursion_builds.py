@@ -8,10 +8,11 @@ other on the card, and time them in turns.
     covariance and mean caches, stencils over [0, m) of 16 points a row,
     k = 128, Bd = 1 and 2) through ``blocked_chunk`` and ``chunk_factors``
     (K1) and ``pred_chunk`` and ``pred_factors`` (K3) at m = 256, 900,
-    1,120, 3,136 and 4,096. Inside the envelopes of one cluster of 8
-    (K1 m <= 1,120, K3 m <= 3,136 at k = 128) the two checkouts must agree
-    bit for bit (exit 1 otherwise); elsewhere the largest difference is
-    printed, since a recursion on more blocks sums in another order.
+    1,120, 2,500, 3,136, 4,096 and 6,016. Where both checkouts take the
+    same route (K1 on up to 4 clusters of 8, m <= 4,480, and K3 on one
+    cluster of 8 or 16, m <= 6,016, at k = 128) they must agree bit for bit
+    (exit 1 otherwise); elsewhere the largest difference is printed, since a
+    recursion on more blocks sums in another order.
 (b) With ``--time``, N pairs (default 1) of processes, each pair run as
     other, this, this, other: the device ms (``chip_smoke.device_ms`` of
     that checkout, torch.profiler, over every kernel the call launches but
@@ -69,7 +70,7 @@ dev = torch.device("cuda", 0)
 out = {}
 with f32_matmul_precision():
     _build.build_all()
-    for m in (256, 900, 1120, 3136, 4096):
+    for m in (256, 900, 1120, 2500, 3136, 4096, 6016):
         for Bd in (1, 2):
             a = inputs(m, Bd, dev)
             tag = f"m{m}_bd{Bd}"
@@ -183,9 +184,10 @@ def run(root: Path, out: Path) -> dict:
 
 
 def old_envelope(key: str) -> bool:
-    """Whether a result lies inside the one-cluster envelope of its kernel."""
+    """Whether a result lies where both checkouts take the same route: K1
+    on the clusters of chunk_cluster_plan up to G = 4, K3 on one cluster."""
     m = int(key.split("_m")[-1].split("_")[0])
-    return m <= (1120 if key.startswith("k1") else 3136)
+    return m <= (4480 if key.startswith("k1") else 6016)
 
 
 def main() -> int:

@@ -150,16 +150,15 @@ class _Layouts:
     def ogp_chunk_grid_capacity(k, m, C, G):  # an H100 SXM's clusters of 8 at m = 4,096
         return 15
 
+    def ogp_chunk_spread_smem(self, k, m, C, G, slices):
+        return 4 * tcru._chunk_cluster_floats(k, m, C, G, slices)[1]
+
     @staticmethod
-    def ogp_blocked_chunk_smem(k, m):
-        return (2 * m + 2 * k + 32) * 4
+    def ogp_chunk_spread_capacity(k, m, C, G, slices):  # as the grid kernel's
+        return 15
 
     def ogp_pred_cluster_smem(self, k, m, P, C):
         return 4 * tcps._pred_cluster_floats(k, m, P, C)[1]
-
-    @staticmethod
-    def ogp_pred_chunk_smem(k, m):
-        return (m + 2 * k + 1) * 4
 
 
 @pytest.mark.parametrize("skew", [4, -4])
@@ -250,8 +249,9 @@ def test_every_k1_chunk_hands_its_apply_the_plan(fake_card, k, sub, mode, m, ent
     tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(Bd, k, P), sub=sub, mode=mode)
     (name, args), = fake_card.calls
     assert name == entry
-    # AC sits before the recursion's C (absent for coord), then the stream
-    assert args[-2 if mode == "coord" else -3] == AC
+    # AC sits before the recursion's C (absent for coord) and, where the
+    # recursion may be spread, its spread slices, then the stream
+    assert args[{"ogp_blocked_chunk_coord": -2, "ogp_blocked_chunk_sub_cluster": -3}.get(entry, -4)] == AC
     counts = (tcru.chunk_apply_plan.launches, tcru.chunk_apply_plan.tiled_launches)
     assert counts == ((applies, 0) if AC else (0, applies))
     assert tcru.chunk_apply_plan.shapes == {(Bd, m, m, k // applies): applies}
@@ -268,7 +268,8 @@ def test_pred_applies_hand_their_entry_the_tile(fake_card, Bd, rows, m, row0, ti
         y = _meta(Bd, k)
         tcps.pred_chunk(_meta(Bd, m, m), _meta(Bd, m), _meta(k, 16, dtype=torch.int32), _meta(k, 16), y, y)
         name, args = fake_card.calls[-1]
-        assert name == "ogp_pred_chunk" and args[-3] == tile
+        # the tile, then the recursion's Cl, G, wave and spread slices, then the stream
+        assert name == "ogp_pred_chunk" and args[-6] == tile
     assert tcps.pred_apply_plan.launches == 1 + (rows == m)
     assert tcps.pred_apply_plan.shapes == {(Bd, rows, m, k): 1 + (rows == m)}
 

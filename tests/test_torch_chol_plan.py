@@ -282,6 +282,25 @@ def test_wrapper_raises_where_the_entry_refuses_the_plan(fake_card):
     assert cuda_chol.blocked_cholesky.launches == 0
 
 
+@pytest.mark.parametrize("shape", [(46341, 46341), (2, 32768, 32768)])
+def test_wrapper_takes_matrices_past_2_31_elements(fake_card, shape):
+    """The kernels form 64-bit element offsets: (Bd, m, m) of 2^31 elements
+    and more launches K6 on its plan (meta tensors: nothing is allocated)."""
+    entry = fake_card(_Entry())
+    L, info = cuda_chol.blocked_cholesky_ex(torch.empty(shape, device="meta"))
+    (args,) = entry.calls
+    m, Bd = shape[-1], int(np.prod(shape[:-2], dtype=int))
+    assert Bd * m * m >= 2**31 and args[4:6] == (Bd, m) and args[10] == _cdiv(m, KB) - 1
+    assert L.shape == shape and cuda_chol.blocked_cholesky.launches == 1
+
+
+def test_wrapper_refuses_a_batch_past_the_launch_grid(fake_card):
+    entry = fake_card(_Entry())
+    with pytest.raises(ValueError, match="exceeds the launch grid"):
+        cuda_chol.blocked_cholesky_ex(torch.empty((65536, 4, 4), device="meta"))
+    assert entry.calls == []
+
+
 def test_plain_version_matches_numpy_at_a_ragged_multi_panel_shape():
     """m = 600 at block 128: four whole panels and one of 88 columns."""
     rng = np.random.default_rng(600)

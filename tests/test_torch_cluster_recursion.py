@@ -2,14 +2,18 @@
 marked ``cuda``, on a card).
 
 - The shape rules ``chunk_cluster_plan`` (K1's recursion on one cluster of
-  8 blocks, or on G = 2 to 4 of them past what one holds, and K5 sub's
-  fused one on the one-cluster layout) and ``pred_cluster_plan`` (K3's,
-  on 8 blocks or 16): which chunks run on which clusters, within the
-  shared memory of one block, that every chunk the single-block kernels
-  took still has a kernel, and that the wrappers refuse a plan that is
-  not the kernel's layout; K1's grid launch through a stand-in library
-  (its G, its waves within the card's capacity, its counters, and a
-  capacity below G raising).
+  8 blocks, or on G = 2 to 8 of them past what one holds, and K5 sub's
+  fused one on the one-cluster layout), ``pred_cluster_plan`` (K3's, on 8
+  blocks or 16) and, past them, ``chunk_spread_plan`` and
+  ``pred_spread_plan`` (the recursions spread over as many clusters of 8
+  as the card holds at once, the factor slices in shared memory where
+  they fit): which chunks run on which clusters, within the shared memory
+  of one block, that every chunk at every k <= 1,024 and m (past 2^31
+  elements of the roots) has a kernel, and that the wrappers refuse a
+  plan that is not the kernel's layout; K1's grid and spread launches
+  through a stand-in library (G, waves within the card's capacity,
+  counters, a grid plan the card cannot hold taking the spread route, a
+  card that holds none raising).
 - The cluster kernels' order of summation, emulated in float32 torch
   (``cluster_chunk_factors``, ``cluster_pred_factors``): each output's m
   columns split over the C G blocks of G clusters, each block's partial
@@ -20,12 +24,17 @@ marked ``cuda``, on a card).
   as tests/test_torch_pred_stream.py), and against the plain recursions at
   float64, at m = 64, k = 16, C in {2, 4} and G in {1, 2, 3} (K3 also one
   cluster of 16), on a random chunk and on one whose points repeat or
-  nearly repeat (near-dependent rows of p0).
+  nearly repeat (near-dependent rows of p0). The spread kernels sum in the
+  same two levels over N = C G blocks: emulated at float64 with N = 3, 7
+  and 16 against the JAX package's ``blocked_factors_xla`` and
+  ``pred_chunk_factors`` (1e-10), and at float32 against the Pallas
+  kernels in interpret mode.
 - The kernels against their plain versions on the card at m = 4,096 (K1 on
-  4 clusters, Bd = 1 and 2; K3 on 16 blocks) and at the envelopes' edges,
-  bitwise the same on a second call; skipped without one (``-m cuda``; the
-  JAX imports sit inside the CPU tests, so ``pytest --noconftest -m cuda``
-  runs this file on a machine without JAX).
+  4 clusters, Bd = 1 and 2; K3 on 16 blocks), at the envelopes' edges and
+  past them on the spread route, bitwise the same on a second call;
+  skipped without one (``-m cuda``; the JAX imports sit inside the CPU
+  tests, so ``pytest --noconftest -m cuda`` runs this file on a machine
+  without JAX).
 """
 
 import collections
@@ -163,41 +172,60 @@ def test_cluster_plans_fit_one_block_and_leave_no_chunk_without_a_kernel(which):
             plan, old, slices = tcru.chunk_cluster_plan(k, m), _old_k1_takes(k, m), 3 * k
         else:
             plan, old, slices = tcps.pred_cluster_plan(k, m, 16), _old_k3_takes(k, m), k
-        # the widest plan: 4 clusters of 8 blocks (K1), one of 16 (K3)
-        widest = 32 if which == "K1" else 16
+        # the widest plan: 8 clusters of 8 blocks (K1), one of 16 (K3)
+        widest = 64 if which == "K1" else 16
         if plan is None:
             # None only where the slices of the widest plan (with at most 63
             # columns of padding, the vectors and the partials) may not fit a
             # block, or a block would own more columns than it keeps in
-            # registers; such chunks go to the single-block kernel
+            # registers; such chunks go to the spread route
             W8 = -(-m // widest)
             upper = 4 * ((slices + 3) * (W8 + 64) + 40 * k + 4200)
             assert W8 > _build.CLUSTER_COLS or upper > _build.MAX_SHARED_BYTES, (k, m)
             continue
         if which == "K1":
-            assert plan.cluster == _build.CLUSTER_SIZE == 8 and 1 <= plan.clusters <= _build.MAX_GRID_CLUSTERS == 4
+            assert plan.cluster == _build.CLUSTER_SIZE == 8 and 1 <= plan.clusters <= _build.MAX_GRID_CLUSTERS == 8
         else:
             assert plan.cluster in (8, 16) and plan.clusters == 1
         assert plan.cols == -(-m // (plan.cluster * plan.clusters)) <= _build.CLUSTER_COLS
         assert 4 * slices * plan.cols <= plan.shared_bytes <= _build.MAX_SHARED_BYTES == 232448, (k, m, plan)
 
 
+def _h100_clusters(nbytes):
+    """Clusters of 8 blocks of 512 threads with ``nbytes`` of shared memory
+    each that an H100 SXM holds at once, as a model: blocks a SM by its
+    233,472 bytes (1 KB reserved a block) and 2,048 threads, 15 clusters of
+    8 at one block a SM (cudaOccupancyMaxActiveClusters at m = 4,096)."""
+    return 15 * min(233472 // (nbytes + 1024), 4)
+
+
 class _SizeQueries:
-    """Stands in for the built libraries' shared-memory queries
-    (csrc/root_update.cu, csrc/pred_stream.cu): the single-block kernels',
-    and one cluster block's layout, which is the shape rule's plus ``skew``
-    bytes."""
+    """Stands in for the built libraries' shared-memory and capacity
+    queries (csrc/root_update.cu, csrc/pred_stream.cu): one cluster
+    block's layout, which is the shape rule's plus ``skew`` bytes, the
+    spread kernels' layouts written out (``_layout``, ``_pred_layout``)
+    plus ``skew``, and an H100 SXM's capacity for each
+    (``_h100_clusters``)."""
 
     def __init__(self, skew=0):
         self.skew = skew
 
-    @staticmethod
-    def ogp_blocked_chunk_smem(k, m):
-        return (2 * m + 2 * k + 32) * 4
+    def ogp_chunk_grid_capacity(self, k, m, C, G):
+        return _h100_clusters(4 * _layout(k, m, C, G)[1])
+
+    def ogp_chunk_spread_smem(self, k, m, C, G, slices):
+        return 4 * _layout(k, m, C, G, slices)[1] + self.skew
 
     @staticmethod
-    def ogp_pred_chunk_smem(k, m):
-        return (m + 2 * k + 1) * 4
+    def ogp_chunk_spread_capacity(k, m, C, G, slices):
+        return _h100_clusters(4 * _layout(k, m, C, G, slices)[1])
+
+    def ogp_pred_spread_smem(self, k, m, P, C, G, slices):
+        return 4 * _pred_layout(k, m, P, C, G, slices) + self.skew
+
+    @staticmethod
+    def ogp_pred_spread_capacity(k, m, P, C, G, slices):
+        return _h100_clusters(4 * _pred_layout(k, m, P, C, G, slices))
 
     def ogp_chunk_cluster_smem(self, k, m, C, G):  # K1's and K5 sub's, on G clusters of C blocks
         return 4 * tcru._chunk_cluster_floats(k, m, C, G)[1] + self.skew
@@ -212,23 +240,23 @@ class _SizeQueries:
 
 @pytest.mark.parametrize("which", ["K1", "K3"])
 def test_wrapper_dispatch_admits_every_chunk_the_single_block_kernel_took(which):
-    """The wrappers' route by shape: the cluster plan where there is one,
-    else the single-block kernel; ValueError only where neither takes the
-    chunk, and so never for a chunk the single-block kernel took before."""
+    """The wrappers' route by shape: the cluster plan where there is one
+    (and, for K1's grid plans, the card holds its clusters), else the
+    spread plan; never a ValueError, so never for a chunk the single-block
+    kernel took before either."""
     lib = _SizeQueries()
     for k, m in SHAPES:
         if which == "K1":
-            plan, old = tcru.chunk_cluster_plan(k, m), _old_k1_takes(k, m)
-            route = lambda: tcru._recursion_plan(lib, k, m, "chunk")
+            plan = tcru.chunk_cluster_plan(k, m)
+            got_plan, cluster = tcru._recursion_plan(lib, k, m, "chunk")
         else:
-            plan, old = tcps.pred_cluster_plan(k, m, 16), _old_k3_takes(k, m)
-            route = lambda: tcps._pred_plan(lib, k, m, 16)
-        if plan is None and not old:
-            with pytest.raises(ValueError, match="exceeds what the K[13] recursion kernels take"):
-                route()
-            continue
-        got_plan, cluster = route()
-        assert got_plan == plan and cluster == (0 if plan is None else plan.cluster)
+            plan = tcps.pred_cluster_plan(k, m, 16)
+            got_plan, cluster = tcps._pred_plan(lib, k, m, 16)
+        if plan is None:
+            assert isinstance(got_plan, _build.SpreadPlan), (k, m)
+        else:
+            assert got_plan == plan, (k, m)
+        assert cluster == got_plan.cluster
 
 
 @pytest.mark.parametrize("k,m,cluster,nbytes", [
@@ -249,14 +277,23 @@ def test_chunk_cluster_plan_at_the_smoke_shapes(k, m, cluster, nbytes):
         assert plan == _build.ClusterPlan(cluster, -(-m // cluster), nbytes)
 
 
-def _layout(k, m, C, G=1):
+def _layout(k, m, C, G=1, slices=3):
     """chunk_cluster_layout of csrc/root_update.cu, written out: (ld, floats)."""
     W = -(-m // (C * G))
     Sr = max(s for s in (1, 2, 4, 8, 16, 32) if s == 1 or s * k <= 512)
     ld = W if Sr == 32 else next(x for x in range(W, W + 2 * Sr) if x % (2 * Sr) == Sr)
     CT = -(-W // 32)
     S = max(1, 16 // CT)
-    return ld, 4 + 3 * k * ld + ld + 2 * k + 2 * C * (k + 1) + 2 * S * CT * 32 + 1
+    return ld, 4 + slices * k * ld + ld + 2 * k + 2 * C * (k + 1) + 2 * S * CT * 32 + 1
+
+
+def _pred_layout(k, m, P, C, G=1, slices=2):
+    """pred_cluster_layout of csrc/pred_stream.cu, written out: floats."""
+    W = -(-m // (C * G))
+    CT = -(-W // 32)
+    S = max(1, 16 // CT)
+    z, stencil = (k * W if slices == 2 else 0), (2 * k * P + k if slices else 0)
+    return 4 + z + W + 2 * k + 2 * C * (k + 1) + 4 * k + S * CT * 32 + stencil + 2
 
 
 @pytest.mark.parametrize("k,m,G,nbytes", [
@@ -267,15 +304,18 @@ def _layout(k, m, C, G=1):
     (128, 3360, 3, 228740),
     (128, 3361, 4, 4 * _layout(128, 3361, 8, 4)[1]),
     (128, 4096, 4, 216676),  # bench.py's 64 x 64 grid: 128 columns a block, 32 SMs an output
-    (128, 4480, 4, 228740),  # the grid envelope's edge
-    (128, 4481, None, None),  # past it: the single-block kernel, as before
+    (128, 4480, 4, 228740),  # the G = 4 envelope's edge, where 4 clusters were the most
+    (128, 4481, 5, 4 * _layout(128, 4481, 8, 5)[1]),  # past it: G = 5, where the single-block kernel ran
+    (128, 8960, 8, 228740),  # the grid envelope's edge at G = 8
+    (128, 8961, None, None),  # past it: the spread route
     (32, 4096, 1, 4 * _layout(32, 4096, 8)[1]),  # K5 sub's sub-blocks at m = 4,096: one cluster
 ])
 def test_chunk_grid_plan_at_its_envelope_edges(k, m, G, nbytes):
     plan = tcru.chunk_cluster_plan(k, m)
     if G is None:
         assert plan is None and _old_k1_takes(k, m)
-        assert tcru._recursion_plan(_SizeQueries(), k, m, "chunk") == (None, 0)
+        splan, C = tcru._recursion_plan(_SizeQueries(), k, m, "chunk")
+        assert isinstance(splan, _build.SpreadPlan) and C == 8 and splan.clusters > 8
         return
     assert plan == _build.ClusterPlan(8, -(-m // (8 * G)), nbytes, G)
     assert tcru._recursion_plan(_SizeQueries(), k, m, "chunk") == (plan, 8)
@@ -298,22 +338,23 @@ def test_pred_cluster_plan_picks_a_cluster_at_the_main_path_shapes(k, m):
 def test_pred_cluster_plan_at_the_envelope_edge(k, m, inside):
     """``inside``: inside the 8-block envelope, as the plan was. Outside it,
     where the single-block kernel ran, 16 blocks take the chunk when they
-    hold it (m = 3,137), else the single-block kernel still does (k = 512
-    at m = 900)."""
+    hold it (m = 3,137), else the spread route does (k = 512 at m = 900)."""
     plan = tcps.pred_cluster_plan(k, m, 16)
     assert (plan is not None and plan.cluster == 8) == inside
     if not inside:
         assert _old_k3_takes(k, m)
-        want = (None, 0) if plan is None else (plan, 16)
-        assert tcps._pred_plan(_SizeQueries(), k, m, 16) == want
-        assert plan is None or (plan.cluster, plan.clusters) == (16, 1)
+        got, C = tcps._pred_plan(_SizeQueries(), k, m, 16)
+        if plan is None:
+            assert isinstance(got, _build.SpreadPlan) and C == 8 and got.clusters > 1
+        else:
+            assert (got, C) == (plan, 16) and (plan.cluster, plan.clusters) == (16, 1)
 
 
 @pytest.mark.parametrize("k,m,cluster,nbytes", [
     (128, 3137, 16, 139948),  # past 8 blocks: one cluster of 16
     (128, 4096, 16, 170648),  # bench.py's 64 x 64 grid: 256 columns a block
     (128, 6016, 16, 232056),  # the 16-block envelope's edge
-    (128, 6017, None, None),  # past it: the single-block kernel
+    (128, 6017, None, None),  # past it: the spread route
     (342, 900, 8, None),  # the 8-block envelope's edge in k at m = 900
     (343, 900, 16, None),
 ])
@@ -325,6 +366,142 @@ def test_pred_wide_cluster_plan_at_its_envelope_edges(k, m, cluster, nbytes):
     assert (plan.cluster, plan.clusters, plan.cols) == (cluster, 1, -(-m // cluster))
     assert plan.shared_bytes == 4 * tcps._pred_cluster_floats(k, m, 16, cluster)[1] <= 232448
     assert nbytes is None or plan.shared_bytes == nbytes
+
+
+# every k the wrappers take, at every m of SHAPES and at the sizes the port
+# once refused: K1's single-block kernel past m = 28,912 (k = 128), 2^31
+# elements of one (m, m) output past m = 46,340, K3's single-block kernel
+# past m = 57,855 (k = 128), and the row-sharded streams' 65,536
+ROUTE_KS = (1, 8, 32, 128, 512, 1024)
+ROUTE_MS = sorted({m for _, m in SHAPES} | {28913, 46341, 57856, 65536})
+
+
+@pytest.mark.parametrize("which", ["K1", "K3"])
+@pytest.mark.parametrize("k", ROUTE_KS)
+def test_every_chunk_has_a_recursion_kernel(which, k):
+    """Every (k, m) gets a plan, never ValueError: the cluster plan where it
+    holds the chunk, else the spread plan, whose layout fits a block (the
+    written-out one of the stand-in), whose columns cover m, and whose G
+    clusters the card holds at once; the most slices in shared memory
+    first, at the most clusters the card holds."""
+    lib = _SizeQueries()
+    for m in ROUTE_MS:
+        if which == "K1":
+            cluster_plan = tcru.chunk_cluster_plan(k, m)
+            plan, C = tcru._recursion_plan(lib, k, m, "chunk")
+        else:
+            cluster_plan = tcps.pred_cluster_plan(k, m, 16)
+            plan, C = tcps._pred_plan(lib, k, m, 16)
+        assert C == plan.cluster and plan.shared_bytes <= _build.MAX_SHARED_BYTES, (k, m)
+        assert plan.cols <= _build.CLUSTER_COLS and plan.cols * plan.cluster * plan.clusters >= m, (k, m)
+        if cluster_plan is not None:
+            assert plan == cluster_plan, (k, m)
+            continue
+        assert isinstance(plan, _build.SpreadPlan) and plan.cluster == 8, (k, m)
+        assert 1 <= plan.clusters <= _build.MAX_SPREAD_CLUSTERS == 16, (k, m)
+        if which == "K1":
+            nbytes, cap = lib.ogp_chunk_spread_smem(k, m, 8, plan.clusters, plan.slices), \
+                lib.ogp_chunk_spread_capacity(k, m, 8, plan.clusters, plan.slices)
+            more = [sl for sl in (3, 1, 0) if sl > plan.slices]
+            fits = lambda sl: 4 * _layout(k, m, 8, plan.clusters, sl)[1] <= _build.MAX_SHARED_BYTES
+        else:
+            nbytes, cap = lib.ogp_pred_spread_smem(k, m, 16, 8, plan.clusters, plan.slices), \
+                lib.ogp_pred_spread_capacity(k, m, 16, 8, plan.clusters, plan.slices)
+            more = [sl for sl in (2, 1, 0) if sl > plan.slices]
+            fits = lambda sl: 4 * _pred_layout(k, m, 16, 8, plan.clusters, sl) <= _build.MAX_SHARED_BYTES
+        assert nbytes == plan.shared_bytes and cap >= plan.clusters, (k, m, plan)
+        # no slice count kept more in shared memory at any G the card holds
+        assert not any(fits(sl) for sl in more) or plan.clusters < 16, (k, m, plan)
+
+
+@pytest.mark.parametrize("k,m,slices,G", [
+    (128, 8961, 3, 15),  # past the grid envelope: U, P, R in shared memory on 15 clusters (120 SMs)
+    (128, 16384, 3, 15),
+    (128, 32400, 1, 15),  # a 180 x 180 grid: U alone in shared memory, P and R (33 MB) in device memory
+    (128, 46656, 1, 15),
+    (128, 65536, 0, 16),  # none in shared memory: two blocks a SM, 16 clusters
+    (1024, 2000, 1, 15),  # the widest chunk: U alone in shared memory
+])
+def test_chunk_spread_plan_at_the_smoke_shapes(k, m, slices, G):
+    plan, C = tcru._recursion_plan(_SizeQueries(), k, m, "chunk")
+    assert isinstance(plan, _build.SpreadPlan) and (plan.slices, plan.clusters, C) == (slices, G, 8)
+    assert plan.cols == -(-m // (8 * G)) and plan.shared_bytes == 4 * _layout(k, m, 8, G, slices)[1]
+
+
+@pytest.mark.parametrize("k,m,P,slices,G", [
+    (128, 6017, 16, 2, 16),  # past 16 blocks: Z and the stencil in shared memory on 16 clusters
+    (128, 16384, 16, 2, 16),
+    (128, 65536, 16, 1, 16),  # the row-sharded stream's width: Z in device memory
+    (512, 900, 16, 2, 15),  # K3's wide chunk at the main path's m
+    (512, 900, 64, 0, 16),  # a 3-D stencil: its k P entries read from device memory
+])
+def test_pred_spread_plan_at_the_smoke_shapes(k, m, P, slices, G):
+    plan, C = tcps._pred_plan(_SizeQueries(), k, m, P)
+    assert isinstance(plan, _build.SpreadPlan) and (plan.slices, plan.clusters, C) == (slices, G, 8)
+    assert plan.cols == -(-m // (8 * G)) and plan.shared_bytes == 4 * _pred_layout(k, m, P, 8, G, slices)
+
+
+@pytest.mark.parametrize("which", ["K1", "K3"])
+def test_spread_plan_that_is_not_the_kernel_layout_raises(which):
+    for skew in (4, -4):
+        with pytest.raises(RuntimeError, match="they must be changed together"):
+            if which == "K1":
+                tcru._recursion_plan(_SizeQueries(skew), 128, 32400, "chunk")
+            else:
+                tcps._pred_plan(_SizeQueries(skew), 128, 16384, 16)
+
+
+# (Bd, rows, m) past 2^31 elements of L (or C), where the parent refused
+BIG = [(1, 46341, 46341), (2, 32768, 32768), (1, 23328, 93312)]
+
+
+@pytest.mark.parametrize("Bd,rows,m", BIG)
+def test_size_checks_take_every_size_the_card_holds(card, Bd, rows, m):
+    """The kernels form 64-bit offsets: K1, K2, K3, K4 and the row-shard
+    stages take roots and caches of 2^31 elements and more (meta tensors:
+    nothing is allocated), each launching its entry once."""
+    assert Bd * rows * m >= 2**31
+    k, P = 128, 16
+    X, F = _meta(Bd, rows, m), _meta(Bd, k, m)
+    idx, wv, y = _meta(k, P, dtype=torch.int32), _meta(Bd, k, P), _meta(Bd, k)
+    tcru.rank1_apply_rows(X, X, _meta(Bd, m))
+    tcru.chunk_gather_rows(X, idx, wv, 0)
+    tcru.chunk_factors(F)
+    tcru.chunk_apply_rows(X, X, F, F, F)
+    tcps.pred_gather_rows(X, _meta(Bd, rows), idx, _meta(k, P), 0)
+    tcps.pred_factors(idx, _meta(k, P), F, y, y, y)
+    tcps.pred_apply_rows(X, _meta(Bd, rows), F, y, 0)
+    calls = ["ogp_rank1_apply_rows", "ogp_chunk_gather_rows", "ogp_chunk_factors", "ogp_chunk_apply_rows",
+             "ogp_pred_gather_rows", "ogp_pred_factors", "ogp_pred_apply_rows"]
+    if rows == m:
+        L = _meta(Bd, m, m)
+        tcru.rank1_apply(L, L, _meta(Bd, m))
+        tcru.rank1_update(L, L, L, _meta(Bd, m, 1))
+        tcru.blocked_chunk(L, L, idx, wv)
+        tcps.pred_chunk(L, _meta(Bd, m), idx, _meta(k, P), y, y)
+        calls += ["ogp_rank1_apply", "ogp_rank1_update", "ogp_blocked_chunk", "ogp_pred_chunk"]
+    got = [name for name, _ in card.calls if name != "ogp_rank1_update_tiles"]
+    assert got == calls
+    assert tcru.chunk_factors.spread_launches == 1 and tcps.pred_factors.spread_launches == 1
+
+
+def test_size_checks_still_refuse_a_batch_past_the_launch_grid(card):
+    """The launch grid's y and z extents still bound Bd: 2 Bd for K1's and
+    K2's kernels (L and B), Bd for K3's; the wrappers raise before any
+    launch."""
+    _build.check_grid(_build.MAX_GRID_YZ // 2, 2)
+    _build.check_grid(_build.MAX_GRID_YZ)
+    k, P, m = 8, 4, 16
+    idx = _meta(k, P, dtype=torch.int32)
+    Bd = _build.MAX_GRID_YZ // 2 + 1
+    with pytest.raises(ValueError, match="exceeds the launch grid"):
+        tcru.rank1_apply(_meta(Bd, m, m), _meta(Bd, m, m), _meta(Bd, m))
+    with pytest.raises(ValueError, match="exceeds the launch grid"):
+        tcru.chunk_factors(_meta(Bd, k, m))
+    Bd = _build.MAX_GRID_YZ + 1
+    with pytest.raises(ValueError, match="exceeds the launch grid"):
+        tcps.pred_factors(idx, _meta(k, P), _meta(Bd, k, m), *(_meta(Bd, k) for _ in range(3)))
+    assert card.calls == []
 
 
 @pytest.mark.parametrize("which", ["K1", "K3"])
@@ -391,17 +568,18 @@ class _SubLib(_SizeQueries):
         return 0
 
     def ogp_blocked_chunk_sub(self, *args):
-        self.calls.append(("per sub-block", args[-2]))
+        self.calls.append(("per sub-block", args[-3], args[-2]))  # C, then the spread slices
         return 0
 
 
 @pytest.mark.parametrize("m,route,cluster", [(900, "fused", 8), (1120, "fused", 8), (2500, "per sub-block", 8),
-                                             (20000, "per sub-block", 0)])
+                                             (20000, "per sub-block", 8)])
 def test_k5_sub_takes_the_fused_kernel_inside_its_envelope(monkeypatch, m, route, cluster):
     """(128, 32, 900) and (128, 32, 1120), K1's edge, run the fused cluster
     kernel; (128, 32, 2500) one sub-block at a time, each on K1's cluster
-    kernel at k = 32, and m = 20,000 on its single-block kernel: every shape
-    taken before still runs."""
+    kernel at k = 32, and m = 20,000 one sub-block at a time on K1's route
+    at k = 32, G = 8 clusters of 8 (where the single-block kernel ran):
+    every shape taken before still runs."""
     monkeypatch.setattr(_build, "stream_of", lambda t: None)
     k, sub, P = 128, 32, 16
     meta = dict(device="meta", dtype=torch.float32)
@@ -411,7 +589,7 @@ def test_k5_sub_takes_the_fused_kernel_inside_its_envelope(monkeypatch, m, route
     before = (tcru.blocked_chunk.sub_launches, tcru.blocked_chunk.sub_cluster_launches)
     try:
         tcru._chunk_sub(lib, L, L, idx, wv, sub)
-        assert lib.calls == [(route, cluster)]
+        assert lib.calls == [(route, cluster) if route == "fused" else (route, cluster, -1)]
         fused = route == "fused"
         assert (tcru.blocked_chunk.sub_launches - before[0], tcru.blocked_chunk.sub_cluster_launches - before[1]) == (1, fused)
     finally:
@@ -432,9 +610,9 @@ def test_k5_sub_refuses_a_plan_that_is_not_the_kernel_layout(monkeypatch):
 
 class _Card(_SizeQueries):
     """Stands in for the libraries on a card that holds ``capacity``
-    clusters of 8 of K1's grid kernel at once: the layout and capacity
-    queries answer, and every other C entry is recorded with its
-    arguments."""
+    clusters of 8 of K1's grid kernel and of the spread kernels at once:
+    the layout and capacity queries answer, and every other C entry is
+    recorded with its arguments."""
 
     def __init__(self, capacity=16, skew=0):
         super().__init__(skew)
@@ -442,6 +620,12 @@ class _Card(_SizeQueries):
         self.calls = []
 
     def ogp_chunk_grid_capacity(self, k, m, C, G):
+        return self.capacity
+
+    def ogp_chunk_spread_capacity(self, k, m, C, G, slices):
+        return self.capacity
+
+    def ogp_pred_spread_capacity(self, k, m, P, C, G, slices):
         return self.capacity
 
     @staticmethod
@@ -474,10 +658,10 @@ def card(monkeypatch):
     monkeypatch.setattr(tcru, "_root_update_lib", lambda: lib)
     monkeypatch.setattr(tcps, "_pred_stream_lib", lambda: lib)
     for fn in (tcru.blocked_chunk, tcru.chunk_factors):
-        for attr in ("launches", "cluster_launches", "grid_cluster_launches"):
+        for attr in ("launches", "cluster_launches", "grid_cluster_launches", "spread_launches"):
             monkeypatch.setattr(fn, attr, 0)
     for fn in (tcps.pred_chunk, tcps.pred_factors):
-        for attr in ("launches", "cluster_launches", "wide_cluster_launches"):
+        for attr in ("launches", "cluster_launches", "wide_cluster_launches", "spread_launches"):
             monkeypatch.setattr(fn, attr, 0)
     monkeypatch.setattr(tcru.chunk_apply_plan, "shapes", collections.Counter())
     monkeypatch.setattr(tcps.pred_apply_plan, "shapes", collections.Counter())
@@ -497,8 +681,9 @@ def test_k1_chunk_at_m4096_takes_the_grid_kernel_in_waves(card, Bd, wave):
     # the slots of the cross-cluster sums, then (Bd, k, P, m, G, wave, AC, C)
     assert name == "ogp_blocked_chunk" and args[9] is not None and args[10:18] == (Bd, k, P, m, 4, wave, 8, 8)
     assert fname == "ogp_chunk_factors" and fargs[4] is not None and fargs[5:11] == (Bd, k, m, 4, wave, 8)
-    for fn in (tcru.blocked_chunk, tcru.chunk_factors):  # never the single-block kernel
-        assert (fn.launches, fn.cluster_launches, fn.grid_cluster_launches) == (1, 1, 1)
+    assert args[18] == fargs[11] == -1  # not the spread kernel
+    for fn in (tcru.blocked_chunk, tcru.chunk_factors):
+        assert (fn.launches, fn.cluster_launches, fn.grid_cluster_launches, fn.spread_launches) == (1, 1, 1, 0)
 
 
 def test_k1_chunk_inside_one_cluster_is_launched_as_before(card):
@@ -514,15 +699,27 @@ def test_k1_chunk_inside_one_cluster_is_launched_as_before(card):
 @pytest.mark.parametrize("capacity", [3, 0])
 def test_k1_grid_plan_the_card_cannot_hold_raises_naming_it(card, capacity):
     """G = 4 clusters of one output that do not fit the card at once would
-    wait on each other forever: the wrapper raises, names the plan, and
-    launches nothing."""
+    wait on each other forever: their launch raises and names the plan, so
+    the wrapper does not take it. It takes the spread route on the G <= 3
+    clusters the card holds; a card that holds none raises, launching
+    nothing."""
     card.capacity = capacity
     k, P, m = 128, 16, 4096
-    L = _meta(1, m, m)
+    plan = tcru.chunk_cluster_plan(k, m)
     with pytest.raises(RuntimeError, match=r"holds %d clusters of 8 blocks.*the plan ClusterPlan\(cluster=8, "
                                            r"cols=128, shared_bytes=216676, clusters=4\) needs 4" % capacity):
-        tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(1, k, P))
-    assert card.calls == [] and tcru.blocked_chunk.launches == 0
+        tcru._grid_launch(card, plan, 1, k, m, "meta", "chunk")
+    L = _meta(1, m, m)
+    if capacity == 0:
+        with pytest.raises(RuntimeError, match="holds no clusters of 8 blocks of the spread recursion"):
+            tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(1, k, P))
+        assert card.calls == [] and tcru.blocked_chunk.launches == 0
+        return
+    tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(1, k, P))
+    (name, args), = card.calls
+    # U alone in shared memory (3 slices of 171 columns do not fit a block)
+    assert name == "ogp_blocked_chunk" and args[10:19] == (1, k, P, m, 3, 1, 8, 8, 1)
+    assert (tcru.blocked_chunk.spread_launches, tcru.blocked_chunk.cluster_launches) == (1, 0)
 
 
 def test_k1_grid_plan_that_is_not_the_kernel_layout_raises():
@@ -544,10 +741,11 @@ def test_k3_chunk_takes_its_cluster(card, m, cluster, wide):
     tcps.pred_chunk(_meta(Bd, m, m), _meta(Bd, m), _meta(k, P, dtype=torch.int32), _meta(k, P), y, y)
     tcps.pred_factors(_meta(k, P, dtype=torch.int32), _meta(k, P), _meta(Bd, k, m), y, y, y)
     (name, args), (fname, fargs) = card.calls
-    assert name == "ogp_pred_chunk" and args[-2] == cluster
-    assert fname == "ogp_pred_factors" and fargs[-2] == cluster
+    # (Cl, G, wave, spread, stream) end both entries' arguments
+    assert name == "ogp_pred_chunk" and args[-5:-1] == (cluster, 1, Bd, -1)
+    assert fname == "ogp_pred_factors" and fargs[-5:-1] == (cluster, 1, Bd, -1)
     for fn in (tcps.pred_chunk, tcps.pred_factors):
-        assert (fn.launches, fn.cluster_launches, fn.wide_cluster_launches) == (1, 1, wide)
+        assert (fn.launches, fn.cluster_launches, fn.wide_cluster_launches, fn.spread_launches) == (1, 1, wide, 0)
 
 
 # --------------------------------------------------------------------------
@@ -632,6 +830,81 @@ def test_k3_cluster_order_matches_pallas_and_the_plain_recursion(C, G, repeats):
 
 
 # --------------------------------------------------------------------------
+# (c2) the spread kernels' summation order
+# --------------------------------------------------------------------------
+
+# N blocks an output: one cluster of 3 or 7 (N < 8), else N / 8 clusters of 8,
+# each block's partials added in rank order within its cluster and the
+# clusters' sums in cluster order (the spread kernels' two levels)
+SPREAD_BLOCKS = [3, 7, 16]
+
+
+def _spread_split(N):
+    C = min(N, _build.CLUSTER_SIZE)
+    return C, N // C
+
+
+@pytest.mark.parametrize("N", SPREAD_BLOCKS)
+@pytest.mark.parametrize("repeats", [False, True])
+def test_k1_spread_order_matches_jax_and_pallas(N, repeats):
+    import jax.numpy as jnp
+    from online_gp_tpu.ops import root_update as jru
+    from online_gp_tpu.ops.pallas_root_update import pallas_blocked_chunk_batched
+
+    rng = np.random.default_rng(60 + N + 10 * repeats)
+    Bd, (C, G) = 2, _spread_split(N)
+    L, B = _roots(rng, Bd, M, np.float64)
+    idx, w = _stencil(rng, K, M, repeats)
+    wv = w[None] * np.array([1.0, 0.7])[:, None, None]
+    p0 = torch.einsum("bkp,bkpm->bkm", torch.tensor(wv), torch.tensor(B)[:, torch.tensor(idx)])
+    got = cluster_chunk_factors(p0, C, G)
+    for b in range(Bd):
+        for want, g in zip(jru.blocked_factors_xla(jnp.asarray(p0[b].numpy())), got):
+            _close(want, g[b], 1e-10)
+    # at float32, the chunk against the Pallas kernel in interpret mode
+    L32, B32, wv32 = L.astype(np.float32), B.astype(np.float32), wv.astype(np.float32)
+    S = np.stack([np.asarray(jru.stencil_rows(jnp.asarray(idx, jnp.int32), jnp.asarray(wv32[b]), M))
+                  for b in range(Bd)])
+    p32 = torch.einsum("bkp,bkpm->bkm", torch.tensor(wv32), torch.tensor(B32)[:, torch.tensor(idx)])
+    U, Pm, R = cluster_chunk_factors(p32, C, G)
+    jL, jB = pallas_blocked_chunk_batched(jnp.asarray(L32), jnp.asarray(B32), jnp.asarray(S), interpret=True)
+    _close(jL, torch.tensor(L32) + (torch.tensor(L32) @ R.mT) @ U, 1e-5)
+    _close(jB, torch.tensor(B32) + (torch.tensor(B32) @ Pm.mT) @ U, 1e-5)
+
+
+@pytest.mark.parametrize("N", SPREAD_BLOCKS)
+@pytest.mark.parametrize("repeats", [False, True])
+def test_k3_spread_order_matches_jax_and_pallas(N, repeats):
+    import jax.numpy as jnp
+    from online_gp_tpu.ops import pred_stream as jps
+    from online_gp_tpu.ops import root_update as jru
+    from online_gp_tpu.ops.pallas_pred_stream import pad_cache_to_tile, pallas_pred_chunk
+
+    rng = np.random.default_rng(70 + N + 10 * repeats)
+    C, G = _spread_split(N)
+    Cm, mu, idx, w, y, nz = _pred_problem(rng, 1, repeats)
+    S = stencil_rows(torch.tensor(idx), torch.tensor(w, dtype=torch.float64), M)
+    Ct, mut = torch.tensor(Cm, dtype=torch.float64), torch.tensor(mu, dtype=torch.float64)
+    args64 = (S, S @ Ct, mut @ S.mT, torch.tensor(y, dtype=torch.float64), torch.tensor(nz, dtype=torch.float64))
+    got = cluster_pred_factors(*args64, C, G)
+    want = jps.pred_chunk_factors(*(jnp.asarray(a.numpy()[0] if a.dim() > 1 and a is not S else a.numpy())
+                                    for a in args64))
+    for wj, g in zip(want, got):
+        _close(wj, g[0], 1e-10)
+    # at float32, the chunk against the Pallas kernel in interpret mode
+    S32 = stencil_rows(torch.tensor(idx), torch.tensor(w), M)
+    c0w, mu0w = S32 @ torch.tensor(Cm), torch.tensor(mu) @ S32.mT
+    Z, r, pm, pv = cluster_pred_factors(S32, c0w, mu0w, torch.tensor(y), torch.tensor(nz), C, G)
+    Sj = jnp.pad(jru.stencil_rows(jnp.asarray(idx, jnp.int32), jnp.asarray(w), M), ((0, 0), (0, 128 - M)))
+    C_p, mu_p, _ = pad_cache_to_tile(jnp.asarray(Cm), jnp.asarray(mu))
+    Cj, muj, pmj, pvj = pallas_pred_chunk(C_p[0], mu_p[0], Sj, jnp.asarray(y[0]), jnp.asarray(nz[0]), interpret=True)
+    _close(np.asarray(Cj)[:M, :M], (torch.tensor(Cm) - Z.mT @ Z)[0], 2e-4)
+    _close(np.asarray(muj)[:M], (torch.tensor(mu) + (Z.mT @ r[..., None])[..., 0])[0], 2e-4)
+    _close(pmj, pm[0], 2e-4)
+    _close(pvj, pv[0], 2e-4)
+
+
+# --------------------------------------------------------------------------
 # (d) on the card
 # --------------------------------------------------------------------------
 
@@ -665,12 +938,14 @@ def _card_stencil(rng, k, m, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Bd,m,G", [(1, 4096, 4), (2, 4096, 4), (1, 1120, 1), (1, 1121, 2), (1, 4480, 4),
-                                    (1, 4481, 0)])
+                                    (1, 4481, 5), (1, 8960, 8), (1, 8961, 0), (1, 16384, 0), (2, 16384, 0),
+                                    (1, 32400, 0)])
 def test_k1_chunk_kernel_matches_its_plain_version(gpu, Bd, m, G):
-    """K1 at k = 128 on G clusters of 8 (0: the single-block kernel) at
-    m = 4,096 and the envelopes' edges, to 1e-5 (allclose) of the plain
-    version, bitwise the same on a second call; with chunk_factors on the
-    chunk's p0 at 1e-5 of its own plain version."""
+    """K1 at k = 128 on G clusters of 8 (0: spread over the card, as many
+    clusters as it holds) at m = 4,096, the envelopes' edges and past them,
+    to 1e-5 (allclose) of the plain version, bitwise the same on a second
+    call; with chunk_factors on the chunk's p0 at 1e-5 of its own plain
+    version."""
     rng = np.random.default_rng(Bd + m)
     k = 128
     L, B = _card_roots(rng, Bd, m, gpu)
@@ -678,12 +953,13 @@ def test_k1_chunk_kernel_matches_its_plain_version(gpu, Bd, m, G):
     wv = (w[None] * torch.tensor([1.0, 0.7][:Bd], device=gpu)[:, None, None]).contiguous()
     plan = tcru.chunk_cluster_plan(k, m)
     assert (0 if plan is None else plan.clusters) == G
-    before = (tcru.blocked_chunk.launches, tcru.blocked_chunk.grid_cluster_launches)
+    counts = lambda: (tcru.blocked_chunk.launches, tcru.blocked_chunk.grid_cluster_launches,
+                      tcru.blocked_chunk.spread_launches)
+    before = counts()
     got = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv)
     again = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv)
     torch.cuda.synchronize()
-    assert (tcru.blocked_chunk.launches - before[0], tcru.blocked_chunk.grid_cluster_launches - before[1]) == (
-        2, 2 * (G > 1))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2 * (G > 1), 2 * (G == 0))
     _bitwise(got, again)
     for g, want in zip(got, tcru.blocked_chunk_plain(L, B, idx, wv)):
         assert torch.allclose(g, want, rtol=1e-5, atol=1e-5), float((g - want).abs().max())
@@ -698,11 +974,11 @@ def test_k1_chunk_kernel_matches_its_plain_version(gpu, Bd, m, G):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Bd,m,cluster", [(1, 4096, 16), (2, 4096, 16), (1, 3136, 8), (1, 3137, 16),
-                                          (1, 6016, 16), (1, 6017, 0)])
+                                          (1, 6016, 16), (1, 6017, 0), (2, 8192, 0), (1, 16384, 0)])
 def test_k3_chunk_kernel_matches_its_plain_version(gpu, Bd, m, cluster):
-    """K3 at k = 128, P = 16 on a cluster of 8 or 16 blocks (0: the
-    single-block kernel), to 2e-4 (allclose) of the plain version, bitwise
-    the same on a second call; pred_factors on the chunk's partials too."""
+    """K3 at k = 128, P = 16 on a cluster of 8 or 16 blocks (0: spread over
+    the card), to 2e-4 (allclose) of the plain version, bitwise the same on
+    a second call; pred_factors on the chunk's partials too."""
     rng = np.random.default_rng(Bd + m + 1)
     k = 128
     f32 = dict(dtype=torch.float32, device=gpu)
@@ -714,9 +990,11 @@ def test_k3_chunk_kernel_matches_its_plain_version(gpu, Bd, m, cluster):
     nz = torch.ones((Bd, k), **f32)
     plan = tcps.pred_cluster_plan(k, m, 16)
     assert (0 if plan is None else plan.cluster) == cluster
+    before = tcps.pred_chunk.spread_launches
     got = tcps.pred_chunk(C.clone(), mu.clone(), idx, w, y, nz)
     again = tcps.pred_chunk(C.clone(), mu.clone(), idx, w, y, nz)
     torch.cuda.synchronize()
+    assert tcps.pred_chunk.spread_launches - before == 2 * (cluster == 0)
     _bitwise(got, again)
     for g, want in zip(got, tcps.pred_chunk_stencil_plain(C, mu, idx, w, y, nz)):
         assert torch.allclose(g, want, rtol=2e-4, atol=2e-4), float((g - want).abs().max())
