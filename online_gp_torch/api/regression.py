@@ -34,6 +34,11 @@ the stream position as the JAX package's ``fold_in(PRNGKey(7), num_data)``.
 Constructing ``OnlineSKIRegression`` with ``low_rank=`` or a grid above
 ``DENSE_GRID_LIMIT`` returns the rank-capped
 :class:`~online_gp_torch.api.lowrank_regression.OnlineSKILowRankRegression`.
+
+Under ``torch.profiler`` each call of ``absorb``, ``update``, ``predict``,
+``prequential`` and ``hyper_step`` is one span, ``ogp.<method>``
+(``ogp.hyper`` for the stem and GP steps), and each wait on the card one
+``ogp.sync.<what>`` span (:mod:`online_gp_torch.logging.timing`).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 from online_gp_torch.api.stems import Stem
 from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
 from online_gp_torch.kernels.base import Kernel, make_kernel
+from online_gp_torch.logging.timing import span, spanned
 from online_gp_torch.models.partial_mll import sm_partial_mll
 from online_gp_torch.models.wiski import (
     MllProbes,
@@ -120,7 +126,8 @@ def _set_bn_momentum(stem: Stem, bn_mom: Optional[float]) -> None:
 def _bn_refresh(stem: Stem, buffer: ReplayBuffer, x: torch.Tensor) -> None:
     """Refresh the stem's BatchNorm running statistics on x and 1,024
     replayed inputs."""
-    replay = torch.as_tensor(buffer.sample(1024), device=x.device)
+    with span("sync.replay_copy"):
+        replay = torch.as_tensor(buffer.sample(1024), device=x.device)
     stem.train()
     with torch.no_grad():
         stem(torch.cat([x, replay]))
@@ -262,15 +269,24 @@ class OnlineSKIRegression:
 
     # -- helpers -----------------------------------------------------------
 
+    def _on_device(self, x) -> torch.Tensor:
+        """``x`` as a tensor on the wrapper's device. Copying a host array to
+        the card waits for the card."""
+        if torch.is_tensor(x) and x.device.type == self.device.type:
+            return x.to(self.device)
+        with span("sync.input_copy"):
+            return torch.as_tensor(x, device=self.device)
+
     def _inputs(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device).reshape(-1, self.stem.input_dim)
+        return self._on_device(x).reshape(-1, self.stem.input_dim)
 
     def _targets(self, y) -> torch.Tensor:
-        return torch.as_tensor(y, device=self.device).reshape(-1, self.target_dim)
+        return self._on_device(y).reshape(-1, self.target_dim)
 
     @staticmethod
     def _host(x: torch.Tensor) -> np.ndarray:
-        return x.detach().cpu().numpy()
+        with span("sync.host_copy"):
+            return x.detach().cpu().numpy()
 
     def _init_state(self, feats, targets):
         with torch.no_grad():
@@ -281,6 +297,7 @@ class OnlineSKIRegression:
         with torch.no_grad():
             return self.stem(x)
 
+    @spanned("hyper")
     def _hyper(self, x, y, update_stem: bool, update_gp: bool):
         """The stem step, then the GP step, on the current state."""
         s_loss = g_loss = torch.zeros(())
@@ -318,6 +335,7 @@ class OnlineSKIRegression:
 
     # -- public API --------------------------------------------------------
 
+    @spanned("predict")
     def predict(self, inputs) -> Tuple[torch.Tensor, torch.Tensor]:
         """Predictive y-moments (mean, var), each (n, T)."""
         x = self._inputs(inputs)
@@ -335,6 +353,7 @@ class OnlineSKIRegression:
     def evaluate(self, inputs, targets) -> Tuple[float, float]:
         return batched_rmse_nll(self.predict, self._inputs(inputs), self._targets(targets))
 
+    @spanned("update")
     def update(self, inputs, targets, update_stem: bool = True, update_gp: bool = True):
         """One streaming step on q new points; returns (stem_loss, gp_loss)."""
         x, y = self._inputs(inputs), self._targets(targets)
@@ -359,8 +378,10 @@ class OnlineSKIRegression:
         self._count_and_refresh(1)
         if update_stem and self.stem.has_params:
             _bn_refresh(self.stem, self.buffer, x)
-        return float(s_loss), float(g_loss)
+        with span("sync.losses"):
+            return float(s_loss), float(g_loss)
 
+    @spanned("hyper_step")
     def hyper_step(self, inputs, targets, update_stem: bool = True, update_gp: bool = True):
         """One stem + GP hyperparameter step without conditioning (the
         segment-boundary step of a fused stream that absorbs through
@@ -372,8 +393,10 @@ class OnlineSKIRegression:
             self._pred_caches = None  # hypers moved under the caches
         if update_stem and self.stem.has_params:
             _bn_refresh(self.stem, self.buffer, x)
-        return float(s_loss), float(g_loss)
+        with span("sync.losses"):
+            return float(s_loss), float(g_loss)
 
+    @spanned("prequential")
     def prequential(self, inputs, targets):
         """Interleaved evaluate-then-condition over a stream, conditioning only:
         each point is predicted from the posterior on all earlier points, then
@@ -394,6 +417,7 @@ class OnlineSKIRegression:
         self._count_and_refresh(x.shape[0])
         return pm.T, var.T
 
+    @spanned("absorb")
     def absorb(self, inputs, targets):
         """Bulk-absorb observations, conditioning only: one exact rank-1 update
         per point through :func:`wiski_stream`'s blocked recursion."""

@@ -1,10 +1,10 @@
 """Metric sinks for the experiment drivers (the port of
-``online_gp_tpu/logging``): the CSV logger, the S3-compatible sink and the
-span timer."""
+``online_gp_tpu/logging``): the CSV logger and the S3-compatible sink; and
+the program's spans on ``torch.profiler``'s clock."""
 
 from online_gp_torch.logging.csv_logger import CSVLogger
 from online_gp_torch.logging.remote import Boto3Transport, LocalBucketTransport, S3Logger
-from online_gp_torch.logging.timing import Timer, block_until_ready, profile_trace
+from online_gp_torch.logging.timing import block_until_ready, profile_trace, span, spanned
 
 
 def make_logger(cfg: dict, run_name: str):
@@ -30,4 +30,4 @@ def make_logger(cfg: dict, run_name: str):
 
 
 __all__ = ["CSVLogger", "S3Logger", "LocalBucketTransport", "Boto3Transport",
-           "Timer", "block_until_ready", "profile_trace", "make_logger"]
+           "block_until_ready", "profile_trace", "span", "spanned", "make_logger"]

@@ -1,20 +1,59 @@
-"""Wall-clock span timing (the reference's only tracing facility:
-``time.time()`` spans logged as ``step_time``) plus a ``torch.profiler``
-hook for device traces; the port of ``online_gp_tpu/logging/timing.py``.
+"""The port's spans, on ``torch.profiler``'s clock, and its device-trace
+window; the port of ``online_gp_tpu/logging/timing.py``.
 
-A span given ``block_on`` waits for the device work behind it before the
-clock stops (``torch.cuda.synchronize`` on each CUDA device its tensors lie
-on; nothing for CPU tensors), so it measures execution, not dispatch.
+:func:`span` marks one layer boundary of the program (the L5 wrapper's
+entry points, the functional core's transforms, the stream loops) and
+every place where the hot path waits on the card, named ``sync.<what>``.
+While no profiler records it returns one shared no-op context, so a span
+costs one flag read. While ``torch.profiler`` records, it opens a host
+range ``ogp.<name>`` in the profiler's own timeline, beside the CUDA
+kernels and copies, on the same clock; the profiler keeps the ranges in
+memory and exports them when its window closes, each inside the span
+that encloses it. :func:`profile_trace` records such a window.
+
+The ranges are ``RecordFunction``s of function scope, as the ATen
+operators' own, not the user scope of ``torch.autograd.profiler.
+record_function``: the profiler copies a user-scope range onto the
+device's row as an annotation over the kernels launched inside it, and a
+reduction of the trace that counts the device row's events as kernels
+would count each span as one.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-import time
-from typing import Dict, Iterator, List
+from typing import Iterator
 
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+PREFIX = "ogp."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``ogp.<name>`` while a profiler records, and
+    does nothing otherwise."""
+    if not _profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(PREFIX + name)
+
+
+def spanned(name: str):
+    """Decorator form of :func:`span`: each call of the function is one span."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:
@@ -34,32 +73,12 @@ def block_until_ready(tree) -> None:
         torch.cuda.synchronize(device)
 
 
-class Timer:
-    """Accumulates named wall-clock spans."""
-
-    def __init__(self):
-        self.spans: Dict[str, List[float]] = {}
-
-    @contextlib.contextmanager
-    def span(self, name: str, block_on=None):
-        t0 = time.perf_counter()
-        yield
-        if block_on is not None:
-            block_until_ready(block_on)
-        self.spans.setdefault(name, []).append(time.perf_counter() - t0)
-
-    def last(self, name: str) -> float:
-        return self.spans[name][-1]
-
-    def total(self, name: str) -> float:
-        return sum(self.spans.get(name, []))
-
-
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """A ``torch.profiler`` window (CPU, and CUDA where a card is present)
     whose Chrome trace is written to ``<log_dir>/trace.json`` when it
-    closes; yields the profiler (``key_averages()`` for sums by kernel)."""
+    closes; yields the profiler (``key_averages()`` for sums by kernel).
+    The program's spans, ``ogp.*``, are host ranges of that trace."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

@@ -66,6 +66,7 @@ from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
 from online_gp_torch.kernels.base import Kernel
 from online_gp_torch.kernels.grid_kernel import grid_kuu_dense, grid_kuu_operator
 from online_gp_torch.kernels.priors import log_prior_sum
+from online_gp_torch.logging.timing import spanned
 from online_gp_torch.ops.cg import batched_cg, lanczos, lanczos_root, rademacher, slq_logdet
 from online_gp_torch.ops.chol import cho_solve, chol_logdet, psd_safe_cholesky, spd_cholesky, tri_solve
 from online_gp_torch.ops.cuda_root_update import rank1_apply
@@ -315,6 +316,7 @@ def _condition_dense(state: WiskiState, w_cols: torch.Tensor, y: torch.Tensor, n
     )
 
 
+@spanned("wiski_stream")
 def wiski_stream(
     model: WiskiModel,
     state: WiskiState,
@@ -679,6 +681,7 @@ def _q_factor(model: WiskiModel, params: Dict, state: WiskiState):
     return Kuu, KuuL, Lq, Kuu_wty, proj
 
 
+@spanned("wiski_prediction_caches")
 def wiski_prediction_caches(
     model: WiskiModel,
     params: Dict,
@@ -841,6 +844,7 @@ def wiski_predict_root(
     return mean, root
 
 
+@spanned("wiski_pred_cache_condition")
 def wiski_pred_cache_condition(
     model: WiskiModel,
     caches: Tuple[torch.Tensor, torch.Tensor],
@@ -882,6 +886,7 @@ def wiski_pred_cache_condition(
     return new_mean, new_cov
 
 
+@spanned("wiski_prequential_stream")
 def wiski_prequential_stream(
     model: WiskiModel,
     params: Dict,

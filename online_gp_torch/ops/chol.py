@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from online_gp_torch.logging.timing import span
 from online_gp_torch.ops.cuda_chol import blocked_cholesky_ex
 from online_gp_torch.ops.precision import f32_matmul_precision
 
@@ -57,7 +58,9 @@ def psd_safe_cholesky(mat: torch.Tensor, jitter: float = 1e-6, tries: int = 3) -
             ok = _factor_ok(probe_mat + shift)
             chosen = torch.where(ok & ~done, torch.full_like(chosen, float(level)), chosen)
             done = done | ok
-            if bool(done.all()):
+            with span("sync.jitter_level"):
+                factored = bool(done.all())
+            if factored:
                 break
         eps = jitter * (10.0 ** chosen) * diag_scale
         return cholesky(mat + eps[..., None, None] * eye)

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from online_gp_torch.logging.timing import spanned
 from online_gp_torch.ops.chol import inv_lower_transpose, psd_safe_cholesky
 from online_gp_torch.ops.interp import _densify_rows
 from online_gp_torch.ops.precision import f32_matmul_precision
@@ -297,12 +298,14 @@ def pad_and_chunk_stream(idx: torch.Tensor, wv: torch.Tensor, block: int):
     return idx.reshape(nc, k, P), wv.reshape(nc, k, P), k
 
 
+@spanned("sync.stencil_check")
 def check_stencil(idx: torch.Tensor, m: int) -> None:
     """Raise unless every stencil index lies in [0, m) (one host sync)."""
     if idx.numel() and bool(((idx < 0) | (idx >= m)).any()):
         raise ValueError(f"stencil indices must lie in [0, {m})")
 
 
+@spanned("roots_stream")
 def roots_stream_blocked_batched(
     L: torch.Tensor,
     B: torch.Tensor,

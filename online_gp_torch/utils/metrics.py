@@ -12,6 +12,7 @@ from typing import Callable, Tuple
 import torch
 
 from online_gp_torch.likelihoods.gaussian import gaussian_nll
+from online_gp_torch.logging.timing import span
 
 
 def batched_rmse_nll(
@@ -28,8 +29,9 @@ def batched_rmse_nll(
         xb = inputs[start : start + batch_size]
         yb = targets[start : start + batch_size]
         mean, var = predict_fn(xb)
-        rmse += float(torch.sqrt(torch.mean((mean - yb) ** 2))) / num_batches
-        nll += float(torch.mean(gaussian_nll(mean, var, yb))) / num_batches
+        with span("sync.metrics"):
+            rmse += float(torch.sqrt(torch.mean((mean - yb) ** 2))) / num_batches
+            nll += float(torch.mean(gaussian_nll(mean, var, yb))) / num_batches
     return rmse, nll
 
 

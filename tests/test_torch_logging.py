@@ -1,15 +1,14 @@
 """The port's logging and host utilities against the JAX package's:
 ``CSVLogger`` writes the same bytes for the same calls, ``make_logger``
 dispatches alike, ``S3Logger`` over ``LocalBucketTransport`` mirrors the
-run directory as JAX's does; ``Timer`` and ``profile_trace`` (a
-``torch.profiler`` window on the CPU here); ``shuffle_tensors`` (one shared
+run directory as JAX's does; ``profile_trace`` (a ``torch.profiler``
+window on the CPU here); ``shuffle_tensors`` (one shared
 permutation from a ``torch.Generator``, where JAX takes a key, so the
 permutation itself differs); ``plotting`` (read_table, aggregate_trials)
 equal to JAX's on the same CSVs."""
 
 import csv
 import os
-import time
 
 import numpy as np
 import pytest
@@ -18,7 +17,7 @@ import torch
 from online_gp_tpu import logging as j_logging
 from online_gp_tpu.utils import plotting as j_plotting
 from online_gp_torch import logging as t_logging
-from online_gp_torch.logging import CSVLogger, LocalBucketTransport, S3Logger, Timer, make_logger, profile_trace
+from online_gp_torch.logging import CSVLogger, LocalBucketTransport, S3Logger, make_logger, profile_trace
 from online_gp_torch.utils import plotting
 from online_gp_torch.utils.random import shuffle_tensors
 
@@ -86,18 +85,6 @@ def test_make_logger_dispatch(tmp_path):
     for fn in (make_logger, j_logging.make_logger):
         with pytest.raises(ValueError, match="unknown logger"):
             fn(dict(log_dir=".", logger=dict(name="wandb")), "r")
-
-
-def test_timer_spans():
-    timer = Timer()
-    for _ in range(2):
-        with timer.span("work", block_on={"a": torch.ones(3), "b": [torch.zeros(2)]}):
-            time.sleep(0.01)
-    with timer.span("other"):
-        pass
-    assert len(timer.spans["work"]) == 2 and timer.last("work") >= 0.01
-    assert timer.total("work") == pytest.approx(sum(timer.spans["work"]))
-    assert timer.total("absent") == 0.0
 
 
 def test_profile_trace_writes_a_trace(tmp_path):
