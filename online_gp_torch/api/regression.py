@@ -35,6 +35,13 @@ Constructing ``OnlineSKIRegression`` with ``low_rank=`` or a grid above
 ``DENSE_GRID_LIMIT`` returns the rank-capped
 :class:`~online_gp_torch.api.lowrank_regression.OnlineSKILowRankRegression`.
 
+A host array handed to a CUDA wrapper reaches the card without a wait
+(:func:`stage_host`): it is copied into a pinned host slot and sent from
+there behind the work already queued, and the replay buffer keeps the
+caller's own array, so an entry point returns once its work is queued
+and the next call's launches queue behind this one's. Tensors, lists and
+a CPU wrapper's inputs take the plain copy.
+
 Under ``torch.profiler`` each call of ``absorb``, ``update``, ``predict``,
 ``prequential`` and ``hyper_step`` is one span, ``ogp.<method>``
 (``ogp.hyper`` for the stem and GP steps), and each wait on the card one
@@ -77,6 +84,43 @@ from online_gp_torch.utils.metrics import batched_rmse_nll
 # Above this many inducing points the dense core's m x m caches stop being
 # the right regime, and the wrapper routes to the rank-capped core.
 DENSE_GRID_LIMIT = 4096
+
+# Pinned host slots a staged input rotates through (for each dtype it comes in)
+STAGE_SLOTS = 2
+
+
+def stage_host(ring: list, arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` on the CUDA ``device``, with no wait on the card: copied on the
+    host into the oldest of ``ring``'s pinned slots (grown to the largest
+    array it has held), then sent from the slot on the current stream with
+    ``non_blocking``, behind the work already queued. The caller may reuse
+    ``arr`` at once. A slot is written again only once its last copy has
+    left it: an event recorded after each copy says so, and a slot whose
+    copy is still in flight is waited for in ``ogp.sync.stage_reuse``.
+
+    ``ring`` is a list that the caller keeps for one input and dtype; it
+    holds up to :data:`STAGE_SLOTS` slots, ``[pinned buffer, event]``.
+    ``stage_host.staged_copies`` counts the arrays staged,
+    ``stage_host.stage_waits`` the reuses that found their copy in flight."""
+    slot = ring.pop(0) if len(ring) == STAGE_SLOTS else [None, torch.cuda.Event()]
+    buf, done = slot
+    if not done.query():
+        stage_host.stage_waits += 1
+        with span("sync.stage_reuse"):
+            done.synchronize()
+    if buf is None or buf.numel() < arr.size:
+        buf = slot[0] = torch.empty(arr.size, dtype=torch.from_numpy(np.empty(0, arr.dtype)).dtype,
+                                   pin_memory=True)
+    np.copyto(buf[: arr.size].numpy().reshape(arr.shape), arr)
+    out = buf[: arr.size].view(arr.shape).to(device, non_blocking=True)
+    done.record(torch.cuda.current_stream(device))
+    ring.append(slot)
+    stage_host.staged_copies += 1
+    return out
+
+
+stage_host.staged_copies = 0
+stage_host.stage_waits = 0
 
 
 def hyper_probes(num_data: int, num_outputs: int, m: int, dtype, device) -> MllProbes:
@@ -227,7 +271,9 @@ class OnlineSKIRegression:
         self.stem = stem.to(self.device)
         self.cfg = cfg
         self.lr = lr
-        init_x = self._inputs(init_x)
+        # the pinned slots of the inputs (x) and the targets (y), by dtype
+        self._stage = {"x": {}, "y": {}}
+        host_x, init_x = init_x, self._inputs(init_x)
         init_y = torch.as_tensor(init_y, device=self.device)
         if init_y.ndim != 2:
             raise ValueError("targets must have an explicit output dimension")
@@ -259,7 +305,7 @@ class OnlineSKIRegression:
         self.state = self._init_state(feats, init_y)
 
         self.set_lr(lr)
-        self.buffer = ReplayBuffer(self._host(init_x))
+        self.buffer = ReplayBuffer(self._replay(host_x, init_x))
         self.refresh_roots_every = refresh_roots_every
         self._updates_since_refresh = 0
         # grid-space predictive caches (mean, cov): built lazily, reused
@@ -269,22 +315,32 @@ class OnlineSKIRegression:
 
     # -- helpers -----------------------------------------------------------
 
-    def _on_device(self, x) -> torch.Tensor:
-        """``x`` as a tensor on the wrapper's device. Copying a host array to
-        the card waits for the card."""
+    def _on_device(self, x, which: str) -> torch.Tensor:
+        """``x`` as a tensor on the wrapper's device. A host array bound for
+        the card is staged through the pinned slots of input ``which``
+        (``"x"`` or ``"y"``) without a wait; any other copy between the host
+        and the card waits for the card."""
         if torch.is_tensor(x) and x.device.type == self.device.type:
             return x.to(self.device)
+        if self.device.type == "cuda" and isinstance(x, np.ndarray):
+            with span("input_stage"):
+                return stage_host(self._stage[which].setdefault(x.dtype, []), x, self.device)
+        if self.device.type == "cpu" and not torch.is_tensor(x):
+            return torch.as_tensor(x)  # host to host
         with span("sync.input_copy"):
             return torch.as_tensor(x, device=self.device)
 
     def _inputs(self, x) -> torch.Tensor:
-        return self._on_device(x).reshape(-1, self.stem.input_dim)
+        return self._on_device(x, "x").reshape(-1, self.stem.input_dim)
 
     def _targets(self, y) -> torch.Tensor:
-        return self._on_device(y).reshape(-1, self.target_dim)
+        return self._on_device(y, "y").reshape(-1, self.target_dim)
 
-    @staticmethod
-    def _host(x: torch.Tensor) -> np.ndarray:
+    def _replay(self, inputs, x: torch.Tensor) -> np.ndarray:
+        """What the replay buffer keeps of a call's inputs: the caller's own
+        host array where it passed one, else ``x`` copied back to the host."""
+        if isinstance(inputs, np.ndarray):
+            return inputs.reshape(-1, self.stem.input_dim)
         with span("sync.host_copy"):
             return x.detach().cpu().numpy()
 
@@ -374,7 +430,7 @@ class OnlineSKIRegression:
                 self._pred_caches = wiski_pred_cache_condition(
                     self.model, self._pred_caches, feats, y, torch.ones_like(y)
                 )
-        self.buffer.append(self._host(x))
+        self.buffer.append(self._replay(inputs, x))
         self._count_and_refresh(1)
         if update_stem and self.stem.has_params:
             _bn_refresh(self.stem, self.buffer, x)
@@ -413,7 +469,7 @@ class OnlineSKIRegression:
                 self.model, self.params, self.state, caches, feats, y, torch.ones_like(y)
             )
             var = pv + self.noise[:, None]
-        self.buffer.append(self._host(x))
+        self.buffer.append(self._replay(inputs, x))
         self._count_and_refresh(x.shape[0])
         return pm.T, var.T
 
@@ -426,7 +482,7 @@ class OnlineSKIRegression:
         with torch.no_grad():
             self.state = wiski_stream(self.model, self.state, feats, y, torch.ones_like(y))
         self._pred_caches = None
-        self.buffer.append(self._host(x))
+        self.buffer.append(self._replay(inputs, x))
         self._count_and_refresh(x.shape[0])
         return self.state
 

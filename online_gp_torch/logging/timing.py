@@ -11,6 +11,15 @@ kernels and copies, on the same clock; the profiler keeps the ranges in
 memory and exports them when its window closes, each inside the span
 that encloses it. :func:`profile_trace` records such a window.
 
+The waits, ``ogp.sync.*``: ``stencil_check`` (the stream loops' range
+check), ``host_copy`` (a tensor's inputs copied back into the replay
+buffer), ``input_copy`` (a copy between the host and the card other than
+a staged one), ``stage_reuse`` (a pinned slot whose copy is still in
+flight), ``losses``, ``metrics``, ``replay_copy``, ``jitter_level``. A host
+array bound for the card is staged in ``ogp.input_stage``, which does not
+wait; ``api.regression.stage_host.staged_copies`` counts the arrays staged,
+``stage_host.stage_waits`` the ``stage_reuse`` waits.
+
 The ranges are ``RecordFunction``s of function scope, as the ATen
 operators' own, not the user scope of ``torch.autograd.profiler.
 record_function``: the profiler copies a user-scope range onto the

@@ -4,9 +4,11 @@ one ``ogp.*`` host range inside the one that encloses it, each wait on the
 card one ``ogp.sync.*`` range; with no profiler recording a span is one
 shared no-op and the results are the same.
 
-The CPU tests drive the wrapper at an 8 x 8 grid. The ``cuda``-marked test
-holds the sync spans complete on the card, where every wait on the device
-is a ``cudaStreamSynchronize`` in the trace (``python -m pytest
+The CPU tests drive the wrapper at an 8 x 8 grid, and hold what its replay
+buffer keeps of a caller's host arrays. The ``cuda``-marked tests hold the
+sync spans complete on the card, where every wait on the device is a
+``cudaStreamSynchronize`` or ``cudaEventSynchronize`` in the trace, and
+the staged host arrays bit for bit to device tensors (``python -m pytest
 --noconftest -m cuda tests/test_torch_spans.py``; no JAX import here).
 """
 
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from online_gp_torch.api import IdentityStem, OnlineSKIRegression
+from online_gp_torch.api.regression import stage_host
 from online_gp_torch.logging import span, spanned, timing
 
 FUNCTION_SCOPE = 0  # at::RecordScope::FUNCTION, the ATen operators' own
@@ -63,11 +66,58 @@ def test_absorb_spans_nest_by_layer(host_arrays):
     spans = _spans(_profiled(lambda: reg.absorb(x, y)))
     core = ("ogp.absorb", "ogp.wiski_stream")
     want = [("ogp.absorb", ()), ("ogp.wiski_stream", ("ogp.absorb",)), ("ogp.roots_stream", core),
-            ("ogp.sync.stencil_check", core + ("ogp.roots_stream",)), ("ogp.sync.host_copy", ("ogp.absorb",))]
-    if host_arrays:  # the inputs' copies to the wrapper's device come first
-        want[1:1] = [("ogp.sync.input_copy", ("ogp.absorb",))] * 2
+            ("ogp.sync.stencil_check", core + ("ogp.roots_stream",))]
+    if not host_arrays:  # the replay buffer keeps a host array as given, a tensor copied back
+        want.append(("ogp.sync.host_copy", ("ogp.absorb",)))
     assert spans == want
-    assert sum(name.startswith("ogp.sync.") for name, _ in spans) == (4 if host_arrays else 2)
+    assert sum(name.startswith("ogp.sync.") for name, _ in spans) == (1 if host_arrays else 2)
+
+
+def _as(x, kind):
+    """``x`` as the caller hands it over: float32, float64, or a strided
+    float32 view into a larger array."""
+    if kind == "view":
+        big = np.zeros((2 * x.shape[0], x.shape[1] + 1), np.float32)
+        big[::2, 1:] = x
+        return big[::2, 1:]
+    return x.astype(kind)
+
+
+@pytest.mark.parametrize("call", ["absorb", "prequential"])
+@pytest.mark.parametrize("kind", ["float32", "float64", "view"])
+def test_replay_buffer_keeps_the_callers_arrays(call, kind):
+    """The replay buffer takes the caller's host array itself, bit for bit
+    and in its dtype; writing over the array after the call changes neither
+    the buffer nor the state."""
+    x0, y0 = _data(0, 64)
+    reg = OnlineSKIRegression(IdentityStem(2), _as(x0, kind), _as(y0, kind), grid_size=8, device="cpu")
+    x, y = _data(8, 40)
+    x, y = _as(x, kind), _as(y, kind)
+    assert x.flags.c_contiguous == (kind != "view")
+    getattr(reg, call)(x, y)
+    kept = reg.buffer.all()[-40:]
+    assert kept.dtype == x.dtype and kept.tobytes() == np.ascontiguousarray(x).tobytes()
+    state = [t.clone() for t in (reg.state.wty, reg.state.roots.root, reg.state.roots.inv_root)]
+    x[:], y[:] = 7.0, -7.0
+    assert reg.buffer.all()[-40:].tobytes() == kept.tobytes()
+    for a, b in zip(state, (reg.state.wty, reg.state.roots.root, reg.state.roots.inv_root)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["float32", "float64"])
+def test_absorb_of_host_arrays_equals_absorb_of_tensors(kind):
+    x0, y0 = _data(0, 64)
+    arrays, tensors = (OnlineSKIRegression(IdentityStem(2), _as(x0, kind), _as(y0, kind), grid_size=8, device="cpu")
+                       for _ in range(2))
+    x, y = _data(9, 40)
+    x, y = _as(x, kind), _as(y, kind)
+    arrays.absorb(x, y)
+    tensors.absorb(torch.as_tensor(x), torch.as_tensor(y))
+    for a, b in [(arrays.state.wty, tensors.state.wty), (arrays.state.roots.root, tensors.state.roots.root),
+                 (arrays.state.roots.inv_root, tensors.state.roots.inv_root)]:
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert arrays.state.num_data == tensors.state.num_data
+    assert arrays.buffer.all().tobytes() == tensors.buffer.all().tobytes()
 
 
 def test_cache_rebuilds_against_conditionings():
@@ -173,3 +223,46 @@ def test_every_wait_on_the_card_is_a_sync_span(call):
              for w in waits if not any(inside(w, s) for s in syncs)]
     assert not loose, loose
     assert all(any(inside(w, s) for w in waits) for s in syncs), [s.name for s in syncs]
+
+
+@pytest.mark.cuda
+def test_staged_absorbs_match_device_tensors():
+    """On the card: twenty absorbs of host arrays back to back, the caller
+    writing each block into one numpy buffer while the last call's chunks
+    may still run, leave L and W y bit for bit those of the same calls on
+    device tensors; every input is staged (one call outgrows the slots) and
+    no slot is waited for. W y's scatter-add sums on atomics, in an order
+    that differs from run to run, unless deterministic algorithms are on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the port's kernels have no CPU mode")
+    deterministic, warn_only = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _staged_against_direct()
+    finally:
+        torch.use_deterministic_algorithms(deterministic, warn_only=warn_only)
+
+
+def _staged_against_direct():
+    staged, direct = _wrapper("cuda", grid_size=30), _wrapper("cuda", grid_size=30)
+    sizes = [256] * 10 + [1024] + [256] * 9
+    xs, ys = _data(10, sum(sizes))
+    bx, by = np.empty((max(sizes), 2), np.float32), np.empty((max(sizes), 1), np.float32)
+    torch.cuda.synchronize()
+    copies, waits = stage_host.staged_copies, stage_host.stage_waits
+    at = 0
+    for n in sizes:
+        bx[:n], by[:n] = xs[at:at + n], ys[at:at + n]
+        staged.absorb(bx[:n], by[:n])
+        at += n
+    assert stage_host.staged_copies - copies == 40
+    assert stage_host.stage_waits == waits
+    at = 0
+    for n in sizes:
+        direct.absorb(torch.as_tensor(xs[at:at + n], device="cuda"), torch.as_tensor(ys[at:at + n], device="cuda"))
+        at += n
+    torch.cuda.synchronize()
+    assert torch.equal(staged.state.roots.root, direct.state.roots.root)
+    assert torch.equal(staged.state.wty, direct.state.wty)
+    assert staged.buffer.all().tobytes() == direct.buffer.all().tobytes()
