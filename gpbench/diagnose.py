@@ -64,7 +64,7 @@ def setup(grid: int, seed: int, pool: int, device):
 
 
 def ref_moments(ref: check.Replay, inputs):
-    post = R.posterior(ref.K, ref.root(), ref.data.wty)
+    post = R.posterior(ref.K, ref.root()[0], ref.data.wty[0])
     return post, R.predict(ref.grid, post, ref.t(inputs.queries), ref.hypers.noise)
 
 
@@ -92,9 +92,9 @@ def refresh(args, seed: int, device) -> dict:
     out = {"mode": "refresh", "grid": args.grid, "seed": seed, "hypers": hypers._asdict(), "points": args.points}
     with torch.no_grad(), R.precision(False):
         ref = check.Replay(config, hypers, inputs, device, control=False)
-        ref.absorb(inputs.pool_x[:args.points - 128], inputs.pool_y[:args.points - 128, 0])
+        ref.absorb(inputs.pool_x[:args.points - 128], inputs.pool_y[:args.points - 128])
         _, (sm, sv) = ref_moments(ref, inputs)
-        ref.absorb(inputs.pool_x[args.points - 128:args.points], inputs.pool_y[args.points - 128:args.points, 0])
+        ref.absorb(inputs.pool_x[args.points - 128:args.points], inputs.pool_y[args.points - 128:args.points])
         post, (rm, rv) = ref_moments(ref, inputs)
         L, wty = reg.state.roots.root[0].double(), reg.state.wty[0, :, 0].double()
         own = R.predict(ref.grid, R.posterior(ref.K, L, wty), ref.t(inputs.queries), hypers.noise)
@@ -109,7 +109,7 @@ def refresh(args, seed: int, device) -> dict:
             for s in range(args.points, args.long, 4096):
                 reg.absorb(inputs.pool_x[s:s + 4096], inputs.pool_y[s:s + 4096])
             lm, lv = reg.predict(q)
-            ref.absorb(inputs.pool_x[args.points:args.long], inputs.pool_y[args.points:args.long, 0])
+            ref.absorb(inputs.pool_x[args.points:args.long], inputs.pool_y[args.points:args.long])
             _, (rm, rv) = ref_moments(ref, inputs)
             out["long_points"] = args.long
             out["long_finite"] = bool(torch.isfinite(lm).all() and torch.isfinite(lv).all())
@@ -137,7 +137,7 @@ def prequential(args, seed: int, device) -> dict:
     out["points"] = n
     with torch.no_grad(), R.precision(False):
         ref = check.Replay(config, hypers, inputs, device, control=False)
-        ref.absorb(inputs.pool_x[:n], inputs.pool_y[:n, 0])
+        ref.absorb(inputs.pool_x[:n], inputs.pool_y[:n])
         post, (rm, rv) = ref_moments(ref, inputs)
         out["ref_least_diag"] = float(torch.diagonal(post.cov).min())
         reg._pred_caches = None  # a rebuild from the roots

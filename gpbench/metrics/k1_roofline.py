@@ -1,6 +1,7 @@
 """K1 (``csrc/root_update.cu``, ``blocked_chunk``): its bound over its
-device time per chunk, in %. A chunk is one launch of a recursion kernel;
-its time is the union of K1's kernels in the counted part over the chunks."""
+device time per chunk, in %. A chunk is one launch of a recursion kernel,
+over all the state's outputs (Bd); its time is the union of K1's kernels in
+the counted part over the chunks."""
 
 import math
 
@@ -16,5 +17,6 @@ def read(ctx):
     if not chunks or ctx.peaks is None:
         return None
     sizes = ctx.sizes
-    bound = counts.bound_ms(*counts.chunk_counts(1, math.prod(sizes), ctx.block, 4 ** len(sizes)), ctx.peaks)[0]
+    work = counts.chunk_counts(ctx.outputs, math.prod(sizes), ctx.block, 4 ** len(sizes))
+    bound = counts.bound_ms(*work, ctx.peaks)[0]
     return 100.0 * bound * 1e3 / (kernel_time_us(t, KERNELS) / chunks)

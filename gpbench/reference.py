@@ -1,12 +1,14 @@
-"""The plain reference of a WISKI regression stream: exact GP algebra on a
+"""The plain reference of a WISKI stream: exact GP algebra on a
 cubic-interpolation (SKI) grid, in plain PyTorch.
 
 It follows the published model (Stanton et al. 2021, WISKI) and works
 everything out from the inputs the benchmark handed the program: the grid
-from its bounds, the interpolation weights, the Gram matrix
-A = W D^-1 W^T (D = I: the wrapper conditions on unit noise and divides
-K_uu by the learned second noise s2), W D^-1 y, the jittered root of A,
-K_uu from the hyperparameters, the posterior caches and the predictions.
+from its bounds, the interpolation weights, for each of the state's B
+outputs the Gram matrix A = W D^-1 W^T and W D^-1 y (D = I for the
+regression wrapper, which conditions on unit noise and divides K_uu by the
+learned second noise s2; D the Dirichlet noises of each point for the
+classifier, :func:`dirichlet`), the jittered root of A, K_uu from the
+hyperparameters, the posterior caches and the predictions.
 It imports nothing of the program under test and nothing of the JAX
 package. Every function takes its dtype from its inputs: float64 is the
 reference, and float32 under :func:`precision` with TF32 on is the control.
@@ -114,28 +116,46 @@ def kuu(grid: Grid, lengthscale, outputscale: float, dtype, device) -> torch.Ten
     return outputscale * out
 
 
-class Data(NamedTuple):
-    """What the stream has absorbed so far, in the reference's own terms."""
+def dirichlet(labels: torch.Tensor, classes: int, alpha_eps: float, dtype=torch.float64):
+    """Milios et al. 2018's Dirichlet transform of integer labels (n,):
+    alpha = alpha_eps + onehot(label), noise = log(1 / alpha + 1),
+    target = log(alpha) - noise / 2. Returns (targets, noises), each
+    (n, classes)."""
+    n = labels.shape[0]
+    alpha = torch.full((n, classes), alpha_eps, dtype=dtype, device=labels.device)
+    alpha[torch.arange(n, device=labels.device), labels] += 1.0
+    noise = torch.log1p(1.0 / alpha)
+    return torch.log(alpha) - 0.5 * noise, noise
 
-    A: torch.Tensor  # (m, m) sum of w w^T over the points
-    wty: torch.Tensor  # (m,) sum of w y
+
+class Data(NamedTuple):
+    """What the stream has absorbed so far, in the reference's own terms,
+    for each of the B outputs."""
+
+    A: torch.Tensor  # (B, m, m) sum of w w^T / noise over the points
+    wty: torch.Tensor  # (B, m) sum of w y / noise
     n: int
 
 
-def empty(m: int, dtype, device) -> Data:
-    return Data(torch.zeros((m, m), dtype=dtype, device=device), torch.zeros(m, dtype=dtype, device=device), 0)
+def empty(m: int, outputs: int, dtype, device) -> Data:
+    return Data(torch.zeros((outputs, m, m), dtype=dtype, device=device),
+                torch.zeros((outputs, m), dtype=dtype, device=device), 0)
 
 
-def absorb(grid: Grid, data: Data, x: torch.Tensor, y: torch.Tensor, block: int = 4096) -> Data:
-    """Data after absorbing the points (x, y) at unit noise, in dense
-    products of ``block`` points."""
-    A, wty = data.A, data.wty
+def absorb(grid: Grid, data: Data, x: torch.Tensor, y: torch.Tensor, noise: torch.Tensor = None,
+           block: int = 4096) -> Data:
+    """Data after absorbing the points x with targets y (n, B) and noises
+    (n, B), or unit noise where ``noise`` is None, in dense products of
+    ``block`` points."""
+    A, wty = data.A.clone(), data.wty.clone()
     m = grid.num_points
     for s in range(0, x.shape[0], block):
         idx, w = interp(grid, x[s:s + block])
         W = dense_w(idx, w, m)
-        A = A + W @ W.T
-        wty = wty + W @ y[s:s + block]
+        for b in range(A.shape[0]):
+            Wd = W if noise is None else W / noise[s:s + block, b]
+            A[b] += Wd @ W.T
+            wty[b] += Wd @ y[s:s + block, b]
     return Data(A, wty, data.n + x.shape[0])
 
 
@@ -189,7 +209,8 @@ def root_update(L: torch.Tensor, B: torch.Tensor, V: torch.Tensor):
 
 
 class Posterior(NamedTuple):
-    """The grid-space posterior in units of s2: mean (m,), cov (m, m)."""
+    """The grid-space posterior of one output (in units of s2 where there
+    is a second noise): mean (m,), cov (m, m)."""
 
     mean: torch.Tensor
     cov: torch.Tensor
@@ -198,7 +219,8 @@ class Posterior(NamedTuple):
 def posterior(K: torch.Tensor, L: torch.Tensor, wty: torch.Tensor) -> Posterior:
     """The exact caches of SKI regression through the root L of A (Woodbury):
     Q = I + L^T K L, mean = K wty - K L Q^-1 L^T K wty,
-    cov = K - (K L) Q^-1 (K L)^T, with K = K_uu / s2."""
+    cov = K - (K L) Q^-1 (K L)^T, with K = K_uu / s2 (K_uu without a
+    second noise)."""
     KL = K @ L
     eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
     Q = eye + L.T @ KL
@@ -212,10 +234,14 @@ def posterior(K: torch.Tensor, L: torch.Tensor, wty: torch.Tensor) -> Posterior:
     return Posterior(mean, 0.5 * (cov + cov.T))
 
 
-def predict(grid: Grid, post: Posterior, x: torch.Tensor, s2: float):
-    """Predictive y-moments at x: mean w^T mu, variance s2 (w^T C w) + s2."""
+def predict(grid: Grid, post: Posterior, x: torch.Tensor, s2: float = None):
+    """Predictive moments at x: mean w^T mu and, with a second noise s2,
+    the y-variance s2 (w^T C w) + s2; without one, the latent variance
+    w^T C w."""
     idx, w = interp(grid, x)
     mean = torch.sum(w * post.mean[idx], dim=1)
     sub = post.cov[idx[:, :, None], idx[:, None, :]]
     var = torch.einsum("np,npq,nq->n", w, sub, w)
+    if s2 is None:
+        return mean, torch.clamp(var, min=1e-12)
     return mean, torch.clamp(var * s2, min=1e-12) + s2

@@ -43,6 +43,7 @@ class Context(NamedTuple):
     peaks: Optional[tuple]  # (bytes/s, flop/s) of the card
     sizes: tuple  # grid points a dimension
     block: int  # points a chunk of K1
+    outputs: int  # the state's outputs, K1's batch Bd
 
 
 def forbidden_modules() -> list:
@@ -113,7 +114,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t
     name = torch.cuda.get_device_name(device) if on_cuda else "cpu"
     peaks = counts.card_peaks(name)[1] if on_cuda else None
     ctx = Context(cell, record, first, window_s, setup_s, tr, peaks,
-                  (config["wrapper"]["grid_size"],) * config["input_dim"], config["block_size"])
+                  (config["wrapper"]["grid_size"],) * config["input_dim"], config["block_size"], config["num_outputs"])
     metrics = {}
     for m in (cell.per_layer if traced else cell.end_to_end):
         value = spec.reader(m["name"])(ctx) if failed == 0 else None

@@ -14,7 +14,10 @@ A mix is a data file, ``gpbench/traffic/<mix>.json``:
                    amplitude * prod_d trig_d(freq[d] x_d) + noise_sd * N(0, 1)
                    (trig sin on even d, cos on odd); pool_points of them are
                    made in set-up and taken in order, from the start again
-                   once used up
+                   once used up. With ``classes`` (C), the targets are
+                   integer labels instead: [-amplitude, amplitude] cut into
+                   C equal bins, a target's label the number of inner edges
+                   below it (C = 2: label 1 where the target is > 0)
   seed_points      the points the state is made from
   queries          a fixed query set (uniform like the stream's inputs) for
                    ops that predict
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,11 +50,12 @@ class Hypers(NamedTuple):
 
     lengthscale: tuple  # (D,)
     outputscale: float
-    noise: float  # the learned second noise s2
+    noise: Optional[float]  # the learned second noise s2; None where the model has none
 
 
 def draw_hypers(config: Dict, seed: int) -> Hypers:
-    """Log-uniform draws in the configuration's ``hyper_ranges``."""
+    """Log-uniform draws in the configuration's ``hyper_ranges``; no second
+    noise where they have no ``noise``."""
     rng = np.random.default_rng([seed, 1])
     r = config["hyper_ranges"]
 
@@ -60,7 +64,7 @@ def draw_hypers(config: Dict, seed: int) -> Hypers:
         return float(math.exp(rng.uniform(math.log(lo), math.log(hi))))
 
     ls = tuple(draw(r["lengthscale"]) for _ in range(config["input_dim"]))
-    return Hypers(ls, draw(r["outputscale"]), draw(r["noise"]))
+    return Hypers(ls, draw(r["outputscale"]), draw(r["noise"]) if "noise" in r else None)
 
 
 def _targets(x: torch.Tensor, stream: Dict, gen: torch.Generator) -> torch.Tensor:
@@ -71,6 +75,12 @@ def _targets(x: torch.Tensor, stream: Dict, gen: torch.Generator) -> torch.Tenso
     return f + stream["noise_sd"] * noise
 
 
+def _labels(y: torch.Tensor, stream: Dict) -> torch.Tensor:
+    a, classes = float(stream["amplitude"]), stream["classes"]
+    edges = torch.linspace(-a, a, classes + 1, dtype=y.dtype, device=y.device)[1:-1]
+    return torch.sum(y[..., None] > edges, dim=-1)
+
+
 def _inputs(n: int, dim: int, stream: Dict, gen: torch.Generator, device) -> torch.Tensor:
     u = torch.rand((n, dim), generator=gen, dtype=torch.float32, device=device)
     return stream["low"] + (stream["high"] - stream["low"]) * u
@@ -78,12 +88,13 @@ def _inputs(n: int, dim: int, stream: Dict, gen: torch.Generator, device) -> tor
 
 class Inputs(NamedTuple):
     """What the benchmark hands the program (and, once the window has
-    closed, the reference): host arrays of float32."""
+    closed, the reference): host arrays of float32, the labels of a
+    labelled stream int64."""
 
     seed_x: np.ndarray  # (seed_points, D)
-    seed_y: np.ndarray  # (seed_points, 1)
+    seed_y: np.ndarray  # (seed_points, 1) targets or labels
     pool_x: np.ndarray  # (pool_points, D)
-    pool_y: np.ndarray  # (pool_points, 1)
+    pool_y: np.ndarray  # (pool_points, 1) targets or labels
     queries: np.ndarray  # (queries, D)
     queries_dev: torch.Tensor  # the query set on the device
 
@@ -94,6 +105,8 @@ def make_inputs(mix: Dict, dim: int, seed: int, device) -> Inputs:
     n_seed, n_pool, n_q = mix["seed_points"], mix["pool_points"], max(mix["queries"], 1)
     x = _inputs(n_seed + n_pool + n_q, dim, s, gen, device)
     y = _targets(x[: n_seed + n_pool], s, gen)[:, None]
+    if "classes" in s:
+        y = _labels(y, s)
     xh, yh = x.cpu().numpy(), y.cpu().numpy()
     q = x[n_seed + n_pool:]
     return Inputs(xh[:n_seed], yh[:n_seed], xh[n_seed:n_seed + n_pool], yh[n_seed:],

@@ -42,10 +42,10 @@ def make(config: Dict, hypers, seed_x: np.ndarray, seed_y: np.ndarray, device):
 class Final(NamedTuple):
     """What the program left once the window closed, as the check reads it."""
 
-    root: torch.Tensor  # (m, m) the state's root L
-    wty: torch.Tensor  # (m,)
+    root: torch.Tensor  # (B, m, m) each output's root L
+    wty: torch.Tensor  # (B, m)
 
 
 def final(reg) -> Final:
     st = reg.state
-    return Final(st.roots.root[0], st.wty[0, :, 0])
+    return Final(st.roots.root, st.wty[:, :, 0])
