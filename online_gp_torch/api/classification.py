@@ -11,6 +11,13 @@ y / sigma^2) -> a GP hyper step -> conditioning with the transformed noise
 ``absorb`` conditions in bulk (K1); Q of the prediction caches and of the
 stem objective is factored by K6, one per class.
 
+Inputs reach the card as the regression wrapper's do
+(:class:`~online_gp_torch.api.regression.StagedInputs`): a host array of
+points or labels through pinned slots with no wait, the caller's own
+array into the replay buffer. Under ``torch.profiler`` each call of
+``absorb``, ``update`` and ``predict`` is one span ``ogp.<method>``, and
+each wait on the card one ``ogp.sync.<what>`` span.
+
 Constructing ``OnlineSKIClassifier`` with ``low_rank=`` or a grid above
 ``DENSE_GRID_LIMIT`` returns the rank-capped
 :class:`~online_gp_torch.api.lowrank_classification.OnlineSKILowRankClassifier`.
@@ -22,11 +29,11 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from online_gp_torch.api.regression import (
     DENSE_GRID_LIMIT,
+    StagedInputs,
     _adam,
     _bn_refresh,
     _fit_epoch,
@@ -40,6 +47,7 @@ from online_gp_torch.api.stems import Stem
 from online_gp_torch.config import DEFAULT_CONFIG, SolverConfig
 from online_gp_torch.kernels.base import Kernel, make_kernel
 from online_gp_torch.likelihoods.dirichlet import dirichlet_transform
+from online_gp_torch.logging.timing import span, spanned
 from online_gp_torch.models.partial_mll import sm_partial_mll
 from online_gp_torch.models.wiski import (
     WiskiModel,
@@ -56,7 +64,7 @@ from online_gp_torch.utils.buffers import ReplayBuffer
 MAX_GRID_POINTS = 65536
 
 
-class OnlineSKIClassifier:
+class OnlineSKIClassifier(StagedInputs):
     """Dirichlet-transform SKI classifier on the dense O(m^2) core, for grids
     up to ``DENSE_GRID_LIMIT`` points; with ``low_rank=`` or a larger grid
     the constructor returns an ``OnlineSKILowRankClassifier`` (rank
@@ -113,7 +121,8 @@ class OnlineSKIClassifier:
         self.lr = lr
         self.alpha_eps = alpha_eps
         self.num_classes = num_classes
-        init_x = self._inputs(init_x)
+        super().__init__()
+        host_x, init_x = init_x, self._inputs(init_x)
 
         # the JAX stems' init(key): fresh weights, then BatchNorm statistics
         # from the init data
@@ -141,22 +150,15 @@ class OnlineSKIClassifier:
             t.requires_grad_(True)
         self.state = self._init_state(feats, *self._transform(init_y))
         self.set_lr(lr)
-        self.buffer = ReplayBuffer(self._host(init_x))
+        self.buffer = ReplayBuffer(self._replay(host_x, init_x))
 
     # -- helpers -----------------------------------------------------------
 
-    def _inputs(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device).reshape(-1, self.stem.input_dim)
-
     def _transform(self, labels):
         """(targets, sigma2), each (n, C), of integer labels."""
-        labels = torch.as_tensor(labels, device=self.device).reshape(-1)
+        labels = self._on_device(labels, "y").reshape(-1)
         targets, _, sigma2 = dirichlet_transform(labels, self.num_classes, self.alpha_eps)
         return targets, sigma2
-
-    @staticmethod
-    def _host(x: torch.Tensor) -> np.ndarray:
-        return x.detach().cpu().numpy()
 
     def _features(self, x) -> torch.Tensor:
         with torch.no_grad():
@@ -168,6 +170,7 @@ class OnlineSKIClassifier:
 
     # -- public API --------------------------------------------------------
 
+    @spanned("predict")
     def predict(self, inputs) -> torch.Tensor:
         """(n,) class labels: the argmax over classes of the posterior mean
         (the first class of a tie, as ``jnp.argmax``)."""
@@ -179,9 +182,10 @@ class OnlineSKIClassifier:
 
     def evaluate(self, inputs, labels) -> float:
         pred = self.predict(inputs)
-        labels = torch.as_tensor(labels, device=pred.device).reshape(-1)
+        labels = self._on_device(labels, "y").reshape(-1)
         return float(torch.mean((pred == labels).to(torch.float32)))
 
+    @spanned("absorb")
     def absorb(self, inputs, labels):
         """Bulk-absorb a labelled stream, conditioning only: one exact
         rank-1 update per point through :func:`wiski_stream`."""
@@ -189,9 +193,10 @@ class OnlineSKIClassifier:
         targets, sigma2 = self._transform(labels)
         with torch.no_grad():
             self.state = wiski_stream(self.model, self.state, self._features(x), targets, sigma2)
-        self.buffer.append(self._host(x))
+        self.buffer.append(self._replay(inputs, x))
         return self.state
 
+    @spanned("update")
     def update(self, inputs, labels, update_stem: bool = True, update_gp: bool = True):
         """One streaming step on q new labelled points: the stem step on the
         partial MLL of targets / sigma2, the GP step on the skip-logdet MLL,
@@ -215,10 +220,11 @@ class OnlineSKIClassifier:
         feats = self._features(x)
         with torch.no_grad():
             self.state = wiski_condition(self.model, self.state, feats, targets, sigma2)
-        self.buffer.append(self._host(x))
+        self.buffer.append(self._replay(inputs, x))
         if update_stem and self.stem.has_params:
             _bn_refresh(self.stem, self.buffer, x)
-        return float(s_loss), float(g_loss)
+        with span("sync.losses"):
+            return float(s_loss), float(g_loss)
 
     def fit(self, inputs, labels, num_epochs: int, test_dataset=None):
         """Refit epochs under a cosine rate annealed to 1e-4, each rebuilding

@@ -123,6 +123,44 @@ stage_host.staged_copies = 0
 stage_host.stage_waits = 0
 
 
+class StagedInputs:
+    """How a dense streaming wrapper (this module's and
+    :class:`~online_gp_torch.api.classification.OnlineSKIClassifier`) takes
+    its inputs in and keeps them: host arrays bound for the card through
+    :func:`stage_host`, the caller's own array in the replay buffer. The
+    wrapper sets ``device`` and ``stem``."""
+
+    def __init__(self):
+        # the pinned slots of the inputs (x) and the targets or labels (y), by dtype
+        self._stage = {"x": {}, "y": {}}
+
+    def _on_device(self, x, which: str) -> torch.Tensor:
+        """``x`` as a tensor on the wrapper's device. A host array bound for
+        the card is staged through the pinned slots of input ``which``
+        (``"x"`` or ``"y"``) without a wait; any other copy between the host
+        and the card waits for the card."""
+        if torch.is_tensor(x) and x.device.type == self.device.type:
+            return x.to(self.device)
+        if self.device.type == "cuda" and isinstance(x, np.ndarray):
+            with span("input_stage"):
+                return stage_host(self._stage[which].setdefault(x.dtype, []), x, self.device)
+        if self.device.type == "cpu" and not torch.is_tensor(x):
+            return torch.as_tensor(x)  # host to host
+        with span("sync.input_copy"):
+            return torch.as_tensor(x, device=self.device)
+
+    def _inputs(self, x) -> torch.Tensor:
+        return self._on_device(x, "x").reshape(-1, self.stem.input_dim)
+
+    def _replay(self, inputs, x: torch.Tensor) -> np.ndarray:
+        """What the replay buffer keeps of a call's inputs: the caller's own
+        host array where it passed one, else ``x`` copied back to the host."""
+        if isinstance(inputs, np.ndarray):
+            return inputs.reshape(-1, self.stem.input_dim)
+        with span("sync.host_copy"):
+            return x.detach().cpu().numpy()
+
+
 def hyper_probes(num_data: int, num_outputs: int, m: int, dtype, device) -> MllProbes:
     """The iterative MLL's probes for a GP step at stream position
     ``num_data``: drawn from a CPU generator seeded from (7, num_data), then
@@ -201,7 +239,7 @@ def _fit_epoch(model: WiskiModel, params, stem: Stem, x, y, noise, cfg: SolverCo
     return loss.detach()
 
 
-class OnlineSKIRegression:
+class OnlineSKIRegression(StagedInputs):
     """Streaming-regression wrapper on the dense O(m^2) WISKI core, for grids
     up to ``DENSE_GRID_LIMIT`` inducing points. Constructed with ``low_rank=``
     or a larger grid, it returns an ``OnlineSKILowRankRegression`` instead
@@ -271,8 +309,7 @@ class OnlineSKIRegression:
         self.stem = stem.to(self.device)
         self.cfg = cfg
         self.lr = lr
-        # the pinned slots of the inputs (x) and the targets (y), by dtype
-        self._stage = {"x": {}, "y": {}}
+        super().__init__()
         host_x, init_x = init_x, self._inputs(init_x)
         init_y = torch.as_tensor(init_y, device=self.device)
         if init_y.ndim != 2:
@@ -315,34 +352,8 @@ class OnlineSKIRegression:
 
     # -- helpers -----------------------------------------------------------
 
-    def _on_device(self, x, which: str) -> torch.Tensor:
-        """``x`` as a tensor on the wrapper's device. A host array bound for
-        the card is staged through the pinned slots of input ``which``
-        (``"x"`` or ``"y"``) without a wait; any other copy between the host
-        and the card waits for the card."""
-        if torch.is_tensor(x) and x.device.type == self.device.type:
-            return x.to(self.device)
-        if self.device.type == "cuda" and isinstance(x, np.ndarray):
-            with span("input_stage"):
-                return stage_host(self._stage[which].setdefault(x.dtype, []), x, self.device)
-        if self.device.type == "cpu" and not torch.is_tensor(x):
-            return torch.as_tensor(x)  # host to host
-        with span("sync.input_copy"):
-            return torch.as_tensor(x, device=self.device)
-
-    def _inputs(self, x) -> torch.Tensor:
-        return self._on_device(x, "x").reshape(-1, self.stem.input_dim)
-
     def _targets(self, y) -> torch.Tensor:
         return self._on_device(y, "y").reshape(-1, self.target_dim)
-
-    def _replay(self, inputs, x: torch.Tensor) -> np.ndarray:
-        """What the replay buffer keeps of a call's inputs: the caller's own
-        host array where it passed one, else ``x`` copied back to the host."""
-        if isinstance(inputs, np.ndarray):
-            return inputs.reshape(-1, self.stem.input_dim)
-        with span("sync.host_copy"):
-            return x.detach().cpu().numpy()
 
     def _init_state(self, feats, targets):
         with torch.no_grad():
