@@ -573,12 +573,13 @@ M6_SIDE = 64  # a 64x64 grid, m = 4,096
 N_SEED6 = 1024  # bench_iterative_hyper_step's seed points
 N_K2_6 = 16  # K2 calls checked at m = 4,096
 PLAIN_REPS6 = 3  # timing repeats of the plain versions at m = 4,096
-# phase 6: the edges of K1's grid envelope at k = 128 (1,121: the first m on
-# G = 2 clusters; 4,480: the last on G = 4; 4,481: the first on G = 5, where
-# the port's first design ran the recursion on one block) and of K3's
-# 16-block one (3,137: the first on 16 blocks; 6,016: the last; 6,017: the
-# first spread over the card), each with the route (route_name) it must take
-K1_EDGES = {1121: "grid", 4480: "grid", 4481: "grid"}  # m -> the route of K1's recursion there
+# phase 6: the edges of K1's grid envelope at k = 128 (1,120: the last m on
+# one cluster, by the carried kernel; 1,121: the first on G = 2 clusters;
+# 4,480: the last on G = 4; 4,481: the first on G = 5, where the port's
+# first design ran the recursion on one block) and of K3's 16-block one
+# (3,137: the first on 16 blocks; 6,016: the last; 6,017: the first spread
+# over the card), each with the route (route_name) it must take
+K1_EDGES = {1120: "cluster", 1121: "grid", 4480: "grid", 4481: "grid"}  # m -> the route of K1's recursion there
 K3_EDGES = {3137: "wide", 6016: "wide", 6017: "spread"}
 # phase 6: K6 (Bd, m) where its panels turn ragged or its plan changes
 # (2,048: 16 whole panels; 2,049 and 4,097: a last panel of one column)
@@ -1040,9 +1041,10 @@ def plain_stream(L, B, idx, wv, k, **kw):
 
 def check_blocked_chunk(rng, grid, peaks, dev):
     """K1 against its plain version; returns the chunk's results and its
-    cluster recursion's (chunk_recursion_cluster_kernel within the chunk)."""
+    one-cluster recursion's (chunk_recursion_carried_kernel within the
+    chunk at m = 900)."""
     m = grid.num_points
-    plan = chunk_cluster_plan(K, m)
+    plan, recursion = k1_route(K, m, "cluster")
     out, rec = {}, {}
     for Bd in (1, 2):
         L, B = synthetic_roots(rng, Bd, m, dev)
@@ -1068,7 +1070,7 @@ def check_blocked_chunk(rng, grid, peaks, dev):
         make = lambda: (*clone_all(L, B), i1, wv1)
         bms, by = chunk_bound(Bd, m, K, idx.shape[1], peaks)
         ms, stages = device_ms(blocked_chunk, make, {
-            "chunk_gather_kernel": 1, "chunk_recursion_cluster_kernel": 1, **k1_apply_kernels(K, m, m)})
+            "chunk_gather_kernel": 1, recursion: 1, **k1_apply_kernels(K, m, m)})
         out[Bd] = dict(
             max_abs_err=err, stream_max_abs_err=err_stream, ms=ms, stages_ms=stages,
             wrapper_ms=time_ms(blocked_chunk, make), plain_ms=time_ms(blocked_chunk_plain, make),
@@ -1077,7 +1079,7 @@ def check_blocked_chunk(rng, grid, peaks, dev):
         # a, p, U p, P^T g, R^T g: 10 t m flops at step t; p0 in, U, P, R out
         bms, by = bound_ms(4 * 4 * Bd * K * m, Bd * 5 * K * (K - 1) * m, peaks)
         rec[Bd] = dict(
-            max_abs_err=err, ms=stages["chunk_recursion_cluster_kernel"], cluster=plan.cluster,
+            max_abs_err=err, ms=stages[recursion], kernel=recursion, cluster=plan.cluster,
             shared_bytes=plan.shared_bytes, plain_ms=time_ms(blocked_factors, lambda: (p0,)),
             library_ms=None, bound_ms=bms, bound_by=by,
         )
@@ -1106,14 +1108,15 @@ def expect_route(plan, expect, what):
 
 def k1_route(k, m, expect):
     """(plan, CUDA kernel) of K1's recursion at (k, m) on card 0, as the
-    wrappers take it, after checking that this is the route ``expect``:
-    one cluster of 8 ("cluster", the cluster kernel), G >= 2 of them
-    ("grid", the grid kernel) or spread over the card ("spread")."""
+    wrappers take it for a flat chunk, after checking that this is the
+    route ``expect``: one cluster of 8 ("cluster", the carried kernel),
+    G >= 2 of them ("grid", the grid kernel) or spread over the card
+    ("spread")."""
     plan, _ = cuda_root_update._recursion_plan(cuda_root_update._root_update_lib(), k, m, "chunk", 0)
     expect_route(plan, expect, f"K1's recursion at (k={k}, m={m})")
     if expect == "spread":
         return plan, f"chunk_recursion_spread_kernel<{plan.slices}>"
-    return plan, "chunk_recursion_cluster_kernel" if expect == "cluster" else "chunk_recursion_grid_kernel"
+    return plan, "chunk_recursion_carried_kernel" if expect == "cluster" else "chunk_recursion_grid_kernel"
 
 
 def k3_route(k, m, P, expect):
@@ -1278,6 +1281,7 @@ def main_path(rng, model, params, card, dev):
         wrapper.launches = 0
     blocked_chunk.cluster_launches = pred_chunk.cluster_launches = 0
     blocked_chunk.grid_cluster_launches = pred_chunk.wide_cluster_launches = 0
+    blocked_chunk.carried_launches = 0
     zero_apply_counters()
     t0 = time.perf_counter()
     state = wiski_stream(model, state, xs, ys, ns, block_size=K)
@@ -1323,6 +1327,9 @@ def main_path(rng, model, params, card, dev):
         raise AssertionError("a chunk of the main path at m = 900 did not run its recursion on a cluster")
     if blocked_chunk.grid_cluster_launches or pred_chunk.wide_cluster_launches:
         raise AssertionError("a chunk of the main path at m = 900 left its one cluster of 8")
+    if blocked_chunk.carried_launches != launches["blocked_chunk"]:
+        raise AssertionError(f"{launches['blocked_chunk'] - blocked_chunk.carried_launches} K1 chunks of the main "
+                             f"path at m = 900 did not take the carried kernel")
 
     if tuple(mean.shape) != (1, N_TEST) or tuple(var.shape) != (1, N_TEST):
         raise AssertionError(f"predict shapes {tuple(mean.shape)}, {tuple(var.shape)}")
@@ -1359,8 +1366,9 @@ def main_path(rng, model, params, card, dev):
 def profile_main_path(model, params, state, caches, stream, preq, n=2 * K):
     """The CUDA kernels torch.profiler records over a short pass of the
     main path's streams (n points of each) on copies of its final state:
-    the one-cluster recursions run, and no other recursion kernel (K1's
-    grid or spread kernel, K3's spread kernel) does."""
+    the one-cluster recursions run (K1's by the carried kernel), and no
+    other recursion kernel (K1's cluster, grid or spread kernel, K3's
+    spread kernel) does."""
     from torch.profiler import ProfilerActivity, profile
 
     copy = lambda st: st._replace(roots=RootCache(None, st.roots.root.clone(), st.roots.inv_root.clone()))
@@ -1377,9 +1385,9 @@ def profile_main_path(model, params, state, caches, stream, preq, n=2 * K):
         if hit:
             counts[hit.group(1)] = counts.get(hit.group(1), 0) + ev.count
     print(f"  recursion kernels recorded over {n} + {n} main-path points: {json.dumps(counts)}")
-    if not (counts.get("chunk_recursion_cluster_kernel") and counts.get("pred_recursion_cluster_kernel")):
-        raise AssertionError("torch.profiler recorded no cluster recursion on the main path")
-    others = sorted(set(counts) - {"chunk_recursion_cluster_kernel", "pred_recursion_cluster_kernel"})
+    if not (counts.get("chunk_recursion_carried_kernel") and counts.get("pred_recursion_cluster_kernel")):
+        raise AssertionError("torch.profiler recorded no one-cluster recursion on the main path")
+    others = sorted(set(counts) - {"chunk_recursion_carried_kernel", "pred_recursion_cluster_kernel"})
     if others:
         raise AssertionError(f"the main path at m = 900 launched recursion kernels off one cluster: {others}")
 
@@ -1624,7 +1632,7 @@ def check_chunk_variants(rng, grid, peaks, dev):
         "blocked_chunk_coord": {"chunk_gather_kernel": 1, "coord_gram_kernel": 1, "coord_recursion_kernel": 1,
                                 "batched_gemm_kernel": 1, **apply},
     }
-    flat_kernels = {"chunk_gather_kernel": 1, "chunk_recursion_cluster_kernel": 1, **apply}
+    flat_kernels = {"chunk_gather_kernel": 1, k1_route(K, m, "cluster")[1]: 1, **apply}
     nb = K // SUB
     out = {kname: {} for kname in VARIANTS}
     for Bd in (1, 2):
@@ -1638,7 +1646,7 @@ def check_chunk_variants(rng, grid, peaks, dev):
             flat_s = blocked_chunk(*flat_s, idx[c * K : (c + 1) * K].contiguous(), wv[:, c * K : (c + 1) * K].contiguous())
         make = lambda: (*clone_all(L, B), i1, wv1)
         flat_ms, _ = device_ms(blocked_chunk, make, flat_kernels)
-        check_sub_kernel_is_k1_at_sub_k(L, B, i1, wv1, flat1)
+        check_sub_kernel_is_k1_at_sub_k(L, B, i1, wv1)
         p0 = torch.einsum("bkp,bkpm->bkm", wv1, B[:, i1.long()])
         for kname, kw in VARIANTS.items():
             want = blocked_chunk_plain(L, B, i1, wv1, **kw)
@@ -1703,27 +1711,35 @@ def check_chunk_variants(rng, grid, peaks, dev):
     return out
 
 
-def check_sub_kernel_is_k1_at_sub_k(L, B, idx, wv, flat):
+def check_sub_kernel_is_k1_at_sub_k(L, B, idx, wv):
     """K5 sub's fused kernel at sub = k has no boundary, so it is K1's step,
-    of which K1's kernel keeps its own copy on the same layout
+    of which K1's one-cluster kernel keeps its own copy on the same layout
     (cluster_step and chunk_recursion_cluster_kernel in csrc/root_update.cu).
-    Through the C entry (the wrapper takes sub < k only), its chunk must be
-    bitwise the flat chunk."""
+    Through the C entries (the wrapper takes sub < k only, and K1's carried
+    kernel where it holds the chunk), its chunk must be bitwise the flat
+    chunk of the one-cluster kernel."""
     lib = cuda_root_update._root_update_lib()
     Bd, m = L.shape[0], L.shape[-1]
     k, P = idx.shape
     plan = chunk_cluster_plan(k, m)
     aplan = chunk_apply_plan(k, m, m)
-    Lc, Bc = clone_all(L, B)
     f32 = dict(dtype=torch.float32, device=L.device)
-    factors = torch.empty((4, Bd, k, m), **f32)
     p_ = _build.ptr
-    rc = lib.ogp_blocked_chunk_sub_cluster(p_(Lc), p_(Bc), p_(idx), p_(wv), *(p_(x) for x in factors), None,
-                                           Bd, k, k, P, m, aplan.cluster, plan.cluster, _build.stream_of(Lc))
-    _build.launch_check(rc, "chunk_sub_cluster_kernel at sub = k", plan, aplan)
+    chunks = []
+    for sub in (k, None):
+        Lc, Bc = clone_all(L, B)
+        factors = torch.empty((4, Bd, k, m), **f32)
+        if sub:
+            rc = lib.ogp_blocked_chunk_sub_cluster(p_(Lc), p_(Bc), p_(idx), p_(wv), *(p_(x) for x in factors), None,
+                                                   Bd, k, k, P, m, aplan.cluster, plan.cluster, _build.stream_of(Lc))
+        else:  # spread -1, carried 0: the one-cluster kernel
+            rc = lib.ogp_blocked_chunk(p_(Lc), p_(Bc), p_(idx), p_(wv), *(p_(x) for x in factors), None, None, Bd,
+                                       k, P, m, 1, Bd, aplan.cluster, plan.cluster, -1, 0, _build.stream_of(Lc))
+        _build.launch_check(rc, "chunk_sub_cluster_kernel at sub = k" if sub else "blocked_chunk", plan, aplan)
+        chunks.append((Lc, Bc))
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip((Lc, Bc), flat)):
-        raise AssertionError(f"K5 sub's kernel at sub = k (Bd={Bd}) is not bitwise K1's")
+    if not all(torch.equal(a, b) for a, b in zip(*chunks)):
+        raise AssertionError(f"K5 sub's kernel at sub = k (Bd={Bd}) is not bitwise K1's one-cluster kernel")
 
 
 def check_sub_sizes(rng, dev):
@@ -2277,14 +2293,16 @@ def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS, atol=1e-5):
 
 
 def k1_counts(wrapper):
-    """A K1 wrapper's (launches, cluster, grid-cluster, spread) counters."""
-    return (wrapper.launches, wrapper.cluster_launches, wrapper.grid_cluster_launches, wrapper.spread_launches)
+    """A K1 wrapper's (launches, cluster, grid-cluster, spread, carried) counters."""
+    return (wrapper.launches, wrapper.cluster_launches, wrapper.grid_cluster_launches, wrapper.spread_launches,
+            wrapper.carried_launches)
 
 
 def k1_route_counts(plan, n=1):
     """The counters' moves of n K1 recursions on ``plan``."""
     spread = isinstance(plan, _build.SpreadPlan)
-    return (n, n * (not spread), n * (not spread and plan.clusters > 1), n * spread)
+    return (n, n * (not spread), n * (not spread and plan.clusters > 1), n * spread,
+            n * cuda_root_update._carried(plan))
 
 
 def check_k1(L, B, idx, wv, peaks, what, route, plain_reps=TIMING_REPS, atol=1e-5):

@@ -297,8 +297,9 @@ __device__ __forceinline__ ColTask col_task(ColSplit cs) {
 // row group j % S, and within a group to one of four accumulators in turn,
 // added as (0 + 1) + (2 + 3); red[(x S + s) 32 CT + l] gets group s's sum
 // for column l, and col_sum adds the groups in order: the same sums on
-// every run. Called by every thread of the block; ends with __syncthreads().
-template <int NX>
+// every run. Called by every thread of the block; ends with __syncthreads()
+// (unless kSync is false: the caller's own barrier then orders red).
+template <int NX, bool kSync = true>
 __device__ __forceinline__ void col_partials(const float* X0, const float* X1, int ld,
                                              const float* v, float scale, int t, int w,
                                              ColSplit cs, ColTask task, float* red) {
@@ -337,7 +338,7 @@ __device__ __forceinline__ void col_partials(const float* X0, const float* X1, i
     for (int x = 0; x < NX; ++x)
       red[(x * cs.S + s) * wc + l] = (acc[x][0] + acc[x][1]) + (acc[x][2] + acc[x][3]);
   }
-  __syncthreads();
+  if (kSync) __syncthreads();
 }
 
 __device__ __forceinline__ float col_sum(const float* red, int x, int l, ColSplit cs) {

@@ -41,7 +41,19 @@
 //       The slices go to the (Bd, k, m) scratch of the applies after the
 //       last step. No cluster barrier inside the loop: on this card one
 //       compiles to a GPU-scope fence (MEMBAR.ALL.GPU) and cost 0.65-0.74
-//       us; an exchange's wait is 0.04-0.2 us. Shapes whose slice does not
+//       us; an exchange's wait is 0.04-0.2 us.
+//       That is the step the grid and spread kernels (below) and K5 sub
+//       run. A flat chunk on one cluster (m <= 1,120 at k = 128) runs
+//       chunk_recursion_carried_kernel, on the same layout, with one
+//       exchange a step: the dots a_j = P_j . p0_t are carried in the raw
+//       rows themselves. Each raw row waits in its row of U's slice and
+//       after step t holds r = p0_{t'} + sum_{j<=t} (P_j . p0_{t'}) U_j, so
+//       it is p when its step comes (no stage 1, no p0 row read). Dotting
+//       P_t = d (u_t + sum_{j<t} g_j P_j) with p0_{t'} gives
+//       P_t . p0_{t'} = d inv_s (r . p): the step's one row pass over all k
+//       rows against p carries U_j . p (j < t), |p|^2 and r . p (t' > t),
+//       and the later rows take r += (d inv_s r . p) u_t within the block.
+//       Shapes whose slice does not
 //       fit a block of one cluster (3 k ld floats, the receive buffers and
 //       the vectors over 227 KB at C = 8: m > 1,120 at k = 128) spread
 //       their columns over G clusters of 8 (chunk_recursion_grid_kernel,
@@ -116,10 +128,13 @@
 //   online_gp_tpu/parallel/mesh.py runs the plain recursion there).
 // Bound: operations, 8 m^2 k + 5 k^2 m flops per output (0.9 GFLOP at
 // m = 900, k = 128) against 4 m^2 floats of L and B traffic. The recursion
-// is bound by latency on this card: at t = 64 a step is ~4.4 us of short
-// stages (row and column passes over ~36 K floats of shared memory per
-// block, two exchanges, six block barriers), each a chain of dependent
-// shared-memory loads and shuffles. One block an output would read U, P, R
+// is bound by latency on this card: at t = 64 the cluster kernel's step is
+// ~4.6 us of short stages (row and column passes over ~36 K floats of
+// shared memory per block, two exchanges, six block barriers), each a
+// chain of dependent shared-memory loads and shuffles; the carried
+// kernel's is ~3.4 us at m = 900 (~2.5 us at m = 256): one exchange, three
+// barriers, its row pass, P and R partials and rank-1 update each 0.65-1
+// us. One block an output would read U, P, R
 // from L2 at one SM's rate (~75 GB/s on an H100, 16.5 us a step at
 // t = 64). cluster_probe.py measures the split, building this file with
 // OGP_STAMPS (common.cuh) so that the kernels stamp their stages.
@@ -662,6 +677,156 @@ chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__
   chunk_recursion_cluster_body<false, 3, 1>(p0, U, Pm, R, k, m, lay, ogp::GridExchange{});
 }
 
+// (b) a flat chunk on one cluster of lay.C blocks per output, grid (C, Bd),
+// with one exchange a step: a_j = P_j . p0_t is carried instead of summed
+// across the cluster. Each raw row waits in its row of U's slice until its
+// step, and after step t every later row r holds p0_{t'} + sum_{j<=t}
+// (P_j . p0_{t'}) U_j, so at step t' it is p. The carried dots come from the
+// step's own sums: dotting P_t = d (u_t + sum_{j<t} g_j P_j) with p0_{t'}
+// and adding the dots of the terms r already holds gives
+//     P_t . p0_{t'} = d inv_s (r_{t'} . p),
+// so the one row pass over all k rows of the slice against p (row t) gives
+// U_j . p (j < t), |p|^2 and r_{t'} . p (t' > t), exchanged together (use
+// t) and added in one order in every block; the later rows then take
+// r_{t'} += (d inv_s r_{t'} . p) u_t, a rank-1 update within the block.
+// Step t:
+//   1. the k sums: partials pushed to every block, received, summed (Lx
+//      lanes a sum, a fixed butterfly);
+//   2. P^T v and R^T v partials over the block's columns (v = U p, g before
+//      its scale), the scalars, the rank-1 update of rows t + 1 .. k - 1;
+//   3. row t: u = p inv_s, P_t = d (u + inv_s P^T v), R_t = c (u + inv_s R^T v),
+//      the column partials' row groups added by a fixed butterfly (Sp lanes
+//      a column).
+// Three barriers a step where the cluster kernel has six and two exchanges.
+// Its column passes take at most kCarriedGroups row groups (fewer partials
+// to add for a column). Layout: chunk_cluster_layout's (q and a unused; the
+// sums in g's place). U, P, R are the k exact sequential rank-1 updates of
+// the other kernels, in float32 with no atomics: only the association
+// differs (p's terms added one a step, P^T g scaled after its sum).
+constexpr int kCarriedGroups = 8;
+
+__global__ void __launch_bounds__(kClusterThreads)
+chunk_recursion_carried_kernel(const float* __restrict__ p0, float* __restrict__ U,
+                               float* __restrict__ Pm, float* __restrict__ R, int k, int m,
+                               ChunkClusterLayout lay) {
+  extern __shared__ float sh[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = lay.C, ld = lay.ld;
+  const ColSplit cs{lay.cs.CT, min(lay.cs.S, kCarriedGroups)};
+  const int rank = static_cast<int>(cluster.block_rank());
+  // two mbarriers, k x ld slices of U, P, R, q and a (unused), the sums
+  float* Us = sh + 4;
+  float* Ps = Us + k * ld;
+  float* Rs = Ps + k * ld;
+  float* v = Rs + k * ld + ld + k;
+  const ogp::Exchange x{reinterpret_cast<unsigned long long*>(sh), v + k, C, k + 1, rank};
+  float* red = x.recv + 2 * C * (k + 1);  // 2 S CT 32: column partials
+  const int tid = threadIdx.x;
+  const ColTask task = ogp::col_task(cs);
+  int Sp = 1;  // lanes adding a column's row groups
+  while (Sp < cs.S) Sp *= 2;
+  const int lgp = __ffs(Sp) - 1, gp = tid & (Sp - 1), wc = cs.CT * 32;
+  int Lx = 1;  // lanes adding a slot's C partials
+  while (2 * Lx <= C && 2 * Lx * k <= kClusterThreads) Lx *= 2;
+  const int lgx = __ffs(Lx) - 1, hx = tid & (Lx - 1);
+  const int c0 = rank * lay.W;
+  const int w = max(0, min(lay.W, m - c0));
+  // the rank-1 update: thread (ur, l) takes rows t + 1 + ur, + rs, ... of
+  // columns l, l + cw, ...
+  const int cw = min(w, kClusterThreads);
+  const int rs = cw > 0 ? kClusterThreads / cw : 0;
+  const int ur = cw > 0 ? tid / cw : 0, ul0 = tid - ur * cw;
+  const long long mm = m;
+  const long long off = blockIdx.y * k * mm + c0;
+  const float* p0b = p0 + off;
+  for (int e = tid; e < k * w; e += kClusterThreads) {
+    const int j = e / w, l = e - j * w;
+    Us[j * ld + l] = p0b[j * mm + l];
+  }
+  ogp::exchange_init(x);  // synchronises the cluster, so the block too
+
+  for (int t = 0; t < k; ++t) {
+    OGP_STAMP(k, t, 0);
+    float* pt = Us + t * ld;
+    // 1. U_j . p (j < t), |p|^2 (j = t), r_j . p (j > t): exchange use t
+    ogp::exchange_expect(x, t, k);
+    row_partials(Us, ld, pt, k, k, w, lay.Sr, x, t);
+    OGP_STAMP(k, t, 1);
+    ogp::exchange_wait(x, t);
+    OGP_STAMP(k, t, 2);
+    const float* rb = x.recv + (t & 1) * C * x.stride;
+    for (int j0 = 0; j0 < k; j0 += kClusterThreads >> lgx) {
+      const int j = j0 + (tid >> lgx);
+      float sum = 0.f;
+      if (j < k)
+        for (int r = hx; r < C; r += Lx) sum += rb[r * x.stride + j];
+      for (int o = Lx >> 1; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (j < k && hx == 0) v[j] = sum;
+    }
+    __syncthreads();
+    OGP_STAMP(k, t, 3);
+    // 2. P^T v, R^T v partials; the scalars; rows past t
+    col_partials<2, false>(Ps, Rs, ld, v, 1.f, t, w, cs, task, red);
+    OGP_STAMP(k, t, 4);
+    const float s2 = v[t];
+    const float s = sqrtf(s2);
+    const float inv_s = s > 1e-20f ? 1.f / s : 0.f;
+    const float r1 = sqrtf(s2 + 1.f);
+    const float c = r1 - 1.f;
+    const float d = 1.f / r1 - 1.f;
+    const float di = d * inv_s;
+    if (ur < rs) {
+      for (int l = ul0; l < w; l += cw) {
+        const float u = pt[l] * inv_s;
+        int tr = t + 1 + ur;
+        for (; tr + 3 * rs < k; tr += 4 * rs) {  // four rows' loads in flight
+          float o[4], f[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            o[i] = Us[(tr + i * rs) * ld + l];
+            f[i] = v[tr + i * rs];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) Us[(tr + i * rs) * ld + l] = fmaf(di * f[i], u, o[i]);
+        }
+        for (; tr < k; tr += rs) Us[tr * ld + l] = fmaf(di * v[tr], u, Us[tr * ld + l]);
+      }
+    }
+    OGP_STAMP(k, t, 5);
+    __syncthreads();  // red is complete; p is read no more
+    OGP_STAMP(k, t, 6);
+    // 3. row t of U, P, R
+    for (int l0 = 0; l0 < w; l0 += kClusterThreads >> lgp) {
+      const int l = l0 + (tid >> lgp);
+      float a0 = 0.f, a1 = 0.f;
+      if (l < w && gp < cs.S) {
+        a0 = red[gp * wc + l];
+        a1 = red[(cs.S + gp) * wc + l];
+      }
+      for (int o = Sp >> 1; o > 0; o >>= 1) {
+        a0 += __shfl_xor_sync(0xffffffffu, a0, o);
+        a1 += __shfl_xor_sync(0xffffffffu, a1, o);
+      }
+      if (l < w && gp == 0) {
+        const float ul = pt[l] * inv_s;
+        pt[l] = ul;
+        Ps[t * ld + l] = d * (ul + inv_s * a0);
+        Rs[t * ld + l] = c * (ul + inv_s * a1);
+      }
+    }
+    OGP_STAMP(k, t, 7);
+    __syncthreads();  // rows t of U, P, R and row t + 1 (p) are read at step t + 1
+    OGP_STAMP(k, t, 8);
+  }
+  for (int e = tid; e < k * w; e += kClusterThreads) {
+    const int j = e / w, l = e - j * w;
+    U[off + j * mm + l] = Us[j * ld + l];
+    Pm[off + j * mm + l] = Ps[j * ld + l];
+    R[off + j * mm + l] = Rs[j * ld + l];
+  }
+  cluster.sync();  // no block leaves while a push to another may be in flight
+}
+
 // (b) on G clusters of lay.C blocks per output, grid (C G, Bd); slots:
 // (Bd, 2, G, k + 1) zeroed words, output b's at slots[b].
 __global__ void __launch_bounds__(kClusterThreads)
@@ -1007,16 +1172,23 @@ SpreadKernel spread_kernel(int slices) {
   }
 }
 
-// (b) for Bd outputs: with spread >= 0, spread over G clusters of C blocks
-// per output with `spread` slices in shared memory; else on one cluster of
-// C blocks per output (G = 1), or on G clusters of C blocks per output
-// (G > 1). With G > 1 (slots: (Bd, 2, G, k + 1) zeroed words) the launches
-// run in waves of `wave` outputs, in order on the stream, each checked to
-// fit the card at once (G clusters per output wait on each other). Returns
-// a cudaError_t, or ogp::kNoCluster.
+// (b) for Bd outputs: with carried, on one cluster of C blocks per output
+// by the carried kernel (G = 1, spread < 0); with spread >= 0, spread over
+// G clusters of C blocks per output with `spread` slices in shared memory;
+// else on one cluster of C blocks per output (G = 1), or on G clusters of C
+// blocks per output (G > 1). With G > 1 (slots: (Bd, 2, G, k + 1) zeroed
+// words) the launches run in waves of `wave` outputs, in order on the
+// stream, each checked to fit the card at once (G clusters per output wait
+// on each other). Returns a cudaError_t, or ogp::kNoCluster.
 int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int k, int m, int C, int G,
-                    int wave, int spread, unsigned long long* slots, cudaStream_t s) {
+                    int wave, int spread, int carried, unsigned long long* slots, cudaStream_t s) {
   if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (carried) {
+    if (G != 1 || spread >= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C);
+    return ogp::launch_cluster(chunk_recursion_carried_kernel, C, Bd,
+                               lay.floats * static_cast<long long>(sizeof(float)), s, p0, U, Pm, R, k, m, lay);
+  }
   if (spread >= 0 || G > 1) {
     const int max_g = spread >= 0 ? ogp::kMaxSpreadClusters : ogp::kMaxGridClusters;
     const SpreadKernel spread_k = spread >= 0 ? spread_kernel(spread) : nullptr;
@@ -1700,20 +1872,21 @@ int ogp_chunk_spread_capacity(int k, int m, int C, int G, int slices) {
 // outputs; wv: (Bd, k, P); p0, U, Pm, R: (Bd, k, m) scratch; T: (Bd, 2, m, k)
 // scratch of the tiled apply (unused when AC > 0); slots: (Bd, 2, G, k + 1)
 // zeroed words of the recursion on G > 1 clusters (else unused). The
-// recursion runs spread over G clusters of C blocks per output with
-// `spread` slices in shared memory when spread >= 0, else on G clusters of
-// C blocks per output (in waves of `wave` outputs when G > 1); the apply
-// on clusters of AC blocks, or on the tiled kernels when AC is 0. Returns cudaGetLastError() after the
-// launches, or -1 when the card cannot hold a wave's clusters of C blocks
-// (or one of AC).
+// recursion runs on one cluster of C blocks per output by the carried
+// kernel when carried is 1, spread over G clusters of C blocks per output
+// with `spread` slices in shared memory when spread >= 0, else on G
+// clusters of C blocks per output (in waves of `wave` outputs when G > 1);
+// the apply on clusters of AC blocks, or on the tiled kernels when AC is 0.
+// Returns cudaGetLastError() after the launches, or -1 when the card cannot
+// hold a wave's clusters of C blocks (or one of AC).
 int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float* p0,
                       float* U, float* Pm, float* R, float* T, unsigned long long* slots, int Bd, int k,
-                      int P, int m, int G, int wave, int AC, int C, int spread, void* stream) {
+                      int P, int m, int G, int wave, int AC, int C, int spread, int carried, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, slots, s);
+  const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, carried, slots, s);
   if (rc != 0) return rc;
   return chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, AC, s);
 }
@@ -1793,7 +1966,7 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
                MatArg{U + i * blk, mm, 1, rows, 1, kEveryBatch}, qj, mm, rows, Bd, 1.f, true, s);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, G, wave, spread,
+    const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, G, wave, spread, 0,
                                    G > 1 ? slots + j * words : nullptr, s);
     if (rc != 0) return rc;
   }
@@ -1866,14 +2039,16 @@ int ogp_chunk_gather_rows(const float* B, const int* idx, const float* wv, float
 }
 
 // The recursion on the summed p0: (Bd, k, m) in; U, Pm, R: (Bd, k, m) out;
-// slots: (Bd, 2, G, k + 1) zeroed words when G > 1. Spread over G clusters
-// of C blocks per output with `spread` slices in shared memory when
-// spread >= 0, else on G clusters of C blocks per output, in waves of
+// slots: (Bd, 2, G, k + 1) zeroed words when G > 1. On one cluster of C
+// blocks per output by the carried kernel when carried is 1, spread over G
+// clusters of C blocks per output with `spread` slices in shared memory
+// when spread >= 0, else on G clusters of C blocks per output, in waves of
 // `wave` outputs. Returns cudaGetLastError(), or -1 when the card cannot
 // hold a wave's clusters.
 int ogp_chunk_factors(const float* p0, float* U, float* Pm, float* R, unsigned long long* slots, int Bd, int k,
-                      int m, int G, int wave, int C, int spread, void* stream) {
-  return chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, slots, static_cast<cudaStream_t>(stream));
+                      int m, int G, int wave, int C, int spread, int carried, void* stream) {
+  return chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, carried, slots,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The apply on a row shard: L, B: (Bd, rows, m), updated in place; R, Pm,

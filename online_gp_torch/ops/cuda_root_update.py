@@ -22,7 +22,7 @@ sharded over processes (``parallel/mesh.py::sharded_stream_blocked``):
 :func:`chunk_factors` (the recursion on the summed p0) and
 :func:`chunk_apply_rows` (the apply on a shard's rows), each beside its
 plain version and counting its own ``launches`` (``chunk_factors`` also
-``cluster_launches`` and ``grid_cluster_launches``).
+``cluster_launches``, ``carried_launches`` and ``grid_cluster_launches``).
 
 K1's apply (X += (X A^T) U for (X, A) = (L, R), (B, P)), which every
 wrapper here that updates L and B ends with, also runs on clusters:
@@ -38,7 +38,9 @@ wrapper checks the plan against the kernel's layout
 
 K1's recursion runs on thread-block clusters: :func:`chunk_cluster_plan`
 splits each output's m columns over 8 blocks that keep their columns of
-the factor rows U, P, R in shared memory, or, where one cluster's blocks
+the factor rows U, P, R in shared memory (a flat chunk there runs
+``chunk_recursion_carried_kernel``, one cluster exchange a step, the dots
+P_j . p0_t carried in the raw rows), or, where one cluster's blocks
 cannot hold them (m > 1,120 at k = 128), over G = 2 to 8 such clusters
 whose sums meet in device memory (``chunk_recursion_grid_kernel``: G = 4
 at m = 4,096, 8 up to m = 8,960). The G clusters of an output wait on each
@@ -54,11 +56,11 @@ holds has such a plan. K5 sub runs its whole two-level recursion,
 corrections and collapse to one rank-k operator included, in one cluster
 kernel on K1's layout, so wherever :func:`chunk_cluster_plan` holds the
 chunk on one cluster, and one sub-block at a time elsewhere (each by K1's
-route at k = sub). Those rules are by shape and the card's capacity:
-nothing is tried and caught. Before each cluster launch the wrapper checks
-that the plan's shared memory is the kernel's layout
-(``ogp_chunk_cluster_smem``, ``ogp_chunk_spread_smem``) and raises
-RuntimeError if not.
+cluster, grid or spread route at k = sub, never the carried kernel). Those
+rules are by shape and the card's capacity: nothing is tried and caught.
+Before each cluster launch the wrapper checks that the plan's shared
+memory is the kernel's layout (``ogp_chunk_cluster_smem``,
+``ogp_chunk_spread_smem``) and raises RuntimeError if not.
 
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
@@ -74,7 +76,8 @@ the plain versions return new tensors. Each wrapper counts its calls that
 launched the kernel in its ``launches`` attribute (one per call; a call
 is several CUDA launches, listed in the source); ``blocked_chunk`` counts
 K1 there (and the K1 calls whose recursion ran on clusters in
-``cluster_launches``, of them those on G > 1 clusters in
+``cluster_launches``, of them those by the carried kernel in
+``carried_launches`` and those on G > 1 clusters in
 ``grid_cluster_launches``; those spread over the card in
 ``spread_launches``) and K5 in ``sub_launches`` (of them, those on the
 fused cluster kernel in ``sub_cluster_launches``) and ``coord_launches``.
@@ -120,7 +123,7 @@ def _root_update_lib():
         lib.ogp_rank1_apply.restype = i32
         lib.ogp_rank1_apply_rows.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
         lib.ogp_rank1_apply_rows.restype = i32
-        lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 9 + [vp]
+        lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 10 + [vp]
         lib.ogp_blocked_chunk.restype = i32
         lib.ogp_chunk_cluster_smem.argtypes = [i32] * 4
         lib.ogp_chunk_cluster_smem.restype = ctypes.c_longlong
@@ -146,7 +149,7 @@ def _root_update_lib():
         lib.ogp_blocked_chunk_coord.restype = i32
         lib.ogp_chunk_gather_rows.argtypes = [vp] * 4 + [i32] * 6 + [vp]
         lib.ogp_chunk_gather_rows.restype = i32
-        lib.ogp_chunk_factors.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+        lib.ogp_chunk_factors.argtypes = [vp] * 5 + [i32] * 8 + [vp]
         lib.ogp_chunk_factors.restype = i32
         lib.ogp_chunk_apply_rows.argtypes = [vp] * 6 + [i32] * 5 + [vp]
         lib.ogp_chunk_apply_rows.restype = i32
@@ -501,6 +504,13 @@ def _recursion_plan(lib, k: int, m: int, what: str, device=None):
     return splan, splan.cluster
 
 
+def _carried(plan) -> bool:
+    """Whether a flat chunk's recursion on ``plan`` runs by the carried
+    kernel (``chunk_recursion_carried_kernel``, one exchange a step): every
+    plan on one cluster an output, on chunk_cluster_layout."""
+    return isinstance(plan, _build.ClusterPlan) and plan.clusters == 1
+
+
 def _grid_launch(lib, plan, Bd: int, k: int, m: int, device, what: str, n: int = 1) -> _build.GridLaunch:
     """The :func:`~online_gp_torch.ops._build.grid_launch` of ``n`` K1
     recursions of Bd outputs at (k, m) on ``plan`` (n sub-blocks of K5
@@ -529,8 +539,9 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
         (``sub`` is then only checked).
 
     On CUDA the flat recursion runs on the clusters of
-    :func:`chunk_cluster_plan` (one, or G > 1 in waves of outputs), or
-    spread over the card (:func:`chunk_spread_plan`) past it; the sub
+    :func:`chunk_cluster_plan` (one, by the carried kernel, or G > 1 in
+    waves of outputs), or spread over the card (:func:`chunk_spread_plan`)
+    past it; the sub
     recursion on the fused cluster kernel where that rule holds the chunk
     at k on one cluster, else one sub-block at a time (each by the flat
     route at k = sub). Raises ValueError for a shape no kernel takes,
@@ -560,23 +571,26 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
     plan, C = _recursion_plan(lib, k, m, "chunk", dev.index)
     aplan, AC = _apply_plan(lib, k, m, m, "chunk")
     grid = _grid_launch(lib, plan, Bd, k, m, dev, "chunk")
+    carried = _carried(plan)
     factors = torch.empty((4, Bd, k, m), dtype=torch.float32, device=dev)  # p0, U, P, R
     T = _apply_scratch(aplan, Bd, m, k, dev)
     p_ = _build.ptr
     rc = lib.ogp_blocked_chunk(
         p_(L), p_(B), p_(idx), p_(wv), p_(factors[0]), p_(factors[1]), p_(factors[2]),
         p_(factors[3]), _ptr_or_null(T), _ptr_or_null(grid.slots), Bd, k, P, m, grid.G, grid.wave, AC, C,
-        grid.spread, _build.stream_of(L),
+        grid.spread, int(carried), _build.stream_of(L),
     )
     _build.launch_check(rc, "blocked_chunk", plan, aplan)
     blocked_chunk.launches += 1
     _build.count_recursion(blocked_chunk, plan, grid)
+    blocked_chunk.carried_launches += carried
     _count_applies(aplan, Bd, m, m, k)
     return L, B
 
 
 blocked_chunk.launches = 0
 blocked_chunk.cluster_launches = 0
+blocked_chunk.carried_launches = 0
 blocked_chunk.grid_cluster_launches = 0
 blocked_chunk.spread_launches = 0
 blocked_chunk.sub_launches = 0
@@ -723,8 +737,9 @@ def chunk_factors_plain(p0: torch.Tensor):
 def chunk_factors(p0: torch.Tensor):
     """K1's recursion on a chunk's summed p0 (Bd, k, m): returns (U, P, R),
     each (Bd, k, m), on the clusters of :func:`chunk_cluster_plan` where it
-    holds the chunk (counted in ``cluster_launches``, and those on G > 1
-    clusters also in ``grid_cluster_launches``), else spread over the card
+    holds the chunk (counted in ``cluster_launches``; those on one cluster,
+    by the carried kernel, also in ``carried_launches``, and those on G > 1
+    clusters in ``grid_cluster_launches``), else spread over the card
     (:func:`chunk_spread_plan`, counted in ``spread_launches``)."""
     if _build.on_cpu(p0):
         return chunk_factors_plain(p0)
@@ -736,18 +751,21 @@ def chunk_factors(p0: torch.Tensor):
     lib = _root_update_lib()
     plan, C = _recursion_plan(lib, k, m, "chunk_factors", p0.device.index)
     grid = _grid_launch(lib, plan, Bd, k, m, p0.device, "chunk_factors")
+    carried = _carried(plan)
     U, Pm, R = torch.empty((3, Bd, k, m), dtype=torch.float32, device=p0.device)
     p_ = _build.ptr
     rc = lib.ogp_chunk_factors(p_(p0), p_(U), p_(Pm), p_(R), _ptr_or_null(grid.slots), Bd, k, m, grid.G,
-                               grid.wave, C, grid.spread, _build.stream_of(p0))
+                               grid.wave, C, grid.spread, int(carried), _build.stream_of(p0))
     _build.launch_check(rc, "chunk_factors", plan)
     chunk_factors.launches += 1
     _build.count_recursion(chunk_factors, plan, grid)
+    chunk_factors.carried_launches += carried
     return U, Pm, R
 
 
 chunk_factors.launches = 0
 chunk_factors.cluster_launches = 0
+chunk_factors.carried_launches = 0
 chunk_factors.grid_cluster_launches = 0
 chunk_factors.spread_launches = 0
 

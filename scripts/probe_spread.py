@@ -66,7 +66,7 @@ def k1_entry(lib, p0, G, spread):
     Bd, k, m = p0.shape
     U, Pm, R = torch.empty((3, Bd, k, m), device=dev)
     slots = torch.zeros((Bd, 2, G, k + 1), dtype=torch.int64, device=dev)
-    rc = lib.ogp_chunk_factors(ptr(p0), ptr(U), ptr(Pm), ptr(R), ptr(slots), Bd, k, m, G, Bd, 8, spread, None)
+    rc = lib.ogp_chunk_factors(ptr(p0), ptr(U), ptr(Pm), ptr(R), ptr(slots), Bd, k, m, G, Bd, 8, spread, 0, None)
     if rc:
         raise RuntimeError(f"ogp_chunk_factors: {rc}")
     return U, Pm, R

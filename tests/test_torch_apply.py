@@ -250,8 +250,10 @@ def test_every_k1_chunk_hands_its_apply_the_plan(fake_card, k, sub, mode, m, ent
     (name, args), = fake_card.calls
     assert name == entry
     # AC sits before the recursion's C (absent for coord) and, where the
-    # recursion may be spread, its spread slices, then the stream
-    assert args[{"ogp_blocked_chunk_coord": -2, "ogp_blocked_chunk_sub_cluster": -3}.get(entry, -4)] == AC
+    # recursion may be spread, its spread slices (and, for the flat chunk,
+    # the carried kernel's flag), then the stream
+    at = {"ogp_blocked_chunk_coord": -2, "ogp_blocked_chunk_sub_cluster": -3, "ogp_blocked_chunk": -5}
+    assert args[at.get(entry, -4)] == AC
     counts = (tcru.chunk_apply_plan.launches, tcru.chunk_apply_plan.tiled_launches)
     assert counts == ((applies, 0) if AC else (0, applies))
     assert tcru.chunk_apply_plan.shapes == {(Bd, m, m, k // applies): applies}

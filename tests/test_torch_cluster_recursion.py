@@ -2,7 +2,8 @@
 marked ``cuda``, on a card).
 
 - The shape rules ``chunk_cluster_plan`` (K1's recursion on one cluster of
-  8 blocks, or on G = 2 to 8 of them past what one holds, and K5 sub's
+  8 blocks, a flat chunk there by the carried kernel, or on G = 2 to 8 of
+  them past what one holds, and K5 sub's
   fused one on the one-cluster layout), ``pred_cluster_plan`` (K3's, on 8
   blocks or 16) and, past them, ``chunk_spread_plan`` and
   ``pred_spread_plan`` (the recursions spread over as many clusters of 8
@@ -28,9 +29,14 @@ marked ``cuda``, on a card).
   same two levels over N = C G blocks: emulated at float64 with N = 3, 7
   and 16 against the JAX package's ``blocked_factors_xla`` and
   ``pred_chunk_factors`` (1e-10), and at float32 against the Pallas
-  kernels in interpret mode.
+  kernels in interpret mode. The carried kernel's order
+  (``carried_chunk_factors``: the dots with P carried in the raw rows, one
+  rank-order sum of k dots a step) on one cluster of C = 2, 4 and 8, held
+  the same way, and over a 32-chunk stream at m = 256 within 1.5 times
+  the deviation of the cluster kernel's order from float64.
 - The kernels against their plain versions on the card at m = 4,096 (K1 on
-  4 clusters, Bd = 1 and 2; K3 on 16 blocks), at the envelopes' edges and
+  4 clusters, Bd = 1 and 2; K3 on 16 blocks), at m = 256 and 900 (K1's
+  carried kernel, Bd = 1 and 2), at the envelopes' edges and
   past them on the spread route, bitwise the same on a second call;
   skipped without one (``-m cuda``; the JAX imports sit inside the CPU
   tests, so ``pytest --noconftest -m cuda`` runs this file on a machine
@@ -96,6 +102,33 @@ def cluster_chunk_factors(p0, C, G=1):
         U[:, t] = u
         Pm[:, t] = d_ * (u + (Pm[:, :t].mT @ g[..., None])[..., 0])
         R[:, t] = c_ * (u + (R[:, :t].mT @ g[..., None])[..., 0])
+    return U, Pm, R
+
+
+def carried_chunk_factors(p0, C):
+    """K1's carried recursion (``chunk_recursion_carried_kernel``) in its
+    order of summation, on one cluster of C blocks: the raw rows past t
+    carry their dots with P, r += (d inv_s r . p) u_t after step t, so p is
+    row t as it stands; one rank-order sum a step of the blocks' dots of
+    the k rows U_j (j < t), p and r (j > t) with p; P^T v and R^T v scaled
+    by inv_s after their sums."""
+    Bd, k, m = p0.shape
+    cols = _slices(m, C)
+    rows = p0.clone()
+    U, Pm, R = (torch.zeros_like(p0) for _ in range(3))
+    for t in range(k):
+        p = rows[:, t].clone()
+        every = torch.cat([U[:, :t], p[:, None], rows[:, t + 1 :]], dim=1)
+        v = _rank_sum([(every[:, :, c] @ p[:, c, None])[..., 0] for c in cols])
+        s2 = v[:, t : t + 1]
+        s = torch.sqrt(s2)
+        inv_s = torch.where(s > 1e-20, 1.0 / torch.clamp(s, min=1e-20), torch.zeros_like(s))
+        c_, d_ = torch.sqrt(s2 + 1.0) - 1.0, 1.0 / torch.sqrt(s2 + 1.0) - 1.0
+        u = p * inv_s
+        U[:, t] = u
+        Pm[:, t] = d_ * (u + inv_s * (Pm[:, :t].mT @ v[:, :t, None])[..., 0])
+        R[:, t] = c_ * (u + inv_s * (R[:, :t].mT @ v[:, :t, None])[..., 0])
+        rows[:, t + 1 :] = torch.addcmul(rows[:, t + 1 :], ((d_ * inv_s) * v[:, t + 1 :])[..., None], u[:, None, :])
     return U, Pm, R
 
 
@@ -658,7 +691,7 @@ def card(monkeypatch):
     monkeypatch.setattr(tcru, "_root_update_lib", lambda: lib)
     monkeypatch.setattr(tcps, "_pred_stream_lib", lambda: lib)
     for fn in (tcru.blocked_chunk, tcru.chunk_factors):
-        for attr in ("launches", "cluster_launches", "grid_cluster_launches", "spread_launches"):
+        for attr in ("launches", "cluster_launches", "carried_launches", "grid_cluster_launches", "spread_launches"):
             monkeypatch.setattr(fn, attr, 0)
     for fn in (tcps.pred_chunk, tcps.pred_factors):
         for attr in ("launches", "cluster_launches", "wide_cluster_launches", "spread_launches"):
@@ -681,19 +714,58 @@ def test_k1_chunk_at_m4096_takes_the_grid_kernel_in_waves(card, Bd, wave):
     # the slots of the cross-cluster sums, then (Bd, k, P, m, G, wave, AC, C)
     assert name == "ogp_blocked_chunk" and args[9] is not None and args[10:18] == (Bd, k, P, m, 4, wave, 8, 8)
     assert fname == "ogp_chunk_factors" and fargs[4] is not None and fargs[5:11] == (Bd, k, m, 4, wave, 8)
-    assert args[18] == fargs[11] == -1  # not the spread kernel
+    assert args[18] == fargs[11] == -1 and args[19] == fargs[12] == 0  # neither spread nor carried
     for fn in (tcru.blocked_chunk, tcru.chunk_factors):
         assert (fn.launches, fn.cluster_launches, fn.grid_cluster_launches, fn.spread_launches) == (1, 1, 1, 0)
 
 
 def test_k1_chunk_inside_one_cluster_is_launched_as_before(card):
-    """m = 900: one cluster of 8, G = 1, no slots, no grid launch."""
+    """m = 900: one cluster of 8, G = 1, no slots, no grid launch; by the
+    carried kernel (spread -1, carried 1), on the one-cluster layout."""
     k, P, m, Bd = 128, 16, 900, 2
     L = _meta(Bd, m, m)
     tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(Bd, k, P))
     (name, args), = card.calls
     assert name == "ogp_blocked_chunk" and args[9] is None and args[10:18] == (Bd, k, P, m, 1, Bd, 8, 8)
+    assert args[18:20] == (-1, 1)
     assert (tcru.blocked_chunk.cluster_launches, tcru.blocked_chunk.grid_cluster_launches) == (1, 0)
+    assert tcru.blocked_chunk.carried_launches == 1
+
+
+@pytest.mark.parametrize("m,carried", [(256, 1), (900, 1), (1120, 1), (1121, 0), (4096, 0), (20000, 0)])
+@pytest.mark.parametrize("Bd", [1, 2])
+def test_k1_carried_launches_count_with_cluster_launches(card, m, carried, Bd):
+    """blocked_chunk and chunk_factors hand their entries the carried flag
+    wherever one cluster of 8 holds the chunk (m <= 1,120 at k = 128, the
+    layout of chunk_cluster_plan), and count it in carried_launches beside
+    cluster_launches; G > 1 clusters and the spread route keep their
+    kernels."""
+    k, P = 128, 16
+    L = _meta(Bd, m, m)
+    tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(Bd, k, P))
+    tcru.chunk_factors(_meta(Bd, k, m))
+    (name, args), (fname, fargs) = card.calls
+    assert (name, fname) == ("ogp_blocked_chunk", "ogp_chunk_factors")
+    assert args[19] == fargs[12] == carried and (args[18] == fargs[11] == -1) == (m <= 8960)
+    for fn in (tcru.blocked_chunk, tcru.chunk_factors):
+        assert (fn.launches, fn.cluster_launches, fn.carried_launches) == (1, m <= 8960, carried)
+
+
+def test_k1_carried_route_refuses_a_plan_that_is_not_the_kernel_layout(monkeypatch):
+    """The carried kernel runs on chunk_cluster_layout: a library whose
+    layout query drifts from the plan raises before anything launches."""
+    lib = _Card(skew=4)
+    monkeypatch.setattr(_build, "on_cpu", lambda *ts: False)
+    monkeypatch.setattr(_build, "check_cuda_args", lambda *a, **kw: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    monkeypatch.setattr(tcru, "_root_update_lib", lambda: lib)
+    monkeypatch.setattr(tcru.blocked_chunk, "carried_launches", 0)
+    k, P, m = 128, 16, 256
+    with pytest.raises(RuntimeError, match="they must be changed together"):
+        tcru.blocked_chunk(_meta(1, m, m), _meta(1, m, m), _meta(k, P, dtype=torch.int32), _meta(1, k, P))
+    with pytest.raises(RuntimeError, match="they must be changed together"):
+        tcru.chunk_factors(_meta(1, k, m))
+    assert lib.calls == [] and tcru.blocked_chunk.carried_launches == 0
 
 
 @pytest.mark.parametrize("capacity", [3, 0])
@@ -785,6 +857,59 @@ def test_k1_cluster_order_matches_pallas_and_the_plain_recursion(C, G, repeats):
     # and at float32, within the chunk tolerance of the plain version
     for a, b in zip(blocked_factors(p0), (U, Pm, R)):
         _close(a, b, 1e-5)
+
+
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("repeats", [False, True])
+def test_k1_carried_order_matches_pallas_and_the_plain_recursion(C, repeats):
+    """The carried kernel's order (the dots with P carried in the raw rows, one
+    sum a step) on the cases of the cluster order's test, on one cluster."""
+    import jax.numpy as jnp
+    from online_gp_tpu.ops import root_update as jru
+    from online_gp_tpu.ops.pallas_root_update import pallas_blocked_chunk_batched
+
+    rng = np.random.default_rng(30 + C + 10 * repeats)
+    Bd = 2
+    L, B = _roots(rng, Bd, M, np.float32)
+    idx, w = _stencil(rng, K, M, repeats)
+    wv = (w[None] * np.array([1.0, 0.7])[:, None, None]).astype(np.float32)
+    S = np.stack([np.asarray(jru.stencil_rows(jnp.asarray(idx, jnp.int32), jnp.asarray(wv[b]), M)) for b in range(Bd)])
+    p0 = torch.einsum("bkp,bkpm->bkm", torch.tensor(wv), torch.tensor(B)[:, torch.tensor(idx)])
+    U, Pm, R = carried_chunk_factors(p0, C)
+    tL = torch.tensor(L) + (torch.tensor(L) @ R.mT) @ U
+    tB = torch.tensor(B) + (torch.tensor(B) @ Pm.mT) @ U
+    jL, jB = pallas_blocked_chunk_batched(jnp.asarray(L), jnp.asarray(B), jnp.asarray(S), interpret=True)
+    _close(jL, tL, 1e-5)
+    _close(jB, tB, 1e-5)
+    p0d = p0.double()
+    for a, b in zip(blocked_factors(p0d), carried_chunk_factors(p0d, C)):
+        _close(a, b, 1e-9)
+    for a, b in zip(blocked_factors(p0), (U, Pm, R)):
+        _close(a, b, 1e-5)
+
+
+def test_k1_carried_order_keeps_a_stream_as_close_as_the_cluster_order():
+    """32 chunks of 128 points at m = 256 in float32, on one cluster of 8:
+    the largest deviation of L L^T from the float64 stream's, over its
+    largest entry, in the carried order is within 1.5 times the cluster
+    kernel's order."""
+    rng = np.random.default_rng(0)
+    m, k = 256, 128
+    L, B = (torch.tensor(x) for x in _roots(rng, 1, m, np.float64))
+    chunks = [_stencil(rng, k, m, False) for _ in range(32)]
+    roots = {}
+    for name, factors, dtype in (("float64", blocked_factors, torch.float64),
+                                 ("cluster", lambda p: cluster_chunk_factors(p, 8), torch.float32),
+                                 ("carried", lambda p: carried_chunk_factors(p, 8), torch.float32)):
+        Lc, Bc = L.to(dtype), B.to(dtype)
+        for idx, w in chunks:
+            p0 = torch.einsum("kp,bkpm->bkm", torch.tensor(w, dtype=dtype), Bc[:, torch.tensor(idx)])
+            U, Pm, R = factors(p0)
+            Lc, Bc = Lc + (Lc @ R.mT) @ U, Bc + (Bc @ Pm.mT) @ U
+        roots[name] = Lc.double() @ Lc.double().mT
+    A = roots["float64"]
+    dev = {name: float((roots[name] - A).abs().max() / A.abs().max()) for name in ("cluster", "carried")}
+    assert dev["carried"] <= 1.5 * dev["cluster"], dev
 
 
 # --------------------------------------------------------------------------
@@ -939,13 +1064,13 @@ def _card_stencil(rng, k, m, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Bd,m,G", [(1, 4096, 4), (2, 4096, 4), (1, 1120, 1), (1, 1121, 2), (1, 4480, 4),
                                     (1, 4481, 5), (1, 8960, 8), (1, 8961, 0), (1, 16384, 0), (2, 16384, 0),
-                                    (1, 32400, 0)])
+                                    (1, 32400, 0), (1, 256, 1), (2, 256, 1), (1, 900, 1), (2, 900, 1)])
 def test_k1_chunk_kernel_matches_its_plain_version(gpu, Bd, m, G):
     """K1 at k = 128 on G clusters of 8 (0: spread over the card, as many
-    clusters as it holds) at m = 4,096, the envelopes' edges and past them,
-    to 1e-5 (allclose) of the plain version, bitwise the same on a second
-    call; with chunk_factors on the chunk's p0 at 1e-5 of its own plain
-    version."""
+    clusters as it holds; G = 1 by the carried kernel) at m = 256, 900 and
+    4,096, the envelopes' edges and past them, to 1e-5 (allclose) of the
+    plain version, bitwise the same on a second call; with chunk_factors
+    on the chunk's p0 at 1e-5 of its own plain version."""
     rng = np.random.default_rng(Bd + m)
     k = 128
     L, B = _card_roots(rng, Bd, m, gpu)
@@ -953,19 +1078,22 @@ def test_k1_chunk_kernel_matches_its_plain_version(gpu, Bd, m, G):
     wv = (w[None] * torch.tensor([1.0, 0.7][:Bd], device=gpu)[:, None, None]).contiguous()
     plan = tcru.chunk_cluster_plan(k, m)
     assert (0 if plan is None else plan.clusters) == G
+    carried = G == 1
     counts = lambda: (tcru.blocked_chunk.launches, tcru.blocked_chunk.grid_cluster_launches,
-                      tcru.blocked_chunk.spread_launches)
+                      tcru.blocked_chunk.spread_launches, tcru.blocked_chunk.carried_launches,
+                      tcru.chunk_factors.carried_launches)
     before = counts()
     got = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv)
     again = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv)
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2 * (G > 1), 2 * (G == 0))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (2, 2 * (G > 1), 2 * (G == 0), 2 * carried, 0)
     _bitwise(got, again)
     for g, want in zip(got, tcru.blocked_chunk_plain(L, B, idx, wv)):
         assert torch.allclose(g, want, rtol=1e-5, atol=1e-5), float((g - want).abs().max())
     p0 = torch.einsum("bkp,bkpm->bkm", wv, B[:, idx.long()]).contiguous()
     got, again = tcru.chunk_factors(p0), tcru.chunk_factors(p0)
     torch.cuda.synchronize()
+    assert counts()[-1] - before[-1] == 2 * carried
     _bitwise(got, again)
     for g, want in zip(got, tcru.chunk_factors_plain(p0)):
         scale = max(float(want.abs().max()), 1.0)
