@@ -1112,7 +1112,7 @@ def k1_route(k, m, expect):
     route ``expect``: one cluster of 8 ("cluster", the carried kernel),
     G >= 2 of them ("grid", the grid kernel) or spread over the card
     ("spread")."""
-    plan, _ = cuda_root_update._recursion_plan(cuda_root_update._root_update_lib(), k, m, "chunk", 0)
+    plan = _build.route(cuda_root_update._root_update_lib(), cuda_root_update.K1, 1, k, m, torch.device("cuda", 0)).plan
     expect_route(plan, expect, f"K1's recursion at (k={k}, m={m})")
     if expect == "spread":
         return plan, f"chunk_recursion_spread_kernel<{plan.slices}>"
@@ -1123,7 +1123,8 @@ def k3_route(k, m, P, expect):
     """(plan, CUDA kernel) of K3's recursion at (k, m, P) on card 0, after
     checking that this is the route ``expect``: one cluster of 8
     ("cluster") or of 16 ("wide"), or spread over the card ("spread")."""
-    plan, _ = cuda_pred_stream._pred_plan(cuda_pred_stream._pred_stream_lib(), k, m, P, 0)
+    plan = _build.route(cuda_pred_stream._pred_stream_lib(), cuda_pred_stream.K3, 1, k, m, torch.device("cuda", 0),
+                        P).plan
     expect_route(plan, expect, f"K3's recursion at (k={k}, m={m}, P={P})")
     if expect == "spread":
         return plan, f"pred_recursion_spread_kernel<{plan.slices}>"
@@ -1281,7 +1282,6 @@ def main_path(rng, model, params, card, dev):
         wrapper.launches = 0
     blocked_chunk.cluster_launches = pred_chunk.cluster_launches = 0
     blocked_chunk.grid_cluster_launches = pred_chunk.wide_cluster_launches = 0
-    blocked_chunk.carried_launches = 0
     zero_apply_counters()
     t0 = time.perf_counter()
     state = wiski_stream(model, state, xs, ys, ns, block_size=K)
@@ -1326,10 +1326,7 @@ def main_path(rng, model, params, card, dev):
             launches["blocked_chunk"], launches["pred_chunk"]):
         raise AssertionError("a chunk of the main path at m = 900 did not run its recursion on a cluster")
     if blocked_chunk.grid_cluster_launches or pred_chunk.wide_cluster_launches:
-        raise AssertionError("a chunk of the main path at m = 900 left its one cluster of 8")
-    if blocked_chunk.carried_launches != launches["blocked_chunk"]:
-        raise AssertionError(f"{launches['blocked_chunk'] - blocked_chunk.carried_launches} K1 chunks of the main "
-                             f"path at m = 900 did not take the carried kernel")
+        raise AssertionError("a chunk of the main path at m = 900 left its one cluster of 8 (K1: the carried kernel)")
 
     if tuple(mean.shape) != (1, N_TEST) or tuple(var.shape) != (1, N_TEST):
         raise AssertionError(f"predict shapes {tuple(mean.shape)}, {tuple(var.shape)}")
@@ -1628,7 +1625,7 @@ def check_chunk_variants(rng, grid, peaks, dev):
     apply = k1_apply_kernels(K, m, m)
     profile_kernels = {
         "blocked_chunk_sub": {"chunk_gather_kernel": 1, "chunk_sub_cluster_kernel": 1, **apply,
-                              "batched_gemm_kernel": 0, "chunk_recursion_cluster_kernel": 0},
+                              "batched_gemm_kernel": 0, "chunk_recursion_carried_kernel": 0},
         "blocked_chunk_coord": {"chunk_gather_kernel": 1, "coord_gram_kernel": 1, "coord_recursion_kernel": 1,
                                 "batched_gemm_kernel": 1, **apply},
     }
@@ -1646,7 +1643,7 @@ def check_chunk_variants(rng, grid, peaks, dev):
             flat_s = blocked_chunk(*flat_s, idx[c * K : (c + 1) * K].contiguous(), wv[:, c * K : (c + 1) * K].contiguous())
         make = lambda: (*clone_all(L, B), i1, wv1)
         flat_ms, _ = device_ms(blocked_chunk, make, flat_kernels)
-        check_sub_kernel_is_k1_at_sub_k(L, B, i1, wv1)
+        check_sub_kernel_at_sub_k(L, B, i1, wv1)
         p0 = torch.einsum("bkp,bkpm->bkm", wv1, B[:, i1.long()])
         for kname, kw in VARIANTS.items():
             want = blocked_chunk_plain(L, B, i1, wv1, **kw)
@@ -1711,13 +1708,12 @@ def check_chunk_variants(rng, grid, peaks, dev):
     return out
 
 
-def check_sub_kernel_is_k1_at_sub_k(L, B, idx, wv):
-    """K5 sub's fused kernel at sub = k has no boundary, so it is K1's step,
-    of which K1's one-cluster kernel keeps its own copy on the same layout
-    (cluster_step and chunk_recursion_cluster_kernel in csrc/root_update.cu).
-    Through the C entries (the wrapper takes sub < k only, and K1's carried
-    kernel where it holds the chunk), its chunk must be bitwise the flat
-    chunk of the one-cluster kernel."""
+def check_sub_kernel_at_sub_k(L, B, idx, wv):
+    """K5 sub's fused kernel at sub = k has no boundary, so it runs K1's
+    two-exchange step alone (cluster_step, of which the grid and spread
+    kernels keep a copy in csrc/root_update.cu). Through its C entry (the
+    wrapper takes sub < k only), its chunk must be the flat plain chunk to
+    1e-5, and bitwise the same on a second call."""
     lib = cuda_root_update._root_update_lib()
     Bd, m = L.shape[0], L.shape[-1]
     k, P = idx.shape
@@ -1726,20 +1722,16 @@ def check_sub_kernel_is_k1_at_sub_k(L, B, idx, wv):
     f32 = dict(dtype=torch.float32, device=L.device)
     p_ = _build.ptr
     chunks = []
-    for sub in (k, None):
+    for _ in range(2):
         Lc, Bc = clone_all(L, B)
         factors = torch.empty((4, Bd, k, m), **f32)
-        if sub:
-            rc = lib.ogp_blocked_chunk_sub_cluster(p_(Lc), p_(Bc), p_(idx), p_(wv), *(p_(x) for x in factors), None,
-                                                   Bd, k, k, P, m, aplan.cluster, plan.cluster, _build.stream_of(Lc))
-        else:  # spread -1, carried 0: the one-cluster kernel
-            rc = lib.ogp_blocked_chunk(p_(Lc), p_(Bc), p_(idx), p_(wv), *(p_(x) for x in factors), None, None, Bd,
-                                       k, P, m, 1, Bd, aplan.cluster, plan.cluster, -1, 0, _build.stream_of(Lc))
-        _build.launch_check(rc, "chunk_sub_cluster_kernel at sub = k" if sub else "blocked_chunk", plan, aplan)
+        rc = lib.ogp_blocked_chunk_sub_cluster(p_(Lc), p_(Bc), p_(idx), p_(wv), *(p_(x) for x in factors), None,
+                                               Bd, k, k, P, m, aplan.cluster, plan.cluster, _build.stream_of(Lc))
+        _build.launch_check(rc, "chunk_sub_cluster_kernel at sub = k", plan, aplan)
         chunks.append((Lc, Bc))
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(*chunks)):
-        raise AssertionError(f"K5 sub's kernel at sub = k (Bd={Bd}) is not bitwise K1's one-cluster kernel")
+    max_err(chunks[0], blocked_chunk_plain(L, B, idx, wv), 1e-5, f"K5 sub's kernel at sub = k (Bd={Bd})")
+    bitwise(*chunks, f"K5 sub's kernel at sub = k (Bd={Bd})")
 
 
 def check_sub_sizes(rng, dev):
@@ -2293,16 +2285,17 @@ def check_k2(L, B, idx, wv, peaks, what, plain_reps=TIMING_REPS, atol=1e-5):
 
 
 def k1_counts(wrapper):
-    """A K1 wrapper's (launches, cluster, grid-cluster, spread, carried) counters."""
+    """A K1 wrapper's (launches, cluster, grid-cluster, spread) counters and
+    its carried launches, cluster less grid-cluster."""
     return (wrapper.launches, wrapper.cluster_launches, wrapper.grid_cluster_launches, wrapper.spread_launches,
-            wrapper.carried_launches)
+            wrapper.cluster_launches - wrapper.grid_cluster_launches)
 
 
 def k1_route_counts(plan, n=1):
     """The counters' moves of n K1 recursions on ``plan``."""
     spread = isinstance(plan, _build.SpreadPlan)
-    return (n, n * (not spread), n * (not spread and plan.clusters > 1), n * spread,
-            n * cuda_root_update._carried(plan))
+    grid = not spread and plan.clusters > 1
+    return n, n * (not spread), n * grid, n * spread, n * (not spread and not grid)
 
 
 def check_k1(L, B, idx, wv, peaks, what, route, plain_reps=TIMING_REPS, atol=1e-5):

@@ -11,16 +11,14 @@ NVIDIA GPU of compute capability 9.0:
     DSMEM (another block's shared memory in the cluster), and L2.
 (b) The stage split of the recursion kernels of online_gp_torch/csrc at
     m = 900, k = 128, Bd = 1, a 2-D cubic stencil (P = 16) on a 30 x 30
-    grid: the cluster kernels of K1 (`chunk_recursion_carried_kernel`, the
-    route at this shape, and `chunk_recursion_cluster_kernel`, forced
-    through the C entry), K5 sub (sub = 32) and K3
-    (`chunk_sub_cluster_kernel`, with its
+    grid: the cluster kernels of K1 (`chunk_recursion_carried_kernel`),
+    K5 sub (sub = 32) and K3 (`chunk_sub_cluster_kernel`, with its
     sub-block boundaries' corrections and collapses,
     `pred_recursion_cluster_kernel`; block 0 of the cluster) and K5 coord's
     one-block recursion (`coord_recursion_kernel`), launched through their
     C entries (`ogp_blocked_chunk`, `ogp_blocked_chunk_sub_cluster`,
-    `ogp_blocked_chunk_coord`, `ogp_pred_chunk`); K1's two one-cluster
-    kernels also at m = 256 (a 16 x 16 grid); and at m = 4,096 (a
+    `ogp_blocked_chunk_coord`, `ogp_pred_chunk`); K1's one-cluster
+    kernel also at m = 256 (a 16 x 16 grid); and at m = 4,096 (a
     64 x 64 grid) K1's recursion on G = 4 clusters of 8 (the plan's) and on
     G = 8 (`chunk_recursion_grid_kernel`, G forced through the C entry),
     with the two cross-cluster sums of a step (GridExchange: block 0's
@@ -361,11 +359,10 @@ def stamped_splits(dev, per_ns, k=128, side=30):
     vp, i32, P_ = ctypes.c_void_p, ctypes.c_int, lambda t: ctypes.c_void_p(t.data_ptr())
     out = {}
     if side == 30:
-        runs_root = ((8, CARRIED_K1, "K1 carried"), (8, CLUSTER_K1, "K1 cluster"),
-                     (8, CLUSTER_K1, "K5 sub cluster"), (1, COORD_K5, "K5 coord"))
+        runs_root = ((8, CARRIED_K1, "K1 carried"), (8, CLUSTER_K1, "K5 sub cluster"), (1, COORD_K5, "K5 coord"))
         runs_pred = ((8, CLUSTER_K3, "K3 cluster"),)
     elif side == 16:
-        runs_root = ((8, CARRIED_K1, "K1 carried"), (8, CLUSTER_K1, "K1 cluster"))
+        runs_root = ((8, CARRIED_K1, "K1 carried"),)
         runs_pred = ()
     else:  # blocks per output: 8 G
         runs_root = ((32, CLUSTER_K1, "K1 grid G=4"), (64, CLUSTER_K1, "K1 grid G=8"))
@@ -376,7 +373,7 @@ def stamped_splits(dev, per_ns, k=128, side=30):
         lib = build(f"cluster_probe_{src}", STAMPED.format(name=src))
         lib.probe_set_stamps.argtypes = [vp]
         if src == "root_update":
-            lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 10 + [vp]
+            lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 9 + [vp]
             lib.ogp_blocked_chunk_sub_cluster.argtypes = [vp] * 9 + [i32] * 7 + [vp]
             lib.ogp_blocked_chunk_coord.argtypes = [vp] * 9 + [i32] * 5 + [vp]
         else:
@@ -408,7 +405,7 @@ def stamped_splits(dev, per_ns, k=128, side=30):
                         slots = torch.zeros((Bd, 2, G, k + 1), dtype=torch.int64, device=dev)
                         rc = rc or lib.ogp_blocked_chunk(
                             P_(Lc), P_(Bc), P_(idx), P_(wv), *(P_(s) for s in scratch), P_(T), P_(slots), Bd,
-                            k, P, m, G, Bd, AC, size, -1, int(what == "K1 carried"), None)
+                            k, P, m, G, Bd, AC, size, -1, None)
                 else:
                     Cc, muc = C[None].clone(), mu[None].clone()
                     bufs = torch.empty((2, Bd, k, m), **f32)

@@ -42,9 +42,10 @@
 //       last step. No cluster barrier inside the loop: on this card one
 //       compiles to a GPU-scope fence (MEMBAR.ALL.GPU) and cost 0.65-0.74
 //       us; an exchange's wait is 0.04-0.2 us.
-//       That is the step the grid and spread kernels (below) and K5 sub
-//       run. A flat chunk on one cluster (m <= 1,120 at k = 128) runs
-//       chunk_recursion_carried_kernel, on the same layout, with one
+//       That is the step the grid and spread kernels (below) and K5 sub's
+//       fused kernel run. Every recursion on one cluster (a flat chunk at
+//       m <= 1,120, k = 128, and K5 sub's sub-blocks run one at a time)
+//       runs chunk_recursion_carried_kernel, on the same layout, with one
 //       exchange a step: the dots a_j = P_j . p0_t are carried in the raw
 //       rows themselves. Each raw row waits in its row of U's slice and
 //       after step t holds r = p0_{t'} + sum_{j<=t} (P_j . p0_{t'}) U_j, so
@@ -128,13 +129,13 @@
 //   online_gp_tpu/parallel/mesh.py runs the plain recursion there).
 // Bound: operations, 8 m^2 k + 5 k^2 m flops per output (0.9 GFLOP at
 // m = 900, k = 128) against 4 m^2 floats of L and B traffic. The recursion
-// is bound by latency on this card: at t = 64 the cluster kernel's step is
-// ~4.6 us of short stages (row and column passes over ~36 K floats of
-// shared memory per block, two exchanges, six block barriers), each a
-// chain of dependent shared-memory loads and shuffles; the carried
-// kernel's is ~3.4 us at m = 900 (~2.5 us at m = 256): one exchange, three
-// barriers, its row pass, P and R partials and rank-1 update each 0.65-1
-// us. One block an output would read U, P, R
+// is bound by latency on this card: at t = 64 on one cluster at m = 900
+// the step above was ~4.6 us of short stages (row and column passes over
+// ~36 K floats of shared memory per block, two exchanges, six block
+// barriers), each a chain of dependent shared-memory loads and shuffles;
+// the carried kernel's is ~3.4 us at m = 900 (~2.5 us at m = 256): one
+// exchange, three barriers, its row pass, P and R partials and rank-1
+// update each 0.65-1 us. One block an output would read U, P, R
 // from L2 at one SM's rate (~75 GB/s on an H100, 16.5 us a step at
 // t = 64). cluster_probe.py measures the split, building this file with
 // OGP_STAMPS (common.cuh) so that the kernels stamp their stages.
@@ -182,9 +183,9 @@
 //       G_0 ... G_{nb-1} = I + Rc^T U with Rc_j = R_j + (R_j U_{<j}^T) Rc_{<j}
 //       (and Pc with P), so one cluster kernel (chunk_sub_cluster_kernel)
 //       runs the whole two-level recursion on K1's layout, and so on every
-//       shape K1's cluster kernel takes: each sub-block's local steps are
-//       K1's cluster step on its own rows; at a boundary the collapse of
-//       its rows, then the next sub-block's one-step correction
+//       shape K1's one-cluster plan takes: each sub-block's local steps are
+//       K1's two-exchange cluster step on its own rows; at a boundary the
+//       collapse of its rows, then the next sub-block's one-step correction
 //       q += (q Pc_{<j+1}^T) U_{<j+1}, each a block of dots summed across
 //       the cluster (register-tiled over the block's columns, cluster_reduce
 //       through the step's buffers, which a boundary does not use, in rounds
@@ -192,9 +193,9 @@
 //       K1's apply once, at rank k. The boundaries' dots and updates are
 //       small GEMMs bound by shared-memory loads and latency; they take what
 //       the shorter local steps save, so sub costs about what flat K1 does.
-//       Shapes K1's cluster kernel does not take (m > 1,120 at k = 128) run
-//       one sub-block at a time (ogp_blocked_chunk_sub, each recursion on
-//       K1's route at k = sub).
+//       Shapes past K1's one-cluster plan (m > 1,120 at k = 128) run one
+//       sub-block at a time (ogp_blocked_chunk_sub, each recursion on K1's
+//       route at k = sub: the carried kernel where one cluster holds it).
 //   coord (body _fused_chunk_kernel_coord): every factor row lies in the span
 //       of the chunk's raw rows p0, so the recursion runs on k-dim
 //       coordinates (u_t = Ut_t P0, p_t = Pt_t P0, r_t = Rt_t P0). Ut, Pt and
@@ -458,9 +459,9 @@ __device__ __forceinline__ ClusterBlock cluster_block(float* sh, int k, int m, i
 // One step of K1's cluster recursion, as K5 sub runs it on the t rows of
 // its sub-block's slices at U0, P0, R0 (rows of stride cb.ld), the step's
 // input row already in cb.q (and visible to the block): writes row t of
-// each. Exchange uses 2 n and 2 n + 1; stamps as step ts of k. K1's kernel,
-// chunk_recursion_cluster_kernel, keeps a copy of this body: a change to
-// one is a change to both.
+// each. Exchange uses 2 n and 2 n + 1; stamps as step ts of k. K1's grid
+// and spread kernels keep a copy of this body in
+// chunk_recursion_cluster_body: a change to one is a change to both.
 __device__ __forceinline__ void cluster_step(const ClusterBlock& cb, float* U0, float* P0, float* R0,
                                              int t, int n, int k, int ts) {
   const int tid = threadIdx.x, ld = cb.ld, w = cb.w;
@@ -528,31 +529,27 @@ __device__ __forceinline__ void cluster_store(const ClusterBlock& cb, float* U, 
   }
 }
 
-// (b) the k-step factor recursion on a cluster of lay.C blocks per output,
-// grid (C, Bd), or, with kGrid, on gx.G clusters of them, grid (C G, Bd),
-// the sums of each exchange then added across the clusters (GridExchange;
-// stamps 10 and 11 of step t close the two cross-cluster sums). Writes rows
-// 0..k-1 of U, P, R for the block's columns. Its step is a copy of
-// cluster_step's body (K5 sub's), and its pointers spell out
+// (b) the k-step factor recursion on gx.G clusters of lay.C blocks per
+// output, grid (C G, Bd): the grid and spread kernels' body. The sums of
+// each exchange are added within the cluster, then across the clusters
+// (GridExchange; stamps 10 and 11 of step t close the two cross-cluster
+// sums). Writes rows 0..k-1 of U, P, R for the block's columns. Its step is
+// a copy of cluster_step's body (K5 sub's), and its pointers spell out
 // chunk_cluster_layout as cluster_block does, each kept in step with the
-// other: through the shared step the compiler spilled this kernel's
-// registers and its recursion took 9% longer on an H100, and through
-// cluster_block 1.5% longer. chip_smoke.py holds K5 sub's kernel at
-// sub = k bitwise to this one. The grid branch compiles out without kGrid,
-// so the one-cluster kernel's sums keep their order and bits
-// (scripts/compare_recursion_builds.py holds two checkouts' chunks bit for
-// bit). kSlices < 3 (the spread kernel only) keeps P and R (and U, at 0)
+// other: through the shared step the compiler spilled registers and the
+// recursion took 9% longer on an H100, and through cluster_block 1.5%
+// longer. kSlices < 3 (the spread kernel only) keeps P and R (and U, at 0)
 // in device memory, in the rows of the outputs Pm and R (U) that the step
 // writes anyway: a block reads and writes only its own columns there, so
 // __syncthreads() orders a row's writes before the next step's reads. Rows
 // in device memory are summed by row_partials with 8 lanes or more a row
 // (32 contiguous bytes a load), rows in shared memory with lay.Sr.
-template <bool kGrid, int kSlices, int kMaxG>
+template <int kSlices, int kMaxG>
 __device__ __forceinline__ void chunk_recursion_cluster_body(const float* __restrict__ p0, float* __restrict__ U,
                                                              float* __restrict__ Pm, float* __restrict__ R,
                                                              int k, int m, const ChunkClusterLayout& lay,
                                                              const ogp::GridExchange& gx) {
-  static_assert(kSlices == 3 || (kGrid && (kSlices == 1 || kSlices == 0)), "slices in shared memory: 3, 1 or 0");
+  static_assert(kSlices == 3 || kSlices == 1 || kSlices == 0, "slices in shared memory: 3, 1 or 0");
   extern __shared__ float sh[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = lay.C, ld = lay.ld;
@@ -564,7 +561,7 @@ __device__ __forceinline__ void chunk_recursion_cluster_body(const float* __rest
                         C, k + 1, rank};
   const int tid = threadIdx.x;
   const ColTask task = ogp::col_task(cs);
-  const int c0 = (kGrid ? gx.g * C + rank : rank) * lay.W;
+  const int c0 = (gx.g * C + rank) * lay.W;
   const int w = max(0, min(lay.W, m - c0));
   const long long mm = m;
   const long long off = blockIdx.y * k * mm + c0;
@@ -608,9 +605,9 @@ __device__ __forceinline__ void chunk_recursion_cluster_body(const float* __rest
     OGP_STAMP(k, t, 3);
     for (int j = tid; j < t; j += kClusterThreads) {
       const float v = ogp::exchange_sum(x, 2 * t, j);
-      a[j] = kGrid ? ogp::grid_sum<kMaxG>(gx, 2 * t, j, v) : v;
+      a[j] = ogp::grid_sum<kMaxG>(gx, 2 * t, j, v);
     }
-    if (kGrid) OGP_STAMP(k, t, 10);
+    OGP_STAMP(k, t, 10);
     __syncthreads();
     OGP_STAMP(k, t, 4);
     // 2. p = p0_t + U^T a; U p and |p|^2: exchange use 2 t + 1
@@ -625,14 +622,14 @@ __device__ __forceinline__ void chunk_recursion_cluster_body(const float* __rest
     OGP_STAMP(k, t, 7);
     for (int j = tid; j <= t; j += kClusterThreads) {
       float v = ogp::exchange_sum(x, 2 * t + 1, j);
-      if (kGrid) v = ogp::grid_sum<kMaxG>(gx, 2 * t + 1, j, v);
+      v = ogp::grid_sum<kMaxG>(gx, 2 * t + 1, j, v);
       if (j < t) {
         g[j] = v;
       } else {
         *s2_sh = v;
       }
     }
-    if (kGrid) OGP_STAMP(k, t, 11);
+    OGP_STAMP(k, t, 11);
     __syncthreads();
     OGP_STAMP(k, t, 8);
     const float s2 = *s2_sh;
@@ -669,14 +666,6 @@ __device__ __forceinline__ void chunk_recursion_cluster_body(const float* __rest
   cluster.sync();  // no block leaves while a push to another may be in flight
 }
 
-// (b) on one cluster of lay.C blocks per output, grid (C, Bd).
-__global__ void __launch_bounds__(kClusterThreads)
-chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__ U,
-                               float* __restrict__ Pm, float* __restrict__ R, int k, int m,
-                               ChunkClusterLayout lay) {
-  chunk_recursion_cluster_body<false, 3, 1>(p0, U, Pm, R, k, m, lay, ogp::GridExchange{});
-}
-
 // (b) a flat chunk on one cluster of lay.C blocks per output, grid (C, Bd),
 // with one exchange a step: a_j = P_j . p0_t is carried instead of summed
 // across the cluster. Each raw row waits in its row of U's slice until its
@@ -697,7 +686,7 @@ chunk_recursion_cluster_kernel(const float* __restrict__ p0, float* __restrict__
 //   3. row t: u = p inv_s, P_t = d (u + inv_s P^T v), R_t = c (u + inv_s R^T v),
 //      the column partials' row groups added by a fixed butterfly (Sp lanes
 //      a column).
-// Three barriers a step where the cluster kernel has six and two exchanges.
+// Three barriers a step where the two-exchange step has six.
 // Its column passes take at most kCarriedGroups row groups (fewer partials
 // to add for a column). Layout: chunk_cluster_layout's (q and a unused; the
 // sums in g's place). U, P, R are the k exact sequential rank-1 updates of
@@ -836,7 +825,7 @@ chunk_recursion_grid_kernel(const float* __restrict__ p0, float* __restrict__ U,
   const int C = lay.C;
   const ogp::GridExchange gx{slots + blockIdx.y * (2LL * G * (k + 1)), G, k + 1,
                              static_cast<int>(blockIdx.x) / C, cg::this_cluster().block_rank() == 0};
-  chunk_recursion_cluster_body<true, 3, ogp::kMaxGridClusters>(p0, U, Pm, R, k, m, lay, gx);
+  chunk_recursion_cluster_body<3, ogp::kMaxGridClusters>(p0, U, Pm, R, k, m, lay, gx);
 }
 
 // (b) spread over the card: the recursion past what G <= 8 clusters hold
@@ -857,7 +846,7 @@ chunk_recursion_spread_kernel(const float* __restrict__ p0, float* __restrict__ 
   const int C = lay.C;
   const ogp::GridExchange gx{slots + blockIdx.y * (2LL * G * (k + 1)), G, k + 1,
                              static_cast<int>(blockIdx.x) / C, cg::this_cluster().block_rank() == 0};
-  chunk_recursion_cluster_body<true, kSlices, ogp::kMaxSpreadClusters>(p0, U, Pm, R, k, m, lay, gx);
+  chunk_recursion_cluster_body<kSlices, ogp::kMaxSpreadClusters>(p0, U, Pm, R, k, m, lay, gx);
 }
 
 // ---- K5 sub on a cluster ----
@@ -1172,23 +1161,16 @@ SpreadKernel spread_kernel(int slices) {
   }
 }
 
-// (b) for Bd outputs: with carried, on one cluster of C blocks per output
-// by the carried kernel (G = 1, spread < 0); with spread >= 0, spread over
-// G clusters of C blocks per output with `spread` slices in shared memory;
-// else on one cluster of C blocks per output (G = 1), or on G clusters of C
-// blocks per output (G > 1). With G > 1 (slots: (Bd, 2, G, k + 1) zeroed
-// words) the launches run in waves of `wave` outputs, in order on the
-// stream, each checked to fit the card at once (G clusters per output wait
-// on each other). Returns a cudaError_t, or ogp::kNoCluster.
+// (b) for Bd outputs: with spread >= 0, spread over G clusters of C blocks
+// per output with `spread` slices in shared memory; else on G clusters of C
+// blocks per output, by the carried kernel where G = 1. With G > 1 or
+// spread (slots: (Bd, 2, G, k + 1) zeroed words) the launches run in waves
+// of `wave` outputs, in order on the stream, each checked to fit the card
+// at once (G clusters per output wait on each other). Returns a
+// cudaError_t, or ogp::kNoCluster.
 int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int k, int m, int C, int G,
-                    int wave, int spread, int carried, unsigned long long* slots, cudaStream_t s) {
+                    int wave, int spread, unsigned long long* slots, cudaStream_t s) {
   if (C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (carried) {
-    if (G != 1 || spread >= 0) return static_cast<int>(cudaErrorInvalidValue);
-    const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C);
-    return ogp::launch_cluster(chunk_recursion_carried_kernel, C, Bd,
-                               lay.floats * static_cast<long long>(sizeof(float)), s, p0, U, Pm, R, k, m, lay);
-  }
   if (spread >= 0 || G > 1) {
     const int max_g = spread >= 0 ? ogp::kMaxSpreadClusters : ogp::kMaxGridClusters;
     const SpreadKernel spread_k = spread >= 0 ? spread_kernel(spread) : nullptr;
@@ -1210,10 +1192,10 @@ int chunk_recursion(const float* p0, float* U, float* Pm, float* R, int Bd, int 
     }
     return 0;
   }
+  if (G != 1) return static_cast<int>(cudaErrorInvalidValue);
   const ChunkClusterLayout lay = chunk_cluster_layout(k, m, C);
-  return ogp::launch_cluster(chunk_recursion_cluster_kernel, C, Bd,
-                             lay.floats * static_cast<long long>(sizeof(float)), s, p0, U, Pm,
-                             R, k, m, lay);
+  return ogp::launch_cluster(chunk_recursion_carried_kernel, C, Bd,
+                             lay.floats * static_cast<long long>(sizeof(float)), s, p0, U, Pm, R, k, m, lay);
 }
 
 // ---- (c) K1's apply ----
@@ -1871,22 +1853,22 @@ int ogp_chunk_spread_capacity(int k, int m, int C, int G, int slices) {
 // K1. L, B: (Bd, m, m), updated in place; idx: (k, P) int32, shared by the
 // outputs; wv: (Bd, k, P); p0, U, Pm, R: (Bd, k, m) scratch; T: (Bd, 2, m, k)
 // scratch of the tiled apply (unused when AC > 0); slots: (Bd, 2, G, k + 1)
-// zeroed words of the recursion on G > 1 clusters (else unused). The
-// recursion runs on one cluster of C blocks per output by the carried
-// kernel when carried is 1, spread over G clusters of C blocks per output
-// with `spread` slices in shared memory when spread >= 0, else on G
-// clusters of C blocks per output (in waves of `wave` outputs when G > 1);
-// the apply on clusters of AC blocks, or on the tiled kernels when AC is 0.
+// zeroed words of the recursion on G > 1 clusters or spread (else unused).
+// The recursion runs as chunk_recursion runs it: spread over G clusters of
+// C blocks per output with `spread` slices in shared memory when
+// spread >= 0, else on G clusters of C blocks per output (in waves of
+// `wave` outputs when G > 1; G = 1: the carried kernel); the apply on
+// clusters of AC blocks, or on the tiled kernels when AC is 0.
 // Returns cudaGetLastError() after the launches, or -1 when the card cannot
 // hold a wave's clusters of C blocks (or one of AC).
 int ogp_blocked_chunk(float* L, float* B, const int* idx, const float* wv, float* p0,
                       float* U, float* Pm, float* R, float* T, unsigned long long* slots, int Bd, int k,
-                      int P, int m, int G, int wave, int AC, int C, int spread, int carried, void* stream) {
+                      int P, int m, int G, int wave, int AC, int C, int spread, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   chunk_gather_kernel<<<dim3(k, Bd), 256, 0, s>>>(B, idx, wv, p0, k, P, m, m, 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, carried, slots, s);
+  const int rc = chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, slots, s);
   if (rc != 0) return rc;
   return chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, AC, s);
 }
@@ -1928,15 +1910,16 @@ int ogp_blocked_chunk_sub_cluster(float* L, float* B, const int* idx, const floa
   return chunk_apply(L, B, R, Pm, U, T, Bd, k, m, m, AC, s);
 }
 
-// K5 sub outside the cluster kernel's shapes, one sub-block at a time.
+// K5 sub outside its fused kernel's shapes, one sub-block at a time.
 // L, B: (Bd, m, m), updated in place; idx: (k, P) int32; wv:
 // (nb, Bd, sub, P) with nb = k / sub; q, U, Pm, R: (nb, Bd, sub, m) scratch;
 // a2: (Bd, sub, sub) and T: (Bd, 2, m, sub) scratch; slots:
-// (nb, Bd, 2, G, sub + 1) zeroed words when G > 1. Each sub-block's
-// recursion runs as K1's at k = sub (chunk_recursion: spread with `spread`
-// slices in shared memory when spread >= 0, else on G clusters of C blocks
-// per output in waves of `wave` outputs), its apply (at rank sub) on
-// clusters of AC blocks (AC = 0: tiled).
+// (nb, Bd, 2, G, sub + 1) zeroed words when G > 1 or spread. Each
+// sub-block's recursion runs as K1's at k = sub (chunk_recursion: spread
+// with `spread` slices in shared memory when spread >= 0, else on G
+// clusters of C blocks per output in waves of `wave` outputs, by the
+// carried kernel where G = 1), its apply (at rank sub) on clusters of AC
+// blocks (AC = 0: tiled).
 int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, float* q,
                           float* U, float* Pm, float* R, float* a2, float* T, unsigned long long* slots,
                           int Bd, int k, int sub, int P, int m, int G, int wave, int AC, int C, int spread,
@@ -1944,7 +1927,7 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = k / sub;
   const long long mm = m, rows = (long long)sub * m, blk = Bd * rows;
-  const long long words = G > 1 ? Bd * 2LL * G * (sub + 1) : 0;
+  const long long words = G > 1 || spread >= 0 ? Bd * 2LL * G * (sub + 1) : 0;
   cudaError_t e;
   // every sub-block's raw rows come from B before the chunk changes it
   for (int j = 0; j < nb; ++j) {
@@ -1966,8 +1949,8 @@ int ogp_blocked_chunk_sub(float* L, float* B, const int* idx, const float* wv, f
                MatArg{U + i * blk, mm, 1, rows, 1, kEveryBatch}, qj, mm, rows, Bd, 1.f, true, s);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, G, wave, spread, 0,
-                                   G > 1 ? slots + j * words : nullptr, s);
+    const int rc = chunk_recursion(qj, U + j * blk, Pm + j * blk, R + j * blk, Bd, sub, m, C, G, wave, spread,
+                                   words ? slots + j * words : nullptr, s);
     if (rc != 0) return rc;
   }
   for (int j = 0; j < nb; ++j) {
@@ -2039,16 +2022,15 @@ int ogp_chunk_gather_rows(const float* B, const int* idx, const float* wv, float
 }
 
 // The recursion on the summed p0: (Bd, k, m) in; U, Pm, R: (Bd, k, m) out;
-// slots: (Bd, 2, G, k + 1) zeroed words when G > 1. On one cluster of C
-// blocks per output by the carried kernel when carried is 1, spread over G
-// clusters of C blocks per output with `spread` slices in shared memory
-// when spread >= 0, else on G clusters of C blocks per output, in waves of
-// `wave` outputs. Returns cudaGetLastError(), or -1 when the card cannot
-// hold a wave's clusters.
+// slots: (Bd, 2, G, k + 1) zeroed words when G > 1 or spread. Run as
+// chunk_recursion runs it: spread over G clusters of C blocks per output
+// with `spread` slices in shared memory when spread >= 0, else on G
+// clusters of C blocks per output in waves of `wave` outputs, by the
+// carried kernel where G = 1. Returns cudaGetLastError(), or -1 when the
+// card cannot hold a wave's clusters.
 int ogp_chunk_factors(const float* p0, float* U, float* Pm, float* R, unsigned long long* slots, int Bd, int k,
-                      int m, int G, int wave, int C, int spread, int carried, void* stream) {
-  return chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, carried, slots,
-                         static_cast<cudaStream_t>(stream));
+                      int m, int G, int wave, int C, int spread, void* stream) {
+  return chunk_recursion(p0, U, Pm, R, Bd, k, m, C, G, wave, spread, slots, static_cast<cudaStream_t>(stream));
 }
 
 // The apply on a row shard: L, B: (Bd, rows, m), updated in place; R, Pm,

@@ -21,7 +21,8 @@ clusters it asks for at once) and :func:`launch_check` raises if that is not 0.
 This module also holds the argument checks the kernel wrappers share
 (:func:`check_grid` among them), the shape rules of the kernels that run
 on thread-block clusters (:func:`cluster_plan`, :func:`spread_plan`) and
-the launch of a recursion past one cluster (:func:`grid_launch`).
+the one place K1's and K3's launches are decided, once a shape
+(:func:`route`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
 from typing import Callable, Dict, Iterable, NamedTuple, Optional
 
@@ -217,54 +219,123 @@ def occupancy(cap: int, what: str) -> int:
     return cap
 
 
-class GridLaunch(NamedTuple):
-    """How a recursion's C entry is launched: G clusters per output,
-    outputs in waves of ``wave`` (each wave's G wave clusters resident at
-    once), ``slots`` the zeroed words of the cross-cluster sums (None, with
-    G = 1, on one cluster an output), and ``spread`` the spread kernel's
-    slices in shared memory (-1 for the other kernels)."""
+class Rules(NamedTuple):
+    """A recursion family's shape rules and its library's queries, which
+    :func:`route` decides a chunk's launch from (K1's
+    ``cuda_root_update.K1``, K3's ``cuda_pred_stream.K3``). The shape is
+    (k, m, P); a layout is C blocks a cluster, G clusters an output and, on
+    the spread kernel, ``slices`` in shared memory."""
 
+    name: str
+    max_chunk: int  # the largest k of the spread kernel
+    slices: tuple  # the spread layouts, most in shared memory first
+    cluster_plan: Callable  # (k, m, P) -> Optional[ClusterPlan]
+    spread_floats: Callable  # (k, m, P, C, G, slices) -> (cols, floats per block)
+    cluster_smem: Callable  # (lib, k, m, P, C, G) -> bytes of a block, from the library
+    grid_capacity: Callable  # (lib, k, m, P, C, G) -> clusters at once of a plan on G > 1 clusters
+    spread_smem: Callable  # (lib, k, m, P, C, G, slices) -> bytes of a block
+    spread_capacity: Callable  # (lib, k, m, P, C, G, slices) -> clusters at once
+    apply: Callable  # (lib, Bd, k, rows, m, device) -> (apply plan or None, its argument, its layout's bytes)
+
+
+class Route(NamedTuple):
+    """How a K1 or K3 call of one shape launches, decided once by
+    :func:`route`: the recursion's ``plan`` (None for an apply alone) on
+    ``G`` clusters of ``plan.cluster`` blocks an output, in waves of
+    ``wave`` outputs, ``spread`` the spread kernel's slices in shared
+    memory (-1 on the cluster kernels, where G = 1 is K1's carried kernel);
+    the apply's ``aplan`` and its argument ``apply`` (K1: the blocks of its
+    clusters, 0 for the tiled kernels; K3: its tile rows)."""
+
+    plan: object
     G: int
     wave: int
-    slots: Optional[torch.Tensor]
-    spread: int = -1
+    spread: int
+    aplan: object
+    apply: int
+
+    @property
+    def C(self) -> int:
+        return self.plan.cluster
+
+    def slots(self, Bd: int, k: int, device, n: int = 1) -> Optional[torch.Tensor]:
+        """The zeroed words of the cross-cluster sums of ``n`` recursions,
+        new for each launch (two buffers of the G clusters' sums an output,
+        ``ogp::GridExchange`` in csrc/common.cuh); None on one cluster."""
+        if self.G == 1 and self.spread < 0:
+            return None
+        return torch.zeros((n, Bd, 2, self.G, k + 1), dtype=torch.int64, device=device)
 
 
-def grid_launch(plan, capacity: Callable[[], int], Bd: int, k: int, device, what: str,
-                n: int = 1) -> GridLaunch:
-    """The :class:`GridLaunch` of ``n`` recursions of Bd outputs at rank k
-    on ``plan`` (a :class:`ClusterPlan` or a :class:`SpreadPlan`). One
-    cluster an output takes no slots. Past
-    it, ``capacity()``, the clusters of the plan's layout the card holds at
-    once (``ogp_*_capacity``), sets the wave, and a card that cannot hold
-    one output's G clusters raises RuntimeError naming the plan: they would
-    wait on each other forever. The slots: two buffers of the G clusters'
-    sums an output (``ogp::GridExchange``, csrc/common.cuh), zeroed."""
-    spread = isinstance(plan, SpreadPlan)
-    if plan.clusters == 1 and not spread:
-        return GridLaunch(1, Bd, None)
-    C, G = plan.cluster, plan.clusters
-    cap = occupancy(capacity(), what)
-    if cap < G:
-        raise RuntimeError(f"{what}: the card holds {cap} clusters of {C} blocks with "
-                           f"{plan.shared_bytes} bytes of shared memory each at once; the plan {plan} needs {G}")
-    slots = torch.zeros((n, Bd, 2, G, k + 1), dtype=torch.int64, device=device)
-    return GridLaunch(G, min(Bd, cap // G), slots, plan.slices if spread else -1)
+_routes: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # library -> {shape: Route}
 
 
-def count_recursion(wrapper, plan, launch: GridLaunch) -> None:
-    """Counts a recursion launched on ``launch``'s route on ``wrapper``:
-    spread over the card (``spread_launches``), else on clusters
+def route(lib, rules: Rules, Bd: int, k: int, m: int, device, P: int = 0, rows: Optional[int] = None,
+          recursion: bool = True) -> Route:
+    """The :class:`Route` of a call on Bd outputs at (k, m, P) with
+    ``lib``, its recursion (unless ``recursion`` is False) and its apply on
+    ``rows`` rows (None: none), kept with the library by shape and device:
+    the queries below run once for each.
+
+    The recursion: the cluster plan where it holds the chunk, its layout
+    checked against the library's; on G > 1 clusters the card's capacity
+    for them sets the wave, and a card that cannot hold one output's G
+    clusters at once (they would wait on each other forever) sends the
+    chunk spread over the card, as every chunk past the cluster plan goes:
+    the spread plan, its layout checked, its capacity setting the wave. The
+    apply's plan is checked against its kernel's layout. Raises ValueError
+    where no kernel takes k, RuntimeError where a plan is not its kernel's
+    layout or the card holds no spread clusters."""
+    routes = _routes.setdefault(lib, {})
+    key = (rules.name, Bd, k, m, P, rows, recursion, device)
+    if key in routes:
+        return routes[key]
+    what = f"{rules.name} chunk (k={k}, m={m}{f', P={P}' if P else ''})"
+    plan, G, wave, spread = None, 1, Bd, -1
+    if recursion:
+        plan = rules.cluster_plan(k, m, P)
+        if plan is not None:
+            C, G = plan.cluster, plan.clusters
+            check_layout(plan, rules.cluster_smem(lib, k, m, P, C, G), what)
+            if G > 1:
+                wave = min(Bd, occupancy(rules.grid_capacity(lib, k, m, P, C, G), what) // G)
+                plan = plan if wave else None
+        if plan is None:
+            if k > rules.max_chunk:
+                raise ValueError(f"{what} exceeds what the {rules.name} recursion kernels take: "
+                                 f"k <= {rules.max_chunk}")
+            plan = spread_plan(lambda C, G, sl: rules.spread_floats(k, m, P, C, G, sl),
+                               lambda C, G, sl: rules.spread_capacity(lib, k, m, P, C, G, sl), rules.slices)
+            if plan is None:
+                raise RuntimeError(f"{what}: the card holds no clusters of {CLUSTER_SIZE} blocks of the spread "
+                                   f"recursion at once, or no layout of it fits a block")
+            C, G, spread = plan.cluster, plan.clusters, plan.slices
+            check_layout(plan, rules.spread_smem(lib, k, m, P, C, G, spread), f"{what}, spread")
+            wave = min(Bd, rules.spread_capacity(lib, k, m, P, C, G, spread) // G)
+    aplan, apply = None, 0
+    if rows is not None:
+        aplan, apply, nbytes = rules.apply(lib, Bd, k, rows, m, device)
+        if aplan is not None:
+            check_layout(aplan, nbytes, f"{what}'s apply (rows={rows})")
+    routes[key] = Route(plan, G, wave, spread, aplan, apply)
+    return routes[key]
+
+
+def count_recursion(wrapper, r: Route) -> None:
+    """Counts a recursion launched on route ``r`` on ``wrapper``: spread
+    over the card (``spread_launches``), else on clusters
     (``cluster_launches``; those on G > 1 clusters, K1's, also in
     ``grid_cluster_launches``, those of 16 blocks, K3's, in
-    ``wide_cluster_launches``)."""
-    if launch.spread >= 0:
+    ``wide_cluster_launches``). A K1 recursion on one cluster, by the
+    carried kernel, is one of ``cluster_launches`` less
+    ``grid_cluster_launches``."""
+    if r.spread >= 0:
         wrapper.spread_launches += 1
         return
     wrapper.cluster_launches += 1
-    if launch.G > 1:
+    if r.G > 1:
         wrapper.grid_cluster_launches += 1
-    if plan.cluster == WIDE_CLUSTER_SIZE:
+    if r.C == WIDE_CLUSTER_SIZE:
         wrapper.wide_cluster_launches += 1
 
 

@@ -14,15 +14,17 @@ Z in shared memory, or over 16 (a non-portable cluster size) where 8
 blocks cannot hold them (m > 3,136 at k = 128 with a 2-D cubic stencil,
 P = 16). A chunk whose slices 16 blocks cannot hold either (m > 6,016 at
 k = 128, P = 16, or k > 342 at m = 900) runs spread over the card
-(:func:`pred_spread_plan`, ``pred_recursion_spread_kernel``): as many
+(``pred_recursion_spread_kernel``, the spread plan of rules ``K3``): as many
 clusters of 8 as the card holds at once, up to 16, whose sums meet in
 device memory, each block keeping its slice of Z in shared memory where
 it fits, else in the output Z. The rule is by shape and the card's
 capacity: nothing is tried and caught, and every k <= 1,024 and every m
-the card's memory holds has a kernel. Before each cluster launch the
-wrapper checks that the plan's shared memory is the kernel's layout
-(``ogp_pred_cluster_smem``, ``ogp_pred_spread_smem``) and raises
-RuntimeError if not.
+the card's memory holds has a kernel.
+:func:`~online_gp_torch.ops._build.route` decides each shape's route once,
+on rules ``K3``, checking each plan's shared memory against the kernel's
+layout (``ogp_pred_cluster_smem``, ``ogp_pred_spread_smem``,
+``ogp_pred_apply_smem``) before the first launch and raising RuntimeError
+if they differ.
 
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
@@ -38,8 +40,7 @@ place. ``pred_chunk.launches`` counts the calls that launched the kernel,
 K3's apply (C -= Z^T Z, mu += Z^T r), which ends :func:`pred_chunk` and
 is :func:`pred_apply_rows`, runs 128 x 128 tiles of C a block, or 64 x
 128 where those would leave SMs without a block (:func:`pred_apply_plan`,
-by shape and the card's SM count; the wrappers check its shared memory
-against the kernel's, ``ogp_pred_apply_smem``). Every apply launched adds
+by shape and the card's SM count). Every apply launched adds
 one to ``pred_apply_plan.launches`` and to
 ``pred_apply_plan.shapes[(Bd, rows, m, k)]``.
 
@@ -56,7 +57,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -128,53 +128,9 @@ def pred_cluster_plan(k: int, m: int, P: int):
     (k ceil(m / 8) floats), the chunk's stencil and the step's vectors in
     at most 232,448 bytes of shared memory, else on one cluster of 16
     blocks (k ceil(m / 16) floats) when that holds them; None where neither
-    does, and the chunk then runs spread over the card
-    (:func:`pred_spread_plan`)."""
+    does, and the chunk then runs spread over the card."""
     return _build.cluster_plan(lambda C, G: _pred_cluster_floats(k, m, P, C),
                                sizes=(_build.CLUSTER_SIZE, _build.WIDE_CLUSTER_SIZE))
-
-
-@functools.lru_cache(maxsize=None)
-def pred_spread_plan(lib, k: int, m: int, P: int, device=None):
-    """The shape rule of K3's recursion spread over the card, past
-    :func:`pred_cluster_plan`: the :class:`~online_gp_torch.ops._build.SpreadPlan`
-    of :func:`~online_gp_torch.ops._build.spread_plan` on
-    ``pred_cluster_layout`` with the block's slice of Z and its stencil
-    entries in shared memory (2), the stencil entries alone (1, Z in device
-    memory) or neither (0, every k <= 1,024 at every P), the card's capacity
-    asked of ``lib`` (``ogp_pred_spread_capacity``). Kept by (library, k,
-    m, P, device): the plan is the card's."""
-    floats = lambda C, G, sl: _pred_cluster_floats(k, m, P, C, G, sl)
-    return _build.spread_plan(floats, lambda C, G, sl: lib.ogp_pred_spread_capacity(k, m, P, C, G, sl),
-                              slices=(2, 1, 0))
-
-
-def _pred_plan(lib, k: int, m: int, P: int, device=None):
-    """(plan, blocks per cluster) of a K3 recursion: the cluster plan, else
-    the spread plan. Raises ValueError for k past MAX_CHUNK where no
-    cluster holds the chunk, RuntimeError where the card holds no spread
-    clusters or a plan is not the kernel's layout."""
-    plan = pred_cluster_plan(k, m, P)
-    if plan is not None:
-        _build.check_layout(plan, lib.ogp_pred_cluster_smem(k, m, P, plan.cluster), f"chunk (k={k}, m={m}, P={P})")
-        return plan, plan.cluster
-    if k > MAX_CHUNK:
-        raise ValueError(f"chunk (k={k}, m={m}, P={P}) exceeds what the K3 recursion kernels take: k <= {MAX_CHUNK}")
-    splan = pred_spread_plan(lib, k, m, P, device)
-    if splan is None:
-        raise RuntimeError(f"chunk (k={k}, m={m}, P={P}): the card holds no clusters of {_build.CLUSTER_SIZE} "
-                           f"blocks of the spread recursion at once, or no layout of it fits a block")
-    nbytes = lib.ogp_pred_spread_smem(k, m, P, splan.cluster, splan.clusters, splan.slices)
-    _build.check_layout(splan, nbytes, f"chunk (k={k}, m={m}, P={P}, spread)")
-    return splan, splan.cluster
-
-
-def _pred_launch(lib, plan, Bd: int, k: int, m: int, P: int, device, what: str) -> _build.GridLaunch:
-    """The :func:`~online_gp_torch.ops._build.grid_launch` of a K3
-    recursion of Bd outputs on ``plan``, a spread plan's wave set by the
-    card's capacity for it (``ogp_pred_spread_capacity``)."""
-    capacity = lambda: lib.ogp_pred_spread_capacity(k, m, P, plan.cluster, plan.clusters, plan.slices)
-    return _build.grid_launch(plan, capacity, Bd, k, device, f"{what} (k={k}, m={m})")
 
 
 # What the layout of pred_apply_kernel (csrc/pred_stream.cu) depends on:
@@ -211,13 +167,28 @@ pred_apply_plan.launches = 0
 pred_apply_plan.shapes = collections.Counter()  # (Bd, rows, m, k) -> launches
 
 
-def _pred_apply_tile(lib, C: torch.Tensor, rows: int, m: int, what: str) -> int:
-    """The tile rows of the apply on ``rows`` rows of the caches C (Bd
-    outputs, on the card that holds C), its plan checked against the
-    kernel's layout."""
-    plan = pred_apply_plan(C.shape[0], rows, m, _build.card_sms(C.device))
-    _build.check_layout(plan, lib.ogp_pred_apply_smem(plan.tile_rows), f"{what}'s apply (rows={rows}, m={m})")
-    return plan.tile_rows
+def _apply_route(lib, Bd: int, k: int, rows: int, m: int, device):
+    """K3's apply on ``rows`` rows of Bd caches of width m, on the card of
+    ``device``, for :func:`~online_gp_torch.ops._build.route`: (its plan,
+    its tile rows, its kernel's layout in bytes)."""
+    plan = pred_apply_plan(Bd, rows, m, _build.card_sms(device))
+    return plan, plan.tile_rows, lib.ogp_pred_apply_smem(plan.tile_rows)
+
+
+# K3's rules for _build.route. Past pred_cluster_plan, the spread plan on
+# pred_cluster_layout with the block's slice of Z and its stencil entries in
+# shared memory (2), the stencil entries alone (1, Z in device memory) or
+# neither (0, every k <= 1,024 at every P).
+K3 = _build.Rules(
+    "K3", MAX_CHUNK, (2, 1, 0),
+    cluster_plan=pred_cluster_plan,
+    spread_floats=_pred_cluster_floats,
+    cluster_smem=lambda lib, k, m, P, C, G: lib.ogp_pred_cluster_smem(k, m, P, C),
+    grid_capacity=None,  # K3's cluster plans are one cluster an output
+    spread_smem=lambda lib, k, m, P, C, G, sl: lib.ogp_pred_spread_smem(k, m, P, C, G, sl),
+    spread_capacity=lambda lib, k, m, P, C, G, sl: lib.ogp_pred_spread_capacity(k, m, P, C, G, sl),
+    apply=_apply_route,
+)
 
 
 def _count_apply(Bd: int, rows: int, m: int, k: int) -> None:
@@ -247,10 +218,10 @@ def pred_chunk(C, mu, idx, wv, y, nz):
       y, nz: (Bd, k) targets and clamped noise.
 
     On CUDA the recursion runs on a cluster of :func:`pred_cluster_plan`
-    (8 or 16 blocks), or spread over the card (:func:`pred_spread_plan`)
-    where that returns None. Raises ValueError for a shape no kernel
-    takes, RuntimeError when a launch fails, the card cannot hold the
-    planned clusters, or the plan is not the kernel's layout.
+    (8 or 16 blocks), or spread over the card where that returns None.
+    Raises ValueError for a shape no kernel takes, RuntimeError when a
+    launch fails, the card cannot hold the planned clusters, or the plan
+    is not the kernel's layout.
 
     Returns (C', mu', pred_mean (Bd, k), pred_var (Bd, k)). On CUDA, C and
     mu are updated in place.
@@ -269,9 +240,7 @@ def pred_chunk(C, mu, idx, wv, y, nz):
     k, P = idx.shape
     lib = _pred_stream_lib()
     dev = C.device
-    plan, Cl = _pred_plan(lib, k, m, P, dev.index)
-    AM = _pred_apply_tile(lib, C, m, m, "pred_chunk")
-    launch = _pred_launch(lib, plan, Bd, k, m, P, dev, "pred_chunk")
+    r = _build.route(lib, K3, Bd, k, m, dev, P, rows=m)
     f32 = dict(dtype=torch.float32, device=dev)
     c0w = torch.empty((Bd, k, m), **f32)
     Z = torch.empty((Bd, k, m), **f32)
@@ -279,12 +248,12 @@ def pred_chunk(C, mu, idx, wv, y, nz):
     p_ = _build.ptr
     rc = lib.ogp_pred_chunk(
         p_(C), p_(mu), p_(idx), p_(wv), p_(y), p_(nz), p_(c0w), p_(vecs[0]), p_(Z),
-        p_(vecs[1]), p_(vecs[2]), p_(vecs[3]), _ptr_or_null(launch.slots), Bd, k, P, m, AM, Cl, launch.G,
-        launch.wave, launch.spread, _build.stream_of(C),
+        p_(vecs[1]), p_(vecs[2]), p_(vecs[3]), _ptr_or_null(r.slots(Bd, k, dev)), Bd, k, P, m, r.apply, r.C,
+        r.G, r.wave, r.spread, _build.stream_of(C),
     )
-    _build.launch_check(rc, "pred_chunk", plan)
+    _build.launch_check(rc, "pred_chunk", r.plan)
     pred_chunk.launches += 1
-    _build.count_recursion(pred_chunk, plan, launch)
+    _build.count_recursion(pred_chunk, r)
     _count_apply(Bd, m, m, k)
     return C, mu, vecs[2], vecs[3]
 
@@ -356,7 +325,7 @@ def pred_factors(idx, wv, c0w, mu0w, y, nz):
     with its stencil idx, wv (k, P) and targets and clamped noise y, nz
     (Bd, k): returns (Z (Bd, k, m), r, pred_mean, pred_var (Bd, k)), on
     clusters where :func:`pred_cluster_plan` holds the chunk, else spread
-    over the card (:func:`pred_spread_plan`)."""
+    over the card."""
     if _build.on_cpu(idx, wv, c0w, mu0w, y, nz):
         return pred_factors_plain(idx, wv, c0w, mu0w, y, nz)
     _build.check_cuda_args("pred_factors_plain", ints=("idx",), idx=idx, wv=wv, c0w=c0w, mu0w=mu0w, y=y, nz=nz)
@@ -367,18 +336,17 @@ def pred_factors(idx, wv, c0w, mu0w, y, nz):
     P = idx.shape[1]
     lib = _pred_stream_lib()
     dev = c0w.device
-    plan, Cl = _pred_plan(lib, k, m, P, dev.index)
-    launch = _pred_launch(lib, plan, Bd, k, m, P, dev, "pred_factors")
+    r = _build.route(lib, K3, Bd, k, m, dev, P)
     f32 = dict(dtype=torch.float32, device=dev)
     Z = torch.empty((Bd, k, m), **f32)
     vecs = torch.empty((3, Bd, k), **f32)  # r, pred_mean, pred_var
     p_ = _build.ptr
     rc = lib.ogp_pred_factors(p_(idx), p_(wv), p_(c0w), p_(mu0w), p_(y), p_(nz), p_(Z), p_(vecs[0]),
-                              p_(vecs[1]), p_(vecs[2]), _ptr_or_null(launch.slots), Bd, k, P, m, Cl, launch.G,
-                              launch.wave, launch.spread, _build.stream_of(c0w))
-    _build.launch_check(rc, "pred_factors", plan)
+                              p_(vecs[1]), p_(vecs[2]), _ptr_or_null(r.slots(Bd, k, dev)), Bd, k, P, m, r.C, r.G,
+                              r.wave, r.spread, _build.stream_of(c0w))
+    _build.launch_check(rc, "pred_factors", r.plan)
     pred_factors.launches += 1
-    _build.count_recursion(pred_factors, plan, launch)
+    _build.count_recursion(pred_factors, r)
     return Z, vecs[0], vecs[1], vecs[2]
 
 
@@ -417,7 +385,7 @@ def pred_apply_rows(C, mu, Z, r, row0: int):
     k = Z.shape[1]
     _build.check_grid(Bd)
     lib = _pred_stream_lib()
-    AM = _pred_apply_tile(lib, C, rows, m, "pred_apply_rows")
+    AM = _build.route(lib, K3, Bd, k, m, C.device, rows=rows, recursion=False).apply
     p_ = _build.ptr
     rc = lib.ogp_pred_apply_rows(p_(C), p_(mu), p_(Z), p_(r), Bd, k, rows, m, int(row0), AM, _build.stream_of(C))
     _build.launch_check(rc, "pred_apply_rows")

@@ -22,45 +22,43 @@ sharded over processes (``parallel/mesh.py::sharded_stream_blocked``):
 :func:`chunk_factors` (the recursion on the summed p0) and
 :func:`chunk_apply_rows` (the apply on a shard's rows), each beside its
 plain version and counting its own ``launches`` (``chunk_factors`` also
-``cluster_launches``, ``carried_launches`` and ``grid_cluster_launches``).
+``cluster_launches``, ``grid_cluster_launches`` and ``spread_launches``).
 
 K1's apply (X += (X A^T) U for (X, A) = (L, R), (B, P)), which every
 wrapper here that updates L and B ends with, also runs on clusters:
 :func:`chunk_apply_plan` gives a 64-row tile of one X to 8 blocks, each
 taking its columns of the tile, the partial products X A^T summed over
 the cluster; where T (64 x k) does not fit a block's shared memory
-beside the ring (k > 544) the two tiled kernels run it instead. Each
-wrapper checks the plan against the kernel's layout
-(``ogp_chunk_apply_smem``), and every apply launched adds one to
+beside the ring (k > 544) the two tiled kernels run it instead. Every
+apply launched adds one to
 ``chunk_apply_plan.launches`` (on clusters) or
 ``chunk_apply_plan.tiled_launches``, and to
 ``chunk_apply_plan.shapes[(Bd, rows, m, k)]``.
 
 K1's recursion runs on thread-block clusters: :func:`chunk_cluster_plan`
 splits each output's m columns over 8 blocks that keep their columns of
-the factor rows U, P, R in shared memory (a flat chunk there runs
-``chunk_recursion_carried_kernel``, one cluster exchange a step, the dots
-P_j . p0_t carried in the raw rows), or, where one cluster's blocks
-cannot hold them (m > 1,120 at k = 128), over G = 2 to 8 such clusters
-whose sums meet in device memory (``chunk_recursion_grid_kernel``: G = 4
-at m = 4,096, 8 up to m = 8,960). The G clusters of an output wait on each
-other, so the wrapper asks the card how many it holds at once
-(``ogp_chunk_grid_capacity``) and launches the outputs in waves within
-that. A chunk that 8 clusters cannot hold, or whose G clusters the card
-cannot hold at once, runs spread over the card
-(:func:`chunk_spread_plan`, ``chunk_recursion_spread_kernel``): as many
-clusters of 8 as the card holds at once, up to 16, each block keeping in
-shared memory U, P and R, else U alone, else none, and the rest in the
+the factor rows U, P, R in shared memory (``chunk_recursion_carried_kernel``,
+one cluster exchange a step, the dots P_j . p0_t carried in the raw rows),
+or, where one cluster's blocks cannot hold them (m > 1,120 at k = 128),
+over G = 2 to 8 such clusters whose sums meet in device memory
+(``chunk_recursion_grid_kernel``: G = 4 at m = 4,096, 8 up to m = 8,960).
+The G clusters of an output wait on each other, so they launch in waves of
+the outputs the card holds at once (``ogp_chunk_grid_capacity``). A chunk
+that 8 clusters cannot hold, or whose G clusters the card cannot hold at
+once, runs spread over the card (``chunk_recursion_spread_kernel``): as
+many clusters of 8 as the card holds at once, up to 16, each block keeping
+in shared memory U, P and R, else U alone, else none, and the rest in the
 outputs in device memory; every k <= 1,024 and every m the card's memory
 holds has such a plan. K5 sub runs its whole two-level recursion,
 corrections and collapse to one rank-k operator included, in one cluster
 kernel on K1's layout, so wherever :func:`chunk_cluster_plan` holds the
 chunk on one cluster, and one sub-block at a time elsewhere (each by K1's
-cluster, grid or spread route at k = sub, never the carried kernel). Those
-rules are by shape and the card's capacity: nothing is tried and caught.
-Before each cluster launch the wrapper checks that the plan's shared
-memory is the kernel's layout (``ogp_chunk_cluster_smem``,
-``ogp_chunk_spread_smem``) and raises RuntimeError if not.
+route at k = sub). Those rules are by shape and the card's capacity:
+nothing is tried and caught. :func:`~online_gp_torch.ops._build.route`
+decides each shape's route once, on rules ``K1``, checking each plan's
+shared memory against the kernel's layout (``ogp_chunk_cluster_smem``,
+``ogp_chunk_spread_smem``, ``ogp_chunk_apply_smem``) before the first
+launch and raising RuntimeError if they differ.
 
 Dispatch, by the tensors given: on the CPU the plain version runs; on
 CUDA with float32 (int32 indices) the kernel launches; anything else
@@ -76,10 +74,9 @@ the plain versions return new tensors. Each wrapper counts its calls that
 launched the kernel in its ``launches`` attribute (one per call; a call
 is several CUDA launches, listed in the source); ``blocked_chunk`` counts
 K1 there (and the K1 calls whose recursion ran on clusters in
-``cluster_launches``, of them those by the carried kernel in
-``carried_launches`` and those on G > 1 clusters in
-``grid_cluster_launches``; those spread over the card in
-``spread_launches``) and K5 in ``sub_launches`` (of them, those on the
+``cluster_launches``, of them those on G > 1 clusters in
+``grid_cluster_launches``, the rest by the carried kernel; those spread
+over the card in ``spread_launches``) and K5 in ``sub_launches`` (of them, those on the
 fused cluster kernel in ``sub_cluster_launches``) and ``coord_launches``.
 """
 
@@ -87,7 +84,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -105,7 +101,7 @@ from online_gp_torch.ops.root_update import (
 )
 
 # What the kernels take. The recursion's shape rules are chunk_cluster_plan
-# and, past it, chunk_spread_plan (every k <= MAX_CHUNK); the coordinate
+# and, past it, the spread plan of K1 (every k <= MAX_CHUNK); the coordinate
 # recursion keeps six k x k triangles in shared memory. Both within
 # MAX_SHARED_BYTES of dynamic shared memory per block.
 MAX_CHUNK = 1024
@@ -123,7 +119,7 @@ def _root_update_lib():
         lib.ogp_rank1_apply.restype = i32
         lib.ogp_rank1_apply_rows.argtypes = [vp, vp, vp, vp, i32, i32, i32, vp]
         lib.ogp_rank1_apply_rows.restype = i32
-        lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 10 + [vp]
+        lib.ogp_blocked_chunk.argtypes = [vp] * 10 + [i32] * 9 + [vp]
         lib.ogp_blocked_chunk.restype = i32
         lib.ogp_chunk_cluster_smem.argtypes = [i32] * 4
         lib.ogp_chunk_cluster_smem.restype = ctypes.c_longlong
@@ -149,7 +145,7 @@ def _root_update_lib():
         lib.ogp_blocked_chunk_coord.restype = i32
         lib.ogp_chunk_gather_rows.argtypes = [vp] * 4 + [i32] * 6 + [vp]
         lib.ogp_chunk_gather_rows.restype = i32
-        lib.ogp_chunk_factors.argtypes = [vp] * 5 + [i32] * 8 + [vp]
+        lib.ogp_chunk_factors.argtypes = [vp] * 5 + [i32] * 7 + [vp]
         lib.ogp_chunk_factors.restype = i32
         lib.ogp_chunk_apply_rows.argtypes = [vp] * 6 + [i32] * 5 + [vp]
         lib.ogp_chunk_apply_rows.restype = i32
@@ -367,15 +363,14 @@ chunk_apply_plan.tiled_launches = 0
 chunk_apply_plan.shapes = collections.Counter()  # (Bd, rows, m, k) -> launches
 
 
-def _apply_plan(lib, k: int, rows: int, m: int, what: str):
-    """(plan, blocks per cluster) of K1's apply at (k, rows, m): the
-    cluster plan, or (None, 0) for the tiled kernels; raises RuntimeError
-    where the plan is not the kernel's layout."""
+def _apply_route(lib, Bd: int, k: int, rows: int, m: int, device):
+    """K1's apply at (k, rows, m) for :func:`~online_gp_torch.ops._build.route`:
+    (the cluster plan, its blocks a cluster, its kernel's layout in bytes),
+    or (None, 0, None) for the tiled kernels."""
     plan = chunk_apply_plan(k, rows, m)
     if plan is None:
-        return None, 0
-    _build.check_layout(plan, lib.ogp_chunk_apply_smem(k, m, plan.cluster), f"{what}'s apply (k={k}, m={m})")
-    return plan, plan.cluster
+        return None, 0, None
+    return plan, plan.cluster, lib.ogp_chunk_apply_smem(k, m, plan.cluster)
 
 
 def _apply_scratch(plan, Bd: int, rows: int, k: int, device):
@@ -457,70 +452,28 @@ def chunk_cluster_plan(k: int, m: int):
     in at most 232,448 bytes of shared memory (at k = 128: G = 1 up to
     m = 1,120, G = 2 to 2,240, ..., 4 to 4,480, 8 to 8,960); None where
     even 8 clusters do not hold it, and the chunk then runs spread over the
-    card (K1, :func:`chunk_spread_plan`) or one sub-block at a time (K5
+    card (K1, the spread plan of rules ``K1``) or one sub-block at a time (K5
     sub, each sub-block's recursion by K1's route at k = sub). K5 sub's
     fused kernel takes the one-cluster plans (G = 1) only."""
     return _build.cluster_plan(lambda C, G: _chunk_cluster_floats(k, m, C, G),
                                clusters=range(1, _build.MAX_GRID_CLUSTERS + 1))
 
 
-@functools.lru_cache(maxsize=None)
-def chunk_spread_plan(lib, k: int, m: int, device=None):
-    """The shape rule of K1's recursion spread over the card (past
-    :func:`chunk_cluster_plan`, or where the card cannot hold its G
-    clusters at once): the :class:`~online_gp_torch.ops._build.SpreadPlan`
-    of :func:`~online_gp_torch.ops._build.spread_plan` on
-    ``chunk_cluster_layout`` with 3, 1 or 0 slices of U, P, R in shared
-    memory, the card's capacity asked of ``lib``
-    (``ogp_chunk_spread_capacity``). At k = 128 on an H100 SXM: U, P and R
-    in shared memory up to m of about 16,800 (G = 15), U alone up to about
-    50,400, then none. Kept by (library, k, m, device): the plan is the
-    card's."""
-    floats = lambda C, G, sl: _chunk_cluster_floats(k, m, C, G, sl)
-    return _build.spread_plan(floats, lambda C, G, sl: lib.ogp_chunk_spread_capacity(k, m, C, G, sl))
-
-
-def _recursion_plan(lib, k: int, m: int, what: str, device=None):
-    """(plan, blocks per cluster) of a K1 recursion at (k, m): the cluster
-    plan where it holds the chunk and the card holds its G clusters at
-    once, else the spread plan. Raises ValueError where no spread layout
-    holds k (k past MAX_CHUNK), RuntimeError where the card holds none of
-    them or a plan is not the kernel's layout."""
-    plan = chunk_cluster_plan(k, m)
-    if plan is not None:
-        nbytes = lib.ogp_chunk_cluster_smem(k, m, plan.cluster, plan.clusters)
-        _build.check_layout(plan, nbytes, f"{what} (k={k}, m={m})")
-        if plan.clusters == 1 or _build.occupancy(lib.ogp_chunk_grid_capacity(k, m, plan.cluster, plan.clusters),
-                                                  what) >= plan.clusters:
-            return plan, plan.cluster
-    if k > MAX_CHUNK:
-        raise ValueError(f"{what} (k={k}, m={m}) exceeds what the K1 recursion kernels take: k <= {MAX_CHUNK}")
-    splan = chunk_spread_plan(lib, k, m, device)
-    if splan is None:
-        raise RuntimeError(f"{what} (k={k}, m={m}): the card holds no clusters of {_build.CLUSTER_SIZE} blocks "
-                           f"of the spread recursion at once")
-    nbytes = lib.ogp_chunk_spread_smem(k, m, splan.cluster, splan.clusters, splan.slices)
-    _build.check_layout(splan, nbytes, f"{what} (k={k}, m={m}, spread)")
-    return splan, splan.cluster
-
-
-def _carried(plan) -> bool:
-    """Whether a flat chunk's recursion on ``plan`` runs by the carried
-    kernel (``chunk_recursion_carried_kernel``, one exchange a step): every
-    plan on one cluster an output, on chunk_cluster_layout."""
-    return isinstance(plan, _build.ClusterPlan) and plan.clusters == 1
-
-
-def _grid_launch(lib, plan, Bd: int, k: int, m: int, device, what: str, n: int = 1) -> _build.GridLaunch:
-    """The :func:`~online_gp_torch.ops._build.grid_launch` of ``n`` K1
-    recursions of Bd outputs at (k, m) on ``plan`` (n sub-blocks of K5
-    sub, one otherwise), the card's capacity asked of the plan's kernel
-    (``ogp_chunk_grid_capacity``, or ``ogp_chunk_spread_capacity``)."""
-    if isinstance(plan, _build.SpreadPlan):
-        capacity = lambda: lib.ogp_chunk_spread_capacity(k, m, plan.cluster, plan.clusters, plan.slices)
-    else:
-        capacity = lambda: lib.ogp_chunk_grid_capacity(k, m, plan.cluster, plan.clusters)
-    return _build.grid_launch(plan, capacity, Bd, k, device, f"{what} (k={k}, m={m})", n)
+# K1's rules for _build.route. Past chunk_cluster_plan, or where the card
+# cannot hold its G clusters at once, the spread plan on chunk_cluster_layout
+# with 3, 1 or 0 slices of U, P, R in shared memory (at k = 128 on an H100
+# SXM: all three up to m of about 16,800, G = 15; U alone up to about
+# 50,400; then none).
+K1 = _build.Rules(
+    "K1", MAX_CHUNK, (3, 1, 0),
+    cluster_plan=lambda k, m, P: chunk_cluster_plan(k, m),
+    spread_floats=lambda k, m, P, C, G, sl: _chunk_cluster_floats(k, m, C, G, sl),
+    cluster_smem=lambda lib, k, m, P, C, G: lib.ogp_chunk_cluster_smem(k, m, C, G),
+    grid_capacity=lambda lib, k, m, P, C, G: lib.ogp_chunk_grid_capacity(k, m, C, G),
+    spread_smem=lambda lib, k, m, P, C, G, sl: lib.ogp_chunk_spread_smem(k, m, C, G, sl),
+    spread_capacity=lambda lib, k, m, P, C, G, sl: lib.ogp_chunk_spread_capacity(k, m, C, G, sl),
+    apply=_apply_route,
+)
 
 
 def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch.Tensor,
@@ -540,8 +493,7 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
 
     On CUDA the flat recursion runs on the clusters of
     :func:`chunk_cluster_plan` (one, by the carried kernel, or G > 1 in
-    waves of outputs), or spread over the card (:func:`chunk_spread_plan`)
-    past it; the sub
+    waves of outputs), or spread over the card past it; the sub
     recursion on the fused cluster kernel where that rule holds the chunk
     at k on one cluster, else one sub-block at a time (each by the flat
     route at k = sub). Raises ValueError for a shape no kernel takes,
@@ -568,29 +520,24 @@ def blocked_chunk(L: torch.Tensor, B: torch.Tensor, idx: torch.Tensor, wv: torch
     if sub < k:
         return _chunk_sub(lib, L, B, idx, wv, sub)
     dev = L.device
-    plan, C = _recursion_plan(lib, k, m, "chunk", dev.index)
-    aplan, AC = _apply_plan(lib, k, m, m, "chunk")
-    grid = _grid_launch(lib, plan, Bd, k, m, dev, "chunk")
-    carried = _carried(plan)
+    r = _build.route(lib, K1, Bd, k, m, dev, rows=m)
     factors = torch.empty((4, Bd, k, m), dtype=torch.float32, device=dev)  # p0, U, P, R
-    T = _apply_scratch(aplan, Bd, m, k, dev)
+    T = _apply_scratch(r.aplan, Bd, m, k, dev)
     p_ = _build.ptr
     rc = lib.ogp_blocked_chunk(
         p_(L), p_(B), p_(idx), p_(wv), p_(factors[0]), p_(factors[1]), p_(factors[2]),
-        p_(factors[3]), _ptr_or_null(T), _ptr_or_null(grid.slots), Bd, k, P, m, grid.G, grid.wave, AC, C,
-        grid.spread, int(carried), _build.stream_of(L),
+        p_(factors[3]), _ptr_or_null(T), _ptr_or_null(r.slots(Bd, k, dev)), Bd, k, P, m, r.G, r.wave, r.apply,
+        r.C, r.spread, _build.stream_of(L),
     )
-    _build.launch_check(rc, "blocked_chunk", plan, aplan)
+    _build.launch_check(rc, "blocked_chunk", r.plan, r.aplan)
     blocked_chunk.launches += 1
-    _build.count_recursion(blocked_chunk, plan, grid)
-    blocked_chunk.carried_launches += carried
-    _count_applies(aplan, Bd, m, m, k)
+    _build.count_recursion(blocked_chunk, r)
+    _count_applies(r.aplan, Bd, m, m, k)
     return L, B
 
 
 blocked_chunk.launches = 0
 blocked_chunk.cluster_launches = 0
-blocked_chunk.carried_launches = 0
 blocked_chunk.grid_cluster_launches = 0
 blocked_chunk.spread_launches = 0
 blocked_chunk.sub_launches = 0
@@ -606,41 +553,38 @@ def _chunk_sub(lib, L, B, idx, wv, sub):
     rule at k = sub."""
     Bd, m = L.shape[0], L.shape[-1]
     k, P = idx.shape
-    f32 = dict(dtype=torch.float32, device=L.device)
+    dev = L.device
+    f32 = dict(dtype=torch.float32, device=dev)
     p_ = _build.ptr
     plan = chunk_cluster_plan(k, m)
     if plan is not None and plan.clusters == 1:
-        what = f"blocked_chunk (sub={sub}, k={k}, m={m})"
-        _build.check_layout(plan, lib.ogp_chunk_cluster_smem(k, m, plan.cluster, 1), what)
-        aplan, AC = _apply_plan(lib, k, m, m, what)
+        r = _build.route(lib, K1, Bd, k, m, dev, rows=m)  # the fused kernel's layout is K1's at G = 1
         factors = torch.empty((4, Bd, k, m), **f32)  # p0, U, Pc, Rc
-        T = _apply_scratch(aplan, Bd, m, k, L.device)
+        T = _apply_scratch(r.aplan, Bd, m, k, dev)
         rc = lib.ogp_blocked_chunk_sub_cluster(
             p_(L), p_(B), p_(idx), p_(wv), *(p_(f) for f in factors), _ptr_or_null(T), Bd, k, sub, P, m,
-            AC, plan.cluster, _build.stream_of(L),
+            r.apply, r.C, _build.stream_of(L),
         )
-        _build.launch_check(rc, what, plan, aplan)
+        _build.launch_check(rc, f"blocked_chunk (sub={sub}, k={k}, m={m})", r.plan, r.aplan)
         blocked_chunk.sub_launches += 1
         blocked_chunk.sub_cluster_launches += 1
-        _count_applies(aplan, Bd, m, m, k)
+        _count_applies(r.aplan, Bd, m, m, k)
         return L, B
     nb = k // sub
-    plan, C = _recursion_plan(lib, sub, m, "sub-block", L.device.index)
-    aplan, AC = _apply_plan(lib, sub, m, m, "sub-block")
-    grid = _grid_launch(lib, plan, Bd, sub, m, L.device, "sub-block", nb)
+    r = _build.route(lib, K1, Bd, sub, m, dev, rows=m)
     # sub-block j's weights contiguous, as its gather reads them
     wv_sub = wv.reshape(Bd, nb, sub, P).transpose(0, 1).contiguous()
     factors = torch.empty((4, nb, Bd, sub, m), **f32)  # corrected rows q, U, P, R
     a2 = torch.empty((Bd, sub, sub), **f32)
-    T = _apply_scratch(aplan, Bd, m, sub, L.device)
+    T = _apply_scratch(r.aplan, Bd, m, sub, dev)
     rc = lib.ogp_blocked_chunk_sub(
         p_(L), p_(B), p_(idx), p_(wv_sub), p_(factors[0]), p_(factors[1]), p_(factors[2]),
-        p_(factors[3]), p_(a2), _ptr_or_null(T), _ptr_or_null(grid.slots), Bd, k, sub, P, m, grid.G,
-        grid.wave, AC, C, grid.spread, _build.stream_of(L),
+        p_(factors[3]), p_(a2), _ptr_or_null(T), _ptr_or_null(r.slots(Bd, sub, dev, nb)), Bd, k, sub, P, m, r.G,
+        r.wave, r.apply, r.C, r.spread, _build.stream_of(L),
     )
-    _build.launch_check(rc, "blocked_chunk (sub)", plan, aplan)
+    _build.launch_check(rc, "blocked_chunk (sub)", r.plan, r.aplan)
     blocked_chunk.sub_launches += 1
-    _count_applies(aplan, Bd, m, m, sub, nb)
+    _count_applies(r.aplan, Bd, m, m, sub, nb)
     return L, B
 
 
@@ -656,16 +600,16 @@ def _chunk_coord(lib, L, B, idx, wv):
     M = torch.empty((Bd, lib.ogp_blocked_chunk_coord_splits(), k, k), **f32)  # partials of P0 P0^T
     F = torch.empty((3, Bd, k, k), **f32)  # Ut, Rt, Pt
     X = torch.empty((3, Bd, k, m), **f32)  # U, R, P = F P0
-    aplan, AC = _apply_plan(lib, k, m, m, "blocked_chunk (coord)")
-    T = _apply_scratch(aplan, Bd, m, k, L.device)
+    r = _build.route(lib, K1, Bd, k, m, L.device, rows=m, recursion=False)
+    T = _apply_scratch(r.aplan, Bd, m, k, L.device)
     p_ = _build.ptr
     rc = lib.ogp_blocked_chunk_coord(
-        p_(L), p_(B), p_(idx), p_(wv), p_(p0), p_(M), p_(F), p_(X), _ptr_or_null(T), Bd, k, P, m, AC,
+        p_(L), p_(B), p_(idx), p_(wv), p_(p0), p_(M), p_(F), p_(X), _ptr_or_null(T), Bd, k, P, m, r.apply,
         _build.stream_of(L),
     )
-    _build.launch_check(rc, "blocked_chunk (coord)", aplan)
+    _build.launch_check(rc, "blocked_chunk (coord)", r.aplan)
     blocked_chunk.coord_launches += 1
-    _count_applies(aplan, Bd, m, m, k)
+    _count_applies(r.aplan, Bd, m, m, k)
     return L, B
 
 
@@ -737,10 +681,9 @@ def chunk_factors_plain(p0: torch.Tensor):
 def chunk_factors(p0: torch.Tensor):
     """K1's recursion on a chunk's summed p0 (Bd, k, m): returns (U, P, R),
     each (Bd, k, m), on the clusters of :func:`chunk_cluster_plan` where it
-    holds the chunk (counted in ``cluster_launches``; those on one cluster,
-    by the carried kernel, also in ``carried_launches``, and those on G > 1
-    clusters in ``grid_cluster_launches``), else spread over the card
-    (:func:`chunk_spread_plan`, counted in ``spread_launches``)."""
+    holds the chunk (counted in ``cluster_launches``, those on G > 1
+    clusters also in ``grid_cluster_launches``), else spread over the card
+    (counted in ``spread_launches``)."""
     if _build.on_cpu(p0):
         return chunk_factors_plain(p0)
     _build.check_cuda_args("chunk_factors_plain", p0=p0)
@@ -749,23 +692,19 @@ def chunk_factors(p0: torch.Tensor):
     Bd, k, m = p0.shape
     _build.check_grid(Bd, 2)
     lib = _root_update_lib()
-    plan, C = _recursion_plan(lib, k, m, "chunk_factors", p0.device.index)
-    grid = _grid_launch(lib, plan, Bd, k, m, p0.device, "chunk_factors")
-    carried = _carried(plan)
+    r = _build.route(lib, K1, Bd, k, m, p0.device)
     U, Pm, R = torch.empty((3, Bd, k, m), dtype=torch.float32, device=p0.device)
     p_ = _build.ptr
-    rc = lib.ogp_chunk_factors(p_(p0), p_(U), p_(Pm), p_(R), _ptr_or_null(grid.slots), Bd, k, m, grid.G,
-                               grid.wave, C, grid.spread, int(carried), _build.stream_of(p0))
-    _build.launch_check(rc, "chunk_factors", plan)
+    rc = lib.ogp_chunk_factors(p_(p0), p_(U), p_(Pm), p_(R), _ptr_or_null(r.slots(Bd, k, p0.device)), Bd, k, m,
+                               r.G, r.wave, r.C, r.spread, _build.stream_of(p0))
+    _build.launch_check(rc, "chunk_factors", r.plan)
     chunk_factors.launches += 1
-    _build.count_recursion(chunk_factors, plan, grid)
-    chunk_factors.carried_launches += carried
+    _build.count_recursion(chunk_factors, r)
     return U, Pm, R
 
 
 chunk_factors.launches = 0
 chunk_factors.cluster_launches = 0
-chunk_factors.carried_launches = 0
 chunk_factors.grid_cluster_launches = 0
 chunk_factors.spread_launches = 0
 
@@ -798,14 +737,14 @@ def chunk_apply_rows(L: torch.Tensor, B: torch.Tensor, U: torch.Tensor, Pm: torc
     k = U.shape[1]
     _build.check_grid(Bd, 2)
     lib = _root_update_lib()
-    aplan, AC = _apply_plan(lib, k, rows, m, "chunk_apply_rows")
-    T = _apply_scratch(aplan, Bd, rows, k, L.device)
+    r = _build.route(lib, K1, Bd, k, m, L.device, rows=rows, recursion=False)
+    T = _apply_scratch(r.aplan, Bd, rows, k, L.device)
     p_ = _build.ptr
-    rc = lib.ogp_chunk_apply_rows(p_(L), p_(B), p_(R), p_(Pm), p_(U), _ptr_or_null(T), Bd, k, rows, m, AC,
+    rc = lib.ogp_chunk_apply_rows(p_(L), p_(B), p_(R), p_(Pm), p_(U), _ptr_or_null(T), Bd, k, rows, m, r.apply,
                                   _build.stream_of(L))
-    _build.launch_check(rc, "chunk_apply_rows", aplan)
+    _build.launch_check(rc, "chunk_apply_rows", r.aplan)
     chunk_apply_rows.launches += 1
-    _count_applies(aplan, Bd, rows, m, k)
+    _count_applies(r.aplan, Bd, rows, m, k)
     return L, B
 
 

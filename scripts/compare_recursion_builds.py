@@ -10,13 +10,17 @@ other on the card, and time them in turns.
     (K1), ``blocked_chunk(sub=32)`` (K5 sub) and ``pred_chunk`` and
     ``pred_factors`` (K3) at m = 256, 900, 1,120, 2,500, 3,136, 4,096,
     6,016 and 9,000 (K1 spread over the card). Each K1 call records
-    whether its recursion ran by the carried kernel (``carried_launches``;
-    a checkout without it never does). Where both checkouts take the same
-    route (K1 and K5 sub wherever neither or both run the carried kernel,
-    and K3 on one cluster of 8 or 16, m <= 6,016, at k = 128) they must
-    agree bit for bit; where one runs the carried kernel and the other
-    does not, within 1e-5 of the output's scale (its largest entry, at
-    least 1); exit 1 otherwise. Elsewhere the largest difference is printed.
+    whether its recursion ran by the carried kernel (``cluster_launches``
+    less ``grid_cluster_launches``), each K5 sub call whether it ran its
+    fused kernel (``sub_cluster_launches``). Where both checkouts take the
+    same route (K1 wherever neither or both run the carried kernel, K5 sub
+    on its fused kernel, and K3 on one cluster of 8 or 16, m <= 6,016, at
+    k = 128) they must agree bit for bit; where one runs the carried kernel
+    and the other does not, and K5 sub one sub-block at a time (whose
+    one-cluster sub-blocks a checkout with K1's two-exchange one-cluster
+    kernel runs there), within 1e-5 of the output's scale (its largest
+    entry, at least 1); exit 1 otherwise. Elsewhere the largest difference
+    is printed.
 (b) With ``--time``, N pairs (default 1) of processes, each pair run as
     other, this, this, other: the device ms (``chip_smoke.device_ms`` of
     that checkout, torch.profiler, over every kernel the call launches but
@@ -74,7 +78,7 @@ dev = torch.device("cuda", 0)
 out = {}
 with f32_matmul_precision():
     _build.build_all()
-    carried = lambda: (getattr(blocked_chunk, "carried_launches", 0), getattr(chunk_factors, "carried_launches", 0))
+    carried = lambda: tuple(f.cluster_launches - f.grid_cluster_launches for f in (blocked_chunk, chunk_factors))
     routes = {}
     for m in (256, 900, 1120, 2500, 3136, 4096, 6016, 9000):
         for Bd in (1, 2):
@@ -91,10 +95,11 @@ with f32_matmul_precision():
                 routes[key] = "carried" if ran[0] else "other"
             for name in "UPR":
                 routes[f"k1_factors_{name}_{tag}"] = "carried" if ran[1] else "other"
-            before = carried()
+            fused = blocked_chunk.sub_cluster_launches
             out[f"k5sub_root_{tag}"], out[f"k5sub_inv_root_{tag}"] = blocked_chunk(a["L"].clone(), a["B"].clone(),
                                                                                      a["idx"], a["wv"], sub=32)
-            assert carried() == before, "K5 sub ran the carried kernel"
+            for key in (f"k5sub_root_{tag}", f"k5sub_inv_root_{tag}"):
+                routes[key] = "fused" if blocked_chunk.sub_cluster_launches > fused else "per sub-block"
             C, mu, pm, pv = pred_chunk(a["C"].clone(), a["mu"].clone(), a["idx"], a["w"], a["y"], a["nz"])
             out[f"k3_cov_{tag}"], out[f"k3_mean_{tag}"], out[f"k3_pm_{tag}"], out[f"k3_pv_{tag}"] = C, mu, pm, pv
             S = stencil_rows(a["idx"], a["w"], m)
@@ -201,11 +206,13 @@ def run(root: Path, out: Path) -> dict:
 
 def held(key: str, routes_a: dict, routes_b: dict) -> str:
     """What a result is held to: "bitwise" where both checkouts take the
-    same route (K1 and K5 sub unless one of them ran the carried kernel; K3
-    on one cluster), "1e-5" where only one ran the carried kernel, "" (none)
-    elsewhere."""
+    same route (K1 unless one of them ran the carried kernel, K5 sub on its
+    fused kernel, K3 on one cluster), "1e-5" where only one ran the carried
+    kernel and for K5 sub one sub-block at a time, "" (none) elsewhere."""
     if key.startswith("k3"):
         return "bitwise" if int(key.split("_m")[-1].split("_")[0]) <= 6016 else ""
+    if key.startswith("k5sub"):
+        return "bitwise" if routes_a[key] == routes_b[key] == "fused" else "1e-5"
     return "bitwise" if routes_a.get(key, "other") == routes_b.get(key, "other") else "1e-5"
 
 

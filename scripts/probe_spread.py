@@ -66,7 +66,7 @@ def k1_entry(lib, p0, G, spread):
     Bd, k, m = p0.shape
     U, Pm, R = torch.empty((3, Bd, k, m), device=dev)
     slots = torch.zeros((Bd, 2, G, k + 1), dtype=torch.int64, device=dev)
-    rc = lib.ogp_chunk_factors(ptr(p0), ptr(U), ptr(Pm), ptr(R), ptr(slots), Bd, k, m, G, Bd, 8, spread, 0, None)
+    rc = lib.ogp_chunk_factors(ptr(p0), ptr(U), ptr(Pm), ptr(R), ptr(slots), Bd, k, m, G, Bd, 8, spread, None)
     if rc:
         raise RuntimeError(f"ogp_chunk_factors: {rc}")
     return U, Pm, R
@@ -105,7 +105,7 @@ def main():
         lib, plib = tcru._root_update_lib(), tcps._pred_stream_lib()
         for k, m in K1_SHAPES:
             p0 = (torch.randn((1, k, m), generator=g, device=dev) / m**0.5).contiguous()
-            plan, _ = tcru._recursion_plan(lib, k, m, "probe", 0)
+            plan = _build.route(lib, tcru.K1, 1, k, m, dev).plan
             want = tcru.chunk_factors_plain(p0)
             got, again = tcru.chunk_factors(p0), tcru.chunk_factors(p0)
             torch.cuda.synchronize()
@@ -132,7 +132,7 @@ def main():
             y = torch.randn((1, k), generator=g, device=dev)
             nz = torch.ones((1, k), device=dev)
             fargs = (idx, w, c0w, mu0w, y, nz)
-            plan, _ = tcps._pred_plan(plib, k, m, P, 0)
+            plan = _build.route(plib, tcps.K3, 1, k, m, dev, P).plan
             want = tcps.pred_factors_plain(*fargs)
             got, again = tcps.pred_factors(*fargs), tcps.pred_factors(*fargs)
             torch.cuda.synchronize()

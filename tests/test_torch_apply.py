@@ -164,12 +164,13 @@ class _Layouts:
 @pytest.mark.parametrize("skew", [4, -4])
 def test_wrappers_refuse_an_apply_plan_that_is_not_the_kernel_layout(skew, monkeypatch):
     monkeypatch.setattr(_build, "card_sms", lambda device: SMS)
+    apply_route = lambda rules, k: _build.route(_Layouts(skew), rules, 1, k, 900, "meta", rows=900, recursion=False)
     with pytest.raises(RuntimeError, match="they must be changed together"):
-        tcru._apply_plan(_Layouts(skew), 128, 900, 900, "chunk")
+        apply_route(tcru.K1, 128)
     with pytest.raises(RuntimeError, match="they must be changed together"):
-        tcps._pred_apply_tile(_Layouts(skew), _meta(1, 900, 900), 900, 900, "pred_chunk")
+        apply_route(tcps.K3, 128)
     # the tiled branch has no layout to check
-    assert tcru._apply_plan(_Layouts(skew), 1024, 900, 900, "chunk") == (None, 0)
+    assert apply_route(tcru.K1, 1024)[-2:] == (None, 0)
 
 
 class _Entries(_Layouts):
@@ -250,9 +251,8 @@ def test_every_k1_chunk_hands_its_apply_the_plan(fake_card, k, sub, mode, m, ent
     (name, args), = fake_card.calls
     assert name == entry
     # AC sits before the recursion's C (absent for coord) and, where the
-    # recursion may be spread, its spread slices (and, for the flat chunk,
-    # the carried kernel's flag), then the stream
-    at = {"ogp_blocked_chunk_coord": -2, "ogp_blocked_chunk_sub_cluster": -3, "ogp_blocked_chunk": -5}
+    # recursion may be spread, its spread slices, then the stream
+    at = {"ogp_blocked_chunk_coord": -2, "ogp_blocked_chunk_sub_cluster": -3}
     assert args[at.get(entry, -4)] == AC
     counts = (tcru.chunk_apply_plan.launches, tcru.chunk_apply_plan.tiled_launches)
     assert counts == ((applies, 0) if AC else (0, applies))

@@ -14,7 +14,10 @@ marked ``cuda``, on a card).
   plan that is not the kernel's layout; K1's grid and spread launches
   through a stand-in library (G, waves within the card's capacity,
   counters, a grid plan the card cannot hold taking the spread route, a
-  card that holds none raising).
+  card that holds none raising), and each shape's route decided once
+  (``_build.route``): a second chunk asks the library nothing, and a
+  fresh library whose layout drifted raises after a sound one kept the
+  shape.
 - The cluster kernels' order of summation, emulated in float32 torch
   (``cluster_chunk_factors``, ``cluster_pred_factors``): each output's m
   columns split over the C G blocks of G clusters, each block's partial
@@ -37,7 +40,9 @@ marked ``cuda``, on a card).
 - The kernels against their plain versions on the card at m = 4,096 (K1 on
   4 clusters, Bd = 1 and 2; K3 on 16 blocks), at m = 256 and 900 (K1's
   carried kernel, Bd = 1 and 2), at the envelopes' edges and
-  past them on the spread route, bitwise the same on a second call;
+  past them on the spread route, K5 sub one sub-block at a time at
+  m = 2,500 (each sub-block by the carried kernel), bitwise the same on a
+  second call;
   skipped without one (``-m cuda``; the JAX imports sit inside the CPU
   tests, so ``pytest --noconftest -m cuda`` runs this file on a machine
   without JAX).
@@ -271,6 +276,13 @@ class _SizeQueries:
         return 4 * tcru._chunk_apply_floats(k, m, C)[1]
 
 
+def _route(lib, which, k, m, P=16):
+    """(plan, blocks a cluster) of the route of a K1 or K3 recursion of one
+    output at (k, m, P, the K3 stencil's) on ``lib``."""
+    r = _build.route(lib, tcru.K1, 1, k, m, None) if which == "K1" else _build.route(lib, tcps.K3, 1, k, m, None, P)
+    return r.plan, r.C
+
+
 @pytest.mark.parametrize("which", ["K1", "K3"])
 def test_wrapper_dispatch_admits_every_chunk_the_single_block_kernel_took(which):
     """The wrappers' route by shape: the cluster plan where there is one
@@ -281,10 +293,9 @@ def test_wrapper_dispatch_admits_every_chunk_the_single_block_kernel_took(which)
     for k, m in SHAPES:
         if which == "K1":
             plan = tcru.chunk_cluster_plan(k, m)
-            got_plan, cluster = tcru._recursion_plan(lib, k, m, "chunk")
         else:
             plan = tcps.pred_cluster_plan(k, m, 16)
-            got_plan, cluster = tcps._pred_plan(lib, k, m, 16)
+        got_plan, cluster = _route(lib, which, k, m)
         if plan is None:
             assert isinstance(got_plan, _build.SpreadPlan), (k, m)
         else:
@@ -347,11 +358,11 @@ def test_chunk_grid_plan_at_its_envelope_edges(k, m, G, nbytes):
     plan = tcru.chunk_cluster_plan(k, m)
     if G is None:
         assert plan is None and _old_k1_takes(k, m)
-        splan, C = tcru._recursion_plan(_SizeQueries(), k, m, "chunk")
+        splan, C = _route(_SizeQueries(), "K1", k, m)
         assert isinstance(splan, _build.SpreadPlan) and C == 8 and splan.clusters > 8
         return
     assert plan == _build.ClusterPlan(8, -(-m // (8 * G)), nbytes, G)
-    assert tcru._recursion_plan(_SizeQueries(), k, m, "chunk") == (plan, 8)
+    assert _route(_SizeQueries(), "K1", k, m) == (plan, 8)
     # the C layout of the grid kernel, through its query, is the rule's
     assert 4 * _layout(k, m, 8, G)[1] == nbytes == _SizeQueries().ogp_chunk_cluster_smem(k, m, 8, G)
 
@@ -376,7 +387,7 @@ def test_pred_cluster_plan_at_the_envelope_edge(k, m, inside):
     assert (plan is not None and plan.cluster == 8) == inside
     if not inside:
         assert _old_k3_takes(k, m)
-        got, C = tcps._pred_plan(_SizeQueries(), k, m, 16)
+        got, C = _route(_SizeQueries(), "K3", k, m)
         if plan is None:
             assert isinstance(got, _build.SpreadPlan) and C == 8 and got.clusters > 1
         else:
@@ -419,12 +430,8 @@ def test_every_chunk_has_a_recursion_kernel(which, k):
     first, at the most clusters the card holds."""
     lib = _SizeQueries()
     for m in ROUTE_MS:
-        if which == "K1":
-            cluster_plan = tcru.chunk_cluster_plan(k, m)
-            plan, C = tcru._recursion_plan(lib, k, m, "chunk")
-        else:
-            cluster_plan = tcps.pred_cluster_plan(k, m, 16)
-            plan, C = tcps._pred_plan(lib, k, m, 16)
+        cluster_plan = tcru.chunk_cluster_plan(k, m) if which == "K1" else tcps.pred_cluster_plan(k, m, 16)
+        plan, C = _route(lib, which, k, m)
         assert C == plan.cluster and plan.shared_bytes <= _build.MAX_SHARED_BYTES, (k, m)
         assert plan.cols <= _build.CLUSTER_COLS and plan.cols * plan.cluster * plan.clusters >= m, (k, m)
         if cluster_plan is not None:
@@ -456,7 +463,7 @@ def test_every_chunk_has_a_recursion_kernel(which, k):
     (1024, 2000, 1, 15),  # the widest chunk: U alone in shared memory
 ])
 def test_chunk_spread_plan_at_the_smoke_shapes(k, m, slices, G):
-    plan, C = tcru._recursion_plan(_SizeQueries(), k, m, "chunk")
+    plan, C = _route(_SizeQueries(), "K1", k, m)
     assert isinstance(plan, _build.SpreadPlan) and (plan.slices, plan.clusters, C) == (slices, G, 8)
     assert plan.cols == -(-m // (8 * G)) and plan.shared_bytes == 4 * _layout(k, m, 8, G, slices)[1]
 
@@ -469,7 +476,7 @@ def test_chunk_spread_plan_at_the_smoke_shapes(k, m, slices, G):
     (512, 900, 64, 0, 16),  # a 3-D stencil: its k P entries read from device memory
 ])
 def test_pred_spread_plan_at_the_smoke_shapes(k, m, P, slices, G):
-    plan, C = tcps._pred_plan(_SizeQueries(), k, m, P)
+    plan, C = _route(_SizeQueries(), "K3", k, m, P)
     assert isinstance(plan, _build.SpreadPlan) and (plan.slices, plan.clusters, C) == (slices, G, 8)
     assert plan.cols == -(-m // (8 * G)) and plan.shared_bytes == 4 * _pred_layout(k, m, P, 8, G, slices)
 
@@ -478,10 +485,7 @@ def test_pred_spread_plan_at_the_smoke_shapes(k, m, P, slices, G):
 def test_spread_plan_that_is_not_the_kernel_layout_raises(which):
     for skew in (4, -4):
         with pytest.raises(RuntimeError, match="they must be changed together"):
-            if which == "K1":
-                tcru._recursion_plan(_SizeQueries(skew), 128, 32400, "chunk")
-            else:
-                tcps._pred_plan(_SizeQueries(skew), 128, 16384, 16)
+            _route(_SizeQueries(skew), which, 128, 32400 if which == "K1" else 16384)
 
 
 # (Bd, rows, m) past 2^31 elements of L (or C), where the parent refused
@@ -540,14 +544,11 @@ def test_size_checks_still_refuse_a_batch_past_the_launch_grid(card):
 @pytest.mark.parametrize("which", ["K1", "K3"])
 def test_wrappers_refuse_a_plan_that_is_not_the_kernel_layout(which):
     """The Python shape rule mirrors the CUDA layout of one block; the
-    wrappers ask the library for the layout's bytes before each cluster
-    launch and raise if the two have drifted apart."""
+    route asks the library for the layout's bytes before a shape's first
+    launch and raises if the two have drifted apart."""
     for skew in (4, -4):
         with pytest.raises(RuntimeError, match="they must be changed together"):
-            if which == "K1":
-                tcru._recursion_plan(_SizeQueries(skew), 128, 900, "chunk")
-            else:
-                tcps._pred_plan(_SizeQueries(skew), 128, 900, 16)
+            _route(_SizeQueries(skew), which, 128, 900)
 
 
 def test_no_cluster_raises_naming_the_cluster():
@@ -691,7 +692,7 @@ def card(monkeypatch):
     monkeypatch.setattr(tcru, "_root_update_lib", lambda: lib)
     monkeypatch.setattr(tcps, "_pred_stream_lib", lambda: lib)
     for fn in (tcru.blocked_chunk, tcru.chunk_factors):
-        for attr in ("launches", "cluster_launches", "carried_launches", "grid_cluster_launches", "spread_launches"):
+        for attr in ("launches", "cluster_launches", "grid_cluster_launches", "spread_launches"):
             monkeypatch.setattr(fn, attr, 0)
     for fn in (tcps.pred_chunk, tcps.pred_factors):
         for attr in ("launches", "cluster_launches", "wide_cluster_launches", "spread_launches"):
@@ -714,41 +715,43 @@ def test_k1_chunk_at_m4096_takes_the_grid_kernel_in_waves(card, Bd, wave):
     # the slots of the cross-cluster sums, then (Bd, k, P, m, G, wave, AC, C)
     assert name == "ogp_blocked_chunk" and args[9] is not None and args[10:18] == (Bd, k, P, m, 4, wave, 8, 8)
     assert fname == "ogp_chunk_factors" and fargs[4] is not None and fargs[5:11] == (Bd, k, m, 4, wave, 8)
-    assert args[18] == fargs[11] == -1 and args[19] == fargs[12] == 0  # neither spread nor carried
+    assert args[18] == fargs[11] == -1  # not spread: G = 4 is the grid kernel
     for fn in (tcru.blocked_chunk, tcru.chunk_factors):
         assert (fn.launches, fn.cluster_launches, fn.grid_cluster_launches, fn.spread_launches) == (1, 1, 1, 0)
 
 
 def test_k1_chunk_inside_one_cluster_is_launched_as_before(card):
     """m = 900: one cluster of 8, G = 1, no slots, no grid launch; by the
-    carried kernel (spread -1, carried 1), on the one-cluster layout."""
+    carried kernel (G = 1, spread -1), on the one-cluster layout."""
     k, P, m, Bd = 128, 16, 900, 2
     L = _meta(Bd, m, m)
     tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(Bd, k, P))
     (name, args), = card.calls
     assert name == "ogp_blocked_chunk" and args[9] is None and args[10:18] == (Bd, k, P, m, 1, Bd, 8, 8)
-    assert args[18:20] == (-1, 1)
+    assert args[18:] == (-1, None)  # spread -1, then the stream
     assert (tcru.blocked_chunk.cluster_launches, tcru.blocked_chunk.grid_cluster_launches) == (1, 0)
-    assert tcru.blocked_chunk.carried_launches == 1
 
 
-@pytest.mark.parametrize("m,carried", [(256, 1), (900, 1), (1120, 1), (1121, 0), (4096, 0), (20000, 0)])
+@pytest.mark.parametrize("m,G,spread", [(256, 1, -1), (900, 1, -1), (1120, 1, -1), (1121, 2, -1), (4096, 4, -1),
+                                        (20000, 16, 1)])
 @pytest.mark.parametrize("Bd", [1, 2])
-def test_k1_carried_launches_count_with_cluster_launches(card, m, carried, Bd):
-    """blocked_chunk and chunk_factors hand their entries the carried flag
-    wherever one cluster of 8 holds the chunk (m <= 1,120 at k = 128, the
-    layout of chunk_cluster_plan), and count it in carried_launches beside
-    cluster_launches; G > 1 clusters and the spread route keep their
-    kernels."""
+def test_k1_carried_launches_count_with_cluster_launches(card, m, G, spread, Bd):
+    """blocked_chunk and chunk_factors hand their entries G = 1 and no
+    spread, the carried kernel's route, wherever one cluster of 8 holds the
+    chunk (m <= 1,120 at k = 128, the layout of chunk_cluster_plan), and
+    count it in cluster_launches and not in grid_cluster_launches; G > 1
+    clusters (grid_cluster_launches) and the spread route (spread_launches)
+    keep their kernels."""
     k, P = 128, 16
     L = _meta(Bd, m, m)
     tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(Bd, k, P))
     tcru.chunk_factors(_meta(Bd, k, m))
     (name, args), (fname, fargs) = card.calls
     assert (name, fname) == ("ogp_blocked_chunk", "ogp_chunk_factors")
-    assert args[19] == fargs[12] == carried and (args[18] == fargs[11] == -1) == (m <= 8960)
+    assert args[14] == fargs[8] == G and args[18] == fargs[11] == spread
     for fn in (tcru.blocked_chunk, tcru.chunk_factors):
-        assert (fn.launches, fn.cluster_launches, fn.carried_launches) == (1, m <= 8960, carried)
+        assert (fn.launches, fn.cluster_launches, fn.grid_cluster_launches, fn.spread_launches) == \
+            (1, spread < 0, G > 1 and spread < 0, spread >= 0)
 
 
 def test_k1_carried_route_refuses_a_plan_that_is_not_the_kernel_layout(monkeypatch):
@@ -759,34 +762,34 @@ def test_k1_carried_route_refuses_a_plan_that_is_not_the_kernel_layout(monkeypat
     monkeypatch.setattr(_build, "check_cuda_args", lambda *a, **kw: None)
     monkeypatch.setattr(_build, "stream_of", lambda t: None)
     monkeypatch.setattr(tcru, "_root_update_lib", lambda: lib)
-    monkeypatch.setattr(tcru.blocked_chunk, "carried_launches", 0)
+    monkeypatch.setattr(tcru.blocked_chunk, "cluster_launches", 0)
     k, P, m = 128, 16, 256
     with pytest.raises(RuntimeError, match="they must be changed together"):
         tcru.blocked_chunk(_meta(1, m, m), _meta(1, m, m), _meta(k, P, dtype=torch.int32), _meta(1, k, P))
     with pytest.raises(RuntimeError, match="they must be changed together"):
         tcru.chunk_factors(_meta(1, k, m))
-    assert lib.calls == [] and tcru.blocked_chunk.carried_launches == 0
+    assert lib.calls == [] and tcru.blocked_chunk.cluster_launches == 0
 
 
 @pytest.mark.parametrize("capacity", [3, 0])
 def test_k1_grid_plan_the_card_cannot_hold_raises_naming_it(card, capacity):
     """G = 4 clusters of one output that do not fit the card at once would
-    wait on each other forever: their launch raises and names the plan, so
-    the wrapper does not take it. It takes the spread route on the G <= 3
-    clusters the card holds; a card that holds none raises, launching
-    nothing."""
+    wait on each other forever, so the route never takes that plan. It
+    takes the spread route on the G <= 3 clusters the card holds; a card
+    that holds none raises, naming the spread clusters it lacks, and
+    launches nothing."""
     card.capacity = capacity
     k, P, m = 128, 16, 4096
     plan = tcru.chunk_cluster_plan(k, m)
-    with pytest.raises(RuntimeError, match=r"holds %d clusters of 8 blocks.*the plan ClusterPlan\(cluster=8, "
-                                           r"cols=128, shared_bytes=216676, clusters=4\) needs 4" % capacity):
-        tcru._grid_launch(card, plan, 1, k, m, "meta", "chunk")
+    assert plan.clusters == 4
     L = _meta(1, m, m)
     if capacity == 0:
-        with pytest.raises(RuntimeError, match="holds no clusters of 8 blocks of the spread recursion"):
-            tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(1, k, P))
+        for _ in range(2):  # a failed route is not kept: the second call raises too
+            with pytest.raises(RuntimeError, match="holds no clusters of 8 blocks of the spread recursion"):
+                tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(1, k, P))
         assert card.calls == [] and tcru.blocked_chunk.launches == 0
         return
+    assert _route(card, "K1", k, m)[0] != plan
     tcru.blocked_chunk(L, L, _meta(k, P, dtype=torch.int32), _meta(1, k, P))
     (name, args), = card.calls
     # U alone in shared memory (3 slices of 171 columns do not fit a block)
@@ -797,13 +800,68 @@ def test_k1_grid_plan_the_card_cannot_hold_raises_naming_it(card, capacity):
 def test_k1_grid_plan_that_is_not_the_kernel_layout_raises():
     for skew in (4, -4):
         with pytest.raises(RuntimeError, match="they must be changed together"):
-            tcru._recursion_plan(_SizeQueries(skew), 128, 4096, "chunk")
+            _route(_SizeQueries(skew), "K1", 128, 4096)
 
 
 def test_no_grid_cluster_raises_naming_the_clusters():
     plan = tcru.chunk_cluster_plan(128, 4096)
     with pytest.raises(RuntimeError, match="cannot hold 4 clusters of 8 blocks with 216676 bytes"):
         _build.launch_check(_build.NO_CLUSTER, "blocked_chunk", plan)
+
+
+class _Queries(_Card):
+    """A _Card that counts its layout and capacity queries."""
+
+    def __init__(self, skew=0):
+        super().__init__(skew=skew)
+        self.queries = 0
+
+    def __getattribute__(self, name):
+        if name.endswith(("_smem", "_capacity")):
+            object.__getattribute__(self, "__dict__")["queries"] += 1
+        return object.__getattribute__(self, name)
+
+
+def _chunk(which, m, Bd=2, k=128, P=16):
+    """One K1 (blocked_chunk) or K3 (pred_chunk) chunk on meta tensors."""
+    idx = _meta(k, P, dtype=torch.int32)
+    if which == "K1":
+        tcru.blocked_chunk(_meta(Bd, m, m), _meta(Bd, m, m), idx, _meta(Bd, k, P))
+    else:
+        tcps.pred_chunk(_meta(Bd, m, m), _meta(Bd, m), idx, _meta(k, P), _meta(Bd, k), _meta(Bd, k))
+
+
+@pytest.mark.parametrize("which,m", [("K1", 256), ("K1", 900), ("K1", 4096), ("K1", 20000), ("K3", 900),
+                                     ("K3", 4096), ("K3", 6017)])
+def test_a_second_chunk_of_a_shape_asks_the_library_nothing(card, monkeypatch, which, m):
+    """A shape's route is decided at its first chunk, layout and capacity
+    queries included (one cluster, G > 1 clusters in waves, spread over the
+    card; the apply's layout), and kept: the second chunk asks the library
+    nothing and launches the entry again."""
+    lib = _Queries()
+    monkeypatch.setattr(tcru, "_root_update_lib", lambda: lib)
+    monkeypatch.setattr(tcps, "_pred_stream_lib", lambda: lib)
+    _chunk(which, m)
+    first = lib.queries
+    _chunk(which, m)
+    assert first >= 2 and lib.queries == first and len(lib.calls) == 2
+    assert lib.calls[0][0] == lib.calls[1][0] and lib.calls[0][1][-9:] == lib.calls[1][1][-9:]
+
+
+@pytest.mark.parametrize("which", ["K1", "K3"])
+def test_a_fresh_skewed_library_raises_after_a_sound_one_kept_the_shape(card, monkeypatch, which):
+    """Routes are kept with their library: a sound library's route of a
+    shape does not stand for a fresh library's, whose layout drifted from
+    the plan, which raises before it launches anything."""
+    _chunk(which, 900)
+    for skew in (4, -4):
+        skewed = _Card(skew=skew)
+        monkeypatch.setattr(tcru, "_root_update_lib", lambda: skewed)
+        monkeypatch.setattr(tcps, "_pred_stream_lib", lambda: skewed)
+        with pytest.raises(RuntimeError, match="they must be changed together"):
+            _chunk(which, 900)
+        assert skewed.calls == []
+    assert len(card.calls) == 1
 
 
 @pytest.mark.parametrize("m,cluster,wide", [(900, 8, 0), (4096, 16, 1)])
@@ -1079,9 +1137,11 @@ def test_k1_chunk_kernel_matches_its_plain_version(gpu, Bd, m, G):
     plan = tcru.chunk_cluster_plan(k, m)
     assert (0 if plan is None else plan.clusters) == G
     carried = G == 1
+    # carried launches: cluster_launches less grid_cluster_launches
     counts = lambda: (tcru.blocked_chunk.launches, tcru.blocked_chunk.grid_cluster_launches,
-                      tcru.blocked_chunk.spread_launches, tcru.blocked_chunk.carried_launches,
-                      tcru.chunk_factors.carried_launches)
+                      tcru.blocked_chunk.spread_launches,
+                      tcru.blocked_chunk.cluster_launches - tcru.blocked_chunk.grid_cluster_launches,
+                      tcru.chunk_factors.cluster_launches - tcru.chunk_factors.grid_cluster_launches)
     before = counts()
     got = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv)
     again = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv)
@@ -1098,6 +1158,30 @@ def test_k1_chunk_kernel_matches_its_plain_version(gpu, Bd, m, G):
     for g, want in zip(got, tcru.chunk_factors_plain(p0)):
         scale = max(float(want.abs().max()), 1.0)
         assert float((g - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bd", [1, 2])
+def test_k5_sub_per_sub_block_chunk_matches_its_plain_version(gpu, Bd):
+    """K5 sub at k = 128, sub = 32, m = 2,500, past its fused kernel's one
+    cluster: one sub-block at a time, each sub-block's recursion on one
+    cluster of 8 by the carried kernel (chunk_cluster_plan(32, 2500)), to
+    1e-5 (allclose) of the plain version, bitwise the same on a second
+    call."""
+    rng = np.random.default_rng(Bd + 2500)
+    k, sub, m = 128, 32, 2500
+    assert tcru.chunk_cluster_plan(k, m).clusters > 1 and tcru.chunk_cluster_plan(sub, m).clusters == 1
+    L, B = _card_roots(rng, Bd, m, gpu)
+    idx, w = _card_stencil(rng, k, m, gpu)
+    wv = (w[None] * torch.tensor([1.0, 0.7][:Bd], device=gpu)[:, None, None]).contiguous()
+    before = (tcru.blocked_chunk.sub_launches, tcru.blocked_chunk.sub_cluster_launches)
+    got = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv, sub=sub)
+    again = tcru.blocked_chunk(L.clone(), B.clone(), idx, wv, sub=sub)
+    torch.cuda.synchronize()
+    assert (tcru.blocked_chunk.sub_launches - before[0], tcru.blocked_chunk.sub_cluster_launches - before[1]) == (2, 0)
+    _bitwise(got, again)
+    for g, want in zip(got, tcru.blocked_chunk_plain(L, B, idx, wv, sub=sub)):
+        assert torch.allclose(g, want, rtol=1e-5, atol=1e-5), float((g - want).abs().max())
 
 
 @pytest.mark.cuda

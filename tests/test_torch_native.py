@@ -16,10 +16,19 @@ JAX package's (``online_gp_tpu/native``).
   to the JAX wrapper's, as ``tests/test_torch_baselines.py`` holds the
   ``batch_stream=False`` fit: the JAX wrapper's float64 params carried
   across, float64 inputs, rtol 1e-5 of each quantity's largest entry.
+
+The JAX loader compiles ``_stream_loader.so`` in place, so under several
+test workers it can load the file while another worker's build is writing
+it, and then stays off for the rest of its process. Where it is off and g++
+is present, ``_jax_native_library`` builds the library for this file's
+tests instead (the JAX loader's flags, a file of this process moved into
+place whole) and points the JAX loader at it.
 """
 
 import ctypes
 import os
+import shutil
+import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -44,6 +53,23 @@ def _one_intra_op_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_library(tmp_path_factory):
+    if j_loader._lib() is not None or shutil.which("g++") is None:
+        yield
+        return
+    out = tmp_path_factory.mktemp("jax_native") / "_stream_loader.so"
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", j_loader._SRC, "-o", str(tmp)], check=True,
+                   capture_output=True, timeout=120)
+    os.replace(tmp, out)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_loader, "_SO", str(out))
+        mp.setattr(j_loader, "_LIB", None)
+        mp.setattr(j_loader, "_TRIED", False)
+        yield
 
 
 def test_first_batch_is_the_jax_native_ring():
